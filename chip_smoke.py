@@ -11,17 +11,18 @@ Phases, each of which fails the run on a miss:
 2. build — the port's CUDA kernels from `paddle_tpu_torch/csrc`;
 3. kernels — each kernel of the serving path held against its plain
    PyTorch version on the card, at the slice's shapes, in bf16 and in
-   f32 (TF32 off), with the stated tolerance; bf16 timed with CUDA
+   f32 (TF32 off), element by element within the stated limit (`TOL`);
+   bf16 timed with CUDA
    events beside its plain version, the library call where one exists,
    and its bound (bytes over 3.35 TB/s vs operations over the dtype's
    peak);
 4. slice — full-width llama_7b (32 layers, random weights from a seeded
    generator) behind the port's HTTP gateway, 4 concurrent streamed
    requests; every kernel's launch counter must account for every step;
-   one captured mixed prefill/decode step re-run through the kernel
-   route and the plain route must agree; that step is then timed on
-   both routes and traced by torch.profiler, its device time split by
-   kernel group.
+   three captured mixed prefill/decode steps re-run through the kernel
+   route and the plain route must agree within `STEP_ATOL` and
+   `STEP_MEAN_ATOL`; the first is then timed on both routes and traced
+   by torch.profiler, its device time split by kernel group.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; before it, one JSON line with every kernel's
@@ -42,20 +43,29 @@ import warnings
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
-# max |kernel - plain| <= REL_TOL * max |plain|, per (kernel, dtype):
-# bf16 — the kernels keep f32 where the plain versions round
-# intermediates to bf16 (one bf16 ulp is 2^-8 relative);
-# f32 — summation order only
-REL_TOL = {("rms_norm", "bfloat16"): 1e-2, ("rms_norm", "float32"): 1e-5,
-           ("swiglu", "bfloat16"): 2e-2, ("swiglu", "float32"): 1e-4,
-           ("ragged_paged_attention", "bfloat16"): 1e-2,
-           ("ragged_paged_attention", "float32"): 2e-5}
-# the captured 32-layer serving step, kernel route vs plain route, in
-# bf16: the plain SwiGLU rounds its [T, 2M] gate/up product to bf16 and
-# the kernel does not, and that difference compounds through 32
-# residual layers of random weights (first measured at 4.7% of the
-# largest logit on an H100, so the first 5% bound had no margin)
-STEP_REL_TOL = 1e-1
+# Kernel against plain version, element by element:
+#     |kernel - plain| <= atol + rtol * |plain|,   TOL[(kernel, dtype)]
+# = (atol, rtol). bf16: the plain version runs on f32 copies of the same
+# bf16 inputs and keeps its f32 result (attention keeps the one bf16
+# step of its float order: q pre-scaled in q's dtype); the kernel
+# rounds its f32 result to bf16 once (unit roundoff 2^-8), so rtol is
+# two roundoffs and atol covers the f32 summation order near zero.
+# f32: summation order only, an absolute limit at the phase's inputs.
+BF16_RTOL = 2.0 ** -7
+TOL = {("rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
+       ("rms_norm", "float32"): (5e-5, 0.0),
+       ("swiglu", "bfloat16"): (1e-4, BF16_RTOL),
+       ("swiglu", "float32"): (2e-3, 0.0),
+       ("ragged_paged_attention", "bfloat16"): (1e-5, BF16_RTOL),
+       ("ragged_paged_attention", "float32"): (8e-5, 0.0)}
+# A captured 32-layer serving step, kernel route against the plain route
+# (`plain_routes`, SwiGLU in f32), |logit difference| over the live rows:
+# the routes differ by bf16 rounding flips that compound through 32
+# residual layers of random weights. Three captured steps on an H100
+# read 0.200684-0.238281 max and 0.0342555-0.0380683 mean; the limits
+# give each about twice that.
+STEP_ATOL = 0.5
+STEP_MEAN_ATOL = 0.08
 SOURCES = {
     "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                  "paddle_tpu/kernels/rms_norm.py:48"),
@@ -154,19 +164,25 @@ def kernel_phase(report):
         gen = torch.Generator(device="cuda").manual_seed(1234)
         it = torch.finfo(dtype).bits // 8
 
-        def held(name, fn_kernel, fn_plain, nbytes, flops, library=None,
-                 iters=50):
+        def held(name, fn_kernel, fn_plain, fn_f32, nbytes, flops,
+                 library=None, iters=50):
+            """fn_plain: the plain version as the port runs it (timed);
+            fn_f32: the same on f32 copies of the inputs, held against
+            the bf16 kernel (f32: fn_plain itself)."""
             out = fn_kernel()
             torch.cuda.synchronize()
-            ref = fn_plain()
+            ref = (fn_plain if dtype == torch.float32 else fn_f32)()
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = REL_TOL[(name, dname)] * scale
-            ok = err <= tol and bool(torch.isfinite(out).all())
+            diff = (out.double() - ref.double()).abs()
+            atol, rtol = TOL[(name, dname)]
+            limit = atol + rtol * ref.double().abs()
+            err = diff.max().item()
+            worst = (diff / limit).max().item()
+            ok = worst <= 1.0 and bool(torch.isfinite(out).all())
             print(f"kernel {name} {dname}: max_abs_err={err:.6g} "
-                  f"tol={tol:.6g} (rel {REL_TOL[(name, dname)]:g} of "
-                  f"max|plain| {scale:.6g}) {'ok' if ok else 'MISS'}",
+                  f"worst err/limit={worst:.6g} (limit {atol:g} + "
+                  f"{rtol:g}*|plain|, max|plain| "
+                  f"{ref.abs().max().item():.6g}) {'ok' if ok else 'MISS'}",
                   flush=True)
             check(ok, f"{name} {dname} disagrees with its plain version")
             if dtype != torch.bfloat16:
@@ -196,6 +212,7 @@ def kernel_phase(report):
         held("rms_norm",
              lambda: krn.rms_norm(x, w, eps, use_kernel=True),
              lambda: krn._plain(x, w, eps),
+             lambda: krn._plain(x.float(), w, eps),
              nbytes=2 * x.numel() * it + w.numel() * 4,
              flops=4 * x.numel(),
              library=lambda: F.rms_norm(x, (4096,), w, eps))
@@ -207,6 +224,7 @@ def kernel_phase(report):
         held("swiglu",
              lambda: ksw.swiglu(a, wgu, use_kernel=True),
              lambda: ksw._ref(a, wgu),
+             lambda: ksw._ref(a.float(), wgu.float()),
              nbytes=(a.numel() + wgu.numel() + 128 * 11008) * it,
              flops=2 * 128 * 4096 * 22016)
         del wgu
@@ -220,9 +238,13 @@ def kernel_phase(report):
                   + sum(m.numel() * 4 for m in args[3:]))
         flops = sum(4 * (kl - ql + t + 1) * d * nh
                     for _, ql, kl in rows for t in range(ql))
+        scale = 1.0 / d ** 0.5
         held("ragged_paged_attention",
              lambda: krpa.ragged_paged_attention(*args, use_kernel=True),
-             lambda: krpa._dense_fallback(*args, 1.0 / d ** 0.5),
+             lambda: krpa._dense_fallback(*args, scale),
+             lambda: krpa._dense_fallback(
+                 (q * scale).float(), args[1].float(), args[2].float(),
+                 *args[3:], 1.0),
              nbytes=nbytes, flops=flops, iters=50)
         del args, q
         torch.cuda.empty_cache()
@@ -231,14 +253,17 @@ def kernel_phase(report):
 @contextlib.contextmanager
 def plain_routes():
     """Swap the kernel wrappers the model calls for their plain
-    versions (the comparison route; the port itself never does this)."""
+    versions (the comparison route; the port itself never does this).
+    SwiGLU runs on f32 copies and rounds once, as the kernel does; the
+    other two plain versions already keep f32 inside."""
     from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.kernels import rms_norm as krn
     from paddle_tpu_torch.kernels import swiglu as ksw
     saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention)
     krn.rms_norm = lambda x, w, eps=1e-6, use_kernel=None: krn._plain(
         x, w, eps)
-    ksw.swiglu = lambda a, w, use_kernel=None: ksw._ref(a, w)
+    ksw.swiglu = lambda a, w, use_kernel=None: ksw._ref(
+        a.float(), w.float()).to(a.dtype)
     krpa.ragged_paged_attention = (
         lambda q, kp, vp, qs, ql, kl, pt, scale=None, use_kernel=None:
         krpa._dense_fallback(q, kp, vp, qs, ql, kl, pt, scale))
@@ -301,8 +326,8 @@ def slice_phase(report, smi_line):
                              max_chunk_tokens=64, device="cuda")
     check(engine._T_pack == 128, f"packed rows {engine._T_pack} != 128")
 
-    # capture one mixed prefill + decode step's inputs (pools before it)
-    captured = {}
+    # capture three mixed prefill + decode steps' inputs (pools before)
+    captured = []
     real_fn = engine._ragged_fn
 
     def capturing_fn():
@@ -310,13 +335,12 @@ def slice_phase(report, smi_line):
 
         def run(state, toks, k_pool, v_pool, page_ids, offs, pos,
                 page_table, q_start, q_len, kv_len, produce, prev, g):
-            if ("args" not in captured and bool((q_len > 1).any())
+            if (len(captured) < 3 and bool((q_len > 1).any())
                     and bool((q_len == 1).any())
                     and int((q_len > 0).sum()) >= 3):
-                captured["args"] = [t.clone() for t in (
+                captured.append(([t.clone() for t in (
                     toks, pos, page_ids, offs, page_table, q_start, q_len,
-                    kv_len)]
-                captured["pools"] = (k_pool.clone(), v_pool.clone())
+                    kv_len)], (k_pool.clone(), v_pool.clone())))
             return step(state, toks, k_pool, v_pool, page_ids, offs, pos,
                         page_table, q_start, q_len, kv_len, produce, prev, g)
 
@@ -396,31 +420,35 @@ def slice_phase(report, smi_line):
           f"wall_s={wall:.6g} tokens_per_s={n_tok / wall:.6g} "
           f"[{smi_line}]", flush=True)
 
-    # the captured step through the kernel route and the plain route
-    check("args" in captured,
-          "no mixed prefill/decode step with 3+ live sequences was captured")
-    args = captured["args"]
-    kp0, vp0 = captured["pools"]
-    with torch.no_grad():
-        lg_k, _, _ = L._ragged_step_paged(
-            engine.state, cfg, args[0], args[1], kp0.clone(), vp0.clone(),
-            *args[2:], wls=engine._wls)
-        torch.cuda.synchronize()
-        with plain_routes():
-            lg_p, _, _ = L._ragged_step_paged(
-                engine.state, cfg, args[0], args[1], kp0, vp0, *args[2:],
-                wls=engine._wls)
-        torch.cuda.synchronize()
-    live = args[6] > 0
-    err = (lg_k[live] - lg_p[live]).abs().max().item()
-    scale = lg_p[live].abs().max().item()
-    agree = int((lg_k[live].argmax(-1) == lg_p[live].argmax(-1)).sum())
-    ok = (err <= STEP_REL_TOL * scale and bool(torch.isfinite(lg_k).all()))
-    print(f"step: kernel vs plain route logits max_abs_err={err:.6g} "
-          f"tol={STEP_REL_TOL * scale:.6g} (rel {STEP_REL_TOL:g} of "
-          f"{scale:.6g}) argmax agree {agree}/{int(live.sum())} "
-          f"{'ok' if ok else 'MISS'}", flush=True)
-    check(ok, "kernel-route step disagrees with the plain route")
+    # the captured steps through the kernel route and the plain route
+    check(len(captured) == 3, f"{len(captured)} of 3 mixed prefill/decode "
+          f"steps with 3+ live sequences were captured")
+    for i, (args, (kp0, vp0)) in enumerate(captured):
+        with torch.no_grad():
+            lg_k, _, _ = L._ragged_step_paged(
+                engine.state, cfg, args[0], args[1], kp0.clone(),
+                vp0.clone(), *args[2:], wls=engine._wls)
+            torch.cuda.synchronize()
+            with plain_routes():
+                lg_p, _, _ = L._ragged_step_paged(
+                    engine.state, cfg, args[0], args[1], kp0.clone(),
+                    vp0.clone(), *args[2:], wls=engine._wls)
+            torch.cuda.synchronize()
+        live = args[6] > 0
+        diff = (lg_k[live] - lg_p[live]).abs()
+        err = diff.max().item()
+        agree = int((lg_k[live].argmax(-1) == lg_p[live].argmax(-1)).sum())
+        mean = diff.mean().item()
+        ok = (err <= STEP_ATOL and mean <= STEP_MEAN_ATOL
+              and bool(torch.isfinite(lg_k).all()))
+        print(f"step {i}: q_len={args[6].tolist()} kernel vs plain route "
+              f"logits max_abs_err={err:.6g} (limit {STEP_ATOL:g}) "
+              f"mean_abs_err={mean:.6g} (limit {STEP_MEAN_ATOL:g}) "
+              f"max|logit|={lg_p[live].abs().max().item():.6g} "
+              f"argmax agree {agree}/{int(live.sum())} "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+        check(ok, f"kernel-route step {i} disagrees with the plain route")
+    args, (kp0, vp0) = captured[0]
     step_breakdown(L, engine, cfg, args, kp0, vp0, wall / steps, smi_line)
 
 

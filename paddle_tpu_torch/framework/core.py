@@ -17,8 +17,9 @@ __all__ = ["set_flags", "get_flag", "get_bool_flag", "seed",
 
 _flags: dict = {
     # fused transformer hot path: the serving blocks run the wide QKV
-    # projection + rope prologue, the RMSNorm kernel and the SwiGLU
-    # kernel; 0 restores the unfused plain expressions
+    # projection + rope prologue; 0 restores the unfused projections, and
+    # on the CPU also the unfused MLP expression (the card always runs
+    # the RMSNorm and SwiGLU kernels)
     "FLAGS_fused_transformer": True,
     # ragged paged attention + chunked-prefill continuous batching (the
     # bucketed regime it switches back to is not ported yet)

@@ -215,11 +215,15 @@ class LlamaForCausalLM(nn.Module):
 def _gather_layer_weights(state, cfg):
     """Per-layer weight dicts (the reference stacks them [L, ...] for
     lax.scan). Under FLAGS_fused_transformer the wide qkv / gate_up
-    projections are kept (or built); else the unfused views."""
+    projections are kept (or built); else the unfused views. The SwiGLU
+    kernel takes only the wide [Wg | Wu] layout and always runs on the
+    card, so off the CPU the MLP gets gate_up whatever the flag says:
+    there the flag picks the QKV layout alone."""
     L = cfg.num_hidden_layers
     nh, kvh, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     m = cfg.intermediate_size
     fused = core.get_bool_flag("FLAGS_fused_transformer", True)
+    fused_mlp = fused or state["model.embed_tokens"].device.type != "cpu"
     out = []
     for i in range(L):
         def get(n, i=i):
@@ -234,45 +238,42 @@ def _gather_layer_weights(state, cfg):
                 else torch.cat([get("self_attn.q_proj"),
                                 get("self_attn.k_proj"),
                                 get("self_attn.v_proj")], dim=-1))
+        elif cfg.fuse_attention_qkv:
+            qkv = get("self_attn.qkv_proj")
+            wl["self_attn.q_proj"] = qkv[..., : nh * d]
+            wl["self_attn.k_proj"] = qkv[..., nh * d: (nh + kvh) * d]
+            wl["self_attn.v_proj"] = qkv[..., (nh + kvh) * d:]
+        else:
+            for n in ("self_attn.q_proj", "self_attn.k_proj",
+                      "self_attn.v_proj"):
+                wl[n] = get(n)
+        if fused_mlp:
             wl["mlp.gate_up_proj"] = (
                 get("mlp.gate_up_proj") if cfg.fuse_mlp
                 else torch.cat([get("mlp.gate_proj"), get("mlp.up_proj")],
                                dim=-1))
+        elif cfg.fuse_mlp:
+            gu = get("mlp.gate_up_proj")
+            wl["mlp.gate_proj"] = gu[..., :m]
+            wl["mlp.up_proj"] = gu[..., m:]
         else:
-            if cfg.fuse_attention_qkv:
-                qkv = get("self_attn.qkv_proj")
-                wl["self_attn.q_proj"] = qkv[..., : nh * d]
-                wl["self_attn.k_proj"] = qkv[..., nh * d: (nh + kvh) * d]
-                wl["self_attn.v_proj"] = qkv[..., (nh + kvh) * d:]
-            else:
-                for n in ("self_attn.q_proj", "self_attn.k_proj",
-                          "self_attn.v_proj"):
-                    wl[n] = get(n)
-            if cfg.fuse_mlp:
-                gu = get("mlp.gate_up_proj")
-                wl["mlp.gate_proj"] = gu[..., :m]
-                wl["mlp.up_proj"] = gu[..., m:]
-            else:
-                wl["mlp.gate_proj"] = get("mlp.gate_proj")
-                wl["mlp.up_proj"] = get("mlp.up_proj")
+            wl["mlp.gate_proj"] = get("mlp.gate_proj")
+            wl["mlp.up_proj"] = get("mlp.up_proj")
         out.append(wl)
     return out
 
 
 def _rms(x, w, eps):
-    """RMSNorm for the serving paths — the kernel wrapper under
-    FLAGS_fused_transformer, else the inline expression."""
-    if core.get_bool_flag("FLAGS_fused_transformer", True):
-        return krn.rms_norm(x, w, eps)
-    xf = x.float()
-    out = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (out * w.float()).to(x.dtype)
+    """RMSNorm for the serving paths: always the kernel wrapper. Its CPU
+    route `_plain` is the same float expression the reference inlines
+    under FLAGS_fused_transformer=0, so the flag has nothing to pick."""
+    return krn.rms_norm(x, w, eps)
 
 
 def _serving_mlp(a2, wl):
     """SwiGLU for the serving blocks: the kernel over the wide gate_up
-    layout when the weights were gathered that way, else the unfused
-    expression."""
+    layout, else (FLAGS_fused_transformer=0 on the CPU only, see
+    `_gather_layer_weights`) the reference's unfused expression."""
     if "mlp.gate_up_proj" in wl:
         return ksw.swiglu(a2, wl["mlp.gate_up_proj"])
     return (torch.nn.functional.silu(a2 @ wl["mlp.gate_proj"])

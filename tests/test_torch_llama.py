@@ -138,6 +138,33 @@ def test_ragged_step_matches_jax(fused_flag):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("ckpt_fused", [True, False],
+                         ids=["fused_ckpt", "unfused_ckpt"])
+def test_unfused_flag_keeps_swiglu_layout_off_cpu(ckpt_fused):
+    """FLAGS_fused_transformer=0 unfuses the MLP only on the CPU; a state
+    on another device keeps the wide gate_up layout the SwiGLU kernel
+    takes, so the card never leaves its kernels."""
+    cfg = TL.llama_tiny(dtype="float32", fuse_attention_qkv=ckpt_fused,
+                        fuse_mlp=ckpt_fused)
+    cpu_state = dict(TL.LlamaForCausalLM(cfg, device="cpu").state_dict())
+    meta_state = {k: v.to("meta") for k, v in cpu_state.items()}
+    m = cfg.intermediate_size
+    ptt.set_flags({"FLAGS_fused_transformer": False})
+    try:
+        on_cpu = TL._gather_layer_weights(cpu_state, cfg)
+        off_cpu = TL._gather_layer_weights(meta_state, cfg)
+    finally:
+        ptt.set_flags({"FLAGS_fused_transformer": True})
+    for wl in on_cpu:
+        assert "mlp.gate_up_proj" not in wl
+        assert wl["mlp.gate_proj"].shape == (cfg.hidden_size, m)
+        assert "self_attn.q_proj" in wl
+    for wl in off_cpu:
+        assert "mlp.gate_proj" not in wl
+        assert wl["mlp.gate_up_proj"].shape == (cfg.hidden_size, 2 * m)
+        assert "self_attn.q_proj" in wl and "self_attn.qkv_proj" not in wl
+
+
 def test_verify_rows_not_ported():
     cfg = TL.llama_tiny(dtype="float32")
     tm = TL.LlamaForCausalLM(cfg, device="cpu")
