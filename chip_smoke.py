@@ -9,20 +9,30 @@ Phases, each of which fails the run on a miss:
 
 1. device — the card's name, count and power limit;
 2. build — the port's CUDA kernels from `paddle_tpu_torch/csrc`;
-3. kernels — each kernel of the serving path held against its plain
-   PyTorch version on the card, at the slice's shapes, in bf16 and in
-   f32 (TF32 off), element by element within the stated limit (`TOL`);
-   bf16 timed with CUDA
-   events beside its plain version, the library call where one exists,
-   and its bound (bytes over 3.35 TB/s vs operations over the dtype's
-   peak);
-4. slice — full-width llama_7b (32 layers, random weights from a seeded
-   generator) behind the port's HTTP gateway, 4 concurrent streamed
-   requests; every kernel's launch counter must account for every step;
-   three captured mixed prefill/decode steps re-run through the kernel
-   route and the plain route must agree within `STEP_ATOL` and
-   `STEP_MEAN_ATOL`; the first is then timed on both routes and traced
-   by torch.profiler, its device time split by kernel group.
+3. kernels — each kernel of the serving and the training path held
+   against its plain PyTorch version on the card, at the slices' shapes,
+   in bf16 and in f32 (TF32 off), element by element within the stated
+   limit (`TOL`); bf16 timed with CUDA events beside its plain version,
+   the library call where one exists, and its bound (bytes over 3.35
+   TB/s vs operations over 989 TFLOP/s);
+4. serving — full-width llama_7b (32 layers, random weights from a
+   seeded generator) behind the port's HTTP gateway, 4 concurrent
+   streamed requests; every kernel's launch counter must account for
+   every step; three captured mixed prefill/decode steps re-run through
+   the kernel route and the plain route must agree within `STEP_ATOL`
+   and `STEP_MEAN_ATOL`; the first is then timed on both routes and
+   traced by torch.profiler, its device time split by kernel group;
+5. training — full-depth llama_1b (22 layers, bf16, random weights from
+   a seeded generator) through `TrainStep` with AdamW, batch 4 x seq
+   2048 on one repeated batch, as bench.py runs it: 2 warm-up steps,
+   then `TRAIN_STEPS` timed steps whose losses must be finite and fall;
+   step ms, tokens/s and MFU (bench.py's PaLM count over 989 TFLOP/s);
+   every training kernel's launch counter must equal its count per step
+   times the steps; a 2-layer model at full width runs one forward and
+   backward on the kernel route and the plain route, whose loss and
+   grads must agree within `TRAIN_LOSS_RTOL` and `TRAIN_GRAD_RTOL`; one
+   more step is traced by torch.profiler, its device time split by
+   kernel group.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; before it, one JSON line with every kernel's
@@ -43,7 +53,8 @@ import warnings
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
-# Kernel against plain version, element by element:
+# Kernel against plain version, element by element, by the rule of
+# paddle_tpu_torch/testing.py:
 #     |kernel - plain| <= atol + rtol * |plain|,   TOL[(kernel, dtype)]
 # = (atol, rtol). bf16: the plain version runs on f32 copies of the same
 # bf16 inputs and keeps its f32 result (attention keeps the one bf16
@@ -51,13 +62,33 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 # rounds its f32 result to bf16 once (unit roundoff 2^-8), so rtol is
 # two roundoffs and atol covers the f32 summation order near zero.
 # f32: summation order only, an absolute limit at the phase's inputs.
+# atol TERMS marks the kernels that round an intermediate to the input
+# dtype before a second product (flash: P and dS; the SwiGLU backward:
+# dg and du): an element's error is a roundoff of each of its terms, so
+# its atol is testing.TERM_FRAC (2^-7 bf16, 1e-4 f32) of that element's
+# own sum of |terms|, from the plain side. A key "kernel.output"
+# overrides "kernel".
 BF16_RTOL = 2.0 ** -7
+TERMS = "terms"
 TOL = {("rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
        ("rms_norm", "float32"): (5e-5, 0.0),
        ("swiglu", "bfloat16"): (1e-4, BF16_RTOL),
        ("swiglu", "float32"): (2e-3, 0.0),
        ("ragged_paged_attention", "bfloat16"): (1e-5, BF16_RTOL),
-       ("ragged_paged_attention", "float32"): (8e-5, 0.0)}
+       ("ragged_paged_attention", "float32"): (8e-5, 0.0),
+       ("fused_add_rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
+       ("fused_add_rms_norm", "float32"): (5e-5, 0.0),
+       ("swiglu_bwd_da", "bfloat16"): (TERMS, BF16_RTOL),
+       ("swiglu_bwd_da", "float32"): (TERMS, 0.0),
+       ("swiglu_bwd_dw", "bfloat16"): (TERMS, BF16_RTOL),
+       ("swiglu_bwd_dw", "float32"): (TERMS, 0.0),
+       ("flash_attention_fwd", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_fwd", "float32"): (TERMS, 0.0),
+       # the f32 log-sum-exp: the scores' summation order only
+       ("flash_attention_fwd.lse", "bfloat16"): (1e-4, 1e-5),
+       ("flash_attention_fwd.lse", "float32"): (1e-4, 1e-5),
+       ("flash_attention_bwd", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_bwd", "float32"): (TERMS, 0.0)}
 # A captured 32-layer serving step, kernel route against the plain route
 # (`plain_routes`, SwiGLU in f32), |logit difference| over the live rows:
 # the routes differ by bf16 rounding flips that compound through 32
@@ -74,7 +105,32 @@ SOURCES = {
     "ragged_paged_attention": (
         "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "paddle_tpu/kernels/ragged_paged_attention.py:266"),
+    "fused_add_rms_norm": ("paddle_tpu_torch/csrc/fused_norm_residual.cu",
+                           "paddle_tpu/kernels/fused_norm_residual.py:131"),
+    "swiglu_bwd_da": ("paddle_tpu_torch/csrc/swiglu.cu",
+                      "paddle_tpu/kernels/swiglu.py:219"),
+    "swiglu_bwd_dw": ("paddle_tpu_torch/csrc/swiglu.cu",
+                      "paddle_tpu/kernels/swiglu.py:233"),
+    # upstream Pallas TPU flash attention (fwd pallas_call l.758), reached
+    # through the package's wrapper
+    "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/kernels/flash_attention.py:283"),
+    # upstream bwd dkv l.1121 and dq l.1456, through the same wrapper
+    "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/kernels/flash_attention.py:283"),
 }
+# the training phase: bench.py's accelerator configuration
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# A 2-layer full-width llama_1b, one forward/backward on the kernel
+# route against the plain route (`plain_routes`, SwiGLU in f32): |loss
+# difference| / |loss|, and the largest per-parameter relative L2 error
+# of the grads. The routes differ by bf16 roundings (the kernels round P,
+# dS, dg and du for their tensor-core products; the plain route keeps
+# them f32). The first reading on an H100 was 6.28e-6 on the loss and
+# 0.0106 (embed_tokens) on the grads; the limits are about twice that.
+TRAIN_LOSS_RTOL = 1.5e-5
+TRAIN_GRAD_RTOL = 0.025
 
 
 class SmokeFailure(RuntimeError):
@@ -148,6 +204,63 @@ def ragged_case(torch, dtype, gen):
     return (q, kp, vp, *meta, pt), rows
 
 
+def compare(name, dname, pairs, tag=""):
+    """Hold each kernel output against its plain version element by
+    element: |kernel - plain| <= atol + rtol * |plain| (`TOL`; atol
+    TERMS: testing.TERM_FRAC of the element's sum of |terms|). pairs:
+    [(label, kernel output, plain output[, sum of |terms|])]; tag names
+    the case in the printout. Returns the largest |kernel - plain|."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    errs = []
+    for label, out, ref, *terms in pairs:
+        atol, rtol = TOL.get((f"{name}.{label}", dname),
+                             TOL.get((name, dname)))
+        if atol == TERMS:
+            frac = testing.TERM_FRAC[getattr(torch, dname)]
+            atol = frac * terms[0]
+            limit = f"{frac:g}*terms (max terms {terms[0].max().item():.6g})"
+        else:
+            limit = f"{atol:g}"
+        err = (out.double() - ref.double()).abs().max().item()
+        worst = testing.worst(out, ref, atol, rtol)
+        ok = worst <= 1.0
+        print(f"kernel {name} {dname} {label}{tag}: max_abs_err={err:.6g} "
+              f"worst err/limit={worst:.6g} (limit {limit} + "
+              f"{rtol:g}*|plain|, max|plain| {ref.abs().max().item():.6g}) "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+        check(ok, f"{name} {dname} {label}{tag} disagrees with its plain "
+                  f"version")
+        errs.append(err)
+    return max(errs)
+
+
+def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
+          iters=50, plain_iters=None):
+    """One kernel's bf16 measurements: kernel, plain version and library
+    call by CUDA events, the bound from this run's shapes."""
+    ms = time_ms(fn_kernel, iters)
+    plain_ms = time_ms(fn_plain, plain_iters or max(iters // 5, 3))
+    with warnings.catch_warnings():
+        # F.rms_norm with a f32 weight on bf16 rows warns that it takes
+        # its unfused path — that path is what is timed
+        warnings.simplefilter("ignore", UserWarning)
+        lib_ms = time_ms(library, iters) if library else None
+    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    print(f"kernel {name} bf16: kernel_ms={ms:.6g} plain_ms={plain_ms:.6g} "
+          f"library_ms={'none' if lib_ms is None else f'{lib_ms:.6g}'} "
+          f"bound_ms={b_ms:.6g} ({b_by})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def entry(name, measured):
+    src, replaces = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None, **measured}
+
+
 def kernel_phase(report):
     import torch
     import torch.nn.functional as F
@@ -168,66 +281,54 @@ def kernel_phase(report):
                  library=None, iters=50):
             """fn_plain: the plain version as the port runs it (timed);
             fn_f32: the same on f32 copies of the inputs, held against
-            the bf16 kernel (f32: fn_plain itself)."""
+            the bf16 kernel (f32: fn_plain itself). Returns the bf16
+            measurements (None for f32)."""
             out = fn_kernel()
             torch.cuda.synchronize()
             ref = (fn_plain if dtype == torch.float32 else fn_f32)()
             torch.cuda.synchronize()
-            diff = (out.double() - ref.double()).abs()
-            atol, rtol = TOL[(name, dname)]
-            limit = atol + rtol * ref.double().abs()
-            err = diff.max().item()
-            worst = (diff / limit).max().item()
-            ok = worst <= 1.0 and bool(torch.isfinite(out).all())
-            print(f"kernel {name} {dname}: max_abs_err={err:.6g} "
-                  f"worst err/limit={worst:.6g} (limit {atol:g} + "
-                  f"{rtol:g}*|plain|, max|plain| "
-                  f"{ref.abs().max().item():.6g}) {'ok' if ok else 'MISS'}",
-                  flush=True)
-            check(ok, f"{name} {dname} disagrees with its plain version")
+            err = compare(name, dname, [("out", out, ref)])
             if dtype != torch.bfloat16:
-                return
-            ms = time_ms(fn_kernel, iters)
-            plain_ms = time_ms(fn_plain, max(iters // 5, 3))
-            with warnings.catch_warnings():
-                # F.rms_norm with a f32 weight on bf16 rows warns that it
-                # takes its unfused path — that path is what is timed
-                warnings.simplefilter("ignore", UserWarning)
-                lib_ms = time_ms(library, iters) if library else None
-            b_ms, b_by = bound_ms(nbytes, flops, dname)
-            print(f"kernel {name} bf16: kernel_ms={ms:.6g} "
-                  f"plain_ms={plain_ms:.6g} library_ms="
-                  f"{'none' if lib_ms is None else f'{lib_ms:.6g}'} "
-                  f"bound_ms={b_ms:.6g} ({b_by})", flush=True)
-            src, replaces = SOURCES[name]
-            report[name] = {"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces, "launches": None,
-                            "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": lib_ms}
+                return None
+            return timed(name, err, fn_kernel, fn_plain, nbytes, flops,
+                         library, iters)
 
-        # rms_norm at the slice's [128, 4096]
-        x = torch.randn((128, 4096), generator=gen, device="cuda").to(dtype)
-        w = 1 + 0.1 * torch.randn((4096,), generator=gen, device="cuda")
-        held("rms_norm",
-             lambda: krn.rms_norm(x, w, eps, use_kernel=True),
-             lambda: krn._plain(x, w, eps),
-             lambda: krn._plain(x.float(), w, eps),
-             nbytes=2 * x.numel() * it + w.numel() * 4,
-             flops=4 * x.numel(),
-             library=lambda: F.rms_norm(x, (4096,), w, eps))
+        # rms_norm at the serving slice's [128, 4096] and the training
+        # slice's [8192, 2048]
+        for rows, H, path in ((128, 4096, "serving"), (8192, 2048,
+                                                       "training")):
+            x = torch.randn((rows, H), generator=gen, device="cuda").to(dtype)
+            w = 1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
+            m = held("rms_norm",
+                     lambda: krn.rms_norm(x, w, eps, use_kernel=True),
+                     lambda: krn._plain(x, w, eps),
+                     lambda: krn._plain(x.float(), w, eps),
+                     nbytes=2 * x.numel() * it + w.numel() * 4,
+                     flops=4 * x.numel(),
+                     library=lambda: F.rms_norm(x, (H,), w, eps))
+            if m and path == "serving":
+                report["rms_norm"] = entry("rms_norm", m)
+            elif m:
+                report["rms_norm"]["training"] = m
 
-        # swiglu: a [128, 4096] @ w_gate_up [4096, 22016]
-        a = torch.randn((128, 4096), generator=gen, device="cuda").to(dtype)
-        wgu = (0.02 * torch.randn((4096, 22016), generator=gen,
-                                  device="cuda")).to(dtype)
-        held("swiglu",
-             lambda: ksw.swiglu(a, wgu, use_kernel=True),
-             lambda: ksw._ref(a, wgu),
-             lambda: ksw._ref(a.float(), wgu.float()),
-             nbytes=(a.numel() + wgu.numel() + 128 * 11008) * it,
-             flops=2 * 128 * 4096 * 22016)
-        del wgu
+        # swiglu: a [128, 4096] @ w_gate_up [4096, 22016] (serving) and
+        # a [8192, 2048] @ [2048, 11008] (training)
+        for T, H, M, path in ((128, 4096, 11008, "serving"),
+                              (8192, 2048, 5504, "training")):
+            a = torch.randn((T, H), generator=gen, device="cuda").to(dtype)
+            wgu = (0.02 * torch.randn((H, 2 * M), generator=gen,
+                                      device="cuda")).to(dtype)
+            m = held("swiglu",
+                     lambda: ksw.swiglu(a, wgu, use_kernel=True),
+                     lambda: ksw._ref(a, wgu),
+                     lambda: ksw._ref(a.float(), wgu.float()),
+                     nbytes=(a.numel() + wgu.numel() + T * M) * it,
+                     flops=2 * T * H * 2 * M)
+            if m and path == "serving":
+                report["swiglu"] = entry("swiglu", m)
+            elif m:
+                report["swiglu"]["training"] = m
+            del wgu
 
         # ragged paged attention at the slice's shapes
         args, rows = ragged_case(torch, dtype, gen)
@@ -239,14 +340,153 @@ def kernel_phase(report):
         flops = sum(4 * (kl - ql + t + 1) * d * nh
                     for _, ql, kl in rows for t in range(ql))
         scale = 1.0 / d ** 0.5
-        held("ragged_paged_attention",
-             lambda: krpa.ragged_paged_attention(*args, use_kernel=True),
-             lambda: krpa._dense_fallback(*args, scale),
-             lambda: krpa._dense_fallback(
-                 (q * scale).float(), args[1].float(), args[2].float(),
-                 *args[3:], 1.0),
-             nbytes=nbytes, flops=flops, iters=50)
+        m = held("ragged_paged_attention",
+                 lambda: krpa.ragged_paged_attention(*args, use_kernel=True),
+                 lambda: krpa._dense_fallback(*args, scale),
+                 lambda: krpa._dense_fallback(
+                     (q * scale).float(), args[1].float(), args[2].float(),
+                     *args[3:], 1.0),
+                 nbytes=nbytes, flops=flops, iters=50)
+        if m:
+            report["ragged_paged_attention"] = entry(
+                "ragged_paged_attention", m)
         del args, q
+        training_kernels(report, dtype, gen)
+        torch.cuda.empty_cache()
+
+
+def training_kernels(report, dtype, gen):
+    """The training slice's new kernels at llama_1b's shapes (batch 4 x
+    seq 2048 = 8192 rows, hidden 2048, intermediate 5504, 16 heads of
+    128): fused_add_rms_norm, the two SwiGLU backward launches, flash
+    attention forward and backward (causal MHA; one GQA and one
+    head-dim-64 case at a small size, checked only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+
+    bf16 = dtype == torch.bfloat16
+    dname = str(dtype).split(".")[1]
+    it = torch.finfo(dtype).bits // 8
+    eps = 1e-5
+
+    def rand(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen,
+                                  device="cuda")).to(dtype)
+
+    # fused_add_rms_norm: x, residual [8192, 2048]
+    x, r = rand(8192, 2048), rand(8192, 2048)
+    w = 1 + 0.1 * torch.randn((2048,), generator=gen, device="cuda")
+    y, h = kfnr.fused_add_rms_norm(x, r, w, eps, use_kernel=True)
+    # the plain version keeps the one low-precision step of its float
+    # order: the norm reads h rounded to the stream dtype
+    h_p = x.float() + r.float()
+    y_p = krn._plain(h_p.to(dtype).float(), w, eps)
+    err = compare("fused_add_rms_norm", dname, [("y", y, y_p), ("h", h, h_p)])
+    if bf16:
+        report["fused_add_rms_norm"] = entry("fused_add_rms_norm", timed(
+            "fused_add_rms_norm", err,
+            lambda: kfnr.fused_add_rms_norm(x, r, w, eps, use_kernel=True),
+            lambda: kfnr._plain(x, r, w, eps),
+            nbytes=4 * x.numel() * it + w.numel() * 4, flops=5 * x.numel()))
+    del x, r, y, h, y_p, h_p
+
+    # SwiGLU backward: a [8192, 2048], w_gate_up [2048, 11008], do
+    # [8192, 5504]; bwd_da also recomputes g/u (2 GEMMs of flops), bwd_dw
+    # reads the recomputed dgu (1 GEMM)
+    T, H, M = 8192, 2048, 5504
+    a, wgu, do = rand(T, H), rand(H, 2 * M, std=0.02), rand(T, M)
+    pairs, dgu = testing.swiglu_bwd_pairs(a, wgu, do)
+    err_da = compare("swiglu_bwd_da", dname, pairs[:1])
+    err_dw = compare("swiglu_bwd_dw", dname, pairs[1:])
+    del pairs
+    if bf16:
+        gemm = 2 * T * H * 2 * M
+
+        def plain_grad(i):
+            a_ = a.detach().requires_grad_(i == 0)
+            w_ = wgu.detach().requires_grad_(i == 1)
+            return torch.autograd.grad(ksw._ref(a_, w_), (a_, w_)[i], do)
+
+        report["swiglu_bwd_da"] = entry("swiglu_bwd_da", timed(
+            "swiglu_bwd_da", err_da, lambda: ksw.swiglu_bwd_da(a, wgu, do),
+            lambda: plain_grad(0),
+            # a, w_gate_up, do in; da and the [T, 2M] dgu out
+            nbytes=(a.numel() + wgu.numel() + do.numel() + a.numel()
+                    + dgu.numel()) * it,
+            flops=2 * gemm, iters=10))
+        report["swiglu_bwd_dw"] = entry("swiglu_bwd_dw", timed(
+            "swiglu_bwd_dw", err_dw, lambda: ksw.swiglu_bwd_dw(a, dgu),
+            lambda: plain_grad(1),
+            nbytes=(a.numel() + dgu.numel() + wgu.numel()) * it,
+            flops=gemm, iters=10))
+    del a, wgu, do, dgu
+
+    # flash attention: q/k/v [4, 2048, 16, 128] causal MHA (timed), then a
+    # GQA case (8 q heads on 2 kv heads, causal) and a head-dim-64 full
+    # case, small (checked only)
+    cases = ((4, 2048, 16, 16, 128, True, True),
+             (2, 256, 8, 2, 128, True, False),
+             (2, 256, 4, 4, 64, False, False))
+    for B, S, hq, hk, d, causal, main in cases:
+        q, do = rand(B, S, hq, d), rand(B, S, hq, d)
+        k, v = rand(B, S, hk, d), rand(B, S, hk, d)
+        scale = 1.0 / d ** 0.5
+        # GQA keeps the one low-precision step of its float order on both
+        # sides: q pre-scaled in q's dtype, the kernel at scale 1
+        qs, s = ((q * scale).to(dtype), 1.0) if hq != hk else (q, scale)
+        pairs, (o, lse) = testing.flash_pairs(qs, k, v, do, causal, s)
+        tag = (f" [B{B} S{S} H{hq}/{hk} D{d} "
+               f"{'causal' if causal else 'full'}]")
+        err_f = compare("flash_attention_fwd", dname, pairs[:2], tag)
+        err_b = compare("flash_attention_bwd", dname, pairs[2:], tag)
+        del pairs
+        if bf16 and main:
+            pairs = S * (S + 1) // 2 if causal else S * S
+            fwd_flops = 4 * B * hq * d * pairs
+            qkv_bytes = 3 * q.numel() * it
+            lse_bytes = lse.numel() * 4
+            qr, kr, vr = (t.transpose(1, 2) for t in (q, k, v))
+            report["flash_attention_fwd"] = entry(
+                "flash_attention_fwd", timed(
+                    "flash_attention_fwd", err_f,
+                    lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
+                    lambda: kfa._plain(q, k, v, causal, scale),
+                    nbytes=qkv_bytes + q.numel() * it + lse_bytes,
+                    flops=fwd_flops,
+                    library=lambda: F.scaled_dot_product_attention(
+                        qr, kr, vr, is_causal=causal),
+                    iters=20, plain_iters=3))
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o_pl = kfa._plain(*leaves, causal, scale)
+            lib_leaves = [t.detach().requires_grad_() for t in (qr, kr, vr)]
+            do_r = do.transpose(1, 2)
+
+            def library_fwd_bwd():
+                o_l = F.scaled_dot_product_attention(*lib_leaves,
+                                                     is_causal=causal)
+                return torch.autograd.grad(o_l, lib_leaves, do_r)
+
+            report["flash_attention_bwd"] = entry(
+                "flash_attention_bwd", timed(
+                    "flash_attention_bwd", err_b,
+                    lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal, scale),
+                    lambda: torch.autograd.grad(o_pl, leaves, do,
+                                                retain_graph=True),
+                    # q, k, v, o, do in; dq, dk, dv out; lse
+                    nbytes=(qkv_bytes + 2 * q.numel() * it + qkv_bytes
+                            + lse_bytes),
+                    # the recomputed scores, dP, dV, dK, dQ: 2.5x forward
+                    flops=fwd_flops * 5 // 2,
+                    library=library_fwd_bwd, iters=10, plain_iters=3))
+            del leaves, o_pl, lib_leaves
+        del q, k, v, do, qs, o, lse
         torch.cuda.empty_cache()
 
 
@@ -255,11 +495,15 @@ def plain_routes():
     """Swap the kernel wrappers the model calls for their plain
     versions (the comparison route; the port itself never does this).
     SwiGLU runs on f32 copies and rounds once, as the kernel does; the
-    other two plain versions already keep f32 inside."""
+    other plain versions already keep f32 inside. All of them are plain
+    PyTorch under autograd, so the training backward runs plain too."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
     from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.kernels import rms_norm as krn
     from paddle_tpu_torch.kernels import swiglu as ksw
-    saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention)
+    saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
+             kfnr.fused_add_rms_norm, kfa.flash_attention_bshd)
     krn.rms_norm = lambda x, w, eps=1e-6, use_kernel=None: krn._plain(
         x, w, eps)
     ksw.swiglu = lambda a, w, use_kernel=None: ksw._ref(
@@ -267,10 +511,16 @@ def plain_routes():
     krpa.ragged_paged_attention = (
         lambda q, kp, vp, qs, ql, kl, pt, scale=None, use_kernel=None:
         krpa._dense_fallback(q, kp, vp, qs, ql, kl, pt, scale))
+    kfnr.fused_add_rms_norm = (
+        lambda x, r, w, eps=1e-6, use_kernel=None: kfnr._plain(x, r, w, eps))
+    kfa.flash_attention_bshd = (
+        lambda q, k, v, causal=False, scale=None, **kw:
+        kfa._plain(q, k, v, causal, scale))
     try:
         yield
     finally:
-        krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention = saved
+        (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
+         kfnr.fused_add_rms_norm, kfa.flash_attention_bshd) = saved
 
 
 def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
@@ -453,7 +703,8 @@ def slice_phase(report, smi_line):
 
 
 # device-kernel name fragments -> the group a step's time is charged to
-_KERNEL_GROUPS = (("rms_norm_kernel", "rms_norm"), ("swiglu_", "swiglu"),
+_KERNEL_GROUPS = (("rms_norm_kernel", "rms_norm"), ("FwdEpi", "swiglu"),
+                  ("swiglu_", "swiglu"),
                   ("ragged_paged_attention_kernel", "ragged_paged_attention"),
                   ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"),
                   ("cutlass", "gemm"))
@@ -512,6 +763,197 @@ def step_breakdown(L, engine, cfg, args, kp, vp, wall_per_step_s, smi_line):
           + "; ".join(f"{k[:60]}={ms:.4g}" for k, ms in top), flush=True)
 
 
+# training: device-kernel name fragments -> group, first match wins
+# (the SwiGLU kernels' names carry their epilogue: FwdEpi for the
+# forward, DguEpi and StoreEpi for the backward's two launches)
+_TRAIN_GROUPS = (("flash_fwd_", "flash_fwd"),
+                 ("flash_bwd_", "flash_bwd"),
+                 ("FwdEpi", "swiglu_fwd"),
+                 ("DguEpi", "swiglu_bwd"), ("StoreEpi", "swiglu_bwd"),
+                 ("gemm_simt_kernel", "swiglu_bwd"),
+                 ("rms_norm_kernel", "norms"),
+                 ("gemm", "cublas_gemm"), ("nvjet", "cublas_gemm"),
+                 ("xmma", "cublas_gemm"), ("cutlass", "cublas_gemm"),
+                 ("SoftMax", "cross_entropy"), ("softmax", "cross_entropy"),
+                 ("gather", "cross_entropy"), ("scatter", "cross_entropy"))
+
+
+def _device_ms(prof, groups, default):
+    """Device ms of one traced region, summed by kernel group; kernels no
+    fragment matches go to `default`. Returns (sums, {unmatched: ms})."""
+    from torch.autograd import DeviceType
+    sums, others = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.device_time_total / 1e3
+        group = next((g for frag, g in groups if frag in e.key), None)
+        if group is None:
+            group = default
+            others[e.key] = others.get(e.key, 0.0) + ms
+        sums[group] = sums.get(group, 0.0) + ms
+    return sums, others
+
+
+def training_phase(report, smi_line):
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+    from paddle_tpu_torch.models import llama as L
+
+    cfg = L.llama_1b(dtype="bfloat16", use_recompute=False,
+                     fuse_attention_qkv=True, fuse_mlp=True)
+    cfg.max_position_embeddings = max(cfg.max_position_embeddings, TRAIN_SEQ)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = L.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = popt.AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     weight_decay=0.1)
+    step = TrainStep(model, opt, lambda ids, labels: model.loss(ids, labels))
+    torch.cuda.synchronize()
+    print(f"train: llama_1b bf16 built in {time.perf_counter() - t0:.3f} s, "
+          f"{n_params} parameters, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}",
+          flush=True)
+
+    losses = [step(ids, ids) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    counters = {"rms_norm": krn.rms_norm,
+                "fused_add_rms_norm": kfnr.fused_add_rms_norm,
+                "swiglu": ksw.swiglu, "swiglu_bwd_da": ksw.swiglu_bwd_da,
+                "swiglu_bwd_dw": ksw.swiglu_bwd_dw,
+                "flash_attention_fwd": kfa.flash_attention_fwd,
+                "flash_attention_bwd": kfa.flash_attention_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    wall0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(step(ids, ids))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = [float(x) for x in losses]
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_STEPS)]
+    mean_ms = events[0].elapsed_time(events[-1]) / TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = tokens / (mean_ms / 1e3)
+    flops_per_token = (6 * n_params + 12 * cfg.num_hidden_layers
+                       * cfg.hidden_size * TRAIN_SEQ)
+    mfu = tok_s * flops_per_token / PEAK_FLOPS["bfloat16"]
+    print(f"train: losses={[round(x, 6) for x in losses]} (first "
+          f"{TRAIN_WARMUP} warm-up)", flush=True)
+    print(f"train: step_ms={mean_ms:.6g} per step "
+          f"{[round(x, 4) for x in step_ms]} wall_per_step_ms="
+          f"{1e3 * wall / TRAIN_STEPS:.6g} tokens_per_s={tok_s:.6g} "
+          f"mfu={mfu:.6g} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.6g} [{smi_line}]",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses), "a training loss is not "
+          "finite")
+    check(losses[-1] < losses[0], "the loss did not fall over the steps")
+    L_ = cfg.num_hidden_layers
+    per_step = {"rms_norm": L_ + 1, "fused_add_rms_norm": L_, "swiglu": L_,
+                "swiglu_bwd_da": L_, "swiglu_bwd_dw": L_,
+                "flash_attention_fwd": L_, "flash_attention_bwd": L_}
+    for name, n in launches.items():
+        want = per_step[name] * TRAIN_STEPS
+        print(f"launches {name} (training): {n} (steps {TRAIN_STEPS} -> "
+              f"expected {want})", flush=True)
+        check(n == want, f"{name} launched {n} times in training, expected "
+                         f"{want}")
+        entry_ = report[name]
+        if entry_.get("launches") is None:
+            entry_["launches"] = n
+        else:
+            entry_["launches_by_path"] = {"serving": entry_["launches"],
+                                          "training": n}
+            entry_["launches"] += n
+
+    # one more step, traced: TrainStep's calls in its order, the model's
+    # forward and backward in one trace and the optimizer in another, so
+    # AdamW's elementwise kernels are charged to it
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_fb:
+        loss = model.loss(ids, ids)
+        loss.backward()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_opt:
+        opt.step()
+        opt.clear_grad(set_to_zero=False)
+        torch.cuda.synchronize()
+    groups, others = _device_ms(prof_fb, _TRAIN_GROUPS, "other")
+    opt_groups, _ = _device_ms(prof_opt, (), "adamw")
+    groups["adamw"] = opt_groups.get("adamw", 0.0)
+    busy = sum(groups.values())
+    if busy == 0.0:
+        print("train profile: not measured (the profiler saw no device "
+              "time)", flush=True)
+    else:
+        order = ("flash_fwd", "flash_bwd", "swiglu_fwd", "swiglu_bwd",
+                 "norms", "cublas_gemm", "cross_entropy", "adamw", "other")
+        parts = " ".join(f"{g}={groups.get(g, 0.0):.6g}" for g in order)
+        print(f"train profile (device ms, one step): {parts} "
+              f"total={busy:.6g} busy_share={busy / mean_ms:.4f} "
+              f"[{smi_line}]", flush=True)
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+        print("train profile, largest other kernels (ms): "
+              + "; ".join(f"{k[:70]}={ms:.4g}" for k, ms in top), flush=True)
+    del model, opt, step, loss, prof_fb, prof_opt
+    torch.cuda.empty_cache()
+
+    # route agreement: 2 layers at full width, one forward/backward on
+    # each route from the same weights and batch
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model2 = L.LlamaForCausalLM(cfg2, device="cuda", generator=gen)
+
+    def loss_and_grads():
+        loss = model2.loss(ids, ids)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in model2.named_parameters()}
+        for p in model2.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_routes():
+        loss_p, grads_p = loss_and_grads()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    rel = {n: ((grads_k[n] - grads_p[n]).norm()
+               / grads_p[n].norm().clamp_min(1e-30)).item() for n in grads_p}
+    worst = max(rel, key=rel.get)
+    ok = loss_err <= TRAIN_LOSS_RTOL and rel[worst] <= TRAIN_GRAD_RTOL
+    print(f"train route agreement (2 layers, full width): loss kernel "
+          f"{loss_k:.8g} plain {loss_p:.8g} rel_err={loss_err:.6g} (limit "
+          f"{TRAIN_LOSS_RTOL:g}); grads max rel L2 {rel[worst]:.6g} at "
+          f"{worst} (limit {TRAIN_GRAD_RTOL:g}) {'ok' if ok else 'MISS'}",
+          flush=True)
+    print("train route agreement, grad rel L2 by parameter: "
+          + "; ".join(f"{n}={e:.4g}" for n, e in rel.items()), flush=True)
+    check(ok, "the training kernel route disagrees with the plain route")
+    del model2, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         name, count, smi_line = device_phase()
@@ -523,6 +965,13 @@ def main():
         report = {}
         kernel_phase(report)
         slice_phase(report, smi_line)
+        # the serving engine and its llama_7b go before training starts
+        import gc
+
+        import torch
+        gc.collect()
+        torch.cuda.empty_cache()
+        training_phase(report, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1

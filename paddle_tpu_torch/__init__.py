@@ -8,10 +8,14 @@ path is a hand-written CUDA kernel under `csrc/`, built on first use by
 `kernels/_build.py`, with a plain PyTorch version beside it that CPU
 tensors take.
 
-Ported so far (the serving slice): framework.core flags, the RMSNorm,
+Ported so far: the serving slice (framework.core flags, the RMSNorm,
 SwiGLU and ragged paged attention kernels, the LLaMA serving step over
 the paged KV pool, the chunked-prefill continuous-batching engine with
-the prefix cache, and the HTTP gateway + `serve` CLI.
+the prefix cache, the HTTP gateway + `serve` CLI) and the training
+slice (the LLaMA training forward and loss, `nn.functional.
+cross_entropy`, `optimizer.AdamW`, `jit.TrainStep`, and the SwiGLU
+backward, fused add+RMSNorm and flash attention forward/backward
+kernels).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.

@@ -59,4 +59,52 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// ---- warp-level bf16 tensor-core products (mma.sync m16n8k16) ----------
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with g = lane / 4 and
+// t = lane % 4:
+//   A 16x16 (4 regs of 2 bf16): a0 (row g, cols 2t..2t+1), a1 (row g+8),
+//     a2 (row g, cols 2t+8..), a3 (row g+8, cols 2t+8..);
+//   B 16x8 (2 regs): b0 (rows 2t..2t+1, col g), b1 (rows 2t+8.., col g);
+//   C 16x8 f32 (4 regs): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
+// ldmatrix .x4 loads four 8x8 b16 matrices whose row addresses come from
+// lanes 0-7, 8-15, 16-23 and 24-31; lane l receives (row l/4, cols 2(l%4)
+// .. +1) of each, or with .trans (rows 2(l%4).., col l/4).
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += a * b, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two f32 -> one register of two bf16 (lo in the low half), for an A or B
+// fragment built from f32 values
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 }  // namespace ptt

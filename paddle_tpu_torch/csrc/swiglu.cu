@@ -1,207 +1,297 @@
-// SwiGLU forward: out[T, M] = silu(a @ Wg) * (a @ Wu), where
-// w_gate_up = [Wg | Wu] is [H, 2M] (gate columns first). The [T, 2M]
-// gate/up product is never stored: each block computes the g and u
-// tiles of one [64, 64] output tile in f32 and applies silu(g) * u in
-// the epilogue.
+// SwiGLU forward and backward, where w_gate_up = [Wg | Wu] is [H, 2M]
+// (gate columns first) and a is [T, H].
+//
+// Forward: out[T, M] = silu(a @ Wg) * (a @ Wu). The [T, 2M] gate/up
+//   product is never stored: each block computes the g and u tiles of one
+//   [128, 64] output tile in f32 and applies silu(g) * u in the epilogue.
+// Backward, two C entries:
+//   `bwd_da` recomputes each g/u tile with the forward's main loop, turns
+//     the output cotangent into the gate/up cotangents in f32 (dg = do *
+//     u * silu'(g), du = do * silu(g), the reference's float order) and
+//     writes them once, rounded to the input dtype, as dgu = [dg | du]
+//     [T, 2M]; then da[T, H] = dgu @ w_gate_up^T, accumulated over the 2M
+//     columns in f32 and written once.
+//   `bwd_dw` computes dw[H, 2M] = [dWg | dWu] = a^T @ dgu, accumulated
+//     over the T rows in f32 (one block per [128, 128] output tile with
+//     a long K loop over T) and written once.
 //
 // Replaces: paddle_tpu/kernels/swiglu.py::swiglu (_fwd_impl ->
-//   _fwd_kernel, the blockwise Pallas GEMM with the fused epilogue).
-// Bound on the H100: at the serving slice's T = 128 rows, bytes — the
-//   weight read (4096 x 22016 x 2 B = 180 MB per layer) against
-//   2*128*4096*22016 = 23 GFLOP (128 flop per weight byte, under the
-//   ~295 flop/byte bf16 ridge).
-// Design: bf16 runs on the tensor cores through nvcuda::wmma 16x16x16
-//   bf16 fragments with f32 accumulators, fed from shared-memory tiles
-//   (64-row A tile, two 64-column B tiles at columns j and j+M, K step
-//   32; 4 warps, each owning a 32x32 quadrant of both g and u). The K
-//   loop is latency-bound when each step waits for its own loads, so
-//   the tiles stream through a 3-slot cp.async ring: two K steps are in
-//   flight while the tensor cores work on a third. Every weight element
-//   is read from device memory once per 64-row block of a. Where the
-//   shape allows 16-byte copies (H % 8 == 0, M % 8 == 0) the ring is
-//   asynchronous with zero-fill at the edges; otherwise tiles load with
-//   masked scalar loads, so any H and M work (llama_tiny's M = 688).
-//   The f32 variant (the CPU-parity dtype) is a register-tiled SIMT GEMM
-//   with the same epilogue: wmma has no full-precision f32 fragment.
-//   Simple and right first; wgmma/TMA pipelines come later.
-
-#include <mma.h>
+//   _fwd_kernel, the blockwise Pallas GEMM with the fused epilogue) and
+//   its backward _bwd_impl -> _bwd_da_kernel and _bwd_dw_kernel.
+// Bound on the H100: the forward at the serving slice's T = 128 rows is
+//   bound by bytes (the 180 MB weight read per layer against 23 GFLOP); at
+//   the training slice's T = 8192, H = 2048, M = 5504 every product is
+//   bound by operations: 2*T*H*2M = 369 GFLOP each for the forward, the
+//   recompute, da and dw, against 33-180 MB of operands.
+// Design: bf16 runs on the tensor cores through mma.sync m16n8k16 bf16
+//   products with f32 accumulators in registers, fed by ldmatrix from
+//   shared-memory tiles (128 x 128 block tiles, K step 64, 8 warps of 64 x
+//   32; see mma_kernel). The K loop streams its tiles through a 3-slot
+//   cp.async ring. Where the shape allows 16-byte copies (row lengths % 8
+//   == 0, 16-byte aligned bases) the ring is asynchronous with zero-fill
+//   at the edges; otherwise tiles load with masked scalar loads, so any H
+//   and M work (llama_tiny's M = 688). The f32 variant (the CPU-parity
+//   dtype) is a register-tiled SIMT GEMM with the same epilogues: the
+//   tensor cores have no full-precision f32 product.
+//   The TPU kernels keep da's [rows, H] and dw's [H, cols] f32
+//   accumulators in VMEM (megabytes) while they recompute g/u; an SM's
+//   227 KB cannot hold them, and recomputing g/u once per H tile would
+//   multiply the recompute GEMM by H / tile. So the recomputed cotangents
+//   are written once (bf16: 180 MB at the training shapes, 0.1 ms of
+//   device-memory traffic against ~1 ms of products) and da and dw read
+//   them; the values are those of the fused design, which rounds dg/du
+//   to bf16 for its tensor-core products all the same.
+//   wgmma/TMA pipelines come later.
 
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   return g / (1.f + expf(-g)) * u;
 }
 
-// ---------------- bf16: wmma tensor-core tiles ----------------------------
+// Gate/up cotangents of one element, the reference's _dgu_tile order:
+// s = sigmoid(g); dg = do * u * (s + g * s * (1 - s)); du = do * (g * s).
+__device__ __forceinline__ void dgu_of(float g, float u, float d, float* dg,
+                                       float* du) {
+  const float s = 1.f / (1.f + expf(-g));
+  *dg = d * u * (s + g * s * (1.f - s));
+  *du = d * (g * s);
+}
 
-constexpr int BT = 64, BM = 64, BK = 32;
-constexpr int STAGES = 3;            // cp.async ring: 2 tiles in flight
-constexpr int LDA = BK + 8;          // bf16 elements, a multiple of 8
-constexpr int LDB = BM + 8;
-constexpr int LDC = BM + 4;          // f32 elements, a multiple of 4
-constexpr int A_BYTES = BT * LDA * 2;
-constexpr int B_BYTES = BK * LDB * 2;
-constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
-constexpr int OPER_BYTES = STAGES * STAGE_BYTES;
-constexpr int EPI_BYTES = 2 * BT * LDC * 4;
-constexpr int SMEM_BYTES = OPER_BYTES > EPI_BYTES ? OPER_BYTES : EPI_BYTES;
+// Epilogues of the gate/up main loop, called once per in-range element
+// (row r, column c < M) with the f32 g and u.
+template <typename T>
+struct FwdEpi {
+  T* out;
+  int M;
+  __device__ void operator()(int r, int c, float g, float u) const {
+    out[static_cast<size_t>(r) * M + c] = ptt::from_f<T>(silu_mul(g, u));
+  }
+};
 
-// Stage one K step (A [64, 32], gate and up [32, 64]) into ring slot
-// `st`. vec_ok (H % 8 == 0, M % 8 == 0, 16-byte aligned bases): 16-byte
-// cp.async copies that zero-fill past the edges; else masked scalar
-// loads through registers.
-__device__ __forceinline__ void load_stage(
-    unsigned char* smem, int st, const bf16* __restrict__ a,
-    const bf16* __restrict__ w, int r0, int c0, int k0, int T, int H, int M,
-    int vec_ok) {
-  bf16* As = reinterpret_cast<bf16*>(smem + st * STAGE_BYTES);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + st * STAGE_BYTES + A_BYTES);
-  bf16* Us = reinterpret_cast<bf16*>(smem + st * STAGE_BYTES + A_BYTES +
-                                     B_BYTES);
-  const size_t ldw = 2 * static_cast<size_t>(M);
+template <typename T>
+struct DguEpi {
+  const T* dout;      // [T, M]
+  T* dgu;             // [T, 2M]
+  int M;
+  __device__ void operator()(int r, int c, float g, float u) const {
+    float dg, du;
+    dgu_of(g, u, ptt::to_f(dout[static_cast<size_t>(r) * M + c]), &dg, &du);
+    const size_t row = static_cast<size_t>(r) * 2 * M;
+    dgu[row + c] = ptt::from_f<T>(dg);
+    dgu[row + M + c] = ptt::from_f<T>(du);
+  }
+};
+
+// ---------------- bf16: mma.sync tensor-core tiles ------------------------
+//
+// One kernel for every bf16 product here: a block owns a 128 x 128 tile
+// of op(A) @ op(B) and walks K in steps of 64 through a 3-slot cp.async
+// ring (two K steps in flight while the tensor cores work on a third; 64
+// rather than 32 halves the barriers per product, and 110 KB of ring
+// still fits two blocks per SM).
+// Its 8 warps (2 x 4) each own 64 x 32 of the tile: per 16-deep slice, 4
+// A and 2 B ldmatrix.x4 loads feed 16 mma.sync m16n8k16 products into 64
+// f32 accumulators per thread, and the epilogue reads them straight from
+// registers. op(A) [Mo, K] is A stored [Mo][K], or with TA stored [K][Mo];
+// op(B) [K, No] is B stored [K][No], or with TB stored [No][K]; ldmatrix
+// .trans serves the transposed layouts. With GU, B is w_gate_up [K, 2M]
+// and the block's 128 columns are 64 gate columns and the same 64 up
+// columns, so each thread holds g and u of the same output elements.
+
+constexpr int TM = 128, TN = 128, TK = 64;
+constexpr int NSTAGE = 3;
+constexpr int LDK = TK + 8;          // k-contiguous tiles [128][72]
+constexpr int LDN = TN + 8;          // m/n-contiguous tiles [64][136]
+constexpr int TILE = TM * LDK > TK * LDN ? TM * LDK : TK * LDN;
+constexpr int MMA_SMEM_BYTES = NSTAGE * 2 * TILE * 2;
+
+// Copy rows [r0, r0 + R) x columns [c0, c0 + C) of a row-major [nr, nc]
+// matrix (leading dim ld) into dst[R][ldd]; out-of-range elements are
+// zero. vec_ok (nc % 8 == 0, ld % 8 == 0, 16-byte aligned base): 16-byte
+// cp.async copies (all 8 columns of a vector are in range or none);
+// else masked scalar loads through registers.
+template <int R, int C>
+__device__ __forceinline__ void load_tile(bf16* dst, int ldd,
+                                          const bf16* __restrict__ src,
+                                          int r0, int c0, int nr, int nc,
+                                          size_t ld, int vec_ok) {
   const bf16 zero = __float2bfloat16(0.f);
-  for (int v = threadIdx.x; v < BT * BK / 8; v += blockDim.x) {
-    const int r = v / (BK / 8);
-    const int kc = (v % (BK / 8)) * 8;
+  for (int v = threadIdx.x; v < R * C / 8; v += blockDim.x) {
+    const int r = v / (C / 8);
+    const int c = (v % (C / 8)) * 8;
     const int gr = r0 + r;
-    const int gk = k0 + kc;
-    bf16* dst = As + r * LDA + kc;
+    const int gc = c0 + c;
+    bf16* d = dst + r * ldd + c;
     if (vec_ok) {
-      const bool in = gr < T && gk < H;      // H % 8 == 0: all 8 or none
-      ptt::cp_async16(dst, in ? a + static_cast<size_t>(gr) * H + gk : a,
-                      in ? 16 : 0);
+      const bool in = gr < nr && gc < nc;
+      ptt::cp_async16(d, in ? src + gr * ld + gc : src, in ? 16 : 0);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        dst[j] = (gr < T && gk + j < H)
-                     ? a[static_cast<size_t>(gr) * H + gk + j]
-                     : zero;
-    }
-  }
-  for (int v = threadIdx.x; v < BK * BM / 8; v += blockDim.x) {
-    const int kr = v / (BM / 8);
-    const int cc = (v % (BM / 8)) * 8;
-    const int gk = k0 + kr;
-    const int gc = c0 + cc;
-    bf16* dg = Gs + kr * LDB + cc;
-    bf16* du = Us + kr * LDB + cc;
-    if (vec_ok) {
-      const bool in = gk < H && gc < M;      // M % 8 == 0: all 8 or none
-      const bf16* src = in ? w + static_cast<size_t>(gk) * ldw + gc : w;
-      ptt::cp_async16(dg, src, in ? 16 : 0);
-      ptt::cp_async16(du, in ? src + M : w, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bool in = gk < H && gc + j < M;
-        const size_t off = static_cast<size_t>(gk) * ldw + gc + j;
-        dg[j] = in ? w[off] : zero;
-        du[j] = in ? w[off + M] : zero;
-      }
+        d[j] = (gr < nr && gc + j < nc) ? src[gr * ld + gc + j] : zero;
     }
   }
 }
 
-__global__ void __launch_bounds__(128)
-swiglu_wmma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                   bf16* __restrict__ out, int T, int H, int M, int vec_ok) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+template <bool TA, bool TB, bool GU>
+__device__ __forceinline__ void mma_stage(bf16* As, bf16* Bs,
+                                          const bf16* __restrict__ A,
+                                          const bf16* __restrict__ B,
+                                          int m0, int n0, int k0, int Mo,
+                                          int No, int K, int vec_ok) {
+  if (TA)
+    load_tile<TK, TM>(As, LDN, A, k0, m0, K, Mo, Mo, vec_ok);
+  else
+    load_tile<TM, TK>(As, LDK, A, m0, k0, Mo, K, K, vec_ok);
+  if (GU) {                          // B = w_gate_up [K, 2 No]
+    const size_t ldw = 2 * static_cast<size_t>(No);
+    load_tile<TK, TN / 2>(Bs, LDN, B, k0, n0, K, No, ldw, vec_ok);
+    load_tile<TK, TN / 2>(Bs + TN / 2, LDN, B + No, k0, n0, K, No, ldw,
+                          vec_ok);
+  } else if (TB) {
+    load_tile<TN, TK>(Bs, LDK, B, n0, k0, No, K, K, vec_ok);
+  } else {
+    load_tile<TK, TN>(Bs, LDN, B, k0, n0, K, No, No, vec_ok);
+  }
+}
 
-  const int r0 = blockIdx.y * BT;
-  const int c0 = blockIdx.x * BM;
+// Epilogues of the generic product: called once per in-range element.
+struct StoreEpi {
+  bf16* C;
+  int No;
+  __device__ void operator()(int r, int c, float v) const {
+    C[static_cast<size_t>(r) * No + c] = __float2bfloat16(v);
+  }
+};
+
+template <bool TA, bool TB, bool GU, class Epi>
+__global__ void __launch_bounds__(256)
+mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int Mo,
+           int No, int K, int vec_ok, Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int m0 = blockIdx.y * TM;
+  const int n0 = blockIdx.x * (GU ? TN / 2 : TN);
   const int warp = threadIdx.x >> 5;
-  const int wr = (warp >> 1) * 32;
-  const int wc = (warp & 1) * 32;
+  const int lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64;
+  const int wn = warp & 3;
+  const int li = lane >> 3;          // which 8x8 matrix this lane addresses
+  const int lr = lane & 7;           // ... and which of its rows
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> g[2][2], u[2][2];
+  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(g[i][j], 0.f);
-      wmma::fill_fragment(u[i][j], 0.f);
-    }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  const int KT = (H + BK - 1) / BK;
+  const int KT = (K + TK - 1) / TK;
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
+  for (int st = 0; st < NSTAGE - 1; ++st) {
     if (st < KT)
-      load_stage(smem, st, a, w, r0, c0, st * BK, T, H, M, vec_ok);
+      mma_stage<TA, TB, GU>(smem + st * 2 * TILE, smem + st * 2 * TILE + TILE,
+                            A, B, m0, n0, st * TK, Mo, No, K, vec_ok);
     ptt::cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    ptt::cp_async_wait<STAGES - 2>();        // step kt has landed
+    ptt::cp_async_wait<NSTAGE - 2>();        // step kt has landed
     __syncthreads();                         // ... for every thread, and
                                              // step kt-1's slot is free
-    const int nk = kt + STAGES - 1;
-    if (nk < KT)
-      load_stage(smem, nk % STAGES, a, w, r0, c0, nk * BK, T, H, M, vec_ok);
+    const int nk = kt + NSTAGE - 1;
+    if (nk < KT) {
+      bf16* s = smem + (nk % NSTAGE) * 2 * TILE;
+      mma_stage<TA, TB, GU>(s, s + TILE, A, B, m0, n0, nk * TK, Mo, No, K,
+                            vec_ok);
+    }
     ptt::cp_async_commit();
 
-    const unsigned char* base = smem + (kt % STAGES) * STAGE_BYTES;
-    const bf16* As = reinterpret_cast<const bf16*>(base);
-    const bf16* Gs = reinterpret_cast<const bf16*>(base + A_BYTES);
-    const bf16* Us = reinterpret_cast<const bf16*>(base + A_BYTES + B_BYTES);
+    const bf16* As = smem + (kt % NSTAGE) * 2 * TILE;
+    const bf16* Bs = As + TILE;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bg[2],
-          bu[2];
+    for (int kk = 0; kk < TK; kk += 16) {
+      uint32_t af[4][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wr + i * 16) * LDA + kk, LDA);
+      for (int mi = 0; mi < 4; ++mi) {
+        const int m = wm + mi * 16;
+        if (TA)   // As[k][m]: matrices (m, k) = (0,0) (8,0) (0,8) (8,8)
+          ptt::ldmatrix_x4_trans(
+              af[mi], As + (kk + lr + (li >> 1) * 8) * LDN + m + (li & 1) * 8);
+        else      // As[m][k]: lanes 0-15 rows m.., lanes 16-31 at k + 8
+          ptt::ldmatrix_x4(af[mi],
+                           As + (m + (lane & 15)) * LDK + kk + (lane >> 4) * 8);
+      }
+      uint32_t bfr[4][2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(bg[j], Gs + kk * LDB + wc + j * 16, LDB);
-        wmma::load_matrix_sync(bu[j], Us + kk * LDB + wc + j * 16, LDB);
+      for (int p = 0; p < 2; ++p) {
+        // two n8 tiles: matrices (k, n) = (0,0) (8,0) (0,8) (8,8)
+        const int nb = GU ? p * (TN / 2) + wn * 16 : wn * 32 + p * 16;
+        uint32_t r[4];
+        if (TB)   // Bs[n][k]
+          ptt::ldmatrix_x4(r, Bs + (nb + lr + (li >> 1) * 8) * LDK + kk +
+                                  (li & 1) * 8);
+        else      // Bs[k][n]
+          ptt::ldmatrix_x4_trans(
+              r, Bs + (kk + lr + (li & 1) * 8) * LDN + nb + (li >> 1) * 8);
+        bfr[2 * p][0] = r[0];
+        bfr[2 * p][1] = r[1];
+        bfr[2 * p + 1][0] = r[2];
+        bfr[2 * p + 1][1] = r[3];
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(g[i][j], af[i], bg[j], g[i][j]);
-          wmma::mma_sync(u[i][j], af[i], bu[j], u[i][j]);
-        }
+        for (int ni = 0; ni < 4; ++ni)
+          ptt::mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
     }
   }
   ptt::cp_async_wait<0>();
-  __syncthreads();                           // ring free: reuse for epilogue
 
-  float* Gc = reinterpret_cast<float*>(smem);
-  float* Uc = Gc + BT * LDC;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int off = (wr + i * 16) * LDC + wc + j * 16;
-      wmma::store_matrix_sync(Gc + off, g[i][j], LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(Uc + off, u[i][j], LDC, wmma::mem_row_major);
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm + mi * 16 + g + h * 8;
+      if (r >= Mo) continue;
+      if constexpr (GU) {
+        // n tiles 0, 1 are gate columns, 2, 3 the same up columns
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = n0 + wn * 16 + ni * 8 + t2 + e;
+            if (c < No)
+              epi(r, c, acc[mi][ni][h * 2 + e], acc[mi][ni + 2][h * 2 + e]);
+          }
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = n0 + wn * 32 + ni * 8 + t2 + e;
+            if (c < No) epi(r, c, acc[mi][ni][h * 2 + e]);
+          }
+      }
     }
-  __syncthreads();
-  for (int e = threadIdx.x; e < BT * BM; e += blockDim.x) {
-    const int r = e / BM;
-    const int c = e % BM;
-    const int gr = r0 + r;
-    const int gc = c0 + c;
-    if (gr < T && gc < M)
-      out[static_cast<size_t>(gr) * M + gc] =
-          __float2bfloat16(silu_mul(Gc[r * LDC + c], Uc[r * LDC + c]));
-  }
 }
 
 // ---------------- f32: register-tiled SIMT --------------------------------
 
 constexpr int FT = 64, FM = 64, FK = 16;
 
+template <class Epi>
 __global__ void __launch_bounds__(256)
 swiglu_simt_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                   float* __restrict__ out, int T, int H, int M) {
+                   int T, int H, int M, Epi epi) {
   __shared__ float As[FK][FT + 4];   // transposed: As[k][row]
   __shared__ float Gs[FK][FM + 4];
   __shared__ float Us[FK][FM + 4];
@@ -268,9 +358,137 @@ swiglu_simt_kernel(const float* __restrict__ a, const float* __restrict__ w,
     for (int j = 0; j < 4; ++j) {
       const int gr = r0 + ty * 4 + i;
       const int gc = c0 + tx * 4 + j;
-      if (gr < T && gc < M)
-        out[static_cast<size_t>(gr) * M + gc] = silu_mul(g[i][j], u[i][j]);
+      if (gr < T && gc < M) epi(gr, gc, g[i][j], u[i][j]);
     }
+}
+
+// f32 C[Mo, No] = op(A) @ op(B), operand conventions as mma_kernel.
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(256)
+gemm_simt_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                 float* __restrict__ C, int Mo, int No, int K) {
+  __shared__ float As[FK][FT + 4];   // As[k][row]
+  __shared__ float Bs[FK][FM + 4];   // Bs[k][col]
+
+  const int m0 = blockIdx.y * FT;
+  const int n0 = blockIdx.x * FM;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += FK) {
+    for (int e = tid; e < FT * FK; e += blockDim.x) {
+      // TA: consecutive threads walk the contiguous row index
+      const int r = TA ? e % FT : e / FK;
+      const int k = TA ? e / FT : e % FK;
+      const int gm = m0 + r;
+      const int gk = k0 + k;
+      const bool in = gm < Mo && gk < K;
+      As[k][r] = in ? (TA ? A[static_cast<size_t>(gk) * Mo + gm]
+                          : A[static_cast<size_t>(gm) * K + gk])
+                    : 0.f;
+    }
+    for (int e = tid; e < FK * FM; e += blockDim.x) {
+      const int c = TB ? e / FK : e % FM;
+      const int k = TB ? e % FK : e / FM;
+      const int gn = n0 + c;
+      const int gk = k0 + k;
+      const bool in = gn < No && gk < K;
+      Bs[k][c] = in ? (TB ? B[static_cast<size_t>(gn) * K + gk]
+                          : B[static_cast<size_t>(gk) * No + gn])
+                    : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      float ar[4], br[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ar[i] = As[k][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) br[j] = Bs[k][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gm = m0 + ty * 4 + i;
+      const int gn = n0 + tx * 4 + j;
+      if (gm < Mo && gn < No) C[static_cast<size_t>(gm) * No + gn] = acc[i][j];
+    }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool TA, bool TB, bool GU, class Epi>
+int mma_launch(const void* A, const void* B, int Mo, int No, int K,
+               int vec_ok, Epi epi, cudaStream_t stream) {
+  auto kernel = mma_kernel<TA, TB, GU, Epi>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((No + (GU ? TN / 2 : TN) - 1) / (GU ? TN / 2 : TN),
+            (Mo + TM - 1) / TM);
+  kernel<<<grid, 256, MMA_SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(A), static_cast<const bf16*>(B), Mo, No, K,
+      vec_ok, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gate/up main loop over a [T, H] x [H, 2M] problem with epilogue epi
+template <class Epi>
+int gu_bf16(const void* a, const void* w, int T, int H, int M, Epi epi,
+            cudaStream_t stream) {
+  const int vec_ok = (H % 8 == 0) && (M % 8 == 0) && aligned16(a) &&
+                     aligned16(w);
+  return mma_launch<false, false, true>(a, w, T, M, H, vec_ok, epi, stream);
+}
+
+template <class Epi>
+int gu_f32(const void* a, const void* w, int T, int H, int M, Epi epi,
+           cudaStream_t stream) {
+  dim3 grid((M + FM - 1) / FM, (T + FT - 1) / FT);
+  swiglu_simt_kernel<Epi><<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w), T, H, M,
+      epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool TA, bool TB>
+int gemm_bf16(const void* A, const void* B, void* C, int Mo, int No, int K,
+              cudaStream_t stream) {
+  // 16-byte copies need every staged row to be whole 8-element vectors:
+  // row lengths are K (A, or B with TB), Mo (A with TA), No (B)
+  const int a_row = TA ? Mo : K;
+  const int b_row = TB ? K : No;
+  const int vec_ok = (a_row % 8 == 0) && (b_row % 8 == 0) && aligned16(A) &&
+                     aligned16(B);
+  return mma_launch<TA, TB, false>(A, B, Mo, No, K, vec_ok,
+                                   StoreEpi{static_cast<bf16*>(C), No},
+                                   stream);
+}
+
+template <bool TA, bool TB>
+int gemm_f32(const void* A, const void* B, void* C, int Mo, int No, int K,
+             cudaStream_t stream) {
+  dim3 grid((No + FM - 1) / FM, (Mo + FT - 1) / FT);
+  gemm_simt_kernel<TA, TB><<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<float*>(C), Mo, No, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -278,22 +496,57 @@ swiglu_simt_kernel(const float* __restrict__ a, const float* __restrict__ w,
 extern "C" int ptt_swiglu_bf16(const void* a, const void* w, void* out, int T,
                                int H, int M, void* stream) {
   if (T <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
-  const int vec_ok = (H % 8 == 0) && (M % 8 == 0) &&
-                     (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  dim3 grid((M + BM - 1) / BM, (T + BT - 1) / BT);
-  swiglu_wmma_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-      static_cast<bf16*>(out), T, H, M, vec_ok);
-  return static_cast<int>(cudaGetLastError());
+  return gu_bf16(a, w, T, H, M, FwdEpi<bf16>{static_cast<bf16*>(out), M},
+                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ptt_swiglu_f32(const void* a, const void* w, void* out, int T,
                               int H, int M, void* stream) {
   if (T <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
-  dim3 grid((M + FM - 1) / FM, (T + FT - 1) / FT);
-  swiglu_simt_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w),
-      static_cast<float*>(out), T, H, M);
-  return static_cast<int>(cudaGetLastError());
+  return gu_f32(a, w, T, H, M, FwdEpi<float>{static_cast<float*>(out), M},
+                static_cast<cudaStream_t>(stream));
+}
+
+// a [T, H], w [H, 2M], dout [T, M] -> dgu [T, 2M] (scratch the caller
+// keeps for bwd_dw) and da [T, H]
+extern "C" int ptt_swiglu_bwd_da_bf16(const void* a, const void* w,
+                                      const void* dout, void* dgu, void* da,
+                                      int T, int H, int M, void* stream) {
+  if (T <= 0 || M <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  auto st = static_cast<cudaStream_t>(stream);
+  int err = gu_bf16(a, w, T, H, M,
+                    DguEpi<bf16>{static_cast<const bf16*>(dout),
+                                 static_cast<bf16*>(dgu), M},
+                    st);
+  if (err != 0) return err;
+  return gemm_bf16<false, true>(dgu, w, da, T, H, 2 * M, st);
+}
+
+extern "C" int ptt_swiglu_bwd_da_f32(const void* a, const void* w,
+                                     const void* dout, void* dgu, void* da,
+                                     int T, int H, int M, void* stream) {
+  if (T <= 0 || M <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  auto st = static_cast<cudaStream_t>(stream);
+  int err = gu_f32(a, w, T, H, M,
+                   DguEpi<float>{static_cast<const float*>(dout),
+                                 static_cast<float*>(dgu), M},
+                   st);
+  if (err != 0) return err;
+  return gemm_f32<false, true>(dgu, w, da, T, H, 2 * M, st);
+}
+
+// a [T, H], dgu [T, 2M] -> dw [H, 2M]
+extern "C" int ptt_swiglu_bwd_dw_bf16(const void* a, const void* dgu,
+                                      void* dw, int T, int H, int M,
+                                      void* stream) {
+  if (T <= 0 || M <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  return gemm_bf16<true, false>(a, dgu, dw, H, 2 * M, T,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ptt_swiglu_bwd_dw_f32(const void* a, const void* dgu, void* dw,
+                                     int T, int H, int M, void* stream) {
+  if (T <= 0 || M <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  return gemm_f32<true, false>(a, dgu, dw, H, 2 * M, T,
+                               static_cast<cudaStream_t>(stream));
 }

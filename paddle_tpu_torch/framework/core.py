@@ -1,7 +1,7 @@
 """Flag registry, seeding and device resolution (counterpart of
 paddle_tpu/framework/core.py).
 
-Only the flags the serving slice reads are registered, with the
+Only the flags the ported slices read are registered, with the
 reference's names and defaults; `get_flag` reads the environment first,
 as the reference does, and `get_bool_flag` normalises env strings so
 `FLAGS_x=0` turns a kill switch off.
@@ -26,6 +26,12 @@ _flags: dict = {
     "FLAGS_ragged_attention": True,
     # prefix caching over the KV page pool; 0 drops the index
     "FLAGS_prefix_cache": True,
+    # flash attention in the training forward; 0 is the reference's dense
+    # ablation, which the card refuses (no dense attention runs there)
+    "FLAGS_use_flash_attention": True,
+    # blockwise fused cross-entropy (kernels rows 6-7, not ported yet: a
+    # CUDA tensor raises under 1)
+    "FLAGS_use_fused_ce": False,
 }
 
 _FALSY = (False, None, 0, 0.0, "0", "false", "False", "", "off", "OFF")

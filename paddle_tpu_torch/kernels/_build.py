@@ -41,9 +41,25 @@ _SIGNATURES = {
     # x, w, y, rows, H, eps, stream
     "ptt_rms_norm_bf16": (_P, _P, _P, _I, _I, _F, _P),
     "ptt_rms_norm_f32": (_P, _P, _P, _I, _I, _F, _P),
+    # x, residual, w, y, h, rows, H, eps, stream
+    "ptt_fused_add_rms_norm_bf16": (_P,) * 5 + (_I, _I, _F, _P),
+    "ptt_fused_add_rms_norm_f32": (_P,) * 5 + (_I, _I, _F, _P),
     # a, w_gate_up, out, T, H, M, stream
     "ptt_swiglu_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "ptt_swiglu_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # a, w_gate_up, dout, dgu (out), da (out), T, H, M, stream
+    "ptt_swiglu_bwd_da_bf16": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "ptt_swiglu_bwd_da_f32": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # a, dgu, dw (out), T, H, M, stream
+    "ptt_swiglu_bwd_dw_bf16": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "ptt_swiglu_bwd_dw_f32": (_P,) * 3 + (_I,) * 3 + (_P,),
+    # q, k, v, o, lse, B, S, Hq, Hk, D, causal, scale, stream
+    "ptt_flash_attention_fwd_bf16": (_P,) * 5 + (_I,) * 6 + (_F, _P),
+    "ptt_flash_attention_fwd_f32": (_P,) * 5 + (_I,) * 6 + (_F, _P),
+    # q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq, Hk, D, causal,
+    # scale, stream
+    "ptt_flash_attention_bwd_bf16": (_P,) * 9 + (_I,) * 6 + (_F, _P),
+    "ptt_flash_attention_bwd_f32": (_P,) * 9 + (_I,) * 6 + (_F, _P),
     # q, k_pages, v_pages, q_start, q_len, kv_len, page_table, out,
     # T, nh, kvh, n_pages, page, d, B, ppmax, scale, stream
     "ptt_ragged_paged_attention_bf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),

@@ -4,7 +4,10 @@
 (`csrc/rms_norm.cu`) for a CUDA tensor and runs `_plain` — exactly the
 reference's jnp expression (rms_norm.py:36-39) — for a CPU tensor. A
 CUDA tensor the kernel cannot take raises; nothing falls back.
-Forward only: the backward belongs to the training slice.
+Both routes sit inside one `torch.autograd.Function` whose backward is
+the reference's analytic formula (`_rms_bwd`, rms_norm.py:71-82) in
+plain PyTorch, as the reference's backward is plain jnp: dx in x's
+dtype, dw in the weight's (f32 for the model's norms).
 """
 from __future__ import annotations
 
@@ -31,6 +34,21 @@ def _plain(x, weight, eps):
     return (x32 * torch.rsqrt(ms + eps) * weight.float()).to(x.dtype)
 
 
+def _bwd(x, weight, g, eps):
+    """The reference's `_rms_bwd`: dx = r*(g*w) - x*r^3/H*sum(g*w*x),
+    dw = sum_rows(g*x*r), f32 math."""
+    H = x.shape[-1]
+    x32 = x.float()
+    g32 = g.float()
+    w32 = weight.float()
+    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    gw = g32 * w32
+    dx = r * gw - x32 * (r ** 3) * torch.sum(gw * x32, dim=-1,
+                                            keepdim=True) / H
+    dw = torch.sum((g32 * x32 * r).reshape(-1, H), dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
 def _launch(x, weight, eps):
     H = x.shape[-1]
     xf = x.contiguous()
@@ -50,6 +68,22 @@ def _launch(x, weight, eps):
     return y
 
 
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return _plain(x, weight, eps)
+        return _launch(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = _bwd(x, weight, g, ctx.eps)
+        return dx, dw, None
+
+
 def rms_norm(x, weight, eps=1e-6, use_kernel=None):
     """x: [..., H]; weight: [H] (f32). Returns x.dtype.
 
@@ -66,11 +100,10 @@ def rms_norm(x, weight, eps=1e-6, use_kernel=None):
     if x.device.type == "cpu":
         if use_kernel:
             raise ValueError("rms_norm: use_kernel=True needs a CUDA tensor")
-        return _plain(x, weight, eps)
-    if not ok:
+    elif not ok:
         raise ValueError(
             f"rms_norm: no kernel for x {tuple(x.shape)} {x.dtype}")
-    return _launch(x, weight, eps)
+    return _RmsNorm.apply(x, weight, eps)
 
 
 rms_norm.launches = 0

@@ -1,13 +1,17 @@
-"""Fused SwiGLU MLP prologue, forward only (counterpart of
+"""Fused SwiGLU MLP prologue, forward and backward (counterpart of
 paddle_tpu/kernels/swiglu.py).
 
 `swiglu(a, w_gate_up)` = silu(a @ Wg) * (a @ Wu) with w_gate_up = [Wg |
-Wu] of shape [H, 2M] (gate columns first). A CUDA tensor launches the
-hand-written kernel (`csrc/swiglu.cu`: the GEMM runs inside the kernel
-and the [T, 2M] gate/up product is never stored); a CPU tensor runs
-`_ref`, the reference's exact unfused expression (swiglu.py:106). The
-kernel masks ragged edges, so unlike the TPU route it takes any H and M.
-The backward belongs to the training slice.
+Wu] of shape [H, 2M] (gate columns first). A CUDA tensor runs a
+`torch.autograd.Function` over the hand-written kernels in
+`csrc/swiglu.cu`: the forward (the GEMM runs inside the kernel and the
+[T, 2M] gate/up product is never stored) and a backward of two launches,
+`swiglu_bwd_da` (recompute g/u with the forward's main loop, form the
+gate/up cotangents dgu in f32, then da = dgu @ w_gate_up^T) and
+`swiglu_bwd_dw` (dw = a^T @ dgu). A CPU tensor runs `_ref`, the
+reference's exact unfused expression (swiglu.py:106), under autograd:
+the reference's CPU backward is `jax.vjp(_ref)` (l.205-209). The kernels
+mask ragged edges, so unlike the TPU route they take any H and M.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["swiglu", "supported"]
+__all__ = ["swiglu", "swiglu_bwd_da", "swiglu_bwd_dw", "supported"]
 
 
 def supported(a_shape, w_shape, dtype=torch.bfloat16) -> bool:
@@ -33,6 +37,18 @@ def _ref(a, w_gate_up):
     return F.silu(gu[..., :m]) * gu[..., m:]
 
 
+def _ref_bwd(a, w_gate_up, g):
+    """The plain backward: autograd of `_ref`, (da, dw_gate_up)."""
+    with torch.enable_grad():
+        a_ = a.detach().requires_grad_()
+        w_ = w_gate_up.detach().requires_grad_()
+        return torch.autograd.grad(_ref(a_, w_), (a_, w_), g)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(a, w_gate_up):
     H = a.shape[-1]
     M = w_gate_up.shape[-1] // 2
@@ -44,11 +60,63 @@ def _launch(a, w_gate_up):
     fn = (lib.ptt_swiglu_bf16 if a.dtype == torch.bfloat16
           else lib.ptt_swiglu_f32)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
         _build.check(fn(af.data_ptr(), w.data_ptr(), out.data_ptr(), T, H, M,
-                        stream), "swiglu")
+                        _stream(a)), "swiglu")
     swiglu.launches += 1
     return out.reshape(*a.shape[:-1], M)
+
+
+def swiglu_bwd_da(a, w_gate_up, dout):
+    """Kernel route of the backward, first launch: a [..., H], w_gate_up
+    [H, 2M], dout [..., M] -> (da [..., H], dgu [T, 2M]); dgu = [dg | du]
+    is the recomputed gate/up cotangent that `swiglu_bwd_dw` reads."""
+    H = a.shape[-1]
+    M = w_gate_up.shape[-1] // 2
+    af = a.reshape(-1, H).contiguous()
+    w = w_gate_up.contiguous()
+    df = dout.reshape(-1, M).to(a.dtype).contiguous()
+    T = af.shape[0]
+    dgu = torch.empty((T, 2 * M), dtype=a.dtype, device=a.device)
+    da = torch.empty((T, H), dtype=a.dtype, device=a.device)
+    lib = _build.library()
+    fn = (lib.ptt_swiglu_bwd_da_bf16 if a.dtype == torch.bfloat16
+          else lib.ptt_swiglu_bwd_da_f32)
+    with torch.cuda.device(a.device):
+        _build.check(fn(af.data_ptr(), w.data_ptr(), df.data_ptr(),
+                        dgu.data_ptr(), da.data_ptr(), T, H, M, _stream(a)),
+                     "swiglu_bwd_da")
+    swiglu_bwd_da.launches += 1
+    return da.reshape(a.shape), dgu
+
+
+def swiglu_bwd_dw(a, dgu):
+    """Kernel route of the backward, second launch: a [..., H], dgu
+    [T, 2M] -> dw_gate_up [H, 2M] = a^T @ dgu."""
+    H = a.shape[-1]
+    af = a.reshape(-1, H).contiguous()
+    T, M2 = dgu.shape
+    dw = torch.empty((H, M2), dtype=a.dtype, device=a.device)
+    lib = _build.library()
+    fn = (lib.ptt_swiglu_bwd_dw_bf16 if a.dtype == torch.bfloat16
+          else lib.ptt_swiglu_bwd_dw_f32)
+    with torch.cuda.device(a.device):
+        _build.check(fn(af.data_ptr(), dgu.data_ptr(), dw.data_ptr(), T, H,
+                        M2 // 2, _stream(a)), "swiglu_bwd_dw")
+    swiglu_bwd_dw.launches += 1
+    return dw
+
+
+class _Swiglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w_gate_up):
+        ctx.save_for_backward(a, w_gate_up)
+        return _launch(a, w_gate_up)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w_gate_up = ctx.saved_tensors
+        da, dgu = swiglu_bwd_da(a, w_gate_up, g)
+        return da, swiglu_bwd_dw(a, dgu)
 
 
 def swiglu(a, w_gate_up, use_kernel=None):
@@ -72,7 +140,9 @@ def swiglu(a, w_gate_up, use_kernel=None):
     if not ok:
         raise ValueError(f"swiglu: no kernel for a {tuple(a.shape)} "
                          f"{a.dtype}, w {tuple(w_gate_up.shape)}")
-    return _launch(a, w_gate_up)
+    return _Swiglu.apply(a, w_gate_up)
 
 
 swiglu.launches = 0
+swiglu_bwd_da.launches = 0
+swiglu_bwd_dw.launches = 0

@@ -5,7 +5,9 @@ arrays (the caller converts bf16 to float32 first: `torch.from_numpy`
 cannot take `ml_dtypes` arrays) and returns tensors in this port's
 layout — keys and `[in, out]` shapes are the reference's, fused or
 unfused checkpoints are translated to `cfg`'s layout, norm weights stay
-f32 and every other tensor takes `dtype`.
+f32 and every other tensor takes `dtype`. `to_numpy` is the reverse
+view: a model's parameters or their grads as float32 numpy arrays under
+the reference's names.
 """
 from __future__ import annotations
 
@@ -14,7 +16,18 @@ import torch
 
 from .llama import _translate_fusion_keys, torch_dtype
 
-__all__ = ["state_from_jax"]
+__all__ = ["state_from_jax", "to_numpy"]
+
+
+def to_numpy(model, grads=False):
+    """{name: np.float32 array} of the model's parameters, or with
+    grads=True of their grads (parameters without one are left out)."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is not None:
+            out[name] = t.detach().float().cpu().numpy()
+    return out
 
 
 def state_from_jax(np_state, cfg, device, dtype=None):

@@ -1,5 +1,5 @@
-"""LLaMA family — the serving half (counterpart of
-paddle_tpu/models/llama.py).
+"""LLaMA family (counterpart of paddle_tpu/models/llama.py): the
+training forward and the serving step.
 
 `LlamaForCausalLM` is an `nn.Module` holding parameters whose
 `state_dict()` keys and shapes match the JAX model's one to one, in the
@@ -10,13 +10,20 @@ same `[in, out]` layout (`a @ W`): `model.embed_tokens`,
 `…post_attention_layernorm.weight`, `model.norm.weight`, `lm_head`.
 Norm weights stay f32 in a bf16 model, as in the reference.
 
-The serving step `_ragged_step_paged` runs the chunked-prefill /
-decode mix over the paged KV pool with the reference's float order.
-Its per-layer KV page writes are in-place index writes into the pool
-tensors (the reference donates its pools to XLA instead). The layer
-stack is a Python loop over per-layer weight dicts (the reference
-stacks weights for `lax.scan`). The training forward, `generate` and
-the bucketed/decode-only blocks belong to later slices.
+Training: `forward(ids)` -> logits and `loss(ids, labels)` (shifted
+next-token CE in f32) mirror the reference's l.97-313 and l.423-457
+module for module. Each decoder layer runs `rms_norm`, the fused
+QKV+RoPE prologue, `flash_attention_bshd` (causal), the o projection,
+`fused_add_rms_norm` and `swiglu`; the layer stack is a Python loop
+(the reference's `lax.scan` over stacked weights computes the same
+values). Remat (`use_recompute=True` under autograd), sequence
+parallelism and explicit position ids are not ported and raise.
+
+Serving: `_ragged_step_paged` runs the chunked-prefill / decode mix
+over the paged KV pool with the reference's float order. Its per-layer
+KV page writes are in-place index writes into the pool tensors (the
+reference donates its pools to XLA instead). The bucketed/decode-only
+blocks and `generate` belong to later slices.
 """
 from __future__ import annotations
 
@@ -29,10 +36,13 @@ from torch import nn
 
 from ..framework import core
 from ..framework.core import resolve_device
+from ..kernels import flash_attention as kfa
+from ..kernels import fused_norm_residual as kfnr
 from ..kernels import ragged_paged_attention as krpa
 from ..kernels import rms_norm as krn
 from ..kernels import rope as krope
 from ..kernels import swiglu as ksw
+from ..nn.functional import loss as floss
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_350m", "llama_1b", "llama_7b"]
@@ -51,7 +61,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     # training-side knobs kept so a reference config.json loads as is;
-    # the serving half reads none of them
+    # the training forward refuses use_recompute and sequence_parallel
+    # (not ported), the serving half reads none of them
     use_recompute: bool = True
     scan_layers: bool = True
     sequence_parallel: bool = False
@@ -79,7 +90,11 @@ def _param(shape, device, dtype, generator, std=0.02, const=None):
         t.fill_(const)
     else:
         t.normal_(0.0, std, generator=generator)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
+
+
+def _fused_flag():
+    return core.get_bool_flag("FLAGS_fused_transformer", True)
 
 
 class LlamaRMSNorm(nn.Module):
@@ -88,6 +103,22 @@ class LlamaRMSNorm(nn.Module):
         self.eps = eps
         self.weight = _param((hidden,), device, torch.float32, None,
                              const=1.0)
+
+    def forward(self, x):
+        return krn.rms_norm(x, self.weight, self.eps)
+
+
+def _attention_core(q, k, v):
+    """The reference's `_core`: flash attention, causal. On the CPU the
+    wrapper runs the dense `_sdpa` the reference runs there; the card
+    runs the kernels and refuses the dense ablation
+    (FLAGS_use_flash_attention=0)."""
+    if (q.device.type != "cpu"
+            and not core.get_bool_flag("FLAGS_use_flash_attention", True)):
+        raise NotImplementedError(
+            "FLAGS_use_flash_attention=0 selects the reference's dense "
+            "attention, which the port does not run on the card")
+    return kfa.flash_attention_bshd(q, k, v, causal=True)
 
 
 class LlamaAttention(nn.Module):
@@ -102,18 +133,67 @@ class LlamaAttention(nn.Module):
             self.k_proj = _param((h, kvh * d), device, dtype, g)
             self.v_proj = _param((h, kvh * d), device, dtype, g)
         self.o_proj = _param((nh * d, h), device, dtype, g)
+        self.cfg = cfg
+
+    def forward(self, x):
+        cfg = self.cfg
+        B = x.shape[0]
+        nh, kvh, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        if cfg.fuse_attention_qkv and _fused_flag():
+            # fused QKV+RoPE prologue: one wide projection, rope on the
+            # q/k slices
+            q, k, v = krope.fused_qkv_rope(x, self.qkv_proj, nh, kvh, d,
+                                           base=cfg.rope_theta)
+        else:
+            if cfg.fuse_attention_qkv:
+                qkv = x @ self.qkv_proj
+                q = qkv[..., : nh * d]
+                k = qkv[..., nh * d: (nh + kvh) * d]
+                v = qkv[..., (nh + kvh) * d:]
+            else:
+                q, k, v = (x @ self.q_proj, x @ self.k_proj,
+                           x @ self.v_proj)
+            q = q.reshape(B, -1, nh, d)
+            k = k.reshape(B, -1, kvh, d)
+            v = v.reshape(B, -1, kvh, d)
+            q, k = krope.apply_rope(q, k, base=cfg.rope_theta)
+        o = _attention_core(q, k, v)
+        return o.reshape(B, -1, nh * d) @ self.o_proj
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg, device, dtype, g):
         super().__init__()
         h, m = cfg.hidden_size, cfg.intermediate_size
+        self._m = m
+        self._fused = cfg.fuse_mlp
         if cfg.fuse_mlp:
             self.gate_up_proj = _param((h, 2 * m), device, dtype, g)
         else:
             self.gate_proj = _param((h, m), device, dtype, g)
             self.up_proj = _param((h, m), device, dtype, g)
         self.down_proj = _param((m, h), device, dtype, g)
+
+    def forward(self, x):
+        """SwiGLU then the down projection. The card always runs the
+        SwiGLU kernel (over the wide [Wg | Wu] layout, concatenated for
+        an unfused config); the reference's unfused expressions run on
+        the CPU only, under FLAGS_fused_transformer=0 or an unfused
+        config, as in the serving blocks."""
+        on_cpu = x.device.type == "cpu"
+        if self._fused and (_fused_flag() or not on_cpu):
+            return ksw.swiglu(x, self.gate_up_proj) @ self.down_proj
+        if self._fused:
+            gu = x @ self.gate_up_proj
+            act = (torch.nn.functional.silu(gu[..., :self._m])
+                   * gu[..., self._m:])
+        elif on_cpu:
+            act = (torch.nn.functional.silu(x @ self.gate_proj)
+                   * (x @ self.up_proj))
+        else:
+            act = ksw.swiglu(x, torch.cat([self.gate_proj, self.up_proj],
+                                          dim=-1))
+        return act @ self.down_proj
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -126,15 +206,48 @@ class LlamaDecoderLayer(nn.Module):
             cfg.hidden_size, cfg.rms_norm_eps, device)
         self.mlp = LlamaMLP(cfg, device, dtype, g)
 
+    def forward(self, x):
+        attn_out = self.self_attn(self.input_layernorm(x))
+        if _fused_flag() or x.device.type != "cpu":
+            # the residual add and the post-attention norm in one pass
+            # that emits both the normed a2 and the summed stream h (the
+            # card always runs the kernel; the unfused expression is the
+            # CPU's kill-switch parity route)
+            norm = self.post_attention_layernorm
+            a2, h = kfnr.fused_add_rms_norm(x, attn_out, norm.weight,
+                                            norm.eps)
+            return h + self.mlp(a2)
+        h = x + attn_out
+        return h + self.mlp(self.post_attention_layernorm(h))
+
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg, device, dtype, g):
         super().__init__()
+        self.cfg = cfg
         self.embed_tokens = _param((cfg.vocab_size, cfg.hidden_size),
                                    device, dtype, g)
         self.layers = nn.ModuleList([LlamaDecoderLayer(cfg, device, dtype, g)
                                      for _ in range(cfg.num_hidden_layers)])
         self.norm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device)
+
+    def forward(self, input_ids, position_ids=None):
+        cfg = self.cfg
+        if position_ids is not None:
+            raise NotImplementedError(
+                "LlamaModel.forward(position_ids=...) is not ported yet")
+        if cfg.sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel is not ported yet")
+        if cfg.use_recompute and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "use_recompute=True (per-layer remat) is not ported yet; "
+                "build the config with use_recompute=False")
+        x = torch.nn.functional.embedding(input_ids.long(),
+                                          self.embed_tokens)
+        for lyr in self.layers:
+            x = lyr(x)
+        return self.norm(x)
 
 
 def _translate_fusion_keys(sd, cfg):
@@ -174,10 +287,11 @@ def _translate_fusion_keys(sd, cfg):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Parameters only (the serving step is a set of functions over the
-    state dict, as in the reference). Weights are drawn N(0, 0.02) from
-    `generator` (a torch.Generator on `device`; None = torch's default
-    generator for that device), norms are ones in f32."""
+    """The causal LM: `forward`/`loss` for training; the serving step is a
+    set of functions over the state dict, as in the reference. Weights
+    are drawn N(0, 0.02) from `generator` (a torch.Generator on
+    `device`; None = torch's default generator for that device), norms
+    are ones in f32."""
 
     def __init__(self, cfg: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -205,6 +319,21 @@ class LlamaForCausalLM(nn.Module):
                                        assign=assign)
 
     set_state_dict = load_state_dict
+
+    def forward(self, input_ids, position_ids=None):
+        h = self.model(input_ids, position_ids)
+        if self.lm_head is not None:
+            return h @ self.lm_head
+        return h @ self.model.embed_tokens.transpose(0, 1)
+
+    def loss(self, input_ids, labels):
+        """Shifted next-token CE in f32, mean over the non-ignored
+        labels."""
+        logits = self(input_ids)
+        V = logits.shape[-1]
+        lg = logits[:, :-1, :].reshape(-1, V)
+        lb = labels[:, 1:].reshape(-1)
+        return floss.cross_entropy(lg, lb, ignore_index=-100)
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,21 @@ it runs on a machine that has only PyTorch, bypassing tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_cuda.py -m cuda -q
 """
+import json
 import math
+import os
+import re
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import testing
+from paddle_tpu_torch.kernels import flash_attention as t_fa
+from paddle_tpu_torch.kernels import fused_norm_residual as t_fnr
 from paddle_tpu_torch.kernels import ragged_paged_attention as t_rpa
 from paddle_tpu_torch.kernels import rms_norm as t_rms
 from paddle_tpu_torch.kernels import swiglu as t_sw
@@ -24,18 +33,20 @@ def _max_rel(got, want):
             ).item()
 
 
-# bf16: |kernel - plain| <= atol + BF16_RTOL * |plain| element by element,
-# where the plain version runs on f32 copies of the same bf16 inputs and
-# keeps its f32 result; the kernel rounds its f32 result to bf16 once
-# (unit roundoff 2^-8), so BF16_RTOL is two roundoffs and atol covers
-# the f32 summation order near zero
-BF16_RTOL = 2.0 ** -7
+def _within(got, want, atol, rtol=testing.BF16_RTOL):
+    """bf16: |kernel - plain| <= atol + rtol * |plain| element by element
+    (paddle_tpu_torch/testing.py), the plain version on f32 copies of the
+    same bf16 inputs."""
+    return testing.worst(got, want, atol, rtol) <= 1.0
 
 
-def _within(got, want, atol, rtol=BF16_RTOL):
-    got = got.double().cpu()
-    want = want.double().cpu()
-    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+def _within_terms(got, want, terms, dtype):
+    """The kernels that round an intermediate before a second product
+    (flash: P and dS; swiglu: dg and du): atol is TERM_FRAC of each
+    element's own sum of |terms|, rtol 2^-7 on bf16 and 0 on f32."""
+    dt = getattr(torch, dtype)
+    rtol = testing.BF16_RTOL if dt == torch.bfloat16 else 0.0
+    return _within(got, want, testing.TERM_FRAC[dt] * terms, rtol)
 
 
 def _ragged_case(dtype, nh, kvh, d=64, page=16, ppmax=4, n_pages=12,
@@ -122,6 +133,126 @@ def test_ragged_paged_attention_matches_plain(dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_add_rms_norm_matches_plain(dtype):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(37, 256, generator=g, device="cuda").to(dt)
+    r = torch.randn(37, 256, generator=g, device="cuda").to(dt)
+    w = torch.rand(256, generator=g, device="cuda") + 0.5
+    y, h = t_fnr.fused_add_rms_norm(x, r, w, 1e-5)
+    # the plain version on f32 copies keeps the one low-precision step of
+    # its float order: the norm reads h rounded to the stream dtype
+    h_p = x.float() + r.float()
+    y_p = t_rms._plain(h_p.to(dt).float(), w, 1e-5)
+    if dt == torch.float32:
+        assert _max_rel(y, y_p) <= 1e-5 and _max_rel(h, h_p) <= 1e-6
+    else:
+        # h is the bf16-rounded sum, as the unfused stream is
+        assert torch.equal(h, x + r)
+        assert _within(y, y_p, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,M", [(256, 688), (100, 60)],
+                         ids=["vector_tiles", "scalar_edges"])
+def test_swiglu_backward_matches_plain(dtype, H, M):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn(77, H, generator=g, device="cuda").to(dt)
+    wgu = (0.05 * torch.randn(H, 2 * M, generator=g, device="cuda")).to(dt)
+    do = torch.randn(77, M, generator=g, device="cuda").to(dt)
+    a_, w_ = a.clone().requires_grad_(), wgu.clone().requires_grad_()
+    t_sw.swiglu(a_, w_).backward(do)
+    da_p, dw_p = t_sw._ref_bwd(a.float(), wgu.float(), do.float())
+    da_t, dw_t = testing.swiglu_bwd_terms(a, wgu, do)
+    assert _within_terms(a_.grad, da_p, da_t, dtype)
+    assert _within_terms(w_.grad, dw_p, dw_t, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,hq,hk,d,causal", [
+    (2, 128, 4, 4, 128, True), (1, 100, 4, 2, 64, False),
+    (2, 192, 4, 1, 64, True)],
+    ids=["mha_causal_d128", "gqa_full_d64_ragged", "mqa_causal_d64"])
+def test_flash_attention_matches_plain(dtype, B, S, hq, hk, d, causal):
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, do = (torch.randn(B, S, hq, d, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, hk, d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = t_fa.flash_attention_bshd(*leaves, causal=causal)
+    o.backward(do)
+    # the plain version on f32 copies; GQA keeps the one bf16 step of
+    # its float order, q pre-scaled in q's dtype
+    qs, s = ((q * scale).to(dt), 1.0) if hq != hk else (q, scale)
+    ref = [t.float().requires_grad_() for t in (qs, k, v)]
+    o_p = t_fa._plain(*ref, causal, s)
+    o_p.backward(do.float())
+    terms = list(testing.flash_terms(*(r.detach() for r in ref),
+                                     do.float(), causal, s))
+    assert _within_terms(o, o_p, terms[0], dtype)
+    if hq != hk:
+        ref[0].grad.mul_(scale)          # through the pre-scaling
+        terms[1] = terms[1] * scale
+    for leaf, r, t in zip(leaves, ref, terms[1:]):
+        assert _within_terms(leaf.grad, r.grad, t, dtype)
+    _, lse = t_fa.flash_attention_fwd(qs, k, v, causal, s)
+    assert _max_rel(lse, t_fa._plain_lse(qs.float(), k.float(), causal,
+                                         s)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_train_step_launches_every_kernel(fused):
+    """One llama_tiny bf16 TrainStep on the card goes through every
+    training kernel: rms_norm L+1, fused_add_rms_norm L, swiglu
+    forward L, its two backward launches L each, flash forward and
+    backward L each — also under FLAGS_fused_transformer=0, which
+    unfuses only the QKV projection on the card."""
+    _card()
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import llama as TL
+    cfg = TL.llama_tiny(dtype="bfloat16", use_recompute=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    opt = topt.AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     weight_decay=0.1)
+    step = TrainStep(model, opt, lambda i, l: model.loss(i, l))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64))).cuda()
+    counters = (t_rms.rms_norm, t_fnr.fused_add_rms_norm, t_sw.swiglu,
+                t_sw.swiglu_bwd_da, t_sw.swiglu_bwd_dw,
+                t_fa.flash_attention_fwd, t_fa.flash_attention_bwd)
+    before = [c.launches for c in counters]
+    ptt.set_flags({"FLAGS_fused_transformer": fused})
+    try:
+        losses = [step(ids, ids).item() for _ in range(3)]
+    finally:
+        ptt.set_flags({"FLAGS_fused_transformer": True})
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [3 * (L + 1)] + [3 * L] * 6
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]
+    assert model.model.norm.weight.dtype == torch.float32
+    i = [id(p) for p in opt._parameter_list].index(
+        id(model.model.norm.weight))
+    assert opt._state[(i, "moment1")].dtype == torch.float32
+
+
+@pytest.mark.cuda
 def test_unfused_flag_still_launches_every_kernel():
     """FLAGS_fused_transformer=0 on the card: the serving step still goes
     through all three kernels (the flag unfuses only the QKV projection
@@ -157,3 +288,70 @@ def test_unfused_flag_still_launches_every_kernel():
     assert [k.launches - b for k, b in zip(kernels, before)] == \
         [2 * L + 1, L, L]
     assert bool(torch.isfinite(logits).all())
+
+
+# Faults planted in a copy of csrc/flash_attention.cu, each one edit in
+# one kernel's body: (the kernel's definition, pattern, replacement, the
+# output whose check must then fail).
+_FLASH_FAULTS = {
+    # the forward drops each q tile's last kv tile (the causal diagonal)
+    "fwd_drops_last_kv_tile": (
+        "flash_fwd_mma_kernel(",
+        r"const int n_kv = \(kv_end \+ TKV - 1\) / TKV;",
+        "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);", "o"),
+    # dq counts the future keys of the diagonal tile
+    "dq_diagonal_mask_off": (
+        "flash_bwd_dq_mma_kernel(", r"\(e & 1\), S,\s+causal\)",
+        "(e & 1), S, 0)", "dq"),
+    # dk and dv count the earlier queries of the diagonal tile
+    "dkv_diagonal_mask_off": (
+        "flash_bwd_dkv_mma_kernel(", r"\(e >> 1\) \* 8, S, causal\)",
+        "(e >> 1) * 8, S, 0)", "dv"),
+    # dk and dv skip the last q tile: the last 64 keys get none
+    "dkv_skips_last_q_tile": (
+        "flash_bwd_dkv_mma_kernel(", r"const int total = group \* n_q;",
+        "const int total = group * max(0, n_q - 1);", "dv"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, *_FLASH_FAULTS],
+                         ids=["intact", *_FLASH_FAULTS])
+def test_flash_check_fails_planted_faults(fault, tmp_path):
+    """chip_smoke.py's flash check, run by `testing.flash_readings` (bf16
+    causal MHA at the training shape [4, 2048, 16, 128]), passes the
+    kernels as written and fails each planted fault. The package is
+    copied, the fault planted in the copy's source, and the copy built
+    and run in a subprocess. Prints each output's worst err/limit under
+    the element limit (`terms`) and under a limit scaled by the
+    tensor's max|plain| (`max`)."""
+    _card()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = shutil.copytree(os.path.join(repo, "paddle_tpu_torch"),
+                          tmp_path / "paddle_tpu_torch",
+                          ignore=shutil.ignore_patterns("_build",
+                                                        "__pycache__"))
+    if fault is not None:
+        anchor, pattern, repl, _ = _FLASH_FAULTS[fault]
+        cu = pkg / "csrc" / "flash_attention.cu"
+        src = cu.read_text()
+        at = src.index(anchor)
+        body, n = re.subn(pattern, repl, src[at:], count=1)
+        assert n == 1, f"{fault}: the pattern is not in the kernel"
+        cu.write_text(src[:at] + body)
+    code = ("import json, sys\n"
+            "import paddle_tpu_torch\n"
+            "from paddle_tpu_torch import testing\n"
+            "assert paddle_tpu_torch.__file__.startswith(sys.argv[1])\n"
+            "print(json.dumps(testing.flash_readings()))\n")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=tmp_path, env=dict(os.environ,
+                                                PYTHONPATH=str(tmp_path)),
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-4000:]
+    readings = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"flash readings, {fault or 'intact'}: {json.dumps(readings)}")
+    if fault is None:
+        assert all(r["terms"] <= 1.0 for r in readings.values())
+    else:
+        assert readings[_FLASH_FAULTS[fault][3]]["terms"] > 1.0

@@ -1,0 +1,74 @@
+"""The element-limit rule of paddle_tpu_torch/testing.py on the CPU: the
+sums of |terms| that scale the flash and SwiGLU-backward limits bound
+|plain| element by element, and equal it where no term can cancel (all
+inputs that enter a sum with a sign made non-negative)."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch import testing
+from paddle_tpu_torch.kernels import flash_attention as t_fa
+from paddle_tpu_torch.kernels import swiglu as t_sw
+
+
+def _rand(rng, *shape, nonneg=False):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(np.abs(x) if nonneg else x)
+
+
+def test_worst_ratio_and_non_finite():
+    ref = torch.tensor([1.0, -2.0, 0.0])
+    out = torch.tensor([1.5, -2.0, 0.25])
+    # |err| / (atol + rtol |ref|): 0.5 / 1.5, 0, 0.25 / 1
+    assert testing.worst(out, ref, 1.0, 0.5) == pytest.approx(1 / 3)
+    assert testing.worst(out, ref, torch.tensor([0.5, 1.0, 0.125]),
+                         0.0) == pytest.approx(2.0)
+    assert testing.worst(torch.tensor([1.0, float("nan"), 0.0]), ref,
+                         1.0, 0.0) == math.inf
+
+
+@pytest.mark.parametrize("hq,hk,causal", [(4, 4, True), (4, 2, False),
+                                          (4, 1, True)],
+                         ids=["mha_causal", "gqa_full", "mqa_causal"])
+@pytest.mark.parametrize("nonneg", [False, True], ids=["signed", "nonneg"])
+def test_flash_terms_bound_plain(hq, hk, causal, nonneg):
+    rng = np.random.default_rng(0)
+    B, S, D = 2, 37, 16
+    q = _rand(rng, B, S, hq, D).requires_grad_()
+    k = _rand(rng, B, S, hk, D).requires_grad_()
+    v = _rand(rng, B, S, hk, D, nonneg=nonneg).requires_grad_()
+    do = _rand(rng, B, S, hq, D, nonneg=nonneg)
+    scale = 0.3
+    o = t_fa._plain(q, k, v, causal, scale)
+    o.backward(do)
+    terms = testing.flash_terms(q.detach(), k.detach(), v.detach(), do,
+                                causal, scale)
+    got = (o.detach(), q.grad, k.grad, v.grad)
+    for name, g, t in zip(("o", "dq", "dk", "dv"), got, terms):
+        assert t.shape == g.shape, name
+        assert bool((g.abs() <= t * (1 + 1e-5) + 1e-6).all()), name
+    if nonneg:
+        # v >= 0 and do >= 0: o = P v and dv = P^T do hold no cancelling
+        # term (max relative difference <= 1e-5)
+        assert testing.worst(terms[0], o.detach(), 0.0, 1e-5) <= 1.0
+        assert testing.worst(terms[3], v.grad, 0.0, 1e-5) <= 1.0
+
+
+@pytest.mark.parametrize("nonneg", [False, True], ids=["signed", "nonneg"])
+def test_swiglu_bwd_terms_bound_plain(nonneg):
+    rng = np.random.default_rng(1)
+    T, H, M = 13, 24, 20
+    a = _rand(rng, T, H, nonneg=nonneg)
+    w = 0.2 * _rand(rng, H, 2 * M, nonneg=nonneg)
+    do = _rand(rng, T, M, nonneg=nonneg)
+    da, dw = t_sw._ref_bwd(a, w, do)
+    da_t, dw_t = testing.swiglu_bwd_terms(a, w, do)
+    for name, g, t in (("da", da, da_t), ("dw", dw, dw_t)):
+        assert t.shape == g.shape, name
+        assert bool((g.abs() <= t * (1 + 1e-5) + 1e-6).all()), name
+        if nonneg:
+            # a, w, do >= 0 make g, u, dg and du >= 0: nothing cancels
+            # (max relative difference <= 1e-5)
+            assert testing.worst(t, g, 0.0, 1e-5) <= 1.0, name
