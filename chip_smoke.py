@@ -10,7 +10,10 @@ Phases, each of which fails the run on a miss:
 1. device — the card's name, count and power limit;
 2. build — the port's CUDA kernels from `paddle_tpu_torch/csrc`;
 3. kernels — each kernel of the serving and the training path held
-   against its plain PyTorch version on the card, at the slices' shapes,
+   against its plain PyTorch version on the card, at the slices' shapes
+   (rms_norm and swiglu at every row count of the serving, decode,
+   prefill and training paths; paged decode attention at
+   `testing.PAGED_DECODE_CASES`, generate's own cache among them),
    in bf16 and in f32 (TF32 off), element by element within the stated
    limit (`TOL`); bf16 timed with CUDA events beside its plain version,
    the library call where one exists, and its bound (bytes over 3.35
@@ -22,7 +25,19 @@ Phases, each of which fails the run on a miss:
    the kernel route and the plain route must agree within `STEP_ATOL`
    and `STEP_MEAN_ATOL`; the first is then timed on both routes and
    traced by torch.profiler, its device time split by kernel group;
-5. training — full-depth llama_1b (22 layers, bf16, random weights from
+5. generate — the same llama_7b through `LlamaForCausalLM.generate`,
+   4 prompts of 128 tokens (`default_rng(0)`), 64 new tokens, greedy:
+   prefill ms, per-token decode ms and decode tokens/s by CUDA events;
+   launch counters exact (paged decode attention L per decode step,
+   rms_norm 2L+1 and swiglu L per forward); one captured decode step's
+   logits through the kernel route and the plain route within
+   `GEN_STEP_ATOL` / `GEN_STEP_MEAN_ATOL`;
+6. bucketed serving — the same burst as phase 4 through the gateway
+   over the engine's bucketed regime (`ragged=False`): every stream
+   served whole, paged decode attention launched L times per decode
+   tick, rms_norm and swiglu per prefill call and decode tick; TTFTs,
+   tokens/s, ticks;
+7. training — full-depth llama_1b (22 layers, bf16, random weights from
    a seeded generator) through `TrainStep` with AdamW, batch 4 x seq
    2048 on one repeated batch, as bench.py runs it: 2 warm-up steps,
    then `TRAIN_STEPS` timed steps whose losses must be finite and fall;
@@ -76,6 +91,8 @@ TOL = {("rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
        ("swiglu", "float32"): (2e-3, 0.0),
        ("ragged_paged_attention", "bfloat16"): (1e-5, BF16_RTOL),
        ("ragged_paged_attention", "float32"): (8e-5, 0.0),
+       ("paged_decode_attention", "bfloat16"): (1e-5, BF16_RTOL),
+       ("paged_decode_attention", "float32"): (5e-5, 0.0),
        ("fused_add_rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
        ("fused_add_rms_norm", "float32"): (5e-5, 0.0),
        ("swiglu_bwd_da", "bfloat16"): (TERMS, BF16_RTOL),
@@ -97,6 +114,14 @@ TOL = {("rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
 # give each about twice that.
 STEP_ATOL = 0.5
 STEP_MEAN_ATOL = 0.08
+# generate's phase: llama_7b, batch 4, 128 prompt tokens, 64 new tokens;
+# one decode step (32 layers) after the prompt, kernel route against the
+# plain route, |logit difference| over the batch. The first reading on an
+# H100 was 0.195312 max and 0.0339653 mean; the limits give each about
+# twice that.
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 64
+GEN_STEP_ATOL = 0.4
+GEN_STEP_MEAN_ATOL = 0.07
 SOURCES = {
     "rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
                  "paddle_tpu/kernels/rms_norm.py:48"),
@@ -105,6 +130,9 @@ SOURCES = {
     "ragged_paged_attention": (
         "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
         "paddle_tpu/kernels/ragged_paged_attention.py:266"),
+    # upstream Pallas TPU paged attention, reached through the wrapper
+    "paged_decode_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
+                               "paddle_tpu/kernels/paged_attention.py:78"),
     "fused_add_rms_norm": ("paddle_tpu_torch/csrc/fused_norm_residual.cu",
                            "paddle_tpu/kernels/fused_norm_residual.py:131"),
     "swiglu_bwd_da": ("paddle_tpu_torch/csrc/swiglu.cu",
@@ -237,7 +265,7 @@ def compare(name, dname, pairs, tag=""):
 
 
 def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
-          iters=50, plain_iters=None):
+          iters=50, plain_iters=None, tag=""):
     """One kernel's bf16 measurements: kernel, plain version and library
     call by CUDA events, the bound from this run's shapes."""
     ms = time_ms(fn_kernel, iters)
@@ -248,7 +276,8 @@ def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
         warnings.simplefilter("ignore", UserWarning)
         lib_ms = time_ms(library, iters) if library else None
     b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-    print(f"kernel {name} bf16: kernel_ms={ms:.6g} plain_ms={plain_ms:.6g} "
+    print(f"kernel {name} bf16{tag}: kernel_ms={ms:.6g} "
+          f"plain_ms={plain_ms:.6g} "
           f"library_ms={'none' if lib_ms is None else f'{lib_ms:.6g}'} "
           f"bound_ms={b_ms:.6g} ({b_by})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -259,6 +288,14 @@ def entry(name, measured):
     src, replaces = SOURCES[name]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None, **measured}
+
+
+def add_launches(report, name, path, n):
+    """Record one path's launch count; `launches` is the sum over the
+    paths that ran the kernel."""
+    e = report[name]
+    e.setdefault("launches_by_path", {})[path] = n
+    e["launches"] = sum(e["launches_by_path"].values())
 
 
 def kernel_phase(report):
@@ -278,25 +315,34 @@ def kernel_phase(report):
         it = torch.finfo(dtype).bits // 8
 
         def held(name, fn_kernel, fn_plain, fn_f32, nbytes, flops,
-                 library=None, iters=50):
+                 library=None, iters=50, tag="", time_it=True):
             """fn_plain: the plain version as the port runs it (timed);
             fn_f32: the same on f32 copies of the inputs, held against
             the bf16 kernel (f32: fn_plain itself). Returns the bf16
-            measurements (None for f32)."""
+            measurements (None for f32, or when not time_it)."""
             out = fn_kernel()
             torch.cuda.synchronize()
             ref = (fn_plain if dtype == torch.float32 else fn_f32)()
             torch.cuda.synchronize()
-            err = compare(name, dname, [("out", out, ref)])
-            if dtype != torch.bfloat16:
+            err = compare(name, dname, [("out", out, ref)], tag)
+            if dtype != torch.bfloat16 or not time_it:
                 return None
             return timed(name, err, fn_kernel, fn_plain, nbytes, flops,
-                         library, iters)
+                         library, iters, tag=tag)
 
-        # rms_norm at the serving slice's [128, 4096] and the training
-        # slice's [8192, 2048]
-        for rows, H, path in ((128, 4096, "serving"), (8192, 2048,
-                                                       "training")):
+        # rms_norm and swiglu at every row count the main path gives
+        # them: the ragged serving step's 128 packed rows at llama_7b's
+        # width (timed: the kernel table's row), the training slice's
+        # 8192 rows at llama_1b's (timed), the decode step's 4 (B = 4 in
+        # generate and the bucketed engine; timed), the bucketed
+        # prefills' 32 (bucket 32 x 1) and 2048 (bucket 1024 x 2) and
+        # generate's prefill 512 (4 x 128), checked only. 128 rows also
+        # stand for the bucketed prefill of bucket 128 x 1.
+        shapes = ((128, 4096, 11008, "serving"), (8192, 2048, 5504,
+                                                  "training"),
+                  (4, 4096, 11008, "decode"), (32, 4096, 11008, None),
+                  (512, 4096, 11008, None), (2048, 4096, 11008, None))
+        for rows, H, _, path in shapes:
             x = torch.randn((rows, H), generator=gen, device="cuda").to(dtype)
             w = 1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
             m = held("rms_norm",
@@ -305,16 +351,15 @@ def kernel_phase(report):
                      lambda: krn._plain(x.float(), w, eps),
                      nbytes=2 * x.numel() * it + w.numel() * 4,
                      flops=4 * x.numel(),
-                     library=lambda: F.rms_norm(x, (H,), w, eps))
+                     library=lambda: F.rms_norm(x, (H,), w, eps),
+                     tag=f" [{rows}x{H}]", time_it=path is not None)
             if m and path == "serving":
                 report["rms_norm"] = entry("rms_norm", m)
             elif m:
-                report["rms_norm"]["training"] = m
+                report["rms_norm"][path] = m
 
-        # swiglu: a [128, 4096] @ w_gate_up [4096, 22016] (serving) and
-        # a [8192, 2048] @ [2048, 11008] (training)
-        for T, H, M, path in ((128, 4096, 11008, "serving"),
-                              (8192, 2048, 5504, "training")):
+        # swiglu: a [rows, H] @ w_gate_up [H, 2M]
+        for T, H, M, path in shapes:
             a = torch.randn((T, H), generator=gen, device="cuda").to(dtype)
             wgu = (0.02 * torch.randn((H, 2 * M), generator=gen,
                                       device="cuda")).to(dtype)
@@ -323,11 +368,13 @@ def kernel_phase(report):
                      lambda: ksw._ref(a, wgu),
                      lambda: ksw._ref(a.float(), wgu.float()),
                      nbytes=(a.numel() + wgu.numel() + T * M) * it,
-                     flops=2 * T * H * 2 * M)
+                     flops=2 * T * H * 2 * M,
+                     tag=f" [{T}x{H} @ {H}x{2 * M}]",
+                     time_it=path is not None)
             if m and path == "serving":
                 report["swiglu"] = entry("swiglu", m)
             elif m:
-                report["swiglu"]["training"] = m
+                report["swiglu"][path] = m
             del wgu
 
         # ragged paged attention at the slice's shapes
@@ -351,8 +398,74 @@ def kernel_phase(report):
             report["ragged_paged_attention"] = entry(
                 "ragged_paged_attention", m)
         del args, q
+        paged_kernels(report, dtype)
         training_kernels(report, dtype, gen)
         torch.cuda.empty_cache()
+
+
+def paged_kernels(report, dtype):
+    """paged_decode_attention at `testing.PAGED_DECODE_CASES`: (a) the
+    bucketed engine's llama_7b decode, q [4, 32, 128], pool [32, 257, 16,
+    128], shuffled block table [4, 64], lengths 17/100/300/700 (timed in
+    bf16); (b) generate's cache read through paginate_cache's strided
+    views, at the generate phase's own [4, 192, 32, 128] per layer and
+    at [4, 1024, 32, 128]; (c) GQA 32/8, d = 64 (GQA 8/2, pages of 8)
+    and one sequence of 1000 (checked only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    dname = str(dtype).split(".")[1]
+    it = torch.finfo(dtype).bits // 8
+    check(testing.PAGED_DECODE_CASES["generate_cache"][1]["S"]
+          == -(-(GEN_PROMPT + GEN_NEW) // 16) * 16,
+          "the generate_cache case is not the generate phase's cache")
+    errs = {}
+    for tag, args in testing.paged_decode_cases(dtype):
+        out, ref = testing.paged_decode_pair(*args)
+        errs[tag] = compare("paged_decode_attention", dname,
+                            [("out", out, ref)], f" [{tag}]")
+        del args, out, ref
+    if dtype != torch.bfloat16:
+        return
+    # (a), timed. The kernel cycles through 8 copies of the pool (146 MB
+    # of live pages against the 50 MB L2), so each launch finds its pages
+    # cold, as each layer's launch does in the engine.
+    q, kp, vp, lens, pt = testing.paged_decode_case(dtype=dtype)
+    B, nh, d = q.shape
+    kvh, _, page, _ = kp.shape
+    scale = 1.0 / d ** 0.5
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(7)]
+    turn = [0]
+
+    def kernel():
+        k_, v_ = pools[turn[0] % len(pools)]
+        turn[0] += 1
+        return kpa.paged_decode_attention(q, k_, v_, lens, pt,
+                                          use_kernel=True)
+
+    # the library yardstick: SDPA on q [B, nh, 1, d] against the
+    # contiguous K/V [B, nh, S, d] with a boolean length mask
+    S = pt.shape[1] * page
+    kc, vc = (torch.movedim(x[:, pt.long()], 0, 1).reshape(B, kvh, S, d)
+              for x in (kp, vp))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    live = int(lens.sum())
+    report["paged_decode_attention"] = entry("paged_decode_attention", timed(
+        "paged_decode_attention", errs["engine"], kernel,
+        lambda: kpa._plain(q, kp, vp, lens, pt, scale),
+        # the live K and V rows once, q and out once, lengths and table
+        nbytes=(2 * live * kvh * d * it + 2 * q.numel() * it
+                + lens.numel() * 4 + pt.numel() * 4),
+        flops=4 * live * nh * d,
+        library=lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask),
+        iters=200))
+    del pools, kc, vc
+    torch.cuda.empty_cache()
 
 
 def training_kernels(report, dtype, gen):
@@ -499,11 +612,13 @@ def plain_routes():
     PyTorch under autograd, so the training backward runs plain too."""
     from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
+    from paddle_tpu_torch.kernels import paged_attention as kpa
     from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.kernels import rms_norm as krn
     from paddle_tpu_torch.kernels import swiglu as ksw
     saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
-             kfnr.fused_add_rms_norm, kfa.flash_attention_bshd)
+             kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
+             kpa.paged_decode_attention)
     krn.rms_norm = lambda x, w, eps=1e-6, use_kernel=None: krn._plain(
         x, w, eps)
     ksw.swiglu = lambda a, w, use_kernel=None: ksw._ref(
@@ -516,11 +631,16 @@ def plain_routes():
     kfa.flash_attention_bshd = (
         lambda q, k, v, causal=False, scale=None, **kw:
         kfa._plain(q, k, v, causal, scale))
+    kpa.paged_decode_attention = (
+        lambda q, kp, vp, lens, pidx, scale=None, use_kernel=None:
+        kpa._plain(q, kp, vp, lens, pidx,
+                   q.shape[-1] ** -0.5 if scale is None else scale))
     try:
         yield
     finally:
         (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
-         kfnr.fused_add_rms_norm, kfa.flash_attention_bshd) = saved
+         kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
+         kpa.paged_decode_attention) = saved
 
 
 def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
@@ -597,57 +717,19 @@ def slice_phase(report, smi_line):
         return run
 
     engine._ragged_fn = capturing_fn
-    gateway = gw.ServingGateway(gw.EngineRunner(engine), port=0)
-    port = gateway.start()
-    try:
-        warm = {}
-        post_stream(port, [1, 2, 3, 4, 5], 2, warm, 0)
-        check(warm[0]["end"] and warm[0]["end"][1]["status"] == "served",
-              f"warm-up request did not serve: {warm[0]['end']} "
-              f"(engine fault: {gateway.runner.fatal!r})")
-        rng = np.random.RandomState(0)
-        prefix = rng.randint(1, cfg.vocab_size, 48).tolist()
-        prompts = [rng.randint(1, cfg.vocab_size, 17).tolist(),
-                   rng.randint(1, cfg.vocab_size, 100).tolist(),
-                   prefix + rng.randint(1, cfg.vocab_size, 252).tolist(),
-                   prefix + rng.randint(1, cfg.vocab_size, 652).tolist()]
-        max_new = 32
-        krn.rms_norm.launches = 0
-        ksw.swiglu.launches = 0
-        krpa.ragged_paged_attention.launches = 0
-        steps0, ticks0 = engine.model_steps, engine.ticks
-        results = {}
-        t_burst = time.perf_counter()
-        threads = [threading.Thread(target=post_stream,
-                                    args=(port, p, max_new, results, i))
-                   for i, p in enumerate(prompts)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-            check(not t.is_alive(), "a request thread did not finish")
-        wall = time.perf_counter() - t_burst
-        launches = {"rms_norm": krn.rms_norm.launches,
-                    "swiglu": ksw.swiglu.launches,
-                    "ragged_paged_attention":
-                        krpa.ragged_paged_attention.launches}
-        steps = engine.model_steps - steps0
-        ticks = engine.ticks - ticks0
-        health = engine.health_snapshot()
-    finally:
-        gateway.drain(timeout=60)
-        gateway.stop()
-
-    for i, p in enumerate(prompts):
-        r = results.get(i)
-        check(r is not None, f"request {i} returned nothing")
-        check(r["end"] is not None and r["end"][0] == "end"
-              and r["end"][1]["status"] == "served",
-              f"request {i} (prompt {len(p)}) ended {r['end']}")
-        check(len(r["tokens"]) == max_new,
-              f"request {i} got {len(r['tokens'])} tokens, not {max_new}")
-        check(all(0 <= t < cfg.vocab_size for t in r["tokens"]),
-              f"request {i} produced an out-of-vocab token")
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(1, cfg.vocab_size, 48).tolist()
+    prompts = [rng.randint(1, cfg.vocab_size, 17).tolist(),
+               rng.randint(1, cfg.vocab_size, 100).tolist(),
+               prefix + rng.randint(1, cfg.vocab_size, 252).tolist(),
+               prefix + rng.randint(1, cfg.vocab_size, 652).tolist()]
+    max_new = 32
+    kernels = {"rms_norm": krn.rms_norm, "swiglu": ksw.swiglu,
+               "ragged_paged_attention": krpa.ragged_paged_attention}
+    results, wall, launches, (steps, ticks) = serve_burst(
+        engine, prompts, max_new, kernels, "request",
+        lambda: (engine.model_steps, engine.ticks))
+    health = engine.health_snapshot()
     L_ = cfg.num_hidden_layers
     want = {"rms_norm": steps * (2 * L_ + 1), "swiglu": steps * L_,
             "ragged_paged_attention": steps * L_}
@@ -656,9 +738,7 @@ def slice_phase(report, smi_line):
               f"{want[name]})", flush=True)
         check(n == want[name] and n > 0,
               f"{name} launched {n} times, expected {want[name]}")
-        report[name]["launches"] = n
-    check(engine.pool.n_free == engine.pool.n_pages - 1,
-          "KV pool not fully free after draining")
+        add_launches(report, name, "serving", n)
     ttfts = [results[i]["ttft_s"] for i in range(len(prompts))]
     n_tok = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
     print(f"serve: ticks={ticks} steps={steps} prompts="
@@ -700,6 +780,244 @@ def slice_phase(report, smi_line):
         check(ok, f"kernel-route step {i} disagrees with the plain route")
     args, (kp0, vp0) = captured[0]
     step_breakdown(L, engine, cfg, args, kp0, vp0, wall / steps, smi_line)
+    return model, prompts, max_new
+
+
+def generate_phase(report, model, smi_line):
+    """`generate` at llama_7b: GEN_BATCH prompts of GEN_PROMPT tokens,
+    GEN_NEW new tokens, greedy. Prefill ms is a generate of one token;
+    per-token decode ms is the rest of a GEN_NEW-token generate over its
+    GEN_NEW - 1 decode steps, both by CUDA events."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+    from paddle_tpu_torch.models import llama as L
+
+    cfg = model.cfg
+    L_ = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT))).to("cuda")
+    model.generate(ids, max_new_tokens=2)        # warm-up
+
+    def run(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = model.generate(ids, max_new_tokens=n)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    _, prefill_ms = run(1)
+    kernels = {"paged_decode_attention": kpa.paged_decode_attention,
+               "rms_norm": krn.rms_norm, "swiglu": ksw.swiglu}
+    for fn in kernels.values():
+        fn.launches = 0
+    out, total_ms = run(GEN_NEW)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    decode_ms = (total_ms - prefill_ms) / (GEN_NEW - 1)
+    check(out.shape == (GEN_BATCH, GEN_NEW) and out.dtype == torch.int32
+          and out.is_cuda, f"generate returned {tuple(out.shape)} "
+          f"{out.dtype} on {out.device}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generate produced an out-of-vocab token")
+    print(f"generate: ids {tuple(out.shape)} {out.dtype} prompt "
+          f"{GEN_BATCH}x{GEN_PROMPT} prefill_ms={prefill_ms:.6g} "
+          f"decode_ms_per_token={decode_ms:.6g} decode_tokens_per_s="
+          f"{GEN_BATCH * 1e3 / decode_ms:.6g} total_ms={total_ms:.6g} "
+          f"[{smi_line}]", flush=True)
+    want = {"paged_decode_attention": L_ * (GEN_NEW - 1),
+            "rms_norm": (2 * L_ + 1) * GEN_NEW, "swiglu": L_ * GEN_NEW}
+    for name, n in launches.items():
+        print(f"launches {name} (generate): {n} (expected {want[name]})",
+              flush=True)
+        check(n == want[name], f"{name} launched {n} times in generate, "
+                               f"expected {want[name]}")
+        add_launches(report, name, "generate", n)
+
+    # one decode step after the prompt, kernel route against plain route
+    state = dict(model.state_dict())
+    wls = L._gather_layer_weights(state, cfg)
+    S = -(-(GEN_PROMPT + GEN_NEW) // 16) * 16
+    ck = torch.zeros((L_, GEN_BATCH, S, cfg.kv_heads, cfg.head_dim),
+                     dtype=state["model.embed_tokens"].dtype, device="cuda")
+    cv = torch.zeros_like(ck)
+    zeros = torch.zeros((GEN_BATCH,), dtype=torch.int32, device="cuda")
+    lg, _, _ = L._forward_with_cache(state, cfg, ids, ck, cv, zeros, wls=wls)
+    tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+    cur = torch.full((GEN_BATCH,), GEN_PROMPT, dtype=torch.int32,
+                     device="cuda")
+    lg_k, _, _ = L._forward_with_cache(state, cfg, tok, ck.clone(),
+                                       cv.clone(), cur, wls=wls)
+    torch.cuda.synchronize()
+    with plain_routes():
+        lg_p, _, _ = L._forward_with_cache(state, cfg, tok, ck.clone(),
+                                           cv.clone(), cur, wls=wls)
+    torch.cuda.synchronize()
+    lg_k, lg_p = lg_k[:, -1], lg_p[:, -1]
+    diff = (lg_k - lg_p).abs()
+    err, mean = diff.max().item(), diff.mean().item()
+    agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
+    ok = (err <= GEN_STEP_ATOL and mean <= GEN_STEP_MEAN_ATOL
+          and bool(torch.isfinite(lg_k).all()))
+    print(f"generate decode step: kernel vs plain route logits "
+          f"max_abs_err={err:.6g} (limit {GEN_STEP_ATOL:g}) mean_abs_err="
+          f"{mean:.6g} (limit {GEN_STEP_MEAN_ATOL:g}) max|logit|="
+          f"{lg_p.abs().max().item():.6g} argmax agree {agree}/{GEN_BATCH} "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    check(ok, "the generate decode step's kernel route disagrees with the "
+              "plain route")
+    decode_breakdown(L, state, cfg, tok, ck, cv, cur, wls, smi_line)
+    del ck, cv, state, wls
+    torch.cuda.empty_cache()
+
+
+def decode_breakdown(L, state, cfg, tok, ck, cv, cur, wls, smi_line):
+    """Where one generate decode step's time goes: the step timed with
+    CUDA events (re-running it rewrites the same cache slot), the host's
+    enqueue time (the step's Python and launches, no synchronisation),
+    then three steps traced by torch.profiler, device time summed by
+    kernel group; busy share = device time per step over the step's
+    event time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        L._forward_with_cache(state, cfg, tok, ck, cv, cur, wls=wls)
+
+    step_ms = time_ms(step, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 10
+    torch.cuda.synchronize()
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    groups, others = _device_ms(prof, _DECODE_GROUPS, "other")
+    busy = sum(groups.values()) / n
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / n
+    print(f"decode step: step_ms={step_ms:.6g} host_enqueue_ms="
+          f"{enqueue_ms:.6g} device_kernels_per_step={kernels:.6g} "
+          f"[{smi_line}]", flush=True)
+    if busy == 0.0:
+        print("decode step profile: not measured (the profiler saw no "
+              "device time)", flush=True)
+        return
+    order = [g for _, g in _DECODE_GROUPS] + ["other"]
+    parts = " ".join(f"{g}={groups.get(g, 0.0) / n:.6g}"
+                     for g in dict.fromkeys(order))
+    print(f"decode step profile (device ms per step): {parts} "
+          f"total={busy:.6g} busy_share={busy / step_ms:.4f} "
+          f"[{smi_line}]", flush=True)
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    print("decode step profile, largest other kernels (ms per step): "
+          + "; ".join(f"{k[:60]}={ms / n:.4g}" for k, ms in top), flush=True)
+
+
+def serve_burst(engine, prompts, max_new, kernels, what, counters):
+    """The engine behind the HTTP gateway: one warm-up request, then the
+    prompts as concurrent streams of max_new tokens, each of which must
+    be served whole. The kernels' launch counters are zeroed after the
+    warm-up and read when the burst ends. Returns (results, wall seconds,
+    launches, the change in `counters()` over the burst)."""
+    from paddle_tpu_torch.inference import gateway as gw
+
+    gateway = gw.ServingGateway(gw.EngineRunner(engine), port=0)
+    port = gateway.start()
+    try:
+        warm = {}
+        post_stream(port, [1, 2, 3, 4, 5], 2, warm, 0)
+        check(warm[0]["end"] and warm[0]["end"][1]["status"] == "served",
+              f"warm-up {what} did not serve: {warm[0]['end']} "
+              f"(engine fault: {gateway.runner.fatal!r})")
+        for fn in kernels.values():
+            fn.launches = 0
+        before = counters()
+        results = {}
+        t_burst = time.perf_counter()
+        threads = [threading.Thread(target=post_stream,
+                                    args=(port, p, max_new, results, i))
+                   for i, p in enumerate(prompts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            check(not t.is_alive(), f"a {what} thread did not finish")
+        wall = time.perf_counter() - t_burst
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        delta = tuple(b - a for a, b in zip(before, counters()))
+    finally:
+        gateway.drain(timeout=60)
+        gateway.stop()
+    vocab = engine.cfg.vocab_size
+    for i, p in enumerate(prompts):
+        r = results.get(i)
+        check(r is not None, f"{what} {i} returned nothing")
+        check(r["end"] is not None and r["end"][0] == "end"
+              and r["end"][1]["status"] == "served",
+              f"{what} {i} (prompt {len(p)}) ended {r['end']}")
+        check(len(r["tokens"]) == max_new,
+              f"{what} {i} got {len(r['tokens'])} tokens, not {max_new}")
+        check(all(0 <= t < vocab for t in r["tokens"]),
+              f"{what} {i} produced an out-of-vocab token")
+    check(engine.pool.n_free == engine.pool.n_pages - 1,
+          f"KV pool not fully free after the {what}s drained")
+    return results, wall, launches, delta
+
+
+def bucketed_phase(report, model, prompts, max_new, smi_line):
+    """The serving phase's burst through the gateway over the bucketed
+    engine (`ragged=False`, default buckets)."""
+    import torch
+
+    from paddle_tpu_torch.inference import gateway as gw
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+
+    L_ = model.cfg.num_hidden_layers
+    engine = gw.build_engine(model, max_batch=4, max_seq=1024, page_size=16,
+                             ragged=False, device="cuda")
+    check(not engine._ragged and engine._pcache is None,
+          "ragged=False did not select the bucketed regime")
+    kernels = {"paged_decode_attention": kpa.paged_decode_attention,
+               "rms_norm": krn.rms_norm, "swiglu": ksw.swiglu}
+    results, wall, launches, (decodes, prefills, ticks) = serve_burst(
+        engine, prompts, max_new, kernels, "bucketed request",
+        lambda: (engine.decode_steps, sum(engine.prefill_calls.values()),
+                 engine.ticks))
+    fwd = decodes + prefills
+    want = {"paged_decode_attention": L_ * decodes,
+            "rms_norm": (2 * L_ + 1) * fwd, "swiglu": L_ * fwd}
+    for name, n in launches.items():
+        print(f"launches {name} (bucketed serving): {n} (decode ticks "
+              f"{decodes}, prefill calls {prefills} -> expected "
+              f"{want[name]})", flush=True)
+        check(n == want[name] and n > 0,
+              f"{name} launched {n} times in bucketed serving, expected "
+              f"{want[name]}")
+        add_launches(report, name, "bucketed_serving", n)
+    ttfts = [results[i]["ttft_s"] for i in range(len(prompts))]
+    n_tok = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
+    print(f"bucketed serve: ticks={ticks} decode_ticks={decodes} "
+          f"prefill_calls={prefills} (by (bucket, k), with the warm-up's: "
+          f"{sorted(engine.prefill_calls.items())}) prompts="
+          f"{[len(p) for p in prompts]} max_new={max_new} "
+          f"preemptions={engine.preemptions} [{smi_line}]", flush=True)
+    print(f"bucketed serve: ttft_ms={[round(1e3 * t, 3) for t in ttfts]} "
+          f"wall_s={wall:.6g} tokens_per_s={n_tok / wall:.6g} "
+          f"[{smi_line}]", flush=True)
+    del engine
+    torch.cuda.empty_cache()
 
 
 # device-kernel name fragments -> the group a step's time is charged to
@@ -761,6 +1079,12 @@ def step_breakdown(L, engine, cfg, args, kp, vp, wall_per_step_s, smi_line):
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     print("step profile, largest other kernels (ms per step): "
           + "; ".join(f"{k[:60]}={ms:.4g}" for k, ms in top), flush=True)
+
+
+# the generate decode step: the paged decode kernel, then the serving
+# groups
+_DECODE_GROUPS = (("paged_decode_kernel", "paged_decode_attention"),
+                  *_KERNEL_GROUPS)
 
 
 # training: device-kernel name fragments -> group, first match wins
@@ -879,13 +1203,7 @@ def training_phase(report, smi_line):
               f"expected {want})", flush=True)
         check(n == want, f"{name} launched {n} times in training, expected "
                          f"{want}")
-        entry_ = report[name]
-        if entry_.get("launches") is None:
-            entry_["launches"] = n
-        else:
-            entry_["launches_by_path"] = {"serving": entry_["launches"],
-                                          "training": n}
-            entry_["launches"] += n
+        add_launches(report, name, "training", n)
 
     # one more step, traced: TrainStep's calls in its order, the model's
     # forward and backward in one trace and the optimizer in another, so
@@ -964,11 +1282,17 @@ def main():
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         report = {}
         kernel_phase(report)
-        slice_phase(report, smi_line)
-        # the serving engine and its llama_7b go before training starts
+        model, prompts, max_new = slice_phase(report, smi_line)
+        # the ragged engine and its captured steps go first (the capture
+        # hook makes a reference cycle), then the model before training
         import gc
 
         import torch
+        gc.collect()
+        torch.cuda.empty_cache()
+        generate_phase(report, model, smi_line)
+        bucketed_phase(report, model, prompts, max_new, smi_line)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
         training_phase(report, smi_line)

@@ -21,8 +21,8 @@ _flags: dict = {
     # on the CPU also the unfused MLP expression (the card always runs
     # the RMSNorm and SwiGLU kernels)
     "FLAGS_fused_transformer": True,
-    # ragged paged attention + chunked-prefill continuous batching (the
-    # bucketed regime it switches back to is not ported yet)
+    # ragged paged attention + chunked-prefill continuous batching; 0
+    # switches the engine to the bucketed-prefill regime
     "FLAGS_ragged_attention": True,
     # prefix caching over the KV page pool; 0 drops the index
     "FLAGS_prefix_cache": True,

@@ -1,27 +1,36 @@
-"""Continuous-batching LLM serving over the paged KV cache, chunked-
-prefill ("ragged") regime with the prefix cache (counterpart of
-paddle_tpu/inference/serving.py).
+"""Continuous-batching LLM serving over the paged KV cache, both
+scheduler regimes of the reference, with the prefix cache (counterpart
+of paddle_tpu/inference/serving.py).
 
 A global KV PAGE POOL `[L, kvh, n_pages, page, d]` plus a host-side
 free-list allocator and per-slot block tables: KV memory is
-proportional to live tokens, not batch * max_seq. Admission splits
-prompts into KV-budgeted prefill CHUNKS (`max_chunk_tokens` per tick)
-packed into the SAME step as the active decode rows: one ragged
-attention launch per layer per tick, rows padded to one fixed count
-(`_T_pack`). Pool exhaustion preempts the latest-admitted sequence
-(recompute-style resume). The prefix cache maps each fully-written
-prompt PAGE (content-hash chain) to its physical page, so a later
-prompt with the same leading pages attaches them (refcount++) and
-prefills only the rest.
+proportional to live tokens, not batch * max_seq. Two regimes,
+selected by `ragged=` or FLAGS_ragged_attention (default on):
+
+* chunked prefill ("ragged"): admission splits prompts into
+  KV-budgeted prefill CHUNKS (`max_chunk_tokens` per tick) packed into
+  the SAME step as the active decode rows: one ragged attention launch
+  per layer per tick, rows padded to one fixed count (`_T_pack`). The
+  prefix cache maps each fully-written prompt PAGE (content-hash chain)
+  to its physical page, so a later prompt with the same leading pages
+  attaches them (refcount++) and prefills only the rest.
+* bucketed (`ragged=False` / FLAGS_ragged_attention=0): each admission
+  round prefills whole prompts, batched per length bucket
+  (`prefill_buckets`, k padded to a power of two), writes their KV into
+  their pages, and every tick then runs ONE decode step for all active
+  slots through the paged decode kernel. The prefix cache is off here,
+  as in the reference.
+
+Both regimes preempt the latest-admitted sequence on pool exhaustion
+(recompute-style resume).
 
 Differences from the reference, by design:
-* the KV pools are torch tensors updated IN PLACE by index writes each
-  tick (the reference donates its pools to the compiled step instead);
-* the step runs eagerly on `device` (no jit); sampling draws from an
-  explicit `torch.Generator` on the engine's device.
+* the KV pools are torch tensors updated IN PLACE by index writes (the
+  reference donates its pools to the compiled step instead);
+* the steps run eagerly on `device` (no jit, no compile cache); sampling
+  draws from an explicit `torch.Generator` on the engine's device.
 
-Not ported yet — asking for them raises NotImplementedError: the
-bucketed regime (`ragged=False` / FLAGS_ragged_attention=0), the SLO
+Not ported yet — asking for them raises NotImplementedError: the SLO
 layer (`slo=True`: priorities, deadlines, queue bound, shedding,
 degradation, fault isolation — `priority`/`deadline_s` on a request
 are carried but not acted on), speculative decoding, request tracing,
@@ -342,13 +351,25 @@ class _PrefixCache:
 
 # ---------------- engine ---------------------------------------------------
 
+def _next_tokens(logits, greedy, gen):
+    """logits [B, V] f32 -> i32[B]: argmax, or one draw per row from
+    softmax(logits) with `gen`."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                             generator=gen)[:, 0].to(torch.int32)
+
+
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over the paged-KV ragged step.
+    """Slot-based continuous batching over the paged KV pool.
 
     model: LlamaForCausalLM. max_batch = decode slots; max_seq = per-
-    slot KV capacity (page-aligned); max_chunk_tokens bounds the prefill
-    tokens packed into one tick; prefix_cache=None follows
-    FLAGS_prefix_cache. device: where the step runs (default `cuda`;
+    slot KV capacity (page-aligned); ragged=None follows
+    FLAGS_ragged_attention (chunked prefill; False is the bucketed
+    regime, whose prompts prefill per `prefill_buckets` length bucket);
+    max_chunk_tokens bounds the prefill tokens packed into one ragged
+    tick; prefix_cache=None follows FLAGS_prefix_cache (ragged regime
+    only). device: where the step runs (default `cuda`;
     with no card this raises unless device='cpu' is passed). The
     reference's other knobs are accepted with their defaults; asking for
     an unported feature raises NotImplementedError (module docstring)."""
@@ -369,8 +390,7 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))
-        unported = [(not self._ragged, "the bucketed regime (ragged=False)"),
-                    (bool(speculative), "speculative decoding"),
+        unported = [(bool(speculative), "speculative decoding"),
                     (bool(slo), "the SLO layer (slo=True)"),
                     (max_queue_tokens is not None,
                      "admission control (max_queue_tokens, SLO layer)"),
@@ -388,6 +408,10 @@ class ContinuousBatchingEngine:
         self.page = page
         self.S = int(-(-max_seq // page) * page)     # page-aligned
         self.ppmax = self.S // page
+        # the full slot capacity is always a bucket, so any prompt <=
+        # max_seq has one
+        self.buckets = tuple(sorted(
+            {b for b in prefill_buckets if b < self.S} | {self.S}))
         self.greedy = greedy
         self.state = {k: v.detach().to(self.device)
                       for k, v in model.state_dict().items()}
@@ -418,9 +442,15 @@ class ContinuousBatchingEngine:
         self.prefill_tokens_total = 0
         self.model_steps = 0             # ragged steps run (one per tick
         #                                  that scheduled any row)
+        self.decode_steps = 0            # bucketed decode steps run
+        self.prefill_calls: Dict[Tuple[int, int], int] = {}  # (bucket, k)
+        # prefix caching: ragged regime only — the bucketed prefill
+        # computes whole prompts in one batched call, so there is no
+        # seam to skip cached pages through
         pfx = (_core.get_bool_flag("FLAGS_prefix_cache", True)
                if prefix_cache is None else bool(prefix_cache))
-        self._pcache = _PrefixCache(self.pool, page) if pfx else None
+        self._pcache = (_PrefixCache(self.pool, page)
+                        if pfx and self._ragged else None)
         self.cache_jump_limit = max(int(cache_jump_limit), 1)
         self.cache_aware_admits = 0
         self._probe_memo: Dict[int, Tuple[int, int, int]] = {}
@@ -433,6 +463,9 @@ class ContinuousBatchingEngine:
         return int(self.k_pool.nbytes + self.v_pool.nbytes)
 
     # -- the model step ------------------------------------------------------
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
 
     def _ragged_fn(self):
         """(state, toks[T], k_pool, v_pool, page_ids[T], offs[T], pos[T],
@@ -447,15 +480,18 @@ class ContinuousBatchingEngine:
             lg, k_pool, v_pool = L._ragged_step_paged(
                 state, cfg, toks, pos, k_pool, v_pool, page_ids, offs,
                 page_table, q_start, q_len, kv_len, wls=wls)
-            if greedy:
-                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
-            else:
-                nxt = torch.multinomial(torch.softmax(lg, dim=-1), 1,
-                                        generator=gen)[:, 0].to(torch.int32)
-            nxt = torch.where(produce, nxt, prev)
+            nxt = torch.where(produce, _next_tokens(lg, greedy, gen), prev)
             return nxt, k_pool, v_pool
 
         return rstep
+
+    def _write_fn(self, k_new, v_new, page_ids, offs):
+        """k_new/v_new [L, N, kvh, d] into the pools at (page_ids[N],
+        offs[N]): one in-place index write per pool (the reference's
+        compiled scatter). Padding positions carry page id 0 (scratch)."""
+        pid, off = page_ids.long(), offs.long()
+        self.k_pool[:, :, pid, off] = k_new.transpose(1, 2).to(self.dtype)
+        self.v_pool[:, :, pid, off] = v_new.transpose(1, 2).to(self.dtype)
 
     # -- scheduler ----------------------------------------------------------
 
@@ -555,6 +591,146 @@ class ContinuousBatchingEngine:
                         victims, key=lambda j: self.slots[j].admit_seq))
                 else:
                     self._preempt(i)
+
+    # -- bucketed scheduler ---------------------------------------------------
+
+    def _bucket(self, T):
+        for b in self.buckets:
+            if T <= b:
+                return b
+        raise ValueError(f"prompt length {T} exceeds max_seq {self.S}")
+
+    def _admit(self):
+        """Move waiting requests into free slots, allocating ONLY the
+        pages the prompts need; requests stay queued while the pool has
+        no room. Same-bucket admissions of one round share ONE batched
+        prefill and ONE pool write. Rounds repeat while they admit, so
+        pages freed by a request that FINISHES at admission serve later
+        waiters in the same tick."""
+        while self._admit_round():
+            pass
+
+    def _admit_round(self) -> bool:
+        free_slots = [i for i, s in enumerate(self.slots) if s.free]
+        picked = []          # (slot_idx, req, eff, T, need, pages)
+        while self.waiting and free_slots:
+            req = self.waiting[0]
+            # re-admission after preemption resumes from prompt + output
+            eff = list(req.prompt) + list(req.output)
+            T = len(eff)
+            need = -(-T // self.page)
+            if self._oversized(T):
+                self.waiting.pop(0)
+                self._fail_request(req)
+                continue
+            pages = self.pool.alloc(need)
+            if pages is None:
+                break                    # pool full: stay waiting
+            self.waiting.pop(0)
+            picked.append((free_slots.pop(0), req, eff, T, need, pages))
+        if not picked:
+            return False
+        by_bucket: Dict[int, list] = {}
+        for item in picked:
+            by_bucket.setdefault(self._bucket(item[3]), []).append(item)
+        for bucket, group in by_bucket.items():
+            self._admit_group(bucket, group)
+        return True
+
+    def _admit_group(self, bucket, group):
+        """One batched prefill + one pool write for a same-bucket
+        admission group; k pads up to a power of two, as the reference
+        does to bound its compile cache (padding rows write the scratch
+        page)."""
+        n = len(group)
+        k = 1
+        while k < n:
+            k *= 2
+        ids = np.zeros((k, bucket), np.int32)
+        n_valid = np.ones((k,), np.int32)
+        for j, (_, _, eff, T, _, _) in enumerate(group):
+            ids[j, :T] = eff
+            n_valid[j] = T
+        self.prefill_calls[(bucket, k)] = (
+            self.prefill_calls.get((bucket, k), 0) + 1)
+        cfg = self.cfg
+        ck = torch.zeros((cfg.num_hidden_layers, k, bucket, cfg.kv_heads,
+                          cfg.head_dim), dtype=self.dtype, device=self.device)
+        cv = torch.zeros_like(ck)
+        zeros = torch.zeros((k,), dtype=torch.int32, device=self.device)
+        logits, k_new, v_new = L._forward_with_cache(
+            self.state, cfg, self._dev(ids), ck, cv, zeros, wls=self._wls)
+        last = logits[torch.arange(k, device=self.device),
+                      self._dev(n_valid).long() - 1]
+        # ONE flat write for the whole group: [L, k, T, kvh, d] ->
+        # [L, k*T, kvh, d]; padding rows and beyond-prompt positions land
+        # on the scratch page
+        pos = np.arange(bucket)
+        page_ids = np.zeros((k, bucket), np.int32)
+        offs = np.broadcast_to(pos % self.page, (k, bucket)).astype(np.int32)
+        for j, (_, _, _, T, need, pages) in enumerate(group):
+            page_ids[j] = np.where(
+                pos < T,
+                np.asarray(pages, np.int32)[
+                    np.minimum(pos // self.page, need - 1)],
+                0)
+        L_ = k_new.shape[0]
+        k_flat = k_new.reshape(L_, k * bucket, *k_new.shape[3:])
+        v_flat = v_new.reshape(L_, k * bucket, *v_new.shape[3:])
+        self._write_fn(k_flat, v_flat, self._dev(page_ids.reshape(-1)),
+                       self._dev(offs.reshape(-1)))
+        # a sampling engine SAMPLES the admission token too (the first
+        # token of every request and of every preemption resume)
+        toks = _next_tokens(last, self.greedy, self._gen).cpu().numpy()
+        for j, (i, req, eff, T, need, pages) in enumerate(group):
+            slot = self.slots[i]
+            self.prefill_tokens_total += T
+            self.slot_pages[i] = pages
+            self.page_table[i, :] = 0
+            self.page_table[i, :need] = pages
+            slot.req = req
+            req.status = "running"
+            slot.length = T
+            slot.produced = len(req.output) + 1
+            slot.last_token = int(toks[j])
+            slot.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            req.output.append(slot.last_token)
+            self._note_first_token(req)
+            self._maybe_finish(i)
+
+    def _step_bucketed(self):
+        """One bucketed tick: admission (batched prefills), decode page
+        growth, then ONE decode step for every active slot."""
+        self._admit()
+        self._grow()
+        active = np.array([not s.free for s in self.slots])
+        if not active.any():
+            return
+        toks = self._dev(np.array([s.last_token for s in self.slots],
+                                  np.int32))
+        lens = np.array([s.length for s in self.slots], np.int32)
+        active = self._dev(active)
+        # one token for every active slot, straight over the page pool;
+        # inactive slots keep their token
+        lg, self.k_pool, self.v_pool = L._decode_step_paged(
+            self.state, self.cfg, toks, self.k_pool, self.v_pool,
+            self._dev(self.page_table), self._dev(lens), active,
+            wls=self._wls)
+        nxt = torch.where(active, _next_tokens(lg, self.greedy, self._gen),
+                          toks)
+        self.decode_steps += 1
+        nxt = nxt.cpu().numpy()
+        for i, slot in enumerate(self.slots):
+            if slot.free:
+                continue
+            slot.length += 1
+            slot.produced += 1
+            slot.last_token = int(nxt[i])
+            slot.req.output.append(slot.last_token)
+            self._maybe_finish(i)
+
+    # -- chunked-prefill (ragged) scheduler ---------------------------------
 
     def _pick_waiter(self) -> int:
         """FIFO unless the prefix cache is warm: then the waiter with the
@@ -719,10 +895,7 @@ class ContinuousBatchingEngine:
                 offs[cur] = p % page
                 cur += 1
         self.last_packed_tokens = cur
-
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-
+        dev = self._dev
         nxt, self.k_pool, self.v_pool = self._ragged_fn()(
             self.state, dev(toks), self.k_pool, self.v_pool, dev(page_ids),
             dev(offs), dev(pos), dev(self.page_table), dev(q_start),
@@ -803,10 +976,15 @@ class ContinuousBatchingEngine:
         return snap
 
     def step(self) -> List[GenerationRequest]:
-        """One scheduler tick: admit, grow, then ONE mixed prefill-chunk
-        + decode step. Returns requests finished this tick."""
+        """One scheduler tick. Ragged regime: admit, grow, then ONE mixed
+        prefill-chunk + decode step. Bucketed regime: admit (batched
+        prefills), grow, then one decode step for every active slot.
+        Returns requests finished this tick."""
         n_done_before = len(self.finished)
-        self._step_ragged()
+        if self._ragged:
+            self._step_ragged()
+        else:
+            self._step_bucketed()
         self.ticks += 1
         return self.finished[n_done_before:]
 

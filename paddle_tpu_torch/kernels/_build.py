@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream are c_void_p: ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the pointer)
 _SIGNATURES = {
@@ -64,6 +65,12 @@ _SIGNATURES = {
     # T, nh, kvh, n_pages, page, d, B, ppmax, scale, stream
     "ptt_ragged_paged_attention_bf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),
     "ptt_ragged_paged_attention_f32": (_P,) * 8 + (_I,) * 8 + (_F, _P),
+    # q, k_pages, v_pages, lengths, page_indices, out, B, nh, kvh, page,
+    # ppseq, d, pool strides (head, page, token; elements), scale, stream
+    "ptt_paged_decode_attention_bf16": (_P,) * 6 + (_I,) * 6 + (_LL,) * 3
+                                       + (_F, _P),
+    "ptt_paged_decode_attention_f32": (_P,) * 6 + (_I,) * 6 + (_LL,) * 3
+                                      + (_F, _P),
 }
 
 _lock = threading.Lock()

@@ -20,10 +20,16 @@ values). Remat (`use_recompute=True` under autograd), sequence
 parallelism and explicit position ids are not ported and raise.
 
 Serving: `_ragged_step_paged` runs the chunked-prefill / decode mix
-over the paged KV pool with the reference's float order. Its per-layer
-KV page writes are in-place index writes into the pool tensors (the
-reference donates its pools to XLA instead). The bucketed/decode-only
-blocks and `generate` belong to later slices.
+over the paged KV pool with the reference's float order;
+`_forward_with_cache` (prefill, or one decode token through
+`paged_decode_attention` over page views of the cache) runs over a
+contiguous [L, B, S_max, kvh, d] cache, and `_decode_step_paged` runs
+one decode token per slot over the page pool through
+`paged_decode_attention`.
+Every KV write is an in-place index write into the cache or pool
+tensors (the reference rebuilds or donates them under XLA instead).
+`LlamaForCausalLM.generate` is the model's own generation API over
+`_forward_with_cache`, as an eager Python loop.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ..framework import core
 from ..framework.core import resolve_device
 from ..kernels import flash_attention as kfa
 from ..kernels import fused_norm_residual as kfnr
+from ..kernels import paged_attention as kpa
 from ..kernels import ragged_paged_attention as krpa
 from ..kernels import rms_norm as krn
 from ..kernels import rope as krope
@@ -335,6 +342,73 @@ class LlamaForCausalLM(nn.Module):
         lb = labels[:, 1:].reshape(-1)
         return floss.cross_entropy(lg, lb, ignore_index=-100)
 
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, max_length=None,
+                 eos_token_id=None, do_sample=False, temperature=1.0,
+                 top_k=0, seed=0, use_cache=True):
+        """KV-cache generation: one prefill over the prompt, then one
+        decode step per new token (`_forward_with_cache`; each decode
+        step's attention is the paged decode kernel over views of the
+        cache). Greedy when do_sample=False; max_length caps prompt +
+        new tokens; after eos_token_id a row keeps emitting it. Returns
+        the generated ids [B, max_new_tokens] int32 on the model's
+        device.
+
+        Eager, like the rest of the port: a Python loop over the steps
+        (the reference compiles a prefill and a `lax.scan` decode).
+        Sampling draws from a `torch.Generator` on the model's device
+        seeded with `seed`: reproducible per seed, but not the
+        `jax.random` draws the reference makes from the same seed.
+        `use_cache` is accepted and, as in the reference, not read."""
+        cfg = self.cfg
+        dev = self.device
+        ids = torch.as_tensor(input_ids).to(device=dev, dtype=torch.int32)
+        B, T0 = ids.shape
+        if max_length is not None:
+            # total-length cap (paddle/HF semantics)
+            max_new_tokens = min(max_new_tokens, max(int(max_length) - T0, 1))
+        # page-rounded, so the decode steps read the cache in place; the
+        # slots past T0 + max_new_tokens are masked like any unwritten one
+        page = kpa._PAGE
+        S_max = -(-(T0 + max_new_tokens) // page) * page
+        state = dict(self.state_dict())
+        wls = _gather_layer_weights(state, cfg)
+        L, kvh, d = cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim
+        dtype = state["model.embed_tokens"].dtype
+        cache_k = torch.zeros((L, B, S_max, kvh, d), dtype=dtype, device=dev)
+        cache_v = torch.zeros_like(cache_k)
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+
+        def pick(logits):
+            if do_sample:
+                lg = logits / max(temperature, 1e-6)
+                if top_k:
+                    kth = torch.topk(lg, int(top_k), dim=-1).values[..., -1:]
+                    lg = lg.masked_fill(lg < kth, float("-inf"))
+                return torch.multinomial(torch.softmax(lg, dim=-1), 1,
+                                         generator=gen)[:, 0].to(torch.int32)
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+        logits, _, _ = _forward_with_cache(state, cfg, ids, cache_k, cache_v,
+                                           zeros, wls=wls)
+        tok = pick(logits[:, -1])
+        out = [tok]
+        # the FIRST token may already be EOS
+        done = tok == eos
+        cur = torch.full((B,), T0, dtype=torch.int32, device=dev)
+        for _ in range(max_new_tokens - 1):
+            logits, _, _ = _forward_with_cache(state, cfg, tok[:, None],
+                                               cache_k, cache_v, cur, wls=wls)
+            nxt = pick(logits[:, -1])
+            tok = torch.where(done, max(eos, 0), nxt).to(torch.int32)
+            done = done | (tok == eos)
+            out.append(tok)
+            cur = cur + 1
+        return torch.stack(out, dim=1)
+
 
 # ---------------------------------------------------------------------------
 # serving blocks over a state dict
@@ -409,6 +483,171 @@ def _serving_mlp(a2, wl):
             * (a2 @ wl["mlp.up_proj"]))
 
 
+def _qkv(cfg, a, wl, pos_ids, max_pos):
+    """The serving blocks' projection + rope: a [B, T, H] ->
+    q [B, T, nh, d], k and v [B, T, kvh, d]."""
+    B, T = a.shape[0], a.shape[1]
+    nh, kvh, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    if "self_attn.qkv_proj" in wl:     # FLAGS_fused_transformer layout
+        return krope.fused_qkv_rope(a, wl["self_attn.qkv_proj"], nh, kvh, d,
+                                    position_ids=pos_ids,
+                                    base=cfg.rope_theta, seq_len=max_pos)
+    q = (a @ wl["self_attn.q_proj"]).reshape(B, T, nh, d)
+    k = (a @ wl["self_attn.k_proj"]).reshape(B, T, kvh, d)
+    v = (a @ wl["self_attn.v_proj"]).reshape(B, T, kvh, d)
+    q, k = krope.apply_rope(q, k, position_ids=pos_ids, base=cfg.rope_theta,
+                            seq_len=max_pos)
+    return q, k, v
+
+
+def _block_with_cache(cfg, h, wl, ck, cv, pos_ids, cache_mask, paged=None):
+    """One decoder layer over tokens at pos_ids with a KV cache.
+
+    h: [B, T, H]; ck/cv: [B, S_max, kvh, d] (this layer's cache, written
+    IN PLACE); pos_ids: [B, T] absolute positions; cache_mask: [B, S_max]
+    bool — which cache slots are valid AFTER this step's keys are
+    written. Returns h. Decode (T == 1) runs the paged decode kernel over
+    views of the cache: `paged` = (k_pages, v_pages, lengths,
+    page_indices) of this layer, built once per step by the caller, or
+    None when S_max is no page multiple (`decode_attention` pads a copy,
+    as the reference does). Prefill is the reference's dense f32 masked
+    softmax (it has no Pallas kernel there)."""
+    B, T = h.shape[0], h.shape[1]
+    nh, kvh, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    a = _rms(h, wl["input_layernorm.weight"], cfg.rms_norm_eps)
+    max_pos = max(cfg.max_position_embeddings, ck.shape[1])
+    q, k, v = _qkv(cfg, a, wl, pos_ids, max_pos)
+    # the new keys/values at their absolute positions: an index write
+    # (the reference's one-hot einsum gives the same values bit for bit)
+    bi = torch.arange(B, device=h.device)[:, None].expand(B, T)
+    pi = pos_ids.long()
+    ck[bi, pi] = k.to(ck.dtype)
+    cv[bi, pi] = v.to(cv.dtype)
+    if T == 1:
+        if paged is None:
+            lengths = (pos_ids[:, 0] + 1).to(torch.int32)  # incl. this token
+            o = kpa.decode_attention(q, ck, cv, lengths,
+                                     scale=1.0 / math.sqrt(d))[:, 0]
+        else:
+            o = kpa.paged_decode_attention(q[:, 0], *paged,
+                                           scale=1.0 / math.sqrt(d))
+        o = o.to(h.dtype).reshape(B, T, nh * d)
+    else:
+        if kvh != nh:
+            rep = nh // kvh
+            kk = torch.repeat_interleave(ck, rep, dim=2)
+            vv = torch.repeat_interleave(cv, rep, dim=2)
+        else:
+            kk, vv = ck, cv
+        s = torch.einsum("bthd,bshd->bhts", q.float(),
+                         kk.float()) / math.sqrt(d)
+        causal = (pos_ids[:, :, None]
+                  >= torch.arange(ck.shape[1], device=h.device)[None, None])
+        valid = causal & cache_mask[:, None, :]          # [B, T, S_max]
+        s = s.masked_fill(~valid[:, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhts,bshd->bthd", p, vv.float())
+        o = o.to(h.dtype).reshape(B, T, nh * d)
+    h = h + o @ wl["self_attn.o_proj"]
+    a2 = _rms(h, wl["post_attention_layernorm.weight"], cfg.rms_norm_eps)
+    up = _serving_mlp(a2, wl)
+    return h + up @ wl["mlp.down_proj"]
+
+
+def _lm_head(state, h):
+    """h [..., H] -> logits in the weights' dtype (the tied embedding
+    when the state has no lm_head)."""
+    if "lm_head" in state:
+        return h @ state["lm_head"]
+    return h @ state["model.embed_tokens"].transpose(0, 1)
+
+
+@torch.no_grad()
+def _forward_with_cache(state, cfg, ids, cache_k, cache_v, cur_len,
+                        wls=None):
+    """ids: [B, T] new tokens (T = prompt at prefill, 1 at decode);
+    cache_k/v: [L, B, S_max, kvh, d], written in place; cur_len: i32[B]
+    tokens already cached. Returns (logits[B, T, V] f32, cache_k,
+    cache_v). `wls`: pre-gathered per-layer weights."""
+    B, T = ids.shape
+    S_max = cache_k.shape[2]
+    dev = ids.device
+    h = state["model.embed_tokens"][ids.long()]
+    cur = cur_len.to(device=dev, dtype=torch.int32)
+    pos_ids = cur[:, None] + torch.arange(T, dtype=torch.int32,
+                                          device=dev)[None, :]
+    cache_mask = (torch.arange(S_max, device=dev)[None, :]
+                  < (cur + T)[:, None])
+    if wls is None:
+        wls = _gather_layer_weights(state, cfg)
+    kps = None
+    if T == 1 and S_max % kpa._PAGE == 0:
+        # decode: every layer's page views of the cache (no copy), the
+        # block table and the lengths (incl. this token), once per step
+        kps, vps, pidx = kpa.paginate_cache(cache_k, cache_v)
+        lengths = cur + 1
+    for li, wl in enumerate(wls):
+        paged = None if kps is None else (kps[li], vps[li], lengths, pidx)
+        h = _block_with_cache(cfg, h, wl, cache_k[li], cache_v[li], pos_ids,
+                              cache_mask, paged)
+    h = _rms(h, state["model.norm.weight"], cfg.rms_norm_eps)
+    return _lm_head(state, h).float(), cache_k, cache_v
+
+
+def _block_paged(cfg, h, wl, kp, vp, pos_ids, pg, off, page_table, lens):
+    """One decoder layer for a single-token decode over the page pool.
+
+    h: [B, 1, H]; kp/vp: [kvh, P, page, d] (this layer's pool, written IN
+    PLACE); pos_ids: [B, 1]; pg/off: i32[B] page id + in-page offset for
+    this token's KV write; page_table: i32[B, ppmax]; lens: i32[B] tokens
+    cached BEFORE this step. Returns h."""
+    B = h.shape[0]
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    a = _rms(h, wl["input_layernorm.weight"], cfg.rms_norm_eps)
+    max_pos = max(cfg.max_position_embeddings,
+                  page_table.shape[1] * kp.shape[2])
+    q, k, v = _qkv(cfg, a, wl, pos_ids, max_pos)
+    # this token's k/v into page (pg[b], off[b]): a B-row write
+    pg_, off_ = pg.long(), off.long()
+    kp[:, pg_, off_] = k[:, 0].transpose(0, 1).to(kp.dtype)
+    vp[:, pg_, off_] = v[:, 0].transpose(0, 1).to(vp.dtype)
+    o = kpa.paged_decode_attention(q[:, 0], kp, vp,
+                                   (lens + 1).to(torch.int32), page_table,
+                                   scale=1.0 / math.sqrt(d))
+    h = h + o.to(h.dtype).reshape(B, 1, nh * d) @ wl["self_attn.o_proj"]
+    a2 = _rms(h, wl["post_attention_layernorm.weight"], cfg.rms_norm_eps)
+    up = _serving_mlp(a2, wl)
+    return h + up @ wl["mlp.down_proj"]
+
+
+@torch.no_grad()
+def _decode_step_paged(state, cfg, toks, k_pool, v_pool, page_table, lens,
+                       active, wls=None):
+    """One decode token for every slot over the shared page pool.
+
+    toks: i32[B]; k/v_pool: [L, kvh, P, page, d], written in place;
+    page_table: i32[B, ppmax] (page ids per slot, unused entries 0 =
+    scratch); lens: i32[B] tokens already cached; active: bool[B].
+    Inactive slots write the scratch page, attend to one token of it and
+    their logits are ignored by the caller. Returns (logits[B, V] f32
+    for the new token, k_pool, v_pool)."""
+    h = state["model.embed_tokens"][toks.long()][:, None]   # [B, 1, H]
+    lens = torch.where(active, lens, 0).to(torch.int32)
+    pos_ids = lens[:, None]
+    page = k_pool.shape[3]
+    pg = torch.gather(page_table, 1, (lens // page)[:, None].long())[:, 0]
+    pg = torch.where(active, pg, 0)                  # scratch for inactive
+    off = lens % page
+    if wls is None:
+        wls = _gather_layer_weights(state, cfg)
+    for li, wl in enumerate(wls):
+        h = _block_paged(cfg, h, wl, k_pool[li], v_pool[li], pos_ids, pg,
+                         off, page_table, lens)
+    h = _rms(h, state["model.norm.weight"], cfg.rms_norm_eps)
+    # rank-3 matmul h[B, 1, H] @ W, as the reference (greedy ties)
+    return _lm_head(state, h).float()[:, 0], k_pool, v_pool
+
+
 def _block_ragged(cfg, h, wl, kp, vp, pos, page_ids, offs, page_table,
                   q_start, q_len, kv_len):
     """One decoder layer over packed ragged rows against the page pool.
@@ -420,21 +659,11 @@ def _block_ragged(cfg, h, wl, kp, vp, pos, page_ids, offs, page_table,
     q_start/q_len/kv_len: i32[B] (kv_len includes this step's rows).
     Returns h."""
     T = h.shape[0]
-    nh, kvh, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    nh, d = cfg.num_attention_heads, cfg.head_dim
     a = _rms(h, wl["input_layernorm.weight"], cfg.rms_norm_eps)
     max_pos = max(cfg.max_position_embeddings,
                   page_table.shape[1] * kp.shape[2])
-    if "self_attn.qkv_proj" in wl:
-        q, k, v = krope.fused_qkv_rope(a, wl["self_attn.qkv_proj"], nh, kvh,
-                                       d, position_ids=pos,
-                                       base=cfg.rope_theta, seq_len=max_pos)
-    else:
-        q = (a @ wl["self_attn.q_proj"]).reshape(T, nh, d)
-        k = (a @ wl["self_attn.k_proj"]).reshape(T, kvh, d)
-        v = (a @ wl["self_attn.v_proj"]).reshape(T, kvh, d)
-        q4, k4 = krope.apply_rope(q[None], k[None], position_ids=pos[None],
-                                  base=cfg.rope_theta, seq_len=max_pos)
-        q, k = q4[0], k4[0]
+    q, k, v = (t[0] for t in _qkv(cfg, a[None], wl, pos[None], max_pos))
     # ONE T-row page write per layer (prefill chunks and decode tokens
     # alike); duplicate scratch-page writes from padding rows are benign
     pid, off = page_ids.long(), offs.long()
@@ -466,8 +695,7 @@ def _ragged_step_paged(state, cfg, toks, pos, k_pool, v_pool, page_ids,
         raise NotImplementedError(
             "verify_rows (speculative verification) is not ported yet")
     T = toks.shape[0]
-    emb = state["model.embed_tokens"]
-    h = emb[toks.long()]                                     # [T, H]
+    h = state["model.embed_tokens"][toks.long()]             # [T, H]
     if wls is None:
         wls = _gather_layer_weights(state, cfg)
     for li, wl in enumerate(wls):
@@ -478,11 +706,7 @@ def _ragged_step_paged(state, cfg, toks, pos, k_pool, v_pool, page_ids,
     # form is what every other decode path uses)
     last = torch.clamp(q_start.long() + q_len.long() - 1, 0, T - 1)
     h_last = h[last][:, None]                                # [B, 1, H]
-    if "lm_head" in state:
-        logits = h_last @ state["lm_head"]
-    else:
-        logits = h_last @ emb.transpose(0, 1)
-    return logits.float()[:, 0], k_pool, v_pool
+    return _lm_head(state, h_last).float()[:, 0], k_pool, v_pool
 
 
 def llama_tiny(**kw):

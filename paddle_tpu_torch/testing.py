@@ -29,7 +29,9 @@ import torch
 
 __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "flash_pairs", "flash_readings", "swiglu_bwd_terms",
-           "swiglu_bwd_pairs"]
+           "swiglu_bwd_pairs", "paged_decode_case", "paged_decode_views_case",
+           "PAGED_DECODE_CASES", "paged_decode_cases", "paged_decode_pair",
+           "paged_decode_readings"]
 
 BF16_RTOL = 2.0 ** -7
 # share of an element's sum of |terms|: two bf16 roundoffs (the rounded
@@ -158,3 +160,105 @@ def swiglu_bwd_pairs(a, w_gate_up, do):
     da_p, dw_p = ksw._ref_bwd(a.float(), w_gate_up.float(), do.float())
     da_t, dw_t = swiglu_bwd_terms(a, w_gate_up, do)
     return [("da", da, da_p, da_t), ("dw", dw, dw_p, dw_t)], dgu
+
+
+def paged_decode_case(lengths=(17, 100, 300, 700), nh=32, kvh=32, d=128,
+                      page=16, ppseq=64, dtype=torch.bfloat16, seed=0):
+    """Paged decode attention inputs on the card, by default the bucketed
+    engine's llama_7b decode: q [B, nh, d] and a pool [kvh, B*ppseq + 1,
+    page, d] of random values with a shuffled block table [B, ppseq]
+    (sequence b owns ceil(lengths[b] / page) distinct pages in random
+    order; page 0 is never used, as the engine's scratch page). Returns
+    (q, k_pages, v_pages, lengths, page_indices)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(lengths)
+    n_pages = B * ppseq + 1
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, kp, vp = rand(B, nh, d), rand(kvh, n_pages, page, d), \
+        rand(kvh, n_pages, page, d)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+            + 1).to(torch.int32)
+    pt = torch.zeros((B, ppseq), dtype=torch.int32, device="cuda")
+    nxt = 0
+    for b, n in enumerate(lengths):
+        used = -(-n // page)
+        pt[b, :used] = perm[nxt:nxt + used]
+        nxt += used
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, lens, pt
+
+
+def paged_decode_views_case(S, lengths, layers=1, nh=32, kvh=32, d=128,
+                            dtype=torch.bfloat16, seed=0):
+    """Paged decode attention inputs as `generate` reads its cache on the
+    card: a contiguous cache [layers, B, S, kvh, d] of random values seen
+    through `paginate_cache`'s page views (strided, no copy) and the
+    identity block table; the last layer's views are returned, an offset
+    slice as every layer's but the first. Returns (q, k_pages, v_pages,
+    lengths, page_indices)."""
+    from .kernels import paged_attention as kpa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(lengths)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    ck, cv = rand(layers, B, S, kvh, d), rand(layers, B, S, kvh, d)
+    kp, vp, pt = kpa.paginate_cache(ck, cv)
+    q = rand(B, nh, d)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp[-1], vp[-1], lens, pt
+
+
+# The paged decode cases the card checks, in chip_smoke.py and in the
+# card tests: tag -> (builder, kwargs). "engine" is the bucketed engine's
+# llama_7b decode; "generate_cache" is generate's own in chip_smoke.py
+# (a page-rounded 128 + 64 = 192-token cache, lengths over its decode
+# steps' range 129..191, layer 1 of 2); "generate_views" a 1024-token
+# cache read through the same views; then GQA 32/8, d = 64 with GQA 8/2
+# and pages of 8, and one sequence.
+PAGED_DECODE_CASES = {
+    "engine": (paged_decode_case, {}),
+    "generate_cache": (paged_decode_views_case,
+                       dict(S=192, lengths=(129, 150, 177, 191), layers=2)),
+    "generate_views": (paged_decode_views_case,
+                       dict(S=1024, lengths=(1, 129, 700, 1024))),
+    "gqa_32_8": (paged_decode_case, dict(kvh=8)),
+    "d64_gqa_8_2_page8": (paged_decode_case,
+                          dict(nh=8, kvh=2, d=64, page=8, ppseq=32,
+                               lengths=(1, 255, 256))),
+    "b1": (paged_decode_case, dict(lengths=(1000,))),
+}
+
+
+def paged_decode_cases(dtype, tags=None, seed=0):
+    """Yields (tag, (q, k_pages, v_pages, lengths, page_indices)) for
+    each tag of `PAGED_DECODE_CASES` (all by default), one case built at
+    a time."""
+    for tag in tags or PAGED_DECODE_CASES:
+        make, kw = PAGED_DECODE_CASES[tag]
+        yield tag, make(dtype=dtype, seed=seed, **kw)
+
+
+def paged_decode_pair(q, k_pages, v_pages, lengths, page_indices):
+    """The paged decode kernel and its plain version on f32 copies of
+    the same inputs; the plain side keeps the one low-precision step of
+    its float order, q pre-scaled in q's dtype. Returns (kernel, plain)."""
+    from .kernels import paged_attention as kpa
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out = kpa.paged_decode_attention(q, k_pages, v_pages, lengths,
+                                     page_indices, use_kernel=True)
+    ref = kpa._dense_fallback((q * scale).float(), k_pages.float(),
+                              v_pages.float(), lengths, page_indices)
+    return out, ref
+
+
+def paged_decode_readings(seed=0):
+    """bf16 paged decode at the bucketed engine's shape on the card: the
+    worst err/limit of the output under atol 1e-5 + 2^-7 |plain| (a
+    reading above 1 is a miss)."""
+    out, ref = paged_decode_pair(*paged_decode_case(seed=seed))
+    return {"o": worst(out, ref, 1e-5, BF16_RTOL)}

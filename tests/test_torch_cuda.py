@@ -21,6 +21,7 @@ import torch
 from paddle_tpu_torch import testing
 from paddle_tpu_torch.kernels import flash_attention as t_fa
 from paddle_tpu_torch.kernels import fused_norm_residual as t_fnr
+from paddle_tpu_torch.kernels import paged_attention as t_pa
 from paddle_tpu_torch.kernels import ragged_paged_attention as t_rpa
 from paddle_tpu_torch.kernels import rms_norm as t_rms
 from paddle_tpu_torch.kernels import swiglu as t_sw
@@ -314,6 +315,36 @@ _FLASH_FAULTS = {
 }
 
 
+def _readings_with_fault(tmp_path, source, fault, readings_fn):
+    """Copy the package, plant `fault` = (anchor, pattern, replacement)
+    in the copy's csrc/`source` (None: intact), build and run the copy's
+    `testing.<readings_fn>()` in a subprocess; returns its readings."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = shutil.copytree(os.path.join(repo, "paddle_tpu_torch"),
+                          tmp_path / "paddle_tpu_torch",
+                          ignore=shutil.ignore_patterns("_build",
+                                                        "__pycache__"))
+    if fault is not None:
+        anchor, pattern, repl = fault
+        cu = pkg / "csrc" / source
+        src = cu.read_text()
+        at = src.index(anchor)
+        body, n = re.subn(pattern, repl, src[at:], count=1)
+        assert n == 1, f"{pattern}: the pattern is not in the kernel"
+        cu.write_text(src[:at] + body)
+    code = ("import json, sys\n"
+            "import paddle_tpu_torch\n"
+            "from paddle_tpu_torch import testing\n"
+            "assert paddle_tpu_torch.__file__.startswith(sys.argv[1])\n"
+            f"print(json.dumps(testing.{readings_fn}()))\n")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=tmp_path, env=dict(os.environ,
+                                                PYTHONPATH=str(tmp_path)),
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", [None, *_FLASH_FAULTS],
                          ids=["intact", *_FLASH_FAULTS])
@@ -326,32 +357,147 @@ def test_flash_check_fails_planted_faults(fault, tmp_path):
     the element limit (`terms`) and under a limit scaled by the
     tensor's max|plain| (`max`)."""
     _card()
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    pkg = shutil.copytree(os.path.join(repo, "paddle_tpu_torch"),
-                          tmp_path / "paddle_tpu_torch",
-                          ignore=shutil.ignore_patterns("_build",
-                                                        "__pycache__"))
-    if fault is not None:
-        anchor, pattern, repl, _ = _FLASH_FAULTS[fault]
-        cu = pkg / "csrc" / "flash_attention.cu"
-        src = cu.read_text()
-        at = src.index(anchor)
-        body, n = re.subn(pattern, repl, src[at:], count=1)
-        assert n == 1, f"{fault}: the pattern is not in the kernel"
-        cu.write_text(src[:at] + body)
-    code = ("import json, sys\n"
-            "import paddle_tpu_torch\n"
-            "from paddle_tpu_torch import testing\n"
-            "assert paddle_tpu_torch.__file__.startswith(sys.argv[1])\n"
-            "print(json.dumps(testing.flash_readings()))\n")
-    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
-                         cwd=tmp_path, env=dict(os.environ,
-                                                PYTHONPATH=str(tmp_path)),
-                         capture_output=True, text=True, timeout=900)
-    assert res.returncode == 0, res.stderr[-4000:]
-    readings = json.loads(res.stdout.strip().splitlines()[-1])
+    readings = _readings_with_fault(
+        tmp_path, "flash_attention.cu",
+        None if fault is None else _FLASH_FAULTS[fault][:3],
+        "flash_readings")
     print(f"flash readings, {fault or 'intact'}: {json.dumps(readings)}")
     if fault is None:
         assert all(r["terms"] <= 1.0 for r in readings.values())
     else:
         assert readings[_FLASH_FAULTS[fault][3]]["terms"] > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(testing.PAGED_DECODE_CASES))
+def test_paged_decode_attention_matches_plain(dtype, case):
+    """chip_smoke.py's paged decode cases (`testing.PAGED_DECODE_CASES`):
+    the bucketed engine's llama_7b decode (pool [32, 257, 16, 128],
+    shuffled pages, lengths 17/100/300/700); generate's cache read
+    through paginate_cache's strided views, at its own 192 tokens and at
+    1024; GQA 32/8; d = 64 with GQA 8/2 and pages of 8; one sequence."""
+    _card()
+    dt = getattr(torch, dtype)
+    ((_, args),) = testing.paged_decode_cases(dt, tags=(case,), seed=3)
+    if testing.PAGED_DECODE_CASES[case][0] is testing.paged_decode_views_case:
+        assert not args[1].is_contiguous()
+    out, ref = testing.paged_decode_pair(*args)
+    assert out.dtype == dt and out.shape == args[0].shape
+    if dt == torch.float32:
+        assert _max_rel(out, ref) <= 2e-5
+    else:
+        assert _within(out, ref, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paged_decode_refuses_a_layout_it_does_not_take():
+    """A CUDA pool whose d is not unit-stride raises; nothing is copied
+    behind the caller's back."""
+    _card()
+    q, kp, vp, lens, pt = testing.paged_decode_case(lengths=(5, 9), nh=4,
+                                                    kvh=4, d=64, ppseq=4)
+    kt = kp.transpose(2, 3).contiguous().transpose(2, 3)
+    vt = vp.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="strides"):
+        t_pa.paged_decode_attention(q, kt, vt, lens, pt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 3, 4])
+def test_decode_rows_swiglu_and_rms_norm(dtype, rows):
+    """SwiGLU and RMSNorm at the decode step's row counts (T = B), at
+    llama_7b's widths."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    H, M = 4096, 11008
+    a = torch.randn(rows, 1, H, generator=g, device="cuda").to(dt)
+    wgu = (0.02 * torch.randn(H, 2 * M, generator=g, device="cuda")).to(dt)
+    w = torch.rand(H, generator=g, device="cuda") + 0.5
+    y = t_sw.swiglu(a, wgu)
+    n = t_rms.rms_norm(a, w, 1e-5)
+    assert y.shape == (rows, 1, M) and n.shape == a.shape
+    if dt == torch.float32:
+        assert _max_rel(y, t_sw._ref(a, wgu)) <= 1e-4
+        assert _max_rel(n, t_rms._plain(a, w, 1e-5)) <= 1e-5
+    else:
+        assert _within(y, t_sw._ref(a.float(), wgu.float()), atol=1e-4)
+        assert _within(n, t_rms._plain(a.float(), w, 1e-5), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_generate_and_bucketed_engine_launch_every_kernel():
+    """A llama_tiny bf16 generate on the card: rms_norm 2L+1 and swiglu
+    L per forward (prefill and each decode step), paged decode attention
+    L per decode step; then a bucketed engine: the same per prefill call
+    and per decode step, paged decode L per decode step."""
+    _card()
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    GenerationRequest)
+    from paddle_tpu_torch.models import llama as TL
+    cfg = TL.llama_tiny(dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    L = cfg.num_hidden_layers
+    kernels = (t_rms.rms_norm, t_sw.swiglu, t_pa.paged_decode_attention)
+    before = [k.launches for k in kernels]
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 7))).cuda()
+    out = model.generate(ids, max_new_tokens=5)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 5) and out.dtype == torch.int32 and out.is_cuda
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [5 * (2 * L + 1), 5 * L, 4 * L]
+    eng = ContinuousBatchingEngine(model, max_batch=2, max_seq=64,
+                                   prefill_buckets=(8,), ragged=False,
+                                   device="cuda")
+    before = [k.launches for k in kernels]
+    reqs = [GenerationRequest([3, 1, 4], max_new_tokens=6),
+            GenerationRequest([1, 5], max_new_tokens=4)]
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    fwd = eng.decode_steps + sum(eng.prefill_calls.values())
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [fwd * (2 * L + 1), fwd * L, eng.decode_steps * L]
+    assert [r.status for r in reqs] == ["served"] * 2
+    assert [len(r.output) for r in reqs] == [6, 4]
+    assert eng.pool.n_free == eng.pool.n_pages - 1
+
+
+# Faults planted in a copy of csrc/paged_attention.cu: (anchor, pattern,
+# replacement).
+_PAGED_FAULTS = {
+    # every sequence drops the keys of its last, partial page
+    "ignores_last_partial_page": (
+        "paged_decode_kernel(",
+        r"const int len = max\(0, min\(lengths\[b\], ppseq \* page\)\);",
+        "const int len = max(0, min(lengths[b], ppseq * page)) / page * page;"),
+    # every sequence reads page j / page of sequence 0's block table
+    "reads_sequence_0_pages": (
+        "paged_decode_kernel(",
+        r"page_indices\[static_cast<size_t>\(b\) \* ppseq \+ i\]",
+        "page_indices[i]"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, *_PAGED_FAULTS],
+                         ids=["intact", *_PAGED_FAULTS])
+def test_paged_decode_check_fails_planted_faults(fault, tmp_path):
+    """chip_smoke.py's paged decode check (`testing.paged_decode_readings`,
+    bf16 at the bucketed engine's shape, lengths 17/100/300/700, none a
+    page multiple) passes the kernel as written with room to spare (worst
+    err/limit <= 0.5) and fails each planted fault by more than 10x."""
+    _card()
+    readings = _readings_with_fault(
+        tmp_path, "paged_attention.cu",
+        None if fault is None else _PAGED_FAULTS[fault],
+        "paged_decode_readings")
+    print(f"paged decode readings, {fault or 'intact'}: "
+          f"{json.dumps(readings)}")
+    if fault is None:
+        assert readings["o"] <= 0.5
+    else:
+        assert readings["o"] > 10.0

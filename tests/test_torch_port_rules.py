@@ -82,11 +82,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 @pytest.mark.parametrize("knob", [
-    {"ragged": False}, {"speculative": True}, {"slo": True},
+    {"speculative": True}, {"slo": True},
     {"request_trace": True}, {"quantize": "int8"},
     {"max_queue_tokens": 512}],
-    ids=["bucketed", "speculative", "slo", "request_trace", "int8",
-         "queue_bound"])
+    ids=["speculative", "slo", "request_trace", "int8", "queue_bound"])
 def test_unported_features_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousBatchingEngine(_tiny(), device="cpu", **knob)
