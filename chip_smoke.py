@@ -12,12 +12,17 @@ Phases, each of which fails the run on a miss:
 3. kernels — each kernel of the serving and the training path held
    against its plain PyTorch version on the card, at the slices' shapes
    (rms_norm and swiglu at every row count of the serving, decode,
-   prefill and training paths; paged decode attention at
-   `testing.PAGED_DECODE_CASES`, generate's own cache among them),
+   prefill and training paths; fused_add_rms_norm, the SwiGLU backward
+   and flash attention at llama_1b's and llama_7b's training shapes,
+   `TRAIN_KERNEL_SHAPES`; paged decode attention at
+   `testing.PAGED_DECODE_CASES`, generate's own cache among them; the
+   fused cross-entropy forward and backward at `testing.
+   FUSED_CE_CASES`, the 7B training slice's [8188, 32000] among them),
    in bf16 and in f32 (TF32 off), element by element within the stated
-   limit (`TOL`); bf16 timed with CUDA events beside its plain version,
-   the library call where one exists, and its bound (bytes over 3.35
-   TB/s vs operations over 989 TFLOP/s);
+   limit (`TOL`, and testing.py's `CE_LIMITS`); bf16 timed with CUDA
+   events beside its plain version, the library call where one exists,
+   and its bound (bytes over 3.35 TB/s vs operations over 989 TFLOP/s
+   in bf16 tensor-core work, 67 TFLOP/s in f32 elementwise work);
 4. serving — full-width llama_7b (32 layers, random weights from a
    seeded generator) behind the port's HTTP gateway, 4 concurrent
    streamed requests; every kernel's launch counter must account for
@@ -47,7 +52,21 @@ Phases, each of which fails the run on a miss:
    backward on the kernel route and the plain route, whose loss and
    grads must agree within `TRAIN_LOSS_RTOL` and `TRAIN_GRAD_RTOL`; one
    more step is traced by torch.profiler, its device time split by
-   kernel group.
+   kernel group;
+8. 7B training — full-depth llama_7b (32 layers, bf16, random weights
+   from a seeded generator) as bench.py's 7B configuration runs it:
+   `use_recompute=True` under `TrainStep`'s default remat policy
+   "save_matmul_outputs", FLAGS_use_fused_ce=1, AdamW, batch 4 x 2048;
+   `TRAIN7B_WARMUP` warm-up and `TRAIN7B_STEPS` timed steps whose losses
+   must be finite and fall; step ms, tokens/s, MFU (recompute FLOPs not
+   counted, as bench.py counts), peak memory; every training kernel's
+   launch counter exact for the policy that ran; one traced step split
+   by kernel group. Then a 2-layer model at full 7B width: one forward
+   and backward without remat and under each remat policy, loss and
+   every grad bitwise equal and peak memory ordered nothing <=
+   save_matmul_outputs < no remat; and the kernel route (remat, fused
+   cross-entropy) against the plain route within `TRAIN7B_LOSS_RTOL`
+   and `TRAIN7B_GRAD_RTOL`.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; before it, one JSON line with every kernel's
@@ -59,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import http.client
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -146,6 +166,10 @@ SOURCES = {
     # upstream bwd dkv l.1121 and dq l.1456, through the same wrapper
     "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/kernels/flash_attention.py:283"),
+    "fused_cross_entropy": ("paddle_tpu_torch/csrc/cross_entropy.cu",
+                            "paddle_tpu/kernels/cross_entropy.py:154"),
+    "fused_cross_entropy_bwd": ("paddle_tpu_torch/csrc/cross_entropy.cu",
+                                "paddle_tpu/kernels/cross_entropy.py:178"),
 }
 # the training phase: bench.py's accelerator configuration
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -159,6 +183,15 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 # 0.0106 (embed_tokens) on the grads; the limits are about twice that.
 TRAIN_LOSS_RTOL = 1.5e-5
 TRAIN_GRAD_RTOL = 0.025
+# the 7B training phase: bench.py's 7B configuration (remat on by
+# default, bench.py:515-516), fused cross-entropy, one card
+TRAIN7B_WARMUP, TRAIN7B_STEPS = 2, 3
+# A 2-layer full-width llama_7b, one forward/backward on the kernel route
+# (remat "save_matmul_outputs", fused cross-entropy) against the plain
+# route (`plain_routes`): the same measures and the same limits as the
+# llama_1b check above.
+TRAIN7B_LOSS_RTOL = 1.5e-5
+TRAIN7B_GRAD_RTOL = 0.025
 
 
 class SmokeFailure(RuntimeError):
@@ -200,6 +233,9 @@ def time_ms(fn, iters, warmup=3):
 
 
 def bound_ms(nbytes, flops, dtype_name):
+    """The least time for the work: bytes over the HBM rate against
+    operations over the peak rate for `dtype_name` (bf16: tensor cores;
+    float32: f32 outside them, for elementwise work)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -234,21 +270,27 @@ def ragged_case(torch, dtype, gen):
 
 def compare(name, dname, pairs, tag=""):
     """Hold each kernel output against its plain version element by
-    element: |kernel - plain| <= atol + rtol * |plain| (`TOL`; atol
-    TERMS: testing.TERM_FRAC of the element's sum of |terms|). pairs:
-    [(label, kernel output, plain output[, sum of |terms|])]; tag names
-    the case in the printout. Returns the largest |kernel - plain|."""
+    element: |kernel - plain| <= atol + rtol * |plain|. pairs: [(label,
+    kernel output, plain output[, sum of |terms|])], limited by `TOL`
+    (atol TERMS: testing.TERM_FRAC of the element's sum of |terms|), or
+    [(label, kernel, plain, atol, rtol)] carrying their own limit, atol a
+    number or a tensor shaped like plain. tag names the case in the
+    printout. Returns the largest |kernel - plain|."""
     import torch
 
     from paddle_tpu_torch import testing
     errs = []
-    for label, out, ref, *terms in pairs:
-        atol, rtol = TOL.get((f"{name}.{label}", dname),
-                             TOL.get((name, dname)))
-        if atol == TERMS:
-            frac = testing.TERM_FRAC[getattr(torch, dname)]
-            atol = frac * terms[0]
-            limit = f"{frac:g}*terms (max terms {terms[0].max().item():.6g})"
+    for label, out, ref, *extra in pairs:
+        if len(extra) == 2:
+            atol, rtol = extra
+        else:
+            atol, rtol = TOL.get((f"{name}.{label}", dname),
+                                 TOL.get((name, dname)))
+            if atol == TERMS:
+                frac = testing.TERM_FRAC[getattr(torch, dname)]
+                atol = frac * extra[0]
+        if torch.is_tensor(atol):
+            limit = f"max {atol.max().item():.6g}"
         else:
             limit = f"{atol:g}"
         err = (out.double() - ref.double()).abs().max().item()
@@ -265,9 +307,10 @@ def compare(name, dname, pairs, tag=""):
 
 
 def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
-          iters=50, plain_iters=None, tag=""):
+          iters=50, plain_iters=None, tag="", ops_dtype="bfloat16"):
     """One kernel's bf16 measurements: kernel, plain version and library
-    call by CUDA events, the bound from this run's shapes."""
+    call by CUDA events, the bound from this run's shapes (its
+    operations at the peak rate of `ops_dtype`)."""
     ms = time_ms(fn_kernel, iters)
     plain_ms = time_ms(fn_plain, plain_iters or max(iters // 5, 3))
     with warnings.catch_warnings():
@@ -275,7 +318,7 @@ def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
         # its unfused path — that path is what is timed
         warnings.simplefilter("ignore", UserWarning)
         lib_ms = time_ms(library, iters) if library else None
-    b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+    b_ms, b_by = bound_ms(nbytes, flops, ops_dtype)
     print(f"kernel {name} bf16{tag}: kernel_ms={ms:.6g} "
           f"plain_ms={plain_ms:.6g} "
           f"library_ms={'none' if lib_ms is None else f'{lib_ms:.6g}'} "
@@ -332,14 +375,16 @@ def kernel_phase(report):
 
         # rms_norm and swiglu at every row count the main path gives
         # them: the ragged serving step's 128 packed rows at llama_7b's
-        # width (timed: the kernel table's row), the training slice's
-        # 8192 rows at llama_1b's (timed), the decode step's 4 (B = 4 in
-        # generate and the bucketed engine; timed), the bucketed
-        # prefills' 32 (bucket 32 x 1) and 2048 (bucket 1024 x 2) and
-        # generate's prefill 512 (4 x 128), checked only. 128 rows also
-        # stand for the bucketed prefill of bucket 128 x 1.
-        shapes = ((128, 4096, 11008, "serving"), (8192, 2048, 5504,
-                                                  "training"),
+        # width (timed: the kernel table's row), the training slices'
+        # 8192 rows at llama_1b's and at llama_7b's width (timed), the
+        # decode step's 4 (B = 4 in generate and the bucketed engine;
+        # timed), the bucketed prefills' 32 (bucket 32 x 1) and 2048
+        # (bucket 1024 x 2) and generate's prefill 512 (4 x 128), checked
+        # only. 128 rows also stand for the bucketed prefill of bucket
+        # 128 x 1.
+        shapes = ((128, 4096, 11008, "serving"),
+                  (8192, 2048, 5504, "training"),
+                  (8192, 4096, 11008, "training_7b"),
                   (4, 4096, 11008, "decode"), (32, 4096, 11008, None),
                   (512, 4096, 11008, None), (2048, 4096, 11008, None))
         for rows, H, _, path in shapes:
@@ -468,12 +513,69 @@ def paged_kernels(report, dtype):
     torch.cuda.empty_cache()
 
 
+# the training slices' kernel shapes, batch 4 x seq 2048 = 8192 rows:
+# (report path, hidden, intermediate, heads of 128); llama_1b's are the
+# kernel table's main entries, llama_7b's go under "training_7b"
+TRAIN_KERNEL_SHAPES = (("training", 2048, 5504, 16),
+                       ("training_7b", 4096, 11008, 32))
+
+
+def record(report, name, path, measured):
+    """A kernel's bf16 measurements: the first training path's are its
+    entry in the kernels line, a later path's sit under that path."""
+    if path == TRAIN_KERNEL_SHAPES[0][0]:
+        report[name] = entry(name, measured)
+    else:
+        report[name][path] = measured
+
+
 def training_kernels(report, dtype, gen):
-    """The training slice's new kernels at llama_1b's shapes (batch 4 x
-    seq 2048 = 8192 rows, hidden 2048, intermediate 5504, 16 heads of
-    128): fused_add_rms_norm, the two SwiGLU backward launches, flash
-    attention forward and backward (causal MHA; one GQA and one
-    head-dim-64 case at a small size, checked only)."""
+    """The training slices' kernels at `TRAIN_KERNEL_SHAPES`: fused_add_
+    rms_norm, the two SwiGLU backward launches, flash attention forward
+    and backward (causal MHA), each held element by element and timed in
+    bf16; then one GQA and one head-dim-64 flash case at a small size,
+    checked only; then the cross-entropy kernels."""
+    import torch
+
+    dname = str(dtype).split(".")[1]
+
+    def rand(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen,
+                                  device="cuda")).to(dtype)
+
+    for path, H, M, nh in TRAIN_KERNEL_SHAPES:
+        train_kernels_at(report, dtype, gen, rand, path, 8192, H, M, nh)
+    for B, S, hq, hk, d, causal in ((2, 256, 8, 2, 128, True),
+                                    (2, 256, 4, 4, 64, False)):
+        q, do = rand(B, S, hq, d), rand(B, S, hq, d)
+        k, v = rand(B, S, hk, d), rand(B, S, hk, d)
+        flash_pairs_checked(dtype, dname, q, k, v, do, causal)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    ce_kernels(report, dtype)
+
+
+def flash_pairs_checked(dtype, dname, q, k, v, do, causal):
+    """The flash kernels held against their plain version on q, k, v, do
+    BSHD. Returns (fwd max error, bwd max error, the kernel's o, lse)."""
+    from paddle_tpu_torch import testing
+    B, S, hq, d = q.shape
+    hk = k.shape[2]
+    scale = 1.0 / d ** 0.5
+    # GQA keeps the one low-precision step of its float order on both
+    # sides: q pre-scaled in q's dtype, the kernel at scale 1
+    qs, s = ((q * scale).to(dtype), 1.0) if hq != hk else (q, scale)
+    pairs, (o, lse) = testing.flash_pairs(qs, k, v, do, causal, s)
+    tag = f" [B{B} S{S} H{hq}/{hk} D{d} {'causal' if causal else 'full'}]"
+    err_f = compare("flash_attention_fwd", dname, pairs[:2], tag)
+    err_b = compare("flash_attention_bwd", dname, pairs[2:], tag)
+    return err_f, err_b, o, lse
+
+
+def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
+    """One training shape: rows T, hidden H, intermediate M, nh heads of
+    128 over a sequence of 2048; rand(*shape, std=1) draws from gen in
+    dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -488,35 +590,34 @@ def training_kernels(report, dtype, gen):
     it = torch.finfo(dtype).bits // 8
     eps = 1e-5
 
-    def rand(*shape, std=1.0):
-        return (std * torch.randn(shape, generator=gen,
-                                  device="cuda")).to(dtype)
-
-    # fused_add_rms_norm: x, residual [8192, 2048]
-    x, r = rand(8192, 2048), rand(8192, 2048)
-    w = 1 + 0.1 * torch.randn((2048,), generator=gen, device="cuda")
+    # fused_add_rms_norm: x, residual [T, H]
+    x, r = rand(T, H), rand(T, H)
+    w = 1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
     y, h = kfnr.fused_add_rms_norm(x, r, w, eps, use_kernel=True)
     # the plain version keeps the one low-precision step of its float
     # order: the norm reads h rounded to the stream dtype
     h_p = x.float() + r.float()
     y_p = krn._plain(h_p.to(dtype).float(), w, eps)
-    err = compare("fused_add_rms_norm", dname, [("y", y, y_p), ("h", h, h_p)])
+    tag = f" [{T}x{H}]"
+    err = compare("fused_add_rms_norm", dname, [("y", y, y_p), ("h", h, h_p)],
+                  tag)
     if bf16:
-        report["fused_add_rms_norm"] = entry("fused_add_rms_norm", timed(
+        record(report, "fused_add_rms_norm", path, timed(
             "fused_add_rms_norm", err,
             lambda: kfnr.fused_add_rms_norm(x, r, w, eps, use_kernel=True),
             lambda: kfnr._plain(x, r, w, eps),
-            nbytes=4 * x.numel() * it + w.numel() * 4, flops=5 * x.numel()))
+            nbytes=4 * x.numel() * it + w.numel() * 4, flops=5 * x.numel(),
+            tag=tag))
     del x, r, y, h, y_p, h_p
 
-    # SwiGLU backward: a [8192, 2048], w_gate_up [2048, 11008], do
-    # [8192, 5504]; bwd_da also recomputes g/u (2 GEMMs of flops), bwd_dw
-    # reads the recomputed dgu (1 GEMM)
-    T, H, M = 8192, 2048, 5504
+    # SwiGLU backward: a [T, H], w_gate_up [H, 2M], do [T, M]; bwd_da
+    # also recomputes g/u (2 GEMMs of flops), bwd_dw reads the recomputed
+    # dgu (1 GEMM)
     a, wgu, do = rand(T, H), rand(H, 2 * M, std=0.02), rand(T, M)
     pairs, dgu = testing.swiglu_bwd_pairs(a, wgu, do)
-    err_da = compare("swiglu_bwd_da", dname, pairs[:1])
-    err_dw = compare("swiglu_bwd_dw", dname, pairs[1:])
+    tag = f" [{T}x{H} @ {H}x{2 * M}]"
+    err_da = compare("swiglu_bwd_da", dname, pairs[:1], tag)
+    err_dw = compare("swiglu_bwd_dw", dname, pairs[1:], tag)
     del pairs
     if bf16:
         gemm = 2 * T * H * 2 * M
@@ -526,80 +627,131 @@ def training_kernels(report, dtype, gen):
             w_ = wgu.detach().requires_grad_(i == 1)
             return torch.autograd.grad(ksw._ref(a_, w_), (a_, w_)[i], do)
 
-        report["swiglu_bwd_da"] = entry("swiglu_bwd_da", timed(
+        record(report, "swiglu_bwd_da", path, timed(
             "swiglu_bwd_da", err_da, lambda: ksw.swiglu_bwd_da(a, wgu, do),
             lambda: plain_grad(0),
             # a, w_gate_up, do in; da and the [T, 2M] dgu out
             nbytes=(a.numel() + wgu.numel() + do.numel() + a.numel()
                     + dgu.numel()) * it,
-            flops=2 * gemm, iters=10))
-        report["swiglu_bwd_dw"] = entry("swiglu_bwd_dw", timed(
+            flops=2 * gemm, iters=10, tag=tag))
+        # library: the one product a^T dgu, given the dgu bwd_da made
+        record(report, "swiglu_bwd_dw", path, timed(
             "swiglu_bwd_dw", err_dw, lambda: ksw.swiglu_bwd_dw(a, dgu),
             lambda: plain_grad(1),
             nbytes=(a.numel() + dgu.numel() + wgu.numel()) * it,
-            flops=gemm, iters=10))
+            flops=gemm, library=lambda: torch.matmul(a.t(), dgu),
+            iters=10, tag=tag))
     del a, wgu, do, dgu
 
-    # flash attention: q/k/v [4, 2048, 16, 128] causal MHA (timed), then a
-    # GQA case (8 q heads on 2 kv heads, causal) and a head-dim-64 full
-    # case, small (checked only)
-    cases = ((4, 2048, 16, 16, 128, True, True),
-             (2, 256, 8, 2, 128, True, False),
-             (2, 256, 4, 4, 64, False, False))
-    for B, S, hq, hk, d, causal, main in cases:
-        q, do = rand(B, S, hq, d), rand(B, S, hq, d)
-        k, v = rand(B, S, hk, d), rand(B, S, hk, d)
+    # flash attention: q/k/v [4, 2048, nh, 128] causal MHA
+    B, S, d, causal = 4, 2048, 128, True
+    check(B * S == T, f"{T} rows are not batch {B} x seq {S}")
+    q, k, v, do = (rand(B, S, nh, d) for _ in range(4))
+    err_f, err_b, o, lse = flash_pairs_checked(dtype, dname, q, k, v, do,
+                                               causal)
+    if bf16:
         scale = 1.0 / d ** 0.5
-        # GQA keeps the one low-precision step of its float order on both
-        # sides: q pre-scaled in q's dtype, the kernel at scale 1
-        qs, s = ((q * scale).to(dtype), 1.0) if hq != hk else (q, scale)
-        pairs, (o, lse) = testing.flash_pairs(qs, k, v, do, causal, s)
-        tag = (f" [B{B} S{S} H{hq}/{hk} D{d} "
-               f"{'causal' if causal else 'full'}]")
-        err_f = compare("flash_attention_fwd", dname, pairs[:2], tag)
-        err_b = compare("flash_attention_bwd", dname, pairs[2:], tag)
+        tag = f" [B{B} S{S} H{nh} D{d} causal]"
+        pairs = S * (S + 1) // 2
+        fwd_flops = 4 * B * nh * d * pairs
+        qkv_bytes = 3 * q.numel() * it
+        lse_bytes = lse.numel() * 4
+        qr, kr, vr = (t.transpose(1, 2) for t in (q, k, v))
+        record(report, "flash_attention_fwd", path, timed(
+            "flash_attention_fwd", err_f,
+            lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
+            lambda: kfa._plain(q, k, v, causal, scale),
+            nbytes=qkv_bytes + q.numel() * it + lse_bytes,
+            flops=fwd_flops,
+            library=lambda: F.scaled_dot_product_attention(
+                qr, kr, vr, is_causal=causal),
+            iters=20, plain_iters=3, tag=tag))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_pl = kfa._plain(*leaves, causal, scale)
+        lib_leaves = [t.detach().requires_grad_() for t in (qr, kr, vr)]
+        do_r = do.transpose(1, 2)
+
+        def library_fwd_bwd():
+            o_l = F.scaled_dot_product_attention(*lib_leaves,
+                                                 is_causal=causal)
+            return torch.autograd.grad(o_l, lib_leaves, do_r)
+
+        record(report, "flash_attention_bwd", path, timed(
+            "flash_attention_bwd", err_b,
+            lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                            scale),
+            lambda: torch.autograd.grad(o_pl, leaves, do, retain_graph=True),
+            # q, k, v, o, do in; dq, dk, dv out; lse
+            nbytes=qkv_bytes + 2 * q.numel() * it + qkv_bytes + lse_bytes,
+            # the recomputed scores, dP, dV, dK, dQ: 2.5x forward
+            flops=fwd_flops * 5 // 2,
+            library=library_fwd_bwd, iters=10, plain_iters=3, tag=tag))
+        del leaves, o_pl, lib_leaves
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+
+def ce_kernels(report, dtype):
+    """The fused cross-entropy kernels at `testing.FUSED_CE_CASES`: the 7B
+    training slice's logits [4 x 2047, 32000] (timed in bf16) and a
+    1024-row V = 30522 case whose rows take the scalar head and tail,
+    with ignore_index rows, a label past the vocabulary and a negative
+    one."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import cross_entropy as kce
+
+    dname = str(dtype).split(".")[1]
+    it = torch.finfo(dtype).bits // 8
+    for tag, kw in testing.FUSED_CE_CASES.items():
+        x, lbl, g = testing.fused_ce_case(dtype=dtype, **kw)
+        pairs, (m, l) = testing.fused_ce_pairs(x, lbl, g)
+        shape = f" [{tag} {x.shape[0]}x{x.shape[1]}]"
+        err_f = compare("fused_cross_entropy", dname, pairs[:3], shape)
+        err_b = compare("fused_cross_entropy_bwd", dname, pairs[3:], shape)
         del pairs
-        if bf16 and main:
-            pairs = S * (S + 1) // 2 if causal else S * S
-            fwd_flops = 4 * B * hq * d * pairs
-            qkv_bytes = 3 * q.numel() * it
-            lse_bytes = lse.numel() * 4
-            qr, kr, vr = (t.transpose(1, 2) for t in (q, k, v))
-            report["flash_attention_fwd"] = entry(
-                "flash_attention_fwd", timed(
-                    "flash_attention_fwd", err_f,
-                    lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
-                    lambda: kfa._plain(q, k, v, causal, scale),
-                    nbytes=qkv_bytes + q.numel() * it + lse_bytes,
-                    flops=fwd_flops,
-                    library=lambda: F.scaled_dot_product_attention(
-                        qr, kr, vr, is_causal=causal),
-                    iters=20, plain_iters=3))
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            o_pl = kfa._plain(*leaves, causal, scale)
-            lib_leaves = [t.detach().requires_grad_() for t in (qr, kr, vr)]
-            do_r = do.transpose(1, 2)
+        if dtype == torch.bfloat16 and tag == "train":
+            N, V = x.shape
+            row_bytes = lbl.numel() * lbl.element_size()
+            leaf = x.detach().requires_grad_()
+            # F.cross_entropy asserts on a label outside [0, V) that is
+            # not ignore_index: its two such rows take label 0
+            lbl_lib = torch.where(((lbl >= 0) & (lbl < V)) | (lbl == -100),
+                                  lbl, 0)
 
             def library_fwd_bwd():
-                o_l = F.scaled_dot_product_attention(*lib_leaves,
-                                                     is_causal=causal)
-                return torch.autograd.grad(o_l, lib_leaves, do_r)
+                loss = F.cross_entropy(leaf, lbl_lib, ignore_index=-100,
+                                       reduction="none")
+                return torch.autograd.grad(loss, leaf, g)
 
-            report["flash_attention_bwd"] = entry(
-                "flash_attention_bwd", timed(
-                    "flash_attention_bwd", err_b,
-                    lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                    causal, scale),
-                    lambda: torch.autograd.grad(o_pl, leaves, do,
-                                                retain_graph=True),
-                    # q, k, v, o, do in; dq, dk, dv out; lse
-                    nbytes=(qkv_bytes + 2 * q.numel() * it + qkv_bytes
-                            + lse_bytes),
-                    # the recomputed scores, dP, dV, dK, dQ: 2.5x forward
-                    flops=fwd_flops * 5 // 2,
-                    library=library_fwd_bwd, iters=10, plain_iters=3))
-            del leaves, o_pl, lib_leaves
-        del q, k, v, do, qs, o, lse
+            # forward: the logits and labels read, loss, m and l written;
+            # per element a max, a subtraction, an exponential and a sum
+            report["fused_cross_entropy"] = entry(
+                "fused_cross_entropy", timed(
+                    "fused_cross_entropy", err_f,
+                    lambda: kce.fused_cross_entropy_fwd(x, lbl),
+                    lambda: kce._plain_fwd(x, lbl, -100),
+                    nbytes=x.numel() * it + row_bytes + 3 * N * 4,
+                    flops=4 * N * V, ops_dtype="float32",
+                    library=lambda: F.cross_entropy(
+                        x, lbl_lib, ignore_index=-100, reduction="none"),
+                    iters=20, plain_iters=5))
+            # backward: the logits, labels, m, l and g read, dx written;
+            # per element a subtraction, an exponential, two products and
+            # the one-hot subtraction. library: F.cross_entropy forward
+            # and backward under autograd
+            report["fused_cross_entropy_bwd"] = entry(
+                "fused_cross_entropy_bwd", timed(
+                    "fused_cross_entropy_bwd", err_b,
+                    lambda: kce.fused_cross_entropy_bwd(x, lbl, m, l, g),
+                    lambda: kce._plain_bwd(x, lbl, m, l, g, -100),
+                    nbytes=2 * x.numel() * it + row_bytes + 3 * N * 4,
+                    flops=5 * N * V, ops_dtype="float32",
+                    library=library_fwd_bwd, iters=20, plain_iters=5))
+            del leaf, lbl_lib
+        del x, lbl, g, m, l
         torch.cuda.empty_cache()
 
 
@@ -610,6 +762,7 @@ def plain_routes():
     SwiGLU runs on f32 copies and rounds once, as the kernel does; the
     other plain versions already keep f32 inside. All of them are plain
     PyTorch under autograd, so the training backward runs plain too."""
+    from paddle_tpu_torch.kernels import cross_entropy as kce
     from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
     from paddle_tpu_torch.kernels import paged_attention as kpa
@@ -618,11 +771,16 @@ def plain_routes():
     from paddle_tpu_torch.kernels import swiglu as ksw
     saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
              kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
-             kpa.paged_decode_attention)
+             kpa.paged_decode_attention, kce.fused_cross_entropy)
     krn.rms_norm = lambda x, w, eps=1e-6, use_kernel=None: krn._plain(
         x, w, eps)
-    ksw.swiglu = lambda a, w, use_kernel=None: ksw._ref(
+    # a remat site's kept `out` is not taken: the plain expression is
+    # recomputed, saving the same tensors in the forward and the recompute
+    ksw.swiglu = lambda a, w, use_kernel=None, out=None: ksw._ref(
         a.float(), w.float()).to(a.dtype)
+    kce.fused_cross_entropy = (
+        lambda logits, labels, ignore_index=-100, use_kernel=None:
+        kce._plain(logits, labels, ignore_index))
     krpa.ragged_paged_attention = (
         lambda q, kp, vp, qs, ql, kl, pt, scale=None, use_kernel=None:
         krpa._dense_fallback(q, kp, vp, qs, ql, kl, pt, scale))
@@ -640,7 +798,7 @@ def plain_routes():
     finally:
         (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
          kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
-         kpa.paged_decode_attention) = saved
+         kpa.paged_decode_attention, kce.fused_cross_entropy) = saved
 
 
 def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
@@ -1090,7 +1248,8 @@ _DECODE_GROUPS = (("paged_decode_kernel", "paged_decode_attention"),
 # training: device-kernel name fragments -> group, first match wins
 # (the SwiGLU kernels' names carry their epilogue: FwdEpi for the
 # forward, DguEpi and StoreEpi for the backward's two launches)
-_TRAIN_GROUPS = (("flash_fwd_", "flash_fwd"),
+_TRAIN_GROUPS = (("ce_fwd_kernel", "fused_ce"), ("ce_bwd_kernel", "fused_ce"),
+                 ("flash_fwd_", "flash_fwd"),
                  ("flash_bwd_", "flash_bwd"),
                  ("FwdEpi", "swiglu_fwd"),
                  ("DguEpi", "swiglu_bwd"), ("StoreEpi", "swiglu_bwd"),
@@ -1128,11 +1287,8 @@ def training_phase(report, smi_line):
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.kernels import flash_attention as kfa
-    from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
-    from paddle_tpu_torch.kernels import rms_norm as krn
-    from paddle_tpu_torch.kernels import swiglu as ksw
     from paddle_tpu_torch.models import llama as L
 
     cfg = L.llama_1b(dtype="bfloat16", use_recompute=False,
@@ -1155,12 +1311,7 @@ def training_phase(report, smi_line):
 
     losses = [step(ids, ids) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
-    counters = {"rms_norm": krn.rms_norm,
-                "fused_add_rms_norm": kfnr.fused_add_rms_norm,
-                "swiglu": ksw.swiglu, "swiglu_bwd_da": ksw.swiglu_bwd_da,
-                "swiglu_bwd_dw": ksw.swiglu_bwd_dw,
-                "flash_attention_fwd": kfa.flash_attention_fwd,
-                "flash_attention_bwd": kfa.flash_attention_bwd}
+    counters = testing.train_counters()
     for fn in counters.values():
         fn.launches = 0
     events = [torch.cuda.Event(enable_timing=True)
@@ -1193,10 +1344,9 @@ def training_phase(report, smi_line):
     check(all(math.isfinite(x) for x in losses), "a training loss is not "
           "finite")
     check(losses[-1] < losses[0], "the loss did not fall over the steps")
-    L_ = cfg.num_hidden_layers
-    per_step = {"rms_norm": L_ + 1, "fused_add_rms_norm": L_, "swiglu": L_,
-                "swiglu_bwd_da": L_, "swiglu_bwd_dw": L_,
-                "flash_attention_fwd": L_, "flash_attention_bwd": L_}
+    # FLAGS_use_fused_ce is off here: the loss takes the plain route
+    per_step = dict(testing.train_launches(cfg.num_hidden_layers, "no remat"),
+                    fused_cross_entropy=0, fused_cross_entropy_bwd=0)
     for name, n in launches.items():
         want = per_step[name] * TRAIN_STEPS
         print(f"launches {name} (training): {n} (steps {TRAIN_STEPS} -> "
@@ -1272,7 +1422,224 @@ def training_phase(report, smi_line):
     torch.cuda.empty_cache()
 
 
+def train7b_phase(report, smi_line):
+    """bench.py's 7B configuration on one card: llama_7b bf16, remat on
+    under TrainStep's default policy, fused cross-entropy, batch 4 x
+    2048; then the 2-layer remat and route checks."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import llama as L
+
+    cfg = L.llama_7b(dtype="bfloat16", use_recompute=True,
+                     fuse_attention_qkv=True, fuse_mlp=True)
+    cfg.max_position_embeddings = max(cfg.max_position_embeddings, TRAIN_SEQ)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    ptt.set_flags({"FLAGS_use_fused_ce": True})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = L.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = popt.AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                         weight_decay=0.1)
+        torch.cuda.synchronize()
+        print(f"train7b: llama_7b bf16 built in "
+              f"{time.perf_counter() - t0:.3f} s, {n_params} parameters, "
+              f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, use_recompute=True, "
+              f"FLAGS_use_fused_ce=1", flush=True)
+        step = TrainStep(model, opt, lambda i, l: model.loss(i, l))
+        try:
+            losses = [step(ids, ids) for _ in range(TRAIN7B_WARMUP)]
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            raise SmokeFailure(
+                f"llama_7b under remat_policy=save_matmul_outputs ran out of "
+                f"memory at batch {TRAIN_BATCH} x {TRAIN_SEQ}: peak_mem_gb="
+                f"{torch.cuda.max_memory_allocated() / 1e9:.6g}") from e
+        counters = testing.train_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(TRAIN7B_STEPS + 1)]
+        events[0].record()
+        for i in range(TRAIN7B_STEPS):
+            losses.append(step(ids, ids))
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        losses = [float(x) for x in losses]
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(TRAIN7B_STEPS)]
+        mean_ms = events[0].elapsed_time(events[-1]) / TRAIN7B_STEPS
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3)
+        flops_per_token = (6 * n_params + 12 * cfg.num_hidden_layers
+                           * cfg.hidden_size * TRAIN_SEQ)
+        mfu = tok_s * flops_per_token / PEAK_FLOPS["bfloat16"]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"train7b: losses={[round(x, 6) for x in losses]} (first "
+              f"{TRAIN7B_WARMUP} warm-up)", flush=True)
+        print(f"train7b: remat_policy=save_matmul_outputs step_ms="
+              f"{mean_ms:.6g} per step {[round(x, 4) for x in step_ms]} "
+              f"tokens_per_s={tok_s:.6g} mfu={mfu:.6g} (bench.py's count, "
+              f"{flops_per_token * TRAIN_BATCH * TRAIN_SEQ:.6g} FLOP a "
+              f"step; recompute not counted) peak_mem_gb={peak / 1e9:.6g} "
+              f"[{smi_line}]", flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              "a 7B training loss is not finite")
+        check(losses[-1] < losses[0], "the 7B loss did not fall")
+        want = testing.train_launches(cfg.num_hidden_layers,
+                                      "save_matmul_outputs")
+        for name, n in launches.items():
+            print(f"launches {name} (7B training, save_matmul_outputs): {n} "
+                  f"(steps {TRAIN7B_STEPS} -> expected "
+                  f"{want[name] * TRAIN7B_STEPS})", flush=True)
+            check(n == want[name] * TRAIN7B_STEPS,
+                  f"{name} launched {n} times in 7B training, expected "
+                  f"{want[name] * TRAIN7B_STEPS}")
+            add_launches(report, name, "training_7b", n)
+
+        # one more step, traced as the llama_1b phase traces its own
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_fb:
+            with core.remat_policy_guard(step._remat_policy):
+                loss = model.loss(ids, ids)
+                loss.backward()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_opt:
+            opt.step()
+            opt.clear_grad(set_to_zero=False)
+            torch.cuda.synchronize()
+        groups, others = _device_ms(prof_fb, _TRAIN_GROUPS, "other")
+        opt_groups, _ = _device_ms(prof_opt, (), "adamw")
+        groups["adamw"] = opt_groups.get("adamw", 0.0)
+        busy = sum(groups.values())
+        if busy == 0.0:
+            print("train7b profile: not measured (the profiler saw no "
+                  "device time)", flush=True)
+        else:
+            order = ("flash_fwd", "flash_bwd", "swiglu_fwd", "swiglu_bwd",
+                     "norms", "cublas_gemm", "fused_ce", "cross_entropy",
+                     "adamw", "other")
+            parts = " ".join(f"{g}={groups.get(g, 0.0):.6g}" for g in order)
+            print(f"train7b profile (device ms, one step): {parts} "
+                  f"total={busy:.6g} busy_share={busy / mean_ms:.4f} "
+                  f"[{smi_line}]", flush=True)
+            top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+            print("train7b profile, largest other kernels (ms): "
+                  + "; ".join(f"{k[:70]}={ms:.4g}" for k, ms in top),
+                  flush=True)
+        del model, opt, step, loss, prof_fb, prof_opt
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        remat_check(cfg, ids)
+    finally:
+        ptt.set_flags({"FLAGS_use_fused_ce": False})
+
+
+def remat_check(cfg, ids):
+    """2 layers at full llama_7b width, fused cross-entropy: one forward
+    and backward without remat, then under each remat policy from the
+    same weights and batch; loss and every grad must be bitwise equal,
+    and peak memory ordered nothing <= save_matmul_outputs < no remat.
+    Then the kernel route against the plain route."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.jit import resolve_remat_policy
+    from paddle_tpu_torch.models import llama as L
+
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = L.LlamaForCausalLM(cfg2, device="cuda", generator=gen)
+    counters = testing.train_counters()
+
+    def loss_and_grads(use_recompute, policy):
+        """(loss, grads, the step's peak memory above what was resident
+        before it, launches)."""
+        model.cfg.use_recompute = use_recompute
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        with core.remat_policy_guard(resolve_remat_policy(policy)):
+            loss = model.loss(ids, ids)
+            loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return (loss.detach(), grads, peak,
+                {n: fn.launches for n, fn in counters.items()})
+
+    # each policy's grads are compared and dropped before the next run,
+    # so every run starts from the same resident memory
+    first = loss_and_grads(False, None)
+    loss0, grads0 = first[:2]
+    peaks = {}
+    for name in ("no remat", None, "nothing", "save_matmul_outputs", "dots"):
+        loss, grads, peaks[name], launches = (
+            first if name == "no remat" else loss_and_grads(True, name))
+        same = bool(torch.equal(loss, loss0)) and all(
+            torch.equal(grads[n], grads0[n]) for n in grads0)
+        want = testing.train_launches(2, "nothing" if name is None else name)
+        print(f"remat check (2 layers, full width) {name}: loss "
+              f"{loss.item():.8g} bitwise {'equal' if same else 'DIFFERS'} "
+              f"step_peak_mem_gb={peaks[name] / 1e9:.6g} launches "
+              f"{'exact' if launches == want else launches}", flush=True)
+        check(same, f"remat policy {name}: loss or grads differ from the "
+                    f"run without remat")
+        check(launches == want, f"remat policy {name}: launches {launches}, "
+                                f"expected {want}")
+        del grads
+    check(peaks["nothing"] <= peaks["save_matmul_outputs"]
+          < peaks["no remat"], f"peak memory out of order: {peaks}")
+    del first, grads0
+
+    # the kernel route (remat, fused cross-entropy) against the plain route
+    loss_k, grads_k, _, _ = loss_and_grads(True, "save_matmul_outputs")
+    with plain_routes():
+        loss_p, grads_p, _, _ = loss_and_grads(True, "save_matmul_outputs")
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
+               / grads_p[n].float().norm().clamp_min(1e-30)).item()
+           for n in grads_p}
+    worst = max(rel, key=rel.get)
+    ok = loss_err <= TRAIN7B_LOSS_RTOL and rel[worst] <= TRAIN7B_GRAD_RTOL
+    print(f"train7b route agreement (2 layers, full width, remat, fused "
+          f"CE): loss kernel {loss_k.item():.8g} plain {loss_p.item():.8g} "
+          f"rel_err={loss_err:.6g} (limit {TRAIN7B_LOSS_RTOL:g}); grads max "
+          f"rel L2 {rel[worst]:.6g} at {worst} (limit "
+          f"{TRAIN7B_GRAD_RTOL:g}) {'ok' if ok else 'MISS'}", flush=True)
+    print("train7b route agreement, grad rel L2 by parameter: "
+          + "; ".join(f"{n}={e:.4g}" for n, e in rel.items()), flush=True)
+    check(ok, "the 7B training kernel route disagrees with the plain route")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
 def main():
+    # the 7B training phase holds ~65 GB of the card's 80: let the
+    # allocator grow segments instead of fragmenting fixed ones
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         name, count, smi_line = device_phase()
         t0 = time.perf_counter()
@@ -1296,6 +1663,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         training_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train7b_phase(report, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1

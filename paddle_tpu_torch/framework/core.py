@@ -1,5 +1,5 @@
-"""Flag registry, seeding and device resolution (counterpart of
-paddle_tpu/framework/core.py).
+"""Flag registry, seeding, device resolution and the armed remat
+policy (counterpart of paddle_tpu/framework/core.py).
 
 Only the flags the ported slices read are registered, with the
 reference's names and defaults; `get_flag` reads the environment first,
@@ -8,12 +8,14 @@ as the reference does, and `get_bool_flag` normalises env strings so
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
 
 __all__ = ["set_flags", "get_flag", "get_bool_flag", "seed",
-           "resolve_device"]
+           "resolve_device", "current_remat_policy", "remat_policy_guard"]
 
 _flags: dict = {
     # fused transformer hot path: the serving blocks run the wide QKV
@@ -29,8 +31,9 @@ _flags: dict = {
     # flash attention in the training forward; 0 is the reference's dense
     # ablation, which the card refuses (no dense attention runs there)
     "FLAGS_use_flash_attention": True,
-    # blockwise fused cross-entropy (kernels rows 6-7, not ported yet: a
-    # CUDA tensor raises under 1)
+    # big-vocab hard-label cross-entropy through the fused kernels
+    # (kernels/cross_entropy.py) on a CUDA tensor; 0, the default, keeps
+    # the plain f32 log-softmax route, as in the reference
     "FLAGS_use_fused_ce": False,
 }
 
@@ -80,3 +83,33 @@ def resolve_device(device=None) -> torch.device:
             # (torch.cuda.set_device) needs one
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# ---------------------------------------------------------------------------
+# Remat policy: the predicate over checkpoint names that jit.TrainStep
+# arms for its step and the models' per-layer remat sites read
+# (framework/remat.py). None (the default) is "save nothing": every
+# rematerialised layer recomputes all of its forward in the backward.
+# ---------------------------------------------------------------------------
+
+class _RematState(threading.local):
+    def __init__(self):
+        self.policy = None
+
+
+_remat_state = _RematState()
+
+
+def current_remat_policy():
+    """The remat predicate armed on this thread (None: save nothing)."""
+    return _remat_state.policy
+
+
+@contextlib.contextmanager
+def remat_policy_guard(policy):
+    prev = _remat_state.policy
+    _remat_state.policy = policy
+    try:
+        yield
+    finally:
+        _remat_state.policy = prev

@@ -1,30 +1,64 @@
-"""`TrainStep` (counterpart of paddle_tpu/jit/__init__.py::TrainStep).
+"""`TrainStep` and `resolve_remat_policy` (counterpart of
+paddle_tpu/jit/__init__.py).
 
 The reference compiles forward, backward and the optimizer update into
 one XLA executable (`_pure_body`, l.604-706). PyTorch runs eagerly, so
 the port's step is the same sequence run in order on one device:
 `step_fn(*batch)`, `backward()`, `optimizer.step()`, and the grads
 dropped (`clear_grad(set_to_zero=False)`, as the compiled body does).
-Gradient scaling, sharding, gradient accumulation and remat are not
-ported: asking for any of them raises.
+The remat policy is armed around the forward and the backward, as the
+reference arms it around its trace (l.708-717); it acts where a model
+rematerialises its layers (`cfg.use_recompute`). Gradient scaling,
+sharding and gradient accumulation are not ported: asking for any of
+them raises.
 """
 from __future__ import annotations
 
-__all__ = ["TrainStep"]
+from ..framework import core, remat
 
-_REMAT_POLICIES = ("save_matmul_outputs", "nothing", "recompute_all",
-                   "dots")
+__all__ = ["TrainStep", "resolve_remat_policy"]
+
+
+def resolve_remat_policy(policy):
+    """Map TrainStep's remat_policy= knob onto a predicate over remat
+    site names (framework/remat.py; the reference maps it onto a
+    jax.checkpoint policy, l.318-349).
+
+    None             -> None: the model's save-nothing default
+    "save_matmul_outputs" (the TrainStep default) -> keep the sites
+                        named in models.llama.MATMUL_CHECKPOINT_NAMES
+                        (llama_qkv, llama_attn_o, llama_swiglu,
+                        llama_mlp_down); a model with no such sites
+                        saves nothing
+    "nothing" / "recompute_all" -> keep no site
+    "dots"           -> keep every plain matmul site
+                        (models.llama.DOT_CHECKPOINT_NAMES), not the
+                        SwiGLU kernel's output
+    callable         -> passed through: policy(name) -> bool
+
+    Policies change memory and recompute only, never values.
+    """
+    if policy is None or callable(policy):
+        return policy
+    if policy == "save_matmul_outputs":
+        from ..models.llama import MATMUL_CHECKPOINT_NAMES
+        return frozenset(MATMUL_CHECKPOINT_NAMES).__contains__
+    if policy in ("nothing", "recompute_all"):
+        return remat.save_nothing
+    if policy == "dots":
+        from ..models.llama import DOT_CHECKPOINT_NAMES
+        return frozenset(DOT_CHECKPOINT_NAMES).__contains__
+    raise ValueError(
+        f"TrainStep: unknown remat_policy {policy!r} — expected None, "
+        f"'save_matmul_outputs', 'nothing', 'recompute_all', 'dots' or a "
+        f"callable over remat site names")
 
 
 class TrainStep:
     """One training step per call: returns the (detached) loss.
 
     step_fn: callable(*batch) -> scalar loss tensor, calling `model`.
-    remat_policy: the reference's names ("save_matmul_outputs" default,
-    "nothing"/"recompute_all", "dots", None or a callable). A policy
-    acts only where the model rematerialises its layers
-    (`cfg.use_recompute`), which the port does not do yet, so such a
-    model raises here."""
+    remat_policy: see `resolve_remat_policy`."""
 
     def __init__(self, model, optimizer, step_fn, scaler=None, shard=None,
                  accumulate_steps=1, remat_policy="save_matmul_outputs"):
@@ -38,24 +72,15 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(accumulate_steps>1): gradient accumulation is "
                 "not ported yet")
-        if not (remat_policy is None or callable(remat_policy)
-                or remat_policy in _REMAT_POLICIES):
-            raise ValueError(
-                f"TrainStep: unknown remat_policy {remat_policy!r} — "
-                f"expected None, {', '.join(map(repr, _REMAT_POLICIES))} "
-                f"or a callable")
-        cfg = getattr(model, "cfg", None)
-        if remat_policy is not None and getattr(cfg, "use_recompute", False):
-            raise NotImplementedError(
-                "TrainStep: remat (use_recompute=True with a remat_policy) "
-                "is not ported yet")
+        self._remat_policy = resolve_remat_policy(remat_policy)
         self.model = model
         self.optimizer = optimizer
         self.step_fn = step_fn
 
     def __call__(self, *batch):
-        loss = self.step_fn(*batch)
-        loss.backward()
+        with core.remat_policy_guard(self._remat_policy):
+            loss = self.step_fn(*batch)
+            loss.backward()
         self.optimizer.step()
         self.optimizer.clear_grad(set_to_zero=False)
         return loss.detach()

@@ -71,6 +71,16 @@ _SIGNATURES = {
                                        + (_F, _P),
     "ptt_paged_decode_attention_f32": (_P,) * 6 + (_I,) * 6 + (_LL,) * 3
                                       + (_F, _P),
+    # logits, labels, labels are int64, loss, m, l (out), N, V,
+    # ignore_index, stream
+    "ptt_cross_entropy_fwd_bf16": (_P, _P, _I, _P, _P, _P, _I, _I, _LL, _P),
+    "ptt_cross_entropy_fwd_f32": (_P, _P, _I, _P, _P, _P, _I, _I, _LL, _P),
+    # logits, labels, labels are int64, m, l, g, dx (out), N, V,
+    # ignore_index, stream
+    "ptt_cross_entropy_bwd_bf16": (_P, _P, _I) + (_P,) * 4
+                                  + (_I, _I, _LL, _P),
+    "ptt_cross_entropy_bwd_f32": (_P, _P, _I) + (_P,) * 4
+                                 + (_I, _I, _LL, _P),
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,8 @@ import functools
 import numpy as np
 import torch
 
+from ..framework import remat
+
 __all__ = ["apply_rope", "fused_qkv_rope"]
 
 
@@ -64,9 +66,10 @@ def fused_qkv_rope(a, w_qkv, num_heads, num_kv_heads, head_dim,
     a: [B, S, H] (or [S, H] packed rows); w_qkv:
     [H, (num_heads + 2*num_kv_heads) * head_dim], q|k|v column layout.
     Returns (q, k, v) shaped [..., heads, head_dim], rope applied to q
-    and k."""
+    and k. The projection is the remat site `llama_qkv` (the reference's
+    `checkpoint_name` stamp, rope.py:44-46)."""
     nh, kvh, d = num_heads, num_kv_heads, head_dim
-    qkv = a @ w_qkv
+    qkv = remat.matmul(a, w_qkv, "llama_qkv")
     lead = qkv.shape[:-1]
     q = qkv[..., :nh * d].reshape(*lead, nh, d)
     k = qkv[..., nh * d:(nh + kvh) * d].reshape(*lead, kvh, d)

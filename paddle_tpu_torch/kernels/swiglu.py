@@ -8,10 +8,14 @@ Wu] of shape [H, 2M] (gate columns first). A CUDA tensor runs a
 [T, 2M] gate/up product is never stored) and a backward of two launches,
 `swiglu_bwd_da` (recompute g/u with the forward's main loop, form the
 gate/up cotangents dgu in f32, then da = dgu @ w_gate_up^T) and
-`swiglu_bwd_dw` (dw = a^T @ dgu). A CPU tensor runs `_ref`, the
-reference's exact unfused expression (swiglu.py:106), under autograd:
-the reference's CPU backward is `jax.vjp(_ref)` (l.205-209). The kernels
-mask ragged edges, so unlike the TPU route they take any H and M.
+`swiglu_bwd_dw` (dw = a^T @ dgu). A CPU tensor runs the same
+Function over `_ref`, the reference's exact unfused expression
+(swiglu.py:106), with `_ref_bwd`, autograd of `_ref`, as its backward:
+the reference's CPU backward is `jax.vjp(_ref)` (l.205-209). The
+Function saves (a, w_gate_up) and nothing else, so a remat site
+(framework/remat.py) can hand it a kept output as `out` and skip the
+forward. The kernels mask ragged edges, so unlike the TPU route they
+take any H and M.
 """
 from __future__ import annotations
 
@@ -108,23 +112,31 @@ def swiglu_bwd_dw(a, dgu):
 
 class _Swiglu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, w_gate_up):
+    def forward(ctx, a, w_gate_up, out):
         ctx.save_for_backward(a, w_gate_up)
+        if out is not None:
+            return out
+        if a.device.type == "cpu":
+            return _ref(a, w_gate_up)
         return _launch(a, w_gate_up)
 
     @staticmethod
     def backward(ctx, g):
         a, w_gate_up = ctx.saved_tensors
+        if a.device.type == "cpu":
+            return (*_ref_bwd(a, w_gate_up, g), None)
         da, dgu = swiglu_bwd_da(a, w_gate_up, g)
-        return da, swiglu_bwd_dw(a, dgu)
+        return da, swiglu_bwd_dw(a, dgu), None
 
 
-def swiglu(a, w_gate_up, use_kernel=None):
+def swiglu(a, w_gate_up, use_kernel=None, out=None):
     """a: [..., H]; w_gate_up: [H, 2M]. Returns [..., M] in a.dtype.
 
     use_kernel=None routes by device (kernel on CUDA, plain on CPU);
     True demands the kernel and raises ValueError for a CPU tensor or a
-    shape/dtype the kernel does not take."""
+    shape/dtype the kernel does not take. `out`: this call's output,
+    kept by a remat site; it is returned with the backward attached and
+    nothing is computed."""
     ok = (supported(a.shape, w_gate_up.shape, a.dtype)
           and w_gate_up.dtype == a.dtype)
     if use_kernel and not ok:
@@ -136,11 +148,10 @@ def swiglu(a, w_gate_up, use_kernel=None):
     if a.device.type == "cpu":
         if use_kernel:
             raise ValueError("swiglu: use_kernel=True needs a CUDA tensor")
-        return _ref(a, w_gate_up)
-    if not ok:
+    elif not ok:
         raise ValueError(f"swiglu: no kernel for a {tuple(a.shape)} "
                          f"{a.dtype}, w {tuple(w_gate_up.shape)}")
-    return _Swiglu.apply(a, w_gate_up)
+    return _Swiglu.apply(a, w_gate_up, out)
 
 
 swiglu.launches = 0

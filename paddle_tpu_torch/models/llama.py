@@ -16,7 +16,12 @@ module for module. Each decoder layer runs `rms_norm`, the fused
 QKV+RoPE prologue, `flash_attention_bshd` (causal), the o projection,
 `fused_add_rms_norm` and `swiglu`; the layer stack is a Python loop
 (the reference's `lax.scan` over stacked weights computes the same
-values). Remat (`use_recompute=True` under autograd), sequence
+values). With `use_recompute=True` under autograd each decoder layer
+is rematerialised (`framework.remat.checkpoint`, the counterpart of
+the reference's `jax.checkpoint` per layer) under the policy
+`jit.TrainStep` arms, save-nothing when none is armed; the layer's
+matmuls and its SwiGLU kernel are the remat sites the policy names
+(`MATMUL_CHECKPOINT_NAMES`, `DOT_CHECKPOINT_NAMES`). Sequence
 parallelism and explicit position ids are not ported and raise.
 
 Serving: `_ragged_step_paged` runs the chunked-prefill / decode mix
@@ -41,6 +46,7 @@ import torch
 from torch import nn
 
 from ..framework import core
+from ..framework import remat
 from ..framework.core import resolve_device
 from ..kernels import flash_attention as kfa
 from ..kernels import fused_norm_residual as kfnr
@@ -52,7 +58,24 @@ from ..kernels import swiglu as ksw
 from ..nn.functional import loss as floss
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama_350m", "llama_1b", "llama_7b"]
+           "llama_350m", "llama_1b", "llama_7b", "MATMUL_CHECKPOINT_NAMES",
+           "DOT_CHECKPOINT_NAMES"]
+
+# the remat sites of the FLAGS_fused_transformer hot path, stamped with
+# these names in the reference too (its l.41-43): what jit.TrainStep's
+# default remat_policy="save_matmul_outputs" keeps across the backward,
+# so norms, rope and the attention forward recompute instead
+MATMUL_CHECKPOINT_NAMES = ("llama_qkv", "llama_attn_o", "llama_swiglu",
+                           "llama_mlp_down")
+# every plain matmul of a decoder layer, which remat_policy="dots" keeps
+# (the reference's checkpoint_dots): the stamped three, and the unfused
+# routes' projections, which the reference leaves unstamped. The SwiGLU
+# kernel is not among them
+DOT_CHECKPOINT_NAMES = ("llama_qkv", "llama_attn_o", "llama_mlp_down",
+                        "llama_qkv_proj", "llama_q_proj", "llama_k_proj",
+                        "llama_v_proj", "llama_o_proj", "llama_gate_up_proj",
+                        "llama_gate_proj", "llama_up_proj",
+                        "llama_down_proj")
 
 
 @dataclass
@@ -68,8 +91,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     # training-side knobs kept so a reference config.json loads as is;
-    # the training forward refuses use_recompute and sequence_parallel
-    # (not ported), the serving half reads none of them
+    # the training forward refuses sequence_parallel (not ported), the
+    # serving half reads none of them
     use_recompute: bool = True
     scan_layers: bool = True
     sequence_parallel: bool = False
@@ -146,26 +169,29 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         B = x.shape[0]
         nh, kvh, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        mm = remat.matmul
         if cfg.fuse_attention_qkv and _fused_flag():
-            # fused QKV+RoPE prologue: one wide projection, rope on the
-            # q/k slices
+            # fused QKV+RoPE prologue: one wide projection (the remat
+            # site llama_qkv), rope on the q/k slices
             q, k, v = krope.fused_qkv_rope(x, self.qkv_proj, nh, kvh, d,
                                            base=cfg.rope_theta)
+            o = _attention_core(q, k, v)
+            return mm(o.reshape(B, -1, nh * d), self.o_proj, "llama_attn_o")
+        if cfg.fuse_attention_qkv:
+            qkv = mm(x, self.qkv_proj, "llama_qkv_proj")
+            q = qkv[..., : nh * d]
+            k = qkv[..., nh * d: (nh + kvh) * d]
+            v = qkv[..., (nh + kvh) * d:]
         else:
-            if cfg.fuse_attention_qkv:
-                qkv = x @ self.qkv_proj
-                q = qkv[..., : nh * d]
-                k = qkv[..., nh * d: (nh + kvh) * d]
-                v = qkv[..., (nh + kvh) * d:]
-            else:
-                q, k, v = (x @ self.q_proj, x @ self.k_proj,
-                           x @ self.v_proj)
-            q = q.reshape(B, -1, nh, d)
-            k = k.reshape(B, -1, kvh, d)
-            v = v.reshape(B, -1, kvh, d)
-            q, k = krope.apply_rope(q, k, base=cfg.rope_theta)
+            q, k, v = (mm(x, self.q_proj, "llama_q_proj"),
+                       mm(x, self.k_proj, "llama_k_proj"),
+                       mm(x, self.v_proj, "llama_v_proj"))
+        q = q.reshape(B, -1, nh, d)
+        k = k.reshape(B, -1, kvh, d)
+        v = v.reshape(B, -1, kvh, d)
+        q, k = krope.apply_rope(q, k, base=cfg.rope_theta)
         o = _attention_core(q, k, v)
-        return o.reshape(B, -1, nh * d) @ self.o_proj
+        return mm(o.reshape(B, -1, nh * d), self.o_proj, "llama_o_proj")
 
 
 class LlamaMLP(nn.Module):
@@ -186,21 +212,27 @@ class LlamaMLP(nn.Module):
         SwiGLU kernel (over the wide [Wg | Wu] layout, concatenated for
         an unfused config); the reference's unfused expressions run on
         the CPU only, under FLAGS_fused_transformer=0 or an unfused
-        config, as in the serving blocks."""
+        config, as in the serving blocks. The fused route's SwiGLU and
+        down projection are the remat sites llama_swiglu and
+        llama_mlp_down, as the reference stamps them (its l.225-231)."""
         on_cpu = x.device.type == "cpu"
+        mm = remat.matmul
         if self._fused and (_fused_flag() or not on_cpu):
-            return ksw.swiglu(x, self.gate_up_proj) @ self.down_proj
+            act = remat.site("llama_swiglu", ksw.swiglu, x,
+                             self.gate_up_proj)
+            return mm(act, self.down_proj, "llama_mlp_down")
         if self._fused:
-            gu = x @ self.gate_up_proj
+            gu = mm(x, self.gate_up_proj, "llama_gate_up_proj")
             act = (torch.nn.functional.silu(gu[..., :self._m])
                    * gu[..., self._m:])
         elif on_cpu:
-            act = (torch.nn.functional.silu(x @ self.gate_proj)
-                   * (x @ self.up_proj))
+            act = (torch.nn.functional.silu(mm(x, self.gate_proj,
+                                               "llama_gate_proj"))
+                   * mm(x, self.up_proj, "llama_up_proj"))
         else:
             act = ksw.swiglu(x, torch.cat([self.gate_proj, self.up_proj],
                                           dim=-1))
-        return act @ self.down_proj
+        return mm(act, self.down_proj, "llama_down_proj")
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -246,14 +278,17 @@ class LlamaModel(nn.Module):
         if cfg.sequence_parallel:
             raise NotImplementedError(
                 "sequence_parallel is not ported yet")
-        if cfg.use_recompute and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "use_recompute=True (per-layer remat) is not ported yet; "
-                "build the config with use_recompute=False")
         x = torch.nn.functional.embedding(input_ids.long(),
                                           self.embed_tokens)
-        for lyr in self.layers:
-            x = lyr(x)
+        if cfg.use_recompute and torch.is_grad_enabled():
+            # per-layer remat (the reference's _scan_stack/_recompute_stack
+            # with jax.checkpoint on each layer) under the armed policy
+            policy = core.current_remat_policy()
+            for lyr in self.layers:
+                x = remat.checkpoint(lyr, x, policy)
+        else:
+            for lyr in self.layers:
+                x = lyr(x)
         return self.norm(x)
 
 

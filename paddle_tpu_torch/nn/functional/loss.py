@@ -1,18 +1,20 @@
 """Loss functionals (counterpart of paddle_tpu/nn/functional/loss.py).
 
 Only the path `LlamaForCausalLM.loss` reaches is ported: `cross_entropy`
-with hard labels, `ignore_index` and a mean over the valid rows, as the
-reference's plain route computes it (loss.py:34-107: f32 log-softmax,
-gather, masked mean). Soft labels, class weights, label smoothing and
-`use_softmax=False` raise. The reference's blockwise fused kernel
-(`FLAGS_use_fused_ce=1`, kernel rows 6-7) is not ported: a CUDA tensor
-under that flag raises rather than quietly taking the plain route.
+with hard labels, `ignore_index` and a mean over the valid rows. Two
+routes, as in the reference (loss.py:34-107): under
+`FLAGS_use_fused_ce=1`, a hard-label softmax loss over the last axis
+with no class weights and no smoothing, on a CUDA tensor with at least
+4096 classes (`kernels.cross_entropy.supported`), runs the fused
+cross-entropy kernels (kernel rows 6-7) on the [N, V] rows; everything
+else runs the plain route, f32 log-softmax, gather, masked mean. Soft
+labels, class weights, label smoothing and `use_softmax=False` raise.
 """
 from __future__ import annotations
 
 import torch
 
-from ...framework import core
+from ...kernels import cross_entropy as kce
 
 __all__ = ["cross_entropy"]
 
@@ -33,15 +35,29 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if label.is_floating_point():
         raise NotImplementedError(
             "cross_entropy: soft (float) labels are not ported yet")
-    if (input.device.type != "cpu"
-            and core.get_bool_flag("FLAGS_use_fused_ce", False)):
-        raise NotImplementedError(
-            "FLAGS_use_fused_ce=1: the fused cross-entropy kernels "
-            "(PERF.md kernel rows 6-7) are not ported yet")
-    logp = torch.log_softmax(input.float(), dim=-1)
     lbl = label
     if lbl.dim() == input.dim() and lbl.shape[-1] == 1:
         lbl = lbl.squeeze(-1)
+    n_class = input.shape[-1]
+    if kce.supported(n_class, device=input.device):
+        # big-vocab fast path: the fused kernels on [N, V] rows, no f32
+        # [N, V] log-softmax
+        loss = kce.fused_cross_entropy(input.reshape(-1, n_class),
+                                       lbl.reshape(-1),
+                                       ignore_index).reshape(lbl.shape)
+        if reduction == "mean":
+            nvalid = (lbl != ignore_index).float().sum()
+            return loss.sum() / torch.clamp(nvalid, min=1.0)
+        if reduction == "sum":
+            return loss.sum()
+        return loss
+    return _plain_cross_entropy(input, lbl, ignore_index, reduction)
+
+
+def _plain_cross_entropy(input, lbl, ignore_index, reduction):
+    """The plain route: f32 log-softmax over the last axis, the label's
+    entry gathered, ignore_index rows masked out."""
+    logp = torch.log_softmax(input.float(), dim=-1)
     lbl = lbl.long()
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, torch.zeros_like(lbl))

@@ -20,6 +20,14 @@ side. A limit scaled by the largest |plain| of the whole tensor would be
 as large as a typical element of causal attention (the first rows and
 keys dominate the maximum) and would pass a kernel that drops or adds a
 tile of terms.
+
+The fused cross-entropy kernels keep f32 throughout. The forward's f32
+outputs differ from the plain version by summation order and the fast
+exponential alone (`CE_LIMITS`: the row max m is exact, the sum-exp l
+and the loss agree to a few f32 ulps of a 32000-term sum); the
+backward's dx is rounded once to the logits' dtype, and its atol is
+CE_DX_FRAC of its row's |g| (the scale of the row's dx: |p - onehot|
+<= 1).
 """
 from __future__ import annotations
 
@@ -31,7 +39,9 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "flash_pairs", "flash_readings", "swiglu_bwd_terms",
            "swiglu_bwd_pairs", "paged_decode_case", "paged_decode_views_case",
            "PAGED_DECODE_CASES", "paged_decode_cases", "paged_decode_pair",
-           "paged_decode_readings"]
+           "paged_decode_readings", "CE_LIMITS", "CE_DX_FRAC",
+           "fused_ce_case", "fused_ce_pairs", "FUSED_CE_CASES",
+           "fused_ce_readings", "train_launches", "train_counters"]
 
 BF16_RTOL = 2.0 ** -7
 # share of an element's sum of |terms|: two bf16 roundoffs (the rounded
@@ -262,3 +272,113 @@ def paged_decode_readings(seed=0):
     reading above 1 is a miss)."""
     out, ref = paged_decode_pair(*paged_decode_case(seed=seed))
     return {"o": worst(out, ref, 1e-5, BF16_RTOL)}
+
+
+# fused cross-entropy forward outputs, f32 from either logits dtype:
+# name -> (atol, rtol)
+CE_LIMITS = {"loss": (1e-5, 2e-6), "m": (1e-6, 0.0), "l": (0.0, 1e-5)}
+# the backward's dx: atol = CE_DX_FRAC * |g| of the row; rtol one
+# rounding to bf16, or the f32 exponential's error
+CE_DX_FRAC = 1e-5
+CE_DX_RTOL = {torch.bfloat16: BF16_RTOL, torch.float32: 1e-5}
+
+
+def fused_ce_case(N=8188, V=32000, dtype=torch.bfloat16, seed=0,
+                  ignore_index=-100):
+    """Fused cross-entropy inputs on the card, by default the training
+    slice's [4 x 2047, 32000]: logits N(0, 2^2) in `dtype`, int64 labels
+    uniform over the vocabulary with every 16th row ignore_index, one
+    label past the vocabulary and one negative label that is not
+    ignore_index, and a per-row cotangent g ~ N(0, 1) / N. Returns
+    (logits, labels, g)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (2.0 * torch.randn((N, V), generator=gen,
+                                device="cuda")).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    labels[::16] = ignore_index
+    labels[1] = V + 5
+    labels[2] = -7
+    g = torch.randn((N,), generator=gen, device="cuda") / N
+    return logits, labels, g
+
+
+def fused_ce_pairs(logits, labels, g, ignore_index=-100):
+    """The fused cross-entropy kernels and their plain version on f32
+    copies of the same inputs. Returns ([(label, kernel, plain, atol,
+    rtol)] for loss, m, l and dx; the kernel's (m, l))."""
+    from .kernels import cross_entropy as kce
+    loss, m, l = kce.fused_cross_entropy_fwd(logits, labels, ignore_index)
+    dx = kce.fused_cross_entropy_bwd(logits, labels, m, l, g, ignore_index)
+    x32 = logits.float()
+    loss_p, m_p, l_p = kce._plain_fwd(x32, labels, ignore_index)
+    dx_p = kce._plain_bwd(x32, labels, m_p, l_p, g, ignore_index)
+    valid = (labels != ignore_index).float()
+    dx_atol = CE_DX_FRAC * (g.abs() * valid).clamp_min(1e-30)[:, None]
+    pairs = [(name, got, ref, *CE_LIMITS[name])
+             for name, got, ref in (("loss", loss, loss_p), ("m", m, m_p),
+                                    ("l", l, l_p))]
+    pairs.append(("dx", dx, dx_p, dx_atol, CE_DX_RTOL[logits.dtype]))
+    return pairs, (m, l)
+
+
+# The fused cross-entropy cases the card checks: tag -> kwargs of
+# `fused_ce_case`. "train" is the 7B training slice's shape; "v30522"
+# has rows that do not start on a 16-byte boundary and end in a partial
+# vector, so every row has a scalar head or tail.
+FUSED_CE_CASES = {
+    "train": {},
+    "v30522": dict(N=1024, V=30522),
+}
+
+
+def fused_ce_readings(seed=0):
+    """bf16 fused cross-entropy at `FUSED_CE_CASES` on the card: for each
+    output (loss, m, l, dx), the worst err/limit over the cases (a
+    reading above 1 is a miss)."""
+    out = {}
+    for kw in FUSED_CE_CASES.values():
+        logits, labels, g = fused_ce_case(seed=seed, **kw)
+        pairs, _ = fused_ce_pairs(logits, labels, g)
+        for name, got, ref, atol, rtol in pairs:
+            out[name] = max(out.get(name, 0.0), worst(got, ref, atol, rtol))
+        del logits, labels, g, pairs
+    return out
+
+
+def train_launches(L, policy):
+    """Kernel launches per training step of an L-layer LLaMA with the
+    fused cross-entropy, by wrapper counter name; policy is "no remat"
+    (use_recompute=False) or the remat policy its layers ran under
+    (None counts as "nothing"). A rematerialised layer's recompute runs
+    its forward up to its last saved tensor, the down projection's input;
+    a site the policy keeps is not recomputed, and of the kernels only
+    the SwiGLU output is a site (llama_swiglu, kept by
+    save_matmul_outputs alone)."""
+    recompute = 0 if policy == "no remat" else L
+    swiglu_recompute = 0 if policy == "save_matmul_outputs" else recompute
+    return {"rms_norm": L + 1 + recompute,
+            "fused_add_rms_norm": L + recompute,
+            "swiglu": L + swiglu_recompute,
+            "swiglu_bwd_da": L, "swiglu_bwd_dw": L,
+            "flash_attention_fwd": L + recompute,
+            "flash_attention_bwd": L,
+            "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
+
+
+def train_counters():
+    """The training kernels' wrappers by the counter names of
+    `train_launches`; each wrapper's `launches` attribute counts its
+    kernel launches."""
+    from .kernels import cross_entropy as kce
+    from .kernels import flash_attention as kfa
+    from .kernels import fused_norm_residual as kfnr
+    from .kernels import rms_norm as krn
+    from .kernels import swiglu as ksw
+    return {"rms_norm": krn.rms_norm,
+            "fused_add_rms_norm": kfnr.fused_add_rms_norm,
+            "swiglu": ksw.swiglu, "swiglu_bwd_da": ksw.swiglu_bwd_da,
+            "swiglu_bwd_dw": ksw.swiglu_bwd_dw,
+            "flash_attention_fwd": kfa.flash_attention_fwd,
+            "flash_attention_bwd": kfa.flash_attention_bwd,
+            "fused_cross_entropy": kce.fused_cross_entropy_fwd,
+            "fused_cross_entropy_bwd": kce.fused_cross_entropy_bwd}

@@ -6,6 +6,7 @@ it runs on a machine that has only PyTorch, bypassing tests/conftest.py:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_cuda.py -m cuda -q
 """
+import dataclasses
 import json
 import math
 import os
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import testing
+from paddle_tpu_torch.kernels import cross_entropy as t_ce
 from paddle_tpu_torch.kernels import flash_attention as t_fa
 from paddle_tpu_torch.kernels import fused_norm_residual as t_fnr
 from paddle_tpu_torch.kernels import paged_attention as t_pa
@@ -254,6 +256,104 @@ def test_train_step_launches_every_kernel(fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(testing.FUSED_CE_CASES))
+def test_fused_cross_entropy_matches_plain(dtype, case):
+    """chip_smoke.py's fused cross-entropy cases (`testing.FUSED_CE_CASES`:
+    the 7B training slice's [8188, 32000] and a V = 30522 case whose rows
+    take the scalar head and tail), with ignore_index rows, a label past
+    the vocabulary and a negative one: loss, m and l within
+    `testing.CE_LIMITS`, dx within CE_DX_FRAC of its row's |g| plus one
+    rounding."""
+    _card()
+    dt = getattr(torch, dtype)
+    logits, labels, g = testing.fused_ce_case(dtype=dt, seed=3,
+                                              **testing.FUSED_CE_CASES[case])
+    pairs, _ = testing.fused_ce_pairs(logits, labels, g)
+    for name, got, ref, atol, rtol in pairs:
+        assert testing.worst(got, ref, atol, rtol) <= 1.0, name
+    # int32 labels take the same kernels
+    loss32, _, _ = t_ce.fused_cross_entropy_fwd(logits, labels.int())
+    assert torch.equal(loss32, pairs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["no remat", None, "nothing",
+                                    "save_matmul_outputs", "dots"])
+def test_remat_train_step_launches(policy):
+    """A 2-layer llama_tiny at the full 32000 vocabulary, bf16, under
+    FLAGS_use_fused_ce=1: each TrainStep launches every training kernel
+    exactly as `testing.train_launches` counts for its remat policy (the
+    recompute adds norms and the flash forward, and the SwiGLU forward
+    unless save_matmul_outputs keeps its output), and the cross-entropy
+    kernels once each."""
+    _card()
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import llama as TL
+    cfg = dataclasses.replace(
+        TL.llama_tiny(dtype="bfloat16", use_recompute=policy != "no remat"),
+        vocab_size=32000)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    opt = topt.AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     weight_decay=0.1)
+    step = TrainStep(model, opt, lambda i, l: model.loss(i, l),
+                     remat_policy=None if policy == "no remat" else policy)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64))).cuda()
+    want = testing.train_launches(cfg.num_hidden_layers, policy)
+    counters = testing.train_counters()
+    before = {n: c.launches for n, c in counters.items()}
+    ptt.set_flags({"FLAGS_use_fused_ce": True})
+    try:
+        losses = [step(ids, ids).item() for _ in range(3)]
+    finally:
+        ptt.set_flags({"FLAGS_use_fused_ce": False})
+    torch.cuda.synchronize()
+    assert {n: c.launches - before[n] for n, c in counters.items()} == \
+        {n: 3 * k for n, k in want.items()}
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_fused_ce_flag_never_reaches_the_plain_route(monkeypatch):
+    """Under FLAGS_use_fused_ce=1 a model loss over 32000 classes on the
+    card runs the fused kernels, forward and backward; the plain route
+    is patched to raise."""
+    _card()
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.nn.functional import loss as floss
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain cross-entropy route ran")
+
+    monkeypatch.setattr(floss, "_plain_cross_entropy", refuse)
+    cfg = dataclasses.replace(
+        TL.llama_tiny(dtype="bfloat16", use_recompute=True), vocab_size=32000)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32))).cuda()
+    before = (t_ce.fused_cross_entropy_fwd.launches,
+              t_ce.fused_cross_entropy_bwd.launches)
+    ptt.set_flags({"FLAGS_use_fused_ce": True})
+    try:
+        loss = model.loss(ids, ids)
+        loss.backward()
+    finally:
+        ptt.set_flags({"FLAGS_use_fused_ce": False})
+    torch.cuda.synchronize()
+    assert (t_ce.fused_cross_entropy_fwd.launches - before[0],
+            t_ce.fused_cross_entropy_bwd.launches - before[1]) == (1, 1)
+    assert math.isfinite(loss.item())
+    assert model.lm_head.grad is not None
+
+
+@pytest.mark.cuda
 def test_unfused_flag_still_launches_every_kernel():
     """FLAGS_fused_transformer=0 on the card: the serving step still goes
     through all three kernels (the flag unfuses only the QKV projection
@@ -366,6 +466,42 @@ def test_flash_check_fails_planted_faults(fault, tmp_path):
         assert all(r["terms"] <= 1.0 for r in readings.values())
     else:
         assert readings[_FLASH_FAULTS[fault][3]]["terms"] > 1.0
+
+
+# Faults planted in a copy of csrc/cross_entropy.cu: (anchor, pattern,
+# replacement, the output whose check must then fail).
+_CE_FAULTS = {
+    # the forward drops each row's last partial vector (the scalar tail
+    # after its last whole 16 bytes): l misses those terms
+    "drops_last_partial_vector": (
+        "ce_fwd_kernel(",
+        r"  for \(int j = tail \+ threadIdx\.x; j < V; j \+= kThreads\)\n"
+        r"    online_add\(m, l, ptt::to_f\(xr\[j\]\)\);\n", "", "l"),
+    # the forward gives ignore_index rows a loss
+    "ignores_ignore_index": (
+        "ce_fwd_kernel(",
+        r"loss\[row\] = lbl == ignore_index \? 0\.f : logf\(l\) \+ m - xl;",
+        "loss[row] = logf(l) + m - xl;", "loss"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, *_CE_FAULTS],
+                         ids=["intact", *_CE_FAULTS])
+def test_fused_ce_check_fails_planted_faults(fault, tmp_path):
+    """chip_smoke.py's fused cross-entropy check, run by
+    `testing.fused_ce_readings` (bf16 at `testing.FUSED_CE_CASES`),
+    passes the kernels as written and fails each planted fault."""
+    _card()
+    readings = _readings_with_fault(
+        tmp_path, "cross_entropy.cu",
+        None if fault is None else _CE_FAULTS[fault][:3],
+        "fused_ce_readings")
+    print(f"fused CE readings, {fault or 'intact'}: {json.dumps(readings)}")
+    if fault is None:
+        assert all(r <= 1.0 for r in readings.values())
+    else:
+        assert readings[_CE_FAULTS[fault][3]] > 1.0
 
 
 @pytest.mark.cuda

@@ -319,39 +319,24 @@ def _meta(*shape):
     return torch.empty(shape, device="meta")
 
 
-@pytest.mark.parametrize("knob", ["use_recompute", "scaler", "shard",
-                                  "accumulate_steps", "remat_policy",
+@pytest.mark.parametrize("knob", ["scaler", "shard", "accumulate_steps",
                                   "lr_scheduler", "multi_precision",
-                                  "fused_ce_on_card", "flash_padding_mask",
-                                  "flash_bias", "dense_attention_on_card"])
+                                  "flash_padding_mask", "flash_bias",
+                                  "dense_attention_on_card"])
 def test_unported_training_knobs_raise(knob):
     m = _tiny_cpu(use_recompute=False)
     opt = topt.AdamW(parameters=m.parameters())
-    ids = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="not ported|port does"):
-        if knob == "use_recompute":
-            _tiny_cpu(use_recompute=True).loss(ids, ids)
-        elif knob == "scaler":
+        if knob == "scaler":
             TrainStep(m, opt, m.loss, scaler=object())
         elif knob == "shard":
             TrainStep(m, opt, m.loss, shard=object())
         elif knob == "accumulate_steps":
             TrainStep(m, opt, m.loss, accumulate_steps=2)
-        elif knob == "remat_policy":
-            r = _tiny_cpu(use_recompute=True)
-            TrainStep(r, topt.AdamW(parameters=r.parameters()), r.loss,
-                      remat_policy="nothing")
         elif knob == "lr_scheduler":
             topt.AdamW(learning_rate=lambda: 1e-3, parameters=m.parameters())
         elif knob == "multi_precision":
             topt.AdamW(parameters=m.parameters(), multi_precision=True)
-        elif knob == "fused_ce_on_card":
-            ptt.set_flags({"FLAGS_use_fused_ce": True})
-            try:
-                cross_entropy(_meta(4, 50), torch.zeros(4, dtype=torch.long,
-                                                        device="meta"))
-            finally:
-                ptt.set_flags({"FLAGS_use_fused_ce": False})
         elif knob == "flash_padding_mask":
             q = torch.zeros(1, 8, 2, 64)
             t_fa.flash_attention_bshd(q, q, q, causal=True,
