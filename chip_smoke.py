@@ -68,6 +68,32 @@ Phases, each of which fails the run on a miss:
    cross-entropy) against the plain route within `TRAIN7B_LOSS_RTOL`
    and `TRAIN7B_GRAD_RTOL`.
 
+9. BERT — bench.py's BERT configuration at inference: `BertForMaskedLM`
+   at bert_base (hidden 768, 12 layers, 12 heads of 64, vocab 30522),
+   f32, eval, batch 16 x 512 of `default_rng(0)` ids padded to
+   `testing.bert_lengths()` (one row of 512); forward ms by CUDA events
+   (BERT_WARMUP, then BERT_ITERS), sequences/s and valid tokens/s; the
+   segment flash forward launched 12 times a forward and no other
+   attention kernel; the kernel route against the plain route at valid
+   rows within testing's BERT limits; one forward traced by
+   torch.profiler, its device time split by kernel group;
+10. attention surface — bf16: sdpa with the boolean [16, 1, 1, 512]
+   padding mask, sdpa with the additive float mask (the bias route) and
+   flash_attn_unpadded on the same batch packed, each against its plain
+   route and against each other at valid rows, output and grads
+   (testing.SURFACE_RTOL), exact launches; then at llama_7b attention
+   width a packed causal flash_attn_unpadded over 8192 tokens of
+   documents and a causal alibi flash_attention_biased at 4 x 2048 (4
+   block-stats launches) and at 2 x 4096 (8; there one f32 score buffer
+   exceeds the bound), whose peak memory above its inputs must stay
+   under `alibi_peak_bound`; forward and backward timed, the biased
+   route's beside SDPA with its bias as attn_mask.
+
+The kernel phase also holds the three segment-id flash kernels and the
+block-stats kernel against their plain versions at `testing.
+ATTN_SEG_CASES` and `testing.STATS_CASES` (the two phases' shapes among
+them), bf16 and f32, and times them.
+
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; before it, one JSON line with every kernel's
 measurements; the last line is the contract line
@@ -125,7 +151,20 @@ TOL = {("rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
        ("flash_attention_fwd.lse", "bfloat16"): (1e-4, 1e-5),
        ("flash_attention_fwd.lse", "float32"): (1e-4, 1e-5),
        ("flash_attention_bwd", "bfloat16"): (TERMS, BF16_RTOL),
-       ("flash_attention_bwd", "float32"): (TERMS, 0.0)}
+       ("flash_attention_bwd", "float32"): (TERMS, 0.0),
+       # the segment-id kernels: the flash rule over the pairs their
+       # segments leave (testing.seg_flash_terms)
+       ("flash_attention_seg_fwd", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_seg_fwd", "float32"): (TERMS, 0.0),
+       ("flash_attention_seg_fwd.lse", "bfloat16"): (1e-4, 1e-5),
+       ("flash_attention_seg_fwd.lse", "float32"): (1e-4, 1e-5),
+       ("flash_attention_seg_dkv", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_seg_dkv", "float32"): (TERMS, 0.0),
+       ("flash_attention_seg_dq", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_seg_dq", "float32"): (TERMS, 0.0)}
+# The block-stats kernel's pairs carry their own limits
+# (testing.block_stats_pairs: STATS_LIMITS for m and l, the terms rule
+# for o).
 # A captured 32-layer serving step, kernel route against the plain route
 # (`plain_routes`, SwiGLU in f32), |logit difference| over the live rows:
 # the routes differ by bf16 rounding flips that compound through 32
@@ -170,6 +209,17 @@ SOURCES = {
                             "paddle_tpu/kernels/cross_entropy.py:154"),
     "fused_cross_entropy_bwd": ("paddle_tpu_torch/csrc/cross_entropy.cu",
                                 "paddle_tpu/kernels/cross_entropy.py:178"),
+    # upstream flash with SegmentIds (the call at l.333; packed, l.447):
+    # padding_mask= and flash_attention_packed, forward, dkv and dq
+    "flash_attention_seg_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                "paddle_tpu/kernels/flash_attention.py:333"),
+    "flash_attention_seg_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                "paddle_tpu/kernels/flash_attention.py:333"),
+    "flash_attention_seg_dq": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                               "paddle_tpu/kernels/flash_attention.py:333"),
+    # the block-stats kernel, per chunk of flash_attention_biased
+    "block_attention_stats": ("paddle_tpu_torch/csrc/block_attention.cu",
+                              "paddle_tpu/kernels/block_attention.py:138"),
 }
 # the training phase: bench.py's accelerator configuration
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -307,10 +357,12 @@ def compare(name, dname, pairs, tag=""):
 
 
 def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
-          iters=50, plain_iters=None, tag="", ops_dtype="bfloat16"):
-    """One kernel's bf16 measurements: kernel, plain version and library
-    call by CUDA events, the bound from this run's shapes (its
-    operations at the peak rate of `ops_dtype`)."""
+          iters=50, plain_iters=None, tag="", ops_dtype="bfloat16",
+          dname="bf16"):
+    """One kernel's measurements (bf16 unless dname says otherwise):
+    kernel, plain version and library call by CUDA events, the bound
+    from this run's shapes (its operations at the peak rate of
+    `ops_dtype`)."""
     ms = time_ms(fn_kernel, iters)
     plain_ms = time_ms(fn_plain, plain_iters or max(iters // 5, 3))
     with warnings.catch_warnings():
@@ -319,7 +371,7 @@ def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
         warnings.simplefilter("ignore", UserWarning)
         lib_ms = time_ms(library, iters) if library else None
     b_ms, b_by = bound_ms(nbytes, flops, ops_dtype)
-    print(f"kernel {name} bf16{tag}: kernel_ms={ms:.6g} "
+    print(f"kernel {name} {dname}{tag}: kernel_ms={ms:.6g} "
           f"plain_ms={plain_ms:.6g} "
           f"library_ms={'none' if lib_ms is None else f'{lib_ms:.6g}'} "
           f"bound_ms={b_ms:.6g} ({b_by})", flush=True)
@@ -446,6 +498,7 @@ def kernel_phase(report):
         paged_kernels(report, dtype)
         training_kernels(report, dtype, gen)
         torch.cuda.empty_cache()
+        attention_kernels(report, dtype)
 
 
 def paged_kernels(report, dtype):
@@ -627,13 +680,16 @@ def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
             w_ = wgu.detach().requires_grad_(i == 1)
             return torch.autograd.grad(ksw._ref(a_, w_), (a_, w_)[i], do)
 
+        # library: the one product [dg | du] [Wg | Wu]^T, given the dgu
+        # the kernel made
         record(report, "swiglu_bwd_da", path, timed(
             "swiglu_bwd_da", err_da, lambda: ksw.swiglu_bwd_da(a, wgu, do),
             lambda: plain_grad(0),
             # a, w_gate_up, do in; da and the [T, 2M] dgu out
             nbytes=(a.numel() + wgu.numel() + do.numel() + a.numel()
                     + dgu.numel()) * it,
-            flops=2 * gemm, iters=10, tag=tag))
+            flops=2 * gemm, library=lambda: torch.matmul(dgu, wgu.t()),
+            iters=10, tag=tag))
         # library: the one product a^T dgu, given the dgu bwd_da made
         record(report, "swiglu_bwd_dw", path, timed(
             "swiglu_bwd_dw", err_dw, lambda: ksw.swiglu_bwd_dw(a, dgu),
@@ -755,6 +811,192 @@ def ce_kernels(report, dtype):
         torch.cuda.empty_cache()
 
 
+def _seg_pairs(seg_q, seg_kv, causal):
+    """The (q, key) pairs the segment ids (and the causal mask) leave:
+    the work the segment kernels' function needs, per head."""
+    import torch
+    n = 0
+    for b in range(seg_q.shape[0]):
+        for s in torch.unique(seg_q[b]).tolist():
+            nq = int((seg_q[b] == s).sum())
+            nk = int((seg_kv[b] == s).sum())
+            n += nq * (nq + 1) // 2 if causal else nq * nk
+    return n
+
+
+def attention_kernels(report, dtype):
+    """The masked and packed attention kernels at the BERT and
+    attention-surface phases' shapes: the three segment-id flash kernels
+    at `testing.ATTN_SEG_CASES` (BERT's padded [16, 512, 12, 64], the
+    packed causal [8192, 32, 128] of the 7B-width case, small GQA,
+    cross-length and packed MQA cases), and the block-stats kernel at
+    `testing.STATS_CASES` (sdpa's bias route at bert width, a 512-key
+    alibi chunk at 7B width, a masked ragged case), element by element.
+    Timed: the segment kernels at "bert" (bf16: the entry; f32 forward:
+    the BERT phase's dtype, "bert_f32") and "packed_7b" (bf16); the
+    block-stats kernel at "sdpa_bias" (the entry) and "alibi_7b"."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import block_attention as kba
+
+    dname = str(dtype).split(".")[1]
+    bf16 = dtype == torch.bfloat16
+    it = torch.finfo(dtype).bits // 8
+    for tag, kw in testing.ATTN_SEG_CASES.items():
+        q, k, v, do, sq, skv = testing.attn_seg_case(**kw, dtype=dtype)
+        causal = kw["causal"]
+        B, S, hq, d = q.shape
+        Sk, hk = k.shape[1], k.shape[2]
+        scale = d ** -0.5
+        # GQA keeps the one low-precision step of its float order on both
+        # sides: q pre-scaled in q's dtype, the kernels at scale 1
+        qs, s = ((q * scale).to(dtype), 1.0) if hq != hk else (q, scale)
+        shape = (f" [{tag} B{B} S{S}/{Sk} H{hq}/{hk} D{d} "
+                 f"{'causal' if causal else 'full'}]")
+        # the packed 7B case's f32 [8192, 8192] scores take 8.6 GB a
+        # buffer at 32 heads: its plain side runs 8 heads at a time
+        pairs, _ = testing.seg_flash_pairs(
+            qs, k, v, do, sq, skv, causal, s,
+            heads=8 if tag == "packed_7b" else None)
+        errs = {"fwd": compare("flash_attention_seg_fwd", dname, pairs[:2],
+                               shape),
+                "dkv": compare("flash_attention_seg_dkv", dname, pairs[3:],
+                               shape),
+                "dq": compare("flash_attention_seg_dq", dname, pairs[2:3],
+                              shape)}
+        del pairs
+        timed_here = (tag == "bert" or (bf16 and tag == "packed_7b"))
+        if timed_here:
+            seg_timings(report, tag, dtype, errs, qs, k, v, do, sq, skv,
+                        causal, s, shape)
+        del q, k, v, do, qs, sq, skv
+        torch.cuda.empty_cache()
+
+    for tag, kw in testing.STATS_CASES.items():
+        q, k, v, mask, scale, bias = testing.stats_case(**kw, dtype=dtype)
+        shape = f" [{tag} q{tuple(q.shape)} k{tuple(k.shape)}]"
+        err = compare("block_attention_stats", dname,
+                      testing.block_stats_pairs(q, k, v, mask, scale, bias),
+                      shape)
+        if bf16 and tag in ("sdpa_bias", "alibi_7b"):
+            B, Sq, H, d = q.shape
+            Sk = k.shape[1]
+            valid = (bias > -5e29).expand(B, H, Sq, Sk)
+            if mask is not None:
+                valid = valid & mask
+            pairs = int(valid.sum())
+            del valid
+            m = timed(
+                "block_attention_stats", err,
+                lambda: kba.block_attention_fwd(q, k, v, mask, scale, bias),
+                lambda: kba._dense_stats(q, k, v, mask, scale, bias),
+                # q, k, v and the bias as the route passes it (compact,
+                # read in place) in; m, l, o f32 out
+                nbytes=((q.numel() + 2 * k.numel()) * it + bias.numel() * 4
+                        + (0 if mask is None else mask.numel())
+                        + 2 * B * H * Sq * 4 + q.numel() * 4),
+                # Q K^T and P V over the entries the bias leaves valid
+                flops=4 * pairs * d, iters=20, plain_iters=5, tag=shape)
+            if tag == "sdpa_bias":
+                report["block_attention_stats"] = entry(
+                    "block_attention_stats", m)
+            else:
+                report["block_attention_stats"][tag] = m
+        del q, k, v, mask, bias
+        torch.cuda.empty_cache()
+
+
+def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
+                shape):
+    """The segment kernels' times at one case: the forward, dkv and dq
+    kernels beside the plain version (`_SegPlain`, the packed case in
+    groups of 8 heads), SDPA with the segment-equality boolean mask (fwd;
+    fwd + bwd for dkv and dq) and the bounds over the pairs the segments
+    leave. bf16 "bert" is each kernel's entry; f32 "bert" times the
+    forward only (the BERT phase's f32 inference), as "bert_f32"."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    bf16 = dtype == torch.bfloat16
+    dn = "bf16" if bf16 else "f32"
+    ops = "bfloat16" if bf16 else "float32"
+    it = torch.finfo(dtype).bits // 8
+    B, S, hq, d = q.shape
+    Sk = k.shape[1]
+    pairs = _seg_pairs(sq, skv, causal) * hq
+    seg_bytes = 4 * (sq.numel() + skv.numel())
+    lse_bytes = 4 * B * hq * S
+    qkv = (q.numel() + k.numel() + v.numel()) * it
+    heads = 8 if tag == "packed_7b" else hq
+
+    def plain_fwd():
+        for h0 in range(0, hq, heads):
+            h = slice(h0, h0 + heads)
+            kfa._SegPlain.apply(q[:, :, h], k[:, :, h], v[:, :, h], sq, skv,
+                                causal, s)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    allow = sq[:, None, :, None] == skv[:, None, None, :]
+    if causal:
+        allow = allow & torch.ones((S, Sk), dtype=torch.bool,
+                                   device="cuda").tril()
+    o, lse = kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s)
+    key = "bert" if bf16 and tag == "bert" else (
+        "bert_f32" if tag == "bert" else tag)
+
+    def put(name, m):
+        if key == "bert":
+            report[name] = entry(name, m)
+        else:
+            report[name][key] = m
+
+    put("flash_attention_seg_fwd", timed(
+        "flash_attention_seg_fwd", errs["fwd"],
+        lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s),
+        plain_fwd, nbytes=qkv + q.numel() * it + lse_bytes + seg_bytes,
+        flops=4 * pairs * d,
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=allow),
+        iters=20, plain_iters=3, tag=shape, ops_dtype=ops, dname=dn))
+    if not bf16:
+        return
+    delta = kfa._delta(o, do)
+    args = (q, k, v, do, lse, delta, sq, skv, causal, s)
+    lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    do_t = do.transpose(1, 2)
+
+    def library_fwd_bwd():
+        o_l = F.scaled_dot_product_attention(*lib_leaves, attn_mask=allow)
+        return torch.autograd.grad(o_l, lib_leaves, do_t)
+
+    def plain_bwd():
+        for h0 in range(0, hq, heads):
+            h = slice(h0, h0 + heads)
+            leaves = [t[:, :, h].detach().requires_grad_()
+                      for t in (q, k, v)]
+            o_p = kfa._SegPlain.apply(*leaves, sq, skv, causal, s)
+            torch.autograd.grad(o_p, leaves, do[:, :, h])
+
+    for name, fn, flops, out_bytes in (
+            ("flash_attention_seg_dkv",
+             lambda: kfa.flash_attention_seg_dkv(*args), 8 * pairs * d,
+             (k.numel() + v.numel()) * it),
+            ("flash_attention_seg_dq",
+             lambda: kfa.flash_attention_seg_dq(*args), 6 * pairs * d,
+             q.numel() * it)):
+        # q, k, v, do, lse, D and the segments in; dk and dv, or dq, out.
+        # flops: dkv recomputes S and dP and forms dV and dK (4
+        # products), dq recomputes S and dP and forms dQ (3)
+        put(name, timed(
+            name, errs["dkv" if name.endswith("dkv") else "dq"], fn,
+            plain_bwd, nbytes=qkv + do.numel() * it + 2 * lse_bytes
+            + seg_bytes + out_bytes, flops=flops, library=library_fwd_bwd,
+            iters=10, plain_iters=2, tag=shape))
+    del lib_leaves, allow, o, lse, delta
+
+
 @contextlib.contextmanager
 def plain_routes():
     """Swap the kernel wrappers the model calls for their plain
@@ -762,6 +1004,7 @@ def plain_routes():
     SwiGLU runs on f32 copies and rounds once, as the kernel does; the
     other plain versions already keep f32 inside. All of them are plain
     PyTorch under autograd, so the training backward runs plain too."""
+    from paddle_tpu_torch.kernels import block_attention as kba
     from paddle_tpu_torch.kernels import cross_entropy as kce
     from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
@@ -771,7 +1014,9 @@ def plain_routes():
     from paddle_tpu_torch.kernels import swiglu as ksw
     saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
              kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
-             kpa.paged_decode_attention, kce.fused_cross_entropy)
+             kpa.paged_decode_attention, kce.fused_cross_entropy,
+             kfa._SegFlash, kba.block_attention_fwd)
+    real_bshd = kfa.flash_attention_bshd
     krn.rms_norm = lambda x, w, eps=1e-6, use_kernel=None: krn._plain(
         x, w, eps)
     # a remat site's kept `out` is not taken: the plain expression is
@@ -786,9 +1031,27 @@ def plain_routes():
         krpa._dense_fallback(q, kp, vp, qs, ql, kl, pt, scale))
     kfnr.fused_add_rms_norm = (
         lambda x, r, w, eps=1e-6, use_kernel=None: kfnr._plain(x, r, w, eps))
-    kfa.flash_attention_bshd = (
-        lambda q, k, v, causal=False, scale=None, **kw:
-        kfa._plain(q, k, v, causal, scale))
+    def plain_bshd(q, k, v, causal=False, scale=None, padding_mask=None,
+                   bias=None, use_kernel=None):
+        # one length, no mask: the dense `_plain`; the segment and bias
+        # routes run their own Python with the kernels below swapped
+        if (padding_mask is None and bias is None
+                and q.shape[1] == k.shape[1]):
+            return kfa._plain(q, k, v, causal, scale)
+        return real_bshd(q, k, v, causal, scale, padding_mask, bias)
+
+    class PlainSeg:
+        @staticmethod
+        def apply(q, k, v, seg_q, seg_kv, causal, scale):
+            if seg_q is None:
+                return kfa._plain(q, k, v, causal, scale)
+            return kfa._SegPlain.apply(q, k, v, seg_q, seg_kv, causal, scale)
+
+    kfa.flash_attention_bshd = plain_bshd
+    kfa._SegFlash = PlainSeg
+    kba.block_attention_fwd = (
+        lambda q, k, v, mask, scale, bias=None:
+        kba._dense_stats(q, k, v, mask, scale, bias))
     kpa.paged_decode_attention = (
         lambda q, kp, vp, lens, pidx, scale=None, use_kernel=None:
         kpa._plain(q, kp, vp, lens, pidx,
@@ -798,7 +1061,8 @@ def plain_routes():
     finally:
         (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
          kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
-         kpa.paged_decode_attention, kce.fused_cross_entropy) = saved
+         kpa.paged_decode_attention, kce.fused_cross_entropy,
+         kfa._SegFlash, kba.block_attention_fwd) = saved
 
 
 def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
@@ -1635,6 +1899,397 @@ def remat_check(cfg, ids):
     torch.cuda.empty_cache()
 
 
+# BERT phase: bench.py's BERT configuration (bench.py:400-421) at
+# inference, bert_base f32 in eval, batch 16 x 512, padded
+BERT_BATCH, BERT_SEQ = 16, 512
+BERT_WARMUP, BERT_ITERS = 2, 10
+# the BERT forward's device kernels -> group, first match wins
+_BERT_GROUPS = (("flash_fwd_", "segment_flash"), ("gemm", "cublas"),
+                ("nvjet", "cublas"), ("xmma", "cublas"),
+                ("cutlass", "cublas"))
+
+
+def _expect_launches(counters, launches, want, what):
+    """Every attention kernel's launch count is `want` (0 when absent)."""
+    for name in counters:
+        n = launches[name]
+        print(f"launches {name} ({what}): {n} (expected "
+              f"{want.get(name, 0)})", flush=True)
+        check(n == want.get(name, 0), f"{name} launched {n} times in "
+              f"{what}, expected {want.get(name, 0)}")
+
+
+def bert_phase(report, smi_line):
+    """`BertForMaskedLM` at bert_base in f32, eval, on a padded batch:
+    ids from default_rng(0), lengths `testing.bert_lengths()` (one row of
+    512), token types 0; forward ms by CUDA events over BERT_ITERS
+    forwards after BERT_WARMUP; the segment flash forward launched 12
+    times a forward and no other attention kernel; the kernel route
+    against the plain route at valid rows; one forward traced."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.models import bert as TB
+
+    cfg = TB.bert_base()
+    B, S = BERT_BATCH, BERT_SEQ
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (B, S))).to("cuda")
+    lengths = testing.bert_lengths(B, S)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None]).long()
+    tt = torch.zeros_like(ids)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TB.BertForMaskedLM(cfg, device="cuda", generator=gen).eval()
+    torch.cuda.synchronize()
+    print(f"bert: bert_base f32 built in {time.perf_counter() - t0:.3f} s, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"batch {B} x {S}, lengths {lengths}", flush=True)
+    counters = testing.attention_counters()
+    with torch.no_grad():
+        for _ in range(BERT_WARMUP):
+            model(ids, tt, mask)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(BERT_ITERS):
+            logits = model(ids, tt, mask)
+        ev[1].record()
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ms = ev[0].elapsed_time(ev[1]) / BERT_ITERS
+    valid = mask.bool()
+    n_valid = int(valid.sum())
+    print(f"bert: forward_ms={ms:.6g} sequences_per_s={B * 1e3 / ms:.6g} "
+          f"valid_tokens_per_s={n_valid * 1e3 / ms:.6g} (valid tokens "
+          f"{n_valid} of {B * S}) peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.6g} [{smi_line}]",
+          flush=True)
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"BERT logits {tuple(logits.shape)} {logits.dtype} not finite "
+          f"[B, S, vocab] f32")
+    L = cfg.num_hidden_layers
+    _expect_launches(counters, launches,
+                     {"flash_attention_seg_fwd": L * BERT_ITERS},
+                     f"BERT, {BERT_ITERS} forwards")
+    add_launches(report, "flash_attention_seg_fwd", "bert",
+                 launches["flash_attention_seg_fwd"])
+    del logits
+
+    # the kernel route against the plain route, valid rows
+    with torch.no_grad():
+        seq_k, pooled_k = model.bert(ids, tt, mask)
+        lg_k = model(ids, tt, mask)
+        torch.cuda.synchronize()
+        with plain_routes():
+            seq_p, pooled_p = model.bert(ids, tt, mask)
+            lg_p = model(ids, tt, mask)
+        torch.cuda.synchronize()
+    ok = True
+    for what, a, b, lim, mlim in (
+            ("sequence output", seq_k[valid], seq_p[valid],
+             testing.BERT_SEQ_ATOL, testing.BERT_SEQ_MEAN_ATOL),
+            ("logits", lg_k[valid], lg_p[valid], testing.BERT_LOGIT_ATOL,
+             testing.BERT_LOGIT_MEAN_ATOL),
+            ("pooled output", pooled_k, pooled_p, testing.BERT_SEQ_ATOL,
+             testing.BERT_SEQ_MEAN_ATOL)):
+        diff = (a - b).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        good = err <= lim and mean <= mlim
+        ok = ok and good
+        print(f"bert route agreement, {what} at valid rows: max_abs_err="
+              f"{err:.6g} (limit {lim:g}) mean_abs_err={mean:.6g} (limit "
+              f"{mlim:g}) max|plain|={b.abs().max().item():.6g} "
+              f"{'ok' if good else 'MISS'}", flush=True)
+    check(ok, "the BERT kernel route disagrees with the plain route")
+    del seq_k, seq_p, lg_k, lg_p, pooled_k, pooled_p
+
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(ids, tt, mask)
+            torch.cuda.synchronize()
+    groups, others = _device_ms(prof, _BERT_GROUPS, "plain_torch")
+    busy = sum(groups.values())
+    if busy == 0.0:
+        print("bert profile: not measured (the profiler saw no device "
+              "time)", flush=True)
+    else:
+        parts = " ".join(f"{g}={groups.get(g, 0.0):.6g}"
+                         for g in ("segment_flash", "cublas", "plain_torch"))
+        print(f"bert profile (device ms, one forward): {parts} total="
+              f"{busy:.6g} busy_share={busy / ms:.4f} [{smi_line}]",
+              flush=True)
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+        print("bert profile, largest plain torch kernels (ms): "
+              + "; ".join(f"{k[:60]}={v:.4g}" for k, v in top), flush=True)
+    del model, prof
+    torch.cuda.empty_cache()
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def surface_phase(report, smi_line):
+    """The nn.functional attention surface in bf16. At bert_base
+    attention width on the BERT phase's lengths: sdpa with the boolean
+    [16, 1, 1, 512] mask (segment kernels), sdpa with the additive float
+    mask (0 valid, -1e4 padding: the bias route, the block-stats kernel
+    on one 512-key chunk, plain backward) and flash_attn_unpadded on the
+    same batch packed to [sum lengths, 12, 64]: each against its plain
+    route and against each other at valid rows, output and grads,
+    within testing.SURFACE_RTOL. At llama_7b attention width: a packed
+    causal flash_attn_unpadded over 8192 tokens of `testing.
+    packed_lengths()` documents, and a causal alibi flash_attention_
+    biased at 4 x 2048 (4 chunks) and at 2 x 4096 (8 chunks) whose peak
+    memory above its inputs must stay under `alibi_peak_bound`; forward
+    and backward each, timed. The biased route (the float mask, the 4 x
+    2048 alibi case) is timed beside SDPA with the same bias as its
+    attn_mask (`sdpa_library`)."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.nn import functional as TF
+
+    counters = testing.attention_counters()
+    dt = torch.bfloat16
+    B, S, H, D = BERT_BATCH, BERT_SEQ, 12, 64
+    lengths = testing.bert_lengths(B, S)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                               device="cuda").to(dt) for _ in range(4))
+    valid = (torch.arange(S, device="cuda")[None, :]
+             < torch.tensor(lengths, device="cuda")[:, None])
+    do = do * valid[:, :, None, None]
+    cu = torch.tensor([0] + lengths, device="cuda").cumsum(0).to(torch.int32)
+    scale = D ** -0.5
+
+    def sdpa_bool(a, b, c):
+        return TF.scaled_dot_product_attention(
+            a, b, c, attn_mask=valid[:, None, None, :])
+
+    fmask = torch.where(valid, 0.0, -1e4).float()[:, None, None, :]
+
+    def sdpa_float(a, b, c):
+        return TF.scaled_dot_product_attention(a, b, c, attn_mask=fmask)
+
+    def unpadded(a, b, c):
+        out, _ = TF.flash_attn_unpadded(a[valid], b[valid], c[valid], cu, cu,
+                                        S, S, scale)
+        full = torch.zeros_like(a)
+        full[valid] = out
+        return full
+
+    routes = {"sdpa_bool_mask": (sdpa_bool, {
+                  "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
+                  "flash_attention_seg_dq": 1}),
+              "sdpa_float_mask": (sdpa_float, {"block_attention_stats": 1}),
+              "flash_attn_unpadded": (unpadded, {
+                  "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
+                  "flash_attention_seg_dq": 1})}
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    results = {}
+    for name, (fn, want) in routes.items():
+        for c in counters.values():
+            c.launches = 0
+        got = run(fn)
+        launches = {n: c.launches for n, c in counters.items()}
+        _expect_launches(counters, launches, want, f"surface {name}")
+        for kname, n in launches.items():
+            if n:
+                add_launches(report, kname, f"surface_{name}", n)
+        with plain_routes():
+            plain = run(fn)
+        errs = [_rel(a[valid], b[valid]) for a, b in zip(got, plain)]
+        fwd_ms = time_ms(lambda: fn(q, k, v), 10)
+        fb_ms = time_ms(lambda: run(fn), 5)
+        ok = max(errs) <= testing.SURFACE_RTOL and all(
+            bool(torch.isfinite(t).all()) for t in got)
+        print(f"surface {name} [B{B} S{S} H{H} D{D} bf16]: fwd_ms="
+              f"{fwd_ms:.6g} fwd_bwd_ms={fb_ms:.6g}; kernel vs plain route "
+              f"at valid rows, max rel (out, dq, dk, dv) "
+              f"{[round(e, 6) for e in errs]} (limit "
+              f"{testing.SURFACE_RTOL:g}) {'ok' if ok else 'MISS'} "
+              f"[{smi_line}]", flush=True)
+        check(ok, f"surface {name}: the kernel route disagrees with its "
+                  f"plain route")
+        results[name] = got
+        if name == "sdpa_float_mask":
+            biased_times(report, name, fwd_ms, fb_ms,
+                         sdpa_library(q, k, v, do, fmask), smi_line)
+    base = results["sdpa_bool_mask"]
+    for name in ("sdpa_float_mask", "flash_attn_unpadded"):
+        errs = [_rel(a[valid], b[valid]) for a, b in zip(results[name],
+                                                          base)]
+        ok = max(errs) <= testing.SURFACE_RTOL
+        print(f"surface {name} vs sdpa_bool_mask at valid rows: max rel "
+              f"(out, dq, dk, dv) {[round(e, 6) for e in errs]} (limit "
+              f"{testing.SURFACE_RTOL:g}) {'ok' if ok else 'MISS'}",
+              flush=True)
+        check(ok, f"surface {name} disagrees with sdpa_bool_mask")
+    del results, base, q, k, v, do
+    torch.cuda.empty_cache()
+
+    # llama_7b attention width: packed causal documents
+    lengths7 = testing.packed_lengths()
+    T, H7, D7 = sum(lengths7), 32, 128
+    q, k, v, do = (torch.randn((T, H7, D7), generator=gen,
+                               device="cuda").to(dt) for _ in range(4))
+    cu7 = torch.tensor([0] + lengths7, device="cuda").cumsum(0).to(
+        torch.int32)
+
+    def packed(a, b, c):
+        return TF.flash_attn_unpadded(a, b, c, cu7, cu7, max(lengths7),
+                                      max(lengths7), D7 ** -0.5,
+                                      causal=True)[0]
+
+    surface_7b(report, counters, "packed_causal", packed, (q, k, v), do, {
+        "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
+        "flash_attention_seg_dq": 1}, f"{T} tokens in documents "
+        f"{lengths7}, H{H7} D{D7} bf16", smi_line)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # llama_7b attention width: causal alibi in chunks of 512 keys, at
+    # 4 x 2048 (4 chunks; timed beside SDPA) and at 2 x 4096 (8 chunks),
+    # where one f32 [B, H, Sq, Sk] score buffer (4.29 GB) is larger than
+    # the peak bound, so a route that held one, or that kept every
+    # chunk's bias (8 x 0.268 GB), would fail the check
+    slopes = 2.0 ** (-8.0 * torch.arange(1, H7 + 1, device="cuda") / H7)
+
+    def alibi(a, b, c):
+        return kfa.flash_attention_biased(a, b, c, "alibi", slopes,
+                                          causal=True)
+
+    C = 512
+    for B7, S7 in ((4, 2048), (2, 4096)):
+        q, k, v, do = (torch.randn((B7, S7, H7, D7), generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        name = "alibi_causal" if S7 == 2048 else f"alibi_causal_{S7}"
+        bound = alibi_peak_bound(B7, S7, H7, D7, C)
+        full = B7 * H7 * S7 * S7 * 4
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms, fb_ms = surface_7b(
+            report, counters, name, alibi, (q, k, v), do,
+            {"block_attention_stats": S7 // C},
+            f"[{B7}, {S7}, {H7}, {D7}] bf16, {S7 // C} chunks of {C}",
+            smi_line)
+        peak = torch.cuda.max_memory_allocated() - resident
+        print(f"surface {name}: fwd+bwd peak memory above the inputs "
+              f"{peak / 1e9:.6g} GB (bound {bound / 1e9:.6g} GB = "
+              f"alibi_peak_bound at chunk {C}; one f32 [B, H, Sq, Sk] "
+              f"score buffer would be {full / 1e9:.6g} GB) "
+              f"{'ok' if peak <= bound else 'MISS'}", flush=True)
+        check(peak <= bound, f"{name} fwd+bwd peak {peak} B above the "
+                             f"inputs exceeds its bound {bound} B")
+        if S7 == 2048:
+            bias = kfa._bias_chunk("alibi", slopes, S7, 0, S7, True, None)
+            biased_times(report, name, fwd_ms, fb_ms,
+                         sdpa_library(q, k, v, do, bias), smi_line)
+            del bias
+        else:
+            check(bound < full, f"{name}: the peak bound {bound} B is not "
+                                f"below one score buffer {full} B")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def sdpa_library(q, k, v, do, bias):
+    """The library call for the biased route: one torch SDPA on the same
+    bf16 BSHD inputs with the route's f32 bias (the dense [B, 1, 1, Sk]
+    mask, or the alibi bias with the causal mask folded in as -1e30,
+    [1, H, Sq, Sk]) as its additive attn_mask; forward and forward +
+    backward ms by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    do_t = do.transpose(1, 2)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        return torch.autograd.grad(o, leaves, do_t)
+
+    return {"fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias), 10),
+            "fwd_bwd_ms": time_ms(fwd_bwd, 5)}
+
+
+def biased_times(report, name, fwd_ms, fb_ms, library, smi_line):
+    """Row 12 (flash_attention_biased, the route over the block-stats
+    kernel) beside its library call: printed, and kept under the
+    block-stats entry's "flash_attention_biased" key."""
+    print(f"surface {name}: route fwd_ms={fwd_ms:.6g} fwd_bwd_ms="
+          f"{fb_ms:.6g}; library SDPA with the bias as attn_mask fwd_ms="
+          f"{library['fwd_ms']:.6g} fwd_bwd_ms={library['fwd_bwd_ms']:.6g} "
+          f"[{smi_line}]", flush=True)
+    report["block_attention_stats"].setdefault(
+        "flash_attention_biased", {})[name] = {
+            "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms, "library": library}
+
+
+def alibi_peak_bound(B, Sq, H, D, C):
+    """The alibi route's peak memory bound: three f32 score-shaped chunk
+    buffers [B, H, Sq, C] (the backward's P and dS and the chunk bias or
+    its mask) and eight f32 buffers of q's size [B, Sq, H, D] (q, dO,
+    the output and the forward's merged o in f32; dq, dk, dv and a merge
+    temporary). It grows with the chunk C, not with Sk."""
+    return 3 * B * H * Sq * C * 4 + 8 * B * Sq * H * D * 4
+
+
+def surface_7b(report, counters, name, fn, inputs, do, want, what,
+               smi_line):
+    """One 7B-width surface case: a forward and backward with launch
+    counts `want` and finite results, then the forward and the forward +
+    backward timed by CUDA events; returns (fwd_ms, fwd_bwd_ms)."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    _expect_launches(counters, launches, want, f"surface {name}")
+    for kname, n in launches.items():
+        if n:
+            add_launches(report, kname, f"surface_{name}", n)
+    check(all(bool(torch.isfinite(t).all())
+              for t in [out] + [t.grad for t in leaves]),
+          f"surface {name}: a non-finite output or grad")
+    del out, leaves
+    fwd_ms = time_ms(lambda: fn(*inputs), 5, warmup=1)
+
+    def fwd_bwd():
+        ls = [t.detach().requires_grad_() for t in inputs]
+        fn(*ls).backward(do)
+
+    fb_ms = time_ms(fwd_bwd, 3, warmup=1)
+    print(f"surface {name} ({what}): fwd_ms={fwd_ms:.6g} fwd_bwd_ms="
+          f"{fb_ms:.6g} [{smi_line}]", flush=True)
+    return fwd_ms, fb_ms
+
+
 def main():
     # the 7B training phase holds ~65 GB of the card's 80: let the
     # allocator grow segments instead of fragmenting fixed ones
@@ -1666,6 +2321,12 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         train7b_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bert_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        surface_phase(report, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1

@@ -15,7 +15,11 @@ the prefix cache, the HTTP gateway + `serve` CLI) and the training
 slice (the LLaMA training forward and loss, `nn.functional.
 cross_entropy`, `optimizer.AdamW`, `jit.TrainStep`, and the SwiGLU
 backward, fused add+RMSNorm and flash attention forward/backward
-kernels).
+kernels), decode (`generate`, the bucketed engine, paged decode
+attention), 7B pretraining (remat, the fused cross-entropy kernels), and
+BERT inference with the attention surface (`models.bert`,
+`nn.functional` attention, `nn.layer.MultiHeadAttention`, the
+segment-id flash and block-stats kernels).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.

@@ -1,14 +1,19 @@
 // Flash attention forward and backward, BSHD layout, causal or full,
-// MHA and GQA (q head h reads kv head h / (Hq / Hk)), head dim 64 or 128.
+// MHA and GQA (q head h reads kv head h / (Hq / Hk)), head dim 64 or 128,
+// optionally masked by segment ids, with q and kv lengths Sq and Sk.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
 //   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
 //   pallas_call l.758, bwd dkv l.1121, bwd dq l.1456) for MHA, and the
-//   splash MQA kernel (`_splash_gqa`) for GQA.
+//   splash MQA kernel (`_splash_gqa`) for GQA; with `SegmentIds`, the
+//   same kernels behind `padding_mask=` (flash_attention.py:327-336, GQA
+//   l.136-139) and `flash_attention_packed` (l.406).
 // Bound on the H100: operations. At the training slice's q/k/v
 //   [4, 2048, 16, 128] causal, the forward does 4*B*H*S^2*D/2 = 69 GFLOP
 //   against 67 MB of q/k/v/o (about 1000 flop per byte, far above the
-//   ~295 flop/byte bf16 ridge); the backward does 2.5x the forward.
+//   ~295 flop/byte bf16 ridge); the backward does 2.5x the forward. With
+//   segment ids at BERT's [16, 512, 12, 64] the forward does 12.9 GFLOP
+//   against 50 MB: it sits near the ridge.
 // Design: the TPU kernels carry the online-softmax state across a
 //   sequential grid axis in VMEM scratch; here a block owns one (q tile,
 //   head, batch) and walks the kv tiles in a loop inside the block, so
@@ -23,7 +28,7 @@
 //   rounded to the input dtype before its product, as every flash kernel
 //   does; the softmax statistics stay f32. Fully masked causal tiles are
 //   skipped, and the heavy causal tiles are scheduled first. The forward
-//   writes O and the f32 log-sum-exp [B, H, S] for the backward. The
+//   writes O and the f32 log-sum-exp [B, H, Sq] for the backward. The
 //   backward is two deterministic kernels (no atomics): dkv (one block per
 //   kv tile, kv head and batch; it loops over the q tiles and, for GQA,
 //   over the group's q heads, so dk and dv sum over the group in f32) and
@@ -32,154 +37,55 @@
 //   over the stored O, as upstream l.1664 does). `scale` multiplies the
 //   scores in f32 (MHA); GQA callers pass q pre-scaled in q's dtype and
 //   scale = 1, as splash takes it. wgmma/TMA pipelines come later.
+// Segment ids (int32 [B, Sq] and [B, Sk]; SEG instantiations only): a
+//   score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a score
+//   whose segments differ takes the finite mask value kSegMask (upstream's
+//   DEFAULT_MASK_VALUE) rather than -inf, so a query row with no key of
+//   its own segment averages V over the keys, and the backward recomputes
+//   its P from an LSE that rounds to kSegMask (P = 1), as upstream does.
+//   A key past Sk or above the causal diagonal takes -inf (P = 0 exactly).
+//   Every kv tile is visited; a tile whose segments all differ from its
+//   q rows is not skipped in this first cut. Causal requires Sq == Sk.
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace ptt::attn;
 
-__device__ __forceinline__ bool visible(int qi, int kj, int S, int causal) {
-  return qi < S && kj < S && (!causal || kj <= qi);
-}
+// upstream's DEFAULT_MASK_VALUE, -0.7 * float32 max
+constexpr float kSegMask = -2.3819763e38f;
 
-__host__ __device__ constexpr int align128(int bytes) {
-  return (bytes + 127) / 128 * 128;
+__device__ __forceinline__ bool in_view(int qi, int kj, int Sq, int Sk,
+                                        int causal) {
+  return qi < Sq && kj < Sk && (!causal || kj <= qi);
 }
 
 // ===================== bf16: register-resident mma.sync ===================
-
-constexpr int TQ = 64;               // q rows per tile (4 warps x 16)
-constexpr int TKV = 64;              // kv rows per tile
-constexpr int MMA_THREADS = 128;
-
-// rows [r0, r0 + 64) of head h of batch b of a BSHD bf16 tensor with Hn
-// heads into dst[64][D + 8] by 16-byte cp.async; rows past S are zero.
-template <int D>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* __restrict__ src,
-                                        int b, int h, int r0, int S, int Hn) {
-  constexpr int VPR = D / 8;
-  for (int i = threadIdx.x; i < 64 * VPR; i += blockDim.x) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    const int s = r0 + r;
-    const bool in = s < S;
-    const bf16* g =
-        in ? src + ((static_cast<size_t>(b) * S + s) * Hn + h) * D + c : src;
-    ptt::cp_async16(dst + r * (D + 8) + c, g, in ? 16 : 0);
-  }
-}
-
-// A fragment (16 rows x 16 of k) of a row-major bf16 tile [rows][ld]
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
-                                     int ld, int row0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ptt::ldmatrix_x4(a, tile + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles (n0.., n0+8..) x 16 of k, from a tile
-// stored [n][k] (k contiguous): b0 = n tile 0, b1 = n tile 1
-__device__ __forceinline__ void ld_b_nk(uint32_t (&b0)[2], uint32_t (&b1)[2],
-                                        const bf16* tile, int ld, int n0,
-                                        int k0) {
-  const int lane = threadIdx.x & 31;
-  const int li = lane >> 3;
-  uint32_t r[4];
-  ptt::ldmatrix_x4(r, tile + (n0 + (lane & 7) + (li >> 1) * 8) * ld + k0 +
-                          (li & 1) * 8);
-  b0[0] = r[0];
-  b0[1] = r[1];
-  b1[0] = r[2];
-  b1[1] = r[3];
-}
-
-// the same from a tile stored [k][n] (n contiguous), through .trans
-__device__ __forceinline__ void ld_b_kn(uint32_t (&b0)[2], uint32_t (&b1)[2],
-                                        const bf16* tile, int ld, int n0,
-                                        int k0) {
-  const int lane = threadIdx.x & 31;
-  const int li = lane >> 3;
-  uint32_t r[4];
-  ptt::ldmatrix_x4_trans(r, tile + (k0 + (lane & 7) + (li & 1) * 8) * ld +
-                                n0 + (li >> 1) * 8);
-  b0[0] = r[0];
-  b0[1] = r[1];
-  b1[0] = r[2];
-  b1[1] = r[3];
-}
-
-// The accumulators of n8 tiles 2j and 2j+1 (16 rows x 16 columns), as
-// the A fragment of the next product over those 16 columns, in bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = ptt::pack_bf16(c0[0], c0[1]);
-  a[1] = ptt::pack_bf16(c0[2], c0[3]);
-  a[2] = ptt::pack_bf16(c1[0], c1[1]);
-  a[3] = ptt::pack_bf16(c1[2], c1[3]);
-}
-
-// C[16 x 8*NT] (+)= A[16 x 16*KS] B, A rows from `at` at row0, B from a
-// tile stored [n][k] (`bt`, n from 0)
-template <int NT, int KS>
-__device__ __forceinline__ void mma_rows_nk(float (&c)[NT][4], const bf16* at,
-                                            int lda, int row0, const bf16* bt,
-                                            int ldb, int n0) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t a[4];
-    ld_a(a, at, lda, row0, kk * 16);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b0[2], b1[2];
-      ld_b_nk(b0, b1, bt, ldb, n0 + np * 16, kk * 16);
-      ptt::mma_bf16_16816(c[2 * np], a, b0);
-      ptt::mma_bf16_16816(c[2 * np + 1], a, b1);
-    }
-  }
-}
-
-// C[16 x D] += P[16 x 16*KS] B where P is given as accumulators p (n8
-// tiles over the k dimension) and B is a tile stored [k][n] from row k0
-template <int ND, int KS>
-__device__ __forceinline__ void mma_acc_kn(float (&c)[ND][4],
-                                           const float (&p)[2 * KS][4],
-                                           const bf16* bt, int ldb, int k0) {
-#pragma unroll
-  for (int j = 0; j < KS; ++j) {
-    uint32_t a[4];
-    acc_to_a(a, p[2 * j], p[2 * j + 1]);
-#pragma unroll
-    for (int np = 0; np < ND / 2; ++np) {
-      uint32_t b0[2], b1[2];
-      ld_b_kn(b0, b1, bt, ldb, np * 16, k0 + j * 16);
-      ptt::mma_bf16_16816(c[2 * np], a, b0);
-      ptt::mma_bf16_16816(c[2 * np + 1], a, b1);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 template <int D>
 constexpr int fwd_mma_smem() {
   return 5 * TQ * (D + 8) * 2;       // Q, K x 2, V x 2
 }
 
-template <int D>
+// the segment ids of this thread's two columns of n8 tile i of the kv
+// tile at k0 (-2 past Sk)
+__device__ __forceinline__ void col_segs(int (&sk)[2], const int* skv,
+                                         int k0, int i, int t2, int Sk) {
+  const int c = k0 + i * 8 + t2;
+  sk[0] = c < Sk ? skv[c] : -2;
+  sk[1] = c + 1 < Sk ? skv[c + 1] : -2;
+}
+
+template <int D, bool SEG>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int S, int Hq, int Hk,
+                     const bf16* __restrict__ v,
+                     const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_kv, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Sk, int Hq, int Hk,
                      int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;         // k16 slices of the head dim
@@ -199,12 +105,21 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2;
   const int t2 = (lane & 3) * 2;
 
-  cp_rows<D>(Qs, q, b, h, q0, S, Hq);
-  cp_rows<D>(Ks, k, b, hk, 0, S, Hk);
-  cp_rows<D>(Vs, v, b, hk, 0, S, Hk);
+  cp_rows<D>(Qs, q, b, h, q0, Sq, Hq);
+  cp_rows<D>(Ks, k, b, hk, 0, Sk, Hk);
+  cp_rows<D>(Vs, v, b, hk, 0, Sk, Hk);
   ptt::cp_async_commit();
-  const int kv_end = causal ? min(S, q0 + TQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_kv = (kv_end + TKV - 1) / TKV;
+  const int* skv = SEG ? seg_kv + static_cast<size_t>(b) * Sk : nullptr;
+  int sq_r[2] = {0, 0};
+  if (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wr + g + r * 8;
+      sq_r[r] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : -1;
+    }
+  }
 
   float acc[ND][4];
 #pragma unroll
@@ -217,8 +132,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < n_kv; ++j) {
     if (j + 1 < n_kv) {
       const int nb = (j + 1) & 1;
-      cp_rows<D>(Ks + nb * TKV * LD, k, b, hk, (j + 1) * TKV, S, Hk);
-      cp_rows<D>(Vs + nb * TKV * LD, v, b, hk, (j + 1) * TKV, S, Hk);
+      cp_rows<D>(Ks + nb * TKV * LD, k, b, hk, (j + 1) * TKV, Sk, Hk);
+      cp_rows<D>(Vs + nb * TKV * LD, v, b, hk, (j + 1) * TKV, Sk, Hk);
       ptt::cp_async_commit();
       ptt::cp_async_wait<1>();
     } else {
@@ -236,20 +151,27 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_rows_nk<8, KS>(s, Qs, LD, wr, Kb, LD, 0);
 
     const int k0 = j * TKV;
-    const bool edge =
-        (causal && k0 + TKV > q0) || k0 + TKV > S || q0 + TQ > S;
+    const bool edge = SEG || (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
+                      q0 + TQ > Sq;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i) {
+      int sk[2] = {0, 0};
+      if (SEG) col_segs(sk, skv, k0, i, t2, Sk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[i][e] * scale;
-        if (edge && !visible(q0 + wr + g + (e >> 1) * 8, k0 + i * 8 + t2 +
-                             (e & 1), S, causal))
-          x = -INFINITY;
+        if (edge) {
+          if (!in_view(q0 + wr + g + (e >> 1) * 8, k0 + i * 8 + t2 + (e & 1),
+                       Sq, Sk, causal))
+            x = -INFINITY;
+          else if (SEG && sq_r[e >> 1] != sk[e & 1])
+            x = kSegMask;
+        }
         s[i][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    }
     float alpha[2], m_use[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -284,15 +206,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l_r[r] = quad_sum(l_r[r]);
     const int row = q0 + wr + g + r * 8;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / l_r[r];
-    bf16* dst = o + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + t2;
+    bf16* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + t2;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
       *reinterpret_cast<uint32_t*>(dst + i * 8) =
           ptt::pack_bf16(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
     if ((lane & 3) == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * S + row] =
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
           m_r[r] + logf(l_r[r]);
   }
 }
@@ -302,14 +224,17 @@ constexpr int dq_mma_smem() {
   return 6 * TQ * (D + 8) * 2;       // Q, dO, K x 2, V x 2
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int S, int Hq, int Hk, int causal, float scale) {
+                        const float* __restrict__ delta,
+                        const int* __restrict__ seg_q,
+                        const int* __restrict__ seg_kv, bf16* __restrict__ dq,
+                        int Sq, int Sk, int Hq, int Hk, int causal,
+                        float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -329,21 +254,25 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2;
   const int t2 = (lane & 3) * 2;
 
-  cp_rows<D>(Qs, q, b, h, q0, S, Hq);
-  cp_rows<D>(dOs, dout, b, h, q0, S, Hq);
-  cp_rows<D>(Ks, k, b, hk, 0, S, Hk);
-  cp_rows<D>(Vs, v, b, hk, 0, S, Hk);
+  cp_rows<D>(Qs, q, b, h, q0, Sq, Hq);
+  cp_rows<D>(dOs, dout, b, h, q0, Sq, Hq);
+  cp_rows<D>(Ks, k, b, hk, 0, Sk, Hk);
+  cp_rows<D>(Vs, v, b, hk, 0, Sk, Hk);
   ptt::cp_async_commit();
-  // this thread's two rows: lse (+inf past S, so p = 0) and D
+  // this thread's two rows: lse (+inf past Sq, so p = 0), D, segment
   float lse_r[2], dl_r[2];
+  int sq_r[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + wr + g + r * 8;
-    const size_t i = (static_cast<size_t>(b) * Hq + h) * S + row;
-    lse_r[r] = row < S ? lse[i] : INFINITY;
-    dl_r[r] = row < S ? delta[i] : 0.f;
+    const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
+    lse_r[r] = row < Sq ? lse[i] : INFINITY;
+    dl_r[r] = row < Sq ? delta[i] : 0.f;
+    if (SEG)
+      sq_r[r] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : -1;
   }
-  const int kv_end = causal ? min(S, q0 + TQ) : S;
+  const int* skv = SEG ? seg_kv + static_cast<size_t>(b) * Sk : nullptr;
+  const int kv_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_kv = (kv_end + TKV - 1) / TKV;
 
   float acc[ND][4];
@@ -355,8 +284,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < n_kv; ++j) {
     if (j + 1 < n_kv) {
       const int nb = (j + 1) & 1;
-      cp_rows<D>(Ks + nb * TKV * LD, k, b, hk, (j + 1) * TKV, S, Hk);
-      cp_rows<D>(Vs + nb * TKV * LD, v, b, hk, (j + 1) * TKV, S, Hk);
+      cp_rows<D>(Ks + nb * TKV * LD, k, b, hk, (j + 1) * TKV, Sk, Hk);
+      cp_rows<D>(Vs + nb * TKV * LD, v, b, hk, (j + 1) * TKV, Sk, Hk);
       ptt::cp_async_commit();
       ptt::cp_async_wait<1>();
     } else {
@@ -378,19 +307,24 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_rows_nk<8, KS>(dp, dOs, LD, wr, Vb, LD, 0);
 
     const int k0 = j * TKV;
-    const bool edge =
-        (causal && k0 + TKV > q0) || k0 + TKV > S || q0 + TQ > S;
+    const bool edge = SEG || (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
+                      q0 + TQ > Sq;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i) {
+      int sk[2] = {0, 0};
+      if (SEG) col_segs(sk, skv, k0, i, t2, Sk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool vis = !edge || visible(q0 + wr + g + r * 8,
-                                          k0 + i * 8 + t2 + (e & 1), S,
+        const bool vis = !edge || in_view(q0 + wr + g + r * 8,
+                                          k0 + i * 8 + t2 + (e & 1), Sq, Sk,
                                           causal);
-        const float p = vis ? expf(s[i][e] * scale - lse_r[r]) : 0.f;
-        s[i][e] = p * (dp[i][e] - dl_r[r]);          // dS
+        const float x = (SEG && sq_r[r] != sk[e & 1]) ? kSegMask
+                                                      : s[i][e] * scale;
+        const float p = vis ? expf(x - lse_r[r]) : 0.f;
+        s[i][e] = p * (dp[i][e] - dl_r[r]);            // dS
       }
+    }
     mma_acc_kn<ND, TKV / 16>(acc, s, Kb, LD, 0);     // dQ += dS K
     __syncthreads();
   }
@@ -398,8 +332,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + wr + g + r * 8;
-    if (row >= S) continue;
-    bf16* dst = dq + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + t2;
+    if (row >= Sq) continue;
+    bf16* dst = dq + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + t2;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
       *reinterpret_cast<uint32_t*>(dst + i * 8) =
@@ -409,10 +343,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 constexpr int dkv_mma_smem() {
-  return 6 * TQ * (D + 8) * 2 + 4 * TQ * 4;  // K, V, (Q, dO) x 2; lse, D x 2
+  // K, V, (Q, dO) x 2; lse, D, segment x 2
+  return 6 * TQ * (D + 8) * 2 + 6 * TQ * 4;
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -420,8 +355,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                         int Hq, int Hk, int causal, float scale) {
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_kv,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                         int Sk, int Hq, int Hk, int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -433,6 +370,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   bf16* dOs = Qs + 2 * TQ * LD;      // [2][64][LD]
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * TQ * LD);  // [2][64]
   float* dl_s = lse_s + 2 * TQ;                                // [2][64]
+  int* sq_s = reinterpret_cast<int*>(dl_s + 2 * TQ);           // [2][64]
 
   const int k0 = blockIdx.x * TKV;   // early keys see the most q rows
   const int hk = blockIdx.y;
@@ -444,27 +382,39 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   const int t2 = (lane & 3) * 2;
 
   const int q_begin = causal ? k0 : 0;        // k0 is a multiple of TQ
-  const int n_q = q_begin < S ? (S - q_begin + TQ - 1) / TQ : 0;
+  const int n_q = q_begin < Sq ? (Sq - q_begin + TQ - 1) / TQ : 0;
   const int total = group * n_q;
 
   // stage pass it (q head h = hk * group + it / n_q, q tile it % n_q)
   auto stage = [&](int it, int buf) {
     const int h = hk * group + it / n_q;
     const int q0 = q_begin + (it % n_q) * TQ;
-    cp_rows<D>(Qs + buf * TQ * LD, q, b, h, q0, S, Hq);
-    cp_rows<D>(dOs + buf * TQ * LD, dout, b, h, q0, S, Hq);
+    cp_rows<D>(Qs + buf * TQ * LD, q, b, h, q0, Sq, Hq);
+    cp_rows<D>(dOs + buf * TQ * LD, dout, b, h, q0, Sq, Hq);
     for (int r = threadIdx.x; r < TQ; r += blockDim.x) {
       const int s = q0 + r;
-      const size_t i = (static_cast<size_t>(b) * Hq + h) * S + s;
-      lse_s[buf * TQ + r] = s < S ? lse[i] : INFINITY;
-      dl_s[buf * TQ + r] = s < S ? delta[i] : 0.f;
+      const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + s;
+      lse_s[buf * TQ + r] = s < Sq ? lse[i] : INFINITY;
+      dl_s[buf * TQ + r] = s < Sq ? delta[i] : 0.f;
+      if (SEG)
+        sq_s[buf * TQ + r] =
+            s < Sq ? seg_q[static_cast<size_t>(b) * Sq + s] : -1;
     }
   };
 
-  cp_rows<D>(Ks, k, b, hk, k0, S, Hk);
-  cp_rows<D>(Vs, v, b, hk, k0, S, Hk);
+  cp_rows<D>(Ks, k, b, hk, k0, Sk, Hk);
+  cp_rows<D>(Vs, v, b, hk, k0, Sk, Hk);
   if (total > 0) stage(0, 0);
   ptt::cp_async_commit();
+  // the segments of this thread's two kv rows
+  int sk_r[2] = {0, 0};
+  if (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = k0 + wr + g + r * 8;
+      sk_r[r] = row < Sk ? seg_kv[static_cast<size_t>(b) * Sk + row] : -2;
+    }
+  }
 
   float adk[ND][4], adv[ND][4];
 #pragma unroll
@@ -489,9 +439,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     const bf16* dOb = dOs + buf * TQ * LD;
     const float* lse_b = lse_s + buf * TQ;
     const float* dl_b = dl_s + buf * TQ;
+    const int* sq_b = sq_s + buf * TQ;
     const int q0 = q_begin + (it % n_q) * TQ;
-    const bool edge =
-        (causal && q0 < k0 + TKV) || k0 + TKV > S || q0 + TQ > S;
+    const bool edge = SEG || (causal && q0 < k0 + TKV) || k0 + TKV > Sk ||
+                      q0 + TQ > Sq;
 
 #pragma unroll
     for (int qc = 0; qc < TQ; qc += QC) {
@@ -511,9 +462,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qj = qc + i * 8 + t2 + (e & 1);   // column in the tile
-          const bool vis = !edge || visible(q0 + qj, k0 + wr + g +
-                                            (e >> 1) * 8, S, causal);
-          const float p = vis ? expf(st[i][e] * scale - lse_b[qj]) : 0.f;
+          const bool vis = !edge || in_view(q0 + qj, k0 + wr + g +
+                                            (e >> 1) * 8, Sq, Sk, causal);
+          const float x = (SEG && sq_b[qj] != sk_r[e >> 1])
+                              ? kSegMask : st[i][e] * scale;
+          const float p = vis ? expf(x - lse_b[qj]) : 0.f;
           st[i][e] = p;                                // P^T
           dpt[i][e] = p * (dpt[i][e] - dl_b[qj]);      // dS^T
         }
@@ -526,8 +479,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = k0 + wr + g + r * 8;
-    if (row >= S) continue;
-    const size_t base = ((static_cast<size_t>(b) * S + row) * Hk + hk) * D + t2;
+    if (row >= Sk) continue;
+    const size_t base =
+        ((static_cast<size_t>(b) * Sk + row) * Hk + hk) * D + t2;
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
       *reinterpret_cast<uint32_t*>(dk + base + i * 8) =
@@ -540,87 +494,29 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
 
 // ========================= f32: SIMT, shared memory ========================
 
-// C[M][N] (f32 in shared memory, leading dim ldc) = or += op(A) op(B).
-// op(A) is [M][K]: stored row-major [M][K] (lda), or, with TA, stored
-// [K][M]. op(B) is [K][N]: stored [K][N] (ldb), or, with TB, [N][K].
-// Callers synchronise before and after.
-template <bool TA, bool TB, int M, int N, int K>
-__device__ void tile_mm(float* C, int ldc, const float* A, int lda,
-                        const float* B, int ldb, bool accumulate) {
-  for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-    const int m = e / N;
-    const int n = e % N;
-    float s = accumulate ? C[m * ldc + n] : 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < K; ++kk)
-      s = fmaf(TA ? A[kk * lda + m] : A[m * lda + kk],
-               TB ? B[n * ldb + kk] : B[kk * ldb + n], s);
-    C[m * ldc + n] = s;
-  }
-}
-
-// Tile geometry for one head dim: 32 x 32 tiles, rows padded by 16 bytes.
-template <int D>
-struct Geo {
-  static constexpr int BR = 32;      // q rows per tile
-  static constexpr int BC = 32;      // kv rows per tile
-  static constexpr int LDT = D + 4;  // q/k/v/dO tiles
-  static constexpr int LDS = BC + 4; // score-shaped tiles
-  static constexpr int LDO = D + 4;  // accumulators [*, D]
-};
-
-// Shared-memory carve-out: consecutive 128-byte-aligned buffers.
-struct Carve {
-  unsigned char* p;
-  __device__ float* take(int elems) {
-    float* out = reinterpret_cast<float*>(p);
-    p += align128(elems * 4);
-    return out;
-  }
-};
-
-// rows [r0, r0 + R) of head h of batch b of a BSHD f32 tensor with Hn
-// heads into dst[R][ld]; rows past S are zero.
-template <int R, int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int b, int h, int r0, int S,
-                                          int Hn) {
-  constexpr int VPR = D / 4;
-  for (int i = threadIdx.x; i < R * VPR; i += blockDim.x) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 4;
-    const int s = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S)
-      v = *reinterpret_cast<const uint4*>(
-          src + ((static_cast<size_t>(b) * S + s) * Hn + h) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-constexpr int SIMT_THREADS = 256;
-
 template <int D>
 constexpr int fwd_simt_smem() {
   using G = Geo<D>;
   return align128(G::BR * G::LDT * 4) + 2 * align128(G::BC * G::LDT * 4) +
          align128(G::BR * G::LDS * 4) * 2 + align128(G::BR * G::LDO * 4) +
-         3 * align128(G::BR * 4);
+         3 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
+}
+
+// the segment ids of rows [r0, r0 + R) of batch b (-1 past S)
+template <int R>
+__device__ __forceinline__ void load_segs(int* dst, const int* __restrict__ seg,
+                                          int b, int r0, int S) {
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
+    dst[r] = r0 + r < S ? seg[static_cast<size_t>(b) * S + r0 + r] : -1;
 }
 
 template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int S, int Hq, int Hk,
+                      const float* __restrict__ v,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_kv, float* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hk,
                       int causal, float scale) {
   using G = Geo<D>;
   constexpr int BR = G::BR, BC = G::BC;
@@ -635,6 +531,9 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* m_s = cv.take(BR);
   float* l_s = cv.take(BR);
   float* a_s = cv.take(BR);
+  int* sq_s = reinterpret_cast<int*>(cv.take(BR));
+  int* sk_s = reinterpret_cast<int*>(cv.take(BC));
+  const bool seg = seg_q != nullptr;
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
@@ -645,17 +544,19 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
 
-  load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, S, Hq);
+  load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
+  if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
   for (int e = threadIdx.x; e < BR * G::LDO; e += blockDim.x) Os[e] = 0.f;
   for (int r = threadIdx.x; r < BR; r += blockDim.x) {
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
   }
-  const int kv_end = causal ? min(S, q0 + BR) : S;
+  const int kv_end = causal ? min(Sk, q0 + BR) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += BC) {
     __syncthreads();                 // the last tile's K, V, P are free
-    load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, S, Hk);
-    load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, S, Hk);
+    load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, Sk, Hk);
+    load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, Sk, Hk);
+    if (seg) load_segs<BC>(sk_s, seg_kv, b, k0, Sk);
     __syncthreads();
     tile_mm<false, true, BR, BC, D>(Ss, G::LDS, Qs, G::LDT, Ks, G::LDT,
                                     false);
@@ -665,9 +566,10 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qi = q0 + r;
       float mx = -INFINITY;
       for (int c = lane; c < BC; c += 32) {
-        const float s = visible(qi, k0 + c, S, causal)
-                            ? Ss[r * G::LDS + c] * scale
-                            : -INFINITY;
+        float s = -INFINITY;
+        if (in_view(qi, k0 + c, Sq, Sk, causal))
+          s = (seg && sq_s[r] != sk_s[c]) ? kSegMask
+                                          : Ss[r * G::LDS + c] * scale;
         Ss[r * G::LDS + c] = s;
         mx = fmaxf(mx, s);
       }
@@ -703,47 +605,53 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = e / D;
     const int c = e % D;
     const int s = q0 + r;
-    if (s < S)
-      o[((static_cast<size_t>(b) * S + s) * Hq + h) * D + c] =
+    if (s < Sq)
+      o[((static_cast<size_t>(b) * Sq + s) * Hq + h) * D + c] =
           Os[r * G::LDO + c] / l_s[r];
   }
   for (int r = threadIdx.x; r < BR; r += blockDim.x)
-    if (q0 + r < S)
-      lse[(static_cast<size_t>(b) * Hq + h) * S + q0 + r] =
+    if (q0 + r < Sq)
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + q0 + r] =
           m_s[r] + logf(l_s[r]);
 }
 
 // P and dS of one (q tile, kv tile) pair from the recomputed scores Ss and
-// dP = dO V^T in dPs: p = exp(s * scale - lse), ds = p * (dp - D).
+// dP = dO V^T in dPs: p = exp(s * scale - lse) (the segment mask value
+// for s where the segments differ, 0 out of view), ds = p * (dp - D).
+// sq_s / sk_s: the tiles' segment ids, or nullptr.
 template <int D>
 __device__ __forceinline__ void p_and_ds(const float* Ss, const float* dPs,
                                          const float* lse_s,
-                                         const float* dl_s, float* Ps,
-                                         float* dSs, int q0, int k0, int S,
-                                         int causal, float scale) {
+                                         const float* dl_s, const int* sq_s,
+                                         const int* sk_s, float* Ps,
+                                         float* dSs, int q0, int k0, int Sq,
+                                         int Sk, int causal, float scale) {
   using G = Geo<D>;
   for (int e = threadIdx.x; e < G::BR * G::BC; e += blockDim.x) {
     const int r = e / G::BC;
     const int c = e % G::BC;
-    const float p = visible(q0 + r, k0 + c, S, causal)
-                        ? expf(Ss[r * G::LDS + c] * scale - lse_s[r])
-                        : 0.f;
+    float p = 0.f;
+    if (in_view(q0 + r, k0 + c, Sq, Sk, causal)) {
+      const float x = (sq_s != nullptr && sq_s[r] != sk_s[c])
+                          ? kSegMask : Ss[r * G::LDS + c] * scale;
+      p = expf(x - lse_s[r]);
+    }
     if (Ps != nullptr) Ps[r * G::LDS + c] = p;
     dSs[r * G::LDS + c] = p * (dPs[r * G::LDS + c] - dl_s[r]);
   }
 }
 
-// lse and D rows of one q tile (rows past S: lse = +inf, so p = 0)
+// lse and D rows of one q tile (rows past Sq: lse = +inf, so p = 0)
 __device__ __forceinline__ void load_stats(float* lse_s, float* dl_s,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ delta,
-                                           int b, int h, int q0, int S,
+                                           int b, int h, int q0, int Sq,
                                            int Hq, int BR) {
   for (int r = threadIdx.x; r < BR; r += blockDim.x) {
     const int s = q0 + r;
-    const size_t i = (static_cast<size_t>(b) * Hq + h) * S + s;
-    lse_s[r] = s < S ? lse[i] : INFINITY;
-    dl_s[r] = s < S ? delta[i] : 0.f;
+    const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + s;
+    lse_s[r] = s < Sq ? lse[i] : INFINITY;
+    dl_s[r] = s < Sq ? delta[i] : 0.f;
   }
 }
 
@@ -752,7 +660,7 @@ constexpr int dkv_simt_smem() {
   using G = Geo<D>;
   return 2 * align128(G::BC * G::LDT * 4) + 2 * align128(G::BC * G::LDO * 4) +
          2 * align128(G::BR * G::LDT * 4) + 4 * align128(G::BR * G::LDS * 4) +
-         2 * align128(G::BR * 4);
+         2 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
 }
 
 template <int D>
@@ -763,8 +671,11 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
                           const float* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
+                          const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_kv,
                           float* __restrict__ dk, float* __restrict__ dv,
-                          int S, int Hq, int Hk, int causal, float scale) {
+                          int Sq, int Sk, int Hq, int Hk, int causal,
+                          float scale) {
   using G = Geo<D>;
   constexpr int BR = G::BR, BC = G::BC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -781,14 +692,18 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
   float* dSs = cv.take(BR * G::LDS);
   float* lse_s = cv.take(BR);
   float* dl_s = cv.take(BR);
+  int* sq_s = reinterpret_cast<int*>(cv.take(BR));
+  int* sk_s = reinterpret_cast<int*>(cv.take(BC));
+  const bool seg = seg_q != nullptr;
 
   const int k0 = blockIdx.x * BC;    // early keys see the most q rows
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int group = Hq / Hk;
 
-  load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, S, Hk);
-  load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, S, Hk);
+  load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, Sk, Hk);
+  load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, Sk, Hk);
+  if (seg) load_segs<BC>(sk_s, seg_kv, b, k0, Sk);
   for (int e = threadIdx.x; e < BC * G::LDO; e += blockDim.x) {
     dKs[e] = 0.f;
     dVs[e] = 0.f;
@@ -796,18 +711,20 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
   const int q_begin = causal ? (k0 / BR) * BR : 0;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    for (int q0 = q_begin; q0 < S; q0 += BR) {
+    for (int q0 = q_begin; q0 < Sq; q0 += BR) {
       __syncthreads();               // the last pair's Q, dO, P, dS are free
-      load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, S, Hq);
-      load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, S, Hq);
-      load_stats(lse_s, dl_s, lse, delta, b, h, q0, S, Hq, BR);
+      load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
+      load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, Sq, Hq);
+      load_stats(lse_s, dl_s, lse, delta, b, h, q0, Sq, Hq, BR);
+      if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
       __syncthreads();
       tile_mm<false, true, BR, BC, D>(Ss, G::LDS, Qs, G::LDT, Ks, G::LDT,
                                       false);
       tile_mm<false, true, BR, BC, D>(dPs, G::LDS, dOs, G::LDT, Vs, G::LDT,
                                       false);
       __syncthreads();
-      p_and_ds<D>(Ss, dPs, lse_s, dl_s, Ps, dSs, q0, k0, S, causal, scale);
+      p_and_ds<D>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s, Ps, dSs,
+                  q0, k0, Sq, Sk, causal, scale);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q  (both [BC, D], summed over q rows)
       tile_mm<true, false, BC, D, BR>(dVs, G::LDO, Ps, G::LDS, dOs, G::LDT,
@@ -821,8 +738,8 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
     const int r = e / D;
     const int c = e % D;
     const int s = k0 + r;
-    if (s < S) {
-      const size_t i = ((static_cast<size_t>(b) * S + s) * Hk + hk) * D + c;
+    if (s < Sk) {
+      const size_t i = ((static_cast<size_t>(b) * Sk + s) * Hk + hk) * D + c;
       dk[i] = dKs[r * G::LDO + c] * scale;
       dv[i] = dVs[r * G::LDO + c];
     }
@@ -834,7 +751,7 @@ constexpr int dq_simt_smem() {
   using G = Geo<D>;
   return 2 * align128(G::BR * G::LDT * 4) + 2 * align128(G::BC * G::LDT * 4) +
          align128(G::BR * G::LDO * 4) + 3 * align128(G::BR * G::LDS * 4) +
-         2 * align128(G::BR * 4);
+         2 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
 }
 
 template <int D>
@@ -845,8 +762,10 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
                          const float* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         float* __restrict__ dq, int S, int Hq, int Hk,
-                         int causal, float scale) {
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_kv,
+                         float* __restrict__ dq, int Sq, int Sk, int Hq,
+                         int Hk, int causal, float scale) {
   using G = Geo<D>;
   constexpr int BR = G::BR, BC = G::BC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -861,6 +780,9 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
   float* dSs = cv.take(BR * G::LDS);
   float* lse_s = cv.take(BR);
   float* dl_s = cv.take(BR);
+  int* sq_s = reinterpret_cast<int*>(cv.take(BR));
+  int* sk_s = reinterpret_cast<int*>(cv.take(BC));
+  const bool seg = seg_q != nullptr;
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
@@ -868,23 +790,25 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
   const int hk = h / (Hq / Hk);
   const int q0 = qt * BR;
 
-  load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, S, Hq);
-  load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, S, Hq);
-  load_stats(lse_s, dl_s, lse, delta, b, h, q0, S, Hq, BR);
+  load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
+  load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, Sq, Hq);
+  load_stats(lse_s, dl_s, lse, delta, b, h, q0, Sq, Hq, BR);
+  if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
   for (int e = threadIdx.x; e < BR * G::LDO; e += blockDim.x) dQs[e] = 0.f;
-  const int kv_end = causal ? min(S, q0 + BR) : S;
+  const int kv_end = causal ? min(Sk, q0 + BR) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += BC) {
     __syncthreads();                 // the last tile's K, V, dS are free
-    load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, S, Hk);
-    load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, S, Hk);
+    load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, Sk, Hk);
+    load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, Sk, Hk);
+    if (seg) load_segs<BC>(sk_s, seg_kv, b, k0, Sk);
     __syncthreads();
     tile_mm<false, true, BR, BC, D>(Ss, G::LDS, Qs, G::LDT, Ks, G::LDT,
                                     false);
     tile_mm<false, true, BR, BC, D>(dPs, G::LDS, dOs, G::LDT, Vs, G::LDT,
                                     false);
     __syncthreads();
-    p_and_ds<D>(Ss, dPs, lse_s, dl_s, nullptr, dSs, q0, k0, S, causal,
-                scale);
+    p_and_ds<D>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s, nullptr,
+                dSs, q0, k0, Sq, Sk, causal, scale);
     __syncthreads();
     tile_mm<false, false, BR, D, BC>(dQs, G::LDO, dSs, G::LDS, Ks, G::LDT,
                                      true);
@@ -894,138 +818,187 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
     const int r = e / D;
     const int c = e % D;
     const int s = q0 + r;
-    if (s < S)
-      dq[((static_cast<size_t>(b) * S + s) * Hq + h) * D + c] =
+    if (s < Sq)
+      dq[((static_cast<size_t>(b) * Sq + s) * Hq + h) * D + c] =
           dQs[r * G::LDO + c] * scale;
   }
 }
 
 // ------------------------------- launch ----------------------------------
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
+struct Shape {
+  int B, Sq, Sk, Hq, Hk, causal;
+  float scale;
+};
 
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int B, int S, int Hq, int Hk, int causal, float scale,
-        cudaStream_t stream) {
+template <typename T, int D, bool SEG>
+cudaError_t fwd(const void* q, const void* k, const void* v, const int* sq,
+                const int* skv, void* o, void* lse, const Shape& s,
+                cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = fwd_mma_smem<D>();
-    cudaError_t err = set_smem(flash_fwd_mma_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((S + TQ - 1) / TQ, Hq, B);
-    flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+    cudaError_t err = set_smem(flash_fwd_mma_kernel<D, SEG>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((s.Sq + TQ - 1) / TQ, s.Hq, s.B);
+    flash_fwd_mma_kernel<D, SEG><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), S, Hq, Hk, causal, scale);
+        static_cast<const bf16*>(v), sq, skv, static_cast<bf16*>(o),
+        static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   } else {
     constexpr int smem = fwd_simt_smem<D>();
     cudaError_t err = set_smem(flash_fwd_simt_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((S + Geo<D>::BR - 1) / Geo<D>::BR, Hq, B);
+    if (err != cudaSuccess) return err;
+    dim3 grid((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B);
     flash_fwd_simt_kernel<D><<<grid, SIMT_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), S, Hq, Hk, causal, scale);
+        static_cast<const float*>(v), SEG ? sq : nullptr,
+        SEG ? skv : nullptr, static_cast<float*>(o),
+        static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
-template <typename T, int D>
-int bwd(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dq, void* dk, void* dv,
-        int B, int S, int Hq, int Hk, int causal, float scale,
-        cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const float* dl_ = static_cast<const float*>(delta);
+// the backward's inputs: q, k, v, dout (T) and lse, delta (f32)
+struct BwdIn {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+};
+
+template <typename T, int D, bool SEG>
+cudaError_t dkv(const BwdIn& in, const int* sq, const int* skv, void* dk,
+                void* dv, const Shape& s, cudaStream_t stream) {
+  const T* q_ = static_cast<const T*>(in.q);
+  const T* k_ = static_cast<const T*>(in.k);
+  const T* v_ = static_cast<const T*>(in.v);
+  const T* do_ = static_cast<const T*>(in.dout);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem_kv = dkv_mma_smem<D>();
-    err = set_smem(flash_bwd_dkv_mma_kernel<D>, smem_kv);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_mma_kernel<D>
-        <<<dim3((S + TKV - 1) / TKV, Hk, B), MMA_THREADS, smem_kv, stream>>>(
-            q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dk),
-            static_cast<T*>(dv), S, Hq, Hk, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    constexpr int smem_q = dq_mma_smem<D>();
-    err = set_smem(flash_bwd_dq_mma_kernel<D>, smem_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_mma_kernel<D>
-        <<<dim3((S + TQ - 1) / TQ, Hq, B), MMA_THREADS, smem_q, stream>>>(
-            q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dq), S, Hq, Hk,
-            causal, scale);
+    constexpr int smem = dkv_mma_smem<D>();
+    err = set_smem(flash_bwd_dkv_mma_kernel<D, SEG>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_mma_kernel<D, SEG>
+        <<<dim3((s.Sk + TKV - 1) / TKV, s.Hk, s.B), MMA_THREADS, smem,
+           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv,
+                     static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk,
+                     s.Hq, s.Hk, s.causal, s.scale);
   } else {
-    using G = Geo<D>;
-    constexpr int smem_kv = dkv_simt_smem<D>();
-    err = set_smem(flash_bwd_dkv_simt_kernel<D>, smem_kv);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr int smem = dkv_simt_smem<D>();
+    err = set_smem(flash_bwd_dkv_simt_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
     flash_bwd_dkv_simt_kernel<D>
-        <<<dim3((S + G::BC - 1) / G::BC, Hk, B), SIMT_THREADS, smem_kv,
-           stream>>>(q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dk),
-                     static_cast<T*>(dv), S, Hq, Hk, causal, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    constexpr int smem_q = dq_simt_smem<D>();
-    err = set_smem(flash_bwd_dq_simt_kernel<D>, smem_q);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_simt_kernel<D>
-        <<<dim3((S + G::BR - 1) / G::BR, Hq, B), SIMT_THREADS, smem_q,
-           stream>>>(q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dq), S, Hq,
-                     Hk, causal, scale);
+        <<<dim3((s.Sk + Geo<D>::BC - 1) / Geo<D>::BC, s.Hk, s.B),
+           SIMT_THREADS, smem, stream>>>(
+            q_, k_, v_, do_, in.lse, in.delta, SEG ? sq : nullptr,
+            SEG ? skv : nullptr, static_cast<T*>(dk), static_cast<T*>(dv),
+            s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool SEG>
+cudaError_t dq(const BwdIn& in, const int* sq, const int* skv, void* dq_out,
+               const Shape& s, cudaStream_t stream) {
+  const T* q_ = static_cast<const T*>(in.q);
+  const T* k_ = static_cast<const T*>(in.k);
+  const T* v_ = static_cast<const T*>(in.v);
+  const T* do_ = static_cast<const T*>(in.dout);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int smem = dq_mma_smem<D>();
+    err = set_smem(flash_bwd_dq_mma_kernel<D, SEG>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_mma_kernel<D, SEG>
+        <<<dim3((s.Sq + TQ - 1) / TQ, s.Hq, s.B), MMA_THREADS, smem,
+           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv,
+                     static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq, s.Hk,
+                     s.causal, s.scale);
+  } else {
+    constexpr int smem = dq_simt_smem<D>();
+    err = set_smem(flash_bwd_dq_simt_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_simt_kernel<D>
+        <<<dim3((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B),
+           SIMT_THREADS, smem, stream>>>(
+            q_, k_, v_, do_, in.lse, in.delta, SEG ? sq : nullptr,
+            SEG ? skv : nullptr, static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq,
+            s.Hk, s.causal, s.scale);
+  }
+  return cudaGetLastError();
+}
+
+// shape checks shared by the entries: 0 = launch, -1 = nothing to do,
+// else the error to return
+int check_shape(const Shape& s, int D) {
+  if (s.B <= 0 || s.Sq <= 0 || s.Sk <= 0) return -1;
+  if (s.Hk <= 0 || s.Hq % s.Hk != 0 || (D != 64 && D != 128) ||
+      (s.causal && s.Sq != s.Sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// one launch over (D, SEG): CALL(DD, SEG) names the launch expression
+#define PTT_DISPATCH(CALL)                                                  \
+  do {                                                                      \
+    const int c = check_shape(s, D);                                        \
+    if (c != 0) return c < 0 ? static_cast<int>(cudaSuccess) : c;           \
+    const bool seg_ = sq != nullptr;                                        \
+    cudaError_t err_;                                                       \
+    if (D == 64)                                                            \
+      err_ = seg_ ? CALL(64, true) : CALL(64, false);                       \
+    else                                                                    \
+      err_ = seg_ ? CALL(128, true) : CALL(128, false);                     \
+    return static_cast<int>(err_);                                          \
+  } while (0)
+
+template <typename T>
+int fwd_any(const void* q, const void* k, const void* v, const int* sq,
+            const int* skv, void* o, void* lse, const Shape& s, int D,
+            void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define PTT_CALL(DD, SEG) fwd<T, DD, SEG>(q, k, v, sq, skv, o, lse, s, st)
+  PTT_DISPATCH(PTT_CALL);
+#undef PTT_CALL
 }
 
 template <typename T>
-int fwd_any(const void* q, const void* k, const void* v, void* o, void* lse,
-            int B, int S, int Hq, int Hk, int D, int causal, float scale,
-            void* stream) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (Hk <= 0 || Hq % Hk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+int dkv_any(const BwdIn& in, const int* sq, const int* skv, void* dk,
+            void* dv, const Shape& s, int D, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return fwd<T, 64>(q, k, v, o, lse, B, S, Hq, Hk, causal,
-                                 scale, st);
-  if (D == 128) return fwd<T, 128>(q, k, v, o, lse, B, S, Hq, Hk, causal,
-                                   scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_CALL(DD, SEG) dkv<T, DD, SEG>(in, sq, skv, dk, dv, s, st)
+  PTT_DISPATCH(PTT_CALL);
+#undef PTT_CALL
 }
 
 template <typename T>
-int bwd_any(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dq, void* dk, void* dv,
-            int B, int S, int Hq, int Hk, int D, int causal, float scale,
-            void* stream) {
-  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
-  if (Hk <= 0 || Hq % Hk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+int dq_any(const BwdIn& in, const int* sq, const int* skv, void* dq_out,
+           const Shape& s, int D, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return bwd<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                 S, Hq, Hk, causal, scale, st);
-  if (D == 128) return bwd<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B,
-                                   S, Hq, Hk, causal, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define PTT_CALL(DD, SEG) dq<T, DD, SEG>(in, sq, skv, dq_out, s, st)
+  PTT_DISPATCH(PTT_CALL);
+#undef PTT_CALL
+}
+
+#undef PTT_DISPATCH
+
+template <typename T>
+int bwd_any(const BwdIn& in, void* dq_out, void* dk, void* dv,
+            const Shape& s, int D, void* stream) {
+  const int err = dkv_any<T>(in, nullptr, nullptr, dk, dv, s, D, stream);
+  if (err != 0) return err;
+  return dq_any<T>(in, nullptr, nullptr, dq_out, s, D, stream);
 }
 
 }  // namespace
+
+// ---- one sequence length, no segment ids (the training slice) ----
 
 extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             int B, int S, int Hq, int Hk,
                                             int D, int causal, float scale,
                                             void* stream) {
-  return fwd_any<bf16>(q, k, v, o, lse, B, S, Hq, Hk, D, causal, scale,
-                       stream);
+  return fwd_any<bf16>(q, k, v, nullptr, nullptr, o, lse,
+                       Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
 }
 
 extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
@@ -1033,22 +1006,67 @@ extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
                                            int B, int S, int Hq, int Hk,
                                            int D, int causal, float scale,
                                            void* stream) {
-  return fwd_any<float>(q, k, v, o, lse, B, S, Hq, Hk, D, causal, scale,
-                        stream);
+  return fwd_any<float>(q, k, v, nullptr, nullptr, o, lse,
+                        Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
 }
 
 extern "C" int ptt_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
     int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
-  return bwd_any<bf16>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq, Hk,
-                       D, causal, scale, stream);
+  return bwd_any<bf16>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
+                             static_cast<const float*>(delta)},
+                       dq, dk, dv, Shape{B, S, S, Hq, Hk, causal, scale}, D,
+                       stream);
 }
 
 extern "C" int ptt_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
     int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
-  return bwd_any<float>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq, Hk,
-                        D, causal, scale, stream);
+  return bwd_any<float>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
+                              static_cast<const float*>(delta)},
+                        dq, dk, dv, Shape{B, S, S, Hq, Hk, causal, scale}, D,
+                        stream);
 }
+
+// ---- q and kv lengths of their own, optional segment ids (int32 [B, Sq]
+// and [B, Sk], both or neither): the padding-mask, packed and
+// cross-length routes ----
+
+#define PTT_SEG_ENTRIES(SUFFIX, T)                                            \
+  extern "C" int ptt_flash_attention_seg_fwd_##SUFFIX(                        \
+      const void* q, const void* k, const void* v, const void* seg_q,         \
+      const void* seg_kv, void* o, void* lse, int B, int Sq, int Sk, int Hq,  \
+      int Hk, int D, int causal, float scale, void* stream) {                 \
+    return fwd_any<T>(q, k, v, static_cast<const int*>(seg_q),                \
+                      static_cast<const int*>(seg_kv), o, lse,                \
+                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
+  }                                                                           \
+  extern "C" int ptt_flash_attention_seg_dkv_##SUFFIX(                        \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, const void* seg_q,                  \
+      const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,  \
+      int Hk, int D, int causal, float scale, void* stream) {                 \
+    return dkv_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),    \
+                            static_cast<const float*>(delta)},                \
+                      static_cast<const int*>(seg_q),                         \
+                      static_cast<const int*>(seg_kv), dk, dv,                \
+                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
+  }                                                                           \
+  extern "C" int ptt_flash_attention_seg_dq_##SUFFIX(                         \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, const void* seg_q,                  \
+      const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,    \
+      int D, int causal, float scale, void* stream) {                         \
+    return dq_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),     \
+                           static_cast<const float*>(delta)},                 \
+                     static_cast<const int*>(seg_q),                          \
+                     static_cast<const int*>(seg_kv), dq,                     \
+                     Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);     \
+  }
+
+PTT_SEG_ENTRIES(bf16, bf16)
+PTT_SEG_ENTRIES(f32, float)
+
+#undef PTT_SEG_ENTRIES

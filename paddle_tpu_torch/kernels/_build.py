@@ -61,6 +61,24 @@ _SIGNATURES = {
     # scale, stream
     "ptt_flash_attention_bwd_bf16": (_P,) * 9 + (_I,) * 6 + (_F, _P),
     "ptt_flash_attention_bwd_f32": (_P,) * 9 + (_I,) * 6 + (_F, _P),
+    # q, k, v, seg_q, seg_kv (int32 or null), o, lse, B, Sq, Sk, Hq, Hk,
+    # D, causal, scale, stream
+    "ptt_flash_attention_seg_fwd_bf16": (_P,) * 7 + (_I,) * 7 + (_F, _P),
+    "ptt_flash_attention_seg_fwd_f32": (_P,) * 7 + (_I,) * 7 + (_F, _P),
+    # q, k, v, dout, lse, delta, seg_q, seg_kv, dk, dv, B, Sq, Sk, Hq, Hk,
+    # D, causal, scale, stream
+    "ptt_flash_attention_seg_dkv_bf16": (_P,) * 10 + (_I,) * 7 + (_F, _P),
+    "ptt_flash_attention_seg_dkv_f32": (_P,) * 10 + (_I,) * 7 + (_F, _P),
+    # q, k, v, dout, lse, delta, seg_q, seg_kv, dq, B, Sq, Sk, Hq, Hk, D,
+    # causal, scale, stream
+    "ptt_flash_attention_seg_dq_bf16": (_P,) * 9 + (_I,) * 7 + (_F, _P),
+    "ptt_flash_attention_seg_dq_f32": (_P,) * 9 + (_I,) * 7 + (_F, _P),
+    # q, k, v, mask (uint8 or null), bias (f32 or null), m, l, o, B, Sq,
+    # Sk, H, D, bias strides (batch, head, q, k; elements), scale, stream
+    "ptt_block_attention_fwd_bf16": (_P,) * 8 + (_I,) * 5 + (_LL,) * 4
+                                    + (_F, _P),
+    "ptt_block_attention_fwd_f32": (_P,) * 8 + (_I,) * 5 + (_LL,) * 4
+                                   + (_F, _P),
     # q, k_pages, v_pages, q_start, q_len, kv_len, page_table, out,
     # T, nh, kvh, n_pages, page, d, B, ppmax, scale, stream
     "ptt_ragged_paged_attention_bf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),

@@ -1,5 +1,7 @@
 """Flash attention, BSHD in and out (counterpart of
-paddle_tpu/kernels/flash_attention.py::flash_attention_bshd).
+paddle_tpu/kernels/flash_attention.py: `flash_attention_bshd`, its
+padding-mask and bias routes, `flash_attention_packed` and
+`flash_attention_biased`).
 
 A CUDA tensor runs a `torch.autograd.Function` over the hand-written
 kernels in `csrc/flash_attention.cu`: `flash_attention_fwd` (O and the
@@ -14,8 +16,31 @@ tensor the kernels cannot take raises; nothing falls back.
 Scale follows the reference's two TPU routes: MHA applies `scale` to the
 f32 scores inside the kernel (upstream `flash_attention(sm_scale=)`);
 GQA pre-scales q in q's dtype (`_splash_gqa`, flash_attention.py:131)
-and the kernel runs with scale 1. Padding masks and additive biases
-(the packed and biased routes) are not ported.
+and the kernel runs with scale 1.
+
+Segment ids (`padding_mask=`, `flash_attention_packed`, and q and kv
+lengths that differ): the same kernels with int32 segment ids
+(`flash_attention_seg_fwd`, `flash_attention_seg_dkv`,
+`flash_attention_seg_dq`); a score counts where the q and kv segments
+are equal. A padding mask [B, Sk] lowers to segment ids as the reference
+lowers it (l.327-336, GQA l.136-139): kv_seg = mask, q_seg = kv_seg when
+Sq == Sk, else all ones. So a padded query row attends to the padded
+keys only, as on the TPU; a query row with no key of its own segment
+averages V over all keys (upstream's finite mask value), and its
+backward recomputes P = 1 from an LSE that rounds to that value, as
+upstream's does. `_SegPlain` is that function in plain PyTorch, with the
+flash backward written out. Causal with Sq != Sk is not ported (upstream
+aligns that mask top-left, the port's dense route bottom-right).
+
+Bias (`bias=`, `flash_attention_biased`): KV in chunks, each chunk's
+bias generated on the fly (`_bias_chunk`: "alibi", "rel_table" or
+"dense", causal and padding masks folded in as -1e30), the block-stats
+kernel of `kernels/block_attention.py` per chunk, partials merged online
+(`_merge_stats`), output o / max(l, 1e-30). The backward is plain
+PyTorch over the same chunks: each chunk's bias is regenerated and P
+recomputed from the final (m, l), so no [B, H, Sq, Sk] buffer exists in
+either pass (the reference rematerialises its scan body for the same
+end, l.275).
 """
 from __future__ import annotations
 
@@ -24,23 +49,35 @@ import math
 import torch
 
 from . import _build
+from . import block_attention as kba
 
 __all__ = ["flash_attention_bshd", "flash_attention_fwd",
-           "flash_attention_bwd", "supported"]
+           "flash_attention_bwd", "flash_attention_seg_fwd",
+           "flash_attention_seg_dkv", "flash_attention_seg_dq",
+           "flash_attention_packed", "flash_attention_biased",
+           "packed_supported", "supported"]
+
+# upstream's DEFAULT_MASK_VALUE: the score of a key in another segment
+_SEG_MASK = -0.7 * torch.finfo(torch.float32).max
+_NEG = -1e30
 
 
 def supported(q_shape, k_shape, causal_or_none: bool,
               has_padding_mask: bool = False, has_bias: bool = False,
               dtype=torch.bfloat16) -> bool:
-    """Shapes the kernels take: q [B, S, Hq, D], k [B, S, Hk, D] with one
-    sequence length, Hq a multiple of Hk, D in {64, 128}, bf16/f32,
-    causal or no mask, no padding mask, no bias."""
+    """Shapes the kernels take: q [B, Sq, Hq, D], k [B, Sk, Hk, D] with
+    Hq a multiple of Hk, D in {64, 128}, bf16/f32. With a bias (the
+    block-stats kernel per chunk) any mask goes; without one the mask is
+    causal or absent, as the reference's gate asks (`causal_or_none`),
+    and a padding mask rides segment ids. Causal with Sq != Sk raises
+    NotImplementedError at the call."""
     B, Sq, Hq, D = (int(s) for s in q_shape)
     Bk, Sk, Hk, Dk = (int(s) for s in k_shape)
-    return (causal_or_none and not has_padding_mask and not has_bias
-            and dtype in (torch.bfloat16, torch.float32)
-            and (B, Sq, D) == (Bk, Sk, Dk) and D in (64, 128)
+    base = (dtype in (torch.bfloat16, torch.float32) and B == Bk
+            and D == Dk and D in (64, 128) and Sq > 0 and Sk > 0
             and Hk > 0 and Hq % Hk == 0)
+    del has_padding_mask  # segment ids: never gated out
+    return base and (has_bias or causal_or_none)
 
 
 def _scores(q, k, causal, scale):
@@ -150,42 +187,470 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# ------------------------------------------------------- segment ids
+
+
+def _seg_scores(q, k, seg_q, seg_kv, causal, scale):
+    """`_scores` with segment ids: the segment mask value where seg_q[b, i]
+    != seg_kv[b, j], then -inf above the causal diagonal (Sq == Sk)."""
+    s = _scores(q, k, False, scale)
+    same = seg_q[:, None, :, None] == seg_kv[:, None, None, :]
+    s = torch.where(same, s, torch.full_like(s, _SEG_MASK))
+    if causal:
+        Sq, Sk = s.shape[-2], s.shape[-1]
+        vis = torch.ones((Sq, Sk), dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~vis, float("-inf"))
+    return s
+
+
+def _group_sum(t, group):
+    """[B, Hq, S, D] -> [B, Hq / group, S, D], summing each kv head's
+    group of q heads."""
+    if group == 1:
+        return t
+    B, H, S, D = t.shape
+    return t.view(B, H // group, group, S, D).sum(2)
+
+
+class _SegPlain(torch.autograd.Function):
+    """The segment kernels' function in plain PyTorch, f32 inside: the
+    softmax forward (and its f32 LSE), and the flash backward written out
+    (P recomputed as exp(s - LSE), D = rowsum(dO * O) over the output in
+    q's dtype), which the kernels run too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, scale):
+        s = _seg_scores(q, k, seg_q, seg_kv, causal, scale)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1)
+        group = q.shape[2] // v.shape[2]
+        vh = v.transpose(1, 2).float()
+        if group > 1:
+            vh = vh.repeat_interleave(group, dim=1)
+        o = (p @ vh).transpose(1, 2).to(q.dtype)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
+        group = q.shape[2] // k.shape[2]
+        s = _seg_scores(q, k, seg_q, seg_kv, ctx.causal, ctx.scale)
+        p = torch.exp(s - lse[..., None])
+        qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+        if group > 1:
+            kh, vh = (t.repeat_interleave(group, dim=1) for t in (kh, vh))
+        doh = do.transpose(1, 2).float()
+        delta = (doh * o.transpose(1, 2).float()).sum(-1, keepdim=True)
+        ds = p * (doh @ vh.transpose(-1, -2) - delta)
+        dq = (ds @ kh) * ctx.scale
+        dk = _group_sum(ds.transpose(-1, -2) @ qh, group) * ctx.scale
+        dv = _group_sum(p.transpose(-1, -2) @ doh, group)
+        return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype), None, None, None, None)
+
+
+def _seg_ptrs(seg_q, seg_kv):
+    if seg_q is None:
+        return None, None
+    return seg_q.data_ptr(), seg_kv.data_ptr()
+
+
+def flash_attention_seg_fwd(q, k, v, seg_q, seg_kv, causal, scale):
+    """Kernel route, forward, with q and kv lengths of their own: q
+    [B, Sq, Hq, D], k/v [B, Sk, Hk, D], seg_q [B, Sq] and seg_kv [B, Sk]
+    int32 (or both None) -> (o [B, Sq, Hq, D] in q's dtype, lse
+    [B, Hq, Sq] f32)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    q, k, v = (_rows(t) for t in (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        _build.check(_fn(lib, "ptt_flash_attention_seg_fwd", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *_seg_ptrs(seg_q, seg_kv),
+            o.data_ptr(), lse.data_ptr(), B, Sq, Sk, Hq, Hk, D,
+            int(bool(causal)), float(scale), _stream(q)),
+            "flash_attention_seg_fwd")
+    flash_attention_seg_fwd.launches += 1
+    return o, lse
+
+
+def _delta(o, do):
+    """D = rowsum(do * o) in f32, [B, H, S]."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_seg_dkv(q, k, v, do, lse, delta, seg_q, seg_kv, causal,
+                            scale):
+    """Kernel route, backward dk and dv (one launch): the forward's
+    inputs, its lse, the output cotangent do and D -> (dk, dv)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    q, k, v, do = (_rows(t) for t in (q, k, v, do))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        _build.check(_fn(lib, "ptt_flash_attention_seg_dkv", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *_seg_ptrs(seg_q, seg_kv),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, Hq, Hk, D,
+            int(bool(causal)), float(scale), _stream(q)),
+            "flash_attention_seg_dkv")
+    flash_attention_seg_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_seg_dq(q, k, v, do, lse, delta, seg_q, seg_kv, causal,
+                           scale):
+    """Kernel route, backward dq (one launch)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    q, k, v, do = (_rows(t) for t in (q, k, v, do))
+    dq = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        _build.check(_fn(lib, "ptt_flash_attention_seg_dq", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *_seg_ptrs(seg_q, seg_kv),
+            dq.data_ptr(), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+            float(scale), _stream(q)), "flash_attention_seg_dq")
+    flash_attention_seg_dq.launches += 1
+    return dq
+
+
+class _SegFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, scale):
+        o, lse = flash_attention_seg_fwd(q, k, v, seg_q, seg_kv, causal,
+                                         scale)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype)
+        delta = _delta(o, do)
+        args = (q, k, v, do, lse, delta, seg_q, seg_kv, ctx.causal,
+                ctx.scale)
+        dk, dv = flash_attention_seg_dkv(*args)
+        dq = flash_attention_seg_dq(*args)
+        return dq, dk, dv, None, None, None, None
+
+
+def _kernel_takes(q, k, v, causal):
+    return (supported(q.shape, k.shape, True, dtype=q.dtype)
+            and k.shape == v.shape and k.dtype == v.dtype == q.dtype
+            and not (causal and q.shape[1] != k.shape[1]))
+
+
+def _attend(q, k, v, seg_q, seg_kv, causal, scale, use_kernel,
+            what="flash_attention_bshd"):
+    """q [B, Sq, Hq, D] against k/v [B, Sk, Hk, D], under segment ids
+    (int32 [B, Sq] and [B, Sk]) or none. CUDA: the one-length kernels
+    without ids (`_FlashAttention`), the segment kernels otherwise
+    (`_SegFlash`); CPU: `_plain` without ids, `_SegPlain` with them."""
+    if causal and q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            f"{what}: causal attention with q length {q.shape[1]} != kv "
+            f"length {k.shape[1]} is not ported")
+    ok = _kernel_takes(q, k, v, causal)
+    if use_kernel and not ok:
+        raise ValueError(
+            f"{what}: use_kernel=True but the kernels do not take q "
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)} (need one bf16/f32 dtype, equal batch, D in "
+            f"(64, 128), q heads a multiple of kv heads)")
+    if q.device.type == "cpu":
+        if use_kernel:
+            raise ValueError(f"{what}: use_kernel=True needs a CUDA tensor")
+    elif not ok:
+        raise ValueError(f"{what}: no kernel for q {tuple(q.shape)} "
+                         f"{q.dtype}, k {tuple(k.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu" and seg_q is None:
+        # the reference's dense `_sdpa`: f32 scores scaled in f32
+        return _plain(q, k, v, causal, scale)
+    if q.shape[2] != k.shape[2]:
+        # splash's convention: q pre-scaled in its own dtype
+        q, scale = (q * scale).to(q.dtype), 1.0
+    if seg_q is None:
+        if q.shape[1] == k.shape[1]:
+            return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+        return _SegFlash.apply(q, k, v, None, None, bool(causal),
+                               float(scale))
+    seg_q, seg_kv = (t.to(device=q.device, dtype=torch.int32).contiguous()
+                     for t in (seg_q, seg_kv))
+    fn = _SegPlain if q.device.type == "cpu" else _SegFlash
+    return fn.apply(q, k, v, seg_q, seg_kv, bool(causal), float(scale))
+
+
+def padding_segments(padding_mask, Sq, Sk):
+    """The reference's lowering of a [B, Sk] validity mask: kv_seg = mask
+    (1 valid, 0 padding), q_seg = kv_seg when Sq == Sk, else all ones.
+    Returns int32 (q_seg [B, Sq], kv_seg [B, Sk])."""
+    kv_seg = padding_mask.bool().to(torch.int32)
+    q_seg = kv_seg if Sq == Sk else torch.ones(
+        (kv_seg.shape[0], Sq), dtype=torch.int32, device=kv_seg.device)
+    return q_seg, kv_seg
+
+
 def flash_attention_bshd(q, k, v, causal=False, scale=None,
                          padding_mask=None, bias=None, use_kernel=None):
     """[batch, seq, heads, dim] in and out. GQA/MQA when q has a multiple
     of k's heads. scale: None = 1/sqrt(dim).
 
-    use_kernel=None routes by device (kernels on CUDA, `_plain` on CPU);
-    True demands the kernels and raises ValueError for a CPU tensor or a
-    shape/dtype they do not take."""
-    if padding_mask is not None or bias is not None:
-        raise NotImplementedError(
-            "flash_attention_bshd: padding_mask= and bias= (the packed and "
-            "biased routes, PERF.md kernel rows 11-12) are not ported yet")
-    ok = (supported(q.shape, k.shape, True, dtype=q.dtype)
-          and k.shape == v.shape and k.dtype == v.dtype == q.dtype)
-    if use_kernel and not ok:
-        raise ValueError(
-            f"flash_attention_bshd: use_kernel=True but the kernels do not "
-            f"take q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)} (need one bf16/f32 dtype, equal batch and "
-            f"seq, D in (64, 128), q heads a multiple of kv heads)")
-    if q.device.type == "cpu":
-        if use_kernel:
-            raise ValueError(
-                "flash_attention_bshd: use_kernel=True needs a CUDA tensor")
-        return _plain(q, k, v, causal, scale)
-    if not ok:
-        raise ValueError(f"flash_attention_bshd: no kernel for q "
-                         f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
+    padding_mask: optional [batch, kv_seq] bool/int, True/1 = valid —
+    lowered to segment ids. bias: optional additive mask broadcastable to
+    [batch, heads, Sq, Sk], streamed chunkwise through the block-stats
+    kernel (`flash_attention_biased`, kind "dense"). q and kv lengths may
+    differ when not causal (the segment kernels run without ids).
+
+    use_kernel=None routes by device (kernels on CUDA, the plain versions
+    on CPU); True demands the kernels and raises ValueError for a CPU
+    tensor or a shape/dtype they do not take."""
+    if bias is not None:
+        return flash_attention_biased(q, k, v, "dense", bias, causal=causal,
+                                      scale=scale, padding_mask=padding_mask,
+                                      use_kernel=use_kernel)
+    seg_q = seg_kv = None
+    if padding_mask is not None:
+        seg_q, seg_kv = padding_segments(padding_mask.to(q.device),
+                                         q.shape[1], k.shape[1])
+    return _attend(q, k, v, seg_q, seg_kv, causal, scale, use_kernel)
+
+
+# ------------------------------------------------------------- packed
+
+
+def packed_supported(total_q, total_k, n_heads_q, n_heads_k, D) -> bool:
+    """The packed route's gate (the reference's l.383): the kernels take
+    any totals; D in {64, 128} and q heads a multiple of kv heads."""
+    return (int(total_q) > 0 and int(total_k) > 0 and int(D) in (64, 128)
+            and int(n_heads_k) > 0 and int(n_heads_q) % int(n_heads_k) == 0)
+
+
+def flash_attention_packed(q, k, v, seg_q, seg_kv, causal=False,
+                           scale=None, use_kernel=None):
+    """Packed varlen attention: q [total_q, Hq, D] and k/v [total_k, Hk, D]
+    holding many sequences back to back; seg_q / seg_kv int [total]
+    sequence ids (1-based). The segment kernels at batch 1: attention
+    across sequences is masked by segment, and global causal + segments
+    is per-sequence causal when q and kv share the packing. The
+    reference pads the totals to 128 with segment 0; the kernels mask
+    their ragged edge instead, which changes no real row. Causal needs
+    total_q == total_k."""
+    out = _attend(q[None], k[None], v[None], seg_q.reshape(1, -1),
+                  seg_kv.reshape(1, -1), causal, scale, use_kernel,
+                  what="flash_attention_packed")
+    return out[0]
+
+
+# ------------------------------------------------------------- biased
+
+
+def _bias_chunk(kind, params, Sq, s0, s1, causal, padding_mask):
+    """The f32 bias of keys s0:s1 against all Sq queries, generated on
+    the fly from `params`, as a 4-D tensor broadcastable to [B, H, Sq,
+    s1 - s0] that keeps size 1 where it does not vary (alibi and
+    rel_table are [1, H, Sq, lk], a [B, 1, 1, Sk] dense bias stays
+    [B, 1, 1, lk]):
+
+    - "alibi": params = slopes [H]; bias = -slope * (i - j), -slope |i - j|
+      when not causal;
+    - "rel_table": params = (table [H, 2R + 1], R); bias = table[h,
+      clip(j - i, -R, R) + R];
+    - "dense": params = an array broadcastable to [B, H, Sq, Sk], sliced.
+
+    Causal (top-left, j <= i) and per-batch padding masks fold in as
+    -1e30 entries, which the block-stats kernel zeroes exactly."""
+    dev = (params[0] if kind == "rel_table" else params).device
+    pos_q = torch.arange(Sq, device=dev)
+    pos_k = torch.arange(s0, s1, device=dev)
+    if kind == "alibi":
+        slopes = params.float().reshape(-1)
+        dist = (pos_q[:, None] - pos_k[None, :]).float()
+        if not causal:
+            dist = dist.abs()
+        bias = (-slopes[:, None, None] * dist)[None]        # [1, H, lq, lk]
+    elif kind == "rel_table":
+        table, R = params
+        idx = (pos_k[None, :] - pos_q[:, None]).clamp(-R, R) + R
+        bias = table.float()[:, idx][None]                  # [1, H, lq, lk]
+    elif kind == "dense":
+        bias = params.float()
+        while bias.dim() < 4:
+            bias = bias[None]
+        if bias.shape[3] != 1:
+            bias = bias.narrow(3, s0, s1 - s0)
+    else:
+        raise ValueError(f"unknown bias kind {kind!r}")
+    if causal:
+        vis = pos_q[:, None] >= pos_k[None, :]
+        bias = torch.where(vis, bias, torch.full_like(bias, _NEG))
+    if padding_mask is not None:
+        valid = padding_mask.bool()[:, None, None, s0:s1]
+        bias = torch.where(valid, bias, torch.full((), _NEG,
+                                                   device=bias.device))
+    return bias
+
+
+def _merge_stats(m1, l1, o1, m2, l2, o2):
+    """Online-softmax merge of two unnormalised partials: m/l [B, H, Sq];
+    o [B, Sq, H, D]."""
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    l = l1 * a1 + l2 * a2
+    o = (o1 * a1.transpose(1, 2)[..., None]
+         + o2 * a2.transpose(1, 2)[..., None])
+    return m, l, o
+
+
+def _chunks(Sk, chunk):
+    """[(start, stop)] of the KV chunks: `chunk` keys each (None = 512,
+    the reference's default without an autotune entry; the port has no
+    autotune), the last one shorter where Sk is not a multiple."""
+    C = min(int(chunk or 512), Sk)
+    return [(s, min(s + C, Sk)) for s in range(0, Sk, C)]
+
+
+def _sum_to(t, shape):
+    """t summed over the dims where `shape` broadcasts (size 1)."""
+    for ax, n in enumerate(shape):
+        if n == 1 and t.shape[ax] != 1:
+            t = t.sum(dim=ax, keepdim=True)
+    return t
+
+
+class _Biased(torch.autograd.Function):
+    """flash_attention_biased: the forward merges block-stats partials
+    chunk by chunk; the backward regenerates each chunk's bias and
+    recomputes its P from the final (m, l) (P = exp(s + bias - lse)), so
+    it holds a few chunk-sized f32 buffers and never [B, H, Sq, Sk]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, param, kind, R, causal, scale, padding_mask,
+                chunk, use_kernel):
+        B, Sq, Hq, D = q.shape
+        Sk, Hk = k.shape[1], k.shape[2]
+        group = Hq // Hk
+        dev = q.device
+        pf = param.detach()
+        m = torch.full((B, Hq, Sq), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros_like(m)
+        o = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=dev)
+        for s0, s1 in _chunks(Sk, chunk):
+            kc, vc = k[:, s0:s1], v[:, s0:s1]
+            if group > 1:
+                kc, vc = (t.repeat_interleave(group, dim=2) for t in (kc, vc))
+            bias_c = _bias_chunk(kind, pf if R is None else (pf, R), Sq,
+                                 s0, s1, causal, padding_mask)
+            mc, lc, oc = kba.stats(q, kc, vc, None, scale, bias_c,
+                                   use_kernel)
+            m, l, o = _merge_stats(m, l, o, mc, lc, oc)
+        out = (o / l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+        ctx.save_for_backward(q, k, v, param, m, l, out)
+        ctx.cfg = (kind, R, causal, scale, padding_mask, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, param, m, l, out = ctx.saved_tensors
+        kind, R, causal, scale, padding_mask, chunk = ctx.cfg
+        B, Sq, Hq, D = q.shape
+        Sk, Hk = k.shape[1], k.shape[2]
+        group = Hq // Hk
+        need_p = ctx.needs_input_grad[3]
+        # rows with no valid key (l = 0) get lse = +inf, so P = 0
+        lse = torch.where(l > 0, m + torch.log(l),
+                          torch.full_like(m, float("inf")))[..., None]
+        qh = q.transpose(1, 2).float()
+        doh = do.transpose(1, 2).float()
+        delta = (doh * out.transpose(1, 2).float()).sum(-1, keepdim=True)
+        dq = torch.zeros_like(qh)
+        # each key lies in one chunk: dk and dv are written once, in
+        # their own dtype
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        dparam = None
+        for s0, s1 in _chunks(Sk, chunk):
+            kc, vc = (t[:, s0:s1].transpose(1, 2).float() for t in (k, v))
+            if group > 1:
+                kc, vc = (t.repeat_interleave(group, dim=1) for t in (kc, vc))
+            with torch.enable_grad():
+                p_leaf = param.detach().requires_grad_(need_p)
+                bias_c = _bias_chunk(kind, p_leaf if R is None
+                                     else (p_leaf, R), Sq, s0, s1, causal,
+                                     padding_mask)
+            bc = bias_c.detach()
+            p = qh @ kc.transpose(-1, -2)
+            p.mul_(scale).add_(bc).sub_(lse).exp_()
+            p.masked_fill_(~(bc > 0.5 * _NEG), 0.0)
+            ds = doh @ vc.transpose(-1, -2)
+            ds.sub_(delta).mul_(p)
+            dq.add_(ds @ kc, alpha=scale)
+            dk[:, s0:s1] = (_group_sum(ds.transpose(-1, -2) @ qh, group)
+                            * scale).transpose(1, 2)
+            dv[:, s0:s1] = _group_sum(p.transpose(-1, -2) @ doh,
+                                      group).transpose(1, 2)
+            del p
+            if need_p:
+                (g,) = torch.autograd.grad(bias_c, p_leaf,
+                                           _sum_to(ds, bias_c.shape))
+                dparam = g if dparam is None else dparam + g
+            del ds, bias_c, bc
+        return (dq.transpose(1, 2).to(q.dtype), dk, dv,
+                None if dparam is None else dparam.to(param.dtype),
+                None, None, None, None, None, None, None)
+
+
+def flash_attention_biased(q, k, v, kind, params, causal=False, scale=None,
+                           padding_mask=None, chunk=None, use_kernel=None):
+    """Blockwise-bias flash attention, BSHD in and out: KV in `chunk`-key
+    slices (None = 512, the reference's default without an autotune
+    entry; the port has no autotune), each chunk's bias generated on the
+    fly (`_bias_chunk`) and fed to the block-stats kernel, partials merged
+    online; output o / max(l, 1e-30) in q's dtype. GQA repeats kv per
+    chunk only. Differentiable in q, k, v and the bias parameters
+    (slopes, table or the dense bias). use_kernel=True demands the
+    block-stats kernel (ValueError on a CPU tensor or a shape it does
+    not take)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.shape[2] != k.shape[2]:
-        # splash's convention: q pre-scaled in its own dtype
-        return _FlashAttention.apply((q * scale).to(q.dtype), k, v,
-                                     bool(causal), 1.0)
-    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    Hq, Hk = q.shape[2], k.shape[2]
+    ok = (Hk > 0 and Hq % Hk == 0 and k.shape == v.shape
+          and kba.supported(q.shape, (k.shape[0], k.shape[1], Hq,
+                                      k.shape[3]), q.dtype)
+          and k.dtype == v.dtype == q.dtype)
+    if use_kernel and (not ok or q.device.type == "cpu"):
+        raise ValueError(
+            f"flash_attention_biased: use_kernel=True but the block-stats "
+            f"kernel does not take q {tuple(q.shape)} {q.dtype} on "
+            f"{q.device}, k {tuple(k.shape)}")
+    if q.device.type != "cpu" and not ok:
+        raise ValueError(f"flash_attention_biased: no kernel for q "
+                         f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
+    if kind == "rel_table":
+        param, R = params
+        R = int(R)
+    else:
+        param, R = params, None
+    if not torch.is_tensor(param):
+        param = torch.as_tensor(param, device=q.device)
+    if padding_mask is not None:
+        padding_mask = padding_mask.to(q.device).bool()
+    return _Biased.apply(q, k, v, param, kind, R, bool(causal), float(scale),
+                         padding_mask, chunk, use_kernel)
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_seg_fwd.launches = 0
+flash_attention_seg_dkv.launches = 0
+flash_attention_seg_dq.launches = 0

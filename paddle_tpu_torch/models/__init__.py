@@ -1,2 +1,5 @@
+from .bert import (BertConfig, BertForMaskedLM,  # noqa: F401
+                   BertForSequenceClassification, BertModel, bert_base,
+                   bert_large, bert_tiny)
 from .llama import (LlamaConfig, LlamaForCausalLM, llama_1b,  # noqa: F401
                     llama_350m, llama_7b, llama_tiny)

@@ -1,0 +1,181 @@
+"""Attention functionals (counterpart of
+paddle_tpu/nn/functional/attention.py): `scaled_dot_product_attention`,
+`flash_attention`, `flash_attn_unpadded` and the `sdp_kernel` shim, on
+`torch.Tensor`s in paddle's [batch, seq, heads, head_dim] layout.
+
+`scaled_dot_product_attention` takes the reference's three routes
+(attention.py:94-127), each through `kernels/flash_attention.py`:
+no mask; a boolean mask that varies only along the keys (`_as_padding_
+mask`) as a padding mask, lowered to segment ids; any other mask
+broadcastable to [B, H, Sq, Sk] as an additive bias through the chunked
+block-stats route (a boolean one becomes 0 / -1e30). The reference takes
+its dense `_sdpa_ref` on the CPU and the kernels on the TPU; the port
+runs the kernels' functions on both devices (their plain versions on
+the CPU), so a padded query row attends to the padded keys, as on the
+TPU, where `_sdpa_ref` has it attend to the valid ones; every valid row
+agrees. `flash_attn_unpadded` is the packed route with 1-based segment
+ids from cu_seqlens (`_packed_segments`).
+
+Dropout in training (the reference's dense route with an output dropout,
+l.129-136) is not ported and raises NotImplementedError, as does causal
+`flash_attn_unpadded` over q and kv packings that differ (the
+reference's dense fallback).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...kernels import flash_attention as fa
+
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "sdp_kernel"]
+
+
+def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
+    """The reference's dense route, [B, S, H, D], f32 inside: a boolean
+    mask drops entries (-inf), a float mask adds. No dropout. No route
+    of the port takes it (the kernels' functions run on both devices);
+    it records the reference's CPU semantics, which the tests hold it to
+    and hold the routes to at the rows where the two agree."""
+    del dropout_p
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
+    s = (qt @ kt.transpose(-1, -2)) * scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        cm = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril(
+            sk - sq)
+        s = s.masked_fill(~cm, float("-inf"))
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            s = s.masked_fill(~mask, float("-inf"))
+        else:
+            s = s + mask.float()
+    p = torch.softmax(s, dim=-1)
+    return (p @ vt).transpose(1, 2).to(q.dtype)
+
+
+def _as_padding_mask(mask, batch, kv_len):
+    """A keep/drop mask that provably varies only along the kv axis as a
+    [B, kv_len] validity mask; None when not convertible. Convertible:
+    BOOLEAN masks shaped [kv], [B, kv], [B, 1, kv] or [B, 1, 1, kv]; an
+    additive float mask may carry finite biases that segment ids cannot
+    represent, so it never converts."""
+    if mask.dtype != torch.bool:
+        return None
+    shape = tuple(mask.shape)
+    if shape not in ((kv_len,), (batch, kv_len), (batch, 1, kv_len),
+                     (batch, 1, 1, kv_len)):
+        return None
+    flat = mask.reshape(shape[0] if len(shape) > 1 else 1, kv_len)
+    if len(shape) == 1:
+        flat = flat.expand(batch, kv_len)
+    return flat
+
+
+def _bias_broadcastable(mask_shape, q_shape, k_shape) -> bool:
+    """mask broadcastable to [B, H, Sq, Sk] (numpy rules, trailing dims)."""
+    target = (q_shape[0], q_shape[2], q_shape[1], k_shape[1])
+    if len(mask_shape) > 4:
+        return False
+    return all(got in (1, want) for got, want in zip(reversed(mask_shape),
+                                                    reversed(target)))
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """Layout [batch, seq, heads, head_dim] (paddle's flash_attn
+    convention), scale 1/sqrt(head_dim). Returns the output in query's
+    dtype."""
+    del name
+    if dropout_p > 0.0 and training:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: dropout_p > 0 in training (the "
+            "reference's dense route with dropout) is not ported yet")
+    q, k, v = query, key, value
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if attn_mask is None:
+        return fa.flash_attention_bshd(q, k, v, causal=is_causal,
+                                       scale=scale)
+    mask = attn_mask.to(q.device)
+    pad = _as_padding_mask(mask, q.shape[0], k.shape[1])
+    if pad is not None:
+        return fa.flash_attention_bshd(q, k, v, causal=is_causal,
+                                       scale=scale, padding_mask=pad)
+    if not _bias_broadcastable(tuple(mask.shape), q.shape, k.shape):
+        raise ValueError(
+            f"scaled_dot_product_attention: attn_mask {tuple(mask.shape)} "
+            f"does not broadcast to [B, H, Sq, Sk] = [{q.shape[0]}, "
+            f"{q.shape[2]}, {q.shape[1]}, {k.shape[1]}]")
+    bias = (torch.where(mask, 0.0, -1e30).float()
+            if mask.dtype == torch.bool else mask)
+    return fa.flash_attention_bshd(q, k, v, causal=is_causal, scale=scale,
+                                   bias=bias)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None):
+    """paddle's `flash_attention`: (out, None); the softmax is never
+    returned, as in the reference."""
+    del return_softmax, fixed_seed_offset, rng_name, name
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None
+
+
+def _packed_segments(cu, total):
+    """cu_seqlens [n + 1] -> per-token segment ids [total], 1-BASED, so
+    the kernels' padding (segment 0) never matches a real sequence."""
+    cu = torch.as_tensor(cu).long().reshape(-1)
+    idx = cu[1:-1]
+    idx = idx[idx < total]
+    marks = torch.zeros(total, dtype=torch.int32, device=cu.device)
+    marks.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return torch.cumsum(marks, 0, dtype=torch.int32) + 1
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Varlen attention over PACKED sequences: q [total_q, Hq, D], k/v
+    [total_k, Hk, D], cu_seqlens the sequences' offsets. The packed
+    segment kernels at batch 1 with 1-based segment ids; returns (out,
+    None). Causal needs q and kv to share the packing."""
+    del max_seqlen_q, max_seqlen_k, return_softmax, fixed_seed_offset
+    del rng_name, name
+    if dropout > 0.0 and training:
+        raise NotImplementedError(
+            "flash_attn_unpadded: dropout > 0 in training is not ported yet")
+    q, k, v = query, key, value
+    cq = torch.as_tensor(cu_seqlens_q)
+    ck = torch.as_tensor(cu_seqlens_k)
+    if causal and not (cu_seqlens_q is cu_seqlens_k
+                       or torch.equal(cq.cpu(), ck.cpu())):
+        raise NotImplementedError(
+            "flash_attn_unpadded: causal over q and kv packings that differ "
+            "(the reference's dense fallback) is not ported")
+    seg_q = _packed_segments(cq.to(q.device), q.shape[0])
+    seg_kv = _packed_segments(ck.to(q.device), k.shape[0])
+    out = fa.flash_attention_packed(q, k, v, seg_q, seg_kv, causal=causal,
+                                    scale=scale)
+    return out, None
+
+
+class sdp_kernel:
+    """Context selecting attention backends (the reference's no-op
+    torch-compat shim)."""
+
+    def __init__(self, enable_flash=True, enable_math=True,
+                 enable_mem_efficient=True):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False

@@ -21,6 +21,20 @@ as large as a typical element of causal attention (the first rows and
 keys dominate the maximum) and would pass a kernel that drops or adds a
 tile of terms.
 
+The segment-id flash kernels follow the flash rule (`seg_flash_terms`:
+the terms over the pairs the segments and the causal mask leave). The
+block-stats kernel (row 8) rounds P to the input dtype before P V, so
+its o takes the terms rule (its terms are P |V|, unnormalised); its m
+is a maximum of f32 scores and its l a sum of unrounded f32 exponentials
+(`STATS_LIMITS`: the scores' and the sum's f32 summation order). A score
+x = s * scale + bias carries an f32 rounding of about 2^-24 |x| (the
+kernel rounds the product and the sum once, in a fused multiply-add;
+the plain version twice), so each exp(x - m) is off by up to about
+2^-23 (|x| + |m|) relative, with x near m: l and o also get an atol of
+STATS_M_FRAC (1 + |m|) times their own value (their terms, for o). A
+bias far below zero, as alibi gives a row far from the chunk (|m| near
+1000), makes that the larger part.
+
 The fused cross-entropy kernels keep f32 throughout. The forward's f32
 outputs differ from the plain version by summation order and the fast
 exponential alone (`CE_LIMITS`: the row max m is exact, the sum-exp l
@@ -41,7 +55,15 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "PAGED_DECODE_CASES", "paged_decode_cases", "paged_decode_pair",
            "paged_decode_readings", "CE_LIMITS", "CE_DX_FRAC",
            "fused_ce_case", "fused_ce_pairs", "FUSED_CE_CASES",
-           "fused_ce_readings", "train_launches", "train_counters"]
+           "fused_ce_readings", "train_launches", "train_counters",
+           "seg_flash_terms", "seg_flash_pairs", "seg_flash_readings",
+           "STATS_LIMITS", "STATS_M_FRAC", "block_stats_pairs",
+           "block_stats_readings",
+           "bert_lengths", "packed_lengths", "ATTN_SEG_CASES",
+           "attn_seg_case",
+           "STATS_CASES", "stats_case", "attention_counters",
+           "SURFACE_RTOL", "BERT_SEQ_ATOL", "BERT_SEQ_MEAN_ATOL",
+           "BERT_LOGIT_ATOL", "BERT_LOGIT_MEAN_ATOL"]
 
 BF16_RTOL = 2.0 ** -7
 # share of an element's sum of |terms|: two bf16 roundoffs (the rounded
@@ -59,7 +81,10 @@ def worst(out, ref, atol, rtol) -> float:
     if not bool(torch.isfinite(out).all()):
         return math.inf
     atol = atol.double() if torch.is_tensor(atol) else atol
-    return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
+    err = (out - ref).abs()
+    # an exact match passes any limit, a zero one included (0 / 0)
+    return torch.where(err == 0, 0.0,
+                       err / (atol + rtol * ref.abs())).max().item()
 
 
 def _group_sum(t, group):
@@ -382,3 +407,305 @@ def train_counters():
             "flash_attention_bwd": kfa.flash_attention_bwd,
             "fused_cross_entropy": kce.fused_cross_entropy_fwd,
             "fused_cross_entropy_bwd": kce.fused_cross_entropy_bwd}
+
+
+# ------------------------------------------------ masked/packed attention
+
+
+def seg_flash_terms(q, k, v, do, seg_q, seg_kv, causal, scale):
+    """`flash_terms` for the segment-id kernels: f32 sums of |terms| of
+    (o, dq, dk, dv) over the pairs the segment ids and the causal mask
+    leave (P from the segment scores). seg_q [B, Sq], seg_kv [B, Sk]
+    int32; q, k, v, do the plain side's f32 copies."""
+    from .kernels import flash_attention as kfa
+    group = q.shape[2] // k.shape[2]
+    s = kfa._seg_scores(q, k, seg_q, seg_kv, causal, scale)
+    p = torch.softmax(s, dim=-1)
+    qh, kh, vh, doh = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    if group > 1:
+        kh, vh = (t.repeat_interleave(group, dim=1) for t in (kh, vh))
+    o = p @ vh
+    o_t = p @ vh.abs()
+    d_abs = (doh.abs() * o.abs()).sum(-1, keepdim=True)
+    # the backward's P, exp(s - lse): P itself, but 1 (not 1 / Sk) on a
+    # row with no key of its own segment, as the kernels recompute it
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    del s
+    ds_t = p * ((doh @ vh.transpose(-1, -2)).abs() + d_abs)
+    del o, d_abs
+    dq_t = (ds_t @ kh.abs()) * abs(scale)
+    dk_t = _group_sum(ds_t.transpose(-1, -2) @ qh.abs(), group) * abs(scale)
+    dv_t = _group_sum(p.transpose(-1, -2) @ doh.abs(), group)
+    return tuple(t.transpose(1, 2) for t in (o_t, dq_t, dk_t, dv_t))
+
+
+def seg_flash_pairs(q, k, v, do, seg_q, seg_kv, causal, scale, heads=None):
+    """The segment-id kernels (`flash_attention_seg_fwd`, `_seg_dkv`,
+    `_seg_dq`) and their plain version (`_SegPlain`) on f32 copies of
+    the same inputs: q, k, v, do BSHD in one dtype (GQA callers pass q
+    pre-scaled and scale 1). The plain side runs `heads` q heads at a
+    time (a multiple of the GQA group; None: all), so a long packed
+    batch's f32 [S, S] scores stay a few GB. Returns ([(label, kernel,
+    plain, terms or None)] for o, lse, dq, dk, dv; the kernel's (o,
+    lse))."""
+    from .kernels import flash_attention as kfa
+    o, lse = kfa.flash_attention_seg_fwd(q, k, v, seg_q, seg_kv, causal,
+                                         scale)
+    delta = kfa._delta(o, do)
+    args = (q, k, v, do, lse, delta, seg_q, seg_kv, causal, scale)
+    dk, dv = kfa.flash_attention_seg_dkv(*args)
+    dq = kfa.flash_attention_seg_dq(*args)
+    hq, group = q.shape[2], q.shape[2] // k.shape[2]
+    heads = heads or hq
+    parts = []
+    for h0 in range(0, hq, heads):
+        hs, ks = slice(h0, h0 + heads), slice(h0 // group,
+                                              (h0 + heads) // group)
+        ref = [q[:, :, hs].float().requires_grad_(),
+               k[:, :, ks].float().requires_grad_(),
+               v[:, :, ks].float().requires_grad_()]
+        d = do[:, :, hs].float()
+        with torch.enable_grad():
+            o_p = kfa._SegPlain.apply(*ref, seg_q, seg_kv, causal, scale)
+            o_p.backward(d)
+        plain = [t.detach() for t in ref]
+        lse_p = torch.logsumexp(kfa._seg_scores(plain[0], plain[1], seg_q,
+                                                seg_kv, causal, scale),
+                                dim=-1)
+        parts.append((o_p.detach(), lse_p, ref[0].grad, ref[1].grad,
+                      ref[2].grad)
+                     + seg_flash_terms(*plain, d, seg_q, seg_kv, causal,
+                                       scale))
+        del ref, plain, o_p, lse_p, d
+    (o_p, lse_p, dq_p, dk_p, dv_p, o_t, dq_t, dk_t, dv_t) = (
+        torch.cat(ts, dim=1 if i == 1 else 2)
+        for i, ts in enumerate(zip(*parts)))
+    return ([("o", o, o_p, o_t), ("lse", lse, lse_p, None),
+             ("dq", dq, dq_p, dq_t), ("dk", dk, dk_p, dk_t),
+             ("dv", dv, dv_p, dv_t)], (o, lse))
+
+
+def bert_lengths(B=16, S=512, seed=0):
+    """Per-row valid lengths of the BERT phases' padded batch:
+    default_rng(seed) draws B in [64, S], and row 0 is S long."""
+    import numpy as np
+    lengths = np.random.default_rng(seed).integers(64, S + 1, B)
+    lengths[0] = S
+    return [int(n) for n in lengths]
+
+
+# The segment-id cases the card checks, in chip_smoke.py's kernel phase
+# and the card tests: tag -> kwargs of `attn_seg_case`. "bert" is the
+# BERT phase's padded batch at bert_base attention width; "packed_7b"
+# the attention-surface phase's 8192 packed tokens in documents of
+# default_rng(1) lengths in [128, 2048], causal, at llama_7b width;
+# then small MHA/GQA/cross-length/packed cases.
+ATTN_SEG_CASES = {
+    "bert": dict(B=16, S=512, hq=12, hk=12, d=64, causal=False,
+                 kind="bert"),
+    "packed_7b": dict(B=1, S=8192, hq=32, hk=32, d=128, causal=True,
+                      kind="packed"),
+    "gqa_causal_pad": dict(B=2, S=256, hq=8, hk=2, d=128, causal=True,
+                           kind="pad"),
+    "cross_len": dict(B=3, S=200, Sk=328, hq=4, hk=4, d=64, causal=False,
+                      kind="pad"),
+    "mqa_packed": dict(B=1, S=700, hq=4, hk=1, d=64, causal=False,
+                       kind="packed"),
+}
+
+
+def packed_lengths(total=8192, lo=128, hi=2048, seed=1):
+    """Document lengths of a packed batch: default_rng(seed) draws in
+    [lo, hi] until they cover `total`; the last is cut to fit."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    while sum(out) < total:
+        out.append(int(rng.integers(lo, hi + 1)))
+    out[-1] -= sum(out) - total
+    return out
+
+
+def attn_seg_case(B, S, hq, hk, d, causal, kind, Sk=None,
+                  dtype=torch.bfloat16, seed=0):
+    """Inputs of a segment-id case on the card: q, do [B, S, hq, d], k, v
+    [B, Sk, hk, d] N(0, 1) in dtype, and int32 segment ids: "bert" the
+    padding segments of `bert_lengths` (q_seg = kv_seg); "pad" a padding
+    mask with a short row (and, when Sk != S, a row with no valid key);
+    "packed" 1-based ids of `packed_lengths` documents (for S = 8192) or
+    of default_rng(seed) cuts. Returns (q, k, v, do, seg_q, seg_kv)."""
+    import numpy as np
+    from .kernels import flash_attention as kfa
+    Sk = S if Sk is None else Sk
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rand(B, S, hq, d), rand(B, S, hq, d)
+    k, v = rand(B, Sk, hk, d), rand(B, Sk, hk, d)
+    if kind in ("bert", "pad"):
+        lengths = (bert_lengths(B, Sk) if kind == "bert"
+                   else [Sk - 37 * (b + 1) for b in range(B)])
+        pm = (torch.arange(Sk, device="cuda")[None, :]
+              < torch.tensor(lengths, device="cuda")[:, None])
+        if kind == "pad" and Sk != S:
+            pm[-1] = False
+        seg_q, seg_kv = kfa.padding_segments(pm, S, Sk)
+    else:
+        lengths = (packed_lengths(S) if S == 8192 else
+                   [int(x) for x in np.diff(np.r_[0, np.sort(
+                       np.random.default_rng(seed).choice(
+                           np.arange(1, S), 5, replace=False)), S])])
+        seg = torch.repeat_interleave(
+            torch.arange(1, len(lengths) + 1, dtype=torch.int32,
+                         device="cuda"),
+            torch.tensor(lengths, device="cuda"))[None]
+        seg_q = seg_kv = seg
+    return q, k, v, do, seg_q.contiguous(), seg_kv.contiguous()
+
+
+def seg_flash_readings(seed=0):
+    """bf16 segment-id flash at the "bert" and "cross_len" cases on the
+    card: for each output the worst err/limit over the cases under the
+    element limit (terms; lse 1e-4 + 1e-5 |plain|). Above 1 is a miss."""
+    frac = TERM_FRAC[torch.bfloat16]
+    out = {}
+    for tag in ("bert", "cross_len"):
+        q, k, v, do, sq, skv = attn_seg_case(**ATTN_SEG_CASES[tag],
+                                             seed=seed)
+        causal = ATTN_SEG_CASES[tag]["causal"]
+        pairs, _ = seg_flash_pairs(q, k, v, do, sq, skv, causal,
+                                   q.shape[-1] ** -0.5)
+        for label, got, ref, terms in pairs:
+            r = (worst(got, ref, 1e-4, 1e-5) if terms is None
+                 else worst(got, ref, frac * terms, BF16_RTOL))
+            out[label] = max(out.get(label, 0.0), r)
+    return out
+
+
+# block-stats (m, l): (atol, rtol) in f32 from either input dtype; l and
+# o also take STATS_M_FRAC (1 + |m|) of their own value (2^-20: the
+# 2^-22 |m| a score's rounding gives, with a margin of four)
+STATS_LIMITS = {"m": (1e-5, 1e-5), "l": (1e-5, 1e-5)}
+STATS_M_FRAC = 2.0 ** -20
+STATS_O_RTOL = {torch.bfloat16: BF16_RTOL, torch.float32: 0.0}
+
+# The block-stats cases the card checks: tag -> kwargs of `stats_case`.
+# "sdpa_bias" is sdpa's bias route at bert width, the float [16, 1, 1,
+# 512] padding mask (0 / -1e4) as one 512-key chunk; "alibi_7b" the
+# first 512-key chunk of the causal alibi case at llama_7b width (of 4),
+# "alibi_7b_4096" that of its 2 x 4096 memory case (of 8); "masked" a
+# small case with a boolean mask, a full bias holding -1e30
+# and -inf rows and keys, and a ragged edge.
+STATS_CASES = {
+    "sdpa_bias": dict(B=16, Sq=512, Sk=512, H=12, d=64, kind="sdpa_bias"),
+    "alibi_7b": dict(B=4, Sq=2048, Sk=512, H=32, d=128, kind="alibi"),
+    "alibi_7b_4096": dict(B=2, Sq=4096, Sk=512, H=32, d=128, kind="alibi"),
+    "masked": dict(B=2, Sq=200, Sk=328, H=3, d=128, kind="masked"),
+}
+
+
+def stats_case(B, Sq, Sk, H, d, kind, dtype=torch.bfloat16, seed=0):
+    """Inputs of a block-stats case on the card: q [B, Sq, H, d], k, v
+    [B, Sk, H, d] N(0, 1) in dtype, a mask or None, the scale, and the
+    f32 bias as the route passes it (compact, broadcastable). Returns
+    (q, k, v, mask, scale, bias)."""
+    from .kernels import flash_attention as kfa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rand(B, Sq, H, d), rand(B, Sk, H, d), rand(B, Sk, H, d)
+    mask = None
+    if kind == "sdpa_bias":
+        lengths = torch.tensor(bert_lengths(B, Sk), device="cuda")
+        valid = torch.arange(Sk, device="cuda")[None, :] < lengths[:, None]
+        bias = torch.where(valid, 0.0, -1e4).float()[:, None, None, :]
+    elif kind == "alibi":
+        slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda") / H)
+        bias = kfa._bias_chunk("alibi", slopes, Sq, 0, Sk, True, None)
+    else:
+        mask = torch.rand((Sq, Sk), generator=gen, device="cuda") > 0.3
+        bias = 0.5 * torch.randn((B, H, Sq, Sk), generator=gen,
+                                 device="cuda")
+        bias[0, 0, 3] = -1e30
+        bias[1, 2, 7] = -float("inf")
+        bias[:, 1, :, 5] = -float("inf")
+        mask[11] = False
+    return q, k, v, mask, d ** -0.5, bias
+
+
+def block_stats_pairs(q, k, v, mask, scale, bias):
+    """The block-stats kernel and its plain version (`_dense_stats`) on f32
+    copies of the same inputs. Returns [(label, kernel, plain, atol,
+    rtol)] for m, l and o (o's atol TERM_FRAC of its element's sum of
+    |terms|, P |V|)."""
+    from .kernels import block_attention as kba
+    m, l, o = kba.block_attention_fwd(q, k, v, mask, scale, bias)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m_p, l_p, o_p = kba._dense_stats(qf, kf, vf, mask, scale, bias)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s, valid = kba._apply_bias_mask(s, mask, bias)
+    p = torch.where(valid, torch.exp(s - m_p[..., None]), 0.0)
+    o_t = torch.einsum("bhqk,bkhd->bqhd", p, vf.abs())
+    del s, valid, p
+    # a fully masked row has m = -1e30 and l = o = 0: its share is 0
+    m_share = STATS_M_FRAC * (1.0 + m_p.abs())
+    l_atol, l_rtol = STATS_LIMITS["l"]
+    o_frac = (TERM_FRAC[q.dtype]
+              + m_share.transpose(1, 2)[..., None])
+    return [("m", m, m_p, *STATS_LIMITS["m"]),
+            ("l", l, l_p, l_atol + m_share * l_p, l_rtol),
+            ("o", o, o_p, o_frac * o_t, STATS_O_RTOL[q.dtype])]
+
+
+def block_stats_readings(seed=0):
+    """bf16 block stats at `STATS_CASES` on the card: for each output the
+    worst err/limit over the cases (above 1 is a miss)."""
+    out = {}
+    for kw in STATS_CASES.values():
+        for label, got, ref, atol, rtol in block_stats_pairs(
+                *stats_case(**kw, seed=seed)):
+            out[label] = max(out.get(label, 0.0),
+                             worst(got, ref, atol, rtol))
+    return out
+
+
+def attention_counters():
+    """Every attention kernel's wrapper by counter name (the segment
+    kernels, the block-stats kernel, and the one-length flash, paged and
+    ragged kernels), for the phases that must show which ran."""
+    from .kernels import block_attention as kba
+    from .kernels import flash_attention as kfa
+    from .kernels import paged_attention as kpa
+    from .kernels import ragged_paged_attention as krpa
+    return {"flash_attention_seg_fwd": kfa.flash_attention_seg_fwd,
+            "flash_attention_seg_dkv": kfa.flash_attention_seg_dkv,
+            "flash_attention_seg_dq": kfa.flash_attention_seg_dq,
+            "block_attention_stats": kba.block_attention_fwd,
+            "flash_attention_fwd": kfa.flash_attention_fwd,
+            "flash_attention_bwd": kfa.flash_attention_bwd,
+            "paged_decode_attention": kpa.paged_decode_attention,
+            "ragged_paged_attention": krpa.ragged_paged_attention}
+
+
+# Route agreement, kernel route against plain route. Attention surface
+# (bf16 at bert width): max |a - b| / max |b| over the valid rows of the
+# output and of dq, dk, dv, for each route against its plain route and
+# the three routes against each other; the kernels round P and dS to
+# bf16 (about 2^-8 each; up to 0.5% of max|b| on an H100 at small
+# shapes), so the limit is about four times that.
+SURFACE_RTOL = 0.02
+# BERT (f32, bert_base, 12 layers, batch 16 x 512): |difference| of the
+# sequence output and of the logits at valid rows, max and mean. Both
+# routes are f32 and differ by summation order only (the SIMT kernel's
+# against the plain version's batched products): a few f32 ulps per
+# layer, compounded through 12 post-LN layers of random weights; the
+# limits allow about 1e-3 of the values' scale (LayerNorm'd outputs of
+# order 1, logits of order 0.5).
+BERT_SEQ_ATOL = 2e-3
+BERT_SEQ_MEAN_ATOL = 2e-4
+BERT_LOGIT_ATOL = 2e-3
+BERT_LOGIT_MEAN_ATOL = 2e-4

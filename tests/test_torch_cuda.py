@@ -402,12 +402,12 @@ _FLASH_FAULTS = {
         "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);", "o"),
     # dq counts the future keys of the diagonal tile
     "dq_diagonal_mask_off": (
-        "flash_bwd_dq_mma_kernel(", r"\(e & 1\), S,\s+causal\)",
-        "(e & 1), S, 0)", "dq"),
+        "flash_bwd_dq_mma_kernel(", r"\(e & 1\), Sq, Sk,\s+causal\)",
+        "(e & 1), Sq, Sk, 0)", "dq"),
     # dk and dv count the earlier queries of the diagonal tile
     "dkv_diagonal_mask_off": (
-        "flash_bwd_dkv_mma_kernel(", r"\(e >> 1\) \* 8, S, causal\)",
-        "(e >> 1) * 8, S, 0)", "dv"),
+        "flash_bwd_dkv_mma_kernel(", r"\(e >> 1\) \* 8, Sq, Sk, causal\)",
+        "(e >> 1) * 8, Sq, Sk, 0)", "dv"),
     # dk and dv skip the last q tile: the last 64 keys get none
     "dkv_skips_last_q_tile": (
         "flash_bwd_dkv_mma_kernel(", r"const int total = group \* n_q;",
@@ -637,3 +637,237 @@ def test_paged_decode_check_fails_planted_faults(fault, tmp_path):
         assert readings["o"] <= 0.5
     else:
         assert readings["o"] > 10.0
+
+
+# ------------------------------------------- masked and packed attention
+
+
+def _seg_case_checked(case, dtype):
+    """The segment-id kernels against `_SegPlain` on f32 copies at one of
+    `testing.ATTN_SEG_CASES`, element by element (terms rule; lse 1e-4 +
+    1e-5 |plain|)."""
+    dt = getattr(torch, dtype)
+    kw = testing.ATTN_SEG_CASES[case]
+    q, k, v, do, sq, skv = testing.attn_seg_case(**kw, dtype=dt)
+    scale = q.shape[-1] ** -0.5
+    # GQA keeps the one low-precision step of its float order: q
+    # pre-scaled in q's dtype, the kernels at scale 1
+    qs, s = ((q * scale).to(dt), 1.0) if q.shape[2] != k.shape[2] \
+        else (q, scale)
+    pairs, _ = testing.seg_flash_pairs(qs, k, v, do, sq, skv, kw["causal"],
+                                       s)
+    for label, got, ref, terms in pairs:
+        if terms is None:
+            assert testing.worst(got, ref, 1e-4, 1e-5) <= 1.0, label
+        else:
+            assert _within_terms(got, ref, terms, dtype), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["gqa_causal_pad", "cross_len",
+                                  "mqa_packed"])
+def test_segment_flash_matches_plain(dtype, case):
+    _card()
+    _seg_case_checked(case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["masked", "sdpa_bias"])
+def test_block_stats_matches_plain(dtype, case):
+    """The block-stats kernel against `_dense_stats` on f32 copies: m and
+    l within `testing.STATS_LIMITS`, o by the terms rule; the masked case
+    holds -1e30 and -inf rows and keys, which must give (-1e30, 0, 0)
+    and no NaN."""
+    _card()
+    dt = getattr(torch, dtype)
+    args = testing.stats_case(**testing.STATS_CASES[case], dtype=dt)
+    pairs = testing.block_stats_pairs(*args)
+    for label, got, ref, atol, rtol in pairs:
+        assert testing.worst(got, ref, atol, rtol) <= 1.0, label
+    if case == "masked":
+        m, l, o = (p[1] for p in pairs)
+        assert float(m[0, 0, 3]) == float(np.float32(-1e30))
+        assert float(l[0, 0, 3]) == 0.0 and bool((o[0, 3, 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["alibi_gqa_causal", "dense_padded_ragged"])
+def test_biased_route_matches_plain(dtype, kind, monkeypatch):
+    """flash_attention_biased on the card (the block-stats kernel per
+    chunk, plain backward) against the same route with the kernel
+    swapped for `_dense_stats`: output and grads, max |a - b| / max |b|
+    within 1e-4 (f32) or testing.SURFACE_RTOL (bf16: P rounded before
+    P V)."""
+    _card()
+    from paddle_tpu_torch.kernels import block_attention as t_ba
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if kind == "alibi_gqa_causal":
+        B, S, Sk, hq, hk, d, C = 2, 256, 256, 8, 2, 64, 128
+        param = 2.0 ** -torch.arange(1, hq + 1, device="cuda").float()
+        kw = dict(causal=True)
+    else:
+        B, S, Sk, hq, hk, d, C = 2, 200, 300, 4, 4, 128, 128
+        param = 0.5 * torch.randn(B, 1, 1, Sk, generator=g, device="cuda")
+        pm = torch.arange(Sk, device="cuda")[None] < torch.tensor(
+            [[250], [300]], device="cuda")
+        kw = dict(causal=False, padding_mask=pm)
+    q, do = (torch.randn(B, S, hq, d, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, hk, d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    param.requires_grad_(kind != "alibi_gqa_causal")
+    kind_name = "alibi" if kind.startswith("alibi") else "dense"
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if param.grad is not None:
+            param.grad = None
+        out = t_fa.flash_attention_biased(*leaves, kind_name, param,
+                                          chunk=C, **kw)
+        out.backward(do)
+        grads = [t.grad for t in leaves]
+        if param.requires_grad:
+            grads.append(param.grad.clone())
+        return [out.detach()] + grads
+
+    before = t_ba.block_attention_fwd.launches
+    got = run()
+    assert t_ba.block_attention_fwd.launches - before == -(-Sk // C)
+    monkeypatch.setattr(t_ba, "block_attention_fwd",
+                        lambda q_, k_, v_, mask, scale, bias=None:
+                        t_ba._dense_stats(q_, k_, v_, mask, scale, bias))
+    want = run()
+    lim = 1e-4 if dt == torch.float32 else testing.SURFACE_RTOL
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert _max_rel(a, b) <= lim
+
+
+@pytest.mark.cuda
+def test_attention_surface_never_reaches_plain(monkeypatch):
+    """On the card every route of the attention surface runs its kernels:
+    the plain versions (`_plain`, `_SegPlain`, `_dense_stats`) are
+    patched to raise, and sdpa (no mask, boolean padding mask, float
+    mask), flash_attn_unpadded, MultiHeadAttention with a mask and cache,
+    flash_attention_biased, block_attention_stats and a bert_tiny forward
+    all run, forward and backward, with the launch counters advancing."""
+    _card()
+    from paddle_tpu_torch.kernels import block_attention as t_ba
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.nn.layer import MultiHeadAttention
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain attention route ran on the card")
+
+    monkeypatch.setattr(t_fa, "_plain", refuse)
+    monkeypatch.setattr(t_fa._SegPlain, "apply", refuse)
+    monkeypatch.setattr(t_ba, "_dense_stats", refuse)
+    counters = testing.attention_counters()
+    before = {n: c.launches for n, c in counters.items()}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H, D = 2, 128, 2, 64
+    q = torch.randn(B, S, H, D, generator=g, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    pm = torch.arange(S, device="cuda")[None] < torch.tensor(
+        [[100], [128]], device="cuda")
+    outs = [TF.scaled_dot_product_attention(q, q, q),
+            TF.scaled_dot_product_attention(q, q, q,
+                                            attn_mask=pm[:, None, None]),
+            TF.scaled_dot_product_attention(
+                q, q, q, attn_mask=torch.where(pm, 0.0, -1e4)[:, None, None]),
+            t_fa.flash_attention_biased(q, q, q, "alibi",
+                                        torch.ones(H, device="cuda"),
+                                        causal=True, chunk=64)]
+    cu = torch.tensor([0, 50, 128, 256], device="cuda", dtype=torch.int32)
+    flat = q.reshape(B * S, H, D)
+    outs.append(TF.flash_attn_unpadded(flat, flat, flat, cu, cu, 128, 128,
+                                       D ** -0.5, causal=True)[0])
+    m, l, o = t_ba.block_attention_stats(q, q, q, None, 0.125)
+    outs.append(o)
+    sum(x.float().sum() for x in outs).backward()
+    torch.cuda.synchronize()
+    mha = MultiHeadAttention(128, 2, device="cuda").eval()
+    x = torch.randn(B, 16, 128, generator=g, device="cuda")
+    with torch.no_grad():
+        mha(x, attn_mask=pm[:, None, None, :16])
+        _, cache = mha(x, cache=mha.gen_cache(x))
+        mha(x[:, :1], cache=cache)
+        bert = TB.BertForMaskedLM(TB.bert_tiny(), device="cuda").eval()
+        ids = torch.randint(1, 1024, (B, S), device="cuda")
+        logits = bert(ids, attention_mask=pm.long())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(q.grad).all())
+    grew = {n: c.launches - before[n] for n, c in counters.items()}
+    assert grew["flash_attention_fwd"] >= 1 and grew["flash_attention_bwd"] >= 1
+    # padding sdpa, unpadded, mha mask, the cache step (q 1 against 17
+    # keys, no ids) and bert's 2 layers
+    assert grew["flash_attention_seg_fwd"] == 2 + 1 + 1 + 2
+    assert grew["flash_attention_seg_dkv"] == 2
+    assert grew["flash_attention_seg_dq"] == 2
+    # float-mask sdpa (1 chunk), alibi (2 chunks), block stats itself
+    assert grew["block_attention_stats"] == 1 + 2 + 1
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_do_not_take():
+    _card()
+    from paddle_tpu_torch.kernels import block_attention as t_ba
+    x = torch.zeros(1, 64, 2, 96, device="cuda", dtype=torch.bfloat16)
+    pm = torch.ones(1, 64, device="cuda")
+    with pytest.raises(ValueError, match="does not take|do not take"):
+        t_fa.flash_attention_bshd(x, x, x, padding_mask=pm, use_kernel=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_fa.flash_attention_bshd(x, x, x, padding_mask=pm)
+    with pytest.raises(ValueError, match="does not take"):
+        t_ba.block_attention_stats(x, x, x, None, 0.1, use_kernel=True)
+    y = torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="causal"):
+        t_fa.flash_attention_bshd(y, y[:, :32], y[:, :32], causal=True)
+
+
+# Faults planted in copies of csrc/flash_attention.cu and
+# csrc/block_attention.cu: (source, anchor, pattern, replacement, the
+# readings function, the output whose check must then fail).
+_ATTN_FAULTS = {
+    # the segment forward drops the segment test: every key counts
+    "seg_fwd_segment_test_dropped": (
+        "flash_attention.cu", "flash_fwd_mma_kernel(",
+        r"          else if \(SEG && sq_r\[e >> 1\] != sk\[e & 1\]\)\n"
+        r"            x = kSegMask;\n", "", "seg_flash_readings", "o"),
+    # the block-stats kernel drops the -5e29 threshold: a -1e30 bias is
+    # an ordinary score
+    "stats_threshold_dropped": (
+        "block_attention.cu", "bool entry(",
+        r"    if \(!\(bv > kMaskedBias\)\) return false;\n", "",
+        "block_stats_readings", "l"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["intact_seg", "intact_stats",
+                                   *_ATTN_FAULTS])
+def test_attention_checks_fail_planted_faults(fault, tmp_path):
+    """chip_smoke.py's segment-flash and block-stats checks
+    (`testing.seg_flash_readings`, `testing.block_stats_readings`, bf16)
+    pass the kernels as written and fail each planted fault."""
+    _card()
+    if fault.startswith("intact"):
+        readings_fn = ("seg_flash_readings" if fault == "intact_seg"
+                       else "block_stats_readings")
+        readings = _readings_with_fault(tmp_path, None, None, readings_fn)
+    else:
+        source, anchor, pattern, repl, readings_fn, out = \
+            _ATTN_FAULTS[fault]
+        readings = _readings_with_fault(tmp_path, source,
+                                        (anchor, pattern, repl), readings_fn)
+    print(f"{readings_fn}, {fault}: {json.dumps(readings)}")
+    if fault.startswith("intact"):
+        assert all(r <= 1.0 for r in readings.values())
+    else:
+        assert readings[out] > 1.0

@@ -72,3 +72,42 @@ def test_swiglu_bwd_terms_bound_plain(nonneg):
             # a, w, do >= 0 make g, u, dg and du >= 0: nothing cancels
             # (max relative difference <= 1e-5)
             assert testing.worst(t, g, 0.0, 1e-5) <= 1.0, name
+
+
+@pytest.mark.parametrize("hq,hk,causal,Sk", [(4, 4, False, 37),
+                                             (4, 2, True, 37),
+                                             (2, 1, False, 37),
+                                             (2, 2, False, 51)],
+                         ids=["mha_full", "gqa_causal", "mqa_full",
+                              "cross_len_empty_row"])
+def test_seg_flash_terms_bound_plain(hq, hk, causal, Sk):
+    """The segment-id terms bound the plain version's outputs element by
+    element (two padded batch rows; with Sk != S the second has no valid
+    key, whose backward recomputes P = 1)."""
+    rng = np.random.default_rng(2)
+    B, S, D = 2, 37, 16
+    q = _rand(rng, B, S, hq, D).requires_grad_()
+    k = _rand(rng, B, Sk, hk, D).requires_grad_()
+    v = _rand(rng, B, Sk, hk, D).requires_grad_()
+    do = _rand(rng, B, S, hq, D)
+    pm = torch.arange(Sk)[None, :] < torch.tensor([[30], [Sk]])
+    if Sk != S:
+        pm[1] = False
+    sq, skv = t_fa.padding_segments(pm, S, Sk)
+    o = t_fa._SegPlain.apply(q, k, v, sq, skv, causal, 0.3)
+    o.backward(do)
+    terms = testing.seg_flash_terms(q.detach(), k.detach(), v.detach(), do,
+                                    sq, skv, causal, 0.3)
+    got = (o.detach(), q.grad, k.grad, v.grad)
+    for name, g, t in zip(("o", "dq", "dk", "dv"), got, terms):
+        assert t.shape == g.shape, name
+        assert bool((g.abs() <= t * (1 + 1e-5) + 1e-6).all()), name
+
+
+def test_case_lengths():
+    lengths = testing.bert_lengths()
+    assert len(lengths) == 16 and lengths[0] == 512
+    assert all(64 <= n <= 512 for n in lengths)
+    docs = testing.packed_lengths()
+    assert sum(docs) == 8192 and all(n >= 1 for n in docs)
+    assert all(128 <= n <= 2048 for n in docs[:-1])

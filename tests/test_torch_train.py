@@ -32,7 +32,8 @@ from paddle_tpu_torch.kernels import rms_norm as t_rms
 from paddle_tpu_torch.kernels import swiglu as t_sw
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax, to_numpy
-from paddle_tpu_torch.nn.functional import cross_entropy
+from paddle_tpu_torch.nn.functional import (cross_entropy,
+                                            scaled_dot_product_attention)
 
 # fp32 on both sides; the port's plain versions repeat the reference's
 # float order, so differences are summation order (BLAS blocking,
@@ -338,12 +339,17 @@ def test_unported_training_knobs_raise(knob):
         elif knob == "multi_precision":
             topt.AdamW(parameters=m.parameters(), multi_precision=True)
         elif knob == "flash_padding_mask":
-            q = torch.zeros(1, 8, 2, 64)
-            t_fa.flash_attention_bshd(q, q, q, causal=True,
-                                      padding_mask=torch.ones(1, 8))
+            # padding masks are ported; causal with q and kv lengths that
+            # differ is not
+            q, kv = torch.zeros(1, 8, 2, 64), torch.zeros(1, 12, 2, 64)
+            t_fa.flash_attention_bshd(q, kv, kv, causal=True,
+                                      padding_mask=torch.ones(1, 12))
         elif knob == "flash_bias":
+            # the bias route is ported; its dropout in training is not
             q = torch.zeros(1, 8, 2, 64)
-            t_fa.flash_attention_bshd(q, q, q, bias=torch.zeros(1, 2, 8, 8))
+            scaled_dot_product_attention(q, q, q,
+                                         attn_mask=torch.zeros(1, 2, 8, 8),
+                                         dropout_p=0.1)
         elif knob == "dense_attention_on_card":
             ptt.set_flags({"FLAGS_use_flash_attention": False})
             try:
