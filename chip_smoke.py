@@ -83,16 +83,26 @@ Phases, each of which fails the run on a miss:
    route and against each other at valid rows, output and grads
    (testing.SURFACE_RTOL), exact launches; then at llama_7b attention
    width a packed causal flash_attn_unpadded over 8192 tokens of
-   documents and a causal alibi flash_attention_biased at 4 x 2048 (4
-   block-stats launches) and at 2 x 4096 (8; there one f32 score buffer
-   exceeds the bound), whose peak memory above its inputs must stay
-   under `alibi_peak_bound`; forward and backward timed, the biased
-   route's beside SDPA with its bias as attn_mask.
+   documents and a causal alibi flash_attention_biased at 4 x 2048 and
+   at 2 x 4096 (there one f32 score buffer exceeds the bound), whose
+   peak memory above its inputs must stay under `alibi_peak_bound`;
+   forward and backward timed, the biased route's beside SDPA with its
+   bias as attn_mask. The biased routes (float mask, alibi) launch one
+   bias forward, one dkv and one dq each, and no block-stats kernel.
 
-The kernel phase also holds the three segment-id flash kernels and the
-block-stats kernel against their plain versions at `testing.
-ATTN_SEG_CASES` and `testing.STATS_CASES` (the two phases' shapes among
-them), bf16 and f32, and times them.
+The kernel phase also holds the three segment-id flash kernels, the
+block-stats kernel and the three bias kernels against their plain
+versions at `testing.ATTN_SEG_CASES`, `testing.STATS_CASES` and
+`testing.BIAS_CASES` (the two phases' shapes among them), bf16 and f32,
+and times them.
+
+    python3 chip_smoke.py --ab PARENT_DIR
+
+compares this checkout with another (an unpacked `git archive` of the
+parent commit) on one card: `route_times` (row 10's 7B flash forward
+and backward, the alibi 4 x 2048 and float-mask biased routes forward
+and forward + backward, the alibi route's peak memory) runs in a fresh
+process per checkout, in the order parent, change, change, parent.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; before it, one JSON line with every kernel's
@@ -161,7 +171,17 @@ TOL = {("rms_norm", "bfloat16"): (1e-5, BF16_RTOL),
        ("flash_attention_seg_dkv", "bfloat16"): (TERMS, BF16_RTOL),
        ("flash_attention_seg_dkv", "float32"): (TERMS, 0.0),
        ("flash_attention_seg_dq", "bfloat16"): (TERMS, BF16_RTOL),
-       ("flash_attention_seg_dq", "float32"): (TERMS, 0.0)}
+       ("flash_attention_seg_dq", "float32"): (TERMS, 0.0),
+       # the bias kernels: the flash rule over the entries the bias and
+       # the masks leave (testing.bias_flash_terms)
+       ("flash_attention_bias_fwd", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_bias_fwd", "float32"): (TERMS, 0.0),
+       ("flash_attention_bias_fwd.lse", "bfloat16"): (1e-4, 1e-5),
+       ("flash_attention_bias_fwd.lse", "float32"): (1e-4, 1e-5),
+       ("flash_attention_bias_dkv", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_bias_dkv", "float32"): (TERMS, 0.0),
+       ("flash_attention_bias_dq", "bfloat16"): (TERMS, BF16_RTOL),
+       ("flash_attention_bias_dq", "float32"): (TERMS, 0.0)}
 # The block-stats kernel's pairs carry their own limits
 # (testing.block_stats_pairs: STATS_LIMITS for m and l, the terms rule
 # for o).
@@ -217,9 +237,18 @@ SOURCES = {
                                 "paddle_tpu/kernels/flash_attention.py:333"),
     "flash_attention_seg_dq": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                "paddle_tpu/kernels/flash_attention.py:333"),
-    # the block-stats kernel, per chunk of flash_attention_biased
+    # the block-stats kernel (ring attention's per-round compute; no
+    # longer on the biased route), held in the kernel phase
     "block_attention_stats": ("paddle_tpu_torch/csrc/block_attention.cu",
                               "paddle_tpu/kernels/block_attention.py:138"),
+    # flash_attention_biased: one fused biased forward, dkv and dq on the
+    # flash core (the reference runs the block-stats kernel per chunk)
+    "flash_attention_bias_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                 "paddle_tpu/kernels/flash_attention.py:215"),
+    "flash_attention_bias_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                 "paddle_tpu/kernels/flash_attention.py:215"),
+    "flash_attention_bias_dq": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                "paddle_tpu/kernels/flash_attention.py:215"),
 }
 # the training phase: bench.py's accelerator configuration
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -905,6 +934,128 @@ def attention_kernels(report, dtype):
                 report["block_attention_stats"][tag] = m
         del q, k, v, mask, bias
         torch.cuda.empty_cache()
+    bias_kernels(report, dtype)
+
+
+def bias_kernels(report, dtype):
+    """The bias kernels (forward, dkv, dq) at `testing.BIAS_CASES`
+    against their plain versions (`_biased_plain_fwd`,
+    `_biased_plain_bwd`) under the flash rule, element by element; in
+    bf16 each case but "alibi_gqa" is timed beside the plain versions,
+    SDPA with the same f32 bias as attn_mask and the bound over the
+    entries the bias leaves ("alibi_7b" is each kernel's entry)."""
+    import torch
+
+    from paddle_tpu_torch import testing
+
+    dname = str(dtype).split(".")[1]
+    for tag, kw in testing.BIAS_CASES.items():
+        c = testing.bias_case(**kw, dtype=dtype)
+        B, Sq, hq, d = c["q"].shape
+        Sk, hk = c["k"].shape[1:3]
+        shape = (f" [{tag} B{B} Sq{Sq}/{Sk} H{hq}/{hk} D{d} {c['kind']} "
+                 f"{'causal' if c['causal'] else 'full'}]")
+        pairs, _ = testing.bias_flash_pairs(
+            c["q"], c["k"], c["v"], c["do"], c["kind"], c["param"], c["R"],
+            c["padding_mask"], c["causal"], c["scale"])
+        errs = {"fwd": compare("flash_attention_bias_fwd", dname, pairs[:2],
+                               shape),
+                "dkv": compare("flash_attention_bias_dkv", dname, pairs[3:],
+                               shape),
+                "dq": compare("flash_attention_bias_dq", dname, pairs[2:3],
+                              shape)}
+        del pairs
+        if dtype == torch.bfloat16 and tag != "alibi_gqa":
+            bias_timings(report, tag, c, errs, shape)
+        del c
+        torch.cuda.empty_cache()
+
+
+def _bias_pairs(c):
+    """The (q, key) entries the bias and its masks leave valid, summed
+    over batch and heads: the work the bias kernels' function needs."""
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    B, Sq, hq, _ = c["q"].shape
+    Sk = c["k"].shape[1]
+    params = c["param"] if c["R"] is None else (c["param"], c["R"])
+    n = 0
+    for s0, s1 in kfa._chunks(Sk, None):
+        bias = kfa._bias_chunk(c["kind"], params, Sq, s0, s1, c["causal"],
+                               c["padding_mask"])
+        n += int((bias > -5e29).expand(B, hq, Sq, s1 - s0).sum())
+    return n
+
+
+def bias_timings(report, tag, c, errs, shape):
+    """The bias kernels' times at one bf16 case: forward, dkv and dq
+    beside the plain versions, SDPA with the route's f32 bias (the causal
+    and padding masks folded in) as attn_mask (fwd; fwd + bwd for dkv and
+    dq) and the bounds over the entries the bias leaves."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    kind, param, R, pm = c["kind"], c["param"], c["R"], c["padding_mask"]
+    causal, scale = c["causal"], c["scale"]
+    B, Sq, hq, d = q.shape
+    Sk, hk = k.shape[1:3]
+    it = 2
+    pairs = _bias_pairs(c)
+    a = kfa._bias_args(kind, param, R, pm, q.shape, k.shape)
+    # the bias as the route passes it: the compact f32 parameter and the
+    # uint8 padding mask
+    bias_bytes = param.numel() * 4 + (0 if pm is None else B * Sk)
+    lse_bytes = 4 * B * hq * Sq
+    qkv = (q.numel() + k.numel() + v.numel()) * it
+    plain = (kind, param, R, causal, scale, pm, None)
+    o, lse = kfa.flash_attention_bias_fwd(q, k, v, a, causal, scale)
+    delta = kfa._delta(o, do)
+    args = (q, k, v, do, lse, delta, a, causal, scale)
+    full = kfa._bias_chunk(kind, param if R is None else (param, R), Sq, 0,
+                           Sk, causal, pm)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = hq != hk
+    lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    do_t = do.transpose(1, 2)
+
+    def library_fwd_bwd():
+        o_l = F.scaled_dot_product_attention(*lib_leaves, attn_mask=full,
+                                             enable_gqa=gqa)
+        return torch.autograd.grad(o_l, lib_leaves, do_t)
+
+    def put(name, m):
+        if tag == "alibi_7b":
+            report[name] = entry(name, m)
+        else:
+            report[name][tag] = m
+
+    put("flash_attention_bias_fwd", timed(
+        "flash_attention_bias_fwd", errs["fwd"],
+        lambda: kfa.flash_attention_bias_fwd(q, k, v, a, causal, scale),
+        lambda: kfa._biased_plain_fwd(q, k, v, *plain),
+        nbytes=qkv + q.numel() * it + lse_bytes + bias_bytes,
+        flops=4 * pairs * d,
+        library=lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=full, enable_gqa=gqa),
+        iters=10, plain_iters=2, tag=shape))
+    for name, fn, flops, out_bytes in (
+            ("flash_attention_bias_dkv",
+             lambda: kfa.flash_attention_bias_dkv(*args), 8 * pairs * d,
+             (k.numel() + v.numel()) * it),
+            ("flash_attention_bias_dq",
+             lambda: kfa.flash_attention_bias_dq(*args), 6 * pairs * d,
+             q.numel() * it)):
+        # q, k, v, do, lse, D and the bias in; dk and dv, or dq, out.
+        # flops: dkv recomputes S and dP and forms dV and dK (4
+        # products), dq recomputes S and dP and forms dQ (3)
+        put(name, timed(
+            name, errs["dkv" if name.endswith("dkv") else "dq"], fn,
+            lambda: kfa._biased_plain_bwd(q, k, v, o, lse, do, *plain),
+            nbytes=qkv + do.numel() * it + 2 * lse_bytes + bias_bytes
+            + out_bytes, flops=flops, library=library_fwd_bwd, iters=5,
+            plain_iters=2, tag=shape))
+    del lib_leaves, full, o, lse, delta, a
 
 
 def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
@@ -2044,15 +2195,16 @@ def surface_phase(report, smi_line):
     """The nn.functional attention surface in bf16. At bert_base
     attention width on the BERT phase's lengths: sdpa with the boolean
     [16, 1, 1, 512] mask (segment kernels), sdpa with the additive float
-    mask (0 valid, -1e4 padding: the bias route, the block-stats kernel
-    on one 512-key chunk, plain backward) and flash_attn_unpadded on the
+    mask (0 valid, -1e4 padding: the bias route, one bias forward, dkv
+    and dq launch, no block-stats launch) and flash_attn_unpadded on the
     same batch packed to [sum lengths, 12, 64]: each against its plain
     route and against each other at valid rows, output and grads,
     within testing.SURFACE_RTOL. At llama_7b attention width: a packed
     causal flash_attn_unpadded over 8192 tokens of `testing.
     packed_lengths()` documents, and a causal alibi flash_attention_
-    biased at 4 x 2048 (4 chunks) and at 2 x 4096 (8 chunks) whose peak
-    memory above its inputs must stay under `alibi_peak_bound`; forward
+    biased at 4 x 2048 and at 2 x 4096 (the bias kernels, launched once
+    each) whose peak memory above its inputs must stay under
+    `alibi_peak_bound`; forward
     and backward each, timed. The biased route (the float mask, the 4 x
     2048 alibi case) is timed beside SDPA with the same bias as its
     attn_mask (`sdpa_library`)."""
@@ -2094,7 +2246,7 @@ def surface_phase(report, smi_line):
     routes = {"sdpa_bool_mask": (sdpa_bool, {
                   "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
                   "flash_attention_seg_dq": 1}),
-              "sdpa_float_mask": (sdpa_float, {"block_attention_stats": 1}),
+              "sdpa_float_mask": (sdpa_float, BIAS_ROUTE_LAUNCHES),
               "flash_attn_unpadded": (unpadded, {
                   "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
                   "flash_attention_seg_dq": 1})}
@@ -2106,6 +2258,9 @@ def surface_phase(report, smi_line):
         torch.cuda.synchronize()
         return [out.detach()] + [t.grad for t in leaves]
 
+    # the block-stats kernel is off the biased route now: its main-path
+    # count is the surface's, 0 (every route below checks it)
+    add_launches(report, "block_attention_stats", "surface", 0)
     results = {}
     for name, (fn, want) in routes.items():
         for c in counters.values():
@@ -2168,12 +2323,12 @@ def surface_phase(report, smi_line):
     del q, k, v, do
     torch.cuda.empty_cache()
 
-    # llama_7b attention width: causal alibi in chunks of 512 keys, at
-    # 4 x 2048 (4 chunks; timed beside SDPA) and at 2 x 4096 (8 chunks),
-    # where one f32 [B, H, Sq, Sk] score buffer (4.29 GB) is larger than
-    # the peak bound, so a route that held one, or that kept every
-    # chunk's bias (8 x 0.268 GB), would fail the check
-    slopes = 2.0 ** (-8.0 * torch.arange(1, H7 + 1, device="cuda") / H7)
+    # llama_7b attention width: causal alibi at 4 x 2048 (timed beside
+    # SDPA) and at 2 x 4096, where one f32 [B, H, Sq, Sk] score buffer
+    # (4.29 GB) is larger than the peak bound, so a route that held one,
+    # or that kept every 512-key chunk's bias (8 x 0.268 GB), would fail
+    # the check
+    slopes = testing.alibi_slopes(H7)
 
     def alibi(a, b, c):
         return kfa.flash_attention_biased(a, b, c, "alibi", slopes,
@@ -2191,9 +2346,7 @@ def surface_phase(report, smi_line):
         torch.cuda.reset_peak_memory_stats()
         fwd_ms, fb_ms = surface_7b(
             report, counters, name, alibi, (q, k, v), do,
-            {"block_attention_stats": S7 // C},
-            f"[{B7}, {S7}, {H7}, {D7}] bf16, {S7 // C} chunks of {C}",
-            smi_line)
+            BIAS_ROUTE_LAUNCHES, f"[{B7}, {S7}, {H7}, {D7}] bf16", smi_line)
         peak = torch.cuda.max_memory_allocated() - resident
         print(f"surface {name}: fwd+bwd peak memory above the inputs "
               f"{peak / 1e9:.6g} GB (bound {bound / 1e9:.6g} GB = "
@@ -2236,16 +2389,22 @@ def sdpa_library(q, k, v, do, bias):
 
 
 def biased_times(report, name, fwd_ms, fb_ms, library, smi_line):
-    """Row 12 (flash_attention_biased, the route over the block-stats
-    kernel) beside its library call: printed, and kept under the
-    block-stats entry's "flash_attention_biased" key."""
+    """Row 12 (flash_attention_biased, the route over the bias kernels)
+    beside its library call: printed, and kept under the bias forward
+    entry's "routes" key."""
     print(f"surface {name}: route fwd_ms={fwd_ms:.6g} fwd_bwd_ms="
           f"{fb_ms:.6g}; library SDPA with the bias as attn_mask fwd_ms="
           f"{library['fwd_ms']:.6g} fwd_bwd_ms={library['fwd_bwd_ms']:.6g} "
           f"[{smi_line}]", flush=True)
-    report["block_attention_stats"].setdefault(
-        "flash_attention_biased", {})[name] = {
-            "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms, "library": library}
+    report["flash_attention_bias_fwd"].setdefault("routes", {})[name] = {
+        "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms, "library": library}
+
+
+# flash_attention_biased's launches per forward + backward: one bias
+# forward, one dkv, one dq; no block-stats kernel
+BIAS_ROUTE_LAUNCHES = {"flash_attention_bias_fwd": 1,
+                       "flash_attention_bias_dkv": 1,
+                       "flash_attention_bias_dq": 1}
 
 
 def alibi_peak_bound(B, Sq, H, D, C):
@@ -2288,6 +2447,100 @@ def surface_7b(report, counters, name, fn, inputs, do, want, what,
     print(f"surface {name} ({what}): fwd_ms={fwd_ms:.6g} fwd_bwd_ms="
           f"{fb_ms:.6g} [{smi_line}]", flush=True)
     return fwd_ms, fb_ms
+
+
+def route_times():
+    """Row 10's and row 12's times for the `paddle_tpu_torch` first on
+    sys.path, bf16 on one card, as one JSON object: the 7B flash forward
+    and backward kernels (causal [4, 2048, 32, 128]); flash_attention_
+    biased with causal alibi at the same shape and sdpa with the float
+    [16, 1, 1, 512] mask at bert width (the BERT lengths), forward and
+    forward + backward; the alibi route's forward + backward peak memory
+    above its inputs. Uses only entry points the parent commit has."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.nn import functional as TF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def fwd_bwd(fn, inputs, do):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        fn(*leaves).backward(do)
+
+    out = {}
+    q, k, v, do = (rand(4, 2048, 32, 128) for _ in range(4))
+    scale = 128 ** -0.5
+    out["flash_fwd_7b_ms"] = time_ms(
+        lambda: kfa.flash_attention_fwd(q, k, v, True, scale), 20)
+    o, lse = kfa.flash_attention_fwd(q, k, v, True, scale)
+    out["flash_bwd_7b_ms"] = time_ms(
+        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, True, scale),
+        10)
+    del o, lse
+    slopes = 2.0 ** (-8.0 * torch.arange(1, 33, device="cuda") / 32)
+
+    def alibi(a, b, c):
+        return kfa.flash_attention_biased(a, b, c, "alibi", slopes,
+                                          causal=True)
+
+    out["alibi_fwd_ms"] = time_ms(lambda: alibi(q, k, v), 5, warmup=1)
+    out["alibi_fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(alibi, (q, k, v), do),
+                                      3, warmup=1)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd(alibi, (q, k, v), do)
+    torch.cuda.synchronize()
+    out["alibi_peak_gb"] = (torch.cuda.max_memory_allocated()
+                            - resident) / 1e9
+    del q, k, v, do
+    lengths = np.random.default_rng(0).integers(64, 513, 16)
+    lengths[0] = 512
+    valid = (torch.arange(512, device="cuda")[None, :]
+             < torch.tensor(lengths, device="cuda")[:, None])
+    fmask = torch.where(valid, 0.0, -1e4).float()[:, None, None, :]
+    q, k, v, do = (rand(16, 512, 12, 64) for _ in range(4))
+
+    def sdpa_float(a, b, c):
+        return TF.scaled_dot_product_attention(a, b, c, attn_mask=fmask)
+
+    out["float_mask_fwd_ms"] = time_ms(lambda: sdpa_float(q, k, v), 10)
+    out["float_mask_fwd_bwd_ms"] = time_ms(
+        lambda: fwd_bwd(sdpa_float, (q, k, v), do), 5)
+    return out
+
+
+def ab_main(parent):
+    """`route_times` for the parent checkout and this one in fresh
+    processes, in the order parent, change, change, parent; prints each
+    run and then, per metric, the parent's and the change's readings."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    _, _, smi_line = device_phase()
+    runs = []
+    for who, root in (("parent", parent), ("change", here),
+                      ("change", here), ("parent", parent)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--route-times",
+             root], capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
+            return 1
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"ab {who} ({root}): {json.dumps(got)}", flush=True)
+        runs.append((who, got))
+    for key in runs[0][1]:
+        by = {w: [r[key] for x, r in runs if x == w]
+              for w in ("parent", "change")}
+        print(f"ab {key}: parent {by['parent']} change {by['change']} "
+              f"[{smi_line}]", flush=True)
+    return 0
 
 
 def main():
@@ -2338,4 +2591,14 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--route-times":
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        import paddle_tpu_torch
+        check(paddle_tpu_torch.__file__.startswith(
+            os.path.abspath(sys.argv[2])), "route_times imported another "
+            "checkout's package")
+        print(json.dumps(route_times()))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

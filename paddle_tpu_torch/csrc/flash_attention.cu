@@ -46,6 +46,27 @@
 //   A key past Sk or above the causal diagonal takes -inf (P = 0 exactly).
 //   Every kv tile is visited; a tile whose segments all differ from its
 //   q rows is not skipped in this first cut. Causal requires Sq == Sk.
+// Bias (BIAS instantiations, the `ptt_flash_attention_bias_*` entries):
+//   replaces paddle_tpu/kernels/flash_attention.py:215
+//   (`flash_attention_biased`, which runs the block-stats kernel of
+//   kernels/block_attention.py:138 per 512-key chunk and merges the
+//   partials). One forward and one dkv/dq pair on this core, with the
+//   bias made or read inside the kernel at the score assembly, never
+//   materialised: "alibi" from the head's slope (-slope (i - j) causal,
+//   -slope |i - j| full), "rel_table" from the head's table row
+//   (table[h, clip(j - i, -R, R) + R], read through the read-only
+//   cache), "dense" read in place through four element strides (0 where
+//   it broadcasts). The kind is a runtime value uniform over the grid,
+//   so one instantiation serves all three. x = s * scale + bias in f32,
+//   each step rounded as the plain version rounds it (no fused
+//   multiply-add); scale multiplies the f32 scores for GQA too. An entry
+//   is masked (P = 0 exactly) past Sk, above the top-left causal
+//   diagonal (j > i, any Sq and Sk), at a padding-mask key, or where the
+//   bias is <= -5e29 (-inf included); a finite bias such as -1e4 is a
+//   number. A row with no valid key writes o = 0 and lse = +inf, so its
+//   backward P is 0. Bound on the H100: operations at the 7B shape (alibi
+//   causal [4, 2048, 32, 128]: 137 GFLOP of causal pairs against 67 MB);
+//   causal tiles above the diagonal are skipped.
 
 #include <type_traits>
 
@@ -63,6 +84,108 @@ __device__ __forceinline__ bool in_view(int qi, int kj, int Sq, int Sk,
   return qi < Sq && kj < Sk && (!causal || kj <= qi);
 }
 
+// bias kinds (a runtime value, uniform over the grid; 0 in the no-bias
+// and segment instantiations)
+constexpr int kBiasAlibi = 1;
+constexpr int kBiasRelTable = 2;
+constexpr int kBiasDense = 3;
+constexpr float kMaskedBias = -5e29f;  // the reference's 0.5 * _NEG
+
+struct BiasArgs {
+  int kind;
+  int R;                             // rel_table: the table's radius
+  const float* p;                    // slopes [Hq] | table [Hq][2R+1] | dense
+  const unsigned char* kv_valid;     // [B, Sk], 0 = padding; or nullptr
+  long long sb, sh, sq, sk;          // dense: element strides
+};
+
+// what one (batch, q head) reads of the bias
+struct BiasHead {
+  float slope;                       // alibi
+  const float* row;                  // rel_table: the head's table row;
+                                     // dense: the (b, h) plane
+  const unsigned char* valid;        // the batch row's padding mask
+};
+
+__device__ __forceinline__ BiasHead bias_head(const BiasArgs& a, int b,
+                                              int h, int Sk) {
+  BiasHead hb{0.f, nullptr, nullptr};
+  if (a.kind == kBiasAlibi)
+    hb.slope = __ldg(a.p + h);
+  else if (a.kind == kBiasRelTable)
+    hb.row = a.p + static_cast<size_t>(h) * (2 * a.R + 1);
+  else
+    hb.row = a.p + b * a.sb + h * a.sh;
+  if (a.kv_valid != nullptr)
+    hb.valid = a.kv_valid + static_cast<size_t>(b) * Sk;
+  return hb;
+}
+
+// the bias of score (qi, kj) of one head into bv (qi < Sq, kj < Sk);
+// false when the entry is masked: a padding key, or a bias <= -5e29
+__device__ __forceinline__ bool bias_at(float& bv, const BiasArgs& a,
+                                        const BiasHead& hb, int qi, int kj,
+                                        int causal) {
+  if (hb.valid != nullptr && !hb.valid[kj]) return false;
+  if (a.kind == kBiasAlibi) {
+    const float d = static_cast<float>(qi - kj);
+    bv = __fmul_rn(-hb.slope, causal ? d : fabsf(d));
+  } else if (a.kind == kBiasRelTable) {
+    bv = __ldg(hb.row + min(max(kj - qi, -a.R), a.R) + a.R);
+  } else {
+    bv = __ldg(hb.row + qi * a.sq + kj * a.sk);
+  }
+  return bv > kMaskedBias;
+}
+
+// x = s * scale + bias, rounded at each step as the plain version is
+__device__ __forceinline__ float biased(float s, float scale, float bv) {
+  return __fadd_rn(__fmul_rn(s, scale), bv);
+}
+
+// s <- s * scale + bias over this thread's elements of one mma score
+// tile, -inf where masked (out of view, a padding key, a bias <= -5e29).
+// Element (i, e) lies in row rw[e >> 1] and column c0 + i * 8 + (e & 1);
+// KQ: rows are keys and columns queries (the dkv kernel's S^T). The kind
+// is switched once per tile, not per element; the view is tested on edge
+// tiles only (`edge`: the tile crosses Sq, Sk or the causal diagonal).
+#define PTT_BIAS_LOOP(EXPR)                                                 \
+  _Pragma("unroll") for (int i = 0; i < NT; ++i) {                          \
+    _Pragma("unroll") for (int e = 0; e < 4; ++e) {                         \
+      const int row = rw[e >> 1];                                           \
+      const int col = c0 + i * 8 + (e & 1);                                 \
+      const int qi = KQ ? col : row;                                        \
+      const int kj = KQ ? row : col;                                        \
+      float bv = -INFINITY;                                                 \
+      if ((!edge || in_view(qi, kj, Sq, Sk, causal)) &&                     \
+          (hb.valid == nullptr || hb.valid[kj])) {                          \
+        bv = (EXPR);                                                        \
+        if (!(bv > kMaskedBias)) bv = -INFINITY;                            \
+      }                                                                     \
+      s[i][e] = biased(s[i][e], scale, bv);                                 \
+    }                                                                       \
+  }
+
+template <int NT, bool KQ>
+__device__ __forceinline__ void bias_scores(float (&s)[NT][4], float scale,
+                                            const BiasArgs& a,
+                                            const BiasHead& hb,
+                                            const int (&rw)[2], int c0,
+                                            int Sq, int Sk, int causal,
+                                            bool edge) {
+  if (a.kind == kBiasAlibi) {
+    const float ns = -hb.slope;
+    PTT_BIAS_LOOP(__fmul_rn(ns, causal ? static_cast<float>(qi - kj)
+                                       : fabsf(static_cast<float>(qi - kj))))
+  } else if (a.kind == kBiasRelTable) {
+    PTT_BIAS_LOOP(__ldg(hb.row + min(max(kj - qi, -a.R), a.R) + a.R))
+  } else {
+    PTT_BIAS_LOOP(__ldg(hb.row + qi * a.sq + kj * a.sk))
+  }
+}
+
+#undef PTT_BIAS_LOOP
+
 // ===================== bf16: register-resident mma.sync ===================
 
 template <int D>
@@ -79,14 +202,14 @@ __device__ __forceinline__ void col_segs(int (&sk)[2], const int* skv,
   sk[1] = c + 1 < Sk ? skv[c + 1] : -2;
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool BIAS>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const int* __restrict__ seg_q,
-                     const int* __restrict__ seg_kv, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Sk, int Hq, int Hk,
-                     int causal, float scale) {
+                     const int* __restrict__ seg_kv, const BiasArgs ba,
+                     bf16* __restrict__ o, float* __restrict__ lse, int Sq,
+                     int Sk, int Hq, int Hk, int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;         // k16 slices of the head dim
   constexpr int ND = D / 8;          // n8 tiles of the head dim
@@ -112,6 +235,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_kv = (kv_end + TKV - 1) / TKV;
   const int* skv = SEG ? seg_kv + static_cast<size_t>(b) * Sk : nullptr;
+  BiasHead hb{};
+  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};  // its two q rows
   int sq_r[2] = {0, 0};
   if (SEG) {
 #pragma unroll
@@ -153,6 +279,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = j * TKV;
     const bool edge = SEG || (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
                       q0 + TQ > Sq;
+    if constexpr (BIAS)
+      bias_scores<8, false>(s, scale, ba, hb, rows, k0 + t2, Sq, Sk, causal,
+                            edge);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -160,8 +289,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (SEG) col_segs(sk, skv, k0, i, t2, Sk);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[i][e] * scale;
-        if (edge) {
+        float x = BIAS ? s[i][e] : s[i][e] * scale;   // BIAS: done above
+        if (!BIAS && edge) {
           if (!in_view(q0 + wr + g + (e >> 1) * 8, k0 + i * 8 + t2 + (e & 1),
                        Sq, Sk, causal))
             x = -INFINITY;
@@ -207,15 +336,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_r[r] = quad_sum(l_r[r]);
     const int row = q0 + wr + g + r * 8;
     if (row >= Sq) continue;
-    const float inv = 1.f / l_r[r];
+    float inv = 1.f / l_r[r];
+    float lse_v = m_r[r] + logf(l_r[r]);
+    if constexpr (BIAS) {
+      // a row with no valid key: o = 0, lse = +inf (backward P = 0)
+      if (!(l_r[r] > 0.f)) { inv = 0.f; lse_v = INFINITY; }
+    }
     bf16* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + t2;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
       *reinterpret_cast<uint32_t*>(dst + i * 8) =
           ptt::pack_bf16(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
     if ((lane & 3) == 0)
-      lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
-          m_r[r] + logf(l_r[r]);
+      lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] = lse_v;
   }
 }
 
@@ -224,7 +357,7 @@ constexpr int dq_mma_smem() {
   return 6 * TQ * (D + 8) * 2;       // Q, dO, K x 2, V x 2
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool BIAS>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -232,9 +365,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const int* __restrict__ seg_q,
-                        const int* __restrict__ seg_kv, bf16* __restrict__ dq,
-                        int Sq, int Sk, int Hq, int Hk, int causal,
-                        float scale) {
+                        const int* __restrict__ seg_kv, const BiasArgs ba,
+                        bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hk,
+                        int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int ND = D / 8;
@@ -274,6 +407,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* skv = SEG ? seg_kv + static_cast<size_t>(b) * Sk : nullptr;
   const int kv_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_kv = (kv_end + TKV - 1) / TKV;
+  BiasHead hb{};
+  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};  // its two q rows
 
   float acc[ND][4];
 #pragma unroll
@@ -309,6 +445,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = j * TKV;
     const bool edge = SEG || (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
                       q0 + TQ > Sq;
+    if constexpr (BIAS)
+      bias_scores<8, false>(s, scale, ba, hb, rows, k0 + t2, Sq, Sk, causal,
+                            edge);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       int sk[2] = {0, 0};
@@ -321,7 +460,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                           causal);
         const float x = (SEG && sq_r[r] != sk[e & 1]) ? kSegMask
                                                       : s[i][e] * scale;
-        const float p = vis ? expf(x - lse_r[r]) : 0.f;
+        float p = vis ? expf(x - lse_r[r]) : 0.f;
+        if constexpr (BIAS) p = expf(s[i][e] - lse_r[r]);
         s[i][e] = p * (dp[i][e] - dl_r[r]);            // dS
       }
     }
@@ -347,7 +487,7 @@ constexpr int dkv_mma_smem() {
   return 6 * TQ * (D + 8) * 2 + 6 * TQ * 4;
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool BIAS>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -356,7 +496,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_kv,
+                         const int* __restrict__ seg_kv, const BiasArgs ba,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
                          int Sk, int Hq, int Hk, int causal, float scale) {
   constexpr int LD = D + 8;
@@ -381,6 +521,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   const int g = lane >> 2;
   const int t2 = (lane & 3) * 2;
 
+  const int kv_rows[2] = {k0 + wr + g, k0 + wr + g + 8};  // its kv rows
   const int q_begin = causal ? k0 : 0;        // k0 is a multiple of TQ
   const int n_q = q_begin < Sq ? (Sq - q_begin + TQ - 1) / TQ : 0;
   const int total = group * n_q;
@@ -443,6 +584,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     const int q0 = q_begin + (it % n_q) * TQ;
     const bool edge = SEG || (causal && q0 < k0 + TKV) || k0 + TKV > Sk ||
                       q0 + TQ > Sq;
+    BiasHead hb{};
+    if constexpr (BIAS) hb = bias_head(ba, b, hk * group + it / n_q, Sk);
 
 #pragma unroll
     for (int qc = 0; qc < TQ; qc += QC) {
@@ -457,6 +600,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         }
       mma_rows_nk<QC / 8, KS>(st, Ks, LD, wr, Qb, LD, qc);
       mma_rows_nk<QC / 8, KS>(dpt, Vs, LD, wr, dOb, LD, qc);
+      if constexpr (BIAS)
+        bias_scores<QC / 8, true>(st, scale, ba, hb, kv_rows, q0 + qc + t2,
+                                  Sq, Sk, causal, edge);
 #pragma unroll
       for (int i = 0; i < QC / 8; ++i)
 #pragma unroll
@@ -466,7 +612,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                                             (e >> 1) * 8, Sq, Sk, causal);
           const float x = (SEG && sq_b[qj] != sk_r[e >> 1])
                               ? kSegMask : st[i][e] * scale;
-          const float p = vis ? expf(x - lse_b[qj]) : 0.f;
+          float p = vis ? expf(x - lse_b[qj]) : 0.f;
+          if constexpr (BIAS) p = expf(st[i][e] - lse_b[qj]);
           st[i][e] = p;                                // P^T
           dpt[i][e] = p * (dpt[i][e] - dl_b[qj]);      // dS^T
         }
@@ -474,6 +621,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       mma_acc_kn<ND, QC / 16>(adk, dpt, Qb, LD, qc);   // dK += dS^T Q
     }
     __syncthreads();                 // buffer it & 1 is free for it + 2
+  }
+  if constexpr (BIAS) {
+    // causal with Sq < Sk: keys past the last query see none, and the
+    // K/V copies were never waited for
+    if (total == 0) ptt::cp_async_wait<0>();
   }
 
 #pragma unroll
@@ -510,14 +662,14 @@ __device__ __forceinline__ void load_segs(int* dst, const int* __restrict__ seg,
     dst[r] = r0 + r < S ? seg[static_cast<size_t>(b) * S + r0 + r] : -1;
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const int* __restrict__ seg_q,
-                      const int* __restrict__ seg_kv, float* __restrict__ o,
-                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hk,
-                      int causal, float scale) {
+                      const int* __restrict__ seg_kv, const BiasArgs ba,
+                      float* __restrict__ o, float* __restrict__ lse, int Sq,
+                      int Sk, int Hq, int Hk, int causal, float scale) {
   using G = Geo<D>;
   constexpr int BR = G::BR, BC = G::BC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -543,6 +695,8 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
+  BiasHead hb{};
+  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
 
   load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
   if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
@@ -567,9 +721,15 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = -INFINITY;
       for (int c = lane; c < BC; c += 32) {
         float s = -INFINITY;
-        if (in_view(qi, k0 + c, Sq, Sk, causal))
+        if constexpr (BIAS) {
+          float bv;
+          if (in_view(qi, k0 + c, Sq, Sk, causal) &&
+              bias_at(bv, ba, hb, qi, k0 + c, causal))
+            s = biased(Ss[r * G::LDS + c], scale, bv);
+        } else if (in_view(qi, k0 + c, Sq, Sk, causal)) {
           s = (seg && sq_s[r] != sk_s[c]) ? kSegMask
                                           : Ss[r * G::LDS + c] * scale;
+        }
         Ss[r * G::LDS + c] = s;
         mx = fmaxf(mx, s);
       }
@@ -605,25 +765,28 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = e / D;
     const int c = e % D;
     const int s = q0 + r;
+    // BIAS: a row with no valid key (l = 0) writes o = 0 and lse = +inf
     if (s < Sq)
       o[((static_cast<size_t>(b) * Sq + s) * Hq + h) * D + c] =
-          Os[r * G::LDO + c] / l_s[r];
+          (BIAS && !(l_s[r] > 0.f)) ? 0.f : Os[r * G::LDO + c] / l_s[r];
   }
   for (int r = threadIdx.x; r < BR; r += blockDim.x)
     if (q0 + r < Sq)
       lse[(static_cast<size_t>(b) * Hq + h) * Sq + q0 + r] =
-          m_s[r] + logf(l_s[r]);
+          (BIAS && !(l_s[r] > 0.f)) ? INFINITY : m_s[r] + logf(l_s[r]);
 }
 
 // P and dS of one (q tile, kv tile) pair from the recomputed scores Ss and
 // dP = dO V^T in dPs: p = exp(s * scale - lse) (the segment mask value
-// for s where the segments differ, 0 out of view), ds = p * (dp - D).
-// sq_s / sk_s: the tiles' segment ids, or nullptr.
-template <int D>
+// for s where the segments differ, 0 out of view; BIAS: s * scale + the
+// head's bias, 0 where masked), ds = p * (dp - D). sq_s / sk_s: the
+// tiles' segment ids, or nullptr.
+template <int D, bool BIAS>
 __device__ __forceinline__ void p_and_ds(const float* Ss, const float* dPs,
                                          const float* lse_s,
                                          const float* dl_s, const int* sq_s,
-                                         const int* sk_s, float* Ps,
+                                         const int* sk_s, const BiasArgs& ba,
+                                         const BiasHead& hb, float* Ps,
                                          float* dSs, int q0, int k0, int Sq,
                                          int Sk, int causal, float scale) {
   using G = Geo<D>;
@@ -631,7 +794,12 @@ __device__ __forceinline__ void p_and_ds(const float* Ss, const float* dPs,
     const int r = e / G::BC;
     const int c = e % G::BC;
     float p = 0.f;
-    if (in_view(q0 + r, k0 + c, Sq, Sk, causal)) {
+    if constexpr (BIAS) {
+      float bv;
+      if (in_view(q0 + r, k0 + c, Sq, Sk, causal) &&
+          bias_at(bv, ba, hb, q0 + r, k0 + c, causal))
+        p = expf(biased(Ss[r * G::LDS + c], scale, bv) - lse_s[r]);
+    } else if (in_view(q0 + r, k0 + c, Sq, Sk, causal)) {
       const float x = (sq_s != nullptr && sq_s[r] != sk_s[c])
                           ? kSegMask : Ss[r * G::LDS + c] * scale;
       p = expf(x - lse_s[r]);
@@ -663,7 +831,7 @@ constexpr int dkv_simt_smem() {
          2 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -672,7 +840,7 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           const int* __restrict__ seg_q,
-                          const int* __restrict__ seg_kv,
+                          const int* __restrict__ seg_kv, const BiasArgs ba,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int Sq, int Sk, int Hq, int Hk, int causal,
                           float scale) {
@@ -711,6 +879,8 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
   const int q_begin = causal ? (k0 / BR) * BR : 0;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
+    BiasHead hb{};
+    if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
     for (int q0 = q_begin; q0 < Sq; q0 += BR) {
       __syncthreads();               // the last pair's Q, dO, P, dS are free
       load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
@@ -723,8 +893,8 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
       tile_mm<false, true, BR, BC, D>(dPs, G::LDS, dOs, G::LDT, Vs, G::LDT,
                                       false);
       __syncthreads();
-      p_and_ds<D>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s, Ps, dSs,
-                  q0, k0, Sq, Sk, causal, scale);
+      p_and_ds<D, BIAS>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s,
+                        ba, hb, Ps, dSs, q0, k0, Sq, Sk, causal, scale);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q  (both [BC, D], summed over q rows)
       tile_mm<true, false, BC, D, BR>(dVs, G::LDO, Ps, G::LDS, dOs, G::LDT,
@@ -754,7 +924,7 @@ constexpr int dq_simt_smem() {
          2 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
 }
 
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_bwd_dq_simt_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -763,7 +933,7 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_kv,
+                         const int* __restrict__ seg_kv, const BiasArgs ba,
                          float* __restrict__ dq, int Sq, int Sk, int Hq,
                          int Hk, int causal, float scale) {
   using G = Geo<D>;
@@ -789,6 +959,8 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hk);
   const int q0 = qt * BR;
+  BiasHead hb{};
+  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
 
   load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
   load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, Sq, Hq);
@@ -807,8 +979,8 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
     tile_mm<false, true, BR, BC, D>(dPs, G::LDS, dOs, G::LDT, Vs, G::LDT,
                                     false);
     __syncthreads();
-    p_and_ds<D>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s, nullptr,
-                dSs, q0, k0, Sq, Sk, causal, scale);
+    p_and_ds<D, BIAS>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s, ba,
+                      hb, nullptr, dSs, q0, k0, Sq, Sk, causal, scale);
     __syncthreads();
     tile_mm<false, false, BR, D, BC>(dQs, G::LDO, dSs, G::LDS, Ks, G::LDT,
                                      true);
@@ -831,28 +1003,28 @@ struct Shape {
   float scale;
 };
 
-template <typename T, int D, bool SEG>
+template <typename T, int D, bool SEG, bool BIAS>
 cudaError_t fwd(const void* q, const void* k, const void* v, const int* sq,
-                const int* skv, void* o, void* lse, const Shape& s,
-                cudaStream_t stream) {
+                const int* skv, const BiasArgs& ba, void* o, void* lse,
+                const Shape& s, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = fwd_mma_smem<D>();
-    cudaError_t err = set_smem(flash_fwd_mma_kernel<D, SEG>, smem);
+    cudaError_t err = set_smem(flash_fwd_mma_kernel<D, SEG, BIAS>, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((s.Sq + TQ - 1) / TQ, s.Hq, s.B);
-    flash_fwd_mma_kernel<D, SEG><<<grid, MMA_THREADS, smem, stream>>>(
+    flash_fwd_mma_kernel<D, SEG, BIAS><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), sq, skv, static_cast<bf16*>(o),
+        static_cast<const bf16*>(v), sq, skv, ba, static_cast<bf16*>(o),
         static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   } else {
     constexpr int smem = fwd_simt_smem<D>();
-    cudaError_t err = set_smem(flash_fwd_simt_kernel<D>, smem);
+    cudaError_t err = set_smem(flash_fwd_simt_kernel<D, BIAS>, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B);
-    flash_fwd_simt_kernel<D><<<grid, SIMT_THREADS, smem, stream>>>(
+    flash_fwd_simt_kernel<D, BIAS><<<grid, SIMT_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), SEG ? sq : nullptr,
-        SEG ? skv : nullptr, static_cast<float*>(o),
+        SEG ? skv : nullptr, ba, static_cast<float*>(o),
         static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
   return cudaGetLastError();
@@ -864,9 +1036,10 @@ struct BwdIn {
   const float *lse, *delta;
 };
 
-template <typename T, int D, bool SEG>
-cudaError_t dkv(const BwdIn& in, const int* sq, const int* skv, void* dk,
-                void* dv, const Shape& s, cudaStream_t stream) {
+template <typename T, int D, bool SEG, bool BIAS>
+cudaError_t dkv(const BwdIn& in, const int* sq, const int* skv,
+                const BiasArgs& ba, void* dk, void* dv, const Shape& s,
+                cudaStream_t stream) {
   const T* q_ = static_cast<const T*>(in.q);
   const T* k_ = static_cast<const T*>(in.k);
   const T* v_ = static_cast<const T*>(in.v);
@@ -874,30 +1047,31 @@ cudaError_t dkv(const BwdIn& in, const int* sq, const int* skv, void* dk,
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = dkv_mma_smem<D>();
-    err = set_smem(flash_bwd_dkv_mma_kernel<D, SEG>, smem);
+    err = set_smem(flash_bwd_dkv_mma_kernel<D, SEG, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_mma_kernel<D, SEG>
+    flash_bwd_dkv_mma_kernel<D, SEG, BIAS>
         <<<dim3((s.Sk + TKV - 1) / TKV, s.Hk, s.B), MMA_THREADS, smem,
-           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv,
+           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv, ba,
                      static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk,
                      s.Hq, s.Hk, s.causal, s.scale);
   } else {
     constexpr int smem = dkv_simt_smem<D>();
-    err = set_smem(flash_bwd_dkv_simt_kernel<D>, smem);
+    err = set_smem(flash_bwd_dkv_simt_kernel<D, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_simt_kernel<D>
+    flash_bwd_dkv_simt_kernel<D, BIAS>
         <<<dim3((s.Sk + Geo<D>::BC - 1) / Geo<D>::BC, s.Hk, s.B),
            SIMT_THREADS, smem, stream>>>(
             q_, k_, v_, do_, in.lse, in.delta, SEG ? sq : nullptr,
-            SEG ? skv : nullptr, static_cast<T*>(dk), static_cast<T*>(dv),
-            s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
+            SEG ? skv : nullptr, ba, static_cast<T*>(dk),
+            static_cast<T*>(dv), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEG>
-cudaError_t dq(const BwdIn& in, const int* sq, const int* skv, void* dq_out,
-               const Shape& s, cudaStream_t stream) {
+template <typename T, int D, bool SEG, bool BIAS>
+cudaError_t dq(const BwdIn& in, const int* sq, const int* skv,
+               const BiasArgs& ba, void* dq_out, const Shape& s,
+               cudaStream_t stream) {
   const T* q_ = static_cast<const T*>(in.q);
   const T* k_ = static_cast<const T*>(in.k);
   const T* v_ = static_cast<const T*>(in.v);
@@ -905,87 +1079,105 @@ cudaError_t dq(const BwdIn& in, const int* sq, const int* skv, void* dq_out,
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
     constexpr int smem = dq_mma_smem<D>();
-    err = set_smem(flash_bwd_dq_mma_kernel<D, SEG>, smem);
+    err = set_smem(flash_bwd_dq_mma_kernel<D, SEG, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_mma_kernel<D, SEG>
+    flash_bwd_dq_mma_kernel<D, SEG, BIAS>
         <<<dim3((s.Sq + TQ - 1) / TQ, s.Hq, s.B), MMA_THREADS, smem,
-           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv,
+           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv, ba,
                      static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq, s.Hk,
                      s.causal, s.scale);
   } else {
     constexpr int smem = dq_simt_smem<D>();
-    err = set_smem(flash_bwd_dq_simt_kernel<D>, smem);
+    err = set_smem(flash_bwd_dq_simt_kernel<D, BIAS>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_simt_kernel<D>
+    flash_bwd_dq_simt_kernel<D, BIAS>
         <<<dim3((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B),
            SIMT_THREADS, smem, stream>>>(
             q_, k_, v_, do_, in.lse, in.delta, SEG ? sq : nullptr,
-            SEG ? skv : nullptr, static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq,
-            s.Hk, s.causal, s.scale);
+            SEG ? skv : nullptr, ba, static_cast<T*>(dq_out), s.Sq, s.Sk,
+            s.Hq, s.Hk, s.causal, s.scale);
   }
   return cudaGetLastError();
 }
 
 // shape checks shared by the entries: 0 = launch, -1 = nothing to do,
-// else the error to return
-int check_shape(const Shape& s, int D) {
+// else the error to return. Causal with Sq != Sk (top-left) is taken by
+// the bias entries only.
+int check_shape(const Shape& s, int D, const BiasArgs& ba) {
   if (s.B <= 0 || s.Sq <= 0 || s.Sk <= 0) return -1;
   if (s.Hk <= 0 || s.Hq % s.Hk != 0 || (D != 64 && D != 128) ||
-      (s.causal && s.Sq != s.Sk))
+      (s.causal && s.Sq != s.Sk && ba.kind == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ba.kind != 0 &&
+      (ba.kind < kBiasAlibi || ba.kind > kBiasDense || ba.p == nullptr ||
+       ba.R < 0))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
-// one launch over (D, SEG): CALL(DD, SEG) names the launch expression
+// one launch over (D, SEG, BIAS): CALL(DD, SEG, BIAS) names the launch
+// expression; a bias takes no segment ids
 #define PTT_DISPATCH(CALL)                                                  \
   do {                                                                      \
-    const int c = check_shape(s, D);                                        \
+    const int c = check_shape(s, D, ba);                                    \
     if (c != 0) return c < 0 ? static_cast<int>(cudaSuccess) : c;           \
     const bool seg_ = sq != nullptr;                                        \
+    const bool bias_ = ba.kind != 0;                                        \
     cudaError_t err_;                                                       \
     if (D == 64)                                                            \
-      err_ = seg_ ? CALL(64, true) : CALL(64, false);                       \
+      err_ = bias_ ? CALL(64, false, true)                                  \
+                   : seg_ ? CALL(64, true, false) : CALL(64, false, false); \
     else                                                                    \
-      err_ = seg_ ? CALL(128, true) : CALL(128, false);                     \
+      err_ = bias_ ? CALL(128, false, true)                                 \
+                   : seg_ ? CALL(128, true, false)                          \
+                          : CALL(128, false, false);                        \
     return static_cast<int>(err_);                                          \
   } while (0)
 
 template <typename T>
 int fwd_any(const void* q, const void* k, const void* v, const int* sq,
-            const int* skv, void* o, void* lse, const Shape& s, int D,
+            const int* skv, const BiasArgs& ba, void* o, void* lse,
+            const Shape& s, int D, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define PTT_CALL(DD, SEG, BIAS) \
+  fwd<T, DD, SEG, BIAS>(q, k, v, sq, skv, ba, o, lse, s, st)
+  PTT_DISPATCH(PTT_CALL);
+#undef PTT_CALL
+}
+
+template <typename T>
+int dkv_any(const BwdIn& in, const int* sq, const int* skv,
+            const BiasArgs& ba, void* dk, void* dv, const Shape& s, int D,
             void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define PTT_CALL(DD, SEG) fwd<T, DD, SEG>(q, k, v, sq, skv, o, lse, s, st)
+#define PTT_CALL(DD, SEG, BIAS) \
+  dkv<T, DD, SEG, BIAS>(in, sq, skv, ba, dk, dv, s, st)
   PTT_DISPATCH(PTT_CALL);
 #undef PTT_CALL
 }
 
 template <typename T>
-int dkv_any(const BwdIn& in, const int* sq, const int* skv, void* dk,
-            void* dv, const Shape& s, int D, void* stream) {
+int dq_any(const BwdIn& in, const int* sq, const int* skv,
+           const BiasArgs& ba, void* dq_out, const Shape& s, int D,
+           void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define PTT_CALL(DD, SEG) dkv<T, DD, SEG>(in, sq, skv, dk, dv, s, st)
-  PTT_DISPATCH(PTT_CALL);
-#undef PTT_CALL
-}
-
-template <typename T>
-int dq_any(const BwdIn& in, const int* sq, const int* skv, void* dq_out,
-           const Shape& s, int D, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-#define PTT_CALL(DD, SEG) dq<T, DD, SEG>(in, sq, skv, dq_out, s, st)
+#define PTT_CALL(DD, SEG, BIAS) \
+  dq<T, DD, SEG, BIAS>(in, sq, skv, ba, dq_out, s, st)
   PTT_DISPATCH(PTT_CALL);
 #undef PTT_CALL
 }
 
 #undef PTT_DISPATCH
 
+constexpr BiasArgs kNoBias{0, 0, nullptr, nullptr, 0, 0, 0, 0};
+
 template <typename T>
 int bwd_any(const BwdIn& in, void* dq_out, void* dk, void* dv,
             const Shape& s, int D, void* stream) {
-  const int err = dkv_any<T>(in, nullptr, nullptr, dk, dv, s, D, stream);
+  const int err =
+      dkv_any<T>(in, nullptr, nullptr, kNoBias, dk, dv, s, D, stream);
   if (err != 0) return err;
-  return dq_any<T>(in, nullptr, nullptr, dq_out, s, D, stream);
+  return dq_any<T>(in, nullptr, nullptr, kNoBias, dq_out, s, D, stream);
 }
 
 }  // namespace
@@ -997,7 +1189,7 @@ extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k,
                                             int B, int S, int Hq, int Hk,
                                             int D, int causal, float scale,
                                             void* stream) {
-  return fwd_any<bf16>(q, k, v, nullptr, nullptr, o, lse,
+  return fwd_any<bf16>(q, k, v, nullptr, nullptr, kNoBias, o, lse,
                        Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
 }
 
@@ -1006,7 +1198,7 @@ extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
                                            int B, int S, int Hq, int Hk,
                                            int D, int causal, float scale,
                                            void* stream) {
-  return fwd_any<float>(q, k, v, nullptr, nullptr, o, lse,
+  return fwd_any<float>(q, k, v, nullptr, nullptr, kNoBias, o, lse,
                         Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
 }
 
@@ -1040,7 +1232,7 @@ extern "C" int ptt_flash_attention_bwd_f32(
       const void* seg_kv, void* o, void* lse, int B, int Sq, int Sk, int Hq,  \
       int Hk, int D, int causal, float scale, void* stream) {                 \
     return fwd_any<T>(q, k, v, static_cast<const int*>(seg_q),                \
-                      static_cast<const int*>(seg_kv), o, lse,                \
+                      static_cast<const int*>(seg_kv), kNoBias, o, lse,       \
                       Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
   }                                                                           \
   extern "C" int ptt_flash_attention_seg_dkv_##SUFFIX(                        \
@@ -1051,7 +1243,7 @@ extern "C" int ptt_flash_attention_bwd_f32(
     return dkv_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),    \
                             static_cast<const float*>(delta)},                \
                       static_cast<const int*>(seg_q),                         \
-                      static_cast<const int*>(seg_kv), dk, dv,                \
+                      static_cast<const int*>(seg_kv), kNoBias, dk, dv,       \
                       Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
   }                                                                           \
   extern "C" int ptt_flash_attention_seg_dq_##SUFFIX(                         \
@@ -1062,7 +1254,7 @@ extern "C" int ptt_flash_attention_bwd_f32(
     return dq_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),     \
                            static_cast<const float*>(delta)},                 \
                      static_cast<const int*>(seg_q),                          \
-                     static_cast<const int*>(seg_kv), dq,                     \
+                     static_cast<const int*>(seg_kv), kNoBias, dq,            \
                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);     \
   }
 
@@ -1070,3 +1262,52 @@ PTT_SEG_ENTRIES(bf16, bf16)
 PTT_SEG_ENTRIES(f32, float)
 
 #undef PTT_SEG_ENTRIES
+
+// ---- bias (flash_attention_biased): kind 1 alibi (slopes f32 [Hq]), 2
+// rel_table (f32 [Hq, 2R + 1]), 3 dense (f32 read through the element
+// strides s_b, s_h, s_q, s_k of [B, Hq, Sq, Sk], 0 where it broadcasts);
+// kv_valid: uint8 [B, Sk] padding mask (0 = padding) or null; causal is
+// top-left for any Sq and Sk ----
+
+#define PTT_BIAS_ARGS                                                         \
+  const void *bias, const void *kv_valid, int B, int Sq, int Sk, int Hq,      \
+      int Hk, int D, int causal, int kind, int R, long long s_b,              \
+      long long s_h, long long s_q, long long s_k, float scale, void *stream
+#define PTT_BIAS_VALUE                                                        \
+  BiasArgs{kind,   R,   static_cast<const float*>(bias),                      \
+           static_cast<const unsigned char*>(kv_valid), s_b, s_h, s_q, s_k}
+
+#define PTT_BIAS_ENTRIES(SUFFIX, T)                                           \
+  extern "C" int ptt_flash_attention_bias_fwd_##SUFFIX(                       \
+      const void* q, const void* k, const void* v, void* o, void* lse,        \
+      PTT_BIAS_ARGS) {                                                        \
+    if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);            \
+    return fwd_any<T>(q, k, v, nullptr, nullptr, PTT_BIAS_VALUE, o, lse,      \
+                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
+  }                                                                           \
+  extern "C" int ptt_flash_attention_bias_dkv_##SUFFIX(                       \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, void* dk, void* dv,                 \
+      PTT_BIAS_ARGS) {                                                        \
+    if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);            \
+    return dkv_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),    \
+                            static_cast<const float*>(delta)},                \
+                      nullptr, nullptr, PTT_BIAS_VALUE, dk, dv,               \
+                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
+  }                                                                           \
+  extern "C" int ptt_flash_attention_bias_dq_##SUFFIX(                        \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, void* dq, PTT_BIAS_ARGS) {          \
+    if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);            \
+    return dq_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),     \
+                           static_cast<const float*>(delta)},                 \
+                     nullptr, nullptr, PTT_BIAS_VALUE, dq,                    \
+                     Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);     \
+  }
+
+PTT_BIAS_ENTRIES(bf16, bf16)
+PTT_BIAS_ENTRIES(f32, float)
+
+#undef PTT_BIAS_ENTRIES
+#undef PTT_BIAS_VALUE
+#undef PTT_BIAS_ARGS

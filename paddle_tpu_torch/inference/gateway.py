@@ -3,7 +3,9 @@
 ThreadingHTTPServer, no framework dependencies).
 
 * `POST /v1/generate` — JSON body: `prompt` token ids,
-  `max_new_tokens`, `eos_token_id`, `priority`, `deadline_s`, `stream`.
+  `max_new_tokens`, `eos_token_id`, `priority`, `deadline_s`, `stream`
+  (a `priority` other than 0 or a `deadline_s` gets a 400 naming the
+  SLO layer, which is not ported).
   `stream` (default true) answers Server-Sent Events over a
   close-delimited HTTP/1.0 body: one `data: {"tokens": [...]}` frame
   per engine tick carrying every token that tick produced for the
@@ -184,8 +186,9 @@ class EngineRunner:
 
     def submit(self, req: GenerationRequest) -> _TokenStream:
         """Queue one request for the next tick and return its token
-        stream. An impossible prompt raises ValueError here; a failed
-        engine raises RuntimeError."""
+        stream. An impossible prompt raises ValueError here, a priority
+        or deadline NotImplementedError (the SLO layer is not ported); a
+        failed engine raises RuntimeError."""
         self.engine.check_request(req)
         st = _TokenStream(req)
         with self._inbox_lock:
@@ -411,7 +414,9 @@ class ServingGateway:
                                 priority=priority, deadline_s=deadline)
         try:
             stream = self.runner.submit(req)
-        except ValueError as e:         # oversized prompt, rejected at submit
+        except (ValueError, NotImplementedError) as e:
+            # an oversized prompt, or a priority / deadline (the SLO
+            # layer is not ported), rejected at submit
             self._json(h, 400, {"error": str(e)})
             return
         except RuntimeError as e:       # engine went fatal

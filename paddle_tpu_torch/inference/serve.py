@@ -52,8 +52,9 @@ def _build_parser():
     p.add_argument("--quantize", choices=("int8",), default=None,
                    help="not ported yet — setting it is an error")
     p.add_argument("--max-draft-tokens", type=int, default=None,
-                   help="self-speculative draft-length cap (speculation "
-                        "is not ported yet; accepted and unused)")
+                   help="self-speculative draft-length cap "
+                        "(speculation is not ported yet — a value > 0 is "
+                        "an error; 0 is the reference's kill switch)")
     p.add_argument("--keepalive-s", type=float, default=0.5,
                    help="SSE keepalive interval (doubles as the "
                         "client-disconnect probe)")

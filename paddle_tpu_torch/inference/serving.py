@@ -31,11 +31,22 @@ Differences from the reference, by design:
   draws from an explicit `torch.Generator` on the engine's device.
 
 Not ported yet — asking for them raises NotImplementedError: the SLO
-layer (`slo=True`: priorities, deadlines, queue bound, shedding,
-degradation, fault isolation — `priority`/`deadline_s` on a request
-are carried but not acted on), speculative decoding, request tracing,
-int8 weights. The metrics/export/fault-injection hooks the reference
-engine calls are absent.
+layer (`slo=True` / FLAGS_serving_slo: priorities, deadlines, queue
+bound, shedding, degradation, fault isolation; a request with a
+`priority` or a `deadline_s` is refused at submission), speculative
+decoding (`speculative=True` / FLAGS_speculative, or a draft length
+`max_draft_tokens` / FLAGS_speculative_draft_tokens > 0 unless
+`speculative=False`), request tracing (`request_trace=True` /
+FLAGS_request_trace), int8 weights. The metrics/export/fault-injection
+hooks the reference engine calls are absent.
+
+Defaults: the reference arms speculation, the SLO layer and request
+tracing by default; the port's flags default to the reference's
+kill-switch values (False / 0), so the port's default engine is the
+reference's engine built with `speculative=False, slo=False,
+request_trace=False`. Greedy tokens are identical to the reference's
+default engine by design (speculation is token-exact); ticks, TTFT and
+rates are those of the kill-switch configuration.
 """
 from __future__ import annotations
 
@@ -62,8 +73,8 @@ class GenerationRequest:
     """One decode job. `status` tracks the lifecycle: queued -> running
     -> served / failed / cancelled; `error` carries the terminal error
     text for the non-served outcomes. `priority` and `deadline_s` are
-    the reference's SLO fields, carried for wire compatibility; no
-    scheduling decision reads them until the SLO layer is ported."""
+    the reference's SLO fields; the engine refuses a request that sets
+    either (NotImplementedError) until the SLO layer is ported."""
     prompt: List[int]
     max_new_tokens: int = 32
     eos_token_id: Optional[int] = None
@@ -372,7 +383,11 @@ class ContinuousBatchingEngine:
     only). device: where the step runs (default `cuda`;
     with no card this raises unless device='cpu' is passed). The
     reference's other knobs are accepted with their defaults; asking for
-    an unported feature raises NotImplementedError (module docstring)."""
+    an unported feature raises NotImplementedError (module docstring).
+    speculative, slo and request_trace resolve as the reference's do
+    (the flag when the argument is None), but the port's flags default
+    to the reference's kill switches: the default engine is the
+    reference's with speculation, the SLO layer and tracing off."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 256,
                  prefill_buckets=(32, 64, 128, 256), quantize=None,
@@ -390,11 +405,28 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))
-        unported = [(bool(speculative), "speculative decoding"),
-                    (bool(slo), "the SLO layer (slo=True)"),
+        # resolved as the reference resolves them: the flag when the
+        # argument is None (the port's flags default to the reference's
+        # kill switches)
+        spec = (_core.get_bool_flag("FLAGS_speculative")
+                if speculative is None else bool(speculative))
+        drafts = (int(_core.get_flag("FLAGS_speculative_draft_tokens", 0)
+                      or 0) if max_draft_tokens is None
+                  else int(max_draft_tokens))
+        slo_on = (_core.get_bool_flag("FLAGS_serving_slo")
+                  if slo is None else bool(slo))
+        trace_on = (_core.get_bool_flag("FLAGS_request_trace")
+                    if request_trace is None else bool(request_trace))
+        unported = [(spec, "speculative decoding (speculative / "
+                           "FLAGS_speculative)"),
+                    (drafts > 0 and speculative is not False,
+                     f"speculative decoding (max_draft_tokens / "
+                     f"FLAGS_speculative_draft_tokens = {drafts})"),
+                    (slo_on, "the SLO layer (slo / FLAGS_serving_slo)"),
                     (max_queue_tokens is not None,
                      "admission control (max_queue_tokens, SLO layer)"),
-                    (bool(request_trace), "request tracing"),
+                    (trace_on, "request tracing (request_trace / "
+                               "FLAGS_request_trace)"),
                     (quantize is not None, f"quantize={quantize!r}")]
         for asked, what in unported:
             if asked:
@@ -496,8 +528,15 @@ class ContinuousBatchingEngine:
     # -- scheduler ----------------------------------------------------------
 
     def check_request(self, req: GenerationRequest) -> None:
-        """Reject a prompt that can never fit (ValueError). Reads only
-        the engine's fixed sizes, so any thread may call it."""
+        """Reject a prompt that can never fit (ValueError) and a
+        priority or deadline (NotImplementedError: the SLO layer is not
+        ported). Reads only the engine's fixed sizes, so any thread may
+        call it."""
+        if req.priority != 0 or req.deadline_s is not None:
+            raise NotImplementedError(
+                f"request priority={req.priority}, deadline_s="
+                f"{req.deadline_s}: priorities and deadlines are the SLO "
+                f"layer's, which is not ported yet")
         need = -(-len(req.prompt) // self.page)
         if need > self.pool.n_pages - 1:
             raise ValueError(

@@ -73,6 +73,23 @@ _SIGNATURES = {
     # causal, scale, stream
     "ptt_flash_attention_seg_dq_bf16": (_P,) * 9 + (_I,) * 7 + (_F, _P),
     "ptt_flash_attention_seg_dq_f32": (_P,) * 9 + (_I,) * 7 + (_F, _P),
+    # q, k, v, o, lse, bias (f32), kv_valid (uint8 or null), B, Sq, Sk,
+    # Hq, Hk, D, causal, kind, R, bias strides (batch, head, q, k;
+    # elements), scale, stream
+    "ptt_flash_attention_bias_fwd_bf16": (_P,) * 7 + (_I,) * 9 + (_LL,) * 4
+                                         + (_F, _P),
+    "ptt_flash_attention_bias_fwd_f32": (_P,) * 7 + (_I,) * 9 + (_LL,) * 4
+                                        + (_F, _P),
+    # q, k, v, dout, lse, delta, dk, dv, then as the forward from bias
+    "ptt_flash_attention_bias_dkv_bf16": (_P,) * 10 + (_I,) * 9 + (_LL,) * 4
+                                         + (_F, _P),
+    "ptt_flash_attention_bias_dkv_f32": (_P,) * 10 + (_I,) * 9 + (_LL,) * 4
+                                        + (_F, _P),
+    # q, k, v, dout, lse, delta, dq, then as the forward from bias
+    "ptt_flash_attention_bias_dq_bf16": (_P,) * 9 + (_I,) * 9 + (_LL,) * 4
+                                        + (_F, _P),
+    "ptt_flash_attention_bias_dq_f32": (_P,) * 9 + (_I,) * 9 + (_LL,) * 4
+                                       + (_F, _P),
     # q, k, v, mask (uint8 or null), bias (f32 or null), m, l, o, B, Sq,
     # Sk, H, D, bias strides (batch, head, q, k; elements), scale, stream
     "ptt_block_attention_fwd_bf16": (_P,) * 8 + (_I,) * 5 + (_LL,) * 4

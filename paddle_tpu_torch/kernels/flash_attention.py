@@ -32,30 +32,35 @@ upstream's does. `_SegPlain` is that function in plain PyTorch, with the
 flash backward written out. Causal with Sq != Sk is not ported (upstream
 aligns that mask top-left, the port's dense route bottom-right).
 
-Bias (`bias=`, `flash_attention_biased`): KV in chunks, each chunk's
-bias generated on the fly (`_bias_chunk`: "alibi", "rel_table" or
-"dense", causal and padding masks folded in as -1e30), the block-stats
-kernel of `kernels/block_attention.py` per chunk, partials merged online
-(`_merge_stats`), output o / max(l, 1e-30). The backward is plain
-PyTorch over the same chunks: each chunk's bias is regenerated and P
-recomputed from the final (m, l), so no [B, H, Sq, Sk] buffer exists in
-either pass (the reference rematerialises its scan body for the same
-end, l.275).
+Bias (`bias=`, `flash_attention_biased`): the same kernels with a bias
+made or read at the score assembly (`flash_attention_bias_fwd`,
+`flash_attention_bias_dkv`, `flash_attention_bias_dq`; `_bias_args`
+lowers "alibi" slopes, a "rel_table" and a "dense" bias to the kernels'
+arguments), never materialised. x = s * scale + bias in f32 (GQA too:
+kv heads read natively, q not pre-scaled); an entry is masked past Sk,
+above the top-left causal diagonal (any Sq and Sk), at a padding-mask
+key or where the bias is <= -5e29; a row with no valid key gives o = 0
+and lse = +inf. D = rowsum(dO * O) is plain PyTorch. `_biased_plain_fwd`
+and `_biased_plain_bwd` are that function in plain PyTorch over KV
+chunks (`_bias_chunk`), the CPU route and the kernels' yardstick; no
+[B, H, Sq, Sk] buffer exists in either. The bias parameter's gradient
+is a plain chunked pass (`_biased_plain_dparam`) on both devices.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
-from . import block_attention as kba
 
 __all__ = ["flash_attention_bshd", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_seg_fwd",
            "flash_attention_seg_dkv", "flash_attention_seg_dq",
            "flash_attention_packed", "flash_attention_biased",
-           "packed_supported", "supported"]
+           "flash_attention_bias_fwd", "flash_attention_bias_dkv",
+           "flash_attention_bias_dq", "packed_supported", "supported"]
 
 # upstream's DEFAULT_MASK_VALUE: the score of a key in another segment
 _SEG_MASK = -0.7 * torch.finfo(torch.float32).max
@@ -67,10 +72,10 @@ def supported(q_shape, k_shape, causal_or_none: bool,
               dtype=torch.bfloat16) -> bool:
     """Shapes the kernels take: q [B, Sq, Hq, D], k [B, Sk, Hk, D] with
     Hq a multiple of Hk, D in {64, 128}, bf16/f32. With a bias (the
-    block-stats kernel per chunk) any mask goes; without one the mask is
-    causal or absent, as the reference's gate asks (`causal_or_none`),
-    and a padding mask rides segment ids. Causal with Sq != Sk raises
-    NotImplementedError at the call."""
+    bias kernels) any mask goes; without one the mask is causal or
+    absent, as the reference's gate asks (`causal_or_none`), and a
+    padding mask rides segment ids. Causal with Sq != Sk raises
+    NotImplementedError at the call, except on the bias route."""
     B, Sq, Hq, D = (int(s) for s in q_shape)
     Bk, Sk, Hk, Dk = (int(s) for s in k_shape)
     base = (dtype in (torch.bfloat16, torch.float32) and B == Bk
@@ -501,22 +506,14 @@ def _bias_chunk(kind, params, Sq, s0, s1, causal, padding_mask):
     return bias
 
 
-def _merge_stats(m1, l1, o1, m2, l2, o2):
-    """Online-softmax merge of two unnormalised partials: m/l [B, H, Sq];
-    o [B, Sq, H, D]."""
-    m = torch.maximum(m1, m2)
-    a1 = torch.exp(m1 - m)
-    a2 = torch.exp(m2 - m)
-    l = l1 * a1 + l2 * a2
-    o = (o1 * a1.transpose(1, 2)[..., None]
-         + o2 * a2.transpose(1, 2)[..., None])
-    return m, l, o
+_BIAS_KINDS = {"alibi": 1, "rel_table": 2, "dense": 3}
 
 
 def _chunks(Sk, chunk):
-    """[(start, stop)] of the KV chunks: `chunk` keys each (None = 512,
-    the reference's default without an autotune entry; the port has no
-    autotune), the last one shorter where Sk is not a multiple."""
+    """[(start, stop)] of the plain versions' KV chunks: `chunk` keys
+    each (None = 512, the reference's default without an autotune entry;
+    the port has no autotune), the last one shorter where Sk is not a
+    multiple."""
     C = min(int(chunk or 512), Sk)
     return [(s, min(s + C, Sk)) for s in range(0, Sk, C)]
 
@@ -529,110 +526,293 @@ def _sum_to(t, shape):
     return t
 
 
+def _kv_chunk(t, s0, s1, group):
+    """Keys s0:s1 of k or v [B, Sk, Hk, D] as f32 [B, Hq, s1 - s0, D]
+    (GQA: each kv head repeated for its group, this chunk only)."""
+    c = t[:, s0:s1].transpose(1, 2).float()
+    return c.repeat_interleave(group, dim=1) if group > 1 else c
+
+
+def _biased_plain_fwd(q, k, v, kind, param, R, causal, scale,
+                      padding_mask, chunk):
+    """The bias kernels' forward in plain PyTorch, f32 over KV chunks
+    with `_bias_chunk`: x = s * scale + bias, entries whose bias is <=
+    -5e29 masked (P = 0), online softmax across chunks. Returns (o
+    [B, Sq, Hq, D] in q's dtype, 0 on a row with no valid key; lse f32
+    [B, Hq, Sq], +inf on such a row). Holds a few [B, Hq, Sq, chunk]
+    buffers, never [B, Hq, Sq, Sk]."""
+    B, Sq, Hq, D = q.shape
+    Sk, group = k.shape[1], Hq // k.shape[2]
+    pf = param.detach()
+    qh = q.transpose(1, 2).float()
+    m = torch.full((B, Hq, Sq, 1), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((B, Hq, Sq, D), device=q.device)
+    for s0, s1 in _chunks(Sk, chunk):
+        bias_c = _bias_chunk(kind, pf if R is None else (pf, R), Sq, s0, s1,
+                             causal, padding_mask)
+        s = qh @ _kv_chunk(k, s0, s1, group).transpose(-1, -2)
+        s.mul_(scale).add_(bias_c)
+        s.masked_fill_(~(bias_c > 0.5 * _NEG), float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = s.sub_(m_use).exp_()
+        alpha = torch.exp(m - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p @ _kv_chunk(v, s0, s1, group)
+        m = m_new
+        del s, p, bias_c
+    has = l > 0
+    o = torch.where(has, o / torch.where(has, l, 1.0), 0.0)
+    lse = torch.where(has, m + torch.log(l), float("inf"))
+    return o.transpose(1, 2).to(q.dtype), lse[..., 0]
+
+
+def _bwd_chunks(qh, k, v, doh, lse, kind, param, R, causal, scale,
+                padding_mask, chunk, grad_param=False):
+    """Per KV chunk of the biased backward, in f32 [B, Hq, Sq, c]: yields
+    (s0, s1, kc, p, dp, bias_c, leaf) with kc the chunk's keys [B, Hq, c,
+    D], p = exp(s * scale + bias - lse) (0 where masked; lse +inf on a
+    row with no valid key gives 0), dp = dO V^T. With grad_param the
+    chunk's bias is built under autograd from `leaf`, a fresh leaf of
+    `param`. qh, doh: q and dO as f32 [B, Hq, Sq, D]; lse [B, Hq, Sq]."""
+    Sq, Hq = qh.shape[2], qh.shape[1]
+    group = Hq // k.shape[2]
+    lse = lse[..., None]
+    for s0, s1 in _chunks(k.shape[1], chunk):
+        kc = _kv_chunk(k, s0, s1, group)
+        with torch.enable_grad():
+            leaf = param.detach().requires_grad_(grad_param)
+            bias_c = _bias_chunk(kind, leaf if R is None else (leaf, R), Sq,
+                                 s0, s1, causal, padding_mask)
+        bc = bias_c.detach()
+        p = qh @ kc.transpose(-1, -2)
+        p.mul_(scale).add_(bc).sub_(lse).exp_()
+        p.masked_fill_(~(bc > 0.5 * _NEG), 0.0)
+        dp = doh @ _kv_chunk(v, s0, s1, group).transpose(-1, -2)
+        yield s0, s1, kc, p, dp, bias_c, leaf
+
+
+def _biased_plain_bwd(q, k, v, o, lse, do, kind, param, R, causal, scale,
+                      padding_mask, chunk):
+    """The bias kernels' backward in plain PyTorch over KV chunks: D =
+    rowsum(dO * O) from the stored output, P recomputed from lse, dS = P
+    (dP - D); dq = scale dS K, dk = scale dS^T Q and dv = P^T dO (summed
+    over each kv head's group). Returns (dq, dk, dv) in the inputs'
+    dtypes; dk and dv are written once per chunk."""
+    group = q.shape[2] // k.shape[2]
+    qh, doh = q.transpose(1, 2).float(), do.transpose(1, 2).float()
+    delta = _delta(o, do)[..., None]
+    dq = torch.zeros_like(qh)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for s0, s1, kc, p, dp, _, _ in _bwd_chunks(
+            qh, k, v, doh, lse, kind, param, R, causal, scale, padding_mask,
+            chunk):
+        ds = dp.sub_(delta).mul_(p)
+        dq.add_(ds @ kc, alpha=scale)
+        dk[:, s0:s1] = (_group_sum(ds.transpose(-1, -2) @ qh, group)
+                        * scale).transpose(1, 2)
+        dv[:, s0:s1] = _group_sum(p.transpose(-1, -2) @ doh,
+                                  group).transpose(1, 2)
+        del p, ds, kc
+    return dq.transpose(1, 2).to(q.dtype), dk, dv
+
+
+def _biased_plain_dparam(q, k, v, o, lse, do, kind, param, R, causal,
+                         scale, padding_mask, chunk):
+    """The bias parameter's gradient (slopes, table or the dense bias):
+    a plain chunked pass over the same P and dS as `_biased_plain_bwd`,
+    each chunk's dS pulled back through `_bias_chunk` by autograd. There
+    is no kernel for it, in the reference or here."""
+    qh, doh = q.transpose(1, 2).float(), do.transpose(1, 2).float()
+    delta = _delta(o, do)[..., None]
+    dparam = None
+    for _, _, _, p, dp, bias_c, leaf in _bwd_chunks(
+            qh, k, v, doh, lse, kind, param, R, causal, scale, padding_mask,
+            chunk, grad_param=True):
+        ds = dp.sub_(delta).mul_(p)
+        del p
+        (g,) = torch.autograd.grad(bias_c, leaf, _sum_to(ds, bias_c.shape))
+        dparam = g if dparam is None else dparam + g
+    return dparam.to(param.dtype)
+
+
+class _BiasArgs(NamedTuple):
+    """The bias kernels' arguments: kind (1 alibi, 2 rel_table, 3 dense),
+    p the f32 slopes [Hq], table [Hq, 2R + 1] or dense bias (read through
+    `strides`, the element strides of [B, Hq, Sq, Sk], 0 where it
+    broadcasts), R, and kv_valid the uint8 [B, Sk] padding mask or
+    None."""
+    kind: int
+    p: torch.Tensor
+    R: int
+    strides: tuple
+    kv_valid: Optional[torch.Tensor]
+
+
+def _bias_args(kind, param, R, padding_mask, q_shape, k_shape):
+    """Lower a bias to the kernels' arguments (`_BiasArgs`), moving no
+    bias bytes for alibi and rel_table (one f32 row per head) and none
+    for a dense bias already in f32 (a strided view of it)."""
+    B, Sq, Hq, _ = (int(n) for n in q_shape)
+    Sk = int(k_shape[1])
+    if kind not in _BIAS_KINDS:
+        raise ValueError(f"unknown bias kind {kind!r}")
+    p = param.detach().float()
+    strides = (0, 0, 0, 0)
+    R = 0 if R is None else int(R)
+    try:
+        if kind == "alibi":
+            p = p.reshape(-1).expand(Hq).contiguous()
+        elif kind == "rel_table":
+            p = p[..., :2 * R + 1].expand(Hq, 2 * R + 1).contiguous()
+        else:
+            p = p.reshape((1,) * (4 - p.dim()) + tuple(p.shape))
+            p = p.expand(B, Hq, Sq, Sk)
+            strides = tuple(p.stride())
+    except RuntimeError as e:
+        raise ValueError(f"flash_attention_biased: {kind} parameter "
+                         f"{tuple(param.shape)} does not broadcast to "
+                         f"q {tuple(q_shape)}, k {tuple(k_shape)}") from e
+    kv_valid = None
+    if padding_mask is not None:
+        kv_valid = padding_mask.to(torch.uint8).expand(B, Sk).contiguous()
+    return _BiasArgs(_BIAS_KINDS[kind], p, R, strides, kv_valid)
+
+
+def _bias_kernel_takes(q, k, v):
+    return (supported(q.shape, k.shape, True, has_bias=True, dtype=q.dtype)
+            and k.shape == v.shape and k.dtype == v.dtype == q.dtype)
+
+
+def _bias_launch(name, q, k, v, bias, causal, scale, ptrs):
+    """Launch one bias entry: `ptrs` the entry's leading pointers, then
+    the bias arguments, the shape, causal, scale and the stream."""
+    if q.device.type != "cuda" or not _bias_kernel_takes(q, k, v):
+        raise ValueError(
+            f"{name}: the bias kernels do not take q {tuple(q.shape)} "
+            f"{q.dtype} on {q.device}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)} (need CUDA tensors of one bf16/f32 dtype, "
+            f"equal batch, D in (64, 128), q heads a multiple of kv heads)")
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        _build.check(_fn(lib, f"ptt_{name}", q.dtype)(
+            *ptrs, bias.p.data_ptr(),
+            None if bias.kv_valid is None else bias.kv_valid.data_ptr(),
+            B, Sq, Sk, Hq, Hk, D, int(bool(causal)), bias.kind, bias.R,
+            *bias.strides, float(scale), _stream(q)), name)
+
+
+def flash_attention_bias_fwd(q, k, v, bias, causal, scale):
+    """Kernel route, biased forward: q [B, Sq, Hq, D], k/v [B, Sk, Hk, D]
+    (GQA read natively), `bias` from `_bias_args`, causal top-left for
+    any Sq and Sk, `scale` on the f32 scores -> (o [B, Sq, Hq, D] in q's
+    dtype, 0 on a row with no valid key; lse [B, Hq, Sq] f32, +inf on
+    such a row). A tensor the kernel does not take raises ValueError."""
+    B, Sq, Hq, D = q.shape
+    q, k, v = (_rows(t) for t in (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    _bias_launch("flash_attention_bias_fwd", q, k, v, bias, causal, scale,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr()))
+    flash_attention_bias_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bias_dkv(q, k, v, do, lse, delta, bias, causal, scale):
+    """Kernel route, biased backward dk and dv (one launch; dk and dv sum
+    over each kv head's group of q heads in f32)."""
+    q, k, v, do = (_rows(t) for t in (q, k, v, do))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _bias_launch("flash_attention_bias_dkv", q, k, v, bias, causal, scale,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr()))
+    flash_attention_bias_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bias_dq(q, k, v, do, lse, delta, bias, causal, scale):
+    """Kernel route, biased backward dq (one launch)."""
+    q, k, v, do = (_rows(t) for t in (q, k, v, do))
+    dq = torch.empty_like(q)
+    _bias_launch("flash_attention_bias_dq", q, k, v, bias, causal, scale,
+                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr()))
+    flash_attention_bias_dq.launches += 1
+    return dq
+
+
 class _Biased(torch.autograd.Function):
-    """flash_attention_biased: the forward merges block-stats partials
-    chunk by chunk; the backward regenerates each chunk's bias and
-    recomputes its P from the final (m, l) (P = exp(s + bias - lse)), so
-    it holds a few chunk-sized f32 buffers and never [B, H, Sq, Sk]."""
+    """flash_attention_biased. CUDA: one `flash_attention_bias_fwd`
+    launch; the backward computes D = rowsum(dO * O) in plain PyTorch and
+    launches `flash_attention_bias_dkv` and `flash_attention_bias_dq`.
+    CPU: `_biased_plain_fwd` and `_biased_plain_bwd`, the kernels'
+    yardstick. The bias parameter's gradient, when asked for, is
+    `_biased_plain_dparam` on both."""
 
     @staticmethod
     def forward(ctx, q, k, v, param, kind, R, causal, scale, padding_mask,
-                chunk, use_kernel):
-        B, Sq, Hq, D = q.shape
-        Sk, Hk = k.shape[1], k.shape[2]
-        group = Hq // Hk
-        dev = q.device
-        pf = param.detach()
-        m = torch.full((B, Hq, Sq), _NEG, dtype=torch.float32, device=dev)
-        l = torch.zeros_like(m)
-        o = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=dev)
-        for s0, s1 in _chunks(Sk, chunk):
-            kc, vc = k[:, s0:s1], v[:, s0:s1]
-            if group > 1:
-                kc, vc = (t.repeat_interleave(group, dim=2) for t in (kc, vc))
-            bias_c = _bias_chunk(kind, pf if R is None else (pf, R), Sq,
-                                 s0, s1, causal, padding_mask)
-            mc, lc, oc = kba.stats(q, kc, vc, None, scale, bias_c,
-                                   use_kernel)
-            m, l, o = _merge_stats(m, l, o, mc, lc, oc)
-        out = (o / l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype)
-        ctx.save_for_backward(q, k, v, param, m, l, out)
-        ctx.cfg = (kind, R, causal, scale, padding_mask, chunk)
-        return out
+                chunk):
+        bias = None
+        if q.device.type == "cpu":
+            o, lse = _biased_plain_fwd(q, k, v, kind, param, R, causal,
+                                       scale, padding_mask, chunk)
+        else:
+            bias = _bias_args(kind, param, R, padding_mask, q.shape,
+                              k.shape)
+            o, lse = flash_attention_bias_fwd(q, k, v, bias, causal, scale)
+        ctx.save_for_backward(q, k, v, param, o, lse)
+        ctx.cfg = (kind, R, causal, scale, padding_mask, chunk, bias)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, param, m, l, out = ctx.saved_tensors
-        kind, R, causal, scale, padding_mask, chunk = ctx.cfg
-        B, Sq, Hq, D = q.shape
-        Sk, Hk = k.shape[1], k.shape[2]
-        group = Hq // Hk
-        need_p = ctx.needs_input_grad[3]
-        # rows with no valid key (l = 0) get lse = +inf, so P = 0
-        lse = torch.where(l > 0, m + torch.log(l),
-                          torch.full_like(m, float("inf")))[..., None]
-        qh = q.transpose(1, 2).float()
-        doh = do.transpose(1, 2).float()
-        delta = (doh * out.transpose(1, 2).float()).sum(-1, keepdim=True)
-        dq = torch.zeros_like(qh)
-        # each key lies in one chunk: dk and dv are written once, in
-        # their own dtype
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        q, k, v, param, o, lse = ctx.saved_tensors
+        kind, R, causal, scale, padding_mask, chunk, bias = ctx.cfg
+        do = do.to(q.dtype)
+        if bias is None:
+            dq, dk, dv = _biased_plain_bwd(q, k, v, o, lse, do, kind, param,
+                                           R, causal, scale, padding_mask,
+                                           chunk)
+        else:
+            delta = _delta(o, do)
+            args = (q, k, v, do, lse, delta, bias, causal, scale)
+            dk, dv = flash_attention_bias_dkv(*args)
+            dq = flash_attention_bias_dq(*args)
         dparam = None
-        for s0, s1 in _chunks(Sk, chunk):
-            kc, vc = (t[:, s0:s1].transpose(1, 2).float() for t in (k, v))
-            if group > 1:
-                kc, vc = (t.repeat_interleave(group, dim=1) for t in (kc, vc))
-            with torch.enable_grad():
-                p_leaf = param.detach().requires_grad_(need_p)
-                bias_c = _bias_chunk(kind, p_leaf if R is None
-                                     else (p_leaf, R), Sq, s0, s1, causal,
-                                     padding_mask)
-            bc = bias_c.detach()
-            p = qh @ kc.transpose(-1, -2)
-            p.mul_(scale).add_(bc).sub_(lse).exp_()
-            p.masked_fill_(~(bc > 0.5 * _NEG), 0.0)
-            ds = doh @ vc.transpose(-1, -2)
-            ds.sub_(delta).mul_(p)
-            dq.add_(ds @ kc, alpha=scale)
-            dk[:, s0:s1] = (_group_sum(ds.transpose(-1, -2) @ qh, group)
-                            * scale).transpose(1, 2)
-            dv[:, s0:s1] = _group_sum(p.transpose(-1, -2) @ doh,
-                                      group).transpose(1, 2)
-            del p
-            if need_p:
-                (g,) = torch.autograd.grad(bias_c, p_leaf,
-                                           _sum_to(ds, bias_c.shape))
-                dparam = g if dparam is None else dparam + g
-            del ds, bias_c, bc
-        return (dq.transpose(1, 2).to(q.dtype), dk, dv,
-                None if dparam is None else dparam.to(param.dtype),
-                None, None, None, None, None, None, None)
+        if ctx.needs_input_grad[3]:
+            dparam = _biased_plain_dparam(q, k, v, o, lse, do, kind, param,
+                                          R, causal, scale, padding_mask,
+                                          chunk)
+        return (dq, dk, dv, dparam, None, None, None, None, None, None)
 
 
 def flash_attention_biased(q, k, v, kind, params, causal=False, scale=None,
                            padding_mask=None, chunk=None, use_kernel=None):
-    """Blockwise-bias flash attention, BSHD in and out: KV in `chunk`-key
-    slices (None = 512, the reference's default without an autotune
-    entry; the port has no autotune), each chunk's bias generated on the
-    fly (`_bias_chunk`) and fed to the block-stats kernel, partials merged
-    online; output o / max(l, 1e-30) in q's dtype. GQA repeats kv per
-    chunk only. Differentiable in q, k, v and the bias parameters
-    (slopes, table or the dense bias). use_kernel=True demands the
-    block-stats kernel (ValueError on a CPU tensor or a shape it does
-    not take)."""
+    """Blockwise-bias flash attention, BSHD in and out: the bias made or
+    read inside the kernels ("alibi": params = slopes [H]; "rel_table":
+    (table [H, 2R + 1], R); "dense": an array broadcastable to [B, H, Sq,
+    Sk]; `_bias_chunk` states each), causal top-left for any Sq and Sk,
+    a [B, Sk] padding mask, entries whose bias is <= -5e29 masked; output
+    in q's dtype, 0 on a row with no valid key. GQA reads each kv head
+    natively, scale multiplies the f32 scores. Differentiable in q, k, v
+    and the bias parameters. `chunk` is the plain versions' KV chunk
+    (None = 512); the kernels' kv tile is fixed, and the result does not
+    depend on it. use_kernel=True demands the kernels (ValueError on a
+    CPU tensor or a shape they do not take)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    Hq, Hk = q.shape[2], k.shape[2]
-    ok = (Hk > 0 and Hq % Hk == 0 and k.shape == v.shape
-          and kba.supported(q.shape, (k.shape[0], k.shape[1], Hq,
-                                      k.shape[3]), q.dtype)
-          and k.dtype == v.dtype == q.dtype)
+    ok = _bias_kernel_takes(q, k, v)
     if use_kernel and (not ok or q.device.type == "cpu"):
         raise ValueError(
-            f"flash_attention_biased: use_kernel=True but the block-stats "
-            f"kernel does not take q {tuple(q.shape)} {q.dtype} on "
-            f"{q.device}, k {tuple(k.shape)}")
+            f"flash_attention_biased: use_kernel=True but the bias kernels "
+            f"do not take q {tuple(q.shape)} {q.dtype} on {q.device}, k "
+            f"{tuple(k.shape)}")
     if q.device.type != "cpu" and not ok:
         raise ValueError(f"flash_attention_biased: no kernel for q "
                          f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
@@ -643,10 +823,12 @@ def flash_attention_biased(q, k, v, kind, params, causal=False, scale=None,
         param, R = params, None
     if not torch.is_tensor(param):
         param = torch.as_tensor(param, device=q.device)
+    elif param.device != q.device:
+        param = param.to(q.device)
     if padding_mask is not None:
         padding_mask = padding_mask.to(q.device).bool()
     return _Biased.apply(q, k, v, param, kind, R, bool(causal), float(scale),
-                         padding_mask, chunk, use_kernel)
+                         padding_mask, chunk)
 
 
 flash_attention_fwd.launches = 0
@@ -654,3 +836,6 @@ flash_attention_bwd.launches = 0
 flash_attention_seg_fwd.launches = 0
 flash_attention_seg_dkv.launches = 0
 flash_attention_seg_dq.launches = 0
+flash_attention_bias_fwd.launches = 0
+flash_attention_bias_dkv.launches = 0
+flash_attention_bias_dq.launches = 0

@@ -22,7 +22,9 @@ keys dominate the maximum) and would pass a kernel that drops or adds a
 tile of terms.
 
 The segment-id flash kernels follow the flash rule (`seg_flash_terms`:
-the terms over the pairs the segments and the causal mask leave). The
+the terms over the pairs the segments and the causal mask leave), and so
+do the bias kernels (`bias_flash_terms`: the terms of P from the biased
+scores, over the entries the bias and the masks leave). The
 block-stats kernel (row 8) rounds P to the input dtype before P V, so
 its o takes the terms rule (its terms are P |V|, unnormalised); its m
 is a maximum of f32 scores and its l a sum of unrounded f32 exponentials
@@ -61,7 +63,9 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "block_stats_readings",
            "bert_lengths", "packed_lengths", "ATTN_SEG_CASES",
            "attn_seg_case",
-           "STATS_CASES", "stats_case", "attention_counters",
+           "STATS_CASES", "stats_case", "BIAS_CASES", "alibi_slopes",
+           "bias_case", "bias_flash_terms", "bias_flash_pairs",
+           "bias_flash_readings", "attention_counters",
            "SURFACE_RTOL", "BERT_SEQ_ATOL", "BERT_SEQ_MEAN_ATOL",
            "BERT_LOGIT_ATOL", "BERT_LOGIT_MEAN_ATOL"]
 
@@ -624,8 +628,8 @@ def stats_case(B, Sq, Sk, H, d, kind, dtype=torch.bfloat16, seed=0):
         valid = torch.arange(Sk, device="cuda")[None, :] < lengths[:, None]
         bias = torch.where(valid, 0.0, -1e4).float()[:, None, None, :]
     elif kind == "alibi":
-        slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda") / H)
-        bias = kfa._bias_chunk("alibi", slopes, Sq, 0, Sk, True, None)
+        bias = kfa._bias_chunk("alibi", alibi_slopes(H), Sq, 0, Sk, True,
+                               None)
     else:
         mask = torch.rand((Sq, Sk), generator=gen, device="cuda") > 0.3
         bias = 0.5 * torch.randn((B, H, Sq, Sk), generator=gen,
@@ -673,10 +677,160 @@ def block_stats_readings(seed=0):
     return out
 
 
+# ------------------------------------------------------- biased route
+
+# The bias-kernel cases the card checks, in chip_smoke.py's kernel phase
+# and the card tests: tag -> kwargs of `bias_case`. "alibi_7b" is the
+# surface phase's causal alibi at llama_7b width, "alibi_7b_4096" its
+# memory case; "sdpa_float" the surface phase's sdpa float mask (0
+# valid, -1e4 padding, [16, 1, 1, 512] on `bert_lengths`) at bert width;
+# "rel_table_bert" a T5-style table (R = 128) at bert width, full;
+# "masked" a small dense-bias case with a ragged edge, Sq != Sk causal
+# (top-left), GQA, -inf and -1e30 rows, a -inf key and a batch row with
+# no valid key; "alibi_gqa" a small causal GQA alibi case.
+BIAS_CASES = {
+    "alibi_7b": dict(B=4, Sq=2048, Sk=2048, hq=32, hk=32, d=128,
+                     kind="alibi", causal=True),
+    "alibi_7b_4096": dict(B=2, Sq=4096, Sk=4096, hq=32, hk=32, d=128,
+                          kind="alibi", causal=True),
+    "sdpa_float": dict(B=16, Sq=512, Sk=512, hq=12, hk=12, d=64,
+                       kind="sdpa_float", causal=False),
+    "rel_table_bert": dict(B=16, Sq=512, Sk=512, hq=12, hk=12, d=64,
+                           kind="rel_table", causal=False),
+    "masked": dict(B=3, Sq=200, Sk=328, hq=8, hk=2, d=64, kind="masked",
+                   causal=True),
+    "alibi_gqa": dict(B=2, Sq=512, Sk=512, hq=8, hk=2, d=128, kind="alibi",
+                      causal=True),
+}
+
+
+def alibi_slopes(H, device="cuda"):
+    """The surface phase's alibi slopes, 2^(-8 h / H) for h = 1..H."""
+    return 2.0 ** (-8.0 * torch.arange(1, H + 1, device=device) / H)
+
+
+def bias_case(B, Sq, Sk, hq, hk, d, kind, causal, dtype=torch.bfloat16,
+              seed=0):
+    """Inputs of a bias case on the card: q, do [B, Sq, hq, d], k, v
+    [B, Sk, hk, d] N(0, 1) in dtype, and the bias as
+    `flash_attention_biased` takes it. Returns a dict: q, k, v, do, kind
+    ("alibi", "rel_table" or "dense"), param, R (rel_table) or None,
+    padding_mask [B, Sk] bool or None, causal, scale."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rand(B, Sq, hq, d), rand(B, Sq, hq, d)
+    k, v = rand(B, Sk, hk, d), rand(B, Sk, hk, d)
+    R, pm = None, None
+    if kind == "sdpa_float":
+        lengths = torch.tensor(bert_lengths(B, Sk), device="cuda")
+        valid = torch.arange(Sk, device="cuda")[None, :] < lengths[:, None]
+        kind, param = "dense", torch.where(valid, 0.0, -1e4).float()[
+            :, None, None, :]
+    elif kind == "alibi":
+        param = alibi_slopes(hq)
+    elif kind == "rel_table":
+        R = 128
+        param = 0.5 * torch.randn((hq, 2 * R + 1), generator=gen,
+                                  device="cuda")
+    else:
+        kind = "dense"
+        param = 0.5 * torch.randn((B, 1, Sq, Sk), generator=gen,
+                                  device="cuda")
+        param[0, 0, 7] = -float("inf")
+        param[1, 0, 3] = -1e30
+        param[:, 0, :, 5] = -float("inf")
+        param[0, 0, 11, ::2] = -1e4
+        pm = torch.arange(Sk, device="cuda")[None, :] < torch.tensor(
+            [[Sk - 37], [Sk], [0]], device="cuda")
+    return dict(q=q, k=k, v=v, do=do, kind=kind, param=param, R=R,
+                padding_mask=pm, causal=causal, scale=d ** -0.5)
+
+
+def bias_flash_terms(q, k, v, do, o, lse, kind, param, R, causal, scale,
+                     padding_mask):
+    """`flash_terms` for the bias kernels, over KV chunks: f32 sums of
+    |terms| of (o, dq, dk, dv), P = exp(s * scale + bias - lse) over the
+    entries the bias and the masks leave. q, k, v, do, o are the plain
+    side's f32 tensors, lse its [B, Hq, Sq] log-sum-exp."""
+    from .kernels import flash_attention as kfa
+    group = q.shape[2] // k.shape[2]
+    qh, doh = q.transpose(1, 2).float(), do.transpose(1, 2).float()
+    d_abs = (doh.abs() * o.transpose(1, 2).abs()).sum(-1, keepdim=True)
+    o_t, dq_t = torch.zeros_like(qh), torch.zeros_like(qh)
+    dk_t, dv_t = torch.empty_like(k), torch.empty_like(v)
+    for s0, s1, kc, p, dp, _, _ in kfa._bwd_chunks(
+            qh, k, v, doh, lse, kind, param, R, causal, scale, padding_mask,
+            None):
+        o_t += p @ kfa._kv_chunk(v, s0, s1, group).abs()
+        ds_t = dp.abs_().add_(d_abs).mul_(p)
+        dq_t += (ds_t @ kc.abs()) * abs(scale)
+        dk_t[:, s0:s1] = (_group_sum(ds_t.transpose(-1, -2) @ qh.abs(), group)
+                          * abs(scale)).transpose(1, 2)
+        dv_t[:, s0:s1] = _group_sum(p.transpose(-1, -2) @ doh.abs(),
+                                    group).transpose(1, 2)
+        del p, dp, ds_t, kc
+    return o_t.transpose(1, 2), dq_t.transpose(1, 2), dk_t, dv_t
+
+
+def bias_flash_pairs(q, k, v, do, kind, param, R, padding_mask, causal,
+                     scale):
+    """The bias kernels (`flash_attention_bias_fwd`, `_dkv`, `_dq`) and
+    their plain versions (`_biased_plain_fwd`, `_biased_plain_bwd`) on
+    f32 copies of the same inputs. A row with no valid key has lse +inf
+    on both sides: there the lse pair compares 0 with 0 when the kernel
+    also wrote +inf, and NaN (a miss) when it did not. Returns ([(label,
+    kernel, plain, terms or None)] for o, lse, dq, dk, dv; the kernel's
+    (o, lse))."""
+    from .kernels import flash_attention as kfa
+    a = kfa._bias_args(kind, param, R, padding_mask, q.shape, k.shape)
+    o, lse = kfa.flash_attention_bias_fwd(q, k, v, a, causal, scale)
+    delta = kfa._delta(o, do)
+    args = (q, k, v, do, lse, delta, a, causal, scale)
+    dk, dv = kfa.flash_attention_bias_dkv(*args)
+    dq = kfa.flash_attention_bias_dq(*args)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    plain = (kind, param, R, causal, scale, padding_mask, None)
+    o_p, lse_p = kfa._biased_plain_fwd(qf, kf, vf, *plain)
+    dq_p, dk_p, dv_p = kfa._biased_plain_bwd(qf, kf, vf, o_p, lse_p, dof,
+                                             *plain)
+    terms = bias_flash_terms(qf, kf, vf, dof, o_p, lse_p, kind, param, R,
+                             causal, scale, padding_mask)
+    empty = torch.isinf(lse_p)
+    lse_k = torch.where(empty, torch.where(torch.isinf(lse), 0.0,
+                                           float("nan")), lse)
+    lse_pp = torch.where(empty, 0.0, lse_p)
+    return ([("o", o, o_p, terms[0]), ("lse", lse_k, lse_pp, None),
+             ("dq", dq, dq_p, terms[1]), ("dk", dk, dk_p, terms[2]),
+             ("dv", dv, dv_p, terms[3])], (o, lse))
+
+
+def bias_flash_readings(seed=0):
+    """bf16 bias kernels at the "masked" and "alibi_gqa" cases on the
+    card: for each output the worst err/limit over the cases under the
+    flash rule (terms; lse 1e-4 + 1e-5 |plain|). Above 1 is a miss."""
+    frac = TERM_FRAC[torch.bfloat16]
+    out = {}
+    for tag in ("masked", "alibi_gqa"):
+        c = bias_case(**BIAS_CASES[tag], seed=seed)
+        pairs, _ = bias_flash_pairs(c["q"], c["k"], c["v"], c["do"],
+                                    c["kind"], c["param"], c["R"],
+                                    c["padding_mask"], c["causal"],
+                                    c["scale"])
+        for label, got, ref, terms in pairs:
+            r = (worst(got, ref, 1e-4, 1e-5) if terms is None
+                 else worst(got, ref, frac * terms, BF16_RTOL))
+            out[label] = max(out.get(label, 0.0), r)
+    return out
+
+
 def attention_counters():
     """Every attention kernel's wrapper by counter name (the segment
-    kernels, the block-stats kernel, and the one-length flash, paged and
-    ragged kernels), for the phases that must show which ran."""
+    kernels, the bias kernels, the block-stats kernel, and the one-length
+    flash, paged and ragged kernels), for the phases that must show which
+    ran."""
     from .kernels import block_attention as kba
     from .kernels import flash_attention as kfa
     from .kernels import paged_attention as kpa
@@ -684,6 +838,9 @@ def attention_counters():
     return {"flash_attention_seg_fwd": kfa.flash_attention_seg_fwd,
             "flash_attention_seg_dkv": kfa.flash_attention_seg_dkv,
             "flash_attention_seg_dq": kfa.flash_attention_seg_dq,
+            "flash_attention_bias_fwd": kfa.flash_attention_bias_fwd,
+            "flash_attention_bias_dkv": kfa.flash_attention_bias_dkv,
+            "flash_attention_bias_dq": kfa.flash_attention_bias_dq,
             "block_attention_stats": kba.block_attention_fwd,
             "flash_attention_fwd": kfa.flash_attention_fwd,
             "flash_attention_bwd": kfa.flash_attention_bwd,

@@ -255,24 +255,36 @@ def test_block_stats_refusals():
 # -------------------------------------------------------- biased route
 
 
-# (B, Sq, Sk, Hq, Hk, D, kind, causal, chunk, padded)
+# (B, Sq, Sk, Hq, Hk, D, kind, causal, chunk, special): special "pad" is
+# a [B, Sk] padding mask with a short row; "masked" a padding mask whose
+# batch row 1 has no valid key, and a dense bias holding -inf (one key,
+# one whole row) and -1e30 (another whole row): rows with no valid key
+# give output 0 and grads 0
 BIASED_CASES = {
-    "alibi_causal_gqa": (2, 128, 128, 4, 2, 64, "alibi", True, 64, False),
-    "alibi_full_gqa": (1, 128, 256, 4, 2, 64, "alibi", False, 128, False),
-    "rel_table_grads": (1, 96, 96, 2, 2, 64, "rel_table", True, 32, False),
-    "dense_padding_mask": (2, 128, 128, 2, 2, 64, "dense", True, 64, True),
+    "alibi_causal_gqa": (2, 128, 128, 4, 2, 64, "alibi", True, 64, None),
+    "alibi_full_gqa": (1, 128, 256, 4, 2, 64, "alibi", False, 128, None),
+    "rel_table_grads": (1, 96, 96, 2, 2, 64, "rel_table", True, 32, None),
+    "dense_padding_mask": (2, 128, 128, 2, 2, 64, "dense", True, 64, "pad"),
     "sk_not_a_chunk_multiple": (1, 128, 300, 2, 2, 64, "dense", False, 128,
-                                True),
+                                "pad"),
+    "alibi_causal_sq_lt_sk": (1, 96, 160, 4, 2, 64, "alibi", True, 64,
+                              None),
+    "dense_causal_sq_gt_sk_mqa": (1, 160, 96, 4, 1, 128, "dense", True, 64,
+                                  None),
+    "rel_table_full_gqa_pad": (2, 64, 128, 4, 2, 128, "rel_table", False,
+                               64, "pad"),
+    "dense_masked_rows_neg_inf": (2, 64, 96, 4, 2, 64, "dense", False, 64,
+                                  "masked"),
+    "alibi_causal_masked_rows": (2, 96, 64, 2, 2, 64, "alibi", True, 32,
+                                 "masked"),
 }
 
 
-@pytest.mark.parametrize("name", list(BIASED_CASES))
-def test_flash_attention_biased_matches_reference(name):
-    """Output and grads (q, k, v and the bias parameters) against the
-    reference's `flash_attention_biased` on the CPU (its jnp block
-    stats), every row where the reference's output is defined."""
-    B, Sq, Sk, hq, hk, d, kind, causal, chunk, padded = BIASED_CASES[name]
-    rng = np.random.default_rng(3)
+def _biased_inputs(name, seed=3):
+    """Inputs of a BIASED_CASES case: q, k, v, do, the bias parameter, R,
+    the padding mask (or None) and the scale; numpy f32."""
+    B, Sq, Sk, hq, hk, d, kind, causal, chunk, special = BIASED_CASES[name]
+    rng = np.random.default_rng(seed)
     q, do = _rand(rng, B, Sq, hq, d), _rand(rng, B, Sq, hq, d)
     k, v = _rand(rng, B, Sk, hk, d), _rand(rng, B, Sk, hk, d)
     R = 8
@@ -280,31 +292,188 @@ def test_flash_attention_biased_matches_reference(name):
         param = (2.0 ** -np.arange(1, hq + 1)).astype(np.float32)
     elif kind == "rel_table":
         param = 0.3 * _rand(rng, hq, 2 * R + 1)
+    elif special == "masked":
+        param = 0.5 * _rand(rng, B, 1, Sq, Sk)
+        param[0, 0, :, 3] = -np.inf
+        param[0, 0, 7, :] = -np.inf
+        param[0, 0, 9, :] = -1e30
     else:
         param = 0.5 * _rand(rng, B, 1, 1, Sk)
-    pm = _lengths_mask([Sk - 29, Sk][:B], Sk) if padded else None
-    scale = 1.0 / np.sqrt(d)
+    pm = None
+    if special == "pad":
+        pm = _lengths_mask([Sk - 29, Sk][:B], Sk)
+    elif special == "masked":
+        pm = _lengths_mask([Sk - 5, 0], Sk)
+    return q, k, v, do, param, R, pm, 1.0 / np.sqrt(d)
+
+
+def _reference_biased(name, q, k, v, param, R, pm, scale):
+    """The reference's flash_attention_biased (jnp block stats) as a
+    function of (q, k, v, param), and its dense log-sum-exp per row
+    (+inf where no key is valid)."""
+    kind, causal, chunk = BIASED_CASES[name][6:9]
+    (B, Sq, hq, _), (Sk, hk) = q.shape, k.shape[1:3]
+    jpm = None if pm is None else jnp.asarray(pm)
 
     def ref(q_, k_, v_, p_):
         return j_fa.flash_attention_biased(
             q_, k_, v_, kind, (p_, R) if kind == "rel_table" else p_,
-            causal=causal, scale=scale,
-            padding_mask=None if pm is None else jnp.asarray(pm),
-            chunk=chunk, use_pallas=False)
+            causal=causal, scale=scale, padding_mask=jpm, chunk=chunk,
+            use_pallas=False)
 
-    o_j, vjp = jax.vjp(ref, *(jnp.asarray(t) for t in (q, k, v, param)))
-    grads_j = vjp(jnp.asarray(do))
+    bias = j_fa._bias_chunk(kind, (jnp.asarray(param), R)
+                            if kind == "rel_table" else jnp.asarray(param),
+                            jnp.arange(Sq), jnp.arange(Sk), B, hq, causal,
+                            jpm)
+    kr = jnp.repeat(jnp.asarray(k), hq // hk, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kr) * scale + bias
+    s = jnp.where(bias > -5e29, s, -jnp.inf)
+    return ref, np.asarray(jax.nn.logsumexp(s, axis=-1))
+
+
+def _reference_grads(name, inputs, lse_j):
+    """The reference's VJP of `flash_attention_biased` in q, k, v and the
+    bias parameter. Its backward is NaN wherever a query row has no valid
+    key (the VJP of o / max(l, 1e-30) divides by max(l, 1e-30)^2, which
+    underflows to 0 in f32) and, through that row's dS, in dk of its
+    batch. Such rows add nothing to any gradient, so for the "masked"
+    cases the reference runs batch by batch without them (a batch with
+    none left has zero gradients); those rows' dq is 0."""
+    q, k, v, do, param, R, pm, scale = inputs
+    B, Sq, Sk, hq, hk, d, kind, causal, chunk, special = BIASED_CASES[name]
+    if special != "masked":
+        ref, _ = _reference_biased(name, q, k, v, param, R, pm, scale)
+        _, vjp = jax.vjp(ref, *(jnp.asarray(t) for t in (q, k, v, param)))
+        return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    empty = np.isinf(lse_j)                              # [B, Hq, Sq]
+    assert (empty == empty[:, :1]).all()                 # whole rows
+    grads = [np.zeros_like(t) for t in (q, k, v, param)]
+    for b in range(B):
+        keep = np.flatnonzero(~empty[b, 0])
+        if len(keep) == 0:
+            continue
+        # only a dense bias of a full (non-causal) problem may lose some
+        # of its rows: row positions do not enter it
+        assert len(keep) == Sq or (kind == "dense" and not causal)
+        pb = param[b:b + 1] if kind == "dense" else param
+        if kind == "dense" and pb.shape[2] != 1:
+            pb = pb[:, :, keep]
+        sub = (q[b:b + 1, keep], k[b:b + 1], v[b:b + 1], do[b:b + 1, keep],
+               pb, R, None if pm is None else pm[b:b + 1], scale)
+        ref, _ = _reference_biased(name, *sub[:3], *sub[4:])
+        _, vjp = jax.vjp(ref, *(jnp.asarray(t) for t in sub[:3] + (pb,)))
+        gq, gk, gv, gp = (np.asarray(g) for g in vjp(jnp.asarray(sub[3])))
+        grads[0][b, keep] = gq[0]
+        grads[1][b], grads[2][b] = gk[0], gv[0]
+        if kind == "dense" and param.shape[2] != 1:
+            grads[3][b][:, keep] = gp[0]
+        elif kind == "dense":
+            grads[3][b] = gp[0]
+        else:
+            grads[3] += gp
+    return grads
+
+
+@pytest.mark.parametrize("name", list(BIASED_CASES))
+def test_flash_attention_biased_matches_reference(name):
+    """Output and grads (q, k, v and the bias parameters) against the
+    reference's `flash_attention_biased` on the CPU (its jnp block
+    stats), every row: the CPU route, and its two plain functions
+    `_biased_plain_fwd` (o and the lse, against the reference's dense
+    log-sum-exp) and `_biased_plain_bwd` (dq, dk, dv) called directly.
+    Rows with no valid key give output 0 and dq 0 (`_reference_grads`:
+    the reference's own backward is NaN there)."""
+    B, Sq, Sk, hq, hk, d, kind, causal, chunk, special = BIASED_CASES[name]
+    inputs = _biased_inputs(name)
+    q, k, v, do, param, R, pm, scale = inputs
+    ref, lse_j = _reference_biased(name, q, k, v, param, R, pm, scale)
+    o_j = ref(*(jnp.asarray(t) for t in (q, k, v, param)))
+    grads_j = _reference_grads(name, inputs, lse_j)
+    tpm = None if pm is None else torch.from_numpy(pm)
     leaves = [_t(t, True) for t in (q, k, v, param)]
     o = t_fa.flash_attention_biased(
         *leaves[:3], kind, (leaves[3], R) if kind == "rel_table"
-        else leaves[3], causal=causal, scale=scale,
-        padding_mask=None if pm is None else torch.from_numpy(pm),
+        else leaves[3], causal=causal, scale=scale, padding_mask=tpm,
         chunk=chunk)
     o.backward(_t(do))
     assert _max_rel(o.detach(), o_j) <= KERNEL_RTOL
     for got, want in zip((t.grad for t in leaves), grads_j):
         assert got.shape == tuple(want.shape)
+        assert bool(torch.isfinite(got).all())
         assert _max_rel(got, want) <= KERNEL_RTOL
+
+    args = (kind, _t(param), R if kind == "rel_table" else None, causal,
+            scale, tpm, chunk)
+    o_p, lse = t_fa._biased_plain_fwd(_t(q), _t(k), _t(v), *args)
+    assert _max_rel(o_p, o_j) <= KERNEL_RTOL
+    empty = np.isinf(lse_j)
+    assert np.array_equal(np.isinf(lse.numpy()), empty)
+    assert _max_rel(lse.numpy()[~empty], lse_j[~empty]) <= KERNEL_RTOL
+    grads_p = t_fa._biased_plain_bwd(_t(q), _t(k), _t(v), o_p, lse, _t(do),
+                                     *args)
+    for got, want in zip(grads_p, grads_j[:3]):
+        assert _max_rel(got, want) <= KERNEL_RTOL
+    if special == "masked":
+        rows = np.transpose(empty, (0, 2, 1))              # [B, Sq, Hq]
+        assert rows[1].all()
+        for t in (o_p, o.detach(), grads_p[0], leaves[0].grad):
+            assert bool((t.numpy()[rows] == 0).all())
+
+
+def _eval_bias_args(a, B, Hq, Sq, Sk, causal):
+    """The kernels' `bias_head` / `bias_at` over every (b, h, i, j) of a
+    `_bias_args` lowering, in plain torch with the kernels' index
+    arithmetic (a dense bias read from its flat storage through the
+    element strides). Returns (bias f32 [B, Hq, Sq, Sk], valid)."""
+    b = torch.arange(B)[:, None, None, None]
+    h = torch.arange(Hq)[None, :, None, None]
+    i = torch.arange(Sq)[None, None, :, None]
+    j = torch.arange(Sk)[None, None, None, :]
+    flat = a.p.reshape(-1) if a.kind != 3 else torch.tensor(
+        [], dtype=torch.float32).set_(a.p.untyped_storage())
+    if a.kind == 1:
+        d = (i - j).float()
+        bv = -flat[h] * (d if causal else d.abs())
+    elif a.kind == 2:
+        bv = flat[h * (2 * a.R + 1) + (j - i).clamp(-a.R, a.R) + a.R]
+    else:
+        sb, sh, sq, sk = a.strides
+        bv = flat[a.p.storage_offset() + b * sb + h * sh + i * sq + j * sk]
+    valid = bv > -5e29
+    if causal:
+        valid = valid & (j <= i)
+    if a.kv_valid is not None:
+        valid = valid & a.kv_valid.bool()[:, None, None, :]
+    return bv.expand(B, Hq, Sq, Sk), valid.expand(B, Hq, Sq, Sk)
+
+
+@pytest.mark.parametrize("name", ["alibi_full_gqa", "alibi_causal_sq_lt_sk",
+                                  "rel_table_full_gqa_pad",
+                                  "dense_masked_rows_neg_inf",
+                                  "sk_not_a_chunk_multiple"])
+def test_bias_args_lowering_equals_bias_chunk(name):
+    """`_bias_args` lowers each kind to what the kernels read; evaluated
+    with the kernels' index arithmetic it gives `_bias_chunk`'s bias and
+    mask over the whole [B, Hq, Sq, Sk]: the same valid entries and the
+    same values there. A dense parameter passed as a strided view (a
+    transposed slice) lowers without a copy."""
+    B, Sq, Sk, hq, hk, d, kind, causal, chunk, special = BIASED_CASES[name]
+    _, _, _, _, param, R, pm, _ = _biased_inputs(name)
+    p = _t(param)
+    if kind == "dense":
+        p = _t(np.ascontiguousarray(np.swapaxes(param, 2, 3))
+               ).transpose(2, 3)
+    tpm = None if pm is None else torch.from_numpy(pm)
+    a = t_fa._bias_args(kind, p, R if kind == "rel_table" else None, tpm,
+                        (B, Sq, hq, d), (B, Sk, hk, d))
+    if kind == "dense":
+        assert a.p.data_ptr() == p.data_ptr()
+    got, valid = _eval_bias_args(a, B, hq, Sq, Sk, causal)
+    want = t_fa._bias_chunk(kind, (p, R) if kind == "rel_table" else p, Sq,
+                            0, Sk, causal, None if tpm is None
+                            else tpm.bool()).expand(B, hq, Sq, Sk)
+    assert torch.equal(valid, want > -5e29)
+    assert torch.equal(got[valid], want[valid])
 
 
 def test_biased_route_holds_no_full_score_buffer():

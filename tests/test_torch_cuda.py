@@ -417,7 +417,8 @@ _FLASH_FAULTS = {
 
 def _readings_with_fault(tmp_path, source, fault, readings_fn):
     """Copy the package, plant `fault` = (anchor, pattern, replacement)
-    in the copy's csrc/`source` (None: intact), build and run the copy's
+    in the copy's csrc/`source` (a path with a directory: relative to the
+    package) (None: intact), build and run the copy's
     `testing.<readings_fn>()` in a subprocess; returns its readings."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = shutil.copytree(os.path.join(repo, "paddle_tpu_torch"),
@@ -426,7 +427,7 @@ def _readings_with_fault(tmp_path, source, fault, readings_fn):
                                                         "__pycache__"))
     if fault is not None:
         anchor, pattern, repl = fault
-        cu = pkg / "csrc" / source
+        cu = pkg / source if "/" in source else pkg / "csrc" / source
         src = cu.read_text()
         at = src.index(anchor)
         body, n = re.subn(pattern, repl, src[at:], count=1)
@@ -694,13 +695,42 @@ def test_block_stats_matches_plain(dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["masked", "alibi_gqa", "sdpa_float",
+                                  "rel_table_bert"])
+def test_bias_kernels_match_plain(dtype, case):
+    """The bias kernels (forward, dkv, dq) against `_biased_plain_fwd` /
+    `_biased_plain_bwd` on f32 copies at `testing.BIAS_CASES`, element by
+    element under the flash rule (terms; lse 1e-4 + 1e-5 |plain|, +inf
+    on the same rows); the masked case's rows with no valid key give o =
+    0 and dq = 0 exactly."""
+    _card()
+    c = testing.bias_case(**testing.BIAS_CASES[case],
+                          dtype=getattr(torch, dtype))
+    pairs, (o, lse) = testing.bias_flash_pairs(
+        c["q"], c["k"], c["v"], c["do"], c["kind"], c["param"], c["R"],
+        c["padding_mask"], c["causal"], c["scale"])
+    for label, got, ref, terms in pairs:
+        if terms is None:
+            assert testing.worst(got, ref, 1e-4, 1e-5) <= 1.0, label
+        else:
+            assert _within_terms(got, ref, terms, dtype), label
+    if case == "masked":
+        rows = torch.isinf(lse).transpose(1, 2)           # [B, Sq, Hq]
+        assert bool(rows[2].all()) and bool(rows[0, 7].all())
+        assert bool((o[rows] == 0).all())
+        assert bool((pairs[2][1][rows] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["alibi_gqa_causal", "dense_padded_ragged"])
-def test_biased_route_matches_plain(dtype, kind, monkeypatch):
-    """flash_attention_biased on the card (the block-stats kernel per
-    chunk, plain backward) against the same route with the kernel
-    swapped for `_dense_stats`: output and grads, max |a - b| / max |b|
-    within 1e-4 (f32) or testing.SURFACE_RTOL (bf16: P rounded before
-    P V)."""
+def test_biased_route_matches_plain(dtype, kind):
+    """flash_attention_biased on the card (one bias forward launch, one
+    dkv and one dq, no block-stats launch) against the same route on
+    the CPU (its plain versions) on f32 copies: output and grads (q, k,
+    v and a dense bias that requires grad), max |a - b| / max |b| within
+    1e-4 (f32) or testing.SURFACE_RTOL (bf16: P and dS rounded before
+    their products)."""
     _card()
     from paddle_tpu_torch.kernels import block_attention as t_ba
     dt = getattr(torch, dtype)
@@ -719,38 +749,43 @@ def test_biased_route_matches_plain(dtype, kind, monkeypatch):
              for _ in range(2))
     k, v = (torch.randn(B, Sk, hk, d, generator=g, device="cuda").to(dt)
             for _ in range(2))
-    param.requires_grad_(kind != "alibi_gqa_causal")
     kind_name = "alibi" if kind.startswith("alibi") else "dense"
 
-    def run():
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        if param.grad is not None:
-            param.grad = None
-        out = t_fa.flash_attention_biased(*leaves, kind_name, param,
-                                          chunk=C, **kw)
-        out.backward(do)
+    def run(dev, cast):
+        leaves = [t.detach().to(dev, cast).requires_grad_()
+                  for t in (q, k, v)]
+        p = param.detach().to(dev).requires_grad_(
+            kind != "alibi_gqa_causal")
+        kws = {n: (t.to(dev) if torch.is_tensor(t) else t)
+               for n, t in kw.items()}
+        out = t_fa.flash_attention_biased(*leaves, kind_name, p, chunk=C,
+                                          **kws)
+        out.backward(do.to(dev, out.dtype))
         grads = [t.grad for t in leaves]
-        if param.requires_grad:
-            grads.append(param.grad.clone())
+        if p.requires_grad:
+            grads.append(p.grad)
         return [out.detach()] + grads
 
-    before = t_ba.block_attention_fwd.launches
-    got = run()
-    assert t_ba.block_attention_fwd.launches - before == -(-Sk // C)
-    monkeypatch.setattr(t_ba, "block_attention_fwd",
-                        lambda q_, k_, v_, mask, scale, bias=None:
-                        t_ba._dense_stats(q_, k_, v_, mask, scale, bias))
-    want = run()
+    counters = testing.attention_counters()
+    before = {n: c.launches for n, c in counters.items()}
+    got = run("cuda", dt)
+    grew = {n: c.launches - before[n] for n, c in counters.items()}
+    assert grew == {n: int(n.startswith("flash_attention_bias"))
+                    for n in counters}
+    want = run("cpu", torch.float32)
     lim = 1e-4 if dt == torch.float32 else testing.SURFACE_RTOL
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         assert _max_rel(a, b) <= lim
+    assert t_ba.block_attention_fwd.launches == before[
+        "block_attention_stats"]
 
 
 @pytest.mark.cuda
 def test_attention_surface_never_reaches_plain(monkeypatch):
     """On the card every route of the attention surface runs its kernels:
-    the plain versions (`_plain`, `_SegPlain`, `_dense_stats`) are
+    the plain versions (`_plain`, `_SegPlain`, `_biased_plain_fwd`,
+    `_biased_plain_bwd`, `_dense_stats`) are
     patched to raise, and sdpa (no mask, boolean padding mask, float
     mask), flash_attn_unpadded, MultiHeadAttention with a mask and cache,
     flash_attention_biased, block_attention_stats and a bert_tiny forward
@@ -766,6 +801,8 @@ def test_attention_surface_never_reaches_plain(monkeypatch):
 
     monkeypatch.setattr(t_fa, "_plain", refuse)
     monkeypatch.setattr(t_fa._SegPlain, "apply", refuse)
+    monkeypatch.setattr(t_fa, "_biased_plain_fwd", refuse)
+    monkeypatch.setattr(t_fa, "_biased_plain_bwd", refuse)
     monkeypatch.setattr(t_ba, "_dense_stats", refuse)
     counters = testing.attention_counters()
     before = {n: c.launches for n, c in counters.items()}
@@ -810,8 +847,12 @@ def test_attention_surface_never_reaches_plain(monkeypatch):
     assert grew["flash_attention_seg_fwd"] == 2 + 1 + 1 + 2
     assert grew["flash_attention_seg_dkv"] == 2
     assert grew["flash_attention_seg_dq"] == 2
-    # float-mask sdpa (1 chunk), alibi (2 chunks), block stats itself
-    assert grew["block_attention_stats"] == 1 + 2 + 1
+    # float-mask sdpa and alibi: one bias forward, dkv and dq each; the
+    # block-stats kernel only where it is called itself
+    assert grew["flash_attention_bias_fwd"] == 2
+    assert grew["flash_attention_bias_dkv"] == 2
+    assert grew["flash_attention_bias_dq"] == 2
+    assert grew["block_attention_stats"] == 1
 
 
 @pytest.mark.cuda
@@ -829,6 +870,18 @@ def test_attention_kernels_refuse_what_they_do_not_take():
     y = torch.zeros(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="causal"):
         t_fa.flash_attention_bshd(y, y[:, :32], y[:, :32], causal=True)
+    slopes = torch.ones(2, device="cuda")
+    with pytest.raises(ValueError, match="do not take"):
+        t_fa.flash_attention_biased(x, x, x, "alibi", slopes,
+                                    use_kernel=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        t_fa.flash_attention_biased(x, x, x, "alibi", slopes)
+    bias = t_fa._bias_args("alibi", slopes, None, None, y.shape, y.shape)
+    with pytest.raises(ValueError, match="do not take"):
+        t_fa.flash_attention_bias_fwd(y.cpu(), y.cpu(), y.cpu(), bias, True,
+                                      0.125)
+    with pytest.raises(ValueError, match="do not take"):
+        t_fa.flash_attention_bias_fwd(y, y.float(), y, bias, True, 0.125)
 
 
 # Faults planted in copies of csrc/flash_attention.cu and
@@ -846,20 +899,42 @@ _ATTN_FAULTS = {
         "block_attention.cu", "bool entry(",
         r"    if \(!\(bv > kMaskedBias\)\) return false;\n", "",
         "block_stats_readings", "l"),
+    # dk and dv recompute P from the raw scores: the bias (with the
+    # scale and the masks applied beside it) dropped
+    "bias_dropped_in_dkv": (
+        "flash_attention.cu", "flash_bwd_dkv_mma_kernel(",
+        r"      if constexpr \(BIAS\)\n        bias_scores<[^;]*;\n", "",
+        "bias_flash_readings", "dv"),
+    # a row with no valid key divides its zero sum by l = 0: NaN
+    "l0_epilogue_nan": (
+        "flash_attention.cu", "flash_fwd_mma_kernel(",
+        r"if \(!\(l_r\[r\] > 0\.f\)\) \{ inv = 0\.f; lse_v = INFINITY; \}",
+        "if (!(l_r[r] > 0.f)) { lse_v = INFINITY; }", "bias_flash_readings",
+        "o"),
+    # the GQA scale applied to q in its own dtype (splash's convention)
+    # instead of to the f32 scores
+    "gqa_scale_in_q_dtype": (
+        "kernels/flash_attention.py", "def flash_attention_bias_fwd(",
+        r"    q, k, v = \(_rows\(t\) for t in \(q, k, v\)\)\n",
+        "    q, scale = (q * scale).to(q.dtype), 1.0\n"
+        "    q, k, v = (_rows(t) for t in (q, k, v))\n",
+        "bias_flash_readings", "lse"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", ["intact_seg", "intact_stats",
-                                   *_ATTN_FAULTS])
+                                   "intact_bias", *_ATTN_FAULTS])
 def test_attention_checks_fail_planted_faults(fault, tmp_path):
-    """chip_smoke.py's segment-flash and block-stats checks
-    (`testing.seg_flash_readings`, `testing.block_stats_readings`, bf16)
-    pass the kernels as written and fail each planted fault."""
+    """chip_smoke.py's segment-flash, block-stats and bias-flash checks
+    (`testing.seg_flash_readings`, `testing.block_stats_readings`,
+    `testing.bias_flash_readings`, bf16) pass the kernels as written and
+    fail each planted fault."""
     _card()
     if fault.startswith("intact"):
-        readings_fn = ("seg_flash_readings" if fault == "intact_seg"
-                       else "block_stats_readings")
+        readings_fn = {"intact_seg": "seg_flash_readings",
+                       "intact_stats": "block_stats_readings",
+                       "intact_bias": "bias_flash_readings"}[fault]
         readings = _readings_with_fault(tmp_path, None, None, readings_fn)
     else:
         source, anchor, pattern, repl, readings_fn, out = \

@@ -1,5 +1,6 @@
 """The element-limit rule of paddle_tpu_torch/testing.py on the CPU: the
-sums of |terms| that scale the flash and SwiGLU-backward limits bound
+sums of |terms| that scale the flash (plain, segment and bias) and
+SwiGLU-backward limits bound
 |plain| element by element, and equal it where no term can cancel (all
 inputs that enter a sum with a sign made non-negative)."""
 import math
@@ -102,6 +103,48 @@ def test_seg_flash_terms_bound_plain(hq, hk, causal, Sk):
     for name, g, t in zip(("o", "dq", "dk", "dv"), got, terms):
         assert t.shape == g.shape, name
         assert bool((g.abs() <= t * (1 + 1e-5) + 1e-6).all()), name
+
+
+@pytest.mark.parametrize("kind,causal,Sk", [("alibi", True, 37),
+                                             ("rel_table", False, 51),
+                                             ("dense", True, 51)],
+                         ids=["alibi_causal", "rel_table_full",
+                              "dense_causal_empty_rows"])
+@pytest.mark.parametrize("nonneg", [False, True], ids=["signed", "nonneg"])
+def test_bias_flash_terms_bound_plain(kind, causal, Sk, nonneg):
+    """The bias kernels' terms (`bias_flash_terms`, over KV chunks) bound
+    the plain version's outputs element by element, GQA, with a padding
+    mask and, for the dense bias, a -inf row and a batch row with no
+    valid key (its terms and outputs are 0)."""
+    rng = np.random.default_rng(3)
+    B, S, hq, hk, D = 2, 37, 4, 2, 16
+    q, k = _rand(rng, B, S, hq, D), _rand(rng, B, Sk, hk, D)
+    v = _rand(rng, B, Sk, hk, D, nonneg=nonneg)
+    do = _rand(rng, B, S, hq, D, nonneg=nonneg)
+    R, pm = None, None
+    if kind == "alibi":
+        param = testing.alibi_slopes(hq, device="cpu")
+    elif kind == "rel_table":
+        R, param = 5, 0.5 * _rand(rng, hq, 11)
+    else:
+        param = 0.5 * _rand(rng, B, 1, S, Sk)
+        param[0, 0, 4] = -float("inf")
+        pm = torch.arange(Sk)[None, :] < torch.tensor([[40], [0]])
+    args = (kind, param, R, causal, 0.3, pm, 16)
+    o, lse = t_fa._biased_plain_fwd(q, k, v, *args)
+    grads = t_fa._biased_plain_bwd(q, k, v, o, lse, do, *args)
+    terms = testing.bias_flash_terms(q, k, v, do, o, lse, kind, param, R,
+                                     causal, 0.3, pm)
+    for name, g, t in zip(("o", "dq", "dk", "dv"), (o,) + grads, terms):
+        assert t.shape == g.shape, name
+        assert bool((g.abs() <= t * (1 + 1e-5) + 1e-6).all()), name
+    if nonneg:
+        assert testing.worst(terms[0], o, 0.0, 1e-5) <= 1.0
+        assert testing.worst(terms[3], grads[2], 0.0, 1e-5) <= 1.0
+    if pm is not None:
+        assert bool(torch.isinf(lse[1]).all()) and bool(
+            torch.isinf(lse[0, :, 4]).all())
+        assert float(terms[0][1].abs().max()) == 0.0
 
 
 def test_case_lengths():

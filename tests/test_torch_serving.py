@@ -74,6 +74,10 @@ def _drive(engine, req_cls, workload, max_ticks=400):
 
 @pytest.mark.parametrize("scenario", ["mixed_chunk_prefix", "preempt"])
 def test_engine_token_identical_to_jax(models, scenario):
+    """The port's default engine (no speculative / slo / request_trace
+    argument: its flags default to the reference's kill switches) against
+    the JAX engine built with those kill switches off: token- and
+    tick-identical."""
     jm, tm = models
     if scenario == "preempt":
         knobs = dict(max_batch=2, max_seq=64, total_pages=5,
@@ -191,5 +195,57 @@ def test_engine_fault_fails_open_streams(models):
             urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                    timeout=30)
         assert err.value.code == 503
+    finally:
+        gateway.stop()
+
+
+# ------------------------------------------------ serving defaults
+
+
+@pytest.mark.parametrize("flag", ["FLAGS_speculative",
+                                  "FLAGS_speculative_draft_tokens",
+                                  "FLAGS_serving_slo", "FLAGS_request_trace"])
+def test_unported_serving_flags_raise(models, flag, monkeypatch):
+    """The reference arms these features by default; the port registers
+    their flags at the kill-switch values, and a flag set to 1 asks for
+    a feature that is not ported."""
+    from paddle_tpu_torch.framework import core as t_core
+    _, tm = models
+    assert not t_core.get_bool_flag(flag)
+    monkeypatch.setitem(t_core._flags, flag, 1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TEngine(tm, max_batch=2, max_seq=64, device="cpu")
+
+
+def test_draft_length_raises_unless_speculation_is_off(models):
+    _, tm = models
+    with pytest.raises(NotImplementedError, match="max_draft_tokens"):
+        TEngine(tm, max_batch=2, max_seq=64, max_draft_tokens=4,
+                device="cpu")
+    # the reference's kill switch: no drafting whatever the cap
+    TEngine(tm, max_batch=2, max_seq=64, max_draft_tokens=4,
+            speculative=False, device="cpu")
+
+
+def test_gateway_refuses_priority_and_deadline(models):
+    """A request with a priority or a deadline gets a 400 naming the SLO
+    layer at submission; the server keeps serving."""
+    _, tm = models
+    eng = TEngine(tm, max_batch=2, max_seq=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="SLO"):
+        eng.add_request(TReq([1, 2, 3], max_new_tokens=2, priority=1))
+    gateway = t_gw.ServingGateway(t_gw.EngineRunner(eng), port=0)
+    port = gateway.start()
+    try:
+        for extra in ({"priority": 2}, {"deadline_s": 5.0}):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(port, {"prompt": [1, 2, 3], "max_new_tokens": 2,
+                             **extra})
+            assert err.value.code == 400
+            assert "SLO layer" in json.loads(err.value.read())["error"]
+        doc = json.loads(_post(port, {"prompt": [1, 2, 3],
+                                      "max_new_tokens": 2, "priority": 0,
+                                      "stream": False}))
+        assert doc["status"] == "served" and len(doc["output"]) == 2
     finally:
         gateway.stop()
