@@ -94,15 +94,22 @@ The kernel phase also holds the three segment-id flash kernels, the
 block-stats kernel and the three bias kernels against their plain
 versions at `testing.ATTN_SEG_CASES`, `testing.STATS_CASES` and
 `testing.BIAS_CASES` (the two phases' shapes among them), bf16 and f32,
-and times them.
+and times them. It traces one SwiGLU forward, da and dW launch at the
+7B training shape and at the card tests' scalar_edges shape and holds
+each product's core (the wgmma kernel, name fragment `WGMMA_KERNEL`,
+or the mma.sync `mma_kernel`) to `expected_swiglu_routes`; beside row
+3's one-product library time it times the whole launch's work in
+PyTorch calls (`library_whole_ms`).
 
     python3 chip_smoke.py --ab PARENT_DIR
 
 compares this checkout with another (an unpacked `git archive` of the
 parent commit) on one card: `route_times` (row 10's 7B flash forward
 and backward, the alibi 4 x 2048 and float-mask biased routes forward
-and forward + backward, the alibi route's peak memory) runs in a fresh
-process per checkout, in the order parent, change, change, parent.
+and forward + backward, the alibi route's peak memory, the SwiGLU
+forward, da and dW launches at the 7B and 1B training shapes and the
+forward at serving and decode rows) runs in a fresh process per
+checkout, in the order parent, change, change, parent.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; before it, one JSON line with every kernel's
@@ -115,6 +122,7 @@ import contextlib
 import http.client
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -456,17 +464,19 @@ def kernel_phase(report):
 
         # rms_norm and swiglu at every row count the main path gives
         # them: the ragged serving step's 128 packed rows at llama_7b's
-        # width (timed: the kernel table's row), the training slices'
-        # 8192 rows at llama_1b's and at llama_7b's width (timed), the
-        # decode step's 4 (B = 4 in generate and the bucketed engine;
-        # timed), the bucketed prefills' 32 (bucket 32 x 1) and 2048
-        # (bucket 1024 x 2) and generate's prefill 512 (4 x 128), checked
-        # only. 128 rows also stand for the bucketed prefill of bucket
-        # 128 x 1.
+        # width (timed: the kernel table's row), the decode step's 4 (B =
+        # 4 in generate and the bucketed engine; timed), the training
+        # slices' 8192 rows at llama_1b's and at llama_7b's width (timed),
+        # the bucketed prefills' 32 (bucket 32 x 1) and 2048 (bucket 1024
+        # x 2) and generate's prefill 512 (4 x 128), checked only. 128
+        # rows also stand for the bucketed prefill of bucket 128 x 1. The
+        # bytes-bound row counts go first: a run of dense 8192-row
+        # products leaves the card at a lower clock for a while.
         shapes = ((128, 4096, 11008, "serving"),
+                  (4, 4096, 11008, "decode"),
                   (8192, 2048, 5504, "training"),
                   (8192, 4096, 11008, "training_7b"),
-                  (4, 4096, 11008, "decode"), (32, 4096, 11008, None),
+                  (32, 4096, 11008, None),
                   (512, 4096, 11008, None), (2048, 4096, 11008, None))
         for rows, H, _, path in shapes:
             x = torch.randn((rows, H), generator=gen, device="cuda").to(dtype)
@@ -502,6 +512,9 @@ def kernel_phase(report):
             elif m:
                 report["swiglu"][path] = m
             del wgu
+        if dtype == torch.bfloat16:
+            for T, H, M in SWIGLU_ROUTE_SHAPES:
+                swiglu_route_check(T, H, M)
 
         # ragged paged attention at the slice's shapes
         args, rows = ragged_case(torch, dtype, gen)
@@ -593,6 +606,85 @@ def paged_kernels(report, dtype):
         iters=200))
     del pools, kc, vc
     torch.cuda.empty_cache()
+
+
+# The SwiGLU bf16 products' two cores in csrc/swiglu.cu, told apart by
+# their device kernels' names: the wgmma/TMA core (name fragment
+# WGMMA_KERNEL) and the mma.sync kernel. The template arguments <TA, TB,
+# GU, epilogue> name the product: FwdEpi the forward, DguEpi the g/u
+# recompute of swiglu_bwd_da, StoreEpi with TA its da product (TB) or
+# swiglu_bwd_dw's a^T dgu (TA).
+WGMMA_KERNEL = "wgmma_swiglu_kernel"
+_SWIGLU_KERNEL = re.compile(
+    r"(?<![A-Za-z0-9_])(wgmma_swiglu_kernel|mma_kernel)<(true|false), "
+    r"(true|false), (true|false), [^>]*?(FwdEpi|DguEpi|StoreEpi)")
+# the 7B training shape (every product on the wgmma core) and the card
+# tests' scalar_edges shape (H = 100: a's rows are not whole 16-byte
+# vectors, so only da, whose rows are 2M = 120 long, takes the core)
+SWIGLU_ROUTE_SHAPES = ((8192, 4096, 11008), (77, 100, 60))
+
+
+def swiglu_route_of(name):
+    """(product, core) of a SwiGLU bf16 device kernel's name, or None:
+    product forward, recompute, da or dw; core "wgmma" or "mma.sync"."""
+    m = _SWIGLU_KERNEL.search(name)
+    if m is None:
+        return None
+    core = "wgmma" if m.group(1) == WGMMA_KERNEL else "mma.sync"
+    product = {"FwdEpi": "forward", "DguEpi": "recompute"}.get(
+        m.group(5), "dw" if m.group(2) == "true" else "da")
+    return product, core
+
+
+def expected_swiglu_routes(T, H, M):
+    """The core each bf16 product of a [T, H] @ [H, 2M] SwiGLU takes by
+    csrc/swiglu.cu's one test (torch's allocations are 16-byte aligned):
+    the wgmma core where every operand row is whole 16-byte vectors, the
+    mma.sync kernel where one is not, and for the forward at T <= 128
+    rows (SMALL_T)."""
+    def core(*rows):
+        return "wgmma" if all(r % 8 == 0 for r in rows) else "mma.sync"
+    return {"forward": core(H, M) if T > 128 else "mma.sync",
+            "recompute": core(H, M), "da": core(2 * M), "dw": core(H, 2 * M)}
+
+
+def swiglu_route_check(T, H, M):
+    """Trace one swiglu forward, one swiglu_bwd_da and one swiglu_bwd_dw in
+    bf16 and hold the cores their device kernels name against
+    `expected_swiglu_routes`: at the 7B shape no mma_kernel may run and
+    every product must be a WGMMA_KERNEL launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import swiglu as ksw
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen,
+                                  device="cuda")).bfloat16()
+
+    a, wgu, do = rand(T, H), rand(H, 2 * M, std=0.02), rand(T, M)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ksw.swiglu(a, wgu, use_kernel=True)
+        _, dgu = ksw.swiglu_bwd_da(a, wgu, do)
+        ksw.swiglu_bwd_dw(a, dgu)
+        torch.cuda.synchronize()
+    got = {}
+    for e in prof.key_averages():
+        route = (swiglu_route_of(e.key) if e.device_type == DeviceType.CUDA
+                 else None)
+        if route:
+            got.setdefault(route[0], set()).add(route[1])
+    want = expected_swiglu_routes(T, H, M)
+    tag = f"[{T}x{H} @ {H}x{2 * M}]"
+    print(f"swiglu route {tag}: " + " ".join(
+        f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
+        + f" (want {want}; wgmma kernel name fragment '{WGMMA_KERNEL}')",
+        flush=True)
+    check(got == {p: {c} for p, c in want.items()},
+          f"swiglu {tag}: the products ran on {got}, not {want}")
+    del a, wgu, do, dgu
 
 
 # the training slices' kernel shapes, batch 4 x seq 2048 = 8192 rows:
@@ -711,14 +803,31 @@ def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
 
         # library: the one product [dg | du] [Wg | Wu]^T, given the dgu
         # the kernel made
-        record(report, "swiglu_bwd_da", path, timed(
+        measured = timed(
             "swiglu_bwd_da", err_da, lambda: ksw.swiglu_bwd_da(a, wgu, do),
             lambda: plain_grad(0),
             # a, w_gate_up, do in; da and the [T, 2M] dgu out
             nbytes=(a.numel() + wgu.numel() + do.numel() + a.numel()
                     + dgu.numel()) * it,
             flops=2 * gemm, library=lambda: torch.matmul(dgu, wgu.t()),
-            iters=10, tag=tag))
+            iters=10, tag=tag)
+
+        def library_whole():
+            """What the launch does, in PyTorch calls: the g/u product,
+            the plain dgu expression, the da product."""
+            gu = torch.matmul(a, wgu).float()
+            g, u = gu[:, :M], gu[:, M:]
+            s = torch.sigmoid(g)
+            d = do.float()
+            dgu_l = torch.cat((d * u * (s + g * s * (1 - s)), d * (g * s)),
+                              1).to(dtype)
+            return torch.matmul(dgu_l, wgu.t())
+
+        measured["library_whole_ms"] = time_ms(library_whole, 10)
+        print(f"kernel swiglu_bwd_da bf16{tag}: library_whole_ms="
+              f"{measured['library_whole_ms']:.6g} (a @ w_gate_up, the "
+              f"plain dgu expression, dgu @ w_gate_up^T)", flush=True)
+        record(report, "swiglu_bwd_da", path, measured)
         # library: the one product a^T dgu, given the dgu bwd_da made
         record(report, "swiglu_bwd_dw", path, timed(
             "swiglu_bwd_dw", err_dw, lambda: ksw.swiglu_bwd_dw(a, dgu),
@@ -2449,18 +2558,35 @@ def surface_7b(report, counters, name, fn, inputs, do, want, what,
     return fwd_ms, fb_ms
 
 
+def card_state():
+    """The card's SM clock (MHz), temperature (C) and power draw (W) as
+    nvidia-smi reads them now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    clock, temp, power = (float(x) for x in
+                          smi.stdout.strip().splitlines()[0].split(","))
+    return {"sm_clock_mhz": clock, "temp_c": temp, "power_w": power}
+
+
 def route_times():
-    """Row 10's and row 12's times for the `paddle_tpu_torch` first on
-    sys.path, bf16 on one card, as one JSON object: the 7B flash forward
-    and backward kernels (causal [4, 2048, 32, 128]); flash_attention_
-    biased with causal alibi at the same shape and sdpa with the float
-    [16, 1, 1, 512] mask at bert width (the BERT lengths), forward and
-    forward + backward; the alibi route's forward + backward peak memory
-    above its inputs. Uses only entry points the parent commit has."""
+    """Rows 2-4's, row 10's and row 12's times for the `paddle_tpu_torch`
+    first on sys.path, bf16 on one card, as one JSON object: the 7B flash
+    forward and backward kernels (causal [4, 2048, 32, 128]); flash_
+    attention_biased with causal alibi at the same shape and sdpa with the
+    float [16, 1, 1, 512] mask at bert width (the BERT lengths), forward
+    and forward + backward; the alibi route's forward + backward peak
+    memory above its inputs; swiglu at 128 and 4 rows of llama_7b's
+    width, swiglu, swiglu_bwd_da and swiglu_bwd_dw at 8192 rows of
+    llama_7b's and llama_1b's widths, then swiglu at 128 and 4 rows again,
+    each small-row reading beside `card_state`. Uses only entry points
+    the parent commit has."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import swiglu as ksw
     from paddle_tpu_torch.nn import functional as TF
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2513,6 +2639,35 @@ def route_times():
     out["float_mask_fwd_ms"] = time_ms(lambda: sdpa_float(q, k, v), 10)
     out["float_mask_fwd_bwd_ms"] = time_ms(
         lambda: fwd_bwd(sdpa_float, (q, k, v), do), 5)
+    del q, k, v, do
+    # rows 2-4: the SwiGLU forward at the serving and decode rows of
+    # llama_7b (bytes-bound), the forward and backward launches at the
+    # training slices' shapes (8192 rows), then the serving and decode
+    # forward again: the card's clock after a long run of dense products
+    # moves the bytes-bound times, so both readings carry its state
+    wgu = (0.02 * rand(4096, 2 * 11008)).bfloat16()
+
+    def serving_rows(after):
+        for T in (128, 4):
+            a = rand(T, 4096)
+            out[f"swiglu_fwd_7b_T{T}{after}_ms"] = time_ms(
+                lambda: ksw.swiglu(a, wgu, use_kernel=True), 50)
+        out.update({f"{k}{after}": v for k, v in card_state().items()})
+
+    serving_rows("")
+    for tag, H, M in (("7b", 4096, 11008), ("1b", 2048, 5504)):
+        a, dout = rand(8192, H), rand(8192, M)
+        wgu = (0.02 * rand(H, 2 * M)).bfloat16()
+        out[f"swiglu_fwd_{tag}_ms"] = time_ms(
+            lambda: ksw.swiglu(a, wgu, use_kernel=True), 10)
+        _, dgu = ksw.swiglu_bwd_da(a, wgu, dout)
+        out[f"swiglu_bwd_da_{tag}_ms"] = time_ms(
+            lambda: ksw.swiglu_bwd_da(a, wgu, dout), 10)
+        out[f"swiglu_bwd_dw_{tag}_ms"] = time_ms(
+            lambda: ksw.swiglu_bwd_dw(a, dgu), 10)
+        del a, dout, dgu
+    wgu = (0.02 * rand(4096, 2 * 11008)).bfloat16()
+    serving_rows("_after_gemms")
     return out
 
 

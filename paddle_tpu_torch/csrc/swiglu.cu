@@ -2,8 +2,8 @@
 // (gate columns first) and a is [T, H].
 //
 // Forward: out[T, M] = silu(a @ Wg) * (a @ Wu). The [T, 2M] gate/up
-//   product is never stored: each block computes the g and u tiles of one
-//   [128, 64] output tile in f32 and applies silu(g) * u in the epilogue.
+//   product is never stored: each block computes the g and u tiles of its
+//   output tile in f32 and applies silu(g) * u in the epilogue.
 // Backward, two C entries:
 //   `bwd_da` recomputes each g/u tile with the forward's main loop, turns
 //     the output cotangent into the gate/up cotangents in f32 (dg = do *
@@ -12,38 +12,64 @@
 //     [T, 2M]; then da[T, H] = dgu @ w_gate_up^T, accumulated over the 2M
 //     columns in f32 and written once.
 //   `bwd_dw` computes dw[H, 2M] = [dWg | dWu] = a^T @ dgu, accumulated
-//     over the T rows in f32 (one block per [128, 128] output tile with
-//     a long K loop over T) and written once.
+//     over the T rows in f32 (one block per output tile with a long K
+//     loop over T) and written once.
 //
 // Replaces: paddle_tpu/kernels/swiglu.py::swiglu (_fwd_impl ->
 //   _fwd_kernel, the blockwise Pallas GEMM with the fused epilogue) and
 //   its backward _bwd_impl -> _bwd_da_kernel and _bwd_dw_kernel.
-// Bound on the H100: the forward at the serving slice's T = 128 rows is
-//   bound by bytes (the 180 MB weight read per layer against 23 GFLOP); at
-//   the training slice's T = 8192, H = 2048, M = 5504 every product is
-//   bound by operations: 2*T*H*2M = 369 GFLOP each for the forward, the
-//   recompute, da and dw, against 33-180 MB of operands.
-// Design: bf16 runs on the tensor cores through mma.sync m16n8k16 bf16
-//   products with f32 accumulators in registers, fed by ldmatrix from
-//   shared-memory tiles (128 x 128 block tiles, K step 64, 8 warps of 64 x
-//   32; see mma_kernel). The K loop streams its tiles through a 3-slot
-//   cp.async ring. Where the shape allows 16-byte copies (row lengths % 8
-//   == 0, 16-byte aligned bases) the ring is asynchronous with zero-fill
-//   at the edges; otherwise tiles load with masked scalar loads, so any H
-//   and M work (llama_tiny's M = 688). The f32 variant (the CPU-parity
-//   dtype) is a register-tiled SIMT GEMM with the same epilogues: the
-//   tensor cores have no full-precision f32 product.
+// Bound on the H100: at the training shapes (T = 8192 rows) every product
+//   is bound by operations: 2*T*H*2M = 1.477 TFLOP each for the forward,
+//   the recompute, da and dw at llama_7b's H = 4096, M = 11008 (1.49 ms
+//   at 989 TFLOP/s) against 64-360 MB of operands (0.02-0.11 ms at 3.35
+//   TB/s). The forward at serving T (4-128 rows) is bound by bytes: the
+//   180 MB weight read per layer against 23 GFLOP at T = 128.
+// Design, bf16 (two cores, one routing test, see mma_launch):
+//   wgmma_swiglu_kernel, sm_90a: whenever the shape allows TMA (every row
+//     length % 8 == 0, 16-byte aligned bases: `vec_ok`). A block owns a
+//     128 x 256 tile of op(A) @ op(B) and walks K in steps of 64 through
+//     a 4-stage ring of 128-byte-swizzled shared-memory tiles (48 KB a
+//     stage, 192 KB in all, one block per SM). Warp-specialised: one
+//     producer warpgroup (registers cut by setmaxnreg) in which one thread
+//     starts each stage's TMA loads against a full-barrier; two consumer
+//     warpgroups each run wgmma m64n256k16 over their 64 rows (128 f32
+//     accumulators a thread) and release a stage on its empty-barrier
+//     once their products on it have retired (wgmma.wait_group 1). The
+//     operands' majors are the transpose bits: the gate/up products read
+//     a K-major and w [H, 2M] N-major; da reads dgu K-major and w as B^T,
+//     K-major; dw reads a^T M-major and dgu N-major. With GU the B stage
+//     holds gate columns [n0, n0 + 128) and up columns [M + n0, M + n0 +
+//     128) as four 64-column boxes, so column c and c + 128 of a row sit
+//     in one thread and the epilogues take g and u from registers; a
+//     block writes a 128 x 128 output tile. TMA zero-fills the ragged T,
+//     N and K edges (K = 2M = 1376 works), the epilogue masks rows and
+//     columns, and stores go from registers as bf16 pairs. The grid is
+//     persistent (one block per SM walking the tiles in groups of 16 row
+//     tiles, so the blocks in flight share their A and B tiles in L2):
+//     the producer fills the ring for the next tile while the consumers
+//     run this one's epilogue, and the recompute's epilogue reads its do
+//     pairs into registers when the tile starts, behind the main loop.
+//   mma_kernel: mma.sync m16n8k16 fed by ldmatrix from a 3-slot cp.async
+//     ring (128 x 128 tiles, K step 64, 8 warps of 64 x 32). It takes the
+//     shapes TMA cannot (vec_ok == 0: unaligned or odd widths, any H and
+//     M, with masked scalar loads), and the forward at T <= SMALL_T rows,
+//     where the 128-row tile of the wgmma core would leave most of the
+//     card idle on a bytes-bound weight read (M / 128 = 86 blocks at
+//     llama_7b for 132 SMs); there its 64-column tiles give 172 blocks.
+//   The f32 variant (the CPU-parity dtype) is a register-tiled SIMT GEMM
+//   with the same epilogues: the tensor cores have no full-precision f32
+//   product.
 //   The TPU kernels keep da's [rows, H] and dw's [H, cols] f32
 //   accumulators in VMEM (megabytes) while they recompute g/u; an SM's
 //   227 KB cannot hold them, and recomputing g/u once per H tile would
 //   multiply the recompute GEMM by H / tile. So the recomputed cotangents
-//   are written once (bf16: 180 MB at the training shapes, 0.1 ms of
-//   device-memory traffic against ~1 ms of products) and da and dw read
+//   are written once (bf16: 360 MB at the 7B shape, 0.1 ms of
+//   device-memory traffic against ~1.5 ms of products) and da and dw read
 //   them; the values are those of the fused design, which rounds dg/du
 //   to bf16 for its tensor-core products all the same.
-//   wgmma/TMA pipelines come later.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -62,14 +88,28 @@ __device__ __forceinline__ void dgu_of(float g, float u, float d, float* dg,
   *du = d * (g * s);
 }
 
+// two f32 -> two adjacent bf16 in one 4-byte store (p 4-byte aligned)
+__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
 // Epilogues of the gate/up main loop, called once per in-range element
-// (row r, column c < M) with the f32 g and u.
+// (row r, column c < M) with the f32 g and u. The wgmma core calls `pair`
+// for columns c and c + 1 (c even, M even; bf16 only) with what `fetch`
+// read for them when the tile began, so the epilogue's loads wait behind
+// the main loop rather than after it.
 template <typename T>
 struct FwdEpi {
   T* out;
   int M;
   __device__ void operator()(int r, int c, float g, float u) const {
     out[static_cast<size_t>(r) * M + c] = ptt::from_f<T>(silu_mul(g, u));
+  }
+  __device__ uint32_t fetch(int, int) const { return 0; }
+  __device__ void pair(int r, int c, float g0, float u0, float g1, float u1,
+                       uint32_t) const {
+    store_bf16x2(out + static_cast<size_t>(r) * M + c, silu_mul(g0, u0),
+                 silu_mul(g1, u1));
   }
 };
 
@@ -85,11 +125,28 @@ struct DguEpi {
     dgu[row + c] = ptt::from_f<T>(dg);
     dgu[row + M + c] = ptt::from_f<T>(du);
   }
+  // do[r, c .. c + 1] as one bf16 pair
+  __device__ uint32_t fetch(int r, int c) const {
+    return *reinterpret_cast<const uint32_t*>(dout +
+                                              static_cast<size_t>(r) * M + c);
+  }
+  __device__ void pair(int r, int c, float g0, float u0, float g1, float u1,
+                       uint32_t dpair) const {
+    const float2 d =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dpair));
+    float dg0, du0, dg1, du1;
+    dgu_of(g0, u0, d.x, &dg0, &du0);
+    dgu_of(g1, u1, d.y, &dg1, &du1);
+    bf16* row = dgu + static_cast<size_t>(r) * 2 * M;
+    store_bf16x2(row + c, dg0, dg1);
+    store_bf16x2(row + M + c, du0, du1);
+  }
 };
 
 // ---------------- bf16: mma.sync tensor-core tiles ------------------------
 //
-// One kernel for every bf16 product here: a block owns a 128 x 128 tile
+// Every bf16 product whose rows TMA cannot take, and the forward at up to
+// SMALL_T rows (file note): a block owns a 128 x 128 tile
 // of op(A) @ op(B) and walks K in steps of 64 through a 3-slot cp.async
 // ring (two K steps in flight while the tensor cores work on a third; 64
 // rather than 32 halves the barriers per product, and 110 KB of ring
@@ -166,6 +223,9 @@ struct StoreEpi {
   int No;
   __device__ void operator()(int r, int c, float v) const {
     C[static_cast<size_t>(r) * No + c] = __float2bfloat16(v);
+  }
+  __device__ void pair(int r, int c, float v0, float v1) const {
+    store_bf16x2(C + static_cast<size_t>(r) * No + c, v0, v1);
   }
 };
 
@@ -282,6 +342,201 @@ mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int Mo,
           }
       }
     }
+}
+
+// ---------------- bf16: wgmma + TMA, warp-specialised (sm_90a) -----------
+//
+// op(A) [Mo, K] is A stored [Mo][K] (K-major), or with TA stored [K][Mo]
+// (M-major); op(B) [K, No] is B stored [K][No] (N-major), or with TB
+// stored [No][K] (K-major); with GU, B is w_gate_up [K][2 No]. Shared
+// memory per stage: A as one [128][64] box (TA: two [64 k][64 m] boxes,
+// one per consumer), B as one [256][64] box (TB) or four [64 k][64 n]
+// boxes, each 1024-byte aligned.
+
+namespace wg {
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4, GROUP_M = 16;
+constexpr int THREADS = 384;                 // producer + 2 consumers
+constexpr int A_BYTES = BM * BK * 2;         // 16 KB
+constexpr int B_BYTES = BN * BK * 2;         // 32 KB
+constexpr int BOX = 64 * 64;                 // elements of a 64 x 64 box
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// the ring, then 2 * STAGES barriers, plus slack to align the ring
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+}  // namespace wg
+
+// (row, column) origin of tile `tile` in the grouped order: GROUP_M row
+// tiles walk the column tiles together, so the blocks in flight share
+// their A and B tiles in L2
+__device__ __forceinline__ void tile_origin(int tile, int Mo, int No,
+                                            int n_step, int* m0, int* n0) {
+  using namespace wg;
+  const int m_tiles = (Mo + BM - 1) / BM;
+  const int n_tiles = (No + n_step - 1) / n_step;
+  const int per_group = GROUP_M * n_tiles;
+  const int first_m = (tile / per_group) * GROUP_M;
+  const int gm = min(m_tiles - first_m, GROUP_M);
+  const int in_group = tile % per_group;
+  *m0 = (first_m + in_group % gm) * BM;
+  *n0 = (in_group / gm) * n_step;
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ...; the ring's stage
+// and phase run on across tiles, so the producer loads the next tile
+// while the consumers run this one's epilogue.
+template <bool TA, bool TB, bool GU, class Epi>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+wgmma_swiglu_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b, int Mo,
+                    int No, int K, Epi epi) {
+  namespace hw = ptt::hopper;
+  using namespace wg;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* smem =
+      wg_smem + ((1024 - (hw::smem_u32(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int n_step = GU ? BN / 2 : BN;
+  const int tiles = ((Mo + BM - 1) / BM) * ((No + n_step - 1) / n_step);
+  const int KT = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 8);           // one arrival per consumer warp
+    }
+    hw::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // producer: one thread keeps the ring full
+    hw::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;                            // k steps loaded so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        tile_origin(tile, Mo, No, n_step, &m0, &n0);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          hw::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          bf16* As = reinterpret_cast<bf16*>(smem + s * STAGE_BYTES);
+          bf16* Bs =
+              reinterpret_cast<bf16*>(smem + s * STAGE_BYTES + A_BYTES);
+          const int k0 = kt * BK;
+          hw::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+          if (TA) {
+            hw::tma_load_2d(As, &map_a, &full[s], m0, k0);
+            hw::tma_load_2d(As + BOX, &map_a, &full[s], m0 + 64, k0);
+          } else {
+            hw::tma_load_2d(As, &map_a, &full[s], k0, m0);
+          }
+          if (TB) {
+            hw::tma_load_2d(Bs, &map_b, &full[s], k0, n0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              // GU: gate columns n0.. and the same up columns at No + n0..
+              const int c = GU ? (j < 2 ? n0 + 64 * j
+                                        : No + n0 + 64 * (j - 2))
+                               : n0 + 64 * j;
+              hw::tma_load_2d(Bs + j * BOX, &map_b, &full[s], c, k0);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns rows [m0 + 64 cw, m0 + 64 cw + 64)
+    hw::setmaxnreg_inc<232>();
+    const int cw = wgi - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const bool even = (No & 1) == 0;
+    int it = 0;                              // k steps consumed so far
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tile_origin(tile, Mo, No, n_step, &m0, &n0);
+      const int rbase = m0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);
+      const int cbase = n0 + 2 * (lane & 3);
+      // GU: the epilogue's own inputs for this thread's column pairs
+      uint32_t pre[2][16];
+      if constexpr (GU) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int r = rbase + 8 * h, c = cbase + 8 * j;
+            pre[h][j] = (r < Mo && c < No) ? epi.fetch(r, c) : 0u;
+          }
+      }
+      float acc[128];                        // the first product sets it
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % STAGES;
+        hw::mbar_wait(&full[s], (it / STAGES) & 1);
+        const bf16* As =
+            reinterpret_cast<const bf16*>(smem + s * STAGE_BYTES) + cw * BOX;
+        const bf16* Bs =
+            reinterpret_cast<const bf16*>(smem + s * STAGE_BYTES + A_BYTES);
+        hw::fence_regs(acc);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t da =
+              TA ? hw::desc_sw128(As + kk * 16 * 64, BOX * 2, 1024)
+                 : hw::desc_sw128(As + kk * 16, 16, 1024);
+          const uint64_t db =
+              TB ? hw::desc_sw128(Bs + kk * 16, 16, 1024)
+                 : hw::desc_sw128(Bs + kk * 16 * 64, BOX * 2, 1024);
+          hw::wgmma_m64n256k16<TA ? 1 : 0, TB ? 0 : 1>(acc, da, db,
+                                                       kt > 0 || kk > 0);
+        }
+        hw::wgmma_commit();
+        hw::fence_regs(acc);
+        // the products of the previous step have retired: release its stage
+        hw::wgmma_wait<1>();
+        if (kt > 0 && lane == 0) hw::mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc);
+      if (KT > 0 && lane == 0) hw::mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // epilogue from registers: d[4j + 2h + e] is row 16 warp + lane / 4
+      // + 8h, column 8j + 2 (lane % 4) + e of this warpgroup's 64 x 256;
+      // the two e columns go out as one pair where both are in range and
+      // the row length is even (GU: always, M % 8 == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rbase + 8 * h;
+        if (r >= Mo) continue;
+        if constexpr (GU) {
+          // columns 0-127 are gate columns, 128-255 the same up columns
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = cbase + 8 * j;
+            const int g = 4 * j + 2 * h, u = g + 64;
+            if (c < No)
+              epi.pair(r, c, acc[g], acc[u], acc[g + 1], acc[u + 1],
+                       pre[h][j]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int c = cbase + 8 * j;
+            const int v = 4 * j + 2 * h;
+            if (even && c + 1 < No) {
+              epi.pair(r, c, acc[v], acc[v + 1]);
+            } else {
+              if (c < No) epi(r, c, acc[v]);
+              if (c + 1 < No) epi(r, c + 1, acc[v + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
 }
 
 // ---------------- f32: register-tiled SIMT --------------------------------
@@ -433,9 +688,12 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// the forward at up to SMALL_T rows stays on mma_kernel (file note)
+constexpr int SMALL_T = 128;
+
 template <bool TA, bool TB, bool GU, class Epi>
-int mma_launch(const void* A, const void* B, int Mo, int No, int K,
-               int vec_ok, Epi epi, cudaStream_t stream) {
+int mma_sync_launch(const void* A, const void* B, int Mo, int No, int K,
+                    int vec_ok, Epi epi, cudaStream_t stream) {
   auto kernel = mma_kernel<TA, TB, GU, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_BYTES);
@@ -448,12 +706,58 @@ int mma_launch(const void* A, const void* B, int Mo, int No, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
+// TMA maps of both operands (file note for the layouts), then the launch
+template <bool TA, bool TB, bool GU, class Epi>
+int wgmma_launch(const void* A, const void* B, int Mo, int No, int K,
+                 Epi epi, cudaStream_t stream) {
+  namespace hw = ptt::hopper;
+  CUtensorMap map_a, map_b;
+  int err = TA ? hw::tma_map_bf16(&map_a, A, K, Mo, 64)
+               : hw::tma_map_bf16(&map_a, A, Mo, K, wg::BM);
+  if (err != 0) return err;
+  err = GU   ? hw::tma_map_bf16(&map_b, B, K, 2 * static_cast<uint64_t>(No), 64)
+        : TB ? hw::tma_map_bf16(&map_b, B, No, K, wg::BN)
+             : hw::tma_map_bf16(&map_b, B, K, No, 64);
+  if (err != 0) return err;
+  auto kernel = wgmma_swiglu_kernel<TA, TB, GU, Epi>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_step = GU ? wg::BN / 2 : wg::BN;
+  const int tiles =
+      ((Mo + wg::BM - 1) / wg::BM) * ((No + n_step - 1) / n_step);
+  int device, sms;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = tiles < sms ? tiles : sms;    // persistent blocks
+  kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(map_a, map_b, Mo, No,
+                                                        K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every bf16 product: the wgmma core where TMA can take the shape
+// (vec_ok), mma_kernel's masked scalar loads where it cannot. The test is
+// the only route decision; a failed encode or launch returns its error.
+template <bool TA, bool TB, bool GU, class Epi>
+int mma_launch(const void* A, const void* B, int Mo, int No, int K,
+               int vec_ok, Epi epi, cudaStream_t stream) {
+  if (vec_ok) return wgmma_launch<TA, TB, GU>(A, B, Mo, No, K, epi, stream);
+  return mma_sync_launch<TA, TB, GU>(A, B, Mo, No, K, 0, epi, stream);
+}
+
 // gate/up main loop over a [T, H] x [H, 2M] problem with epilogue epi
+// (forward: the launch of the forward itself, which at T <= SMALL_T rows
+// takes mma_kernel's cp.async ring; the recompute in bwd_da never does)
 template <class Epi>
 int gu_bf16(const void* a, const void* w, int T, int H, int M, Epi epi,
-            cudaStream_t stream) {
-  const int vec_ok = (H % 8 == 0) && (M % 8 == 0) && aligned16(a) &&
+            bool forward, cudaStream_t stream) {
+  const int vec_ok = H > 0 && (H % 8 == 0) && (M % 8 == 0) && aligned16(a) &&
                      aligned16(w);
+  if (forward && vec_ok && T <= SMALL_T)
+    return mma_sync_launch<false, false, true>(a, w, T, M, H, vec_ok, epi,
+                                               stream);
   return mma_launch<false, false, true>(a, w, T, M, H, vec_ok, epi, stream);
 }
 
@@ -497,7 +801,7 @@ extern "C" int ptt_swiglu_bf16(const void* a, const void* w, void* out, int T,
                                int H, int M, void* stream) {
   if (T <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
   return gu_bf16(a, w, T, H, M, FwdEpi<bf16>{static_cast<bf16*>(out), M},
-                 static_cast<cudaStream_t>(stream));
+                 true, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ptt_swiglu_f32(const void* a, const void* w, void* out, int T,
@@ -517,7 +821,7 @@ extern "C" int ptt_swiglu_bwd_da_bf16(const void* a, const void* w,
   int err = gu_bf16(a, w, T, H, M,
                     DguEpi<bf16>{static_cast<const bf16*>(dout),
                                  static_cast<bf16*>(dgu), M},
-                    st);
+                    false, st);
   if (err != 0) return err;
   return gemm_bf16<false, true>(dgu, w, da, T, H, 2 * M, st);
 }

@@ -92,15 +92,24 @@ def test_rms_norm_matches_plain(dtype):
         assert _within(got, t_rms._plain(x.float(), w, 1e-5), atol=1e-5)
 
 
+# (rows, H, M). bf16: vector_tiles and scalar_edges run the mma.sync
+# kernel in the forward (37 rows; H = 100 is not whole 16-byte vectors),
+# wgmma_tiles the wgmma/TMA core with ragged row and column edges, partial
+# gate/up boxes and 16 K steps; the backward's routes by the same test
+# (chip_smoke.expected_swiglu_routes).
+SWIGLU_FWD_CASES = [(37, 256, 688), (37, 100, 60), (1000, 1024, 1000)]
+SWIGLU_BWD_CASES = [(77, 256, 688), (77, 100, 60), (1000, 1024, 1000)]
+SWIGLU_IDS = ["vector_tiles", "scalar_edges", "wgmma_tiles"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,M", [(256, 688), (100, 60)],
-                         ids=["vector_tiles", "scalar_edges"])
-def test_swiglu_matches_plain(dtype, H, M):
+@pytest.mark.parametrize("T,H,M", SWIGLU_FWD_CASES, ids=SWIGLU_IDS)
+def test_swiglu_matches_plain(dtype, T, H, M):
     _card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
-    a = torch.randn(37, H, generator=g, device="cuda").to(dt)
+    a = torch.randn(T, H, generator=g, device="cuda").to(dt)
     wgu = (0.05 * torch.randn(H, 2 * M, generator=g, device="cuda")).to(dt)
     got = t_sw.swiglu(a, wgu)
     if dt == torch.float32:
@@ -159,15 +168,14 @@ def test_fused_add_rms_norm_matches_plain(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,M", [(256, 688), (100, 60)],
-                         ids=["vector_tiles", "scalar_edges"])
-def test_swiglu_backward_matches_plain(dtype, H, M):
+@pytest.mark.parametrize("T,H,M", SWIGLU_BWD_CASES, ids=SWIGLU_IDS)
+def test_swiglu_backward_matches_plain(dtype, T, H, M):
     _card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(1)
-    a = torch.randn(77, H, generator=g, device="cuda").to(dt)
+    a = torch.randn(T, H, generator=g, device="cuda").to(dt)
     wgu = (0.05 * torch.randn(H, 2 * M, generator=g, device="cuda")).to(dt)
-    do = torch.randn(77, M, generator=g, device="cuda").to(dt)
+    do = torch.randn(T, M, generator=g, device="cuda").to(dt)
     a_, w_ = a.clone().requires_grad_(), wgu.clone().requires_grad_()
     t_sw.swiglu(a_, w_).backward(do)
     da_p, dw_p = t_sw._ref_bwd(a.float(), wgu.float(), do.float())

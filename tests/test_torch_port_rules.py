@@ -105,3 +105,65 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def _chip_smoke():
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+    return chip_smoke
+
+
+# device kernel names as torch.profiler reports them on the card
+_NAMES = {
+    "void (anonymous namespace)::wgmma_swiglu_kernel<false, false, true, "
+    "(anonymous namespace)::FwdEpi<__nv_bfloat16> >(CUtensorMap_st, "
+    "CUtensorMap_st, int, int, int, (anonymous namespace)::FwdEpi<__nv_bfl":
+        ("forward", "wgmma"),
+    "void (anonymous namespace)::wgmma_swiglu_kernel<false, false, true, "
+    "(anonymous namespace)::DguEpi<__nv_bfloat16> >(CUtensorMap_st":
+        ("recompute", "wgmma"),
+    "void (anonymous namespace)::wgmma_swiglu_kernel<false, true, false, "
+    "(anonymous namespace)::StoreEpi>(CUtensorMap_st, CUtensorMap_st, int, "
+    "int, int, (anonymous namespace)::StoreEpi)": ("da", "wgmma"),
+    "void (anonymous namespace)::wgmma_swiglu_kernel<true, false, false, "
+    "(anonymous namespace)::StoreEpi>(CUtensorMap_st": ("dw", "wgmma"),
+    "void (anonymous namespace)::mma_kernel<false, false, true, (anonymous "
+    "namespace)::FwdEpi<__nv_bfloat16> >(__nv_bfloat16 const*":
+        ("forward", "mma.sync"),
+    "void (anonymous namespace)::mma_kernel<false, false, true, (anonymous "
+    "namespace)::DguEpi<__nv_bfloat16> >(__nv_bfloat16 const*":
+        ("recompute", "mma.sync"),
+    "void (anonymous namespace)::mma_kernel<true, false, false, (anonymous "
+    "namespace)::StoreEpi>(__nv_bfloat16 const*": ("dw", "mma.sync"),
+    "void (anonymous namespace)::gemm_simt_kernel<true, false>(float "
+    "const*": None,
+    "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256x64": None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NAMES))
+def test_swiglu_route_of_reads_kernel_names(name):
+    """chip_smoke's SwiGLU route check tells the wgmma core from the
+    mma.sync kernel and names the product by the template arguments."""
+    assert _chip_smoke().swiglu_route_of(name) == _NAMES[name]
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8192, 4096, 11008), dict(forward="wgmma", recompute="wgmma",
+                               da="wgmma", dw="wgmma")),
+    ((128, 4096, 11008), dict(forward="mma.sync", recompute="wgmma",
+                              da="wgmma", dw="wgmma")),
+    ((77, 100, 60), dict(forward="mma.sync", recompute="mma.sync",
+                         da="wgmma", dw="mma.sync")),
+    ((1000, 1024, 1000), dict(forward="wgmma", recompute="wgmma",
+                              da="wgmma", dw="wgmma")),
+    ((300, 1024, 1001), dict(forward="mma.sync", recompute="mma.sync",
+                             da="mma.sync", dw="mma.sync"))],
+    ids=["llama_7b", "serving_rows", "scalar_edges", "wgmma_tiles",
+         "odd_m"])
+def test_expected_swiglu_routes(shape, want):
+    """The cores csrc/swiglu.cu's routing test gives each bf16 product:
+    TMA needs every operand row to be whole 16-byte vectors, and the
+    forward at up to 128 rows stays on the mma.sync kernel."""
+    assert _chip_smoke().expected_swiglu_routes(*shape) == want
