@@ -99,13 +99,20 @@ and times them. It traces one SwiGLU forward, da and dW launch at the
 each product's core (the wgmma kernel, name fragment `WGMMA_KERNEL`,
 or the mma.sync `mma_kernel`) to `expected_swiglu_routes`; beside row
 3's one-product library time it times the whole launch's work in
-PyTorch calls (`library_whole_ms`).
+PyTorch calls (`library_whole_ms`). Flash attention is held at the
+training shapes, a GQA, a head-dim-64 and a ragged-S case
+(`FLASH_SMALL_CASES`), with the backward's delta pre-pass; one bf16
+forward and backward at each of `FLASH_ROUTE_CASES` is traced and its
+device kernels held to `expected_flash_routes` (the wgmma core, never a
+flash_*_mma_kernel); the backward's library time is SDPA's backward
+alone over a retained forward (`library_fwd_bwd_ms`: its forward and
+backward).
 
     python3 chip_smoke.py --ab PARENT_DIR
 
 compares this checkout with another (an unpacked `git archive` of the
-parent commit) on one card: `route_times` (row 10's 7B flash forward
-and backward, the alibi 4 x 2048 and float-mask biased routes forward
+parent commit) on one card: `route_times` (row 10's 1B and 7B flash
+forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
 and forward + backward, the alibi route's peak memory, the SwiGLU
 forward, da and dW launches at the 7B and 1B training shapes and the
 forward at serving and decode rows) runs in a fresh process per
@@ -227,12 +234,16 @@ SOURCES = {
     "swiglu_bwd_dw": ("paddle_tpu_torch/csrc/swiglu.cu",
                       "paddle_tpu/kernels/swiglu.py:233"),
     # upstream Pallas TPU flash attention (fwd pallas_call l.758), reached
-    # through the package's wrapper
-    "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    # through the package's wrapper; bf16 on the wgmma core
+    "flash_attention_fwd": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                             "paddle_tpu/kernels/flash_attention.py:283"),
     # upstream bwd dkv l.1121 and dq l.1456, through the same wrapper
-    "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                             "paddle_tpu/kernels/flash_attention.py:283"),
+    # the backward's pre-pass D = rowsum(dO * O) (upstream's jnp l.1664,
+    # inside the same backward)
+    "flash_attention_delta": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
+                              "paddle_tpu/kernels/flash_attention.py:283"),
     "fused_cross_entropy": ("paddle_tpu_torch/csrc/cross_entropy.cu",
                             "paddle_tpu/kernels/cross_entropy.py:154"),
     "fused_cross_entropy_bwd": ("paddle_tpu_torch/csrc/cross_entropy.cu",
@@ -687,6 +698,97 @@ def swiglu_route_check(T, H, M):
     del a, wgu, do, dgu
 
 
+# Flash attention's cores, told apart by their device kernels' names:
+# flash_{fwd,bwd_dkv,bwd_dq}_{wgmma,mma,simt}_kernel (csrc/flash_wgmma.cu:
+# the TMA + wgmma core; csrc/flash_attention.cu: the mma.sync and SIMT
+# kernels) and the backward's pre-pass flash_delta_kernel.
+_FLASH_KERNEL = re.compile(
+    r"(?<![A-Za-z0-9_])flash_(?:(fwd|bwd_dkv|bwd_dq)_(wgmma|mma|simt)|"
+    r"(delta))_kernel<")
+# the element checks beside the training shapes: GQA causal, head dim
+# 64 full, and a ragged S (1000: not a multiple of any tile) both ways
+FLASH_SMALL_CASES = ((2, 256, 8, 2, 128, True), (2, 256, 4, 4, 64, False),
+                     (1, 1000, 4, 4, 128, True), (2, 1000, 4, 2, 64, False))
+# (B, S, Hq, Hk, D, causal) the route check traces: llama_7b's and
+# llama_1b's training shapes, then FLASH_SMALL_CASES
+FLASH_ROUTE_CASES = ((4, 2048, 32, 32, 128, True),
+                     (4, 2048, 16, 16, 128, True)) + FLASH_SMALL_CASES
+
+
+def flash_route_of(name):
+    """(launch, core) of a flash device kernel's name, or None: launch
+    forward, dkv, dq or delta; core "wgmma", "mma.sync" or "simt" (the
+    delta pre-pass is a SIMT kernel)."""
+    m = _FLASH_KERNEL.search(name)
+    if m is None:
+        return None
+    if m.group(3):
+        return "delta", "simt"
+    launch = {"fwd": "forward", "bwd_dkv": "dkv", "bwd_dq": "dq"}[m.group(1)]
+    return launch, {"mma": "mma.sync"}.get(m.group(2), m.group(2))
+
+
+def expected_flash_routes(B, S, Hq, Hk, D, causal, dtype):
+    """The core each launch of `flash_attention_fwd` and
+    `flash_attention_bwd` takes for q [B, S, Hq, D] and k/v [B, S, Hk,
+    D]: every bf16 call runs the wgmma core (the entries take no segment
+    ids, no bias and one length), every f32 call the SIMT kernels; the
+    backward's delta pre-pass is a SIMT kernel in both. Raises ValueError
+    for a shape the entries do not take."""
+    if not (B > 0 and S > 0 and Hk > 0 and Hq % Hk == 0 and D in (64, 128)):
+        raise ValueError(f"flash takes no [B{B} S{S} H{Hq}/{Hk} D{D}]")
+    dname = str(dtype).split(".")[-1]
+    core = {"bfloat16": "wgmma", "float32": "simt"}[dname]
+    del causal  # causal or full: the same kernels
+    return {"forward": core, "dkv": core, "dq": core, "delta": "simt"}
+
+
+def flash_route_check(B, S, Hq, Hk, D, causal):
+    """Trace one bf16 flash_attention_fwd and one flash_attention_bwd and
+    hold the cores their device kernels name against
+    `expected_flash_routes`: no flash_*_mma_kernel may run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, do, k, v = rand(B, S, Hq, D), rand(B, S, Hq, D), rand(B, S, Hk, D), \
+        rand(B, S, Hk, D)
+    scale = 1.0 if Hq != Hk else D ** -0.5
+    # the pair runs twice: a trace can miss a kernel that starts at the
+    # very edge of its window (a single forward launched first read as
+    # absent on an H100)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            o, lse = kfa.flash_attention_fwd(q, k, v, causal, scale)
+            kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+    got, names = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        names.append(e.key)
+        route = flash_route_of(e.key)
+        if route:
+            got.setdefault(route[0], set()).add(route[1])
+    want = expected_flash_routes(B, S, Hq, Hk, D, causal, torch.bfloat16)
+    tag = f"[B{B} S{S} H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}]"
+    print(f"flash route {tag}: " + " ".join(
+        f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
+        + f" (want {want})", flush=True)
+    if got != {p: {c} for p, c in want.items()}:
+        print(f"flash route {tag}: device kernels traced: {names}",
+              flush=True)
+    check(got == {p: {c} for p, c in want.items()},
+          f"flash {tag}: the launches ran on {got}, not {want}")
+    del q, do, k, v, o, lse
+
+
 # the training slices' kernel shapes, batch 4 x seq 2048 = 8192 rows:
 # (report path, hidden, intermediate, heads of 128); llama_1b's are the
 # kernel table's main entries, llama_7b's go under "training_7b"
@@ -719,19 +821,22 @@ def training_kernels(report, dtype, gen):
 
     for path, H, M, nh in TRAIN_KERNEL_SHAPES:
         train_kernels_at(report, dtype, gen, rand, path, 8192, H, M, nh)
-    for B, S, hq, hk, d, causal in ((2, 256, 8, 2, 128, True),
-                                    (2, 256, 4, 4, 64, False)):
+    for B, S, hq, hk, d, causal in FLASH_SMALL_CASES:
         q, do = rand(B, S, hq, d), rand(B, S, hq, d)
         k, v = rand(B, S, hk, d), rand(B, S, hk, d)
         flash_pairs_checked(dtype, dname, q, k, v, do, causal)
         del q, k, v, do
     torch.cuda.empty_cache()
+    if dtype == torch.bfloat16:
+        for case in FLASH_ROUTE_CASES:
+            flash_route_check(*case)
     ce_kernels(report, dtype)
 
 
 def flash_pairs_checked(dtype, dname, q, k, v, do, causal):
     """The flash kernels held against their plain version on q, k, v, do
-    BSHD. Returns (fwd max error, bwd max error, the kernel's o, lse)."""
+    BSHD, the delta pre-pass on the kernel's o. Returns (fwd max error,
+    bwd max error, delta max error, the kernel's o, lse)."""
     from paddle_tpu_torch import testing
     B, S, hq, d = q.shape
     hk = k.shape[2]
@@ -743,7 +848,9 @@ def flash_pairs_checked(dtype, dname, q, k, v, do, causal):
     tag = f" [B{B} S{S} H{hq}/{hk} D{d} {'causal' if causal else 'full'}]"
     err_f = compare("flash_attention_fwd", dname, pairs[:2], tag)
     err_b = compare("flash_attention_bwd", dname, pairs[2:], tag)
-    return err_f, err_b, o, lse
+    err_d = compare("flash_attention_delta", dname,
+                    [testing.delta_pair(o, do)], tag)
+    return err_f, err_b, err_d, o, lse
 
 
 def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
@@ -841,8 +948,8 @@ def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
     B, S, d, causal = 4, 2048, 128, True
     check(B * S == T, f"{T} rows are not batch {B} x seq {S}")
     q, k, v, do = (rand(B, S, nh, d) for _ in range(4))
-    err_f, err_b, o, lse = flash_pairs_checked(dtype, dname, q, k, v, do,
-                                               causal)
+    err_f, err_b, err_d, o, lse = flash_pairs_checked(dtype, dname, q, k, v,
+                                                      do, causal)
     if bf16:
         scale = 1.0 / d ** 0.5
         tag = f" [B{B} S{S} H{nh} D{d} causal]"
@@ -864,13 +971,15 @@ def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
         o_pl = kfa._plain(*leaves, causal, scale)
         lib_leaves = [t.detach().requires_grad_() for t in (qr, kr, vr)]
         do_r = do.transpose(1, 2)
+        o_lib = F.scaled_dot_product_attention(*lib_leaves, is_causal=causal)
 
         def library_fwd_bwd():
             o_l = F.scaled_dot_product_attention(*lib_leaves,
                                                  is_causal=causal)
             return torch.autograd.grad(o_l, lib_leaves, do_r)
 
-        record(report, "flash_attention_bwd", path, timed(
+        # library: SDPA's backward alone, over a retained forward
+        measured = timed(
             "flash_attention_bwd", err_b,
             lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal,
                                             scale),
@@ -879,8 +988,22 @@ def train_kernels_at(report, dtype, gen, rand, path, T, H, M, nh):
             nbytes=qkv_bytes + 2 * q.numel() * it + qkv_bytes + lse_bytes,
             # the recomputed scores, dP, dV, dK, dQ: 2.5x forward
             flops=fwd_flops * 5 // 2,
-            library=library_fwd_bwd, iters=10, plain_iters=3, tag=tag))
-        del leaves, o_pl, lib_leaves
+            library=lambda: torch.autograd.grad(o_lib, lib_leaves, do_r,
+                                                retain_graph=True),
+            iters=10, plain_iters=3, tag=tag)
+        measured["library_fwd_bwd_ms"] = time_ms(library_fwd_bwd, 10)
+        print(f"kernel flash_attention_bwd bf16{tag}: library_fwd_bwd_ms="
+              f"{measured['library_fwd_bwd_ms']:.6g} (SDPA forward and "
+              f"backward)", flush=True)
+        record(report, "flash_attention_bwd", path, measured)
+        # the backward's pre-pass alone: o and do read once, D written
+        record(report, "flash_attention_delta", path, timed(
+            "flash_attention_delta", err_d,
+            lambda: kfa.flash_attention_delta(o, do),
+            lambda: kfa._delta(o, do),
+            nbytes=2 * q.numel() * it + lse_bytes, flops=2 * q.numel(),
+            iters=20, tag=tag, ops_dtype="float32"))
+        del leaves, o_pl, lib_leaves, o_lib
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
 
@@ -1774,7 +1897,7 @@ _DECODE_GROUPS = (("paged_decode_kernel", "paged_decode_attention"),
 # forward, DguEpi and StoreEpi for the backward's two launches)
 _TRAIN_GROUPS = (("ce_fwd_kernel", "fused_ce"), ("ce_bwd_kernel", "fused_ce"),
                  ("flash_fwd_", "flash_fwd"),
-                 ("flash_bwd_", "flash_bwd"),
+                 ("flash_bwd_", "flash_bwd"), ("flash_delta_", "flash_bwd"),
                  ("FwdEpi", "swiglu_fwd"),
                  ("DguEpi", "swiglu_bwd"), ("StoreEpi", "swiglu_bwd"),
                  ("gemm_simt_kernel", "swiglu_bwd"),
@@ -2572,8 +2695,9 @@ def card_state():
 
 def route_times():
     """Rows 2-4's, row 10's and row 12's times for the `paddle_tpu_torch`
-    first on sys.path, bf16 on one card, as one JSON object: the 7B flash
-    forward and backward kernels (causal [4, 2048, 32, 128]); flash_
+    first on sys.path, bf16 on one card, as one JSON object: the 1B and 7B
+    flash forward and backward kernels (causal [4, 2048, 16 and 32, 128];
+    the backward with its delta pre-pass); flash_
     attention_biased with causal alibi at the same shape and sdpa with the
     float [16, 1, 1, 512] mask at bert width (the BERT lengths), forward
     and forward + backward; the alibi route's forward + backward peak
@@ -2600,15 +2724,18 @@ def route_times():
         fn(*leaves).backward(do)
 
     out = {}
-    q, k, v, do = (rand(4, 2048, 32, 128) for _ in range(4))
     scale = 128 ** -0.5
-    out["flash_fwd_7b_ms"] = time_ms(
-        lambda: kfa.flash_attention_fwd(q, k, v, True, scale), 20)
-    o, lse = kfa.flash_attention_fwd(q, k, v, True, scale)
-    out["flash_bwd_7b_ms"] = time_ms(
-        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, True, scale),
-        10)
-    del o, lse
+    # row 10 at llama_1b's training shape, then llama_7b's (whose inputs
+    # the alibi route below reuses)
+    for tag, H in (("1b", 16), ("7b", 32)):
+        q, k, v, do = (rand(4, 2048, H, 128) for _ in range(4))
+        out[f"flash_fwd_{tag}_ms"] = time_ms(
+            lambda: kfa.flash_attention_fwd(q, k, v, True, scale), 20)
+        o, lse = kfa.flash_attention_fwd(q, k, v, True, scale)
+        out[f"flash_bwd_{tag}_ms"] = time_ms(
+            lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, True,
+                                            scale), 10)
+        del o, lse
     slopes = 2.0 ** (-8.0 * torch.arange(1, 33, device="cuda") / 32)
 
     def alibi(a, b, c):

@@ -1,6 +1,14 @@
 // Flash attention forward and backward, BSHD layout, causal or full,
 // MHA and GQA (q head h reads kv head h / (Hq / Hk)), head dim 64 or 128,
-// optionally masked by segment ids, with q and kv lengths Sq and Sk.
+// optionally masked by segment ids, with q and kv lengths Sq and Sk: the
+// segment-id, bias and cross-length routes in bf16 and every route in
+// f32. The bf16 one-length route without ids or bias (the entries
+// ptt_flash_attention_fwd_bf16 / _bwd_bf16, LLaMA training's) runs the
+// TMA + mbarrier + wgmma core of flash_wgmma.cu instead: mma.sync
+// m16n8k16 issued by single warps from a cp.async ring cannot reach
+// Hopper's tensor-core rate (3.8x SDPA's forward at llama_7b's shape on
+// an H100, PERF.md row 10), while wgmma with TMA-fed, swizzled operands
+// can.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
 //   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
@@ -33,10 +41,13 @@
 //   kv tile, kv head and batch; it loops over the q tiles and, for GQA,
 //   over the group's q heads, so dk and dv sum over the group in f32) and
 //   dq (one block per q tile, head and batch). Both recompute P from the
-//   saved LSE; D = rowsum(dO * O) comes from the caller (plain PyTorch
-//   over the stored O, as upstream l.1664 does). `scale` multiplies the
+//   saved LSE; D = rowsum(dO * O) comes from the caller (the delta
+//   pre-pass of flash_wgmma.cu on the one-length f32 route, plain
+//   PyTorch over the stored O on the segment and bias routes, as
+//   upstream l.1664 is plain jnp). `scale` multiplies the
 //   scores in f32 (MHA); GQA callers pass q pre-scaled in q's dtype and
-//   scale = 1, as splash takes it. wgmma/TMA pipelines come later.
+//   scale = 1, as splash takes it. The segment and bias routes move to
+//   the wgmma core of flash_wgmma.cu in a later step (ROADMAP Queue 2).
 // Segment ids (int32 [B, Sq] and [B, Sk]; SEG instantiations only): a
 //   score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a score
 //   whose segments differ takes the finite mask value kSegMask (upstream's
@@ -1182,16 +1193,7 @@ int bwd_any(const BwdIn& in, void* dq_out, void* dk, void* dv,
 
 }  // namespace
 
-// ---- one sequence length, no segment ids (the training slice) ----
-
-extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k,
-                                            const void* v, void* o, void* lse,
-                                            int B, int S, int Hq, int Hk,
-                                            int D, int causal, float scale,
-                                            void* stream) {
-  return fwd_any<bf16>(q, k, v, nullptr, nullptr, kNoBias, o, lse,
-                       Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
-}
+// ---- one sequence length, no segment ids, f32 (bf16: flash_wgmma.cu) ----
 
 extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
                                            const void* v, void* o, void* lse,
@@ -1200,16 +1202,6 @@ extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
                                            void* stream) {
   return fwd_any<float>(q, k, v, nullptr, nullptr, kNoBias, o, lse,
                         Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
-}
-
-extern "C" int ptt_flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-    int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
-  return bwd_any<bf16>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
-                             static_cast<const float*>(delta)},
-                       dq, dk, dv, Shape{B, S, S, Hq, Hk, causal, scale}, D,
-                       stream);
 }
 
 extern "C" int ptt_flash_attention_bwd_f32(

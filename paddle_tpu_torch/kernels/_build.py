@@ -61,6 +61,9 @@ _SIGNATURES = {
     # scale, stream
     "ptt_flash_attention_bwd_bf16": (_P,) * 9 + (_I,) * 6 + (_F, _P),
     "ptt_flash_attention_bwd_f32": (_P,) * 9 + (_I,) * 6 + (_F, _P),
+    # o, dout, delta (out), B, S, H, D, stream
+    "ptt_flash_attention_delta_bf16": (_P,) * 3 + (_I,) * 4 + (_P,),
+    "ptt_flash_attention_delta_f32": (_P,) * 3 + (_I,) * 4 + (_P,),
     # q, k, v, seg_q, seg_kv (int32 or null), o, lse, B, Sq, Sk, Hq, Hk,
     # D, causal, scale, stream
     "ptt_flash_attention_seg_fwd_bf16": (_P,) * 7 + (_I,) * 7 + (_F, _P),

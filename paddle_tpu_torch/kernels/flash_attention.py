@@ -3,11 +3,14 @@ paddle_tpu/kernels/flash_attention.py: `flash_attention_bshd`, its
 padding-mask and bias routes, `flash_attention_packed` and
 `flash_attention_biased`).
 
-A CUDA tensor runs a `torch.autograd.Function` over the hand-written
-kernels in `csrc/flash_attention.cu`: `flash_attention_fwd` (O and the
-f32 log-sum-exp) and `flash_attention_bwd` (the dkv and dq kernels,
-which recompute P from the saved LSE; D = rowsum(dO * O) is plain
-PyTorch over the stored O, as upstream's l.1664 is plain jnp). A CPU
+A CUDA tensor runs a `torch.autograd.Function` over hand-written
+kernels: `flash_attention_fwd` (O and the f32 log-sum-exp) and
+`flash_attention_bwd` (the delta pre-pass `flash_attention_delta`, D =
+rowsum(dO * O) in f32 over the stored O, then the dkv and dq kernels,
+which recompute P from the saved LSE). In bf16 they run the TMA +
+mbarrier + wgmma core of `csrc/flash_wgmma.cu`; in f32 the SIMT kernels
+of `csrc/flash_attention.cu` (chip_smoke.py's `expected_flash_routes`
+states the rule and holds the card's launches to it). A CPU
 tensor runs `_plain`, the reference's dense `_sdpa` (models/llama.py:
 190-200: f32 scores and softmax, `jnp.repeat` of the kv heads for GQA)
 under autograd — what the reference's model runs on the CPU. A CUDA
@@ -56,7 +59,8 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_bshd", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_attention_seg_fwd",
+           "flash_attention_bwd", "flash_attention_delta",
+           "flash_attention_seg_fwd",
            "flash_attention_seg_dkv", "flash_attention_seg_dq",
            "flash_attention_packed", "flash_attention_biased",
            "flash_attention_bias_fwd", "flash_attention_bias_dkv",
@@ -151,16 +155,35 @@ def flash_attention_fwd(q, k, v, causal, scale):
     return o, lse
 
 
+def flash_attention_delta(o, do):
+    """Kernel route, the backward's pre-pass: D = rowsum(do * o) in f32
+    from the BSHD output o and its cotangent do (one dtype, D in {64,
+    128}) -> [B, H, S], reading each once. A CPU tensor takes the plain
+    version, `_delta`."""
+    if o.device.type == "cpu":
+        return _delta(o, do)
+    B, S, H, D = o.shape
+    o, do = _rows(o), _rows(do.to(o.dtype))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
+    lib = _build.library()
+    with torch.cuda.device(o.device):
+        _build.check(_fn(lib, "ptt_flash_attention_delta", o.dtype)(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, S, H, D,
+            _stream(o)), "flash_attention_delta")
+    flash_attention_delta.launches += 1
+    return delta
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal, scale):
-    """Kernel route, backward (the dkv and dq kernels in one launch
-    entry): the forward's inputs, its o and lse, and the output
-    cotangent do -> (dq, dk, dv). D = rowsum(do * o) in f32 is computed
-    here in plain PyTorch from the stored o."""
+    """Kernel route, backward: the forward's inputs, its o and lse, and
+    the output cotangent do -> (dq, dk, dv). Launches the delta pre-pass
+    (`flash_attention_delta`), then the dkv and dq kernels (one launch
+    entry)."""
     B, S, Hq, D = q.shape
     Hk = k.shape[2]
     q, k, v, o = (_rows(t) for t in (q, k, v, o))
     do = _rows(do.to(q.dtype))
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = flash_attention_delta(o, do)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -833,6 +856,7 @@ def flash_attention_biased(q, k, v, kind, params, causal=False, scale=None,
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_delta.launches = 0
 flash_attention_seg_fwd.launches = 0
 flash_attention_seg_dkv.launches = 0
 flash_attention_seg_dq.launches = 0

@@ -52,7 +52,8 @@ import math
 import torch
 
 __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
-           "flash_pairs", "flash_readings", "swiglu_bwd_terms",
+           "flash_pairs", "flash_readings", "DELTA_FRAC", "delta_pair",
+           "swiglu_bwd_terms",
            "swiglu_bwd_pairs", "paged_decode_case", "paged_decode_views_case",
            "PAGED_DECODE_CASES", "paged_decode_cases", "paged_decode_pair",
            "paged_decode_readings", "CE_LIMITS", "CE_DX_FRAC",
@@ -149,19 +150,39 @@ def flash_pairs(q, k, v, do, causal, scale):
              ("dv", dv, ref[2].grad, dv_t)], (o, lse))
 
 
+# The delta pre-pass, D = rowsum(dO * O) over D products of bf16
+# inputs: each product is exact in f32 and the f32 sum in any order is
+# within (D - 1) 2^-24 of its sum of |terms| (7.6e-6 at D = 128); the
+# limit is twice that bound, element by element.
+DELTA_FRAC = 2.0 ** -16
+
+
+def delta_pair(o, do):
+    """The delta pre-pass (`flash_attention_delta`) and its plain version
+    on o, do BSHD: (label, kernel, plain, atol, rtol) with atol
+    DELTA_FRAC of each element's sum of |dO O| terms."""
+    from .kernels import flash_attention as kfa
+    got = kfa.flash_attention_delta(o, do)
+    prod = do.float() * o.float()
+    ref = prod.sum(-1).transpose(1, 2)
+    terms = prod.abs().sum(-1).transpose(1, 2)
+    return ("delta", got, ref, DELTA_FRAC * terms, 0.0)
+
+
 def flash_readings(B=4, S=2048, H=16, D=128, causal=True, seed=0):
     """bf16 MHA flash at the training slice's shape on the card: for each
     output, the worst err/limit under the element limit (`terms`: atol =
-    2^-7 of the element's sum of |terms|; lse: 1e-4 + 1e-5 |plain|) and,
-    beside it, under a limit scaled by the tensor's max |plain| (`max`:
-    atol = 2^-7 max|plain|), both with rtol 2^-7. A reading above 1 is a
-    miss."""
+    2^-7 of the element's sum of |terms|; lse: 1e-4 + 1e-5 |plain|;
+    delta, the backward's pre-pass: `delta_pair`) and, beside it, under a
+    limit scaled by the tensor's max |plain| (`max`: atol = 2^-7
+    max|plain|), both with rtol 2^-7. A reading above 1 is a miss."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
                                device="cuda").bfloat16() for _ in range(4))
-    pairs, _ = flash_pairs(q, k, v, do, causal, 1.0 / math.sqrt(D))
+    pairs, (o, _) = flash_pairs(q, k, v, do, causal, 1.0 / math.sqrt(D))
     frac = TERM_FRAC[torch.bfloat16]
-    out = {}
+    _, got, ref, atol, rtol = delta_pair(o, do)
+    out = {"delta": {"terms": worst(got, ref, atol, rtol)}}
     for label, got, ref, terms in pairs:
         if terms is None:
             out[label] = {"terms": worst(got, ref, 1e-4, 1e-5)}
@@ -390,7 +411,7 @@ def train_launches(L, policy):
             "swiglu": L + swiglu_recompute,
             "swiglu_bwd_da": L, "swiglu_bwd_dw": L,
             "flash_attention_fwd": L + recompute,
-            "flash_attention_bwd": L,
+            "flash_attention_bwd": L, "flash_attention_delta": L,
             "fused_cross_entropy": 1, "fused_cross_entropy_bwd": 1}
 
 
@@ -409,6 +430,7 @@ def train_counters():
             "swiglu_bwd_dw": ksw.swiglu_bwd_dw,
             "flash_attention_fwd": kfa.flash_attention_fwd,
             "flash_attention_bwd": kfa.flash_attention_bwd,
+            "flash_attention_delta": kfa.flash_attention_delta,
             "fused_cross_entropy": kce.fused_cross_entropy_fwd,
             "fused_cross_entropy_bwd": kce.fused_cross_entropy_bwd}
 
@@ -570,12 +592,14 @@ def attn_seg_case(B, S, hq, hk, d, causal, kind, Sk=None,
 
 
 def seg_flash_readings(seed=0):
-    """bf16 segment-id flash at the "bert" and "cross_len" cases on the
-    card: for each output the worst err/limit over the cases under the
-    element limit (terms; lse 1e-4 + 1e-5 |plain|). Above 1 is a miss."""
+    """bf16 segment-id flash at the "bert", "cross_len" and causal
+    "gqa_causal_pad" cases on the card (the mma.sync kernels of
+    csrc/flash_attention.cu): for each output the worst err/limit over
+    the cases under the element limit (terms; lse 1e-4 + 1e-5 |plain|).
+    Above 1 is a miss."""
     frac = TERM_FRAC[torch.bfloat16]
     out = {}
-    for tag in ("bert", "cross_len"):
+    for tag in ("bert", "cross_len", "gqa_causal_pad"):
         q, k, v, do, sq, skv = attn_seg_case(**ATTN_SEG_CASES[tag],
                                              seed=seed)
         causal = ATTN_SEG_CASES[tag]["causal"]
@@ -844,6 +868,7 @@ def attention_counters():
             "block_attention_stats": kba.block_attention_fwd,
             "flash_attention_fwd": kfa.flash_attention_fwd,
             "flash_attention_bwd": kfa.flash_attention_bwd,
+            "flash_attention_delta": kfa.flash_attention_delta,
             "paged_decode_attention": kpa.paged_decode_attention,
             "ragged_paged_attention": krpa.ragged_paged_attention}
 

@@ -188,8 +188,9 @@ def test_swiglu_backward_matches_plain(dtype, T, H, M):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,hq,hk,d,causal", [
     (2, 128, 4, 4, 128, True), (1, 100, 4, 2, 64, False),
-    (2, 192, 4, 1, 64, True)],
-    ids=["mha_causal_d128", "gqa_full_d64_ragged", "mqa_causal_d64"])
+    (2, 192, 4, 1, 64, True), (1, 1000, 4, 4, 128, True)],
+    ids=["mha_causal_d128", "gqa_full_d64_ragged", "mqa_causal_d64",
+         "mha_causal_d128_ragged"])
 def test_flash_attention_matches_plain(dtype, B, S, hq, hk, d, causal):
     _card()
     dt = getattr(torch, dtype)
@@ -226,9 +227,10 @@ def test_flash_attention_matches_plain(dtype, B, S, hq, hk, d, causal):
 def test_train_step_launches_every_kernel(fused):
     """One llama_tiny bf16 TrainStep on the card goes through every
     training kernel: rms_norm L+1, fused_add_rms_norm L, swiglu
-    forward L, its two backward launches L each, flash forward and
-    backward L each — also under FLAGS_fused_transformer=0, which
-    unfuses only the QKV projection on the card."""
+    forward L, its two backward launches L each, flash forward,
+    backward and the backward's delta pre-pass L each — also under
+    FLAGS_fused_transformer=0, which unfuses only the QKV projection on
+    the card."""
     _card()
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import optimizer as topt
@@ -244,7 +246,8 @@ def test_train_step_launches_every_kernel(fused):
         0, cfg.vocab_size, (2, 64))).cuda()
     counters = (t_rms.rms_norm, t_fnr.fused_add_rms_norm, t_sw.swiglu,
                 t_sw.swiglu_bwd_da, t_sw.swiglu_bwd_dw,
-                t_fa.flash_attention_fwd, t_fa.flash_attention_bwd)
+                t_fa.flash_attention_fwd, t_fa.flash_attention_bwd,
+                t_fa.flash_attention_delta)
     before = [c.launches for c in counters]
     ptt.set_flags({"FLAGS_fused_transformer": fused})
     try:
@@ -254,7 +257,7 @@ def test_train_step_launches_every_kernel(fused):
     torch.cuda.synchronize()
     L = cfg.num_hidden_layers
     assert [c.launches - b for c, b in zip(counters, before)] == \
-        [3 * (L + 1)] + [3 * L] * 6
+        [3 * (L + 1)] + [3 * L] * 7
     assert all(math.isfinite(x) for x in losses)
     assert losses[-1] < losses[0]
     assert model.model.norm.weight.dtype == torch.float32
@@ -399,27 +402,65 @@ def test_unfused_flag_still_launches_every_kernel():
     assert bool(torch.isfinite(logits).all())
 
 
-# Faults planted in a copy of csrc/flash_attention.cu, each one edit in
-# one kernel's body: (the kernel's definition, pattern, replacement, the
-# output whose check must then fail).
+# Faults planted in a copy of the flash sources, each one edit in one
+# kernel's body: (source, the kernel's definition, pattern, replacement,
+# the readings function, the output whose check must then fail). The
+# wgmma core of csrc/flash_wgmma.cu is what `testing.flash_readings`
+# reads (the one-length bf16 route); the mma.sync kernels of
+# csrc/flash_attention.cu run the segment-id route that
+# `testing.seg_flash_readings` reads (its "gqa_causal_pad" case is
+# causal), so the old core stays guarded.
 _FLASH_FAULTS = {
-    # the forward drops each q tile's last kv tile (the causal diagonal)
+    # the forward drops each q tile's last kv tile (non-causal: the
+    # last keys; causal: the diagonal)
     "fwd_drops_last_kv_tile": (
-        "flash_fwd_mma_kernel(",
+        "flash_attention.cu", "flash_fwd_mma_kernel(",
         r"const int n_kv = \(kv_end \+ TKV - 1\) / TKV;",
-        "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);", "o"),
+        "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);",
+        "seg_flash_readings", "o"),
     # dq counts the future keys of the diagonal tile
     "dq_diagonal_mask_off": (
-        "flash_bwd_dq_mma_kernel(", r"\(e & 1\), Sq, Sk,\s+causal\)",
-        "(e & 1), Sq, Sk, 0)", "dq"),
+        "flash_attention.cu", "flash_bwd_dq_mma_kernel(",
+        r"\(e & 1\), Sq, Sk,\s+causal\)", "(e & 1), Sq, Sk, 0)",
+        "seg_flash_readings", "dq"),
     # dk and dv count the earlier queries of the diagonal tile
     "dkv_diagonal_mask_off": (
-        "flash_bwd_dkv_mma_kernel(", r"\(e >> 1\) \* 8, Sq, Sk, causal\)",
-        "(e >> 1) * 8, Sq, Sk, 0)", "dv"),
-    # dk and dv skip the last q tile: the last 64 keys get none
+        "flash_attention.cu", "flash_bwd_dkv_mma_kernel(",
+        r"\(e >> 1\) \* 8, Sq, Sk, causal\)", "(e >> 1) * 8, Sq, Sk, 0)",
+        "seg_flash_readings", "dv"),
+    # dk and dv skip the last q tile: the last keys get none of it
     "dkv_skips_last_q_tile": (
-        "flash_bwd_dkv_mma_kernel(", r"const int total = group \* n_q;",
-        "const int total = group * max(0, n_q - 1);", "dv"),
+        "flash_attention.cu", "flash_bwd_dkv_mma_kernel(",
+        r"const int total = group \* n_q;",
+        "const int total = group * max(0, n_q - 1);",
+        "seg_flash_readings", "dv"),
+    # the wgmma forward drops each q tile's diagonal kv tile
+    "wgmma_fwd_drops_diagonal_kv_tile": (
+        "flash_wgmma.cu", "flash_fwd_wgmma_kernel(",
+        r"const int n_kv = \(kv_end \+ BN - 1\) / BN;",
+        "const int n_kv = max(1, (kv_end + BN - 1) / BN - 1);",
+        "flash_readings", "o"),
+    # the wgmma dq counts the future keys of the diagonal tiles
+    "wgmma_dq_diagonal_mask_off": (
+        "flash_wgmma.cu", "flash_bwd_dq_wgmma_kernel(",
+        r"if \(kj >= S \|\| \(causal && kj > r0 \+ 8 \* hh\)\) p = 0\.f;",
+        "if (kj >= S) p = 0.f;", "flash_readings", "dq"),
+    # the wgmma dk and dv count the earlier queries of the diagonal tiles
+    "wgmma_dkv_diagonal_mask_off": (
+        "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
+        r"if \(qi >= S \|\| kj >= S \|\| \(causal && kj > qi\)\) "
+        r"p\[e\] = 0\.f;",
+        "if (qi >= S || kj >= S) p[e] = 0.f;", "flash_readings", "dv"),
+    # the wgmma dk and dv skip the last q tile
+    "wgmma_dkv_skips_last_q_tile": (
+        "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
+        r"const int total = group \* n_q;",
+        "const int total = group * max(0, n_q - 1);", "flash_readings",
+        "dv"),
+    # the delta pre-pass drops each row's last 16-byte vector
+    "delta_drops_last_vector": (
+        "flash_wgmma.cu", "flash_delta_kernel(", r"  if \(row < rows\) \{",
+        "  if (row < rows && c + V < D) {", "flash_readings", "delta"),
 }
 
 
@@ -459,22 +500,29 @@ def _readings_with_fault(tmp_path, source, fault, readings_fn):
                          ids=["intact", *_FLASH_FAULTS])
 def test_flash_check_fails_planted_faults(fault, tmp_path):
     """chip_smoke.py's flash check, run by `testing.flash_readings` (bf16
-    causal MHA at the training shape [4, 2048, 16, 128]), passes the
-    kernels as written and fails each planted fault. The package is
-    copied, the fault planted in the copy's source, and the copy built
-    and run in a subprocess. Prints each output's worst err/limit under
-    the element limit (`terms`) and under a limit scaled by the
+    causal MHA at the training shape [4, 2048, 16, 128], the wgmma core
+    and its delta pre-pass), passes the kernels as written and fails
+    each planted fault; the mma.sync kernels' faults are read by
+    `testing.seg_flash_readings`. The package is copied, the fault
+    planted in the copy's source, and the copy built and run in a
+    subprocess. Prints each output's worst err/limit under the element
+    limit (`terms`) and, for flash_readings, under a limit scaled by the
     tensor's max|plain| (`max`)."""
     _card()
-    readings = _readings_with_fault(
-        tmp_path, "flash_attention.cu",
-        None if fault is None else _FLASH_FAULTS[fault][:3],
-        "flash_readings")
-    print(f"flash readings, {fault or 'intact'}: {json.dumps(readings)}")
     if fault is None:
-        assert all(r["terms"] <= 1.0 for r in readings.values())
+        source, fix, readings_fn, out = None, None, "flash_readings", None
     else:
-        assert readings[_FLASH_FAULTS[fault][3]]["terms"] > 1.0
+        source, anchor, pattern, repl, readings_fn, out = \
+            _FLASH_FAULTS[fault]
+        fix = (anchor, pattern, repl)
+    readings = _readings_with_fault(tmp_path, source, fix, readings_fn)
+    print(f"{readings_fn}, {fault or 'intact'}: {json.dumps(readings)}")
+    terms = {k: r["terms"] if isinstance(r, dict) else r
+             for k, r in readings.items()}
+    if fault is None:
+        assert all(r <= 1.0 for r in terms.values())
+    else:
+        assert terms[out] > 1.0
 
 
 # Faults planted in a copy of csrc/cross_entropy.cu: (anchor, pattern,

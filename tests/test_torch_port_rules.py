@@ -167,3 +167,73 @@ def test_expected_swiglu_routes(shape, want):
     TMA needs every operand row to be whole 16-byte vectors, and the
     forward at up to 128 rows stays on the mma.sync kernel."""
     assert _chip_smoke().expected_swiglu_routes(*shape) == want
+
+
+# flash device kernel names as torch.profiler reports them on the card
+_FLASH_NAMES = {
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st,"
+    " CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, float*, int, int, "
+    "int, int, float)": ("forward", "wgmma"),
+    "void (anonymous namespace)::flash_bwd_dkv_wgmma_kernel<64>("
+    "CUtensorMap_st": ("dkv", "wgmma"),
+    "void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<128>("
+    "CUtensorMap_st": ("dq", "wgmma"),
+    "void (anonymous namespace)::flash_delta_kernel<__nv_bfloat16, 128>("
+    "__nv_bfloat16 const*, __nv_bfloat16 const*, float*, int, int, int)":
+        ("delta", "simt"),
+    "void (anonymous namespace)::flash_fwd_mma_kernel<128, false, false>("
+    "__nv_bfloat16 const*": ("forward", "mma.sync"),
+    "void (anonymous namespace)::flash_bwd_dkv_mma_kernel<64, true, false>("
+    "__nv_bfloat16 const*": ("dkv", "mma.sync"),
+    "void (anonymous namespace)::flash_bwd_dq_mma_kernel<128, false, true>("
+    "__nv_bfloat16 const*": ("dq", "mma.sync"),
+    "void (anonymous namespace)::flash_fwd_simt_kernel<64, false>(float "
+    "const*": ("forward", "simt"),
+    "void (anonymous namespace)::flash_bwd_dq_simt_kernel<128, true>(float "
+    "const*": ("dq", "simt"),
+    # PyTorch's own flash kernels (SDPA) and the SwiGLU core are not ours
+    "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<128, 128, "
+    "64, 4, false, false, cutlass::bfloat16_t": None,
+    "void pytorch_flash::flash_bwd_dot_do_o_kernel<true, Flash_bwd_kernel_"
+    "traits": None,
+    "void (anonymous namespace)::wgmma_swiglu_kernel<false, true, false, "
+    "(anonymous namespace)::StoreEpi>(CUtensorMap_st": None,
+}
+
+
+@pytest.mark.parametrize("name", sorted(_FLASH_NAMES))
+def test_flash_route_of_reads_kernel_names(name):
+    """chip_smoke's flash route check tells the wgmma core from the
+    mma.sync and SIMT kernels, names the launch, and ignores PyTorch's
+    own flash kernels."""
+    assert _chip_smoke().flash_route_of(name) == _FLASH_NAMES[name]
+
+
+_WGMMA = dict(forward="wgmma", dkv="wgmma", dq="wgmma", delta="simt")
+_SIMT = dict(forward="simt", dkv="simt", dq="simt", delta="simt")
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((4, 2048, 32, 32, 128, True), "bfloat16", _WGMMA),
+    ((4, 2048, 16, 16, 128, True), "bfloat16", _WGMMA),
+    ((2, 256, 8, 2, 128, True), "bfloat16", _WGMMA),
+    ((2, 256, 4, 4, 64, False), "bfloat16", _WGMMA),
+    ((1, 1000, 4, 4, 128, True), "bfloat16", _WGMMA),
+    ((2, 1000, 4, 2, 64, False), "bfloat16", _WGMMA),
+    ((4, 2048, 32, 32, 128, True), "float32", _SIMT)],
+    ids=["llama_7b", "llama_1b", "gqa_causal", "d64_full", "ragged_causal",
+         "ragged_gqa_d64", "f32"])
+def test_expected_flash_routes(shape, dtype, want):
+    """Every bf16 call of flash_attention_fwd / flash_attention_bwd runs
+    the wgmma core, every f32 call the SIMT kernels, whatever the shape
+    (ragged S included)."""
+    got = _chip_smoke().expected_flash_routes(*shape, getattr(torch, dtype))
+    assert got == want
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 4, 4, 96, True),
+                                   (1, 128, 6, 4, 64, False)],
+                         ids=["d96", "heads_not_a_multiple"])
+def test_expected_flash_routes_refuses_untaken_shapes(shape):
+    with pytest.raises(ValueError, match="flash takes no"):
+        _chip_smoke().expected_flash_routes(*shape, torch.bfloat16)
