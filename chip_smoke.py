@@ -22,7 +22,8 @@ Phases, each of which fails the run on a miss:
    limit (`TOL`, and testing.py's `CE_LIMITS`); bf16 timed with CUDA
    events beside its plain version, the library call where one exists,
    and its bound (bytes over 3.35 TB/s vs operations over 989 TFLOP/s
-   in bf16 tensor-core work, 67 TFLOP/s in f32 elementwise work);
+   in bf16 tensor-core work, 494.7 in tf32 (the f32 segment forward's
+   3xTF32 products, three a product), 67 in f32 elementwise work);
 4. serving — full-width llama_7b (32 layers, random weights from a
    seeded generator) behind the port's HTTP gateway, 4 concurrent
    streamed requests; every kernel's launch counter must account for
@@ -106,14 +107,19 @@ forward and backward at each of `FLASH_ROUTE_CASES` is traced and its
 device kernels held to `expected_flash_routes` (the wgmma core, never a
 flash_*_mma_kernel); the backward's library time is SDPA's backward
 alone over a retained forward (`library_fwd_bwd_ms`: its forward and
-backward).
+backward). One segment forward, dkv and dq at each bf16
+`testing.ATTN_SEG_CASES` case and at BERT's f32 shape is traced and held
+to `expected_seg_routes` (the forward on the wgmma core, f32 on its
+3xTF32 kernel; never an mma.sync or SIMT forward).
 
     python3 chip_smoke.py --ab PARENT_DIR
 
 compares this checkout with another (an unpacked `git archive` of the
 parent commit) on one card: `route_times` (row 10's 1B and 7B flash
 forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
-and forward + backward, the alibi route's peak memory, the SwiGLU
+and forward + backward, the alibi route's peak memory, the segment
+forward at BERT's shape in bf16 and f32 and packed at 8192 tokens, sdpa
+with the boolean mask, the bert_base f32 forward, the SwiGLU
 forward, da and dW launches at the 7B and 1B training shapes and the
 forward at serving and decode rows) runs in a fresh process per
 checkout, in the order parent, change, change, parent.
@@ -138,6 +144,7 @@ import warnings
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "tf32": 494.7e12,    # dense tensor-core tf32
               "float32": 67e12}    # f32 outside the tensor cores
 # Kernel against plain version, element by element, by the rule of
 # paddle_tpu_torch/testing.py:
@@ -249,8 +256,9 @@ SOURCES = {
     "fused_cross_entropy_bwd": ("paddle_tpu_torch/csrc/cross_entropy.cu",
                                 "paddle_tpu/kernels/cross_entropy.py:178"),
     # upstream flash with SegmentIds (the call at l.333; packed, l.447):
-    # padding_mask= and flash_attention_packed, forward, dkv and dq
-    "flash_attention_seg_fwd": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    # padding_mask= and flash_attention_packed, forward (the wgmma core;
+    # f32 its 3xTF32 form), dkv and dq (mma.sync / SIMT)
+    "flash_attention_seg_fwd": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                                 "paddle_tpu/kernels/flash_attention.py:333"),
     "flash_attention_seg_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                 "paddle_tpu/kernels/flash_attention.py:333"),
@@ -332,8 +340,8 @@ def time_ms(fn, iters, warmup=3):
 
 def bound_ms(nbytes, flops, dtype_name):
     """The least time for the work: bytes over the HBM rate against
-    operations over the peak rate for `dtype_name` (bf16: tensor cores;
-    float32: f32 outside them, for elementwise work)."""
+    operations over the peak rate for `dtype_name` (bf16, tf32: tensor
+    cores; float32: f32 outside them, for elementwise work)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -699,11 +707,12 @@ def swiglu_route_check(T, H, M):
 
 
 # Flash attention's cores, told apart by their device kernels' names:
-# flash_{fwd,bwd_dkv,bwd_dq}_{wgmma,mma,simt}_kernel (csrc/flash_wgmma.cu:
-# the TMA + wgmma core; csrc/flash_attention.cu: the mma.sync and SIMT
+# flash_{fwd,bwd_dkv,bwd_dq}_{wgmma,mma,simt}_kernel and
+# flash_fwd_tf32_kernel (csrc/flash_wgmma.cu: the TMA + wgmma core and
+# its 3xTF32 f32 forward; csrc/flash_attention.cu: the mma.sync and SIMT
 # kernels) and the backward's pre-pass flash_delta_kernel.
 _FLASH_KERNEL = re.compile(
-    r"(?<![A-Za-z0-9_])flash_(?:(fwd|bwd_dkv|bwd_dq)_(wgmma|mma|simt)|"
+    r"(?<![A-Za-z0-9_])flash_(?:(fwd|bwd_dkv|bwd_dq)_(wgmma|tf32|mma|simt)|"
     r"(delta))_kernel<")
 # the element checks beside the training shapes: GQA causal, head dim
 # 64 full, and a ragged S (1000: not a multiple of any tile) both ways
@@ -717,15 +726,17 @@ FLASH_ROUTE_CASES = ((4, 2048, 32, 32, 128, True),
 
 def flash_route_of(name):
     """(launch, core) of a flash device kernel's name, or None: launch
-    forward, dkv, dq or delta; core "wgmma", "mma.sync" or "simt" (the
-    delta pre-pass is a SIMT kernel)."""
+    forward, dkv, dq or delta; core "wgmma", "wgmma-tf32" (the f32
+    segment forward), "mma.sync" or "simt" (the delta pre-pass is a SIMT
+    kernel)."""
     m = _FLASH_KERNEL.search(name)
     if m is None:
         return None
     if m.group(3):
         return "delta", "simt"
     launch = {"fwd": "forward", "bwd_dkv": "dkv", "bwd_dq": "dq"}[m.group(1)]
-    return launch, {"mma": "mma.sync"}.get(m.group(2), m.group(2))
+    return launch, {"mma": "mma.sync", "tf32": "wgmma-tf32"}.get(
+        m.group(2), m.group(2))
 
 
 def expected_flash_routes(B, S, Hq, Hk, D, causal, dtype):
@@ -743,13 +754,86 @@ def expected_flash_routes(B, S, Hq, Hk, D, causal, dtype):
     return {"forward": core, "dkv": core, "dq": core, "delta": "simt"}
 
 
+def traced_flash_routes(run):
+    """Trace `run()` twice (a trace can miss a kernel that starts at the
+    very edge of its window: a single forward launched first read as
+    absent on an H100) and return ({launch: {cores}} of the flash device
+    kernels it ran, every device kernel's name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    got, names = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        names.append(e.key)
+        route = flash_route_of(e.key)
+        if route:
+            got.setdefault(route[0], set()).add(route[1])
+    return got, names
+
+
+def expected_seg_routes(B, Sq, Sk, Hq, Hk, D, causal, dtype):
+    """The core each launch of the segment route takes for q [B, Sq, Hq,
+    D] and k/v [B, Sk, Hk, D], ids or none: the forward
+    (`flash_attention_seg_fwd`) on the wgmma core in bf16 and on its
+    3xTF32 form in f32, never an mma.sync or SIMT forward; the backward
+    (`flash_attention_seg_dkv`, `_dq`) on the mma.sync kernels in bf16
+    and the SIMT kernels in f32. Raises ValueError for a shape the
+    entries do not take."""
+    if not (B > 0 and Sq > 0 and Sk > 0 and Hk > 0 and Hq % Hk == 0
+            and D in (64, 128) and not (causal and Sq != Sk)):
+        raise ValueError(f"the segment route takes no [B{B} Sq{Sq} Sk{Sk} "
+                         f"H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}]")
+    bf16 = str(dtype).split(".")[-1] == "bfloat16"
+    back = "mma.sync" if bf16 else "simt"
+    return {"forward": "wgmma" if bf16 else "wgmma-tf32", "dkv": back,
+            "dq": back}
+
+
+def seg_route_check(tag, dtype):
+    """Trace one flash_attention_seg_fwd, seg_dkv and seg_dq at
+    `testing.ATTN_SEG_CASES[tag]` in `dtype` and hold the cores their
+    device kernels name against `expected_seg_routes`."""
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    kw = testing.ATTN_SEG_CASES[tag]
+    q, k, v, do, sq, skv = testing.attn_seg_case(**kw, dtype=dtype, seed=5)
+    causal = kw["causal"]
+    s = 1.0 if q.shape[2] != k.shape[2] else q.shape[-1] ** -0.5
+
+    def run():
+        o, lse = kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s)
+        args = (q, k, v, do, lse, kfa._delta(o, do), sq, skv, causal, s)
+        kfa.flash_attention_seg_dkv(*args)
+        kfa.flash_attention_seg_dq(*args)
+
+    got, names = traced_flash_routes(run)
+    B, Sq, hq, d = q.shape
+    Sk, hk = k.shape[1], k.shape[2]
+    want = expected_seg_routes(B, Sq, Sk, hq, hk, d, causal, dtype)
+    dn = str(dtype).split(".")[-1]
+    label = f"[{tag} {dn}]"
+    print(f"segment route {label}: " + " ".join(
+        f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
+        + f" (want {want})", flush=True)
+    if got != {p: {c} for p, c in want.items()}:
+        print(f"segment route {label}: device kernels traced: {names}",
+              flush=True)
+    check(got == {p: {c} for p, c in want.items()},
+          f"segment route {label}: the launches ran on {got}, not {want}")
+    del q, k, v, do
+
+
 def flash_route_check(B, S, Hq, Hk, D, causal):
     """Trace one bf16 flash_attention_fwd and one flash_attention_bwd and
     hold the cores their device kernels name against
     `expected_flash_routes`: no flash_*_mma_kernel may run."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -760,22 +844,12 @@ def flash_route_check(B, S, Hq, Hk, D, causal):
     q, do, k, v = rand(B, S, Hq, D), rand(B, S, Hq, D), rand(B, S, Hk, D), \
         rand(B, S, Hk, D)
     scale = 1.0 if Hq != Hk else D ** -0.5
-    # the pair runs twice: a trace can miss a kernel that starts at the
-    # very edge of its window (a single forward launched first read as
-    # absent on an H100)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            o, lse = kfa.flash_attention_fwd(q, k, v, causal, scale)
-            kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
-        torch.cuda.synchronize()
-    got, names = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        names.append(e.key)
-        route = flash_route_of(e.key)
-        if route:
-            got.setdefault(route[0], set()).add(route[1])
+
+    def run():
+        o, lse = kfa.flash_attention_fwd(q, k, v, causal, scale)
+        kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+
+    got, names = traced_flash_routes(run)
     want = expected_flash_routes(B, S, Hq, Hk, D, causal, torch.bfloat16)
     tag = f"[B{B} S{S} H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}]"
     print(f"flash route {tag}: " + " ".join(
@@ -786,7 +860,7 @@ def flash_route_check(B, S, Hq, Hk, D, causal):
               flush=True)
     check(got == {p: {c} for p, c in want.items()},
           f"flash {tag}: the launches ran on {got}, not {want}")
-    del q, do, k, v, o, lse
+    del q, do, k, v
 
 
 # the training slices' kernel shapes, batch 4 x seq 2048 = 8192 rows:
@@ -1095,7 +1169,9 @@ def attention_kernels(report, dtype):
     alibi chunk at 7B width, a masked ragged case), element by element.
     Timed: the segment kernels at "bert" (bf16: the entry; f32 forward:
     the BERT phase's dtype, "bert_f32") and "packed_7b" (bf16); the
-    block-stats kernel at "sdpa_bias" (the entry) and "alibi_7b"."""
+    block-stats kernel at "sdpa_bias" (the entry) and "alibi_7b". One
+    forward, dkv and dq at every bf16 case, and at "bert" in f32, is
+    traced to its cores (`seg_route_check`)."""
     import torch
 
     from paddle_tpu_torch import testing
@@ -1133,6 +1209,11 @@ def attention_kernels(report, dtype):
                         causal, s, shape)
         del q, k, v, do, qs, sq, skv
         torch.cuda.empty_cache()
+        # every bf16 case's launches, and f32 at BERT's shape, traced to
+        # their cores
+        if bf16 or tag == "bert":
+            seg_route_check(tag, dtype)
+            torch.cuda.empty_cache()
 
     for tag, kw in testing.STATS_CASES.items():
         q, k, v, mask, scale, bias = testing.stats_case(**kw, dtype=dtype)
@@ -1297,14 +1378,17 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
     groups of 8 heads), SDPA with the segment-equality boolean mask (fwd;
     fwd + bwd for dkv and dq) and the bounds over the pairs the segments
     leave. bf16 "bert" is each kernel's entry; f32 "bert" times the
-    forward only (the BERT phase's f32 inference), as "bert_f32"."""
+    forward only (the BERT phase's f32 inference), as "bert_f32", whose
+    bound counts its three tf32 products per product at the tf32 rate
+    (beside it, `bound_simt_ms`: one f32 product at the SIMT rate)."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
     bf16 = dtype == torch.bfloat16
     dn = "bf16" if bf16 else "f32"
-    ops = "bfloat16" if bf16 else "float32"
+    ops = "bfloat16" if bf16 else "tf32"
+    split = 1 if bf16 else 3          # 3xTF32: three products a product
     it = torch.finfo(dtype).bits // 8
     B, S, hq, d = q.shape
     Sk = k.shape[1]
@@ -1335,15 +1419,19 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
         else:
             report[name][key] = m
 
+    fwd_bytes = qkv + q.numel() * it + lse_bytes + seg_bytes
     put("flash_attention_seg_fwd", timed(
         "flash_attention_seg_fwd", errs["fwd"],
         lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s),
-        plain_fwd, nbytes=qkv + q.numel() * it + lse_bytes + seg_bytes,
-        flops=4 * pairs * d,
+        plain_fwd, nbytes=fwd_bytes, flops=split * 4 * pairs * d,
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        attn_mask=allow),
         iters=20, plain_iters=3, tag=shape, ops_dtype=ops, dname=dn))
     if not bf16:
+        simt_ms, simt_by = bound_ms(fwd_bytes, 4 * pairs * d, "float32")
+        report["flash_attention_seg_fwd"][key]["bound_simt_ms"] = simt_ms
+        print(f"kernel flash_attention_seg_fwd f32{shape}: the SIMT "
+              f"design's bound_ms={simt_ms:.6g} ({simt_by})", flush=True)
         return
     delta = kfa._delta(o, do)
     args = (q, k, v, do, lse, delta, sq, skv, causal, s)
@@ -2701,7 +2789,11 @@ def route_times():
     attention_biased with causal alibi at the same shape and sdpa with the
     float [16, 1, 1, 512] mask at bert width (the BERT lengths), forward
     and forward + backward; the alibi route's forward + backward peak
-    memory above its inputs; swiglu at 128 and 4 rows of llama_7b's
+    memory above its inputs; rows 10-11's segment forward (sdpa with the
+    boolean mask at bert width, the forward kernel at BERT's shape in
+    bf16 and f32 and at the packed causal 8192 tokens) and the bert_base
+    f32 forward on the BERT phase's batch; swiglu at 128 and 4 rows of
+    llama_7b's
     width, swiglu, swiglu_bwd_da and swiglu_bwd_dw at 8192 rows of
     llama_7b's and llama_1b's widths, then swiglu at 128 and 4 rows again,
     each small-row reading beside `card_state`. Uses only entry points
@@ -2709,8 +2801,10 @@ def route_times():
     import numpy as np
     import torch
 
+    from paddle_tpu_torch import testing
     from paddle_tpu_torch.kernels import flash_attention as kfa
     from paddle_tpu_torch.kernels import swiglu as ksw
+    from paddle_tpu_torch.models import bert as TB
     from paddle_tpu_torch.nn import functional as TF
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2766,7 +2860,36 @@ def route_times():
     out["float_mask_fwd_ms"] = time_ms(lambda: sdpa_float(q, k, v), 10)
     out["float_mask_fwd_bwd_ms"] = time_ms(
         lambda: fwd_bwd(sdpa_float, (q, k, v), do), 5)
+    # rows 10-11's segment forward: sdpa with the boolean mask on the same
+    # batch (the route's forward), the forward kernel alone at BERT's
+    # padded [16, 512, 12, 64] in bf16 and f32 and at the packed causal
+    # 8192 tokens of llama_7b width, then the bert_base f32 forward
+    bmask = valid[:, None, None, :]
+    out["bool_mask_fwd_ms"] = time_ms(
+        lambda: TF.scaled_dot_product_attention(q, k, v, attn_mask=bmask), 10)
     del q, k, v, do
+    for tag, dt, dn in (("bert", torch.bfloat16, "bf16"),
+                        ("bert", torch.float32, "f32"),
+                        ("packed_7b", torch.bfloat16, "bf16")):
+        kw = testing.ATTN_SEG_CASES[tag]
+        q, k, v, _, sq, skv = testing.attn_seg_case(**kw, dtype=dt)
+        out[f"seg_fwd_{tag}_{dn}_ms"] = time_ms(
+            lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv,
+                                                kw["causal"],
+                                                q.shape[-1] ** -0.5), 20)
+        del q, k, v, sq, skv
+    cfg = TB.bert_base()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (16, 512))).to("cuda")
+    model = TB.BertForMaskedLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0)).eval()
+    with torch.no_grad():
+        out["bert_f32_forward_ms"] = time_ms(
+            lambda: model(ids, torch.zeros_like(ids), valid.long()), 5,
+            warmup=2)
+    del model, ids
+    torch.cuda.empty_cache()
     # rows 2-4: the SwiGLU forward at the serving and decode rows of
     # llama_7b (bytes-bound), the forward and backward launches at the
     # training slices' shapes (8192 rows), then the serving and decode

@@ -1,14 +1,18 @@
 // Flash attention forward and backward, BSHD layout, causal or full,
 // MHA and GQA (q head h reads kv head h / (Hq / Hk)), head dim 64 or 128,
-// optionally masked by segment ids, with q and kv lengths Sq and Sk: the
-// segment-id, bias and cross-length routes in bf16 and every route in
-// f32. The bf16 one-length route without ids or bias (the entries
-// ptt_flash_attention_fwd_bf16 / _bwd_bf16, LLaMA training's) runs the
-// TMA + mbarrier + wgmma core of flash_wgmma.cu instead: mma.sync
-// m16n8k16 issued by single warps from a cp.async ring cannot reach
-// Hopper's tensor-core rate (3.8x SDPA's forward at llama_7b's shape on
-// an H100, PERF.md row 10), while wgmma with TMA-fed, swizzled operands
-// can.
+// with q and kv lengths Sq and Sk. The routes here:
+//   - the segment backward (`ptt_flash_attention_seg_dkv_*` /
+//     `_seg_dq_*`: segment ids or none, bf16 on mma.sync, f32 on SIMT);
+//     the segment forward is flash_wgmma.cu's (wgmma, 3xTF32 in f32);
+//   - the bias route (`ptt_flash_attention_bias_*`), forward and
+//     backward, bf16 on mma.sync, f32 on SIMT;
+//   - the f32 one-length route (`ptt_flash_attention_fwd_f32` /
+//     `_bwd_f32`) on SIMT.
+// The bf16 one-length route without ids or bias (LLaMA training's) runs
+// the TMA + mbarrier + wgmma core of flash_wgmma.cu: mma.sync m16n8k16
+// issued by single warps from a cp.async ring cannot reach Hopper's
+// tensor-core rate (3.8x SDPA's forward at llama_7b's shape on an H100,
+// PERF.md row 10), while wgmma with TMA-fed, swizzled operands can.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
 //   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
@@ -20,8 +24,8 @@
 //   [4, 2048, 16, 128] causal, the forward does 4*B*H*S^2*D/2 = 69 GFLOP
 //   against 67 MB of q/k/v/o (about 1000 flop per byte, far above the
 //   ~295 flop/byte bf16 ridge); the backward does 2.5x the forward. With
-//   segment ids at BERT's [16, 512, 12, 64] the forward does 12.9 GFLOP
-//   against 50 MB: it sits near the ridge.
+//   segment ids at BERT's [16, 512, 12, 64] the backward does 2.5 times
+//   the forward's 8.7 GFLOP against about 80 MB: near the ridge.
 // Design: the TPU kernels carry the online-softmax state across a
 //   sequential grid axis in VMEM scratch; here a block owns one (q tile,
 //   head, batch) and walks the kv tiles in a loop inside the block, so
@@ -30,9 +34,9 @@
 //   softmax and the output accumulator stay in registers (mma.sync
 //   m16n8k16, f32 accumulators), P is handed from the accumulator layout
 //   straight to the A operand of P V, and K/V tiles stream through a
-//   double-buffered cp.async ring. f32 (the CPU-parity dtype; the tensor
-//   cores have no full-precision product) runs a SIMT version of the same
-//   walk with its tiles in shared memory. P (and dS in the backward) is
+//   double-buffered cp.async ring. f32 (the CPU-parity dtype) runs a SIMT
+//   version of the same walk with its tiles in shared memory. P (and dS
+//   in the backward) is
 //   rounded to the input dtype before its product, as every flash kernel
 //   does; the softmax statistics stay f32. Fully masked causal tiles are
 //   skipped, and the heavy causal tiles are scheduled first. The forward
@@ -46,17 +50,17 @@
 //   PyTorch over the stored O on the segment and bias routes, as
 //   upstream l.1664 is plain jnp). `scale` multiplies the
 //   scores in f32 (MHA); GQA callers pass q pre-scaled in q's dtype and
-//   scale = 1, as splash takes it. The segment and bias routes move to
-//   the wgmma core of flash_wgmma.cu in a later step (ROADMAP Queue 2).
-// Segment ids (int32 [B, Sq] and [B, Sk]; SEG instantiations only): a
-//   score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a score
-//   whose segments differ takes the finite mask value kSegMask (upstream's
-//   DEFAULT_MASK_VALUE) rather than -inf, so a query row with no key of
-//   its own segment averages V over the keys, and the backward recomputes
-//   its P from an LSE that rounds to kSegMask (P = 1), as upstream does.
-//   A key past Sk or above the causal diagonal takes -inf (P = 0 exactly).
-//   Every kv tile is visited; a tile whose segments all differ from its
-//   q rows is not skipped in this first cut. Causal requires Sq == Sk.
+//   scale = 1, as splash takes it. The segment backward moves to the
+//   wgmma core of flash_wgmma.cu in a later step (ROADMAP Queue 2).
+// Segment ids (int32 [B, Sq] and [B, Sk]; SEG instantiations of dkv and
+//   dq): a score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a
+//   score whose segments differ takes the finite mask value kSegMask
+//   (upstream's DEFAULT_MASK_VALUE) rather than -inf, so a query row with
+//   no key of its own segment averaged V over the keys in the forward,
+//   and the backward recomputes its P from an LSE that rounds to kSegMask
+//   (P = 1), as upstream does. A key past Sk or above the causal
+//   diagonal takes -inf (P = 0 exactly). The backward visits every tile.
+//   Causal requires Sq == Sk.
 // Bias (BIAS instantiations, the `ptt_flash_attention_bias_*` entries):
 //   replaces paddle_tpu/kernels/flash_attention.py:215
 //   (`flash_attention_biased`, which runs the block-stats kernel of
@@ -213,12 +217,11 @@ __device__ __forceinline__ void col_segs(int (&sk)[2], const int* skv,
   sk[1] = c + 1 < Sk ? skv[c + 1] : -2;
 }
 
-template <int D, bool SEG, bool BIAS>
+// the bias forward (the segment forward runs flash_wgmma.cu)
+template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const int* __restrict__ seg_q,
-                     const int* __restrict__ seg_kv, const BiasArgs ba,
+                     const bf16* __restrict__ v, const BiasArgs ba,
                      bf16* __restrict__ o, float* __restrict__ lse, int Sq,
                      int Sk, int Hq, int Hk, int causal, float scale) {
   constexpr int LD = D + 8;
@@ -245,18 +248,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ptt::cp_async_commit();
   const int kv_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_kv = (kv_end + TKV - 1) / TKV;
-  const int* skv = SEG ? seg_kv + static_cast<size_t>(b) * Sk : nullptr;
-  BiasHead hb{};
-  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+  const BiasHead hb = bias_head(ba, b, h, Sk);
   const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};  // its two q rows
-  int sq_r[2] = {0, 0};
-  if (SEG) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + wr + g + r * 8;
-      sq_r[r] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : -1;
-    }
-  }
 
   float acc[ND][4];
 #pragma unroll
@@ -288,30 +281,15 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_rows_nk<8, KS>(s, Qs, LD, wr, Kb, LD, 0);
 
     const int k0 = j * TKV;
-    const bool edge = SEG || (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
+    const bool edge = (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
                       q0 + TQ > Sq;
-    if constexpr (BIAS)
-      bias_scores<8, false>(s, scale, ba, hb, rows, k0 + t2, Sq, Sk, causal,
-                            edge);
+    bias_scores<8, false>(s, scale, ba, hb, rows, k0 + t2, Sq, Sk, causal,
+                          edge);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int sk[2] = {0, 0};
-      if (SEG) col_segs(sk, skv, k0, i, t2, Sk);
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = BIAS ? s[i][e] : s[i][e] * scale;   // BIAS: done above
-        if (!BIAS && edge) {
-          if (!in_view(q0 + wr + g + (e >> 1) * 8, k0 + i * 8 + t2 + (e & 1),
-                       Sq, Sk, causal))
-            x = -INFINITY;
-          else if (SEG && sq_r[e >> 1] != sk[e & 1])
-            x = kSegMask;
-        }
-        s[i][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
     float alpha[2], m_use[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -349,10 +327,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row >= Sq) continue;
     float inv = 1.f / l_r[r];
     float lse_v = m_r[r] + logf(l_r[r]);
-    if constexpr (BIAS) {
-      // a row with no valid key: o = 0, lse = +inf (backward P = 0)
-      if (!(l_r[r] > 0.f)) { inv = 0.f; lse_v = INFINITY; }
-    }
+    // a row with no valid key: o = 0, lse = +inf (backward P = 0)
+    if (!(l_r[r] > 0.f)) { inv = 0.f; lse_v = INFINITY; }
     bf16* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + t2;
 #pragma unroll
     for (int i = 0; i < ND; ++i)
@@ -662,7 +638,7 @@ constexpr int fwd_simt_smem() {
   using G = Geo<D>;
   return align128(G::BR * G::LDT * 4) + 2 * align128(G::BC * G::LDT * 4) +
          align128(G::BR * G::LDS * 4) * 2 + align128(G::BR * G::LDO * 4) +
-         3 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
+         3 * align128(G::BR * 4);
 }
 
 // the segment ids of rows [r0, r0 + R) of batch b (-1 past S)
@@ -676,9 +652,7 @@ __device__ __forceinline__ void load_segs(int* dst, const int* __restrict__ seg,
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const int* __restrict__ seg_q,
-                      const int* __restrict__ seg_kv, const BiasArgs ba,
+                      const float* __restrict__ v, const BiasArgs ba,
                       float* __restrict__ o, float* __restrict__ lse, int Sq,
                       int Sk, int Hq, int Hk, int causal, float scale) {
   using G = Geo<D>;
@@ -694,9 +668,6 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* m_s = cv.take(BR);
   float* l_s = cv.take(BR);
   float* a_s = cv.take(BR);
-  int* sq_s = reinterpret_cast<int*>(cv.take(BR));
-  int* sk_s = reinterpret_cast<int*>(cv.take(BC));
-  const bool seg = seg_q != nullptr;
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
@@ -710,7 +681,6 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
 
   load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
-  if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
   for (int e = threadIdx.x; e < BR * G::LDO; e += blockDim.x) Os[e] = 0.f;
   for (int r = threadIdx.x; r < BR; r += blockDim.x) {
     m_s[r] = -INFINITY;
@@ -721,7 +691,6 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                 // the last tile's K, V, P are free
     load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, Sk, Hk);
     load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, Sk, Hk);
-    if (seg) load_segs<BC>(sk_s, seg_kv, b, k0, Sk);
     __syncthreads();
     tile_mm<false, true, BR, BC, D>(Ss, G::LDS, Qs, G::LDT, Ks, G::LDT,
                                     false);
@@ -738,8 +707,7 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
               bias_at(bv, ba, hb, qi, k0 + c, causal))
             s = biased(Ss[r * G::LDS + c], scale, bv);
         } else if (in_view(qi, k0 + c, Sq, Sk, causal)) {
-          s = (seg && sq_s[r] != sk_s[c]) ? kSegMask
-                                          : Ss[r * G::LDS + c] * scale;
+          s = Ss[r * G::LDS + c] * scale;
         }
         Ss[r * G::LDS + c] = s;
         mx = fmaxf(mx, s);
@@ -1014,18 +982,21 @@ struct Shape {
   float scale;
 };
 
-template <typename T, int D, bool SEG, bool BIAS>
-cudaError_t fwd(const void* q, const void* k, const void* v, const int* sq,
-                const int* skv, const BiasArgs& ba, void* o, void* lse,
-                const Shape& s, cudaStream_t stream) {
+// the forward: bias (bf16 on the mma.sync kernel, f32 on SIMT) or the f32
+// one-length route (SIMT)
+template <typename T, int D, bool BIAS>
+cudaError_t fwd(const void* q, const void* k, const void* v,
+                const BiasArgs& ba, void* o, void* lse, const Shape& s,
+                cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(BIAS, "the bf16 forwards without a bias: flash_wgmma.cu");
     constexpr int smem = fwd_mma_smem<D>();
-    cudaError_t err = set_smem(flash_fwd_mma_kernel<D, SEG, BIAS>, smem);
+    cudaError_t err = set_smem(flash_fwd_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((s.Sq + TQ - 1) / TQ, s.Hq, s.B);
-    flash_fwd_mma_kernel<D, SEG, BIAS><<<grid, MMA_THREADS, smem, stream>>>(
+    flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), sq, skv, ba, static_cast<bf16*>(o),
+        static_cast<const bf16*>(v), ba, static_cast<bf16*>(o),
         static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   } else {
     constexpr int smem = fwd_simt_smem<D>();
@@ -1034,8 +1005,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int* sq,
     dim3 grid((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B);
     flash_fwd_simt_kernel<D, BIAS><<<grid, SIMT_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), SEG ? sq : nullptr,
-        SEG ? skv : nullptr, ba, static_cast<float*>(o),
+        static_cast<const float*>(v), ba, static_cast<float*>(o),
         static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
   return cudaGetLastError();
@@ -1146,14 +1116,21 @@ int check_shape(const Shape& s, int D, const BiasArgs& ba) {
   } while (0)
 
 template <typename T>
-int fwd_any(const void* q, const void* k, const void* v, const int* sq,
-            const int* skv, const BiasArgs& ba, void* o, void* lse,
-            const Shape& s, int D, void* stream) {
+int fwd_any(const void* q, const void* k, const void* v, const BiasArgs& ba,
+            void* o, void* lse, const Shape& s, int D, void* stream) {
+  const int c = check_shape(s, D, ba);
+  if (c != 0) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   auto st = static_cast<cudaStream_t>(stream);
-#define PTT_CALL(DD, SEG, BIAS) \
-  fwd<T, DD, SEG, BIAS>(q, k, v, sq, skv, ba, o, lse, s, st)
-  PTT_DISPATCH(PTT_CALL);
-#undef PTT_CALL
+  cudaError_t err;
+  if (ba.kind != 0)
+    err = D == 64 ? fwd<T, 64, true>(q, k, v, ba, o, lse, s, st)
+                  : fwd<T, 128, true>(q, k, v, ba, o, lse, s, st);
+  else if constexpr (std::is_same<T, float>::value)
+    err = D == 64 ? fwd<T, 64, false>(q, k, v, ba, o, lse, s, st)
+                  : fwd<T, 128, false>(q, k, v, ba, o, lse, s, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 template <typename T>
@@ -1200,7 +1177,7 @@ extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
                                            int B, int S, int Hq, int Hk,
                                            int D, int causal, float scale,
                                            void* stream) {
-  return fwd_any<float>(q, k, v, nullptr, nullptr, kNoBias, o, lse,
+  return fwd_any<float>(q, k, v, kNoBias, o, lse,
                         Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
 }
 
@@ -1214,19 +1191,12 @@ extern "C" int ptt_flash_attention_bwd_f32(
                         stream);
 }
 
-// ---- q and kv lengths of their own, optional segment ids (int32 [B, Sq]
-// and [B, Sk], both or neither): the padding-mask, packed and
-// cross-length routes ----
+// ---- the segment backward: q and kv lengths of their own, optional
+// segment ids (int32 [B, Sq] and [B, Sk], both or neither): the
+// padding-mask, packed and cross-length routes (their forward,
+// ptt_flash_attention_seg_fwd_*, is flash_wgmma.cu's) ----
 
 #define PTT_SEG_ENTRIES(SUFFIX, T)                                            \
-  extern "C" int ptt_flash_attention_seg_fwd_##SUFFIX(                        \
-      const void* q, const void* k, const void* v, const void* seg_q,         \
-      const void* seg_kv, void* o, void* lse, int B, int Sq, int Sk, int Hq,  \
-      int Hk, int D, int causal, float scale, void* stream) {                 \
-    return fwd_any<T>(q, k, v, static_cast<const int*>(seg_q),                \
-                      static_cast<const int*>(seg_kv), kNoBias, o, lse,       \
-                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
-  }                                                                           \
   extern "C" int ptt_flash_attention_seg_dkv_##SUFFIX(                        \
       const void* q, const void* k, const void* v, const void* dout,          \
       const void* lse, const void* delta, const void* seg_q,                  \
@@ -1274,7 +1244,7 @@ PTT_SEG_ENTRIES(f32, float)
       const void* q, const void* k, const void* v, void* o, void* lse,        \
       PTT_BIAS_ARGS) {                                                        \
     if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);            \
-    return fwd_any<T>(q, k, v, nullptr, nullptr, PTT_BIAS_VALUE, o, lse,      \
+    return fwd_any<T>(q, k, v, PTT_BIAS_VALUE, o, lse,                        \
                       Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
   }                                                                           \
   extern "C" int ptt_flash_attention_bias_dkv_##SUFFIX(                       \

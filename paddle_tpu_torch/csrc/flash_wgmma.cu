@@ -1,28 +1,44 @@
-// Flash attention on a TMA + mbarrier + wgmma core (sm_90a): the bf16
-// one-length route, BSHD in and out, causal or full, MHA and GQA (q head
-// h reads kv head h / (Hq / Hk)), head dim 64 or 128, q and kv of one
-// length S, no segment ids, no bias: every call of the entries
-// `ptt_flash_attention_fwd_bf16` and `ptt_flash_attention_bwd_bf16`.
-// The segment, bias and f32 routes stay on flash_attention.cu's kernels.
+// Flash attention on a TMA + mbarrier + wgmma core (sm_90a), BSHD in and
+// out, causal or full, MHA and GQA (q head h reads kv head h / (Hq /
+// Hk)), head dim 64 or 128, no bias. Two routes run here:
+//   - the bf16 one-length route (q and kv of one length S, no segment
+//     ids): the entries `ptt_flash_attention_fwd_bf16` and
+//     `ptt_flash_attention_bwd_bf16` (LLaMA training, sdpa without a
+//     mask), forward and backward;
+//   - the segment forward (`ptt_flash_attention_seg_fwd_bf16` / `_f32`:
+//     padding masks, packed documents, q and kv lengths Sq and Sk of
+//     their own, with int32 segment ids [B, Sq] / [B, Sk] or none), bf16
+//     on flash_fwd_wgmma_kernel<D, SEG> and f32 on its 3xTF32 form
+//     flash_fwd_tf32_kernel<D, SEG>; its backward (dkv, dq) stays on the
+//     mma.sync (bf16) and SIMT (f32) kernels of flash_attention.cu, which
+//     read this forward's o and lse.
+// The bias routes, the f32 one-length route and every f32 backward stay
+// on flash_attention.cu.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
 //   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
 //   pallas_call l.758, bwd dkv l.1121, bwd dq l.1456) for MHA and the
 //   splash MQA kernel (`_splash_gqa`) for GQA; the delta pre-pass is the
-//   jnp rowsum(dO * O) of upstream's backward (l.1664).
+//   jnp rowsum(dO * O) of upstream's backward (l.1664). With `SegmentIds`,
+//   the same forward behind `padding_mask=` (flash_attention.py:327-336,
+//   GQA l.136-139) and `flash_attention_packed` (l.406).
 // Bound on the H100: operations. At llama_7b's training shape [4, 2048,
 //   32, 128] causal the forward does 4 B H D S(S+1)/2 = 137.5 GFLOP
 //   against 134 MB (0.139 ms at 989 TFLOP/s), the backward 2.5 times
 //   that in the five products it needs (it runs seven: dkv and dq each
 //   recompute S and dP). The delta pre-pass is bound by bytes (it reads
-//   O and dO once: 134 MB, 0.04 ms).
+//   O and dO once: 134 MB, 0.04 ms). The segment forward at BERT's [16,
+//   512, 12, 64] does 4 d per pair the segments leave (33.8 M pairs, 8.7
+//   GFLOP) against 50 MB (bf16) or 101 MB (f32): bf16 is bound by bytes
+//   (0.015 ms); f32 by operations, three tf32 products per product (26
+//   GFLOP at 495 TFLOP/s: 0.052 ms).
 // Design (FlashAttention-3's shape, without its ping-pong between
 //   consumers): one block of three warpgroups owns one tile. Warpgroup 0
 //   is the producer (registers cut by setmaxnreg): one thread issues
 //   TMA loads of whole tiles of one head through a 4D tensor map over
 //   BSHD (hopper.cuh, tma_map_bshd; a tile of D = 128 is two boxes of 64
-//   columns, each [rows][64] in 128-byte swizzle atoms) into a
-//   three-stage ring whose stages carry full and empty mbarriers.
+//   bf16 columns, or four of 32 f32) into a ring whose stages carry full
+//   and empty mbarriers.
 //   Warpgroups 1 and 2 are consumers of 64 rows each. Every product is a
 //   wgmma with f32 accumulators in registers: the score-like products (S
 //   = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T) read both operands
@@ -49,8 +65,35 @@
 //   rows past S within each batch) are masked; the heavy q tiles are
 //   scheduled first.
 //   Forward: a block owns 128 q rows of one head and walks the kv tiles
-//     (128 rows a stage); it writes O and the f32 log-sum-exp [B, Hq, S]
-//     (rows < S only).
+//     (128 rows a stage in bf16); it writes O and the f32 log-sum-exp
+//     [B, Hq, Sq] (rows < Sq only).
+//   Segment ids (SEG): a score counts where seg_q[b, i] == seg_kv[b, j];
+//     a score whose segments differ takes upstream's finite mask value
+//     kSegMask, placed in the log2 domain the exponent uses, so a row
+//     with no key of its own segment averages V (P = 1) and writes lse =
+//     kSegMask as flash_attention.cu's backward expects, and a key past
+//     Sk or above the diagonal takes -inf. Before the roles split, the
+//     whole block plans its walk (seg_plan): a kv tile is skipped when
+//     its keys' [min, max] segment range misses the block's rows' range,
+//     and only in a block each of whose rows holds its own segment at
+//     its own position (i < Sk, seg_kv[i] == seg_q[i]); such a row has a
+//     key of its own segment, so a skipped tile's P is exactly 0 for it.
+//     Any other block may hold a row with none, which must average every
+//     key: it walks every tile. The producer warp stages each visited
+//     tile's ids (and a header: k0, and whether the tile and the block
+//     are one segment, which spares the consumers the comparisons) in the
+//     ring stage beside K and V.
+//   f32 (flash_fwd_tf32_kernel): the tensor cores have no f32 product,
+//     so each operand is split x = hi + lo in tf32 and each product is
+//     hi hi + hi lo + lo hi: about 2^-21 of each term, against the f32
+//     limit of 1e-4 of an element's sum of |terms| (testing.TERM_FRAC).
+//     One tf32 product (2^-11) and a bf16 x3 split (about 3 * 2^-16 of
+//     each term, times scale * sum |q k| of about 5 at BERT's inputs)
+//     miss it. tf32 operands are read K-major only, so V is transposed
+//     in shared memory (keys permuted within each group of 8 so that P
+//     goes to its products from the score accumulators as they stand);
+//     the consumers split and transpose each tile as it lands, and Q
+//     once (its lo part stays in registers).
 //   Backward, deterministic (no atomics: chip_smoke.py holds every remat
 //     policy bitwise against no remat), P recomputed from the saved LSE:
 //     delta: D = rowsum(dO * O) in f32, [B, H, S] (a vector pass);
@@ -64,6 +107,8 @@
 //   P and dS are rounded to bf16 before their products, as the mma.sync
 //   kernels and every flash kernel do; `scale` multiplies the f32 scores
 //   (MHA); GQA callers pass q pre-scaled in q's dtype and scale = 1.
+
+#include <climits>
 
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
@@ -97,15 +142,31 @@ struct Geo {
   static constexpr int N_BYTES = BN * D * 2;   // one BN-row tile
 };
 
-// rows [r0, r0 + ROWS) of head h of batch b: NB boxes of [ROWS][64]
-// (the map's box is ROWS rows), completing on bar
-template <int NB, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
+// rows [r0, r0 + ROWS) of head h of batch b: NB boxes of [ROWS][128
+// bytes] (64 bf16 or 32 f32 columns; the map's box is ROWS rows),
+// completing on bar
+template <int NB, int ROWS, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const CUtensorMap* map,
                                           uint64_t* bar, int b, int h,
                                           int r0) {
+  constexpr int W = 128 / sizeof(T);
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
-    hw::tma_load_4d(dst + nb * ROWS * 64, map, bar, nb * 64, h, r0, b);
+    hw::tma_load_4d(dst + nb * ROWS * W, map, bar, nb * W, h, r0, b);
+}
+
+// The producer's walk without segment ids: every kv tile in order, each
+// into the next ring stage once the consumers have released it
+template <int STAGES, class Load>
+__device__ __forceinline__ void produce_all(int n_kv, uint64_t* full,
+                                            uint64_t* empty,
+                                            uint32_t tx_bytes, Load load) {
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % STAGES;
+    hw::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+    hw::mbar_arrive_expect_tx(&full[s], tx_bytes);
+    load(s, j);
+  }
 }
 
 // K-major operand of 64 (A) or N (B) rows from row0 of a tile of R rows:
@@ -130,22 +191,240 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 
 // ------------------------------- forward ----------------------------------
 
+// upstream's DEFAULT_MASK_VALUE (-0.7 * float32 max): the score of a key
+// in another segment. It is placed after the scaling, as the log2-domain
+// score itself (kSegMask * log2(e) would overflow to -inf): a row that
+// meets it as its maximum gets P = 2^0 = 1 for every such key, a row with
+// a real maximum gets 2^(kSegMask - m) = 0, and the epilogue writes such
+// a row's natural-log lse as kSegMask + log(l), which rounds to kSegMask
+// as flash_attention.cu's kernels and upstream write it.
+constexpr float kSegMask = -2.3819763e38f;
+// the kv tiles whose visit the prologue decides, one bit each (the
+// tiles past them are always visited)
+constexpr int kVisitWords = 64;
+constexpr int kVisitTiles = kVisitWords * 32;
+// a stage's segment slice: {k0, mixed, -, -} then the tile's BN ids
+constexpr int kSegHdr = 4;
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_max_i(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The segment forwards' visit plan, run by all kThreads threads of the
+// block before the roles split: which of the first n_kv kv tiles (BN keys
+// each) the block's q rows [q0, q0 + BM) visit. A tile is skipped when
+// the [min, max] segment range of its keys (< Sk) and that of the block's
+// rows (< Sq) are disjoint: then no (row, key) pair of the two shares a
+// segment. Skipping is exact only for a row that has a key of its own
+// segment somewhere (its masked entries then take P = 2^(kSegMask - m) =
+// 0); a row with none averages V over every key, skipped tiles included.
+// So a block skips only when every row i of it has its own segment at its
+// own position (i < Sk and seg_kv[i] == seg_q[i], as padding masks with
+// Sq == Sk and packed self-attention give), which proves that no row of
+// it lacks one; any other block visits every tile. Returns the number of
+// visited tiles; qmm = the block's rows' {min, max} segment.
+template <int BM, int BN>
+__device__ __forceinline__ int seg_plan(const int* __restrict__ seg_q,
+                                        const int* __restrict__ seg_kv,
+                                        int b, int q0, int Sq, int Sk,
+                                        int n_kv, int* part,
+                                        uint32_t* visit, int (&qmm)[2]) {
+  static_assert(BM <= kThreads, "one thread a q row");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < kVisitWords; i += kThreads) visit[i] = 0u;
+  if (warp < BM / 32) {
+    const int row = q0 + tid;
+    int mn = INT_MAX, mx = INT_MIN, bad = 0;
+    if (row < Sq) {
+      mn = mx = seg_q[static_cast<size_t>(b) * Sq + row];
+      bad = !(row < Sk && seg_kv[static_cast<size_t>(b) * Sk + row] == mn);
+    }
+    mn = warp_min(mn);
+    mx = warp_max_i(mx);
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      part[4 * warp] = mn;
+      part[4 * warp + 1] = mx;
+      part[4 * warp + 2] = bad;
+    }
+  }
+  __syncthreads();
+  int bad = 0;
+  qmm[0] = INT_MAX;
+  qmm[1] = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < BM / 32; ++w) {
+    qmm[0] = min(qmm[0], part[4 * w]);
+    qmm[1] = max(qmm[1], part[4 * w + 1]);
+    bad |= part[4 * w + 2];
+  }
+  const int n_scan = min(n_kv, kVisitTiles);
+  for (int j = warp; j < n_scan; j += kThreads / 32) {
+    int mn = INT_MAX, mx = INT_MIN;
+    for (int r = lane; r < BN; r += 32) {
+      const int key = j * BN + r;
+      if (key < Sk) {
+        const int v = seg_kv[static_cast<size_t>(b) * Sk + key];
+        mn = min(mn, v);
+        mx = max(mx, v);
+      }
+    }
+    mn = warp_min(mn);
+    mx = warp_max_i(mx);
+    if (lane == 0 && (bad || !(mx < qmm[0] || mn > qmm[1])))
+      atomicOr(&visit[j >> 5], 1u << (j & 31));
+  }
+  __syncthreads();
+  int n = n_kv - n_scan;
+  for (int w = 0; w < (n_scan + 31) / 32; ++w) n += __popc(visit[w]);
+  return n;
+}
+
+__device__ __forceinline__ bool visited(const uint32_t* visit, int j) {
+  return j >= kVisitTiles || ((visit[j >> 5] >> (j & 31)) & 1u);
+}
+
+// The segment forwards' producer warp: walks the visited tiles, and for
+// each waits for its ring stage, stages the tile's segment ids (and a
+// header: k0, and whether any pair of it may differ in segment) beside
+// the tile, then lane 0 starts the tile's TMA loads (`load(stage, j)`)
+// against full[stage], which counts the 32 lanes' arrivals.
+template <int BN, int STAGES, class Load>
+__device__ __forceinline__ void seg_produce(const int* __restrict__ seg_kv,
+                                           int b, int Sk, int n_kv,
+                                           const uint32_t* visit,
+                                           const int (&qmm)[2], int* segs,
+                                           uint64_t* full, uint64_t* empty,
+                                           uint32_t tx_bytes, Load load) {
+  const int lane = threadIdx.x & 31;
+  for (int j = 0, it = 0; j < n_kv; ++j) {
+    if (!visited(visit, j)) continue;
+    const int s = it % STAGES;
+    hw::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+    int* st = segs + s * (kSegHdr + BN);
+    int mn = INT_MAX, mx = INT_MIN;
+    for (int r = lane; r < BN; r += 32) {
+      const int key = j * BN + r;
+      int v = 0;
+      if (key < Sk) {
+        v = seg_kv[static_cast<size_t>(b) * Sk + key];
+        mn = min(mn, v);
+        mx = max(mx, v);
+      }
+      st[kSegHdr + r] = v;
+    }
+    mn = warp_min(mn);
+    mx = warp_max_i(mx);
+    if (lane == 0) {
+      st[0] = j * BN;
+      st[1] = !(mn == mx && qmm[0] == qmm[1] && mn == qmm[0]);
+      hw::mbar_arrive_expect_tx(&full[s], tx_bytes);
+      load(s, j);
+    } else {
+      hw::mbar_arrive(&full[s]);
+    }
+    ++it;
+  }
+}
+
+// The online-softmax step shared by the forwards: sc (this thread's
+// elements of S [64 x BN]) into P in log2 units, against the row state
+// m2 / l; alpha the rescale of the previous tiles. Entries whose segments
+// differ (a `mixed` tile; ids: the stage's BN ids, sq this thread's two
+// rows' segments) take kSegMask; a key past Sk or above the causal
+// diagonal -inf (`edge` tiles only). Branches here are on data, never
+// around a product.
+template <int BN>
+__device__ __forceinline__ void softmax_step(float (&sc)[BN / 2],
+                                            float (&m2)[2], float (&l)[2],
+                                            float (&alpha)[2], float sl2,
+                                            bool mixed, const int* ids,
+                                            const int (&sq)[2], bool edge,
+                                            int k0, int c_off, int r0,
+                                            int Sk, int causal) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int hh = (i >> 1) & 1;
+    const int cl = 8 * (i >> 2) + c_off;         // the pair's first key
+    float x0 = sc[i] * sl2, x1 = sc[i + 1] * sl2;
+    if (mixed) {
+      const int2 kv = *reinterpret_cast<const int2*>(ids + cl);
+      if (kv.x != sq[hh]) x0 = kSegMask;
+      if (kv.y != sq[hh]) x1 = kSegMask;
+    }
+    if (edge) {
+      const int col = k0 + cl, row = r0 + 8 * hh;
+      if (col >= Sk || (causal && col > row)) x0 = -INFINITY;
+      if (col + 1 >= Sk || (causal && col + 1 > row)) x1 = -INFINITY;
+    }
+    sc[i] = x0;
+    sc[i + 1] = x1;
+    mx[hh] = fmaxf(mx[hh], fmaxf(x0, x1));
+  }
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m2[r], quad_max(mx[r]));
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(m2[r] - m_use[r]);
+    m2[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    sc[i] = ex2(sc[i] - m_use[(i >> 1) & 1]);
+    rs[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// the natural-log lse of a row from its log2-unit maximum and its sum
+// (kSegMask stays as it is: see kSegMask)
+__device__ __forceinline__ float row_lse(float m2, float lsum) {
+  return (m2 == kSegMask ? kSegMask : m2 * kLn2) + logf(lsum);
+}
+
 template <int D>
 using FwdGeo = Geo<D, 128, 128>;
+
+// Q, the ring (K then V per stage), the barriers, the stages' segment
+// slices, the plan's partials and visit bits, and the alignment slack
+template <int BM, int STAGES, int BN>
+constexpr int seg_extra() {
+  return 64 + STAGES * (kSegHdr + BN) * 4 + 4 * (BM / 32) * 4 +
+         kVisitWords * 4 + 1024;
+}
 
 template <int D>
 constexpr int fwd_smem() {
   using G = FwdGeo<D>;
-  return G::M_BYTES + G::STAGES * 2 * G::N_BYTES + 1024 + 8 * 8;
+  return G::M_BYTES + G::STAGES * 2 * G::N_BYTES +
+         seg_extra<G::BM, G::STAGES, G::BN>();
 }
 
-template <int D>
+// The bf16 forward, for q [B, Sq, Hq, D] against k/v [B, Sk, Hk, D]; SEG:
+// segment ids seg_q [B, Sq], seg_kv [B, Sk] (the visit plan, the staged
+// slices, kSegMask). Causal needs Sq == Sk. Without ids every tile is
+// visited and the producer is one thread.
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,
-                       bf16* __restrict__ o, float* __restrict__ lse, int S,
-                       int Hq, int Hk, int causal, float scale) {
+                       const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_kv,
+                       bf16* __restrict__ o, float* __restrict__ lse, int Sq,
+                       int Sk, int Hq, int Hk, int causal, float scale) {
   using G = FwdGeo<D>;
   constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES;
   extern __shared__ __align__(128) unsigned char fa_smem[];
@@ -156,40 +435,50 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       reinterpret_cast<uint64_t*>(ring + STAGES * 2 * G::N_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* part = segs + STAGES * (kSegHdr + BN);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hk);
   const int q0 = qt * BM;
-  const int kv_end = causal ? min(S, q0 + BM) : S;
+  const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
   const int n_kv = (kv_end + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     hw::mbar_init(q_full, 1);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&full[s], SEG ? 32 : 1);
       hw::mbar_init(&empty[s], 8);           // one arrival per consumer warp
     }
     hw::fence_barrier_init();
+    hw::mbar_arrive_expect_tx(q_full, G::M_BYTES);
+    load_tile<G::NB, BM>(Qs, &map_q, q_full, b, h, q0);
   }
   __syncthreads();
+  int qmm[2] = {0, 0};
+  const int n_vis =
+      SEG ? seg_plan<BM, BN>(seg_q, seg_kv, b, q0, Sq, Sk, n_kv, part, visit,
+                             qmm)
+          : n_kv;
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
     hw::setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      hw::mbar_arrive_expect_tx(q_full, G::M_BYTES);
-      load_tile<G::NB, BM>(Qs, &map_q, q_full, b, h, q0);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % STAGES;
-        hw::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-        bf16* Ks = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
-        hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_BYTES);
-        load_tile<G::NB, BN>(Ks, &map_k, &full[s], b, hk, j * BN);
-        load_tile<G::NB, BN>(Ks + BN * D, &map_v, &full[s], b, hk, j * BN);
-      }
+    auto load = [&](int s, int j) {
+      bf16* Ks = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
+      load_tile<G::NB, BN>(Ks, &map_k, &full[s], b, hk, j * BN);
+      load_tile<G::NB, BN>(Ks + BN * D, &map_v, &full[s], b, hk, j * BN);
+    };
+    if (SEG) {
+      if (threadIdx.x < 32)
+        seg_produce<BN, STAGES>(seg_kv, b, Sk, n_kv, visit, qmm, segs, full,
+                                empty, 2 * G::N_BYTES, load);
+    } else if (threadIdx.x == 0) {
+      produce_all<STAGES>(n_kv, full, empty, 2 * G::N_BYTES, load);
     }
   } else {
     hw::setmaxnreg_inc<240>();
@@ -200,6 +489,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int r0 = row_lo + (t >> 5) * 16 + (lane >> 2);  // + 8 hh
     const int c_off = 2 * (lane & 3);
     const float sl2 = scale * kLog2e;
+    int sq[2] = {0, 0};                        // this thread's rows' segments
+    if (SEG) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        sq[hh] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
+      }
+    }
 
     // software-pipelined: tile j's S = Q K^T is issued together with
     // tile j - 1's O += P V, and its softmax runs while the latter is in
@@ -210,12 +507,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     float m2[2] = {-INFINITY, -INFINITY};      // row max, log2 units
     float l[2] = {0.f, 0.f};                   // this thread's row sums
     hw::mbar_wait(q_full, 0);
-    for (int j = 0; j < n_kv; ++j) {
+    for (int j = 0; j < n_vis; ++j) {
       const int s = j % STAGES;
       const int sp = (j + STAGES - 1) % STAGES;  // the previous tile's
       hw::mbar_wait(&full[s], (j / STAGES) & 1);
       const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * 2 * G::N_BYTES);
-      const int k0 = j * BN;
+      const int* st = segs + s * (kSegHdr + BN);
+      const int k0 = SEG ? st[0] : j * BN;
 
       hw::fence_regs(sc);
       hw::fence_regs(acc);
@@ -238,36 +536,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       hw::fence_regs(sc);
 
-      // scores in log2 units; -inf past S and above the diagonal
-      const bool edge = (causal && k0 + BN > row_lo) || k0 + BN > S;
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int hh = (i >> 1) & 1;
-        float x = sc[i] * sl2;
-        if (edge) {
-          const int col = k0 + 8 * (i >> 2) + c_off + (i & 1);
-          if (col >= S || (causal && col > r0 + 8 * hh)) x = -INFINITY;
-        }
-        sc[i] = x;
-        mx[hh] = fmaxf(mx[hh], x);
-      }
-      float alpha[2], m_use[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m2[r], quad_max(mx[r]));
-        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-        alpha[r] = ex2(m2[r] - m_use[r]);
-        m2[r] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        sc[i] = ex2(sc[i] - m_use[(i >> 1) & 1]);
-        rs[(i >> 1) & 1] += sc[i];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      float alpha[2];
+      softmax_step<BN>(sc, m2, l, alpha, sl2, SEG && st[1], st + kSegHdr,
+                       sq, (causal && k0 + BN > row_lo) || k0 + BN > Sk, k0,
+                       c_off, r0, Sk, causal);
       if (j > 0) {
         // the previous tile's P V has retired: its V is read, O is whole
         hw::wgmma_wait<0>();
@@ -285,15 +557,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                      sc[8 * kk + 2 * x + 1]);
     }
     {
-      // the last tile's P V (n_kv >= 1: q0 < S)
-      const int sl = (n_kv - 1) % STAGES;
+      // the last tile's P V (n_vis >= 1: q0 < Sq, and the plan visits
+      // the tile of some row's own key)
+      const int sl = (n_vis + STAGES - 1) % STAGES;
       const bf16* Vl =
           reinterpret_cast<const bf16*>(ring + sl * 2 * G::N_BYTES) + BN * D;
       hw::fence_regs(acc);
       hw::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        hw::wgmma_rs<1>(acc, pf[kk], mnmajor<BN>(Vl, kk), n_kv > 1 || kk > 0);
+        hw::wgmma_rs<1>(acc, pf[kk], mnmajor<BN>(Vl, kk), n_vis > 1 || kk > 0);
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       hw::fence_regs(acc);
@@ -303,16 +576,334 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int hh = 0; hh < 2; ++hh) {
       const float lsum = quad_sum(l[hh]);
       const int row = r0 + 8 * hh;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       const float inv = 1.f / lsum;
-      bf16* dst = o + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + c_off;
+      bf16* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
         *reinterpret_cast<uint32_t*>(dst + 8 * jj) = ptt::pack_bf16(
             acc[4 * jj + 2 * hh] * inv, acc[4 * jj + 2 * hh + 1] * inv);
       if ((lane & 3) == 0)
-        lse[(static_cast<size_t>(b) * Hq + h) * S + row] =
-            m2[hh] * kLn2 + logf(lsum);
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
+            row_lse(m2[hh], lsum);
+    }
+  }
+}
+
+// -------------------------- forward, f32 (3xTF32) --------------------------
+
+// The f32 forward's tiles: 128 q rows (two consumers of 64) against kv
+// tiles of BN keys in a two-stage ring; D = 128 takes 32-key tiles so
+// that Q and two stages fit in 227 KB.
+template <int D>
+struct F32Geo {
+  static constexpr int BM = 128, BN = D == 64 ? 64 : 32, STAGES = 2;
+  static constexpr int NB = D / 32;                // 32-float boxes a row
+  static constexpr int Q_BYTES = BM * D * 4;
+  static constexpr int T_BYTES = BN * D * 4;       // one kv tile
+  // a stage: K (split in place to its hi part), K's lo part, V as loaded,
+  // V^T's hi and lo parts
+  static constexpr int STAGE_BYTES = 5 * T_BYTES;
+};
+
+template <int D>
+constexpr int fwd_f32_smem() {
+  using G = F32Geo<D>;
+  return G::Q_BYTES + G::STAGES * G::STAGE_BYTES +
+         seg_extra<G::BM, G::STAGES, G::BN>();
+}
+
+// element (row, col) of an f32 tile of R rows stored as 128-byte-swizzled
+// boxes of [R][32 columns]
+template <int R>
+__device__ __forceinline__ int f32_at(int row, int col) {
+  return (col >> 5) * R * 32 + row * 32 +
+         ((((col >> 2) & 7) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// K-major tf32 operand of 64 (A) or N (B) rows from row0 of an f32 tile
+// of R rows: the k8 slice kk lies in box kk / 4, 32 bytes per slice
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_f32(const float* tile, int row0,
+                                               int kk) {
+  return hw::desc_sw128(tile + (kk / 4) * R * 32 + row0 * 32 + (kk % 4) * 8,
+                        16, 1024);
+}
+
+// x = hi + lo, both tf32 (lo the rounded remainder): |x - hi - lo| <=
+// 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = hw::tf32_round(x);
+  lo = hw::tf32_round(x - hi);
+}
+
+// The key whose V row stands at position kap of V^T's k order: within
+// each group of 8 the keys run [0, 2, 4, 6, 1, 3, 5, 7], so that a k8
+// slice of P's tf32 A fragment (columns c and c + 4 of each quad) is the
+// score accumulators' pair (2c, 2c + 1) of the same group as it stands;
+// this is the inverse, the position of key r.
+__device__ __forceinline__ int vt_pos(int r) {
+  const int w = r & 7;
+  return (r & ~7) | ((w & 1) ? 4 + (w >> 1) : (w >> 1));
+}
+
+// The f32 forward on the tensor cores (3xTF32): every f32 operand x is
+// split x = hi + lo in tf32, and each product is hi hi + hi lo + lo hi
+// (the lo lo term, <= 2^-22 of the product, dropped), so a term carries
+// about 2^-21 of its magnitude. Q is split once: hi in place in shared
+// memory, lo in registers as A fragments. Each kv tile is converted by
+// the two consumers, half each, once it lands: K split in place plus a lo
+// copy, V transposed (tf32 reads both operands K-major, and P V's k is
+// the key) with the key order of vt_pos into hi and lo tiles, all
+// published to the tensor cores by an async-proxy fence and a barrier of
+// the two consumers. S = Qhi Klo + Qlo Khi + Qhi Khi (the small terms
+// first), O += Phi Vlo + Plo Vhi + Phi Vhi with P split in registers
+// straight from the score accumulators. The softmax, the segment rules
+// and the pipeline are the bf16 forward's.
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_kv, float* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int Hq, int Hk,
+                      int causal, float scale) {
+  using G = F32Geo<D>;
+  constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES;
+  constexpr int TF = G::T_BYTES / 4;           // floats in a kv tile
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  unsigned char* smem = align1024(fa_smem);
+  float* Qs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + G::Q_BYTES;
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* part = segs + STAGES * (kSegHdr + BN);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
+  // stage s: K (hi after the split), K lo, V, V^T hi, V^T lo
+  auto tile = [&](int s, int which) {
+    return reinterpret_cast<float*>(ring + s * G::STAGE_BYTES) + which * TF;
+  };
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hk);
+  const int q0 = qt * BM;
+  const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
+  const int n_kv = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], SEG ? 32 : 1);
+      hw::mbar_init(&empty[s], 8);
+    }
+    hw::fence_barrier_init();
+    hw::mbar_arrive_expect_tx(q_full, G::Q_BYTES);
+    load_tile<G::NB, BM>(Qs, &map_q, q_full, b, h, q0);
+  }
+  __syncthreads();
+  int qmm[2] = {0, 0};
+  const int n_vis =
+      SEG ? seg_plan<BM, BN>(seg_q, seg_kv, b, q0, Sq, Sk, n_kv, part, visit,
+                             qmm)
+          : n_kv;
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    hw::setmaxnreg_dec<24>();
+    auto load = [&](int s, int j) {
+      load_tile<G::NB, BN>(tile(s, 0), &map_k, &full[s], b, hk, j * BN);
+      load_tile<G::NB, BN>(tile(s, 2), &map_v, &full[s], b, hk, j * BN);
+    };
+    if (SEG) {
+      if (threadIdx.x < 32)
+        seg_produce<BN, STAGES>(seg_kv, b, Sk, n_kv, visit, qmm, segs, full,
+                                empty, 2 * G::T_BYTES, load);
+    } else if (threadIdx.x == 0) {
+      produce_all<STAGES>(n_kv, full, empty, 2 * G::T_BYTES, load);
+    }
+  } else {
+    hw::setmaxnreg_inc<240>();
+    const int cw = wgi - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int row_lo = q0 + cw * 64;
+    const int r0 = row_lo + (t >> 5) * 16 + g;   // + 8 hh
+    const int c_off = 2 * c;
+    const float sl2 = scale * kLog2e;
+    int sq[2] = {0, 0};
+    if (SEG) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        sq[hh] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
+      }
+    }
+
+    // Q: this consumer's 64 rows split, hi in place, lo kept as the A
+    // fragments of the Qlo Khi product
+    uint32_t qlo[D / 8][4];
+    hw::mbar_wait(q_full, 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        float* p = Qs + f32_at<BM>(cw * 64 + (t >> 5) * 16 + g + 8 * (x & 1),
+                                   8 * kk + c + 4 * (x >> 1));
+        float hi, lo;
+        split_tf32(*p, hi, lo);
+        *p = hi;
+        qlo[kk][x] = __float_as_uint(lo);
+      }
+    hw::fence_proxy_async();
+    hw::named_sync(2 + cw, 128);
+
+    float acc[D / 2];                          // O [64 x D]
+    float sc[BN / 2];                          // S [64 x BN], then P
+    uint32_t ph[BN / 8][4], pl[BN / 8][4];     // P of the previous tile
+    float m2[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    for (int j = 0; j < n_vis; ++j) {
+      const int s = j % STAGES;
+      const int sp = (j + STAGES - 1) % STAGES;
+      hw::mbar_wait(&full[s], (j / STAGES) & 1);
+      const int* st = segs + s * (kSegHdr + BN);
+      const int k0 = SEG ? st[0] : j * BN;
+      float* Kh = tile(s, 0);
+      float* Kl = tile(s, 1);
+      {
+        // this consumer's half of the tile: K split in place, V
+        // transposed into V^T's hi and lo (row d, position vt_pos(key))
+        float4* k4 = reinterpret_cast<float4*>(Kh);
+        float4* l4 = reinterpret_cast<float4*>(Kl);
+        for (int i = cw * TF / 8 + t; i < (cw + 1) * TF / 8; i += 128) {
+          const float4 x = k4[i];
+          float4 hi, lo;
+          split_tf32(x.x, hi.x, lo.x);
+          split_tf32(x.y, hi.y, lo.y);
+          split_tf32(x.z, hi.z, lo.z);
+          split_tf32(x.w, hi.w, lo.w);
+          k4[i] = hi;
+          l4[i] = lo;
+        }
+        const float* Vs = tile(s, 2);
+        float* Vh = tile(s, 3);
+        float* Vl = tile(s, 4);
+        for (int i = cw * TF / 8 + t; i < (cw + 1) * TF / 8; i += 128) {
+          const int r = i % BN, d0 = 4 * (i / BN);
+          const float4 x =
+              *reinterpret_cast<const float4*>(Vs + f32_at<BN>(r, d0));
+          const float xs[4] = {x.x, x.y, x.z, x.w};
+          const int kap = vt_pos(r);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float hi, lo;
+            split_tf32(xs[e], hi, lo);
+            Vh[f32_at<D>(d0 + e, kap)] = hi;
+            Vl[f32_at<D>(d0 + e, kap)] = lo;
+          }
+        }
+        hw::fence_proxy_async();
+        hw::named_sync(1, 256);
+      }
+
+      hw::fence_regs(sc);
+      hw::fence_regs(acc);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        hw::wgmma_tf32_ss(sc, kmajor_f32<BM>(Qs, cw * 64, kk),
+                          kmajor_f32<BN>(Kl, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        hw::wgmma_tf32_rs(sc, qlo[kk], kmajor_f32<BN>(Kh, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        hw::wgmma_tf32_ss(sc, kmajor_f32<BM>(Qs, cw * 64, kk),
+                          kmajor_f32<BN>(Kh, 0, kk), 1);
+      hw::wgmma_commit();
+      if (j > 0) {
+        const float* Vh = tile(sp, 3);
+        const float* Vl = tile(sp, 4);
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          hw::wgmma_tf32_rs(acc, ph[kk], kmajor_f32<D>(Vl, 0, kk),
+                            j > 1 || kk > 0);
+          hw::wgmma_tf32_rs(acc, pl[kk], kmajor_f32<D>(Vh, 0, kk), 1);
+          hw::wgmma_tf32_rs(acc, ph[kk], kmajor_f32<D>(Vh, 0, kk), 1);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait<1>();
+      } else {
+        hw::wgmma_wait<0>();
+      }
+      hw::fence_regs(sc);
+
+      float alpha[2];
+      softmax_step<BN>(sc, m2, l, alpha, sl2, SEG && st[1], st + kSegHdr,
+                       sq, (causal && k0 + BN > row_lo) || k0 + BN > Sk, k0,
+                       c_off, r0, Sk, causal);
+      if (j > 0) {
+        hw::wgmma_wait<0>();
+        hw::fence_regs(acc);
+        if (lane == 0) hw::mbar_arrive(&empty[sp]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      // P split: the k8 slice kk of P V holds keys 8kk + {2c, 2c + 1} at
+      // its columns {c, c + 4} (vt_pos), the accumulators' own pair
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const float p[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                            sc[4 * kk + 3]};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float hi, lo;
+          split_tf32(p[x], hi, lo);
+          ph[kk][x] = __float_as_uint(hi);
+          pl[kk][x] = __float_as_uint(lo);
+        }
+      }
+    }
+    {
+      const int sl = (n_vis + STAGES - 1) % STAGES;
+      const float* Vh = tile(sl, 3);
+      const float* Vl = tile(sl, 4);
+      hw::fence_regs(acc);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        hw::wgmma_tf32_rs(acc, ph[kk], kmajor_f32<D>(Vl, 0, kk),
+                          n_vis > 1 || kk > 0);
+        hw::wgmma_tf32_rs(acc, pl[kk], kmajor_f32<D>(Vh, 0, kk), 1);
+        hw::wgmma_tf32_rs(acc, ph[kk], kmajor_f32<D>(Vh, 0, kk), 1);
+      }
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float lsum = quad_sum(l[hh]);
+      const int row = r0 + 8 * hh;
+      if (row >= Sq) continue;
+      const float inv = 1.f / lsum;
+      float* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<float2*>(dst + 8 * jj) = make_float2(
+            acc[4 * jj + 2 * hh] * inv, acc[4 * jj + 2 * hh + 1] * inv);
+      if ((lane & 3) == 0)
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
+            row_lse(m2[hh], lsum);
     }
   }
 }
@@ -757,21 +1348,68 @@ int make_maps(Maps* m, const void* q, const void* k, const void* v,
   return err;
 }
 
-template <int D>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        const Shape& s, cudaStream_t stream) {
-  using G = FwdGeo<D>;
-  Maps m;
-  int err = make_maps(&m, q, k, v, nullptr, s, G::BM, G::BN);
+// the forwards' shape: q [B, Sq, Hq, D], k/v [B, Sk, Hk, D]; seg_q /
+// seg_kv int32 [B, Sq] / [B, Sk] or both null
+struct FwdArgs {
+  const void *q, *k, *v;
+  const int *seg_q, *seg_kv;
+  void *o, *lse;
+  int B, Sq, Sk, Hq, Hk, D, causal;
+  float scale;
+};
+
+// 0 = launch, -1 = nothing to do, else the error to return; causal
+// needs Sq == Sk
+int check_fwd(const FwdArgs& a) {
+  if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0) return -1;
+  if (a.Hk <= 0 || a.Hq % a.Hk != 0 || (a.D != 64 && a.D != 128) ||
+      (a.causal && a.Sq != a.Sk) || ((a.seg_q == nullptr) != (a.seg_kv == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// bf16 (EB = 2) on flash_fwd_wgmma_kernel, f32 (EB = 4) on
+// flash_fwd_tf32_kernel; the segment instantiation when ids are given
+template <int D, int EB, bool SEG>
+int fwd_launch(const FwdArgs& a, cudaStream_t stream) {
+  constexpr bool F32 = EB == 4;
+  constexpr int BM = F32 ? F32Geo<D>::BM : FwdGeo<D>::BM;
+  constexpr int BN = F32 ? F32Geo<D>::BN : FwdGeo<D>::BN;
+  constexpr int smem = F32 ? fwd_f32_smem<D>() : fwd_smem<D>();
+  CUtensorMap mq, mk, mv;
+  int err = hw::tma_map_bshd(&mq, a.q, a.B, a.Sq, a.Hq, D, BM, EB);
+  if (err == 0) err = hw::tma_map_bshd(&mk, a.k, a.B, a.Sk, a.Hk, D, BN, EB);
+  if (err == 0) err = hw::tma_map_bshd(&mv, a.v, a.B, a.Sk, a.Hk, D, BN, EB);
   if (err != 0) return err;
-  constexpr int smem = fwd_smem<D>();
-  cudaError_t e = prepare(flash_fwd_wgmma_kernel<D>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((s.S + G::BM - 1) / G::BM, s.Hq, s.B);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      m.q, m.k, m.v, static_cast<bf16*>(o), static_cast<float*>(lse), s.S,
-      s.Hq, s.Hk, s.causal, s.scale);
+  dim3 grid((a.Sq + BM - 1) / BM, a.Hq, a.B);
+  cudaError_t e;
+  if constexpr (F32) {
+    e = prepare(flash_fwd_tf32_kernel<D, SEG>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_fwd_tf32_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, a.seg_q, a.seg_kv, static_cast<float*>(a.o),
+        static_cast<float*>(a.lse), a.Sq, a.Sk, a.Hq, a.Hk, a.causal,
+        a.scale);
+  } else {
+    e = prepare(flash_fwd_wgmma_kernel<D, SEG>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_fwd_wgmma_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, a.seg_q, a.seg_kv, static_cast<bf16*>(a.o),
+        static_cast<float*>(a.lse), a.Sq, a.Sk, a.Hq, a.Hk, a.causal,
+        a.scale);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int EB>
+int fwd_any(const FwdArgs& a, void* stream) {
+  const int c = check_fwd(a);
+  if (c != 0) return c < 0 ? 0 : c;
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool seg = a.seg_q != nullptr;
+  if (a.D == 64)
+    return seg ? fwd_launch<64, EB, true>(a, st) : fwd_launch<64, EB, false>(a, st);
+  return seg ? fwd_launch<128, EB, true>(a, st) : fwd_launch<128, EB, false>(a, st);
 }
 
 template <int D>
@@ -838,12 +1476,34 @@ extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k,
                                             int B, int S, int Hq, int Hk,
                                             int D, int causal, float scale,
                                             void* stream) {
-  const Shape s{B, S, Hq, Hk, D, causal, scale};
-  const int c = check_shape(s);
-  if (c != 0) return c < 0 ? 0 : c;
-  auto st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? fwd<64>(q, k, v, o, lse, s, st)
-                 : fwd<128>(q, k, v, o, lse, s, st);
+  return fwd_any<2>(FwdArgs{q, k, v, nullptr, nullptr, o, lse, B, S, S, Hq,
+                            Hk, D, causal, scale},
+                    stream);
+}
+
+// ---- the segment forward (padding masks, packed documents, q and kv
+// lengths of their own): q [B, Sq, Hq, D], k/v [B, Sk, Hk, D], seg_q /
+// seg_kv int32 [B, Sq] / [B, Sk] (both or neither); bf16 on the wgmma
+// core, f32 on its 3xTF32 form. Its backward is flash_attention.cu's. ----
+
+extern "C" int ptt_flash_attention_seg_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* seg_q,
+    const void* seg_kv, void* o, void* lse, int B, int Sq, int Sk, int Hq,
+    int Hk, int D, int causal, float scale, void* stream) {
+  return fwd_any<2>(FwdArgs{q, k, v, static_cast<const int*>(seg_q),
+                            static_cast<const int*>(seg_kv), o, lse, B, Sq,
+                            Sk, Hq, Hk, D, causal, scale},
+                    stream);
+}
+
+extern "C" int ptt_flash_attention_seg_fwd_f32(
+    const void* q, const void* k, const void* v, const void* seg_q,
+    const void* seg_kv, void* o, void* lse, int B, int Sq, int Sk, int Hq,
+    int Hk, int D, int causal, float scale, void* stream) {
+  return fwd_any<4>(FwdArgs{q, k, v, static_cast<const int*>(seg_q),
+                            static_cast<const int*>(seg_kv), o, lse, B, Sq,
+                            Sk, Hq, Hk, D, causal, scale},
+                    stream);
 }
 
 // delta [B, H, S] f32 from the BSHD output and its cotangent, then dkv,

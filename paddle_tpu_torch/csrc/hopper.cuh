@@ -3,19 +3,24 @@
 // loads, the wgmma shared-memory descriptor for 128-byte swizzled tiles,
 // the wgmma fence / commit / wait, the bf16 products with f32
 // accumulators (m64n256k16 from shared memory; m64n64k16 and m64n128k16
-// with A from shared memory or from registers), setmaxnreg, and the
-// host-side tensor-map encoders (a row-major matrix; one head of a BSHD
-// tensor).
+// with A from shared memory or from registers), the tf32 products
+// (m64n32k8 and m64n64k8 with A from shared memory, m64n32k8, m64n64k8
+// and m64n128k8 with A from registers), the async-proxy fence and named
+// barriers, setmaxnreg, and the host-side tensor-map encoders (a
+// row-major matrix; one head of a bf16 or f32 BSHD tensor).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format" and
 // "Shared Memory Matrix Layout"; one 128-byte-swizzled tile is what a TMA
-// load with CU_TENSOR_MAP_SWIZZLE_128B and a 64-element bf16 inner box
-// writes, rows of 128 bytes in atoms of 8 rows = 1024 bytes, so every
-// tile base must be 1024-byte aligned):
-//   K-major operand, stored [mn][64 k]: SBO = 1024 (one 8-row atom to the
-//     next along M/N), LBO unused; the k16 slice kk starts 32 * kk bytes
-//     into the row (the swizzle is applied to the address, so the start
-//     moves within the atom).
+// load with CU_TENSOR_MAP_SWIZZLE_128B and a 128-byte inner box (64 bf16
+// or 32 f32 elements) writes, rows of 128 bytes in atoms of 8 rows = 1024
+// bytes, the 16-byte chunk c of row r at chunk c ^ (r % 8), so every tile
+// base must be 1024-byte aligned):
+//   K-major operand, stored [mn][128 bytes of k]: SBO = 1024 (one 8-row
+//     atom to the next along M/N), LBO unused; a k step of 32 bytes (k16
+//     in bf16, k8 in tf32) starts 32 bytes further into the row (the
+//     swizzle is applied to the address, so the start moves within the
+//     atom). tf32 operands are read K-major only (PTX has no transpose
+//     for them).
 //   MN-major operand, stored as boxes [64 k][64 mn]: SBO = 1024 (8 k rows
 //     to the next 8), LBO = the byte distance from one 64-wide MN box to
 //     the next; the k16 slice kk starts 16 * 128 * kk bytes in.
@@ -345,6 +350,122 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(accumulate));
 }
 
+// ---- tf32 products (f32 accumulators) ------------------------------------
+//
+// A 3xTF32 product keeps an f32 operand as hi + lo, both tf32: the
+// accumulator layout is the bf16 products' (d[4j + 2h + e] is row 16 (t /
+// 32) + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + e); A from registers
+// is four tf32 values a thread in the layout of mma.sync's m16n8k8 tf32
+// A fragment, warp w holding rows 16w..16w + 15: a[0] = (row g, k c),
+// a[1] = (row g + 8, k c), a[2] = (row g, k c + 4), a[3] = (row g + 8,
+// k c + 4), g = lane / 4, c = lane % 4.
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero:
+// cvt.rna.tf32.f32's rounding) as an f32 whose low 13 bits are zero
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+#define PTT_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define PTT_D16(i) PTT_D4(i), PTT_D4(i + 4), PTT_D4(i + 8), PTT_D4(i + 12)
+#define PTT_R16                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define PTT_R32                                                               \
+  PTT_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, "                        \
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+#define PTT_R64                                                               \
+  PTT_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, "                        \
+          "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+          "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+          "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32, both K-major from shared
+// memory
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" PTT_R16
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : PTT_D16(0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, both from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" PTT_R32
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : PTT_D16(0), PTT_D16(16)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32, A from registers
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" PTT_R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : PTT_D16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, A from registers
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" PTT_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : PTT_D16(0), PTT_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[8 x 128], tf32, A from registers
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" PTT_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : PTT_D16(0), PTT_D16(16), PTT_D16(32), PTT_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+#undef PTT_D4
+#undef PTT_D16
+#undef PTT_R16
+#undef PTT_R32
+#undef PTT_R64
+
+// ---- ordering between the generic and the async proxy -------------------
+
+// make this thread's shared-memory writes visible to later async-proxy
+// reads (wgmma operands, TMA) and order them after earlier ones
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads, whole
+// warps
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- register rebalancing between warpgroups ------------------------------
 
 template <int R>
@@ -405,26 +526,30 @@ inline int tma_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// One head of a BSHD bf16 tensor [B][S][H][D] (D % 8 == 0, 16-byte
-// aligned base) as a 4D TMA map, dims {D, H, S, B} innermost first, whose
-// box is one head's [box_rows][64 columns] with the 128-byte swizzle: a
-// box lands in shared memory as the [rows][64] swizzle atoms a K-major or
-// MN-major descriptor reads. Rows past S load as zero within each batch.
-// Returns 0 or the encoder's CUresult, as tma_map_bf16.
+// One head of a BSHD tensor [B][S][H][D] of `elem_bytes`-byte elements
+// (bf16: 2, f32: 4; D * elem_bytes % 16 == 0, 16-byte aligned base) as a
+// 4D TMA map, dims {D, H, S, B} innermost first, whose box is one head's
+// [box_rows][128 bytes of columns] (64 bf16 or 32 f32) with the 128-byte
+// swizzle: a box lands in shared memory as the [rows][128 bytes] swizzle
+// atoms a K-major or MN-major descriptor reads. Rows past S load as zero
+// within each batch. Returns 0 or the encoder's CUresult, as
+// tma_map_bf16.
 inline int tma_map_bshd(CUtensorMap* map, const void* base, uint64_t B,
                         uint64_t S, uint64_t H, uint64_t D,
-                        uint32_t box_rows) {
+                        uint32_t box_rows, uint32_t elem_bytes = 2) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const uint64_t e = elem_bytes;
   const cuuint64_t dims[4] = {D, H, S, B};
-  const cuuint64_t strides[3] = {D * 2, H * D * 2, S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint64_t strides[3] = {D * e, H * D * e, S * H * D * e};
+  const cuuint32_t box[4] = {128 / elem_bytes, 1, box_rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return static_cast<int>(fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 }  // namespace hopper

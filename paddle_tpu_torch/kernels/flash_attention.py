@@ -22,14 +22,18 @@ GQA pre-scales q in q's dtype (`_splash_gqa`, flash_attention.py:131)
 and the kernel runs with scale 1.
 
 Segment ids (`padding_mask=`, `flash_attention_packed`, and q and kv
-lengths that differ): the same kernels with int32 segment ids
-(`flash_attention_seg_fwd`, `flash_attention_seg_dkv`,
-`flash_attention_seg_dq`); a score counts where the q and kv segments
-are equal. A padding mask [B, Sk] lowers to segment ids as the reference
-lowers it (l.327-336, GQA l.136-139): kv_seg = mask, q_seg = kv_seg when
-Sq == Sk, else all ones. So a padded query row attends to the padded
-keys only, as on the TPU; a query row with no key of its own segment
-averages V over all keys (upstream's finite mask value), and its
+lengths that differ): `flash_attention_seg_fwd` runs the wgmma core's
+forward with int32 segment ids (bf16; f32 on its 3xTF32 form, three
+tf32 products a product, on the tensor cores too), skipping the kv tiles
+no pair of whose can share a segment (`testing.seg_visit_plan` mirrors
+the rule); `flash_attention_seg_dkv` and `flash_attention_seg_dq` run the
+mma.sync (bf16) and SIMT (f32) kernels of `csrc/flash_attention.cu`
+(chip_smoke.py's `expected_seg_routes`). A score counts where the q and
+kv segments are equal. A padding mask [B, Sk] lowers to segment ids as
+the reference lowers it (l.327-336, GQA l.136-139): kv_seg = mask, q_seg
+= kv_seg when Sq == Sk, else all ones. So a padded query row attends to
+the padded keys only, as on the TPU; a query row with no key of its own
+segment averages V over all keys (upstream's finite mask value), and its
 backward recomputes P = 1 from an LSE that rounds to that value, as
 upstream's does. `_SegPlain` is that function in plain PyTorch, with the
 flash backward written out. Causal with Sq != Sk is not ported (upstream
@@ -289,7 +293,8 @@ def flash_attention_seg_fwd(q, k, v, seg_q, seg_kv, causal, scale):
     """Kernel route, forward, with q and kv lengths of their own: q
     [B, Sq, Hq, D], k/v [B, Sk, Hk, D], seg_q [B, Sq] and seg_kv [B, Sk]
     int32 (or both None) -> (o [B, Sq, Hq, D] in q's dtype, lse
-    [B, Hq, Sq] f32)."""
+    [B, Hq, Sq] f32). One launch of csrc/flash_wgmma.cu's forward (f32:
+    its 3xTF32 form)."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     q, k, v = (_rows(t) for t in (q, k, v))

@@ -60,6 +60,9 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "fused_ce_case", "fused_ce_pairs", "FUSED_CE_CASES",
            "fused_ce_readings", "train_launches", "train_counters",
            "seg_flash_terms", "seg_flash_pairs", "seg_flash_readings",
+           "SEG_FWD_TILES", "VISIT_TILES", "seg_visit_plan",
+           "seg_plan_attention", "tf32_round", "tf32_split",
+           "VT_KEY_ORDER", "vt_positions",
            "STATS_LIMITS", "STATS_M_FRAC", "block_stats_pairs",
            "block_stats_readings",
            "bert_lengths", "packed_lengths", "ATTN_SEG_CASES",
@@ -525,7 +528,9 @@ def bert_lengths(B=16, S=512, seed=0):
 # BERT phase's padded batch at bert_base attention width; "packed_7b"
 # the attention-surface phase's 8192 packed tokens in documents of
 # default_rng(1) lengths in [128, 2048], causal, at llama_7b width;
-# then small MHA/GQA/cross-length/packed cases.
+# then small MHA/GQA/cross-length/packed cases; "qpad_causal" has query
+# rows of a padding segment no key holds (rows with no key of their own
+# segment, which average every visible key), causal, GQA.
 ATTN_SEG_CASES = {
     "bert": dict(B=16, S=512, hq=12, hk=12, d=64, causal=False,
                  kind="bert"),
@@ -537,6 +542,8 @@ ATTN_SEG_CASES = {
                       kind="pad"),
     "mqa_packed": dict(B=1, S=700, hq=4, hk=1, d=64, causal=False,
                        kind="packed"),
+    "qpad_causal": dict(B=2, S=300, hq=4, hk=2, d=64, causal=True,
+                        kind="qpad"),
 }
 
 
@@ -559,7 +566,9 @@ def attn_seg_case(B, S, hq, hk, d, causal, kind, Sk=None,
     padding segments of `bert_lengths` (q_seg = kv_seg); "pad" a padding
     mask with a short row (and, when Sk != S, a row with no valid key);
     "packed" 1-based ids of `packed_lengths` documents (for S = 8192) or
-    of default_rng(seed) cuts. Returns (q, k, v, do, seg_q, seg_kv)."""
+    of default_rng(seed) cuts; "qpad" the packed ids with each batch
+    row's last 37 query ids set to 0, a segment no key holds. Returns (q,
+    k, v, do, seg_q, seg_kv)."""
     import numpy as np
     from .kernels import flash_attention as kfa
     Sk = S if Sk is None else Sk
@@ -586,30 +595,144 @@ def attn_seg_case(B, S, hq, hk, d, causal, kind, Sk=None,
         seg = torch.repeat_interleave(
             torch.arange(1, len(lengths) + 1, dtype=torch.int32,
                          device="cuda"),
-            torch.tensor(lengths, device="cuda"))[None]
+            torch.tensor(lengths, device="cuda"))[None].expand(B, S)
         seg_q = seg_kv = seg
+        if kind == "qpad":
+            seg_q = seg.clone()
+            seg_q[:, -37:] = 0
     return q, k, v, do, seg_q.contiguous(), seg_kv.contiguous()
 
 
 def seg_flash_readings(seed=0):
-    """bf16 segment-id flash at the "bert", "cross_len" and causal
-    "gqa_causal_pad" cases on the card (the mma.sync kernels of
-    csrc/flash_attention.cu): for each output the worst err/limit over
-    the cases under the element limit (terms; lse 1e-4 + 1e-5 |plain|).
-    Above 1 is a miss."""
-    frac = TERM_FRAC[torch.bfloat16]
+    """Segment-id flash on the card at the "bert", "cross_len",
+    "gqa_causal_pad" and "qpad_causal" cases (the forward on
+    csrc/flash_wgmma.cu, the backward on the mma.sync and SIMT kernels of
+    csrc/flash_attention.cu), bf16 and f32: for each output the worst
+    err/limit over the cases under the element limit (terms; lse 1e-4 +
+    1e-5 |plain|), f32's outputs as "<label>_f32". Above 1 is a miss."""
     out = {}
-    for tag in ("bert", "cross_len", "gqa_causal_pad"):
-        q, k, v, do, sq, skv = attn_seg_case(**ATTN_SEG_CASES[tag],
-                                             seed=seed)
-        causal = ATTN_SEG_CASES[tag]["causal"]
-        pairs, _ = seg_flash_pairs(q, k, v, do, sq, skv, causal,
-                                   q.shape[-1] ** -0.5)
-        for label, got, ref, terms in pairs:
-            r = (worst(got, ref, 1e-4, 1e-5) if terms is None
-                 else worst(got, ref, frac * terms, BF16_RTOL))
-            out[label] = max(out.get(label, 0.0), r)
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        frac = TERM_FRAC[dtype]
+        rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+        for tag in ("bert", "cross_len", "gqa_causal_pad", "qpad_causal"):
+            kw = ATTN_SEG_CASES[tag]
+            q, k, v, do, sq, skv = attn_seg_case(**kw, dtype=dtype,
+                                                 seed=seed)
+            scale = q.shape[-1] ** -0.5
+            # GQA: q pre-scaled in its dtype, the kernels at scale 1
+            if q.shape[2] != k.shape[2]:
+                q, scale = (q * scale).to(dtype), 1.0
+            pairs, _ = seg_flash_pairs(q, k, v, do, sq, skv, kw["causal"],
+                                       scale)
+            for label, got, ref, terms in pairs:
+                r = (worst(got, ref, 1e-4, 1e-5) if terms is None
+                     else worst(got, ref, frac * terms, rtol))
+                key = label + suffix
+                out[key] = max(out.get(key, 0.0), r)
+            del q, k, v, do, pairs
     return out
+
+
+# The segment forwards' tiles in csrc/flash_wgmma.cu, (q rows a block,
+# keys a kv tile) by (dtype, head dim): bf16 128 x 128; f32 (3xTF32)
+# 128 x 64 at D = 64 and 128 x 32 at D = 128. VISIT_TILES: the kv tiles
+# whose visit the kernels decide (kVisitTiles); later ones are visited.
+SEG_FWD_TILES = {(torch.bfloat16, 64): (128, 128),
+                 (torch.bfloat16, 128): (128, 128),
+                 (torch.float32, 64): (128, 64),
+                 (torch.float32, 128): (128, 32)}
+VISIT_TILES = 2048
+
+
+def seg_visit_plan(seg_q, seg_kv, causal, BM, BN):
+    """The segment forwards' visit plan (csrc/flash_wgmma.cu, `seg_plan`)
+    in plain PyTorch: bool [B, ceil(Sq / BM), ceil(Sk / BN)], True where
+    the block of q rows [i BM, (i + 1) BM) visits kv tile j. A block walks
+    the tiles up to its causal limit; it skips a tile whose keys' [min,
+    max] segment range misses its rows' range, and only when each of its
+    rows i holds its own segment at key i (i < Sk and seg_kv[i] ==
+    seg_q[i]), so that no row of it lacks a key of its own segment;
+    otherwise it visits every tile. Tiles past VISIT_TILES are always
+    visited."""
+    B, Sq = seg_q.shape
+    Sk = seg_kv.shape[1]
+    n_qt, n_kt = -(-Sq // BM), -(-Sk // BN)
+    big = torch.iinfo(torch.int32).max
+    pad = n_kt * BN - Sk
+    kv = torch.nn.functional.pad(seg_kv.long(), (0, pad), value=big)
+    kmin = kv.view(B, n_kt, BN).amin(-1)
+    kmax = torch.nn.functional.pad(seg_kv.long(), (0, pad),
+                                   value=-big).view(B, n_kt, BN).amax(-1)
+    plan = torch.zeros((B, n_qt, n_kt), dtype=torch.bool,
+                       device=seg_q.device)
+    tiles = torch.arange(n_kt, device=seg_q.device)
+    for i in range(n_qt):
+        q0, q1 = i * BM, min((i + 1) * BM, Sq)
+        ids = seg_q[:, q0:q1].long()
+        own = torch.zeros_like(ids, dtype=torch.bool)
+        n_own = min(q1, Sk) - q0
+        if n_own > 0:
+            own[:, :n_own] = seg_kv[:, q0:q0 + n_own].long() == ids[:, :n_own]
+        skip_ok = own.all(-1)                                   # [B]
+        kv_end = min(Sk, q1) if causal else Sk
+        n_kv = -(-kv_end // BN)
+        qmin, qmax = ids.amin(-1), ids.amax(-1)
+        meets = ~((kmax < qmin[:, None]) | (kmin > qmax[:, None]))
+        visit = meets | ~skip_ok[:, None] | (tiles >= VISIT_TILES)[None]
+        plan[:, i] = visit & (tiles < n_kv)[None]
+    return plan
+
+
+def seg_plan_attention(q, k, v, seg_q, seg_kv, causal, scale, BM, BN):
+    """The segment forward over the pairs of `seg_visit_plan`'s tiles
+    alone, f32 inside: `_seg_scores`, every score outside a visited tile
+    -inf, softmax. Equal to the full segment forward when the plan is
+    exact. Returns (o [B, Sq, Hq, D] f32, lse [B, Hq, Sq])."""
+    from .kernels import flash_attention as kfa
+    s = kfa._seg_scores(q, k, seg_q, seg_kv, causal, scale)
+    plan = seg_visit_plan(seg_q, seg_kv, causal, BM, BN)
+    Sq, Sk = s.shape[-2], s.shape[-1]
+    keep = plan.repeat_interleave(BM, 1)[:, :Sq].repeat_interleave(
+        BN, 2)[:, :, :Sk]
+    s = s.masked_fill(~keep[:, None], float("-inf"))
+    group = q.shape[2] // v.shape[2]
+    vh = v.transpose(1, 2).float()
+    if group > 1:
+        vh = vh.repeat_interleave(group, dim=1)
+    o = torch.softmax(s, dim=-1) @ vh
+    return o.transpose(1, 2), torch.logsumexp(s, dim=-1)
+
+
+# The f32 segment forward's 3xTF32 split (csrc/hopper.cuh tf32_round,
+# flash_wgmma.cu split_tf32), mirrored for the CPU: round to 10 mantissa
+# bits, to nearest with ties away from zero, as the bit operation the
+# kernel runs.
+def tf32_round(x):
+    """x (f32) rounded to tf32, as f32 with the low 13 bits zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """x = hi + lo, both tf32 (lo the rounded remainder):
+    |x - hi - lo| <= 2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+# The f32 forward's V^T key order within each group of 8: position k of
+# a k8 slice holds key VT_KEY_ORDER[k], so that P's tf32 A fragment
+# (columns c and c + 4 of each quad) is the score accumulators' pair (2c,
+# 2c + 1) as it stands.
+VT_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def vt_positions(n):
+    """The position of each of n keys (n a multiple of 8) in V^T's k
+    order (flash_wgmma.cu, vt_pos)."""
+    r = torch.arange(n)
+    w = r % 8
+    return (r - w) + torch.where(w % 2 == 1, 4 + w // 2, w // 2)
 
 
 # block-stats (m, l): (atol, rtol) in f32 from either input dtype; l and

@@ -406,18 +406,26 @@ def test_unfused_flag_still_launches_every_kernel():
 # kernel's body: (source, the kernel's definition, pattern, replacement,
 # the readings function, the output whose check must then fail). The
 # wgmma core of csrc/flash_wgmma.cu is what `testing.flash_readings`
-# reads (the one-length bf16 route); the mma.sync kernels of
-# csrc/flash_attention.cu run the segment-id route that
-# `testing.seg_flash_readings` reads (its "gqa_causal_pad" case is
-# causal), so the old core stays guarded.
+# reads (the one-length bf16 route) and, with segment ids, what
+# `testing.seg_flash_readings` reads for the forward; the segment route's
+# backward there runs the mma.sync kernels of csrc/flash_attention.cu
+# (its "gqa_causal_pad" case is causal), and the mma.sync forward runs
+# the bias route that `testing.bias_flash_readings` reads, so the old
+# core stays guarded.
 _FLASH_FAULTS = {
-    # the forward drops each q tile's last kv tile (non-causal: the
-    # last keys; causal: the diagonal)
+    # the segment forward drops each q tile's last kv tile (non-causal:
+    # the last keys; causal: the diagonal)
     "fwd_drops_last_kv_tile": (
+        "flash_wgmma.cu", "flash_fwd_wgmma_kernel(",
+        r"const int n_kv = \(kv_end \+ BN - 1\) / BN;",
+        "const int n_kv = max(1, (kv_end + BN - 1) / BN - 1);",
+        "seg_flash_readings", "o"),
+    # the mma.sync (bias) forward drops each q tile's last kv tile
+    "mma_fwd_drops_last_kv_tile": (
         "flash_attention.cu", "flash_fwd_mma_kernel(",
         r"const int n_kv = \(kv_end \+ TKV - 1\) / TKV;",
         "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);",
-        "seg_flash_readings", "o"),
+        "bias_flash_readings", "o"),
     # dq counts the future keys of the diagonal tile
     "dq_diagonal_mask_off": (
         "flash_attention.cu", "flash_bwd_dq_mma_kernel(",
@@ -502,8 +510,9 @@ def test_flash_check_fails_planted_faults(fault, tmp_path):
     """chip_smoke.py's flash check, run by `testing.flash_readings` (bf16
     causal MHA at the training shape [4, 2048, 16, 128], the wgmma core
     and its delta pre-pass), passes the kernels as written and fails
-    each planted fault; the mma.sync kernels' faults are read by
-    `testing.seg_flash_readings`. The package is copied, the fault
+    each planted fault; the segment route's faults are read by
+    `testing.seg_flash_readings`, the mma.sync forward's by
+    `testing.bias_flash_readings`. The package is copied, the fault
     planted in the copy's source, and the copy built and run in a
     subprocess. Prints each output's worst err/limit under the element
     limit (`terms`) and, for flash_readings, under a limit scaled by the
@@ -723,10 +732,37 @@ def _seg_case_checked(case, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["gqa_causal_pad", "cross_len",
-                                  "mqa_packed"])
+                                  "mqa_packed", "qpad_causal", "bert"])
 def test_segment_flash_matches_plain(dtype, case):
     _card()
     _seg_case_checked(case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hk,d", [(4, 4, 64), (8, 2, 128)],
+                         ids=["mha_d64", "gqa_d128"])
+def test_segment_forward_without_ids_matches_plain(dtype, hq, hk, d):
+    """The segment forward without ids (q and kv lengths that differ, no
+    mask: the same kernels with ids off) against `_plain` on f32 copies:
+    o by the terms rule, lse within 1e-4 + 1e-5 |plain|."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn(2, 200, hq, d, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(2, 328, hk, d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    scale = d ** -0.5
+    if hq != hk:
+        q, scale = (q * scale).to(dt), 1.0
+    o, lse = t_fa.flash_attention_seg_fwd(q, k, v, None, None, False, scale)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o_t = testing.flash_terms(qf, kf, vf, torch.zeros_like(qf), False,
+                              scale)[0]
+    assert _within_terms(o, t_fa._plain(qf, kf, vf, False, scale), o_t,
+                         dtype)
+    assert testing.worst(lse, t_fa._plain_lse(qf, kf, False, scale), 1e-4,
+                         1e-5) <= 1.0
 
 
 @pytest.mark.cuda
@@ -946,9 +982,27 @@ def test_attention_kernels_refuse_what_they_do_not_take():
 _ATTN_FAULTS = {
     # the segment forward drops the segment test: every key counts
     "seg_fwd_segment_test_dropped": (
-        "flash_attention.cu", "flash_fwd_mma_kernel(",
-        r"          else if \(SEG && sq_r\[e >> 1\] != sk\[e & 1\]\)\n"
-        r"            x = kSegMask;\n", "", "seg_flash_readings", "o"),
+        "flash_wgmma.cu", "softmax_step(",
+        r"      if \(kv\.x != sq\[hh\]\) x0 = kSegMask;\n"
+        r"      if \(kv\.y != sq\[hh\]\) x1 = kSegMask;\n", "",
+        "seg_flash_readings", "o"),
+    # the visit plan treats touching segment ranges as disjoint: it skips
+    # a tile whose largest segment is the block's smallest
+    "seg_skip_touching_ranges": (
+        "flash_wgmma.cu", "seg_plan(",
+        r"!\(mx < qmm\[0\] \|\| mn > qmm\[1\]\)",
+        "!(mx <= qmm[0] || mn > qmm[1])", "seg_flash_readings", "o"),
+    # the plan skips in every block, also where a row may have no key of
+    # its own segment (which must average every key)
+    "seg_skip_without_own_key_test": (
+        "flash_wgmma.cu", "seg_plan(",
+        r"bad = !\(row < Sk && seg_kv\[static_cast<size_t>\(b\) \* Sk \+ "
+        r"row\] == mn\);", "bad = 0;", "seg_flash_readings", "o"),
+    # the f32 forward drops the Qlo Khi correction product of its scores
+    "tf32_drops_lo_hi": (
+        "flash_wgmma.cu", "flash_fwd_tf32_kernel(",
+        r"hw::wgmma_tf32_rs\(sc, qlo\[kk\], kmajor_f32<BN>\(Kh, 0, kk\), 1\);",
+        "(void)qlo;", "seg_flash_readings", "o_f32"),
     # the block-stats kernel drops the -5e29 threshold: a -1e30 bias is
     # an ordinary score
     "stats_threshold_dropped": (
@@ -983,9 +1037,9 @@ _ATTN_FAULTS = {
                                    "intact_bias", *_ATTN_FAULTS])
 def test_attention_checks_fail_planted_faults(fault, tmp_path):
     """chip_smoke.py's segment-flash, block-stats and bias-flash checks
-    (`testing.seg_flash_readings`, `testing.block_stats_readings`,
-    `testing.bias_flash_readings`, bf16) pass the kernels as written and
-    fail each planted fault."""
+    (`testing.seg_flash_readings`, bf16 and f32; `testing.
+    block_stats_readings`, `testing.bias_flash_readings`, bf16) pass the
+    kernels as written and fail each planted fault."""
     _card()
     if fault.startswith("intact"):
         readings_fn = {"intact_seg": "seg_flash_readings",

@@ -183,6 +183,22 @@ _FLASH_NAMES = {
         ("delta", "simt"),
     "void (anonymous namespace)::flash_fwd_mma_kernel<128, false, false>("
     "__nv_bfloat16 const*": ("forward", "mma.sync"),
+    # the segment forward: bf16 on the wgmma core, f32 on its
+    # 3xTF32 form
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<64, true>("
+    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, int const*, int "
+    "const*, __nv_bfloat16*, float*, int, int, int, int, int, float)":
+        ("forward", "wgmma"),
+    "void (anonymous namespace)::flash_fwd_wgmma_kernel<128, false>("
+    "CUtensorMap_st": ("forward", "wgmma"),
+    "void (anonymous namespace)::flash_fwd_tf32_kernel<64, true>("
+    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, int const*, int "
+    "const*, float*, float*, int, int, int, int, int, float)":
+        ("forward", "wgmma-tf32"),
+    "void (anonymous namespace)::flash_fwd_tf32_kernel<128, false>("
+    "CUtensorMap_st": ("forward", "wgmma-tf32"),
+    "void (anonymous namespace)::flash_fwd_mma_kernel<64>(__nv_bfloat16 "
+    "const*": ("forward", "mma.sync"),
     "void (anonymous namespace)::flash_bwd_dkv_mma_kernel<64, true, false>("
     "__nv_bfloat16 const*": ("dkv", "mma.sync"),
     "void (anonymous namespace)::flash_bwd_dq_mma_kernel<128, false, true>("
@@ -237,3 +253,47 @@ def test_expected_flash_routes(shape, dtype, want):
 def test_expected_flash_routes_refuses_untaken_shapes(shape):
     with pytest.raises(ValueError, match="flash takes no"):
         _chip_smoke().expected_flash_routes(*shape, torch.bfloat16)
+
+
+_SEG_BF16 = dict(forward="wgmma", dkv="mma.sync", dq="mma.sync")
+_SEG_F32 = dict(forward="wgmma-tf32", dkv="simt", dq="simt")
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((16, 512, 512, 12, 12, 64, False), "bfloat16", _SEG_BF16),
+    ((16, 512, 512, 12, 12, 64, False), "float32", _SEG_F32),
+    ((1, 8192, 8192, 32, 32, 128, True), "bfloat16", _SEG_BF16),
+    ((2, 256, 256, 8, 2, 128, True), "float32", _SEG_F32),
+    ((3, 200, 328, 4, 4, 64, False), "bfloat16", _SEG_BF16),
+    ((1, 700, 700, 4, 1, 64, False), "float32", _SEG_F32)],
+    ids=["bert", "bert_f32", "packed_7b", "gqa_causal_f32", "cross_len",
+         "mqa_f32"])
+def test_expected_seg_routes(shape, dtype, want):
+    """The segment forward runs the wgmma core in bf16 and its 3xTF32
+    kernel in f32, never an mma.sync or SIMT forward; the segment
+    backward stays on mma.sync (bf16) and SIMT (f32)."""
+    got = _chip_smoke().expected_seg_routes(*shape, getattr(torch, dtype))
+    assert got == want
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 128, 4, 4, 96, False),
+                                   (1, 128, 128, 6, 4, 64, False),
+                                   (1, 128, 256, 4, 4, 64, True)],
+                         ids=["d96", "heads_not_a_multiple",
+                              "causal_cross_length"])
+def test_expected_seg_routes_refuses_untaken_shapes(shape):
+    with pytest.raises(ValueError, match="segment route takes no"):
+        _chip_smoke().expected_seg_routes(*shape, torch.bfloat16)
+
+
+def test_every_segment_case_has_a_route():
+    """chip_smoke.py traces every `testing.ATTN_SEG_CASES` case in bf16
+    (and "bert" in f32): each is a shape the segment route takes."""
+    from paddle_tpu_torch import testing
+    cs = _chip_smoke()
+    for kw in testing.ATTN_SEG_CASES.values():
+        S = kw["S"]
+        shape = (kw["B"], S, kw.get("Sk", S), kw["hq"], kw["hk"], kw["d"],
+                 kw["causal"])
+        assert cs.expected_seg_routes(*shape, torch.bfloat16)["forward"] \
+            == "wgmma"
