@@ -107,10 +107,16 @@ forward and backward at each of `FLASH_ROUTE_CASES` is traced and its
 device kernels held to `expected_flash_routes` (the wgmma core, never a
 flash_*_mma_kernel); the backward's library time is SDPA's backward
 alone over a retained forward (`library_fwd_bwd_ms`: its forward and
-backward). One segment forward, dkv and dq at each bf16
+backward). One segment forward, delta pre-pass, dkv and dq at each bf16
 `testing.ATTN_SEG_CASES` case and at BERT's f32 shape is traced and held
-to `expected_seg_routes` (the forward on the wgmma core, f32 on its
-3xTF32 kernel; never an mma.sync or SIMT forward).
+to `expected_seg_routes` (bf16 on the wgmma core, forward and backward,
+never an mma.sync kernel; f32 forward on its 3xTF32 kernel, f32 dkv and
+dq on SIMT). The segment dkv and dq are timed beside SDPA's backward
+alone over a retained forward (`library_fwd_bwd_ms`: its forward and
+backward), in bf16 and, at BERT's shape, in f32; the f32 one-length
+flash forward and backward (SIMT) at ERNIE's [16, 512, 12, 64] beside
+SDPA in f32 (`ernie_flash_f32`); the f32 kernels carry a second bound,
+three tf32 products a product at the tf32 rate (`bound_3xtf32_ms`).
 
     python3 chip_smoke.py --ab PARENT_DIR
 
@@ -118,8 +124,11 @@ compares this checkout with another (an unpacked `git archive` of the
 parent commit) on one card: `route_times` (row 10's 1B and 7B flash
 forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
 and forward + backward, the alibi route's peak memory, the segment
-forward at BERT's shape in bf16 and f32 and packed at 8192 tokens, sdpa
-with the boolean mask, the bert_base f32 forward, the SwiGLU
+forward at BERT's shape in bf16 and f32 and packed at 8192 tokens, the
+bf16 segment dkv + dq at both, sdpa with the boolean mask (forward, and
+forward + backward), flash_attn_unpadded on the BERT batch and packed
+causal over 8192 tokens (forward + backward), the bert_base f32
+forward, the SwiGLU
 forward, da and dW launches at the 7B and 1B training shapes and the
 forward at serving and decode rows) runs in a fresh process per
 checkout, in the order parent, change, change, parent.
@@ -256,13 +265,14 @@ SOURCES = {
     "fused_cross_entropy_bwd": ("paddle_tpu_torch/csrc/cross_entropy.cu",
                                 "paddle_tpu/kernels/cross_entropy.py:178"),
     # upstream flash with SegmentIds (the call at l.333; packed, l.447):
-    # padding_mask= and flash_attention_packed, forward (the wgmma core;
-    # f32 its 3xTF32 form), dkv and dq (mma.sync / SIMT)
+    # padding_mask= and flash_attention_packed, forward, dkv and dq (the
+    # wgmma core in bf16; f32: the 3xTF32 forward and the SIMT dkv and dq
+    # of csrc/flash_attention.cu)
     "flash_attention_seg_fwd": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                                 "paddle_tpu/kernels/flash_attention.py:333"),
-    "flash_attention_seg_dkv": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_seg_dkv": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                                 "paddle_tpu/kernels/flash_attention.py:333"),
-    "flash_attention_seg_dq": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_seg_dq": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                                "paddle_tpu/kernels/flash_attention.py:333"),
     # the block-stats kernel (ring attention's per-round compute; no
     # longer on the biased route), held in the kernel phase
@@ -336,6 +346,25 @@ def time_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def traced_device_ms(fn, iters=10):
+    """The card's own time for one call of fn: the summed device time of
+    the CUDA kernels it runs, traced by torch.profiler over `iters` calls
+    after one warm-up call, divided by iters. Beside `time_ms`, which the
+    host bounds where a call enqueues many small launches (SDPA's
+    backward through autograd at BERT's width), it says what the card
+    spends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    sums, _ = _device_ms(prof, (), "all")
+    return sums.get("all", 0.0) / iters
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -782,23 +811,25 @@ def expected_seg_routes(B, Sq, Sk, Hq, Hk, D, causal, dtype):
     D] and k/v [B, Sk, Hk, D], ids or none: the forward
     (`flash_attention_seg_fwd`) on the wgmma core in bf16 and on its
     3xTF32 form in f32, never an mma.sync or SIMT forward; the backward
-    (`flash_attention_seg_dkv`, `_dq`) on the mma.sync kernels in bf16
-    and the SIMT kernels in f32. Raises ValueError for a shape the
-    entries do not take."""
+    (`flash_attention_seg_dkv`, `_dq`) on the wgmma core in bf16, never
+    the mma.sync kernels, and on the SIMT kernels in f32; its delta
+    pre-pass (`flash_attention_delta`) a SIMT kernel in both. Raises
+    ValueError for a shape the entries do not take."""
     if not (B > 0 and Sq > 0 and Sk > 0 and Hk > 0 and Hq % Hk == 0
             and D in (64, 128) and not (causal and Sq != Sk)):
         raise ValueError(f"the segment route takes no [B{B} Sq{Sq} Sk{Sk} "
                          f"H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}]")
     bf16 = str(dtype).split(".")[-1] == "bfloat16"
-    back = "mma.sync" if bf16 else "simt"
+    back = "wgmma" if bf16 else "simt"
     return {"forward": "wgmma" if bf16 else "wgmma-tf32", "dkv": back,
-            "dq": back}
+            "dq": back, "delta": "simt"}
 
 
 def seg_route_check(tag, dtype):
-    """Trace one flash_attention_seg_fwd, seg_dkv and seg_dq at
-    `testing.ATTN_SEG_CASES[tag]` in `dtype` and hold the cores their
-    device kernels name against `expected_seg_routes`."""
+    """Trace one flash_attention_seg_fwd, the delta pre-pass, seg_dkv and
+    seg_dq at `testing.ATTN_SEG_CASES[tag]` in `dtype` (the launches of
+    the route's autograd function) and hold the cores their device
+    kernels name against `expected_seg_routes`."""
     from paddle_tpu_torch import testing
     from paddle_tpu_torch.kernels import flash_attention as kfa
     kw = testing.ATTN_SEG_CASES[tag]
@@ -808,7 +839,8 @@ def seg_route_check(tag, dtype):
 
     def run():
         o, lse = kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s)
-        args = (q, k, v, do, lse, kfa._delta(o, do), sq, skv, causal, s)
+        args = (q, k, v, do, lse, kfa.flash_attention_delta(o, do), sq,
+                skv, causal, s)
         kfa.flash_attention_seg_dkv(*args)
         kfa.flash_attention_seg_dq(*args)
 
@@ -1167,11 +1199,12 @@ def attention_kernels(report, dtype):
     cross-length and packed MQA cases), and the block-stats kernel at
     `testing.STATS_CASES` (sdpa's bias route at bert width, a 512-key
     alibi chunk at 7B width, a masked ragged case), element by element.
-    Timed: the segment kernels at "bert" (bf16: the entry; f32 forward:
-    the BERT phase's dtype, "bert_f32") and "packed_7b" (bf16); the
-    block-stats kernel at "sdpa_bias" (the entry) and "alibi_7b". One
-    forward, dkv and dq at every bf16 case, and at "bert" in f32, is
-    traced to its cores (`seg_route_check`)."""
+    Timed: the segment kernels at "bert" (bf16: the entry; f32: the BERT
+    phase's dtype, "bert_f32") and "packed_7b" (bf16); the block-stats
+    kernel at "sdpa_bias" (the entry) and "alibi_7b"; in f32 the
+    one-length flash kernels at ERNIE's shape (`ernie_flash_f32`). One
+    forward, delta pre-pass, dkv and dq at every bf16 case, and at
+    "bert" in f32, is traced to its cores (`seg_route_check`)."""
     import torch
 
     from paddle_tpu_torch import testing
@@ -1214,6 +1247,8 @@ def attention_kernels(report, dtype):
         if bf16 or tag == "bert":
             seg_route_check(tag, dtype)
             torch.cuda.empty_cache()
+    if not bf16:
+        ernie_flash_f32(report)
 
     for tag, kw in testing.STATS_CASES.items():
         q, k, v, mask, scale, bias = testing.stats_case(**kw, dtype=dtype)
@@ -1375,12 +1410,17 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
                 shape):
     """The segment kernels' times at one case: the forward, dkv and dq
     kernels beside the plain version (`_SegPlain`, the packed case in
-    groups of 8 heads), SDPA with the segment-equality boolean mask (fwd;
-    fwd + bwd for dkv and dq) and the bounds over the pairs the segments
-    leave. bf16 "bert" is each kernel's entry; f32 "bert" times the
-    forward only (the BERT phase's f32 inference), as "bert_f32", whose
-    bound counts its three tf32 products per product at the tf32 rate
-    (beside it, `bound_simt_ms`: one f32 product at the SIMT rate)."""
+    groups of 8 heads), SDPA with the segment-equality boolean mask (the
+    forward; for dkv and dq its backward alone over a retained forward,
+    with its forward and backward beside it as `library_fwd_bwd_ms`; for
+    dkv and dq both also as the card's own time, `device_ms` and
+    `library_device_ms`, by `traced_device_ms`) and the bounds over the
+    pairs the segments leave. bf16 "bert" is each
+    kernel's entry; f32 "bert" (the BERT phase's dtype) goes under
+    "bert_f32": its forward's bound counts three tf32 products per
+    product at the tf32 rate (beside it, `bound_simt_ms`: one f32 product
+    at the SIMT rate); its SIMT dkv and dq are bound at the f32 rate,
+    with `bound_3xtf32_ms` beside (a 3xTF32 design's bound)."""
     import torch
     import torch.nn.functional as F
 
@@ -1432,11 +1472,11 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
         report["flash_attention_seg_fwd"][key]["bound_simt_ms"] = simt_ms
         print(f"kernel flash_attention_seg_fwd f32{shape}: the SIMT "
               f"design's bound_ms={simt_ms:.6g} ({simt_by})", flush=True)
-        return
-    delta = kfa._delta(o, do)
+    delta = kfa.flash_attention_delta(o, do)
     args = (q, k, v, do, lse, delta, sq, skv, causal, s)
     lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     do_t = do.transpose(1, 2)
+    o_lib = F.scaled_dot_product_attention(*lib_leaves, attn_mask=allow)
 
     def library_fwd_bwd():
         o_l = F.scaled_dot_product_attention(*lib_leaves, attn_mask=allow)
@@ -1450,6 +1490,7 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
             o_p = kfa._SegPlain.apply(*leaves, sq, skv, causal, s)
             torch.autograd.grad(o_p, leaves, do[:, :, h])
 
+    lib_fb_ms = time_ms(library_fwd_bwd, 10)
     for name, fn, flops, out_bytes in (
             ("flash_attention_seg_dkv",
              lambda: kfa.flash_attention_seg_dkv(*args), 8 * pairs * d,
@@ -1459,13 +1500,111 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
              q.numel() * it)):
         # q, k, v, do, lse, D and the segments in; dk and dv, or dq, out.
         # flops: dkv recomputes S and dP and forms dV and dK (4
-        # products), dq recomputes S and dP and forms dQ (3)
-        put(name, timed(
+        # products), dq recomputes S and dP and forms dQ (3). library:
+        # SDPA's backward alone over a retained forward (the whole
+        # backward, for each of the two launches)
+        nbytes = (qkv + do.numel() * it + 2 * lse_bytes + seg_bytes
+                  + out_bytes)
+
+        def library():
+            return torch.autograd.grad(o_lib, lib_leaves, do_t,
+                                       retain_graph=True)
+
+        m = timed(
             name, errs["dkv" if name.endswith("dkv") else "dq"], fn,
-            plain_bwd, nbytes=qkv + do.numel() * it + 2 * lse_bytes
-            + seg_bytes + out_bytes, flops=flops, library=library_fwd_bwd,
-            iters=10, plain_iters=2, tag=shape))
-    del lib_leaves, allow, o, lse, delta
+            plain_bwd, nbytes=nbytes, flops=flops, library=library,
+            iters=10, plain_iters=2, tag=shape,
+            ops_dtype="bfloat16" if bf16 else "float32", dname=dn)
+        m["library_fwd_bwd_ms"] = lib_fb_ms
+        # the card's own time of the launch and of SDPA's backward alone
+        m["device_ms"] = traced_device_ms(fn)
+        m["library_device_ms"] = traced_device_ms(library)
+        extra = ""
+        if not bf16:
+            m["bound_3xtf32_ms"] = bound_ms(nbytes, 3 * flops, "tf32")[0]
+            extra = f" bound_3xtf32_ms={m['bound_3xtf32_ms']:.6g}"
+        print(f"kernel {name} {dn}{shape}: library_fwd_bwd_ms="
+              f"{lib_fb_ms:.6g} (SDPA forward and backward); device "
+              f"(traced) kernel {m['device_ms']:.6g} library "
+              f"{m['library_device_ms']:.6g}{extra}", flush=True)
+        put(name, m)
+    del lib_leaves, o_lib, allow, o, lse, delta
+
+
+def ernie_flash_f32(report):
+    """The f32 one-length flash kernels (SIMT, csrc/flash_attention.cu)
+    at ERNIE's attention shape, bench.py:399-421's encoder configuration
+    without a mask: [16, 512, 12, 64], full. Held against the plain
+    version and timed beside SDPA in f32 (TF32 off) and two bounds: the
+    f32 rate (bound_ms, the SIMT design's) and three tf32 products a
+    product at the tf32 rate (`bound_3xtf32_ms`), under "ernie_f32" in
+    the flash_attention_fwd and flash_attention_bwd entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    dt = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    B, S, H, d, causal = 16, 512, 12, 64, False
+    q, k, v, do = (torch.randn((B, S, H, d), generator=gen, device="cuda")
+                   for _ in range(4))
+    err_f, err_b, _, o, lse = flash_pairs_checked(dt, "float32", q, k, v, do,
+                                                  causal)
+    scale = d ** -0.5
+    tag = f" [B{B} S{S} H{H} D{d} full]"
+    fwd_flops = 4 * B * H * d * S * S
+    qkv_bytes = 3 * q.numel() * 4
+    lse_bytes = lse.numel() * 4
+    qr, kr, vr = (t.transpose(1, 2) for t in (q, k, v))
+    fwd_bytes = qkv_bytes + q.numel() * 4 + lse_bytes
+    m = timed("flash_attention_fwd", err_f,
+              lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
+              lambda: kfa._plain(q, k, v, causal, scale),
+              nbytes=fwd_bytes, flops=fwd_flops,
+              library=lambda: F.scaled_dot_product_attention(qr, kr, vr),
+              iters=10, plain_iters=3, tag=tag, ops_dtype="float32",
+              dname="f32")
+    m["bound_3xtf32_ms"] = bound_ms(fwd_bytes, 3 * fwd_flops, "tf32")[0]
+    m["library_device_ms"] = traced_device_ms(
+        lambda: F.scaled_dot_product_attention(qr, kr, vr))
+    report["flash_attention_fwd"]["ernie_f32"] = m
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_pl = kfa._plain(*leaves, causal, scale)
+    lib_leaves = [t.detach().requires_grad_() for t in (qr, kr, vr)]
+    do_r = do.transpose(1, 2)
+    o_lib = F.scaled_dot_product_attention(*lib_leaves)
+
+    def library_fwd_bwd():
+        o_l = F.scaled_dot_product_attention(*lib_leaves)
+        return torch.autograd.grad(o_l, lib_leaves, do_r)
+
+    def library():
+        return torch.autograd.grad(o_lib, lib_leaves, do_r,
+                                   retain_graph=True)
+
+    bwd_bytes = qkv_bytes + 2 * q.numel() * 4 + qkv_bytes + lse_bytes
+    m = timed("flash_attention_bwd", err_b,
+              lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                              scale),
+              lambda: torch.autograd.grad(o_pl, leaves, do,
+                                          retain_graph=True),
+              nbytes=bwd_bytes, flops=fwd_flops * 5 // 2, library=library,
+              iters=10, plain_iters=3, tag=tag, ops_dtype="float32",
+              dname="f32")
+    m["bound_3xtf32_ms"] = bound_ms(bwd_bytes, 3 * fwd_flops * 5 // 2,
+                                    "tf32")[0]
+    m["library_fwd_bwd_ms"] = time_ms(library_fwd_bwd, 10)
+    m["library_device_ms"] = traced_device_ms(library)
+    fwd = report["flash_attention_fwd"]["ernie_f32"]
+    print(f"kernel flash_attention f32{tag}: bound_3xtf32_ms fwd="
+          f"{fwd['bound_3xtf32_ms']:.6g} bwd={m['bound_3xtf32_ms']:.6g}; "
+          f"SDPA f32 device (traced) fwd {fwd['library_device_ms']:.6g} "
+          f"bwd alone {m['library_device_ms']:.6g}; bwd library_fwd_bwd_ms="
+          f"{m['library_fwd_bwd_ms']:.6g} (SDPA f32 forward and backward)",
+          flush=True)
+    report["flash_attention_bwd"]["ernie_f32"] = m
+    del q, k, v, do, o, lse, leaves, o_pl, lib_leaves, o_lib
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -2563,13 +2702,9 @@ def surface_phase(report, smi_line):
         full[valid] = out
         return full
 
-    routes = {"sdpa_bool_mask": (sdpa_bool, {
-                  "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
-                  "flash_attention_seg_dq": 1}),
+    routes = {"sdpa_bool_mask": (sdpa_bool, SEG_ROUTE_LAUNCHES),
               "sdpa_float_mask": (sdpa_float, BIAS_ROUTE_LAUNCHES),
-              "flash_attn_unpadded": (unpadded, {
-                  "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
-                  "flash_attention_seg_dq": 1})}
+              "flash_attn_unpadded": (unpadded, SEG_ROUTE_LAUNCHES)}
 
     def run(fn):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -2636,9 +2771,8 @@ def surface_phase(report, smi_line):
                                       max(lengths7), D7 ** -0.5,
                                       causal=True)[0]
 
-    surface_7b(report, counters, "packed_causal", packed, (q, k, v), do, {
-        "flash_attention_seg_fwd": 1, "flash_attention_seg_dkv": 1,
-        "flash_attention_seg_dq": 1}, f"{T} tokens in documents "
+    surface_7b(report, counters, "packed_causal", packed, (q, k, v), do,
+        SEG_ROUTE_LAUNCHES, f"{T} tokens in documents "
         f"{lengths7}, H{H7} D{D7} bf16", smi_line)
     del q, k, v, do
     torch.cuda.empty_cache()
@@ -2722,6 +2856,12 @@ def biased_times(report, name, fwd_ms, fb_ms, library, smi_line):
 
 # flash_attention_biased's launches per forward + backward: one bias
 # forward, one dkv, one dq; no block-stats kernel
+# one forward and backward of the segment route: the forward, the delta
+# pre-pass, dkv and dq
+SEG_ROUTE_LAUNCHES = {"flash_attention_seg_fwd": 1,
+                      "flash_attention_delta": 1,
+                      "flash_attention_seg_dkv": 1,
+                      "flash_attention_seg_dq": 1}
 BIAS_ROUTE_LAUNCHES = {"flash_attention_bias_fwd": 1,
                        "flash_attention_bias_dkv": 1,
                        "flash_attention_bias_dq": 1}
@@ -2789,12 +2929,13 @@ def route_times():
     attention_biased with causal alibi at the same shape and sdpa with the
     float [16, 1, 1, 512] mask at bert width (the BERT lengths), forward
     and forward + backward; the alibi route's forward + backward peak
-    memory above its inputs; rows 10-11's segment forward (sdpa with the
-    boolean mask at bert width, the forward kernel at BERT's shape in
-    bf16 and f32 and at the packed causal 8192 tokens) and the bert_base
-    f32 forward on the BERT phase's batch; swiglu at 128 and 4 rows of
-    llama_7b's
-    width, swiglu, swiglu_bwd_da and swiglu_bwd_dw at 8192 rows of
+    memory above its inputs; rows 10-11's segment route (sdpa with the
+    boolean mask at bert width, forward and forward + backward;
+    flash_attn_unpadded on the same batch, forward + backward; the
+    forward kernel at BERT's shape in bf16 and f32 and at the packed
+    causal 8192 tokens; dkv + dq in bf16 at both; the packed causal
+    route's forward + backward) and the bert_base f32 forward on the BERT
+    phase's batch; swiglu at 128 and 4 rows of llama_7b's width, swiglu, swiglu_bwd_da and swiglu_bwd_dw at 8192 rows of
     llama_7b's and llama_1b's widths, then swiglu at 128 and 4 rows again,
     each small-row reading beside `card_state`. Uses only entry points
     the parent commit has."""
@@ -2865,19 +3006,63 @@ def route_times():
     # padded [16, 512, 12, 64] in bf16 and f32 and at the packed causal
     # 8192 tokens of llama_7b width, then the bert_base f32 forward
     bmask = valid[:, None, None, :]
-    out["bool_mask_fwd_ms"] = time_ms(
-        lambda: TF.scaled_dot_product_attention(q, k, v, attn_mask=bmask), 10)
-    del q, k, v, do
+
+    def sdpa_bool(a, b, c):
+        return TF.scaled_dot_product_attention(a, b, c, attn_mask=bmask)
+
+    out["bool_mask_fwd_ms"] = time_ms(lambda: sdpa_bool(q, k, v), 10)
+    out["bool_mask_fwd_bwd_ms"] = time_ms(
+        lambda: fwd_bwd(sdpa_bool, (q, k, v), do), 5)
+    cu = torch.tensor([0] + [int(n) for n in lengths],
+                      device="cuda").cumsum(0).to(torch.int32)
+
+    def unpadded(a, b, c):
+        return TF.flash_attn_unpadded(a, b, c, cu, cu, 512, 512,
+                                      64 ** -0.5)[0]
+
+    packed_in = [t[valid] for t in (q, k, v, do)]
+    out["unpadded_fwd_bwd_ms"] = time_ms(
+        lambda: fwd_bwd(unpadded, packed_in[:3], packed_in[3]), 5)
+    del q, k, v, do, packed_in
+    # the segment kernels: the forward at BERT's shape in bf16 and f32 and
+    # at the packed causal 8192 tokens; dkv + dq (one call each, over the
+    # forward's lse and the delta pre-pass's D) in bf16 at both
     for tag, dt, dn in (("bert", torch.bfloat16, "bf16"),
                         ("bert", torch.float32, "f32"),
                         ("packed_7b", torch.bfloat16, "bf16")):
         kw = testing.ATTN_SEG_CASES[tag]
-        q, k, v, _, sq, skv = testing.attn_seg_case(**kw, dtype=dt)
+        q, k, v, do, sq, skv = testing.attn_seg_case(**kw, dtype=dt)
+        c, sc = kw["causal"], q.shape[-1] ** -0.5
         out[f"seg_fwd_{tag}_{dn}_ms"] = time_ms(
-            lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv,
-                                                kw["causal"],
-                                                q.shape[-1] ** -0.5), 20)
-        del q, k, v, sq, skv
+            lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, c, sc), 20)
+        if dt == torch.bfloat16:
+            o, lse = kfa.flash_attention_seg_fwd(q, k, v, sq, skv, c, sc)
+            args = (q, k, v, do, lse, kfa.flash_attention_delta(o, do), sq,
+                    skv, c, sc)
+
+            def dkv_dq():
+                kfa.flash_attention_seg_dkv(*args)
+                kfa.flash_attention_seg_dq(*args)
+
+            out[f"seg_dkv_dq_{tag}_{dn}_ms"] = time_ms(dkv_dq, 10)
+            del o, lse, args
+        del q, k, v, do, sq, skv
+    # the packed causal route through flash_attn_unpadded at llama_7b
+    # width, forward and backward
+    lengths7 = testing.packed_lengths()
+    T = sum(lengths7)
+    cu7 = torch.tensor([0] + lengths7, device="cuda").cumsum(0).to(
+        torch.int32)
+    q, k, v, do = (rand(T, 32, 128) for _ in range(4))
+
+    def packed(a, b, c):
+        return TF.flash_attn_unpadded(a, b, c, cu7, cu7, max(lengths7),
+                                      max(lengths7), 128 ** -0.5,
+                                      causal=True)[0]
+
+    out["packed_causal_fwd_bwd_ms"] = time_ms(
+        lambda: fwd_bwd(packed, (q, k, v), do), 3, warmup=1)
+    del q, k, v, do
     cfg = TB.bert_base()
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab_size, (16, 512))).to("cuda")

@@ -1,15 +1,16 @@
 // Flash attention forward and backward, BSHD layout, causal or full,
 // MHA and GQA (q head h reads kv head h / (Hq / Hk)), head dim 64 or 128,
 // with q and kv lengths Sq and Sk. The routes here:
-//   - the segment backward (`ptt_flash_attention_seg_dkv_*` /
-//     `_seg_dq_*`: segment ids or none, bf16 on mma.sync, f32 on SIMT);
-//     the segment forward is flash_wgmma.cu's (wgmma, 3xTF32 in f32);
+//   - the f32 segment backward (`ptt_flash_attention_seg_dkv_f32` /
+//     `_seg_dq_f32`: segment ids or none) on SIMT; the segment forward
+//     and the bf16 segment backward are flash_wgmma.cu's (wgmma; the f32
+//     forward as 3xTF32);
 //   - the bias route (`ptt_flash_attention_bias_*`), forward and
 //     backward, bf16 on mma.sync, f32 on SIMT;
 //   - the f32 one-length route (`ptt_flash_attention_fwd_f32` /
 //     `_bwd_f32`) on SIMT.
-// The bf16 one-length route without ids or bias (LLaMA training's) runs
-// the TMA + mbarrier + wgmma core of flash_wgmma.cu: mma.sync m16n8k16
+// The bf16 routes without a bias (LLaMA training's, the segment route)
+// run the TMA + mbarrier + wgmma core of flash_wgmma.cu: mma.sync m16n8k16
 // issued by single warps from a cp.async ring cannot reach Hopper's
 // tensor-core rate (3.8x SDPA's forward at llama_7b's shape on an H100,
 // PERF.md row 10), while wgmma with TMA-fed, swizzled operands can.
@@ -46,14 +47,13 @@
 //   over the group's q heads, so dk and dv sum over the group in f32) and
 //   dq (one block per q tile, head and batch). Both recompute P from the
 //   saved LSE; D = rowsum(dO * O) comes from the caller (the delta
-//   pre-pass of flash_wgmma.cu on the one-length f32 route, plain
-//   PyTorch over the stored O on the segment and bias routes, as
+//   pre-pass of flash_wgmma.cu on the one-length f32 and the segment
+//   routes, plain PyTorch over the stored O on the bias route, as
 //   upstream l.1664 is plain jnp). `scale` multiplies the
 //   scores in f32 (MHA); GQA callers pass q pre-scaled in q's dtype and
-//   scale = 1, as splash takes it. The segment backward moves to the
-//   wgmma core of flash_wgmma.cu in a later step (ROADMAP Queue 2).
-// Segment ids (int32 [B, Sq] and [B, Sk]; SEG instantiations of dkv and
-//   dq): a score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a
+//   scale = 1, as splash takes it.
+// Segment ids (int32 [B, Sq] and [B, Sk]; the f32 SIMT backward with
+//   ids): a score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a
 //   score whose segments differ takes the finite mask value kSegMask
 //   (upstream's DEFAULT_MASK_VALUE) rather than -inf, so a query row with
 //   no key of its own segment averaged V over the keys in the forward,
@@ -208,15 +208,6 @@ constexpr int fwd_mma_smem() {
   return 5 * TQ * (D + 8) * 2;       // Q, K x 2, V x 2
 }
 
-// the segment ids of this thread's two columns of n8 tile i of the kv
-// tile at k0 (-2 past Sk)
-__device__ __forceinline__ void col_segs(int (&sk)[2], const int* skv,
-                                         int k0, int i, int t2, int Sk) {
-  const int c = k0 + i * 8 + t2;
-  sk[0] = c < Sk ? skv[c] : -2;
-  sk[1] = c + 1 < Sk ? skv[c + 1] : -2;
-}
-
 // the bias forward (the segment forward runs flash_wgmma.cu)
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
@@ -344,15 +335,14 @@ constexpr int dq_mma_smem() {
   return 6 * TQ * (D + 8) * 2;       // Q, dO, K x 2, V x 2
 }
 
-template <int D, bool SEG, bool BIAS>
+// the bias backward's dq (the segment backward runs flash_wgmma.cu)
+template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ seg_q,
-                        const int* __restrict__ seg_kv, const BiasArgs ba,
+                        const float* __restrict__ delta, const BiasArgs ba,
                         bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hk,
                         int causal, float scale) {
   constexpr int LD = D + 8;
@@ -379,23 +369,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_rows<D>(Ks, k, b, hk, 0, Sk, Hk);
   cp_rows<D>(Vs, v, b, hk, 0, Sk, Hk);
   ptt::cp_async_commit();
-  // this thread's two rows: lse (+inf past Sq, so p = 0), D, segment
+  // this thread's two rows: lse (+inf past Sq, so p = 0), D
   float lse_r[2], dl_r[2];
-  int sq_r[2] = {0, 0};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + wr + g + r * 8;
     const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
     lse_r[r] = row < Sq ? lse[i] : INFINITY;
     dl_r[r] = row < Sq ? delta[i] : 0.f;
-    if (SEG)
-      sq_r[r] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : -1;
   }
-  const int* skv = SEG ? seg_kv + static_cast<size_t>(b) * Sk : nullptr;
   const int kv_end = causal ? min(Sk, q0 + TQ) : Sk;
   const int n_kv = (kv_end + TKV - 1) / TKV;
-  BiasHead hb{};
-  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+  const BiasHead hb = bias_head(ba, b, h, Sk);
   const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};  // its two q rows
 
   float acc[ND][4];
@@ -430,28 +415,19 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_rows_nk<8, KS>(dp, dOs, LD, wr, Vb, LD, 0);
 
     const int k0 = j * TKV;
-    const bool edge = SEG || (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
+    const bool edge = (causal && k0 + TKV > q0) || k0 + TKV > Sk ||
                       q0 + TQ > Sq;
-    if constexpr (BIAS)
-      bias_scores<8, false>(s, scale, ba, hb, rows, k0 + t2, Sq, Sk, causal,
-                            edge);
+    // the biased scores, -inf where masked: P = 0 there exactly
+    bias_scores<8, false>(s, scale, ba, hb, rows, k0 + t2, Sq, Sk, causal,
+                          edge);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      int sk[2] = {0, 0};
-      if (SEG) col_segs(sk, skv, k0, i, t2, Sk);
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool vis = !edge || in_view(q0 + wr + g + r * 8,
-                                          k0 + i * 8 + t2 + (e & 1), Sq, Sk,
-                                          causal);
-        const float x = (SEG && sq_r[r] != sk[e & 1]) ? kSegMask
-                                                      : s[i][e] * scale;
-        float p = vis ? expf(x - lse_r[r]) : 0.f;
-        if constexpr (BIAS) p = expf(s[i][e] - lse_r[r]);
+        const float p = expf(s[i][e] - lse_r[r]);
         s[i][e] = p * (dp[i][e] - dl_r[r]);            // dS
       }
-    }
     mma_acc_kn<ND, TKV / 16>(acc, s, Kb, LD, 0);     // dQ += dS K
     __syncthreads();
   }
@@ -470,20 +446,19 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 constexpr int dkv_mma_smem() {
-  // K, V, (Q, dO) x 2; lse, D, segment x 2
-  return 6 * TQ * (D + 8) * 2 + 6 * TQ * 4;
+  // K, V, (Q, dO) x 2; lse, D x 2
+  return 6 * TQ * (D + 8) * 2 + 4 * TQ * 4;
 }
 
-template <int D, bool SEG, bool BIAS>
+// the bias backward's dk and dv (the segment backward runs flash_wgmma.cu)
+template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_kv, const BiasArgs ba,
+                         const float* __restrict__ delta, const BiasArgs ba,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
                          int Sk, int Hq, int Hk, int causal, float scale) {
   constexpr int LD = D + 8;
@@ -497,7 +472,6 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   bf16* dOs = Qs + 2 * TQ * LD;      // [2][64][LD]
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * TQ * LD);  // [2][64]
   float* dl_s = lse_s + 2 * TQ;                                // [2][64]
-  int* sq_s = reinterpret_cast<int*>(dl_s + 2 * TQ);           // [2][64]
 
   const int k0 = blockIdx.x * TKV;   // early keys see the most q rows
   const int hk = blockIdx.y;
@@ -524,9 +498,6 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
       const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + s;
       lse_s[buf * TQ + r] = s < Sq ? lse[i] : INFINITY;
       dl_s[buf * TQ + r] = s < Sq ? delta[i] : 0.f;
-      if (SEG)
-        sq_s[buf * TQ + r] =
-            s < Sq ? seg_q[static_cast<size_t>(b) * Sq + s] : -1;
     }
   };
 
@@ -534,15 +505,6 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   cp_rows<D>(Vs, v, b, hk, k0, Sk, Hk);
   if (total > 0) stage(0, 0);
   ptt::cp_async_commit();
-  // the segments of this thread's two kv rows
-  int sk_r[2] = {0, 0};
-  if (SEG) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = k0 + wr + g + r * 8;
-      sk_r[r] = row < Sk ? seg_kv[static_cast<size_t>(b) * Sk + row] : -2;
-    }
-  }
 
   float adk[ND][4], adv[ND][4];
 #pragma unroll
@@ -567,12 +529,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     const bf16* dOb = dOs + buf * TQ * LD;
     const float* lse_b = lse_s + buf * TQ;
     const float* dl_b = dl_s + buf * TQ;
-    const int* sq_b = sq_s + buf * TQ;
     const int q0 = q_begin + (it % n_q) * TQ;
-    const bool edge = SEG || (causal && q0 < k0 + TKV) || k0 + TKV > Sk ||
+    const bool edge = (causal && q0 < k0 + TKV) || k0 + TKV > Sk ||
                       q0 + TQ > Sq;
-    BiasHead hb{};
-    if constexpr (BIAS) hb = bias_head(ba, b, hk * group + it / n_q, Sk);
+    const BiasHead hb = bias_head(ba, b, hk * group + it / n_q, Sk);
 
 #pragma unroll
     for (int qc = 0; qc < TQ; qc += QC) {
@@ -587,20 +547,15 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
         }
       mma_rows_nk<QC / 8, KS>(st, Ks, LD, wr, Qb, LD, qc);
       mma_rows_nk<QC / 8, KS>(dpt, Vs, LD, wr, dOb, LD, qc);
-      if constexpr (BIAS)
-        bias_scores<QC / 8, true>(st, scale, ba, hb, kv_rows, q0 + qc + t2,
-                                  Sq, Sk, causal, edge);
+      // the biased scores, -inf where masked: P = 0 there exactly
+      bias_scores<QC / 8, true>(st, scale, ba, hb, kv_rows, q0 + qc + t2,
+                                Sq, Sk, causal, edge);
 #pragma unroll
       for (int i = 0; i < QC / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qj = qc + i * 8 + t2 + (e & 1);   // column in the tile
-          const bool vis = !edge || in_view(q0 + qj, k0 + wr + g +
-                                            (e >> 1) * 8, Sq, Sk, causal);
-          const float x = (SEG && sq_b[qj] != sk_r[e >> 1])
-                              ? kSegMask : st[i][e] * scale;
-          float p = vis ? expf(x - lse_b[qj]) : 0.f;
-          if constexpr (BIAS) p = expf(st[i][e] - lse_b[qj]);
+          const float p = expf(st[i][e] - lse_b[qj]);
           st[i][e] = p;                                // P^T
           dpt[i][e] = p * (dpt[i][e] - dl_b[qj]);      // dS^T
         }
@@ -609,11 +564,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();                 // buffer it & 1 is free for it + 2
   }
-  if constexpr (BIAS) {
-    // causal with Sq < Sk: keys past the last query see none, and the
-    // K/V copies were never waited for
-    if (total == 0) ptt::cp_async_wait<0>();
-  }
+  // causal with Sq < Sk: keys past the last query see none, and the K/V
+  // copies were never waited for
+  if (total == 0) ptt::cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1027,14 +980,19 @@ cudaError_t dkv(const BwdIn& in, const int* sq, const int* skv,
   const T* do_ = static_cast<const T*>(in.dout);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = dkv_mma_smem<D>();
-    err = set_smem(flash_bwd_dkv_mma_kernel<D, SEG, BIAS>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_mma_kernel<D, SEG, BIAS>
-        <<<dim3((s.Sk + TKV - 1) / TKV, s.Hk, s.B), MMA_THREADS, smem,
-           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv, ba,
-                     static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk,
-                     s.Hq, s.Hk, s.causal, s.scale);
+    // bf16 takes a bias here; its segment backward is flash_wgmma.cu's
+    if constexpr (!BIAS) {
+      return cudaErrorInvalidValue;
+    } else {
+      constexpr int smem = dkv_mma_smem<D>();
+      err = set_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_mma_kernel<D>
+          <<<dim3((s.Sk + TKV - 1) / TKV, s.Hk, s.B), MMA_THREADS, smem,
+             stream>>>(q_, k_, v_, do_, in.lse, in.delta, ba,
+                       static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk,
+                       s.Hq, s.Hk, s.causal, s.scale);
+    }
   } else {
     constexpr int smem = dkv_simt_smem<D>();
     err = set_smem(flash_bwd_dkv_simt_kernel<D, BIAS>, smem);
@@ -1059,14 +1017,19 @@ cudaError_t dq(const BwdIn& in, const int* sq, const int* skv,
   const T* do_ = static_cast<const T*>(in.dout);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int smem = dq_mma_smem<D>();
-    err = set_smem(flash_bwd_dq_mma_kernel<D, SEG, BIAS>, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_mma_kernel<D, SEG, BIAS>
-        <<<dim3((s.Sq + TQ - 1) / TQ, s.Hq, s.B), MMA_THREADS, smem,
-           stream>>>(q_, k_, v_, do_, in.lse, in.delta, sq, skv, ba,
-                     static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq, s.Hk,
-                     s.causal, s.scale);
+    // bf16 takes a bias here; its segment backward is flash_wgmma.cu's
+    if constexpr (!BIAS) {
+      return cudaErrorInvalidValue;
+    } else {
+      constexpr int smem = dq_mma_smem<D>();
+      err = set_smem(flash_bwd_dq_mma_kernel<D>, smem);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dq_mma_kernel<D>
+          <<<dim3((s.Sq + TQ - 1) / TQ, s.Hq, s.B), MMA_THREADS, smem,
+             stream>>>(q_, k_, v_, do_, in.lse, in.delta, ba,
+                       static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq, s.Hk,
+                       s.causal, s.scale);
+    }
   } else {
     constexpr int smem = dq_simt_smem<D>();
     err = set_smem(flash_bwd_dq_simt_kernel<D, BIAS>, smem);
@@ -1191,39 +1154,34 @@ extern "C" int ptt_flash_attention_bwd_f32(
                         stream);
 }
 
-// ---- the segment backward: q and kv lengths of their own, optional
+// ---- the f32 segment backward: q and kv lengths of their own, optional
 // segment ids (int32 [B, Sq] and [B, Sk], both or neither): the
-// padding-mask, packed and cross-length routes (their forward,
-// ptt_flash_attention_seg_fwd_*, is flash_wgmma.cu's) ----
+// padding-mask, packed and cross-length routes in f32 (their forward and
+// the bf16 backward are flash_wgmma.cu's) ----
 
-#define PTT_SEG_ENTRIES(SUFFIX, T)                                            \
-  extern "C" int ptt_flash_attention_seg_dkv_##SUFFIX(                        \
-      const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, const void* seg_q,                  \
-      const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,  \
-      int Hk, int D, int causal, float scale, void* stream) {                 \
-    return dkv_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),    \
-                            static_cast<const float*>(delta)},                \
-                      static_cast<const int*>(seg_q),                         \
-                      static_cast<const int*>(seg_kv), kNoBias, dk, dv,       \
-                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
-  }                                                                           \
-  extern "C" int ptt_flash_attention_seg_dq_##SUFFIX(                         \
-      const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, const void* seg_q,                  \
-      const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,    \
-      int D, int causal, float scale, void* stream) {                         \
-    return dq_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),     \
-                           static_cast<const float*>(delta)},                 \
-                     static_cast<const int*>(seg_q),                          \
-                     static_cast<const int*>(seg_kv), kNoBias, dq,            \
-                     Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);     \
-  }
+extern "C" int ptt_flash_attention_seg_dkv_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q,
+    const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
+    int Hk, int D, int causal, float scale, void* stream) {
+  return dkv_any<float>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
+                              static_cast<const float*>(delta)},
+                        static_cast<const int*>(seg_q),
+                        static_cast<const int*>(seg_kv), kNoBias, dk, dv,
+                        Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);
+}
 
-PTT_SEG_ENTRIES(bf16, bf16)
-PTT_SEG_ENTRIES(f32, float)
-
-#undef PTT_SEG_ENTRIES
+extern "C" int ptt_flash_attention_seg_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q,
+    const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,
+    int D, int causal, float scale, void* stream) {
+  return dq_any<float>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
+                             static_cast<const float*>(delta)},
+                       static_cast<const int*>(seg_q),
+                       static_cast<const int*>(seg_kv), kNoBias, dq,
+                       Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);
+}
 
 // ---- bias (flash_attention_biased): kind 1 alibi (slopes f32 [Hq]), 2
 // rel_table (f32 [Hq, 2R + 1]), 3 dense (f32 read through the element

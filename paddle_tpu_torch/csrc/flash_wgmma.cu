@@ -5,13 +5,15 @@
 //     ids): the entries `ptt_flash_attention_fwd_bf16` and
 //     `ptt_flash_attention_bwd_bf16` (LLaMA training, sdpa without a
 //     mask), forward and backward;
-//   - the segment forward (`ptt_flash_attention_seg_fwd_bf16` / `_f32`:
-//     padding masks, packed documents, q and kv lengths Sq and Sk of
-//     their own, with int32 segment ids [B, Sq] / [B, Sk] or none), bf16
-//     on flash_fwd_wgmma_kernel<D, SEG> and f32 on its 3xTF32 form
-//     flash_fwd_tf32_kernel<D, SEG>; its backward (dkv, dq) stays on the
-//     mma.sync (bf16) and SIMT (f32) kernels of flash_attention.cu, which
-//     read this forward's o and lse.
+//   - the segment route (`ptt_flash_attention_seg_fwd_bf16` / `_f32`,
+//     `ptt_flash_attention_seg_dkv_bf16`, `_seg_dq_bf16`: padding masks,
+//     packed documents, q and kv lengths Sq and Sk of their own, with
+//     int32 segment ids [B, Sq] / [B, Sk] or none): the forward in bf16
+//     on flash_fwd_wgmma_kernel<D, SEG> and in f32 on its 3xTF32 form
+//     flash_fwd_tf32_kernel<D, SEG>; the bf16 backward on
+//     flash_bwd_dkv_wgmma_kernel<D, SEG> and flash_bwd_dq_wgmma_kernel<D,
+//     SEG>, the one-length route's backward with two lengths, ids and
+//     visit plans.
 // The bias routes, the f32 one-length route and every f32 backward stay
 // on flash_attention.cu.
 //
@@ -104,6 +106,21 @@
 //       of all four products;
 //     dq: a block owns 128 q rows of one head and walks the kv tiles (64
 //       rows a stage); q rows sit in the M position.
+//     q, dO, LSE and D run over Sq, k and v over Sk (a tensor map per
+//     length); rows past Sq stage LSE = +inf and D = 0 (P = 0), keys past
+//     Sk take P = 0. With segment ids (SEG) the forward's rules carry
+//     over: a producer warp stages each visited tile's ids and
+//     one-segment header beside it, a pair whose segments differ takes
+//     kSegMask in the log2 domain, and the LSE is read back into log2
+//     units by lse_log2 (kSegMask stays kSegMask; times log2(e) it would
+//     overflow to -inf and make P = 2^inf). dq walks the kv tiles of the
+//     forward's plan at its own tiles (seg_plan<128, 64>); dkv walks the
+//     q tiles of its own plan (seg_dkv_plan: the transposed rule, decided
+//     once per kv block for every head of the group), its stages filled
+//     by three producer warps (TMA; LSE and D; ids), which keeps each
+//     under setmaxnreg's 24 registers without a spill. The ids are
+//     compared from shared memory, against the thread's two rows' ids in
+//     registers, and only on mixed tiles.
 //   P and dS are rounded to bf16 before their products, as the mma.sync
 //   kernels and every flash kernel do; `scale` multiplies the f32 scores
 //   (MHA); GQA callers pass q pre-scaled in q's dtype and scale = 1.
@@ -943,6 +960,95 @@ flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
+// ------------------------------- backward ----------------------------------
+
+// A row's natural-log lse in the log2 units of P = 2^(s scale log2(e) -
+// lse2). The exact inverse of row_lse: a row with no key of its own
+// segment has lse == kSegMask, and kSegMask * log2(e) overflows to -inf,
+// which would give it P = 2^+inf and NaN gradients; its lse stays
+// kSegMask, so that its masked keys take P = 2^(kSegMask - kSegMask) = 1,
+// as the forward averaged them, and a real row's take 2^(kSegMask - lse2)
+// = 0.
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse == kSegMask ? kSegMask : lse * kLog2e;
+}
+
+// The dkv visit plan, run by all kThreads threads of the block before the
+// roles split: which of the n_q q tiles (BN rows each, the first at row
+// q_begin) the block's kv rows [k0, k0 + BM) visit. seg_plan's rule
+// transposed, decided per q tile: a tile is skipped when the [min, max]
+// segment range of its rows (< Sq) misses that of the block's keys (<
+// Sk), and only when each of its rows i holds its own segment at its own
+// position (i < Sk and seg_kv[i] == seg_q[i]). Such a row has a key of
+// its own segment (visible under causal: j = i), so its lse is a real one
+// and its P on keys of other segments is exactly 0. A row without one has
+// lse == kSegMask and P = 1 on every key it sees, so it adds to every dk
+// and dv: its tile is visited. One pass of int32 loads over the q rows
+// (seg_q[i], and seg_kv[i] for the own-position test); the ids do not
+// depend on the head, so the plan serves every q head of the GQA group.
+// Beside the visit bits it sets the mixed bits: a tile whose rows and
+// the block's keys are not all of one segment, whose pairs the consumers
+// must compare (tiles past kVisitTiles count as mixed). Returns the
+// number of visited tiles.
+template <int BM, int BN>
+__device__ __forceinline__ int seg_dkv_plan(const int* __restrict__ seg_q,
+                                            const int* __restrict__ seg_kv,
+                                            int b, int k0, int q_begin,
+                                            int Sq, int Sk, int n_q,
+                                            int* part, uint32_t* visit,
+                                            uint32_t* mixed) {
+  static_assert(BM <= kThreads, "one thread a kv row");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < kVisitWords; i += kThreads) {
+    visit[i] = 0u;
+    mixed[i] = 0u;
+  }
+  if (warp < BM / 32) {
+    const int key = k0 + tid;
+    int mn = INT_MAX, mx = INT_MIN;
+    if (key < Sk) mn = mx = seg_kv[static_cast<size_t>(b) * Sk + key];
+    mn = warp_min(mn);
+    mx = warp_max_i(mx);
+    if (lane == 0) {
+      part[4 * warp] = mn;
+      part[4 * warp + 1] = mx;
+    }
+  }
+  __syncthreads();
+  int kmm[2] = {INT_MAX, INT_MIN};            // the block's keys' range
+#pragma unroll
+  for (int w = 0; w < BM / 32; ++w) {
+    kmm[0] = min(kmm[0], part[4 * w]);
+    kmm[1] = max(kmm[1], part[4 * w + 1]);
+  }
+  const int n_scan = min(n_q, kVisitTiles);
+  for (int j = warp; j < n_scan; j += kThreads / 32) {
+    int mn = INT_MAX, mx = INT_MIN, bad = 0;
+    for (int r = lane; r < BN; r += 32) {
+      const int row = q_begin + j * BN + r;
+      if (row < Sq) {
+        const int v = seg_q[static_cast<size_t>(b) * Sq + row];
+        mn = min(mn, v);
+        mx = max(mx, v);
+        bad |= !(row < Sk && seg_kv[static_cast<size_t>(b) * Sk + row] == v);
+      }
+    }
+    mn = warp_min(mn);
+    mx = warp_max_i(mx);
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      if (bad || !(mx < kmm[0] || mn > kmm[1]))
+        atomicOr(&visit[j >> 5], 1u << (j & 31));
+      if (!(mn == mx && kmm[0] == kmm[1] && mn == kmm[0]))
+        atomicOr(&mixed[j >> 5], 1u << (j & 31));
+    }
+  }
+  __syncthreads();
+  int n = n_q - n_scan;
+  for (int w = 0; w < (n_scan + 31) / 32; ++w) n += __popc(visit[w]);
+  return n;
+}
+
 // ------------------------------ backward: dkv ------------------------------
 
 template <int D>
@@ -951,12 +1057,19 @@ using DkvGeo = Geo<D, 128, 64>;              // 128 kv rows; q tiles of 64
 template <int D>
 constexpr int dkv_smem() {
   using G = DkvGeo<D>;
-  // K, V; per stage Q, dO; per stage the q tile's LSE (log2 units) and D
+  // K, V; per stage Q, dO; per stage the q tile's LSE (log2 units) and D;
+  // the barriers, the stages' segment slices, the plan's partials, visit
+  // and mixed bits
   return 2 * G::M_BYTES + G::STAGES * 2 * G::N_BYTES +
-         G::STAGES * 2 * G::BN * 4 + 1024 + 8 * 8;
+         G::STAGES * 2 * G::BN * 4 + seg_extra<G::BM, G::STAGES, G::BN>() +
+         kVisitWords * 4;
 }
 
-template <int D>
+// dk, dv for k/v [B, Sk, Hk, D] against q, dO [B, Sq, Hq, D]; SEG:
+// segment ids seg_q [B, Sq], seg_kv [B, Sk] (the dkv plan, the staged
+// slices, kSegMask). Causal needs Sq == Sk. Without ids every q tile is
+// visited.
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
@@ -964,8 +1077,11 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_do,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
+                           const int* __restrict__ seg_q,
+                           const int* __restrict__ seg_kv,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int S, int Hq, int Hk, int causal, float scale) {
+                           int Sq, int Sk, int Hq, int Hk, int causal,
+                           float scale) {
   using G = DkvGeo<D>;
   constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES;
   extern __shared__ __align__(128) unsigned char fa_smem[];
@@ -977,58 +1093,96 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(lsd + STAGES * 2 * BN);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
+  // stage s's slice: {q0, mixed, -, -} then the tile's BN q segments
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(kv_full) + 64);
+  int* part = segs + STAGES * (kSegHdr + BN);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
+  uint32_t* mixed = visit + kVisitWords;
 
   const int k0 = blockIdx.x * BM;              // early keys see the most q
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int group = Hq / Hk;
   const int q_begin = causal ? k0 : 0;         // k0 is a multiple of BN
-  const int n_q = q_begin < S ? (S - q_begin + BN - 1) / BN : 0;
-  const int total = group * n_q;
+  const int n_q = q_begin < Sq ? (Sq - q_begin + BN - 1) / BN : 0;
 
   if (threadIdx.x == 0) {
     hw::mbar_init(kv_full, 1);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      hw::mbar_init(&full[s], 32);           // the producer warp's lanes
+      // the TMA thread, the LSE / D warp and, with ids, the ids warp
+      hw::mbar_init(&full[s], SEG ? 65 : 33);
       hw::mbar_init(&empty[s], 8);
     }
     hw::fence_barrier_init();
+    hw::mbar_arrive_expect_tx(kv_full, 2 * G::M_BYTES);
+    load_tile<G::NB, BM>(Ks, &map_k, kv_full, b, hk, k0);
+    load_tile<G::NB, BM>(Vs, &map_v, kv_full, b, hk, k0);
   }
   __syncthreads();
+  const int n_vis =
+      SEG ? seg_dkv_plan<BM, BN>(seg_q, seg_kv, b, k0, q_begin, Sq, Sk, n_q,
+                                 part, visit, mixed)
+          : n_q;
+  const int total = group * n_vis;             // stages: heads x tiles
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
     hw::setmaxnreg_dec<24>();
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      if (lane == 0) {
-        hw::mbar_arrive_expect_tx(kv_full, 2 * G::M_BYTES);
-        load_tile<G::NB, BM>(Ks, &map_k, kv_full, b, hk, k0);
-        load_tile<G::NB, BM>(Vs, &map_v, kv_full, b, hk, k0);
-      }
-      for (int it = 0; it < total; ++it) {
+    // The `total` stages: every q head of the group in turn over the
+    // visited q tiles. Three producer warps fill each stage, so that
+    // none holds more than its 24 registers: warp 0's first thread loads
+    // Q and dO by TMA, warp 1 stages the tile's LSE (log2 units; +inf
+    // past Sq: P = 0) and D, and with ids warp 2 stages the tile's
+    // segments and the header {q0, mixed} (the plan's mixed bit).
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    auto walk = [&](auto&& fill) {
+      for (int it = 0, g = 0, j = -1; it < total; ++it) {
+        do {                                   // the next visited tile
+          if (++j == n_q) {
+            j = 0;
+            ++g;
+          }
+        } while (SEG && !visited(visit, j));
         const int s = it % STAGES;
-        const int h = hk * group + it / n_q;
-        const int q0 = q_begin + (it % n_q) * BN;
         hw::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        fill(s, hk * group + g, j, q_begin + j * BN);
+      }
+    };
+    if (warp == 0 && lane == 0) {
+      walk([&](int s, int h, int, int q0) {
+        hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_BYTES);
+        bf16* Qs = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
+        load_tile<G::NB, BN>(Qs, &map_q, &full[s], b, h, q0);
+        load_tile<G::NB, BN>(Qs + BN * D, &map_do, &full[s], b, h, q0);
+      });
+    } else if (warp == 1) {
+      walk([&](int s, int h, int, int q0) {
         float* ls = lsd + s * 2 * BN;
 #pragma unroll
         for (int r = lane; r < BN; r += 32) {
           const int row = q0 + r;
-          const size_t i = (static_cast<size_t>(b) * Hq + h) * S + row;
-          ls[r] = row < S ? lse[i] * kLog2e : INFINITY;
-          ls[BN + r] = row < S ? delta[i] : 0.f;
+          const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
+          ls[r] = row < Sq ? lse_log2(lse[i]) : INFINITY;
+          ls[BN + r] = row < Sq ? delta[i] : 0.f;
+        }
+        hw::mbar_arrive(&full[s]);
+      });
+    } else if (SEG && warp == 2) {
+      walk([&](int s, int, int j, int q0) {
+        int* hdr = segs + s * (kSegHdr + BN);
+#pragma unroll
+        for (int r = lane; r < BN; r += 32) {
+          const int row = q0 + r;
+          hdr[kSegHdr + r] =
+              row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
         }
         if (lane == 0) {
-          hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_BYTES);
-          bf16* Qs = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
-          load_tile<G::NB, BN>(Qs, &map_q, &full[s], b, h, q0);
-          load_tile<G::NB, BN>(Qs + BN * D, &map_do, &full[s], b, h, q0);
-        } else {
-          hw::mbar_arrive(&full[s]);
+          hdr[0] = q0;
+          hdr[1] = j >= kVisitTiles || ((mixed[j >> 5] >> (j & 31)) & 1u);
         }
-      }
+        hw::mbar_arrive(&full[s]);
+      });
     }
   } else {
     hw::setmaxnreg_inc<240>();
@@ -1039,14 +1193,23 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int r0 = kv_lo + (t >> 5) * 16 + (lane >> 2);   // + 8 hh
     const int c_off = 2 * (lane & 3);
     const float sl2 = scale * kLog2e;
+    int sk[2] = {0, 0};                        // this thread's rows' segments
+    if (SEG) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        sk[hh] = row < Sk ? seg_kv[static_cast<size_t>(b) * Sk + row] : 0;
+      }
+    }
 
     float adk[D / 2], adv[D / 2];              // dK, dV [64 x D]
     bool started = false;
     hw::mbar_wait(kv_full, 0);
     for (int it = 0; it < total; ++it) {
       const int s = it % STAGES;
-      const int q0 = q_begin + (it % n_q) * BN;
       hw::mbar_wait(&full[s], (it / STAGES) & 1);
+      const int* hdr = segs + s * (kSegHdr + BN);
+      const int q0 = SEG ? hdr[0] : q_begin + (it % n_q) * BN;
       // every q row of the tile precedes every kv row of this consumer
       if (!(causal && q0 + BN <= kv_lo)) {
         const bf16* Qs =
@@ -1070,23 +1233,35 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hw::fence_regs(st);
         hw::fence_regs(dpt);
 
-        const bool edge = (causal && q0 < kv_lo + 64) || q0 + BN > S ||
-                          kv_lo + 64 > S;
+        // a pair whose segments differ (a mixed tile: the q segments
+        // from shared memory against this thread's kv rows') takes
+        // kSegMask; a q row past Sq, a key past Sk or one above the
+        // causal diagonal P = 0 (edge tiles only)
+        const bool mixed = SEG && hdr[1];
+        const int* qid = hdr + kSegHdr;
+        const bool edge = (causal && q0 < kv_lo + 64) || q0 + BN > Sq ||
+                          kv_lo + 64 > Sk;
         uint32_t pf[BN / 16][4], dsf[BN / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             const int i = 8 * kk + 2 * x;
-            const int kj = r0 + 8 * (x & 1);
+            const int hh = x & 1;
+            const int kj = r0 + 8 * hh;
+            const int c0 = 8 * (i >> 2) + c_off;   // the pair's first q
+            int2 qs = make_int2(0, 0);
+            if (mixed) qs = *reinterpret_cast<const int2*>(qid + c0);
             float p[2], ds[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int c = 8 * (i >> 2) + c_off + e;   // q column
-              p[e] = ex2(fmaf(st[i + e], sl2, -ls[c]));
+              const int c = c0 + e;                  // q column
+              float y = fmaf(st[i + e], sl2, -ls[c]);
+              if (mixed && (e ? qs.y : qs.x) != sk[hh]) y = kSegMask - ls[c];
+              p[e] = ex2(y);
               if (edge) {
                 const int qi = q0 + c;
-                if (qi >= S || kj >= S || (causal && kj > qi)) p[e] = 0.f;
+                if (qi >= Sq || kj >= Sk || (causal && kj > qi)) p[e] = 0.f;
               }
               ds[e] = p[e] * (dpt[i + e] - ls[BN + c]);
             }
@@ -1113,19 +1288,21 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane == 0) hw::mbar_arrive(&empty[s]);
     }
 
+    // a consumer that visited no tile (every q tile skipped by the plan,
+    // or past its rows under causal) writes zeros
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r0 + 8 * hh;
-      if (row >= S) continue;
+      if (row >= Sk) continue;
       const size_t base =
-          ((static_cast<size_t>(b) * S + row) * Hk + hk) * D + c_off;
+          ((static_cast<size_t>(b) * Sk + row) * Hk + hk) * D + c_off;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         const int i = 4 * jj + 2 * hh;
         *reinterpret_cast<uint32_t*>(dk + base + 8 * jj) =
-            ptt::pack_bf16(adk[i] * scale, adk[i + 1] * scale);
+            started ? ptt::pack_bf16(adk[i] * scale, adk[i + 1] * scale) : 0u;
         *reinterpret_cast<uint32_t*>(dv + base + 8 * jj) =
-            ptt::pack_bf16(adv[i], adv[i + 1]);
+            started ? ptt::pack_bf16(adv[i], adv[i + 1]) : 0u;
       }
     }
   }
@@ -1139,10 +1316,17 @@ using DqGeo = Geo<D, 128, 64>;               // 128 q rows; kv tiles of 64
 template <int D>
 constexpr int dq_smem() {
   using G = DqGeo<D>;
-  return 2 * G::M_BYTES + G::STAGES * 2 * G::N_BYTES + 1024 + 8 * 8;
+  // Q, dO; per stage K, V; the barriers, the stages' segment slices, the
+  // plan's partials and visit bits
+  return 2 * G::M_BYTES + G::STAGES * 2 * G::N_BYTES +
+         seg_extra<G::BM, G::STAGES, G::BN>();
 }
 
-template <int D>
+// dq for q, dO [B, Sq, Hq, D] against k/v [B, Sk, Hk, D]; SEG: segment
+// ids, walking the kv tiles of seg_plan (the forward's plan at dq's tiles:
+// 128 q rows, kv tiles of 64), with the forward's producer (seg_produce)
+// and mask. Causal needs Sq == Sk.
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -1150,8 +1334,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_do,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int S, int Hq, int Hk,
-                          int causal, float scale) {
+                          const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_kv,
+                          bf16* __restrict__ dq, int Sq, int Sk, int Hq,
+                          int Hk, int causal, float scale) {
   using G = DqGeo<D>;
   constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES;
   extern __shared__ __align__(128) unsigned char fa_smem[];
@@ -1163,41 +1349,51 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       reinterpret_cast<uint64_t*>(ring + STAGES * 2 * G::N_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* part = segs + STAGES * (kSegHdr + BN);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hk);
   const int q0 = qt * BM;
-  const int kv_end = causal ? min(S, q0 + BM) : S;
+  const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
   const int n_kv = (kv_end + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     hw::mbar_init(q_full, 1);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&full[s], SEG ? 32 : 1);
       hw::mbar_init(&empty[s], 8);
     }
     hw::fence_barrier_init();
+    hw::mbar_arrive_expect_tx(q_full, 2 * G::M_BYTES);
+    load_tile<G::NB, BM>(Qs, &map_q, q_full, b, h, q0);
+    load_tile<G::NB, BM>(dOs, &map_do, q_full, b, h, q0);
   }
   __syncthreads();
+  int qmm[2] = {0, 0};
+  const int n_vis =
+      SEG ? seg_plan<BM, BN>(seg_q, seg_kv, b, q0, Sq, Sk, n_kv, part, visit,
+                             qmm)
+          : n_kv;
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
     hw::setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      hw::mbar_arrive_expect_tx(q_full, 2 * G::M_BYTES);
-      load_tile<G::NB, BM>(Qs, &map_q, q_full, b, h, q0);
-      load_tile<G::NB, BM>(dOs, &map_do, q_full, b, h, q0);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % STAGES;
-        hw::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-        bf16* Ks = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
-        hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_BYTES);
-        load_tile<G::NB, BN>(Ks, &map_k, &full[s], b, hk, j * BN);
-        load_tile<G::NB, BN>(Ks + BN * D, &map_v, &full[s], b, hk, j * BN);
-      }
+    auto load = [&](int s, int j) {
+      bf16* Ks = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
+      load_tile<G::NB, BN>(Ks, &map_k, &full[s], b, hk, j * BN);
+      load_tile<G::NB, BN>(Ks + BN * D, &map_v, &full[s], b, hk, j * BN);
+    };
+    if (SEG) {
+      if (threadIdx.x < 32)
+        seg_produce<BN, STAGES>(seg_kv, b, Sk, n_kv, visit, qmm, segs, full,
+                                empty, 2 * G::N_BYTES, load);
+    } else if (threadIdx.x == 0) {
+      produce_all<STAGES>(n_kv, full, empty, 2 * G::N_BYTES, load);
     }
   } else {
     hw::setmaxnreg_inc<240>();
@@ -1208,14 +1404,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int r0 = row_lo + (t >> 5) * 16 + (lane >> 2);  // + 8 hh
     const int c_off = 2 * (lane & 3);
     const float sl2 = scale * kLog2e;
-    // this thread's two rows: LSE in log2 units (+inf past S: P = 0), D
+    // this thread's two rows: LSE in log2 units (+inf past Sq: P = 0), D,
+    // and their segments
     float lse2[2], dl[2];
+    int sq[2] = {0, 0};
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r0 + 8 * hh;
-      const size_t i = (static_cast<size_t>(b) * Hq + h) * S + row;
-      lse2[hh] = row < S ? lse[i] * kLog2e : INFINITY;
-      dl[hh] = row < S ? delta[i] : 0.f;
+      const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
+      lse2[hh] = row < Sq ? lse_log2(lse[i]) : INFINITY;
+      dl[hh] = row < Sq ? delta[i] : 0.f;
+      if (SEG) sq[hh] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
     }
 
     // software-pipelined: tile j's S and dP are issued together with tile
@@ -1227,11 +1426,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     float sc[BN / 2], dp[BN / 2];              // S, dP [64 x BN], then dS
     uint32_t dsf[BN / 16][4];                  // dS of the previous tile
     hw::mbar_wait(q_full, 0);
-    for (int j = 0; j < n_kv; ++j) {
+    for (int j = 0; j < n_vis; ++j) {
       const int s = j % STAGES;
       const int sp = (j + STAGES - 1) % STAGES;  // the previous tile's
-      const int k0 = j * BN;
       hw::mbar_wait(&full[s], (j / STAGES) & 1);
+      const int* hdr = segs + s * (kSegHdr + BN);
+      const int k0 = SEG ? hdr[0] : j * BN;
       const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * 2 * G::N_BYTES);
       const bf16* Vs = Ks + BN * D;
       hw::fence_regs(sc);
@@ -1260,16 +1460,29 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       hw::fence_regs(sc);
       hw::fence_regs(dp);
-      const bool edge = (causal && k0 + BN > row_lo) || k0 + BN > S;
+      // a pair whose segments differ (a mixed tile: the staged kv
+      // segments against this thread's rows') takes kSegMask; a key past
+      // Sk or above the causal diagonal P = 0 (edge tiles only)
+      const bool mixed = SEG && hdr[1];
+      const int* ids = hdr + kSegHdr;
+      const bool edge = (causal && k0 + BN > row_lo) || k0 + BN > Sk;
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
+      for (int i = 0; i < BN / 2; i += 2) {
         const int hh = (i >> 1) & 1;
-        float p = ex2(fmaf(sc[i], sl2, -lse2[hh]));
-        if (edge) {
-          const int kj = k0 + 8 * (i >> 2) + c_off + (i & 1);
-          if (kj >= S || (causal && kj > r0 + 8 * hh)) p = 0.f;
+        const int cl = 8 * (i >> 2) + c_off;   // the pair's first key
+        int2 ks = make_int2(0, 0);
+        if (mixed) ks = *reinterpret_cast<const int2*>(ids + cl);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float y = fmaf(sc[i + e], sl2, -lse2[hh]);
+          if (mixed && (e ? ks.y : ks.x) != sq[hh]) y = kSegMask - lse2[hh];
+          float p = ex2(y);
+          if (edge) {
+            const int kj = k0 + cl + e;
+            if (kj >= Sk || (causal && kj > r0 + 8 * hh)) p = 0.f;
+          }
+          dp[i + e] = p * (dp[i + e] - dl[hh]);  // dS
         }
-        dp[i] = p * (dp[i] - dl[hh]);          // dS
       }
       if (j > 0) {
         hw::wgmma_wait<0>();
@@ -1284,15 +1497,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                       dp[8 * kk + 2 * x + 1]);
     }
     {
-      // the last tile's dQ += dS K (n_kv >= 1: q0 < S)
-      const int sl = (n_kv - 1) % STAGES;
+      // the last tile's dQ += dS K (n_vis >= 1: q0 < Sq, and the plan
+      // visits the tile of some row's own key)
+      const int sl = (n_vis - 1) % STAGES;
       const bf16* Kl =
           reinterpret_cast<const bf16*>(ring + sl * 2 * G::N_BYTES);
       hw::fence_regs(acc);
       hw::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        hw::wgmma_rs<1>(acc, dsf[kk], mnmajor<BN>(Kl, kk), n_kv > 1 || kk > 0);
+        hw::wgmma_rs<1>(acc, dsf[kk], mnmajor<BN>(Kl, kk), n_vis > 1 || kk > 0);
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       hw::fence_regs(acc);
@@ -1301,9 +1515,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = r0 + 8 * hh;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
       bf16* dst =
-          dq + ((static_cast<size_t>(b) * S + row) * Hq + h) * D + c_off;
+          dq + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
         *reinterpret_cast<uint32_t*>(dst + 8 * jj) = ptt::pack_bf16(
@@ -1314,38 +1528,22 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // -------------------------------- launch -----------------------------------
 
-struct Shape {
-  int B, S, Hq, Hk, D, causal;
-  float scale;
-};
-
-// 0 = launch, -1 = nothing to do, else the error to return
-int check_shape(const Shape& s) {
-  if (s.B <= 0 || s.S <= 0) return -1;
-  if (s.Hk <= 0 || s.Hq % s.Hk != 0 || (s.D != 64 && s.D != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
-}
-
 template <class K>
 cudaError_t prepare(K kernel, int smem) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// the maps of q, k, v (and dout) with the box rows each kernel streams
-struct Maps {
-  CUtensorMap q, k, v, dout;
-};
-
-int make_maps(Maps* m, const void* q, const void* k, const void* v,
-              const void* dout, const Shape& s, int q_rows, int kv_rows) {
-  int err = hw::tma_map_bshd(&m->q, q, s.B, s.S, s.Hq, s.D, q_rows);
-  if (err == 0) err = hw::tma_map_bshd(&m->k, k, s.B, s.S, s.Hk, s.D, kv_rows);
-  if (err == 0) err = hw::tma_map_bshd(&m->v, v, s.B, s.S, s.Hk, s.D, kv_rows);
-  if (err == 0 && dout != nullptr)
-    err = hw::tma_map_bshd(&m->dout, dout, s.B, s.S, s.Hq, s.D, q_rows);
-  return err;
+// 0 = launch, -1 = nothing to do, else the error to return: q [B, Sq,
+// Hq, D] against k/v [B, Sk, Hk, D], seg_q / seg_kv both given or both
+// null; causal needs Sq == Sk
+int check_shape(int B, int Sq, int Sk, int Hq, int Hk, int D, int causal,
+                const int* seg_q, const int* seg_kv) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0) return -1;
+  if (Hk <= 0 || Hq % Hk != 0 || (D != 64 && D != 128) ||
+      (causal && Sq != Sk) || ((seg_q == nullptr) != (seg_kv == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 // the forwards' shape: q [B, Sq, Hq, D], k/v [B, Sk, Hk, D]; seg_q /
@@ -1357,16 +1555,6 @@ struct FwdArgs {
   int B, Sq, Sk, Hq, Hk, D, causal;
   float scale;
 };
-
-// 0 = launch, -1 = nothing to do, else the error to return; causal
-// needs Sq == Sk
-int check_fwd(const FwdArgs& a) {
-  if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0) return -1;
-  if (a.Hk <= 0 || a.Hq % a.Hk != 0 || (a.D != 64 && a.D != 128) ||
-      (a.causal && a.Sq != a.Sk) || ((a.seg_q == nullptr) != (a.seg_kv == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
-}
 
 // bf16 (EB = 2) on flash_fwd_wgmma_kernel, f32 (EB = 4) on
 // flash_fwd_tf32_kernel; the segment instantiation when ids are given
@@ -1403,7 +1591,8 @@ int fwd_launch(const FwdArgs& a, cudaStream_t stream) {
 
 template <int EB>
 int fwd_any(const FwdArgs& a, void* stream) {
-  const int c = check_fwd(a);
+  const int c = check_shape(a.B, a.Sq, a.Sk, a.Hq, a.Hk, a.D, a.causal,
+                            a.seg_q, a.seg_kv);
   if (c != 0) return c < 0 ? 0 : c;
   auto st = static_cast<cudaStream_t>(stream);
   const bool seg = a.seg_q != nullptr;
@@ -1412,38 +1601,80 @@ int fwd_any(const FwdArgs& a, void* stream) {
   return seg ? fwd_launch<128, EB, true>(a, st) : fwd_launch<128, EB, false>(a, st);
 }
 
-template <int D>
-int bwd(const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* delta, void* dq_out, void* dk,
-        void* dv, const Shape& s, cudaStream_t stream) {
-  {
-    using G = DkvGeo<D>;
-    // the q tiles stream (box BN rows), the kv tile stays (box BM rows)
-    Maps m;
-    int err = make_maps(&m, q, k, v, dout, s, G::BN, G::BM);
-    if (err != 0) return err;
-    constexpr int smem = dkv_smem<D>();
-    cudaError_t e = prepare(flash_bwd_dkv_wgmma_kernel<D>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((s.S + G::BM - 1) / G::BM, s.Hk, s.B);
-    flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-        m.q, m.k, m.v, m.dout, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), s.S, s.Hq, s.Hk, s.causal, s.scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+// the backwards' shape: q, dout [B, Sq, Hq, D], k/v [B, Sk, Hk, D], lse
+// and delta f32 [B, Hq, Sq]; seg_q / seg_kv as the forward's; the outputs
+// dq (q's shape), dk and dv (k's), each null where its launch does not run
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int *seg_q, *seg_kv;
+  void *dq, *dk, *dv;
+  int B, Sq, Sk, Hq, Hk, D, causal;
+  float scale;
+};
+
+template <int D, bool SEG>
+int dkv_launch(const BwdArgs& a, cudaStream_t stream) {
+  using G = DkvGeo<D>;
+  // the q tiles stream (box BN rows of Sq), the kv tile stays (box BM
+  // rows of Sk)
+  CUtensorMap mq, mdo, mk, mv;
+  int err = hw::tma_map_bshd(&mq, a.q, a.B, a.Sq, a.Hq, D, G::BN);
+  if (err == 0) err = hw::tma_map_bshd(&mdo, a.dout, a.B, a.Sq, a.Hq, D, G::BN);
+  if (err == 0) err = hw::tma_map_bshd(&mk, a.k, a.B, a.Sk, a.Hk, D, G::BM);
+  if (err == 0) err = hw::tma_map_bshd(&mv, a.v, a.B, a.Sk, a.Hk, D, G::BM);
+  if (err != 0) return err;
+  constexpr int smem = dkv_smem<D>();
+  cudaError_t e = prepare(flash_bwd_dkv_wgmma_kernel<D, SEG>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.Sk + G::BM - 1) / G::BM, a.Hk, a.B);
+  flash_bwd_dkv_wgmma_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.Hq,
+      a.Hk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool SEG>
+int dq_launch(const BwdArgs& a, cudaStream_t stream) {
   using G = DqGeo<D>;
-  Maps m;
-  int err = make_maps(&m, q, k, v, dout, s, G::BM, G::BN);
+  // the q tile stays (box BM rows of Sq), the kv tiles stream (box BN
+  // rows of Sk)
+  CUtensorMap mq, mdo, mk, mv;
+  int err = hw::tma_map_bshd(&mq, a.q, a.B, a.Sq, a.Hq, D, G::BM);
+  if (err == 0) err = hw::tma_map_bshd(&mdo, a.dout, a.B, a.Sq, a.Hq, D, G::BM);
+  if (err == 0) err = hw::tma_map_bshd(&mk, a.k, a.B, a.Sk, a.Hk, D, G::BN);
+  if (err == 0) err = hw::tma_map_bshd(&mv, a.v, a.B, a.Sk, a.Hk, D, G::BN);
   if (err != 0) return err;
   constexpr int smem = dq_smem<D>();
-  cudaError_t e = prepare(flash_bwd_dq_wgmma_kernel<D>, smem);
+  cudaError_t e = prepare(flash_bwd_dq_wgmma_kernel<D, SEG>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((s.S + G::BM - 1) / G::BM, s.Hq, s.B);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      m.q, m.k, m.v, m.dout, lse, delta, static_cast<bf16*>(dq_out), s.S,
-      s.Hq, s.Hk, s.causal, s.scale);
+  dim3 grid((a.Sq + G::BM - 1) / G::BM, a.Hq, a.B);
+  flash_bwd_dq_wgmma_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+      static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the dkv launch, then the dq launch, of what a.dk / a.dq ask for; the
+// segment instantiations when ids are given
+int bwd_any(const BwdArgs& a, void* stream) {
+  const int c = check_shape(a.B, a.Sq, a.Sk, a.Hq, a.Hk, a.D, a.causal,
+                            a.seg_q, a.seg_kv);
+  if (c != 0) return c < 0 ? 0 : c;
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool seg = a.seg_q != nullptr;
+  int err = 0;
+  if (a.dk != nullptr) {
+    if (a.D == 64)
+      err = seg ? dkv_launch<64, true>(a, st) : dkv_launch<64, false>(a, st);
+    else
+      err = seg ? dkv_launch<128, true>(a, st) : dkv_launch<128, false>(a, st);
+  }
+  if (err != 0 || a.dq == nullptr) return err;
+  if (a.D == 64)
+    return seg ? dq_launch<64, true>(a, st) : dq_launch<64, false>(a, st);
+  return seg ? dq_launch<128, true>(a, st) : dq_launch<128, false>(a, st);
 }
 
 template <typename T>
@@ -1481,10 +1712,23 @@ extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k,
                     stream);
 }
 
-// ---- the segment forward (padding masks, packed documents, q and kv
+// dkv, then dq, from the delta pre-pass's D (ptt_flash_attention_delta_*)
+extern "C" int ptt_flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
+    int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
+  return bwd_any(BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), nullptr, nullptr,
+                         dq, dk, dv, B, S, S, Hq, Hk, D, causal, scale},
+                 stream);
+}
+
+// ---- the segment route (padding masks, packed documents, q and kv
 // lengths of their own): q [B, Sq, Hq, D], k/v [B, Sk, Hk, D], seg_q /
-// seg_kv int32 [B, Sq] / [B, Sk] (both or neither); bf16 on the wgmma
-// core, f32 on its 3xTF32 form. Its backward is flash_attention.cu's. ----
+// seg_kv int32 [B, Sq] / [B, Sk] (both or neither). The forward: bf16 on
+// the wgmma core, f32 on its 3xTF32 form; the bf16 backward (dkv, dq,
+// from the delta pre-pass's D) on the wgmma core; the f32 backward is
+// flash_attention.cu's SIMT. ----
 
 extern "C" int ptt_flash_attention_seg_fwd_bf16(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -1506,20 +1750,30 @@ extern "C" int ptt_flash_attention_seg_fwd_f32(
                     stream);
 }
 
-// delta [B, H, S] f32 from the BSHD output and its cotangent, then dkv,
-// then dq
-extern "C" int ptt_flash_attention_bwd_bf16(
+extern "C" int ptt_flash_attention_seg_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-    int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
-  const Shape s{B, S, Hq, Hk, D, causal, scale};
-  const int c = check_shape(s);
-  if (c != 0) return c < 0 ? 0 : c;
-  auto st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(delta);
-  return D == 64 ? bwd<64>(q, k, v, dout, l, d, dq, dk, dv, s, st)
-                 : bwd<128>(q, k, v, dout, l, d, dq, dk, dv, s, st);
+    const void* lse, const void* delta, const void* seg_q,
+    const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
+    int Hk, int D, int causal, float scale, void* stream) {
+  return bwd_any(BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(delta),
+                         static_cast<const int*>(seg_q),
+                         static_cast<const int*>(seg_kv), nullptr, dk, dv, B,
+                         Sq, Sk, Hq, Hk, D, causal, scale},
+                 stream);
+}
+
+extern "C" int ptt_flash_attention_seg_dq_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q,
+    const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,
+    int D, int causal, float scale, void* stream) {
+  return bwd_any(BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(delta),
+                         static_cast<const int*>(seg_q),
+                         static_cast<const int*>(seg_kv), dq, nullptr,
+                         nullptr, B, Sq, Sk, Hq, Hk, D, causal, scale},
+                 stream);
 }
 
 // D = rowsum(dout * o) in f32: o, dout BSHD [B, S, H, D] -> delta [B, H, S]

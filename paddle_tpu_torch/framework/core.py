@@ -3,9 +3,17 @@ policy (counterpart of paddle_tpu/framework/core.py).
 
 Only the flags the ported slices read are registered, with the
 reference's names and defaults (the serving features not yet ported
-default to the reference's kill switches); `get_flag` reads the environment first,
-as the reference does, and `get_bool_flag` normalises env strings so
-`FLAGS_x=0` turns a kill switch off.
+default to the reference's kill switches); `get_flag` reads the
+environment first, as the reference does, and `get_bool_flag`
+normalises env strings so `FLAGS_x=0` turns a kill switch off.
+
+Every other flag raises rather than being silently dropped:
+`set_flags` refuses a name the port does not register, and
+`check_env_flags` (run where `TrainStep` and `ContinuousBatchingEngine`
+are built) refuses a reference flag set in the environment to a value
+other than the reference's default. `_REFERENCE_FLAGS` is the port's
+own copy of the reference's flag table (names and defaults); the port
+does not import the reference.
 """
 from __future__ import annotations
 
@@ -15,8 +23,9 @@ import threading
 
 import torch
 
-__all__ = ["set_flags", "get_flag", "get_bool_flag", "seed",
-           "resolve_device", "current_remat_policy", "remat_policy_guard"]
+__all__ = ["set_flags", "get_flag", "get_bool_flag", "check_env_flags",
+           "seed", "resolve_device", "current_remat_policy",
+           "remat_policy_guard"]
 
 _flags: dict = {
     # fused transformer hot path: the serving blocks run the wide QKV
@@ -46,14 +55,131 @@ _flags: dict = {
     "FLAGS_speculative_draft_tokens": 0,
     "FLAGS_serving_slo": False,
     "FLAGS_request_trace": False,
+    # read by jit.TrainStep after each step, as the reference's TrainStep
+    # reads them (paddle_tpu/jit/__init__.py): a non-finite loss or
+    # updated parameter raises FloatingPointError; the step's wall time
+    # in ms, and the device's allocated and peak bytes (CUDA only), on
+    # stderr
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_benchmark": False,
+    "FLAGS_log_memory_stats": False,
+}
+
+# The reference's flag table (paddle_tpu/framework/core.py, `_flags`):
+# every name with its default. A name here that `_flags` above does not
+# register is not ported: setting it raises (`set_flags`,
+# `check_env_flags`). Among them FLAGS_gemm_use_half_precision_compute_type
+# (TF32 on or off, ROADMAP Queue 2) and the observability flags (metrics,
+# flight recorder, request-trace sink, lock witness: ROADMAP Queue 1).
+_REFERENCE_FLAGS = {
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_check_nan_inf_warn_only": False,
+    "FLAGS_check_nan_inf_level": 0,
+    "FLAGS_call_stack_level": 1,
+    "FLAGS_cudnn_deterministic": False,
+    "FLAGS_cpu_deterministic": False,
+    "FLAGS_embedding_deterministic": 0,
+    "FLAGS_eager_dispatch_cache": True,
+    "FLAGS_eager_dispatch_cache_size": 1024,
+    "FLAGS_fault_inject": "",
+    "FLAGS_comm_timeout": 1800.0,
+    "FLAGS_metrics": False,
+    "FLAGS_metrics_port": 0,
+    "FLAGS_flight_recorder": "",
+    "FLAGS_span_ring_size": 512,
+    "FLAGS_metrics_snapshot": "",
+    "FLAGS_metrics_snapshot_interval": 2.0,
+    "FLAGS_request_trace": True,
+    "FLAGS_request_trace_sink": "",
+    "FLAGS_lock_witness": False,
+    "FLAGS_dataloader_prefetch": True,
+    "FLAGS_use_autotune": True,
+    "FLAGS_use_fused_ce": False,
+    "FLAGS_use_flash_attention": True,
+    "FLAGS_fused_transformer": True,
+    "FLAGS_ragged_attention": True,
+    "FLAGS_serving_slo": True,
+    "FLAGS_speculative": True,
+    "FLAGS_speculative_draft_tokens": 4,
+    "FLAGS_prefix_cache": True,
+    "FLAGS_serving_fleet": True,
+    "FLAGS_quant_collectives": True,
+    "FLAGS_quant_collectives_block": 256,
+    "FLAGS_zero": True,
+    "FLAGS_cudnn_exhaustive_search": False,
+    "FLAGS_gemm_use_half_precision_compute_type": True,
+    "FLAGS_benchmark": False,
+    "FLAGS_log_memory_stats": False,
+    "FLAGS_max_inplace_grad_add": 0,
+    "FLAGS_eager_delete_tensor_gb": 0.0,
+    "FLAGS_fraction_of_gpu_memory_to_use": 0.92,
+    "FLAGS_allocator_strategy": "auto_growth",
+    "FLAGS_gpu_memory_limit_mb": 0,
+    "FLAGS_conv_workspace_size_limit": 512,
+    "FLAGS_cudnn_batchnorm_spatial_persistent": False,
+    "FLAGS_enable_cublas_tensor_op_math": True,
+    "FLAGS_use_system_allocator": False,
+    "FLAGS_use_pinned_memory": True,
+    "FLAGS_init_allocated_mem": False,
+    "FLAGS_initial_cpu_memory_in_mb": 500,
+    "FLAGS_memory_fraction_of_eager_deletion": 1.0,
+    "FLAGS_fast_eager_deletion_mode": True,
+    "FLAGS_use_mkldnn": False,
+    "FLAGS_enable_pir_api": True,
+    "FLAGS_new_executor_serial_run": False,
+    "FLAGS_low_precision_op_list": 0,
+    "FLAGS_print_model_stats": False,
+    "FLAGS_sync_nccl_allreduce": True,
+    "FLAGS_fuse_parameter_memory_size": -1,
+    "FLAGS_rpc_deadline": 180000,
+    "FLAGS_apply_pass_to_program": False,
 }
 
 _FALSY = (False, None, 0, 0.0, "0", "false", "False", "", "off", "OFF")
 
 
+def _not_ported(key) -> str:
+    where = ("a flag of the reference" if key in _REFERENCE_FLAGS
+             else "not a flag of the reference either")
+    return (f"{key} is not ported ({where}); the port's flags are "
+            f"{', '.join(sorted(_flags))}")
+
+
 def set_flags(flags: dict) -> None:
+    """Set registered flags; a name the port does not register raises
+    NotImplementedError and nothing is set."""
+    for k in flags:
+        if k not in _flags:
+            raise NotImplementedError(f"set_flags: {_not_ported(k)}")
     for k, v in flags.items():
         _flags[k] = v
+
+
+def _is_default(env: str, default) -> bool:
+    """Whether an environment string states the reference's default."""
+    if isinstance(default, bool):
+        return (env not in _FALSY) == default
+    if isinstance(default, (int, float)):
+        try:
+            return float(env) == float(default)
+        except ValueError:
+            return False
+    return env == default
+
+
+def check_env_flags(what: str) -> None:
+    """Raise NotImplementedError when the environment sets a reference
+    flag the port does not port to a value other than the reference's
+    default: the reference would act on it, the port cannot. `what`
+    names the entry point in the message. Names that are no flag of the
+    reference are left alone, as the reference leaves them."""
+    for key, env in os.environ.items():
+        if key in _flags or key not in _REFERENCE_FLAGS:
+            continue
+        if not _is_default(env, _REFERENCE_FLAGS[key]):
+            raise NotImplementedError(
+                f"{what}: {key}={env!r} in the environment: "
+                f"{_not_ported(key)}")
 
 
 def get_flag(key, default=None):

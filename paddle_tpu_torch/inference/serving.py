@@ -402,6 +402,7 @@ class ContinuousBatchingEngine:
                  max_queue_tokens: Optional[int] = None,
                  request_trace: Optional[bool] = None,
                  device=None):
+        _core.check_env_flags("ContinuousBatchingEngine")
         self.device = resolve_device(device)
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))

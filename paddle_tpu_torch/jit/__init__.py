@@ -10,9 +10,24 @@ The remat policy is armed around the forward and the backward, as the
 reference arms it around its trace (l.708-717); it acts where a model
 rematerialises its layers (`cfg.use_recompute`). Gradient scaling,
 sharding and gradient accumulation are not ported: asking for any of
-them raises.
+them raises, and so does an unported reference flag set in the
+environment (`core.check_env_flags`).
+
+After each step it reads the reference's three step flags (l.797-878):
+FLAGS_check_nan_inf raises FloatingPointError on a non-finite loss or
+updated floating parameter (the parameters are updated first, as the
+reference's compiled step updates them); FLAGS_benchmark prints the
+step's wall time in ms on stderr, after a synchronize;
+FLAGS_log_memory_stats prints the device's allocated and peak bytes on
+stderr on a CUDA device, and nothing on the CPU (where the reference's
+CPU backend reports no memory stats).
 """
 from __future__ import annotations
+
+import sys
+import time
+
+import torch
 
 from ..framework import core, remat
 
@@ -72,15 +87,43 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(accumulate_steps>1): gradient accumulation is "
                 "not ported yet")
+        core.check_env_flags("TrainStep")
         self._remat_policy = resolve_remat_policy(remat_policy)
         self.model = model
         self.optimizer = optimizer
         self.step_fn = step_fn
 
     def __call__(self, *batch):
+        bench = core.get_bool_flag("FLAGS_benchmark")
+        t0 = time.perf_counter()
         with core.remat_policy_guard(self._remat_policy):
             loss = self.step_fn(*batch)
             loss.backward()
         self.optimizer.step()
         self.optimizer.clear_grad(set_to_zero=False)
+        n = self.optimizer._step_count
+        if bench:
+            if loss.is_cuda:
+                torch.cuda.synchronize(loss.device)
+            print(f"TrainStep[{n}]: "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms",
+                  file=sys.stderr)
+        if core.get_bool_flag("FLAGS_log_memory_stats") and loss.is_cuda:
+            print(f"TrainStep[{n}] memory: "
+                  f"in_use={torch.cuda.memory_allocated(loss.device)} "
+                  f"peak={torch.cuda.max_memory_allocated(loss.device)}",
+                  file=sys.stderr)
+        if core.get_bool_flag("FLAGS_check_nan_inf"):
+            if not bool(torch.isfinite(loss).all()):
+                raise FloatingPointError(
+                    "NaN or Inf in TrainStep loss (FLAGS_check_nan_inf). "
+                    "Rerun the step eagerly (without TrainStep) to get the "
+                    "failing op's name.")
+            bad = [name for name, p in self.model.named_parameters()
+                   if p.is_floating_point()
+                   and not bool(torch.isfinite(p).all())]
+            if bad:
+                raise FloatingPointError(
+                    f"NaN or Inf in updated parameters {bad[:5]} "
+                    "(FLAGS_check_nan_inf)")
         return loss.detach()

@@ -26,16 +26,19 @@ lengths that differ): `flash_attention_seg_fwd` runs the wgmma core's
 forward with int32 segment ids (bf16; f32 on its 3xTF32 form, three
 tf32 products a product, on the tensor cores too), skipping the kv tiles
 no pair of whose can share a segment (`testing.seg_visit_plan` mirrors
-the rule); `flash_attention_seg_dkv` and `flash_attention_seg_dq` run the
-mma.sync (bf16) and SIMT (f32) kernels of `csrc/flash_attention.cu`
-(chip_smoke.py's `expected_seg_routes`). A score counts where the q and
-kv segments are equal. A padding mask [B, Sk] lowers to segment ids as
-the reference lowers it (l.327-336, GQA l.136-139): kv_seg = mask, q_seg
-= kv_seg when Sq == Sk, else all ones. So a padded query row attends to
-the padded keys only, as on the TPU; a query row with no key of its own
-segment averages V over all keys (upstream's finite mask value), and its
-backward recomputes P = 1 from an LSE that rounds to that value, as
-upstream's does. `_SegPlain` is that function in plain PyTorch, with the
+the rule). The backward is the delta pre-pass `flash_attention_delta`,
+then `flash_attention_seg_dkv` and `flash_attention_seg_dq`: in bf16 the
+wgmma core's dkv and dq with ids and two lengths, each skipping the
+tiles its own plan proves empty (`testing.seg_dkv_visit_plan` and
+`seg_visit_plan` at `SEG_BWD_TILES`); in f32 the SIMT kernels of
+`csrc/flash_attention.cu` (chip_smoke.py's `expected_seg_routes`). A
+score counts where the q and kv segments are equal. A padding mask [B,
+Sk] lowers to segment ids as the reference lowers it (l.327-336, GQA
+l.136-139): kv_seg = mask, q_seg = kv_seg when Sq == Sk, else all ones.
+So a padded query row attends to the padded keys only, as on the TPU; a
+query row with no key of its own segment averages V over all keys
+(upstream's finite mask value), and its backward recomputes P = 1 from
+an LSE that rounds to that value, as upstream's does. `_SegPlain` is that function in plain PyTorch, with the
 flash backward written out. Causal with Sq != Sk is not ported (upstream
 aligns that mask top-left, the port's dense route bottom-right).
 
@@ -319,7 +322,8 @@ def _delta(o, do):
 def flash_attention_seg_dkv(q, k, v, do, lse, delta, seg_q, seg_kv, causal,
                             scale):
     """Kernel route, backward dk and dv (one launch): the forward's
-    inputs, its lse, the output cotangent do and D -> (dk, dv)."""
+    inputs, its lse, the output cotangent do and D (the delta pre-pass's)
+    -> (dk, dv)."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     q, k, v, do = (_rows(t) for t in (q, k, v, do))
@@ -368,7 +372,7 @@ class _SegFlash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, seg_q, seg_kv, o, lse = ctx.saved_tensors
         do = do.to(q.dtype)
-        delta = _delta(o, do)
+        delta = flash_attention_delta(o, do)
         args = (q, k, v, do, lse, delta, seg_q, seg_kv, ctx.causal,
                 ctx.scale)
         dk, dv = flash_attention_seg_dkv(*args)

@@ -60,8 +60,9 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "fused_ce_case", "fused_ce_pairs", "FUSED_CE_CASES",
            "fused_ce_readings", "train_launches", "train_counters",
            "seg_flash_terms", "seg_flash_pairs", "seg_flash_readings",
-           "SEG_FWD_TILES", "VISIT_TILES", "seg_visit_plan",
-           "seg_plan_attention", "tf32_round", "tf32_split",
+           "SEG_FWD_TILES", "SEG_BWD_TILES", "VISIT_TILES",
+           "seg_visit_plan", "seg_dkv_visit_plan", "seg_plan_attention",
+           "seg_plan_keep", "seg_plan_grads", "tf32_round", "tf32_split",
            "VT_KEY_ORDER", "vt_positions",
            "STATS_LIMITS", "STATS_M_FRAC", "block_stats_pairs",
            "block_stats_readings",
@@ -469,9 +470,10 @@ def seg_flash_terms(q, k, v, do, seg_q, seg_kv, causal, scale):
 
 
 def seg_flash_pairs(q, k, v, do, seg_q, seg_kv, causal, scale, heads=None):
-    """The segment-id kernels (`flash_attention_seg_fwd`, `_seg_dkv`,
-    `_seg_dq`) and their plain version (`_SegPlain`) on f32 copies of
-    the same inputs: q, k, v, do BSHD in one dtype (GQA callers pass q
+    """The segment-id kernels (`flash_attention_seg_fwd`, the delta
+    pre-pass `flash_attention_delta`, `_seg_dkv`, `_seg_dq`, as the
+    route's autograd function launches them) and their plain version
+    (`_SegPlain`) on f32 copies of the same inputs: q, k, v, do BSHD in one dtype (GQA callers pass q
     pre-scaled and scale 1). The plain side runs `heads` q heads at a
     time (a multiple of the GQA group; None: all), so a long packed
     batch's f32 [S, S] scores stay a few GB. Returns ([(label, kernel,
@@ -480,7 +482,7 @@ def seg_flash_pairs(q, k, v, do, seg_q, seg_kv, causal, scale, heads=None):
     from .kernels import flash_attention as kfa
     o, lse = kfa.flash_attention_seg_fwd(q, k, v, seg_q, seg_kv, causal,
                                          scale)
-    delta = kfa._delta(o, do)
+    delta = kfa.flash_attention_delta(o, do)
     args = (q, k, v, do, lse, delta, seg_q, seg_kv, causal, scale)
     dk, dv = kfa.flash_attention_seg_dkv(*args)
     dq = kfa.flash_attention_seg_dq(*args)
@@ -605,9 +607,9 @@ def attn_seg_case(B, S, hq, hk, d, causal, kind, Sk=None,
 
 def seg_flash_readings(seed=0):
     """Segment-id flash on the card at the "bert", "cross_len",
-    "gqa_causal_pad" and "qpad_causal" cases (the forward on
-    csrc/flash_wgmma.cu, the backward on the mma.sync and SIMT kernels of
-    csrc/flash_attention.cu), bf16 and f32: for each output the worst
+    "gqa_causal_pad" and "qpad_causal" cases (the forward and the bf16
+    backward on csrc/flash_wgmma.cu, the f32 backward on the SIMT kernels
+    of csrc/flash_attention.cu), bf16 and f32: for each output the worst
     err/limit over the cases under the element limit (terms; lse 1e-4 +
     1e-5 |plain|), f32's outputs as "<label>_f32". Above 1 is a miss."""
     out = {}
@@ -641,6 +643,10 @@ SEG_FWD_TILES = {(torch.bfloat16, 64): (128, 128),
                  (torch.bfloat16, 128): (128, 128),
                  (torch.float32, 64): (128, 64),
                  (torch.float32, 128): (128, 32)}
+# The bf16 segment backward's tiles there, at both head dims: dq (q rows
+# a block, keys a kv tile), walking `seg_visit_plan`'s tiles; dkv (kv
+# rows a block, q rows a q tile), walking `seg_dkv_visit_plan`'s.
+SEG_BWD_TILES = {"dq": (128, 64), "dkv": (128, 64)}
 VISIT_TILES = 2048
 
 
@@ -683,6 +689,56 @@ def seg_visit_plan(seg_q, seg_kv, causal, BM, BN):
     return plan
 
 
+def seg_dkv_visit_plan(seg_q, seg_kv, causal, BM, BN):
+    """The dkv kernel's visit plan (csrc/flash_wgmma.cu, `seg_dkv_plan`)
+    in plain PyTorch, `seg_visit_plan`'s rule transposed: bool [B,
+    ceil(Sk / BM), ceil(Sq / BN)], True where the block of kv rows [i BM,
+    (i + 1) BM) visits q tile j (rows [j BN, (j + 1) BN)). A block walks
+    the q tiles from its causal start (the tile of its first key; 0 when
+    not causal). It skips a tile whose rows' [min, max] segment range
+    misses its keys' range, and only when each row r of the tile holds
+    its own segment at its own position (r < Sk and seg_kv[r] ==
+    seg_q[r]): such a row's P on the block's keys is exactly 0, while a
+    row with no key of its own segment has P = 1 on every key it sees.
+    Tiles VISIT_TILES or more past the block's start are always
+    visited."""
+    B, Sq = seg_q.shape
+    Sk = seg_kv.shape[1]
+    n_kb, n_qt = -(-Sk // BM), -(-Sq // BN)
+    big = torch.iinfo(torch.int32).max
+    pad = torch.nn.functional.pad
+
+    def ranges(ids, n, size):
+        extra = n * size - ids.shape[1]
+        return (pad(ids.long(), (0, extra), value=big).view(B, n, size)
+                .amin(-1),
+                pad(ids.long(), (0, extra), value=-big).view(B, n, size)
+                .amax(-1))
+
+    qmin, qmax = ranges(seg_q, n_qt, BN)                      # [B, n_qt]
+    kmin, kmax = ranges(seg_kv, n_kb, BM)                     # [B, n_kb]
+    own = torch.zeros((B, Sq), dtype=torch.bool, device=seg_q.device)
+    n = min(Sq, Sk)
+    own[:, :n] = seg_kv[:, :n].long() == seg_q[:, :n].long()
+    good = pad(own, (0, n_qt * BN - Sq), value=True).view(
+        B, n_qt, BN).all(-1)                                  # [B, n_qt]
+    meets = ~((qmax[:, None, :] < kmin[:, :, None])
+              | (qmin[:, None, :] > kmax[:, :, None]))        # [B, kb, qt]
+    tiles = torch.arange(n_qt, device=seg_q.device)
+    start = (torch.arange(n_kb, device=seg_q.device) * BM // BN if causal
+             else torch.zeros(n_kb, dtype=torch.long, device=seg_q.device))
+    rel = tiles[None, :] - start[:, None]                     # [kb, qt]
+    visit = meets | ~good[:, None, :] | (rel >= VISIT_TILES)[None]
+    return visit & (rel >= 0)[None]
+
+
+def seg_plan_keep(plan, BM, BN, rows, cols):
+    """A [B, blocks, tiles] visit plan as a bool [B, rows, cols] mask of
+    the pairs (block row, tile column) its visited tiles hold."""
+    return plan.repeat_interleave(BM, 1)[:, :rows].repeat_interleave(
+        BN, 2)[:, :, :cols]
+
+
 def seg_plan_attention(q, k, v, seg_q, seg_kv, causal, scale, BM, BN):
     """The segment forward over the pairs of `seg_visit_plan`'s tiles
     alone, f32 inside: `_seg_scores`, every score outside a visited tile
@@ -690,10 +746,9 @@ def seg_plan_attention(q, k, v, seg_q, seg_kv, causal, scale, BM, BN):
     exact. Returns (o [B, Sq, Hq, D] f32, lse [B, Hq, Sq])."""
     from .kernels import flash_attention as kfa
     s = kfa._seg_scores(q, k, seg_q, seg_kv, causal, scale)
-    plan = seg_visit_plan(seg_q, seg_kv, causal, BM, BN)
     Sq, Sk = s.shape[-2], s.shape[-1]
-    keep = plan.repeat_interleave(BM, 1)[:, :Sq].repeat_interleave(
-        BN, 2)[:, :, :Sk]
+    keep = seg_plan_keep(seg_visit_plan(seg_q, seg_kv, causal, BM, BN), BM,
+                         BN, Sq, Sk)
     s = s.masked_fill(~keep[:, None], float("-inf"))
     group = q.shape[2] // v.shape[2]
     vh = v.transpose(1, 2).float()
@@ -701,6 +756,43 @@ def seg_plan_attention(q, k, v, seg_q, seg_kv, causal, scale, BM, BN):
         vh = vh.repeat_interleave(group, dim=1)
     o = torch.softmax(s, dim=-1) @ vh
     return o.transpose(1, 2), torch.logsumexp(s, dim=-1)
+
+
+def seg_plan_grads(q, k, v, do, seg_q, seg_kv, causal, scale,
+                   tiles=None):
+    """The segment backward over each plan's visited tiles alone, f32
+    inside, as the kernels form it: P = exp(s - lse) from the whole
+    forward's lse (1 on the masked keys of a row with no key of its own
+    segment), D = rowsum(dO * O) over the whole forward's O; dq sums over
+    the pairs of the tiles `seg_visit_plan` visits at tiles["dq"] (q rows
+    a block, keys a tile), dk and dv over those `seg_dkv_visit_plan`
+    visits at tiles["dkv"] (kv rows a block, q rows a tile); tiles:
+    `SEG_BWD_TILES` by default. Equal to the whole segment backward
+    (`_SegPlain`'s) when both plans are exact. q, k, v, do BSHD; returns
+    (dq, dk, dv) BSHD f32."""
+    from .kernels import flash_attention as kfa
+    tiles = tiles or SEG_BWD_TILES
+    s = kfa._seg_scores(q, k, seg_q, seg_kv, causal, scale)
+    Sq, Sk = s.shape[-2], s.shape[-1]
+    group = q.shape[2] // k.shape[2]
+    qh, kh, vh, doh = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    if group > 1:
+        kh, vh = (t.repeat_interleave(group, dim=1) for t in (kh, vh))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    o = torch.softmax(s, dim=-1) @ vh
+    del s
+    ds = p * (doh @ vh.transpose(-1, -2)
+              - (doh * o).sum(-1, keepdim=True))
+    BM, BN = tiles["dq"]
+    keep = seg_plan_keep(seg_visit_plan(seg_q, seg_kv, causal, BM, BN), BM,
+                         BN, Sq, Sk)[:, None]
+    dq = (ds * keep) @ kh * scale
+    BM, BN = tiles["dkv"]
+    keep = seg_plan_keep(seg_dkv_visit_plan(seg_q, seg_kv, causal, BM, BN),
+                         BM, BN, Sk, Sq).transpose(1, 2)[:, None]
+    dk = _group_sum((ds * keep).transpose(-1, -2) @ qh, group) * scale
+    dv = _group_sum((p * keep).transpose(-1, -2) @ doh, group)
+    return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
 
 
 # The f32 segment forward's 3xTF32 split (csrc/hopper.cuh tf32_round,

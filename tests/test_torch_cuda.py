@@ -406,12 +406,12 @@ def test_unfused_flag_still_launches_every_kernel():
 # kernel's body: (source, the kernel's definition, pattern, replacement,
 # the readings function, the output whose check must then fail). The
 # wgmma core of csrc/flash_wgmma.cu is what `testing.flash_readings`
-# reads (the one-length bf16 route) and, with segment ids, what
-# `testing.seg_flash_readings` reads for the forward; the segment route's
-# backward there runs the mma.sync kernels of csrc/flash_attention.cu
-# (its "gqa_causal_pad" case is causal), and the mma.sync forward runs
-# the bias route that `testing.bias_flash_readings` reads, so the old
-# core stays guarded.
+# reads (the one-length bf16 route) and, with segment ids and two
+# lengths, what `testing.seg_flash_readings` reads in bf16, forward and
+# backward (its "gqa_causal_pad" and "qpad_causal" cases are causal,
+# "cross_len" holds a batch row with no valid key); the mma.sync kernels
+# of csrc/flash_attention.cu run the bias route that
+# `testing.bias_flash_readings` reads, so the old core stays guarded.
 _FLASH_FAULTS = {
     # the segment forward drops each q tile's last kv tile (non-causal:
     # the last keys; causal: the diagonal)
@@ -426,22 +426,33 @@ _FLASH_FAULTS = {
         r"const int n_kv = \(kv_end \+ TKV - 1\) / TKV;",
         "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);",
         "bias_flash_readings", "o"),
-    # dq counts the future keys of the diagonal tile
+    # the segment dq counts the future keys of the diagonal tile
     "dq_diagonal_mask_off": (
-        "flash_attention.cu", "flash_bwd_dq_mma_kernel(",
-        r"\(e & 1\), Sq, Sk,\s+causal\)", "(e & 1), Sq, Sk, 0)",
-        "seg_flash_readings", "dq"),
-    # dk and dv count the earlier queries of the diagonal tile
+        "flash_wgmma.cu", "flash_bwd_dq_wgmma_kernel(",
+        r"if \(kj >= Sk \|\| \(causal && kj > r0 \+ 8 \* hh\)\) p = 0\.f;",
+        "if (kj >= Sk) p = 0.f;", "seg_flash_readings", "dq"),
+    # the segment dk and dv count the earlier queries of the diagonal
+    # tile
     "dkv_diagonal_mask_off": (
-        "flash_attention.cu", "flash_bwd_dkv_mma_kernel(",
-        r"\(e >> 1\) \* 8, Sq, Sk, causal\)", "(e >> 1) * 8, Sq, Sk, 0)",
-        "seg_flash_readings", "dv"),
-    # dk and dv skip the last q tile: the last keys get none of it
+        "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
+        r"if \(qi >= Sq \|\| kj >= Sk \|\| \(causal && kj > qi\)\) "
+        r"p\[e\] = 0\.f;",
+        "if (qi >= Sq || kj >= Sk) p[e] = 0.f;", "seg_flash_readings", "dv"),
+    # the mma.sync (bias) dk and dv skip the last q tile: the last keys
+    # get none of it
     "dkv_skips_last_q_tile": (
         "flash_attention.cu", "flash_bwd_dkv_mma_kernel(",
         r"const int total = group \* n_q;",
         "const int total = group * max(0, n_q - 1);",
-        "seg_flash_readings", "dv"),
+        "bias_flash_readings", "dv"),
+    # the dkv plan skips a q tile it must visit: the own-position test
+    # dropped, a tile of rows with no key of their own segment (P = 1 on
+    # every key) is skipped where the segment ranges miss ("cross_len"'s
+    # batch row with no valid key)
+    "seg_dkv_plan_skips_rows_without_own_key": (
+        "flash_wgmma.cu", "seg_dkv_plan(",
+        r"bad \|= !\(row < Sk && seg_kv\[static_cast<size_t>\(b\) \* Sk "
+        r"\+ row\] == v\);", "bad |= 0;", "seg_flash_readings", "dv"),
     # the wgmma forward drops each q tile's diagonal kv tile
     "wgmma_fwd_drops_diagonal_kv_tile": (
         "flash_wgmma.cu", "flash_fwd_wgmma_kernel(",
@@ -451,19 +462,19 @@ _FLASH_FAULTS = {
     # the wgmma dq counts the future keys of the diagonal tiles
     "wgmma_dq_diagonal_mask_off": (
         "flash_wgmma.cu", "flash_bwd_dq_wgmma_kernel(",
-        r"if \(kj >= S \|\| \(causal && kj > r0 \+ 8 \* hh\)\) p = 0\.f;",
-        "if (kj >= S) p = 0.f;", "flash_readings", "dq"),
+        r"if \(kj >= Sk \|\| \(causal && kj > r0 \+ 8 \* hh\)\) p = 0\.f;",
+        "if (kj >= Sk) p = 0.f;", "flash_readings", "dq"),
     # the wgmma dk and dv count the earlier queries of the diagonal tiles
     "wgmma_dkv_diagonal_mask_off": (
         "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
-        r"if \(qi >= S \|\| kj >= S \|\| \(causal && kj > qi\)\) "
+        r"if \(qi >= Sq \|\| kj >= Sk \|\| \(causal && kj > qi\)\) "
         r"p\[e\] = 0\.f;",
-        "if (qi >= S || kj >= S) p[e] = 0.f;", "flash_readings", "dv"),
-    # the wgmma dk and dv skip the last q tile
+        "if (qi >= Sq || kj >= Sk) p[e] = 0.f;", "flash_readings", "dv"),
+    # the wgmma dk and dv skip the last q tile (of the last head)
     "wgmma_dkv_skips_last_q_tile": (
         "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
-        r"const int total = group \* n_q;",
-        "const int total = group * max(0, n_q - 1);", "flash_readings",
+        r"const int total = group \* n_vis;",
+        "const int total = group * max(0, n_vis - 1);", "flash_readings",
         "dv"),
     # the delta pre-pass drops each row's last 16-byte vector
     "delta_drops_last_vector": (
@@ -511,7 +522,7 @@ def test_flash_check_fails_planted_faults(fault, tmp_path):
     causal MHA at the training shape [4, 2048, 16, 128], the wgmma core
     and its delta pre-pass), passes the kernels as written and fails
     each planted fault; the segment route's faults are read by
-    `testing.seg_flash_readings`, the mma.sync forward's by
+    `testing.seg_flash_readings`, the mma.sync kernels' by
     `testing.bias_flash_readings`. The package is copied, the fault
     planted in the copy's source, and the copy built and run in a
     subprocess. Prints each output's worst err/limit under the element
@@ -740,6 +751,34 @@ def test_segment_flash_matches_plain(dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(testing.ATTN_SEG_CASES))
+def test_segment_backward_matches_plain(dtype, case):
+    """The segment route's backward as its autograd function runs it on
+    the card (`_SegFlash`: the forward, the delta pre-pass, dkv and dq;
+    bf16 on the wgmma core, f32 on SIMT) against `_SegPlain` on f32
+    copies, at every `testing.ATTN_SEG_CASES` case: dq, dk and dv by the
+    terms rule of testing.py."""
+    _card()
+    dt = getattr(torch, dtype)
+    kw = testing.ATTN_SEG_CASES[case]
+    q, k, v, do, sq, skv = testing.attn_seg_case(**kw, dtype=dt)
+    scale = q.shape[-1] ** -0.5
+    qs, s = ((q * scale).to(dt), 1.0) if q.shape[2] != k.shape[2] \
+        else (q, scale)
+    leaves = [t.detach().requires_grad_() for t in (qs, k, v)]
+    t_fa._SegFlash.apply(*leaves, sq, skv, kw["causal"], s).backward(do)
+    pairs, _ = testing.seg_flash_pairs(
+        qs, k, v, do, sq, skv, kw["causal"], s,
+        heads=8 if case == "packed_7b" else None)
+    refs = {label: (ref, terms) for label, _, ref, terms in pairs}
+    for label, leaf in zip(("dq", "dk", "dv"), leaves):
+        ref, terms = refs[label]
+        assert bool(torch.isfinite(leaf.grad).all()), label
+        assert _within_terms(leaf.grad, ref, terms, dtype), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hq,hk,d", [(4, 4, 64), (8, 2, 128)],
                          ids=["mha_d64", "gqa_d128"])
 def test_segment_forward_without_ids_matches_plain(dtype, hq, hk, d):
@@ -939,6 +978,9 @@ def test_attention_surface_never_reaches_plain(monkeypatch):
     assert grew["flash_attention_seg_fwd"] == 2 + 1 + 1 + 2
     assert grew["flash_attention_seg_dkv"] == 2
     assert grew["flash_attention_seg_dq"] == 2
+    # the delta pre-pass: the unmasked sdpa's backward and the two
+    # segment backwards
+    assert grew["flash_attention_delta"] == 1 + 2
     # float-mask sdpa and alibi: one bias forward, dkv and dq each; the
     # block-stats kernel only where it is called itself
     assert grew["flash_attention_bias_fwd"] == 2
@@ -1013,7 +1055,7 @@ _ATTN_FAULTS = {
     # scale and the masks applied beside it) dropped
     "bias_dropped_in_dkv": (
         "flash_attention.cu", "flash_bwd_dkv_mma_kernel(",
-        r"      if constexpr \(BIAS\)\n        bias_scores<[^;]*;\n", "",
+        r"      bias_scores<QC / 8, true>\([^;]*;\n", "",
         "bias_flash_readings", "dv"),
     # a row with no valid key divides its zero sum by l = 0: NaN
     "l0_epilogue_nan": (

@@ -199,6 +199,16 @@ _FLASH_NAMES = {
     "CUtensorMap_st": ("forward", "wgmma-tf32"),
     "void (anonymous namespace)::flash_fwd_mma_kernel<64>(__nv_bfloat16 "
     "const*": ("forward", "mma.sync"),
+    # the segment backward: bf16 on the wgmma core with ids (the bias
+    # route's backward keeps the mma.sync kernels)
+    "void (anonymous namespace)::flash_bwd_dkv_wgmma_kernel<64, true>("
+    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+    "const*, float const*, int const*, int const*, __nv_bfloat16*, "
+    "__nv_bfloat16*, int, int, int, int, int, float)": ("dkv", "wgmma"),
+    "void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<128, true>("
+    "CUtensorMap_st": ("dq", "wgmma"),
+    "void (anonymous namespace)::flash_bwd_dkv_mma_kernel<128>("
+    "__nv_bfloat16 const*": ("dkv", "mma.sync"),
     "void (anonymous namespace)::flash_bwd_dkv_mma_kernel<64, true, false>("
     "__nv_bfloat16 const*": ("dkv", "mma.sync"),
     "void (anonymous namespace)::flash_bwd_dq_mma_kernel<128, false, true>("
@@ -255,8 +265,8 @@ def test_expected_flash_routes_refuses_untaken_shapes(shape):
         _chip_smoke().expected_flash_routes(*shape, torch.bfloat16)
 
 
-_SEG_BF16 = dict(forward="wgmma", dkv="mma.sync", dq="mma.sync")
-_SEG_F32 = dict(forward="wgmma-tf32", dkv="simt", dq="simt")
+_SEG_BF16 = dict(forward="wgmma", dkv="wgmma", dq="wgmma", delta="simt")
+_SEG_F32 = dict(forward="wgmma-tf32", dkv="simt", dq="simt", delta="simt")
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
@@ -271,7 +281,8 @@ _SEG_F32 = dict(forward="wgmma-tf32", dkv="simt", dq="simt")
 def test_expected_seg_routes(shape, dtype, want):
     """The segment forward runs the wgmma core in bf16 and its 3xTF32
     kernel in f32, never an mma.sync or SIMT forward; the segment
-    backward stays on mma.sync (bf16) and SIMT (f32)."""
+    backward runs the wgmma core in bf16 and SIMT in f32, after the
+    delta pre-pass."""
     got = _chip_smoke().expected_seg_routes(*shape, getattr(torch, dtype))
     assert got == want
 

@@ -1,4 +1,4 @@
-"""The segment forward's design rules, mirrored in plain PyTorch
+"""The segment kernels' design rules, mirrored in plain PyTorch
 (`paddle_tpu_torch.testing`) and held on the CPU:
 
 - the kv-tile visit plan of csrc/flash_wgmma.cu (`seg_visit_plan`): the
@@ -9,6 +9,12 @@
   run as the reference's own tests run it on the CPU (the splash kernel
   in interpret mode, `_splash_gqa(..., interpret=True)`), every row, at
   the kernels' tiles and at small tiles that make the plan skip;
+- the backward's two plans (dq: `seg_visit_plan` at dq's tiles; dkv:
+  `seg_dkv_visit_plan`, the transposed rule): dq, dk and dv over each
+  plan's visited tiles alone (`seg_plan_grads`) equal the reference's
+  segment-route grads (`jax.vjp` through the same interpret-mode
+  splash), and the dkv plan visits little more than the pairs packed
+  documents need;
 - the f32 forward's 3xTF32 split (`tf32_split`) and its V^T key order
   (`vt_positions`), and that three tf32 products a product meet the f32
   element limits of `testing.py` where one does not.
@@ -41,13 +47,17 @@ KERNEL_RTOL = 1e-5
 # finite value as the segments, so its rows average over the keys of the
 # blocks it computes. The causal "qpad" case is therefore held against
 # the port's own plain version (`_SegPlain`), the full causal route.
+# (B, Sq, Sk, Hq, Hk, D, causal, kind); "gqa_packed_causal" runs two q
+# heads a kv head.
 PLAN_CASES = {
-    "packed_causal": (1, 256, 256, 2, 64, True, "packed"),
-    "padded": (2, 256, 256, 2, 64, False, "padded"),
-    "cross_empty_row": (2, 128, 256, 2, 64, False, "cross_empty_row"),
-    "qpad": (1, 256, 256, 2, 64, False, "qpad"),
-    "qpad_causal": (1, 256, 256, 2, 64, True, "qpad"),
+    "packed_causal": (1, 256, 256, 2, 2, 64, True, "packed"),
+    "padded": (2, 256, 256, 2, 2, 64, False, "padded"),
+    "cross_empty_row": (2, 128, 256, 2, 2, 64, False, "cross_empty_row"),
+    "qpad": (1, 256, 256, 2, 2, 64, False, "qpad"),
+    "qpad_causal": (1, 256, 256, 2, 2, 64, True, "qpad"),
+    "gqa_packed_causal": (1, 256, 256, 4, 2, 64, True, "packed"),
 }
+CAUSAL = 6
 # (q rows a block, keys a tile): the kernels' (bf16; f32 at D = 64 and
 # at D = 128) and two small ones at which the plan skips at these sizes
 PLAN_TILES = {"bf16": (128, 128), "f32_d64": (128, 64),
@@ -56,13 +66,13 @@ PLAN_TILES = {"bf16": (128, 128), "f32_d64": (128, 64),
 
 
 def _case(name, seed=0):
-    """numpy q, k, v [B, S, H, D]; int32 seg_q [B, Sq], seg_kv [B, Sk];
-    the padding mask [B, Sk] or None."""
-    B, Sq, Sk, H, D, causal, kind = PLAN_CASES[name]
+    """numpy q [B, Sq, Hq, D], k, v [B, Sk, Hk, D]; int32 seg_q [B, Sq],
+    seg_kv [B, Sk]; the padding mask [B, Sk] or None."""
+    B, Sq, Sk, Hq, Hk, D, causal, kind = PLAN_CASES[name]
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
-    k = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
-    v = rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+    q = rng.standard_normal((B, Sq, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, Hk, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, Hk, D)).astype(np.float32)
     pm = None
     if kind in ("padded", "cross_empty_row"):
         pm = np.arange(Sk)[None, :] < np.array([Sk - 37, Sk])[:B, None]
@@ -87,7 +97,7 @@ def _reference(name):
     SegmentIds inside) or explicit segment ids; for "qpad_causal" the
     port's `_SegPlain` (see PLAN_CASES)."""
     q, k, v, seg_q, seg_kv, pm = _case(name)
-    causal = PLAN_CASES[name][5]
+    causal = PLAN_CASES[name][CAUSAL]
     if name == "qpad_causal":
         q, k, v = (torch.from_numpy(t) for t in (q, k, v))
         return t_fa._SegPlain.apply(q, k, v, torch.from_numpy(seg_q),
@@ -121,7 +131,7 @@ def test_visited_tiles_give_the_reference_segment_route(name, tiles):
     reference's segment route, every row (rows with no key of their own
     segment included: their blocks visit every tile)."""
     (q, k, v), seg_q, seg_kv = _plan_inputs(name)
-    causal = PLAN_CASES[name][5]
+    causal = PLAN_CASES[name][CAUSAL]
     BM, BN = PLAN_TILES[tiles]
     o, lse = testing.seg_plan_attention(q, k, v, seg_q, seg_kv, causal,
                                         q.shape[-1] ** -0.5, BM, BN)
@@ -135,7 +145,7 @@ def test_plan_skips_where_segments_allow(name):
     (the kernels' skipping is exercised, not vacuous), and every skipped
     tile shares no segment with its block's rows."""
     _, seg_q, seg_kv = _plan_inputs(name)
-    causal = PLAN_CASES[name][5]
+    causal = PLAN_CASES[name][CAUSAL]
     BM, BN = PLAN_TILES["small_16x8"]
     plan = testing.seg_visit_plan(seg_q, seg_kv, causal, BM, BN)
     B, n_qt, n_kt = plan.shape
@@ -175,6 +185,136 @@ def test_rows_without_own_key_need_every_tile():
         @ v.transpose(1, 2)
     assert not _max_rel(o.transpose(1, 2).nan_to_num(), _reference(name)) \
         <= KERNEL_RTOL
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_grads(name):
+    """The reference's segment-route grads (dq, dk, dv) on the case, as
+    numpy BSHD: `jax.vjp` through the interpret-mode splash kernel, as
+    tests/test_torch_attention.py runs it, with a seeded cotangent; for
+    "qpad_causal" the port's `_SegPlain` backward (see PLAN_CASES).
+    Returns (grads, the cotangent)."""
+    import jax
+
+    q, k, v, seg_q, seg_kv, pm = _case(name)
+    causal = PLAN_CASES[name][CAUSAL]
+    do = np.random.default_rng(7).standard_normal(q.shape).astype(
+        np.float32)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    if name == "qpad_causal":
+        leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+        o = t_fa._SegPlain.apply(*leaves, torch.from_numpy(seg_q),
+                                 torch.from_numpy(seg_kv), True, scale)
+        o.backward(torch.from_numpy(do))
+        return tuple(t.grad.numpy() for t in leaves), do
+
+    def ref(q_, k_, v_):
+        qt, kt, vt = (jnp.swapaxes(t, 1, 2) for t in (q_, k_, v_))
+        o = j_fa._splash_gqa(
+            qt, kt, vt, causal, scale,
+            None if pm is None else jnp.asarray(pm), interpret=True,
+            segments=None if pm is not None else (jnp.asarray(seg_q),
+                                                  jnp.asarray(seg_kv)))
+        return jnp.swapaxes(o, 1, 2)
+
+    _, vjp = jax.vjp(ref, *(jnp.asarray(t) for t in (q, k, v)))
+    return tuple(np.asarray(g) for g in vjp(jnp.asarray(do))), do
+
+
+# the backward's (dq, dkv) tiles: the kernels' (testing.SEG_BWD_TILES)
+# and two small ones at which both plans skip at these sizes
+GRAD_TILES = {"bf16": testing.SEG_BWD_TILES,
+              "small_16x8": {"dq": (16, 8), "dkv": (16, 8)},
+              "small_32x16": {"dq": (32, 16), "dkv": (32, 16)}}
+
+
+@pytest.mark.parametrize("tiles", list(GRAD_TILES))
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_visited_tiles_give_the_reference_segment_grads(name, tiles):
+    """dq over the dq plan's visited tiles and dk, dv over the dkv plan's
+    equal the reference's segment-route grads, every row (rows with no
+    key of their own segment included)."""
+    (q, k, v), seg_q, seg_kv = _plan_inputs(name)
+    want, do = _reference_grads(name)
+    got = testing.seg_plan_grads(q, k, v, torch.from_numpy(do), seg_q,
+                                 seg_kv, PLAN_CASES[name][CAUSAL],
+                                 q.shape[-1] ** -0.5, GRAD_TILES[tiles])
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _max_rel(g, w) <= KERNEL_RTOL
+
+
+@pytest.mark.parametrize("name", ["packed_causal", "padded",
+                                  "cross_empty_row"])
+def test_dkv_plan_skips_where_segments_allow(name):
+    """At small tiles the dkv plan leaves whole q tiles out, and every
+    skipped tile shares no segment with its kv block and has a key of
+    its own segment at each row's position."""
+    _, seg_q, seg_kv = _plan_inputs(name)
+    causal = PLAN_CASES[name][CAUSAL]
+    BM, BN = 16, 8
+    plan = testing.seg_dkv_visit_plan(seg_q, seg_kv, causal, BM, BN)
+    B, n_kb, n_qt = plan.shape
+    Sq, Sk = seg_q.shape[1], seg_kv.shape[1]
+    skipped = 0
+    for b in range(B):
+        for i in range(n_kb):
+            keys = set(seg_kv[b, i * BM:(i + 1) * BM].tolist())
+            for j in range(i * BM // BN if causal else 0, n_qt):
+                if plan[b, i, j]:
+                    continue
+                skipped += 1
+                rows = range(j * BN, min((j + 1) * BN, Sq))
+                assert not keys & {int(seg_q[b, r]) for r in rows}
+                assert all(r < Sk and seg_kv[b, r] == seg_q[b, r]
+                           for r in rows)
+    assert skipped > 0
+
+
+def test_dkv_plan_never_skips_a_row_without_its_own_key():
+    """A q tile holding a row with no key of its own segment (P = 1 on
+    every key it sees) is visited by every kv block that walks it, even
+    where the segment ranges are disjoint: "cross_empty_row"'s batch row
+    1 has no valid key, and "qpad"'s last 37 rows a segment no key
+    holds."""
+    BM, BN = 16, 8
+    for name in ("cross_empty_row", "qpad", "qpad_causal"):
+        _, seg_q, seg_kv = _plan_inputs(name)
+        causal = PLAN_CASES[name][CAUSAL]
+        plan = testing.seg_dkv_visit_plan(seg_q, seg_kv, causal, BM, BN)
+        Sq, Sk = seg_q.shape[1], seg_kv.shape[1]
+        own = torch.zeros_like(seg_q, dtype=torch.bool)
+        n = min(Sq, Sk)
+        own[:, :n] = seg_kv[:, :n] == seg_q[:, :n]
+        lacking = ~own.view(seg_q.shape[0], -1, BN).all(-1)     # [B, n_qt]
+        assert bool(lacking.any())
+        for i in range(plan.shape[1]):
+            start = i * BM // BN if causal else 0
+            assert bool(plan[:, i, start:][lacking[:, start:]].all())
+    # the ranges alone would skip row 1's tiles of "cross_empty_row":
+    # its queries are segment 1, every key segment 0
+    _, seg_q, seg_kv = _plan_inputs("cross_empty_row")
+    assert int(seg_kv[1].max()) == 0 and int(seg_q[1].min()) == 1
+
+
+def test_dkv_plan_visits_little_more_than_packed_documents_need():
+    """At the attention surface's packed causal 8192 tokens (testing.
+    packed_lengths, the documents of `ATTN_SEG_CASES["packed_7b"]`) the
+    causal pairs in the q tiles the dkv plan visits at the kernel's tiles
+    are at most 1.3x the pairs the documents need (every causal tile:
+    5.7x)."""
+    lengths = testing.packed_lengths()
+    seg = torch.repeat_interleave(
+        torch.arange(1, len(lengths) + 1, dtype=torch.int32),
+        torch.tensor(lengths))[None]
+    S = seg.shape[1]
+    need = sum(n * (n + 1) // 2 for n in lengths)
+    BM, BN = testing.SEG_BWD_TILES["dkv"]
+    plan = testing.seg_dkv_visit_plan(seg, seg, True, BM, BN)
+    keep = testing.seg_plan_keep(plan, BM, BN, S, S)[0]     # [key, query]
+    visited = int(keep.t().tril().sum())
+    assert visited <= 1.3 * need
+    assert S * (S + 1) // 2 > 5.5 * need
 
 
 def test_tf32_split_reconstructs_within_2_pow_22():

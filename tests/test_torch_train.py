@@ -378,3 +378,167 @@ def test_fused_ce_flag_keeps_the_plain_route_on_cpu():
     finally:
         ptt.set_flags({"FLAGS_use_fused_ce": False})
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ the flags
+
+
+def _reference_flag_table():
+    """The reference's flag table as its source states it (names and
+    defaults of paddle_tpu/framework/core.py's `_flags`), read without
+    the values other tests may have set at run time."""
+    import ast
+    import inspect
+
+    from paddle_tpu.framework import core as jcore
+    src = inspect.getsource(jcore)
+    at = src.index("_flags: dict = {")
+    end = src.index("\n}\n", at) + 2
+    return ast.literal_eval(src[at + len("_flags: dict = "):end].strip())
+
+
+def test_port_keeps_a_copy_of_the_reference_flag_table():
+    from paddle_tpu_torch.framework import core as tcore
+    assert tcore._REFERENCE_FLAGS == _reference_flag_table()
+
+
+def test_every_reference_flag_is_registered_or_refused():
+    """Each name of the reference's flag table (and any the reference
+    holds at run time) is either registered in the port, and set_flags
+    takes it, or refused by set_flags with NotImplementedError naming
+    it; a refused call sets nothing."""
+    from paddle_tpu.framework import core as jcore
+    from paddle_tpu_torch.framework import core as tcore
+    names = set(_reference_flag_table()) | set(jcore._flags)
+    registered = dict(tcore._flags)
+    refused = []
+    for name in sorted(names):
+        value = _reference_flag_table().get(name, jcore._flags.get(name))
+        if name in registered:
+            ptt.set_flags({name: registered[name]})
+            continue
+        with pytest.raises(NotImplementedError, match=f"{name} is not "
+                                                      "ported"):
+            ptt.set_flags({"FLAGS_use_fused_ce": True, name: value})
+        refused.append(name)
+    assert tcore._flags == registered
+    assert {"FLAGS_check_nan_inf", "FLAGS_benchmark",
+            "FLAGS_log_memory_stats"} <= set(registered)
+    assert "FLAGS_gemm_use_half_precision_compute_type" in refused
+    assert "FLAGS_metrics" in refused
+    with pytest.raises(NotImplementedError, match="FLAGS_no_such_flag"):
+        ptt.set_flags({"FLAGS_no_such_flag": 1})
+
+
+@pytest.mark.parametrize("env,raises", [
+    (("FLAGS_gemm_use_half_precision_compute_type", "0"), True),
+    (("FLAGS_metrics", "1"), True),
+    (("FLAGS_comm_timeout", "30"), True),
+    (("FLAGS_gemm_use_half_precision_compute_type", "1"), False),
+    (("FLAGS_comm_timeout", "1800"), False),
+    (("FLAGS_check_nan_inf", "1"), False),
+    (("FLAGS_no_such_flag", "1"), False)],
+    ids=["tf32_off", "metrics_on", "comm_timeout_30", "tf32_default",
+         "comm_timeout_default", "registered", "not_a_reference_flag"])
+def test_env_flags_checked_at_construction(monkeypatch, env, raises):
+    """An unported reference flag in the environment at a value other
+    than the reference's default raises when TrainStep or the serving
+    engine is built (not at import); its default, a registered flag and
+    a name the reference does not know pass."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    monkeypatch.setenv(*env)
+    m = _tiny_cpu(use_recompute=False)
+    opt = topt.AdamW(parameters=m.parameters())
+    for build in (lambda: TrainStep(m, opt, m.loss),
+                  lambda: ContinuousBatchingEngine(m, max_batch=1,
+                                                   max_seq=32,
+                                                   device="cpu")):
+        if raises:
+            with pytest.raises(NotImplementedError, match=env[0]):
+                build()
+        else:
+            build()
+
+
+def _set_both(flags):
+    ptt.set_flags(flags)
+    paddle.set_flags(flags)
+
+
+def test_check_nan_inf_raises_in_both_packages():
+    """FLAGS_check_nan_inf=1: a llama_tiny TrainStep whose loss is not
+    finite raises FloatingPointError with the reference's message in
+    both packages; a finite step does not."""
+    jm, tm = _models(seed=4)
+    ids = _ids(seed=5, seq=16)
+    jb = (paddle.to_tensor(ids), paddle.to_tensor(ids))
+    tb = (torch.from_numpy(ids), torch.from_numpy(ids))
+    _set_both({"FLAGS_check_nan_inf": True})
+    try:
+        for scale in (1.0, float("nan")):
+            js = paddle.jit.TrainStep(
+                jm, jopt.AdamW(parameters=jm.parameters()),
+                lambda i, l: jm.loss(i, l) * scale)
+            ts = TrainStep(tm, topt.AdamW(parameters=tm.parameters()),
+                           lambda i, l: tm.loss(i, l) * scale)
+            for step, batch in ((js, jb), (ts, tb)):
+                if scale == 1.0:
+                    step(*batch)
+                else:
+                    with pytest.raises(FloatingPointError,
+                                       match=r"NaN or Inf in TrainStep loss "
+                                             r"\(FLAGS_check_nan_inf\)"):
+                        step(*batch)
+    finally:
+        _set_both({"FLAGS_check_nan_inf": False})
+
+
+def test_check_nan_inf_names_non_finite_parameters():
+    """A finite loss with a non-finite updated parameter: the parameter
+    is named, as the reference names it."""
+    model = torch.nn.Module()
+    model.w = torch.nn.Parameter(torch.ones(3))
+    model.unused = torch.nn.Parameter(torch.full((2,), float("inf")))
+    ts = TrainStep(model, topt.AdamW(parameters=[model.w]),
+                   lambda x: (model.w * x).sum())
+    ptt.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        with pytest.raises(FloatingPointError,
+                           match=r"NaN or Inf in updated parameters "
+                                 r"\['unused'\] \(FLAGS_check_nan_inf\)"):
+            ts(torch.ones(3))
+    finally:
+        ptt.set_flags({"FLAGS_check_nan_inf": False})
+
+
+def test_benchmark_flag_prints_one_line_per_step(capsys):
+    """FLAGS_benchmark=1: one stderr line a step, "TrainStep[n]: t ms",
+    with the same step numbers in both packages; FLAGS_log_memory_stats=1
+    prints nothing on the CPU in either."""
+    jm, tm = _models(seed=6)
+    ids = _ids(seed=7, seq=16)
+    js = paddle.jit.TrainStep(jm, jopt.AdamW(parameters=jm.parameters()),
+                              lambda i, l: jm.loss(i, l))
+    ts = TrainStep(tm, topt.AdamW(parameters=tm.parameters()),
+                   lambda i, l: tm.loss(i, l))
+    _set_both({"FLAGS_benchmark": True, "FLAGS_log_memory_stats": True})
+    try:
+        lines = {}
+        for who, step, batch in (
+                ("jax", js, (paddle.to_tensor(ids), paddle.to_tensor(ids))),
+                ("torch", ts, (torch.from_numpy(ids),
+                               torch.from_numpy(ids)))):
+            capsys.readouterr()
+            for _ in range(3):
+                step(*batch)
+            lines[who] = capsys.readouterr().err.splitlines()
+    finally:
+        _set_both({"FLAGS_benchmark": False,
+                   "FLAGS_log_memory_stats": False})
+    import re
+    pat = re.compile(r"^TrainStep\[(\d+)\]: \d+\.\d\d ms$")
+    for who, got in lines.items():
+        steps = [pat.match(ln) for ln in got if ln.startswith("TrainStep")]
+        assert len(steps) == 3 and all(steps), (who, got)
+        lines[who] = [int(m.group(1)) for m in steps]
+    assert lines["torch"] == lines["jax"] == [1, 2, 3]
