@@ -22,7 +22,7 @@ Phases, each of which fails the run on a miss:
    limit (`TOL`, and testing.py's `CE_LIMITS`); bf16 timed with CUDA
    events beside its plain version, the library call where one exists,
    and its bound (bytes over 3.35 TB/s vs operations over 989 TFLOP/s
-   in bf16 tensor-core work, 494.7 in tf32 (the f32 segment forward's
+   in bf16 tensor-core work, 494.7 in tf32 (the f32 flash kernels'
    3xTF32 products, three a product), 67 in f32 elementwise work);
 4. serving — full-width llama_7b (32 layers, random weights from a
    seeded generator) behind the port's HTTP gateway, 4 concurrent
@@ -110,13 +110,18 @@ alone over a retained forward (`library_fwd_bwd_ms`: its forward and
 backward). One segment forward, delta pre-pass, dkv and dq at each bf16
 `testing.ATTN_SEG_CASES` case and at BERT's f32 shape is traced and held
 to `expected_seg_routes` (bf16 on the wgmma core, forward and backward,
-never an mma.sync kernel; f32 forward on its 3xTF32 kernel, f32 dkv and
-dq on SIMT). The segment dkv and dq are timed beside SDPA's backward
-alone over a retained forward (`library_fwd_bwd_ms`: its forward and
-backward), in bf16 and, at BERT's shape, in f32; the f32 one-length
-flash forward and backward (SIMT) at ERNIE's [16, 512, 12, 64] beside
-SDPA in f32 (`ernie_flash_f32`); the f32 kernels carry a second bound,
-three tf32 products a product at the tf32 rate (`bound_3xtf32_ms`).
+never an mma.sync kernel; f32 forward, dkv and dq on its 3xTF32 form,
+never a SIMT kernel). The segment dkv and dq are timed beside SDPA's
+backward alone over a retained forward (`library_fwd_bwd_ms`: its
+forward and backward), in bf16 and, at BERT's shape, in f32; the f32
+one-length flash forward and backward (3xTF32) at ERNIE's [16, 512, 12,
+64] beside SDPA in f32 (`ernie_flash_f32`), traced to their cores too;
+the f32 kernels, which run in 3xTF32, are bound at three tf32 products
+a product at the tf32 rate (bound_ms, copied as `bound_3xtf32_ms`; the
+f32 rate's bound beside it as `bound_simt_ms`), and carry the card's own
+time of each side (`device_ms`, `library_device_ms`). One
+bias forward, dkv and dq at each dtype is traced and held to
+`expected_bias_routes` (mma.sync in bf16, SIMT in f32).
 
     python3 chip_smoke.py --ab PARENT_DIR
 
@@ -125,8 +130,10 @@ parent commit) on one card: `route_times` (row 10's 1B and 7B flash
 forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
 and forward + backward, the alibi route's peak memory, the segment
 forward at BERT's shape in bf16 and f32 and packed at 8192 tokens, the
-bf16 segment dkv + dq at both, sdpa with the boolean mask (forward, and
-forward + backward), flash_attn_unpadded on the BERT batch and packed
+segment dkv + dq at both in bf16 and at BERT's in f32, the f32
+one-length forward and backward at ERNIE's shape and at llama_1b's
+causal [4, 2048, 16, 128], each beside SDPA in f32, sdpa with the
+boolean mask (forward, and forward + backward), flash_attn_unpadded on the BERT batch and packed
 causal over 8192 tokens (forward + backward), the bert_base f32
 forward, the SwiGLU
 forward, da and dW launches at the 7B and 1B training shapes and the
@@ -266,8 +273,7 @@ SOURCES = {
                                 "paddle_tpu/kernels/cross_entropy.py:178"),
     # upstream flash with SegmentIds (the call at l.333; packed, l.447):
     # padding_mask= and flash_attention_packed, forward, dkv and dq (the
-    # wgmma core in bf16; f32: the 3xTF32 forward and the SIMT dkv and dq
-    # of csrc/flash_attention.cu)
+    # wgmma core in bf16, its 3xTF32 form in f32)
     "flash_attention_seg_fwd": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                                 "paddle_tpu/kernels/flash_attention.py:333"),
     "flash_attention_seg_dkv": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
@@ -462,6 +468,19 @@ def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
           f"bound_ms={b_ms:.6g} ({b_by})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def timed_3xtf32(name, err, fn_kernel, fn_plain, nbytes, flops, **kw):
+    """`timed` for an f32 flash kernel that runs in 3xTF32 on the tensor
+    cores (csrc/flash_wgmma.cu): bound_ms, and its copy
+    `bound_3xtf32_ms`, counts three tf32 products a product at the tf32
+    rate; `bound_simt_ms` keeps one f32 product at the f32 rate outside
+    the tensor cores beside it. flops: one product's work."""
+    m = timed(name, err, fn_kernel, fn_plain, nbytes, 3 * flops,
+              ops_dtype="tf32", dname="f32", **kw)
+    m["bound_3xtf32_ms"] = m["bound_ms"]
+    m["bound_simt_ms"] = bound_ms(nbytes, flops, "float32")[0]
+    return m
 
 
 def entry(name, measured):
@@ -736,10 +755,10 @@ def swiglu_route_check(T, H, M):
 
 
 # Flash attention's cores, told apart by their device kernels' names:
-# flash_{fwd,bwd_dkv,bwd_dq}_{wgmma,mma,simt}_kernel and
-# flash_fwd_tf32_kernel (csrc/flash_wgmma.cu: the TMA + wgmma core and
-# its 3xTF32 f32 forward; csrc/flash_attention.cu: the mma.sync and SIMT
-# kernels) and the backward's pre-pass flash_delta_kernel.
+# flash_{fwd,bwd_dkv,bwd_dq}_{wgmma,tf32,mma,simt}_kernel
+# (csrc/flash_wgmma.cu: the TMA + wgmma core and its 3xTF32 f32 form;
+# csrc/flash_attention.cu: the bias route's mma.sync and SIMT kernels)
+# and the backward's pre-pass flash_delta_kernel.
 _FLASH_KERNEL = re.compile(
     r"(?<![A-Za-z0-9_])flash_(?:(fwd|bwd_dkv|bwd_dq)_(wgmma|tf32|mma|simt)|"
     r"(delta))_kernel<")
@@ -756,8 +775,8 @@ FLASH_ROUTE_CASES = ((4, 2048, 32, 32, 128, True),
 def flash_route_of(name):
     """(launch, core) of a flash device kernel's name, or None: launch
     forward, dkv, dq or delta; core "wgmma", "wgmma-tf32" (the f32
-    segment forward), "mma.sync" or "simt" (the delta pre-pass is a SIMT
-    kernel)."""
+    kernels of the one-length and segment routes), "mma.sync" or "simt"
+    (the delta pre-pass is a SIMT kernel)."""
     m = _FLASH_KERNEL.search(name)
     if m is None:
         return None
@@ -772,13 +791,13 @@ def expected_flash_routes(B, S, Hq, Hk, D, causal, dtype):
     """The core each launch of `flash_attention_fwd` and
     `flash_attention_bwd` takes for q [B, S, Hq, D] and k/v [B, S, Hk,
     D]: every bf16 call runs the wgmma core (the entries take no segment
-    ids, no bias and one length), every f32 call the SIMT kernels; the
+    ids, no bias and one length), every f32 call its 3xTF32 form; the
     backward's delta pre-pass is a SIMT kernel in both. Raises ValueError
     for a shape the entries do not take."""
     if not (B > 0 and S > 0 and Hk > 0 and Hq % Hk == 0 and D in (64, 128)):
         raise ValueError(f"flash takes no [B{B} S{S} H{Hq}/{Hk} D{D}]")
     dname = str(dtype).split(".")[-1]
-    core = {"bfloat16": "wgmma", "float32": "simt"}[dname]
+    core = {"bfloat16": "wgmma", "float32": "wgmma-tf32"}[dname]
     del causal  # causal or full: the same kernels
     return {"forward": core, "dkv": core, "dq": core, "delta": "simt"}
 
@@ -806,23 +825,43 @@ def traced_flash_routes(run):
     return got, names
 
 
+def hold_routes(what, label, got, names, want):
+    """Print the cores `traced_flash_routes` found for each launch and
+    fail unless each launch ran on exactly the core `want` names (the
+    traced kernels' names are printed on a miss)."""
+    print(f"{what} {label}: " + " ".join(
+        f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
+        + f" (want {want})", flush=True)
+    ok = got == {p: {c} for p, c in want.items()}
+    if not ok:
+        print(f"{what} {label}: device kernels traced: {names}", flush=True)
+    check(ok, f"{what} {label}: the launches ran on {got}, not {want}")
+
+
 def expected_seg_routes(B, Sq, Sk, Hq, Hk, D, causal, dtype):
     """The core each launch of the segment route takes for q [B, Sq, Hq,
     D] and k/v [B, Sk, Hk, D], ids or none: the forward
-    (`flash_attention_seg_fwd`) on the wgmma core in bf16 and on its
-    3xTF32 form in f32, never an mma.sync or SIMT forward; the backward
-    (`flash_attention_seg_dkv`, `_dq`) on the wgmma core in bf16, never
-    the mma.sync kernels, and on the SIMT kernels in f32; its delta
+    (`flash_attention_seg_fwd`) and the backward
+    (`flash_attention_seg_dkv`, `_dq`) on the wgmma core in bf16 and on
+    its 3xTF32 form in f32, never an mma.sync or SIMT kernel; the delta
     pre-pass (`flash_attention_delta`) a SIMT kernel in both. Raises
     ValueError for a shape the entries do not take."""
     if not (B > 0 and Sq > 0 and Sk > 0 and Hk > 0 and Hq % Hk == 0
             and D in (64, 128) and not (causal and Sq != Sk)):
         raise ValueError(f"the segment route takes no [B{B} Sq{Sq} Sk{Sk} "
                          f"H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}]")
-    bf16 = str(dtype).split(".")[-1] == "bfloat16"
-    back = "wgmma" if bf16 else "simt"
-    return {"forward": "wgmma" if bf16 else "wgmma-tf32", "dkv": back,
-            "dq": back, "delta": "simt"}
+    core = "wgmma" if str(dtype).split(".")[-1] == "bfloat16" \
+        else "wgmma-tf32"
+    return {"forward": core, "dkv": core, "dq": core, "delta": "simt"}
+
+
+def expected_bias_routes(dtype):
+    """The core each launch of the bias route takes
+    (`flash_attention_bias_fwd`, `_dkv`, `_dq`; its D = rowsum(dO * O) is
+    plain PyTorch, no pre-pass kernel): the mma.sync kernels in bf16, the
+    SIMT kernels in f32, both in csrc/flash_attention.cu."""
+    core = "mma.sync" if str(dtype).split(".")[-1] == "bfloat16" else "simt"
+    return {"forward": core, "dkv": core, "dq": core}
 
 
 def seg_route_check(tag, dtype):
@@ -847,31 +886,50 @@ def seg_route_check(tag, dtype):
     got, names = traced_flash_routes(run)
     B, Sq, hq, d = q.shape
     Sk, hk = k.shape[1], k.shape[2]
-    want = expected_seg_routes(B, Sq, Sk, hq, hk, d, causal, dtype)
-    dn = str(dtype).split(".")[-1]
-    label = f"[{tag} {dn}]"
-    print(f"segment route {label}: " + " ".join(
-        f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
-        + f" (want {want})", flush=True)
-    if got != {p: {c} for p, c in want.items()}:
-        print(f"segment route {label}: device kernels traced: {names}",
-              flush=True)
-    check(got == {p: {c} for p, c in want.items()},
-          f"segment route {label}: the launches ran on {got}, not {want}")
+    hold_routes("segment route", f"[{tag} {str(dtype).split('.')[-1]}]",
+                got, names,
+                expected_seg_routes(B, Sq, Sk, hq, hk, d, causal, dtype))
     del q, k, v, do
 
 
-def flash_route_check(B, S, Hq, Hk, D, causal):
-    """Trace one bf16 flash_attention_fwd and one flash_attention_bwd and
+def bias_route_check(dtype):
+    """Trace one bias forward, dkv and dq (`testing.BIAS_CASES`'
+    "sdpa_float" case, the surface's sdpa float mask, in `dtype`) and
     hold the cores their device kernels name against
-    `expected_flash_routes`: no flash_*_mma_kernel may run."""
+    `expected_bias_routes`."""
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    c = testing.bias_case(**testing.BIAS_CASES["sdpa_float"], dtype=dtype)
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    a = kfa._bias_args(c["kind"], c["param"], c["R"], c["padding_mask"],
+                       q.shape, k.shape)
+    causal, scale = c["causal"], c["scale"]
+
+    def run():
+        o, lse = kfa.flash_attention_bias_fwd(q, k, v, a, causal, scale)
+        args = (q, k, v, do, lse, kfa._delta(o, do), a, causal, scale)
+        kfa.flash_attention_bias_dkv(*args)
+        kfa.flash_attention_bias_dq(*args)
+
+    got, names = traced_flash_routes(run)
+    hold_routes("bias route", f"[sdpa_float {str(dtype).split('.')[-1]}]",
+                got, names, expected_bias_routes(dtype))
+    del q, k, v, do, a
+
+
+def flash_route_check(B, S, Hq, Hk, D, causal, dtype=None):
+    """Trace one flash_attention_fwd and one flash_attention_bwd (bf16
+    unless `dtype` says otherwise) and hold the cores their device
+    kernels name against `expected_flash_routes`: no flash_*_mma_kernel
+    nor flash_*_simt_kernel may run."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(11)
 
     def rand(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     q, do, k, v = rand(B, S, Hq, D), rand(B, S, Hq, D), rand(B, S, Hk, D), \
         rand(B, S, Hk, D)
@@ -882,16 +940,10 @@ def flash_route_check(B, S, Hq, Hk, D, causal):
         kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
 
     got, names = traced_flash_routes(run)
-    want = expected_flash_routes(B, S, Hq, Hk, D, causal, torch.bfloat16)
-    tag = f"[B{B} S{S} H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}]"
-    print(f"flash route {tag}: " + " ".join(
-        f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
-        + f" (want {want})", flush=True)
-    if got != {p: {c} for p, c in want.items()}:
-        print(f"flash route {tag}: device kernels traced: {names}",
-              flush=True)
-    check(got == {p: {c} for p, c in want.items()},
-          f"flash {tag}: the launches ran on {got}, not {want}")
+    hold_routes("flash route",
+                f"[B{B} S{S} H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}"
+                f" {str(dtype).split('.')[-1]}]", got, names,
+                expected_flash_routes(B, S, Hq, Hk, D, causal, dtype))
     del q, do, k, v
 
 
@@ -933,9 +985,8 @@ def training_kernels(report, dtype, gen):
         flash_pairs_checked(dtype, dname, q, k, v, do, causal)
         del q, k, v, do
     torch.cuda.empty_cache()
-    if dtype == torch.bfloat16:
-        for case in FLASH_ROUTE_CASES:
-            flash_route_check(*case)
+    for case in FLASH_ROUTE_CASES:
+        flash_route_check(*case, dtype=dtype)
     ce_kernels(report, dtype)
 
 
@@ -1317,6 +1368,7 @@ def bias_kernels(report, dtype):
             bias_timings(report, tag, c, errs, shape)
         del c
         torch.cuda.empty_cache()
+    bias_route_check(dtype)
 
 
 def _bias_pairs(c):
@@ -1417,18 +1469,16 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
     `library_device_ms`, by `traced_device_ms`) and the bounds over the
     pairs the segments leave. bf16 "bert" is each
     kernel's entry; f32 "bert" (the BERT phase's dtype) goes under
-    "bert_f32": its forward's bound counts three tf32 products per
-    product at the tf32 rate (beside it, `bound_simt_ms`: one f32 product
-    at the SIMT rate); its SIMT dkv and dq are bound at the f32 rate,
-    with `bound_3xtf32_ms` beside (a 3xTF32 design's bound)."""
+    "bert_f32": its forward, dkv and dq run in 3xTF32 and are bound by
+    `timed_3xtf32` (three tf32 products a product at the tf32 rate;
+    `bound_simt_ms` beside), and its forward carries both sides' traced
+    device time too."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
     bf16 = dtype == torch.bfloat16
     dn = "bf16" if bf16 else "f32"
-    ops = "bfloat16" if bf16 else "tf32"
-    split = 1 if bf16 else 3          # 3xTF32: three products a product
     it = torch.finfo(dtype).bits // 8
     B, S, hq, d = q.shape
     Sk = k.shape[1]
@@ -1453,6 +1503,11 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
     key = "bert" if bf16 and tag == "bert" else (
         "bert_f32" if tag == "bert" else tag)
 
+    def timed_at(*args, **kw):
+        if bf16:
+            return timed(*args, ops_dtype="bfloat16", dname="bf16", **kw)
+        return timed_3xtf32(*args, **kw)
+
     def put(name, m):
         if key == "bert":
             report[name] = entry(name, m)
@@ -1460,18 +1515,24 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
             report[name][key] = m
 
     fwd_bytes = qkv + q.numel() * it + lse_bytes + seg_bytes
-    put("flash_attention_seg_fwd", timed(
+    put("flash_attention_seg_fwd", timed_at(
         "flash_attention_seg_fwd", errs["fwd"],
         lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s),
-        plain_fwd, nbytes=fwd_bytes, flops=split * 4 * pairs * d,
+        plain_fwd, nbytes=fwd_bytes, flops=4 * pairs * d,
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        attn_mask=allow),
-        iters=20, plain_iters=3, tag=shape, ops_dtype=ops, dname=dn))
+        iters=20, plain_iters=3, tag=shape))
     if not bf16:
-        simt_ms, simt_by = bound_ms(fwd_bytes, 4 * pairs * d, "float32")
-        report["flash_attention_seg_fwd"][key]["bound_simt_ms"] = simt_ms
-        print(f"kernel flash_attention_seg_fwd f32{shape}: the SIMT "
-              f"design's bound_ms={simt_ms:.6g} ({simt_by})", flush=True)
+        m = report["flash_attention_seg_fwd"][key]
+        m["device_ms"] = traced_device_ms(
+            lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s))
+        m["library_device_ms"] = traced_device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=allow))
+        print(f"kernel flash_attention_seg_fwd f32{shape}: the f32 rate's "
+              f"bound_simt_ms={m['bound_simt_ms']:.6g}; device "
+              f"(traced) kernel {m['device_ms']:.6g} library "
+              f"{m['library_device_ms']:.6g}", flush=True)
     delta = kfa.flash_attention_delta(o, do)
     args = (q, k, v, do, lse, delta, sq, skv, causal, s)
     lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
@@ -1510,19 +1571,16 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
             return torch.autograd.grad(o_lib, lib_leaves, do_t,
                                        retain_graph=True)
 
-        m = timed(
+        m = timed_at(
             name, errs["dkv" if name.endswith("dkv") else "dq"], fn,
             plain_bwd, nbytes=nbytes, flops=flops, library=library,
-            iters=10, plain_iters=2, tag=shape,
-            ops_dtype="bfloat16" if bf16 else "float32", dname=dn)
+            iters=10, plain_iters=2, tag=shape)
         m["library_fwd_bwd_ms"] = lib_fb_ms
         # the card's own time of the launch and of SDPA's backward alone
         m["device_ms"] = traced_device_ms(fn)
         m["library_device_ms"] = traced_device_ms(library)
-        extra = ""
-        if not bf16:
-            m["bound_3xtf32_ms"] = bound_ms(nbytes, 3 * flops, "tf32")[0]
-            extra = f" bound_3xtf32_ms={m['bound_3xtf32_ms']:.6g}"
+        extra = ("" if bf16 else
+                 f"; the f32 rate's bound_simt_ms={m['bound_simt_ms']:.6g}")
         print(f"kernel {name} {dn}{shape}: library_fwd_bwd_ms="
               f"{lib_fb_ms:.6g} (SDPA forward and backward); device "
               f"(traced) kernel {m['device_ms']:.6g} library "
@@ -1532,12 +1590,14 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
 
 
 def ernie_flash_f32(report):
-    """The f32 one-length flash kernels (SIMT, csrc/flash_attention.cu)
-    at ERNIE's attention shape, bench.py:399-421's encoder configuration
+    """The f32 one-length flash kernels (3xTF32, csrc/flash_wgmma.cu) at
+    ERNIE's attention shape, bench.py:399-421's encoder configuration
     without a mask: [16, 512, 12, 64], full. Held against the plain
-    version and timed beside SDPA in f32 (TF32 off) and two bounds: the
-    f32 rate (bound_ms, the SIMT design's) and three tf32 products a
-    product at the tf32 rate (`bound_3xtf32_ms`), under "ernie_f32" in
+    version, traced to their cores (`flash_route_check`: no SIMT kernel
+    may run) and timed beside SDPA in f32 (TF32 off), each side also by
+    its traced device time (`device_ms`, `library_device_ms`), with
+    `timed_3xtf32`'s bounds (bound_ms: three tf32 products a product at
+    the tf32 rate; `bound_simt_ms`: the f32 rate), under "ernie_f32" in
     the flash_attention_fwd and flash_attention_bwd entries."""
     import torch
     import torch.nn.functional as F
@@ -1550,6 +1610,7 @@ def ernie_flash_f32(report):
                    for _ in range(4))
     err_f, err_b, _, o, lse = flash_pairs_checked(dt, "float32", q, k, v, do,
                                                   causal)
+    flash_route_check(B, S, H, H, d, causal, dtype=dt)
     scale = d ** -0.5
     tag = f" [B{B} S{S} H{H} D{d} full]"
     fwd_flops = 4 * B * H * d * S * S
@@ -1557,14 +1618,15 @@ def ernie_flash_f32(report):
     lse_bytes = lse.numel() * 4
     qr, kr, vr = (t.transpose(1, 2) for t in (q, k, v))
     fwd_bytes = qkv_bytes + q.numel() * 4 + lse_bytes
-    m = timed("flash_attention_fwd", err_f,
-              lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
-              lambda: kfa._plain(q, k, v, causal, scale),
-              nbytes=fwd_bytes, flops=fwd_flops,
-              library=lambda: F.scaled_dot_product_attention(qr, kr, vr),
-              iters=10, plain_iters=3, tag=tag, ops_dtype="float32",
-              dname="f32")
-    m["bound_3xtf32_ms"] = bound_ms(fwd_bytes, 3 * fwd_flops, "tf32")[0]
+    m = timed_3xtf32(
+        "flash_attention_fwd", err_f,
+        lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
+        lambda: kfa._plain(q, k, v, causal, scale),
+        nbytes=fwd_bytes, flops=fwd_flops,
+        library=lambda: F.scaled_dot_product_attention(qr, kr, vr),
+        iters=10, plain_iters=3, tag=tag)
+    m["device_ms"] = traced_device_ms(
+        lambda: kfa.flash_attention_fwd(q, k, v, causal, scale))
     m["library_device_ms"] = traced_device_ms(
         lambda: F.scaled_dot_product_attention(qr, kr, vr))
     report["flash_attention_fwd"]["ernie_f32"] = m
@@ -1583,23 +1645,23 @@ def ernie_flash_f32(report):
                                    retain_graph=True)
 
     bwd_bytes = qkv_bytes + 2 * q.numel() * 4 + qkv_bytes + lse_bytes
-    m = timed("flash_attention_bwd", err_b,
-              lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal,
-                                              scale),
-              lambda: torch.autograd.grad(o_pl, leaves, do,
-                                          retain_graph=True),
-              nbytes=bwd_bytes, flops=fwd_flops * 5 // 2, library=library,
-              iters=10, plain_iters=3, tag=tag, ops_dtype="float32",
-              dname="f32")
-    m["bound_3xtf32_ms"] = bound_ms(bwd_bytes, 3 * fwd_flops * 5 // 2,
-                                    "tf32")[0]
+    m = timed_3xtf32(
+        "flash_attention_bwd", err_b,
+        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale),
+        lambda: torch.autograd.grad(o_pl, leaves, do, retain_graph=True),
+        nbytes=bwd_bytes, flops=fwd_flops * 5 // 2, library=library,
+        iters=10, plain_iters=3, tag=tag)
     m["library_fwd_bwd_ms"] = time_ms(library_fwd_bwd, 10)
+    m["device_ms"] = traced_device_ms(
+        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale))
     m["library_device_ms"] = traced_device_ms(library)
     fwd = report["flash_attention_fwd"]["ernie_f32"]
-    print(f"kernel flash_attention f32{tag}: bound_3xtf32_ms fwd="
-          f"{fwd['bound_3xtf32_ms']:.6g} bwd={m['bound_3xtf32_ms']:.6g}; "
-          f"SDPA f32 device (traced) fwd {fwd['library_device_ms']:.6g} "
-          f"bwd alone {m['library_device_ms']:.6g}; bwd library_fwd_bwd_ms="
+    print(f"kernel flash_attention f32{tag}: the f32 rate's bound_simt_ms "
+          f"fwd={fwd['bound_simt_ms']:.6g} bwd={m['bound_simt_ms']:.6g}; "
+          f"device (traced) kernel fwd {fwd['device_ms']:.6g} bwd "
+          f"{m['device_ms']:.6g}; SDPA f32 device (traced) fwd "
+          f"{fwd['library_device_ms']:.6g} bwd alone "
+          f"{m['library_device_ms']:.6g}; bwd library_fwd_bwd_ms="
           f"{m['library_fwd_bwd_ms']:.6g} (SDPA f32 forward and backward)",
           flush=True)
     report["flash_attention_bwd"]["ernie_f32"] = m
@@ -2934,13 +2996,19 @@ def route_times():
     flash_attn_unpadded on the same batch, forward + backward; the
     forward kernel at BERT's shape in bf16 and f32 and at the packed
     causal 8192 tokens; dkv + dq in bf16 at both; the packed causal
-    route's forward + backward) and the bert_base f32 forward on the BERT
-    phase's batch; swiglu at 128 and 4 rows of llama_7b's width, swiglu, swiglu_bwd_da and swiglu_bwd_dw at 8192 rows of
+    route's forward + backward; dkv + dq at BERT's shape in f32 too; the
+    f32 one-length forward and backward at ERNIE's shape and at
+    llama_1b's causal [4, 2048, 16, 128], each beside SDPA in f32 with
+    TF32 off: its forward, and its backward alone over a retained
+    forward) and the bert_base f32 forward
+    on the BERT phase's batch; swiglu at 128 and 4 rows of llama_7b's
+    width, swiglu, swiglu_bwd_da and swiglu_bwd_dw at 8192 rows of
     llama_7b's and llama_1b's widths, then swiglu at 128 and 4 rows again,
     each small-row reading beside `card_state`. Uses only entry points
     the parent commit has."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from paddle_tpu_torch import testing
     from paddle_tpu_torch.kernels import flash_attention as kfa
@@ -3026,7 +3094,7 @@ def route_times():
     del q, k, v, do, packed_in
     # the segment kernels: the forward at BERT's shape in bf16 and f32 and
     # at the packed causal 8192 tokens; dkv + dq (one call each, over the
-    # forward's lse and the delta pre-pass's D) in bf16 at both
+    # forward's lse and the delta pre-pass's D) at each
     for tag, dt, dn in (("bert", torch.bfloat16, "bf16"),
                         ("bert", torch.float32, "f32"),
                         ("packed_7b", torch.bfloat16, "bf16")):
@@ -3035,18 +3103,40 @@ def route_times():
         c, sc = kw["causal"], q.shape[-1] ** -0.5
         out[f"seg_fwd_{tag}_{dn}_ms"] = time_ms(
             lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, c, sc), 20)
-        if dt == torch.bfloat16:
-            o, lse = kfa.flash_attention_seg_fwd(q, k, v, sq, skv, c, sc)
-            args = (q, k, v, do, lse, kfa.flash_attention_delta(o, do), sq,
-                    skv, c, sc)
+        o, lse = kfa.flash_attention_seg_fwd(q, k, v, sq, skv, c, sc)
+        args = (q, k, v, do, lse, kfa.flash_attention_delta(o, do), sq,
+                skv, c, sc)
 
-            def dkv_dq():
-                kfa.flash_attention_seg_dkv(*args)
-                kfa.flash_attention_seg_dq(*args)
+        def dkv_dq():
+            kfa.flash_attention_seg_dkv(*args)
+            kfa.flash_attention_seg_dq(*args)
 
-            out[f"seg_dkv_dq_{tag}_{dn}_ms"] = time_ms(dkv_dq, 10)
-            del o, lse, args
-        del q, k, v, do, sq, skv
+        out[f"seg_dkv_dq_{tag}_{dn}_ms"] = time_ms(dkv_dq, 10)
+        del o, lse, args, q, k, v, do, sq, skv
+    # the f32 one-length route at ERNIE's [16, 512, 12, 64], full, and at
+    # llama_1b's [4, 2048, 16, 128], causal: the forward and the backward
+    # (with its delta pre-pass), then SDPA in f32 on the same inputs: its
+    # forward, and its backward alone over a retained forward
+    for tag, shape, c in (("ernie", (16, 512, 12, 64), False),
+                          ("1b", (4, 2048, 16, 128), True)):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(4))
+        sc = shape[-1] ** -0.5
+        out[f"{tag}_f32_fwd_ms"] = time_ms(
+            lambda: kfa.flash_attention_fwd(q, k, v, c, sc), 10)
+        o, lse = kfa.flash_attention_fwd(q, k, v, c, sc)
+        out[f"{tag}_f32_bwd_ms"] = time_ms(
+            lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, c, sc), 5)
+        qt, kt, vt, do_t = (t.transpose(1, 2) for t in (q, k, v, do))
+        out[f"{tag}_f32_sdpa_fwd_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=c),
+            10)
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        o_l = F.scaled_dot_product_attention(*leaves, is_causal=c)
+        out[f"{tag}_f32_sdpa_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(o_l, leaves, do_t,
+                                        retain_graph=True), 5)
+        del q, k, v, do, o, lse, qt, kt, vt, do_t, leaves, o_l
     # the packed causal route through flash_attn_unpadded at llama_7b
     # width, forward and backward
     lengths7 = testing.packed_lengths()
@@ -3125,8 +3215,8 @@ def ab_main(parent):
         got = json.loads(res.stdout.strip().splitlines()[-1])
         print(f"ab {who} ({root}): {json.dumps(got)}", flush=True)
         runs.append((who, got))
-    for key in runs[0][1]:
-        by = {w: [r[key] for x, r in runs if x == w]
+    for key in dict.fromkeys(k for _, r in runs for k in r):
+        by = {w: [r.get(key) for x, r in runs if x == w]
               for w in ("parent", "change")}
         print(f"ab {key}: parent {by['parent']} change {by['change']} "
               f"[{smi_line}]", flush=True)

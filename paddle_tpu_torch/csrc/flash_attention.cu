@@ -1,32 +1,22 @@
-// Flash attention forward and backward, BSHD layout, causal or full,
-// MHA and GQA (q head h reads kv head h / (Hq / Hk)), head dim 64 or 128,
-// with q and kv lengths Sq and Sk. The routes here:
-//   - the f32 segment backward (`ptt_flash_attention_seg_dkv_f32` /
-//     `_seg_dq_f32`: segment ids or none) on SIMT; the segment forward
-//     and the bf16 segment backward are flash_wgmma.cu's (wgmma; the f32
-//     forward as 3xTF32);
-//   - the bias route (`ptt_flash_attention_bias_*`), forward and
-//     backward, bf16 on mma.sync, f32 on SIMT;
-//   - the f32 one-length route (`ptt_flash_attention_fwd_f32` /
-//     `_bwd_f32`) on SIMT.
-// The bf16 routes without a bias (LLaMA training's, the segment route)
-// run the TMA + mbarrier + wgmma core of flash_wgmma.cu: mma.sync m16n8k16
-// issued by single warps from a cp.async ring cannot reach Hopper's
-// tensor-core rate (3.8x SDPA's forward at llama_7b's shape on an H100,
-// PERF.md row 10), while wgmma with TMA-fed, swizzled operands can.
+// Flash attention with a bias, forward and backward, BSHD layout, causal
+// (top-left) or full, MHA and GQA (q head h reads kv head h / (Hq /
+// Hk)), head dim 64 or 128, q and kv lengths Sq and Sk of their own: the
+// bias route (`ptt_flash_attention_bias_*`), bf16 on mma.sync, f32 on
+// SIMT. Every route without a bias (the one-length route of LLaMA
+// training and ERNIE, the segment route of padding masks, packed
+// documents and cross lengths) runs the TMA + mbarrier + wgmma core of
+// flash_wgmma.cu, bf16 and f32 (as 3xTF32): mma.sync m16n8k16 issued by
+// single warps from a cp.async ring cannot reach Hopper's tensor-core
+// rate (3.8x SDPA's forward at llama_7b's shape on an H100, PERF.md row
+// 10), and FMA loops over shared-memory tiles reach a small part of the
+// f32 rate (4.8x SDPA's f32 backward at ERNIE's shape, PERF.md row 10).
 //
-// Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
-//   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
-//   pallas_call l.758, bwd dkv l.1121, bwd dq l.1456) for MHA, and the
-//   splash MQA kernel (`_splash_gqa`) for GQA; with `SegmentIds`, the
-//   same kernels behind `padding_mask=` (flash_attention.py:327-336, GQA
-//   l.136-139) and `flash_attention_packed` (l.406).
-// Bound on the H100: operations. At the training slice's q/k/v
-//   [4, 2048, 16, 128] causal, the forward does 4*B*H*S^2*D/2 = 69 GFLOP
-//   against 67 MB of q/k/v/o (about 1000 flop per byte, far above the
-//   ~295 flop/byte bf16 ridge); the backward does 2.5x the forward. With
-//   segment ids at BERT's [16, 512, 12, 64] the backward does 2.5 times
-//   the forward's 8.7 GFLOP against about 80 MB: near the ridge.
+// Replaces: paddle_tpu/kernels/flash_attention.py:215
+//   (`flash_attention_biased`, below) -> the block-stats kernel of
+//   kernels/block_attention.py:138 per 512-key chunk.
+// Bound on the H100: operations at the 7B shape (alibi causal [4, 2048,
+//   32, 128]: 137 GFLOP of causal pairs against 67 MB); causal tiles
+//   above the diagonal are skipped.
 // Design: the TPU kernels carry the online-softmax state across a
 //   sequential grid axis in VMEM scratch; here a block owns one (q tile,
 //   head, batch) and walks the kv tiles in a loop inside the block, so
@@ -35,9 +25,8 @@
 //   softmax and the output accumulator stay in registers (mma.sync
 //   m16n8k16, f32 accumulators), P is handed from the accumulator layout
 //   straight to the A operand of P V, and K/V tiles stream through a
-//   double-buffered cp.async ring. f32 (the CPU-parity dtype) runs a SIMT
-//   version of the same walk with its tiles in shared memory. P (and dS
-//   in the backward) is
+//   double-buffered cp.async ring. f32 runs a SIMT version of the same
+//   walk with its tiles in shared memory. P (and dS in the backward) is
 //   rounded to the input dtype before its product, as every flash kernel
 //   does; the softmax statistics stay f32. Fully masked causal tiles are
 //   skipped, and the heavy causal tiles are scheduled first. The forward
@@ -46,27 +35,12 @@
 //   kv tile, kv head and batch; it loops over the q tiles and, for GQA,
 //   over the group's q heads, so dk and dv sum over the group in f32) and
 //   dq (one block per q tile, head and batch). Both recompute P from the
-//   saved LSE; D = rowsum(dO * O) comes from the caller (the delta
-//   pre-pass of flash_wgmma.cu on the one-length f32 and the segment
-//   routes, plain PyTorch over the stored O on the bias route, as
-//   upstream l.1664 is plain jnp). `scale` multiplies the
-//   scores in f32 (MHA); GQA callers pass q pre-scaled in q's dtype and
-//   scale = 1, as splash takes it.
-// Segment ids (int32 [B, Sq] and [B, Sk]; the f32 SIMT backward with
-//   ids): a score counts where seg_q[b, i] == seg_kv[b, j]. As upstream, a
-//   score whose segments differ takes the finite mask value kSegMask
-//   (upstream's DEFAULT_MASK_VALUE) rather than -inf, so a query row with
-//   no key of its own segment averaged V over the keys in the forward,
-//   and the backward recomputes its P from an LSE that rounds to kSegMask
-//   (P = 1), as upstream does. A key past Sk or above the causal
-//   diagonal takes -inf (P = 0 exactly). The backward visits every tile.
-//   Causal requires Sq == Sk.
-// Bias (BIAS instantiations, the `ptt_flash_attention_bias_*` entries):
-//   replaces paddle_tpu/kernels/flash_attention.py:215
-//   (`flash_attention_biased`, which runs the block-stats kernel of
-//   kernels/block_attention.py:138 per 512-key chunk and merges the
-//   partials). One forward and one dkv/dq pair on this core, with the
-//   bias made or read inside the kernel at the score assembly, never
+//   saved LSE; D = rowsum(dO * O) is plain PyTorch over the stored O, as
+//   upstream l.1664 is plain jnp. `scale` multiplies the scores in f32,
+//   GQA included.
+// The bias: one forward and one dkv/dq pair (the reference runs the
+//   block-stats kernel per 512-key chunk and merges the partials), with
+//   the bias made or read inside the kernel at the score assembly, never
 //   materialised: "alibi" from the head's slope (-slope (i - j) causal,
 //   -slope |i - j| full), "rel_table" from the head's table row
 //   (table[h, clip(j - i, -R, R) + R], read through the read-only
@@ -79,9 +53,7 @@
 //   diagonal (j > i, any Sq and Sk), at a padding-mask key, or where the
 //   bias is <= -5e29 (-inf included); a finite bias such as -1e4 is a
 //   number. A row with no valid key writes o = 0 and lse = +inf, so its
-//   backward P is 0. Bound on the H100: operations at the 7B shape (alibi
-//   causal [4, 2048, 32, 128]: 137 GFLOP of causal pairs against 67 MB);
-//   causal tiles above the diagonal are skipped.
+//   backward P is 0.
 
 #include <type_traits>
 
@@ -91,16 +63,12 @@ namespace {
 
 using namespace ptt::attn;
 
-// upstream's DEFAULT_MASK_VALUE, -0.7 * float32 max
-constexpr float kSegMask = -2.3819763e38f;
-
 __device__ __forceinline__ bool in_view(int qi, int kj, int Sq, int Sk,
                                         int causal) {
   return qi < Sq && kj < Sk && (!causal || kj <= qi);
 }
 
-// bias kinds (a runtime value, uniform over the grid; 0 in the no-bias
-// and segment instantiations)
+// bias kinds (a runtime value, uniform over the grid)
 constexpr int kBiasAlibi = 1;
 constexpr int kBiasRelTable = 2;
 constexpr int kBiasDense = 3;
@@ -594,15 +562,8 @@ constexpr int fwd_simt_smem() {
          3 * align128(G::BR * 4);
 }
 
-// the segment ids of rows [r0, r0 + R) of batch b (-1 past S)
-template <int R>
-__device__ __forceinline__ void load_segs(int* dst, const int* __restrict__ seg,
-                                          int b, int r0, int S) {
-  for (int r = threadIdx.x; r < R; r += blockDim.x)
-    dst[r] = r0 + r < S ? seg[static_cast<size_t>(b) * S + r0 + r] : -1;
-}
-
-template <int D, bool BIAS>
+// the f32 bias forward
+template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const BiasArgs ba,
@@ -630,8 +591,7 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  BiasHead hb{};
-  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+  const BiasHead hb = bias_head(ba, b, h, Sk);
 
   load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
   for (int e = threadIdx.x; e < BR * G::LDO; e += blockDim.x) Os[e] = 0.f;
@@ -653,15 +613,10 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qi = q0 + r;
       float mx = -INFINITY;
       for (int c = lane; c < BC; c += 32) {
-        float s = -INFINITY;
-        if constexpr (BIAS) {
-          float bv;
-          if (in_view(qi, k0 + c, Sq, Sk, causal) &&
-              bias_at(bv, ba, hb, qi, k0 + c, causal))
-            s = biased(Ss[r * G::LDS + c], scale, bv);
-        } else if (in_view(qi, k0 + c, Sq, Sk, causal)) {
-          s = Ss[r * G::LDS + c] * scale;
-        }
+        float s = -INFINITY, bv;
+        if (in_view(qi, k0 + c, Sq, Sk, causal) &&
+            bias_at(bv, ba, hb, qi, k0 + c, causal))
+          s = biased(Ss[r * G::LDS + c], scale, bv);
         Ss[r * G::LDS + c] = s;
         mx = fmaxf(mx, s);
       }
@@ -697,27 +652,24 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = e / D;
     const int c = e % D;
     const int s = q0 + r;
-    // BIAS: a row with no valid key (l = 0) writes o = 0 and lse = +inf
+    // a row with no valid key (l = 0) writes o = 0 and lse = +inf
     if (s < Sq)
       o[((static_cast<size_t>(b) * Sq + s) * Hq + h) * D + c] =
-          (BIAS && !(l_s[r] > 0.f)) ? 0.f : Os[r * G::LDO + c] / l_s[r];
+          !(l_s[r] > 0.f) ? 0.f : Os[r * G::LDO + c] / l_s[r];
   }
   for (int r = threadIdx.x; r < BR; r += blockDim.x)
     if (q0 + r < Sq)
       lse[(static_cast<size_t>(b) * Hq + h) * Sq + q0 + r] =
-          (BIAS && !(l_s[r] > 0.f)) ? INFINITY : m_s[r] + logf(l_s[r]);
+          !(l_s[r] > 0.f) ? INFINITY : m_s[r] + logf(l_s[r]);
 }
 
 // P and dS of one (q tile, kv tile) pair from the recomputed scores Ss and
-// dP = dO V^T in dPs: p = exp(s * scale - lse) (the segment mask value
-// for s where the segments differ, 0 out of view; BIAS: s * scale + the
-// head's bias, 0 where masked), ds = p * (dp - D). sq_s / sk_s: the
-// tiles' segment ids, or nullptr.
-template <int D, bool BIAS>
+// dP = dO V^T in dPs: p = exp(s * scale + the head's bias - lse), 0 where
+// masked; ds = p * (dp - D).
+template <int D>
 __device__ __forceinline__ void p_and_ds(const float* Ss, const float* dPs,
                                          const float* lse_s,
-                                         const float* dl_s, const int* sq_s,
-                                         const int* sk_s, const BiasArgs& ba,
+                                         const float* dl_s, const BiasArgs& ba,
                                          const BiasHead& hb, float* Ps,
                                          float* dSs, int q0, int k0, int Sq,
                                          int Sk, int causal, float scale) {
@@ -725,17 +677,10 @@ __device__ __forceinline__ void p_and_ds(const float* Ss, const float* dPs,
   for (int e = threadIdx.x; e < G::BR * G::BC; e += blockDim.x) {
     const int r = e / G::BC;
     const int c = e % G::BC;
-    float p = 0.f;
-    if constexpr (BIAS) {
-      float bv;
-      if (in_view(q0 + r, k0 + c, Sq, Sk, causal) &&
-          bias_at(bv, ba, hb, q0 + r, k0 + c, causal))
-        p = expf(biased(Ss[r * G::LDS + c], scale, bv) - lse_s[r]);
-    } else if (in_view(q0 + r, k0 + c, Sq, Sk, causal)) {
-      const float x = (sq_s != nullptr && sq_s[r] != sk_s[c])
-                          ? kSegMask : Ss[r * G::LDS + c] * scale;
-      p = expf(x - lse_s[r]);
-    }
+    float p = 0.f, bv;
+    if (in_view(q0 + r, k0 + c, Sq, Sk, causal) &&
+        bias_at(bv, ba, hb, q0 + r, k0 + c, causal))
+      p = expf(biased(Ss[r * G::LDS + c], scale, bv) - lse_s[r]);
     if (Ps != nullptr) Ps[r * G::LDS + c] = p;
     dSs[r * G::LDS + c] = p * (dPs[r * G::LDS + c] - dl_s[r]);
   }
@@ -760,19 +705,18 @@ constexpr int dkv_simt_smem() {
   using G = Geo<D>;
   return 2 * align128(G::BC * G::LDT * 4) + 2 * align128(G::BC * G::LDO * 4) +
          2 * align128(G::BR * G::LDT * 4) + 4 * align128(G::BR * G::LDS * 4) +
-         2 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
+         2 * align128(G::BR * 4);
 }
 
-template <int D, bool BIAS>
+// the f32 bias backward's dk and dv
+template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
                           const float* __restrict__ dout,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          const int* __restrict__ seg_q,
-                          const int* __restrict__ seg_kv, const BiasArgs ba,
+                          const float* __restrict__ delta, const BiasArgs ba,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int Sq, int Sk, int Hq, int Hk, int causal,
                           float scale) {
@@ -792,9 +736,6 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
   float* dSs = cv.take(BR * G::LDS);
   float* lse_s = cv.take(BR);
   float* dl_s = cv.take(BR);
-  int* sq_s = reinterpret_cast<int*>(cv.take(BR));
-  int* sk_s = reinterpret_cast<int*>(cv.take(BC));
-  const bool seg = seg_q != nullptr;
 
   const int k0 = blockIdx.x * BC;    // early keys see the most q rows
   const int hk = blockIdx.y;
@@ -803,7 +744,6 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
 
   load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, Sk, Hk);
   load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, Sk, Hk);
-  if (seg) load_segs<BC>(sk_s, seg_kv, b, k0, Sk);
   for (int e = threadIdx.x; e < BC * G::LDO; e += blockDim.x) {
     dKs[e] = 0.f;
     dVs[e] = 0.f;
@@ -811,22 +751,20 @@ flash_bwd_dkv_simt_kernel(const float* __restrict__ q,
   const int q_begin = causal ? (k0 / BR) * BR : 0;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    BiasHead hb{};
-    if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+    const BiasHead hb = bias_head(ba, b, h, Sk);
     for (int q0 = q_begin; q0 < Sq; q0 += BR) {
       __syncthreads();               // the last pair's Q, dO, P, dS are free
       load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
       load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, Sq, Hq);
       load_stats(lse_s, dl_s, lse, delta, b, h, q0, Sq, Hq, BR);
-      if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
       __syncthreads();
       tile_mm<false, true, BR, BC, D>(Ss, G::LDS, Qs, G::LDT, Ks, G::LDT,
                                       false);
       tile_mm<false, true, BR, BC, D>(dPs, G::LDS, dOs, G::LDT, Vs, G::LDT,
                                       false);
       __syncthreads();
-      p_and_ds<D, BIAS>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s,
-                        ba, hb, Ps, dSs, q0, k0, Sq, Sk, causal, scale);
+      p_and_ds<D>(Ss, dPs, lse_s, dl_s, ba, hb, Ps, dSs, q0, k0, Sq, Sk,
+                  causal, scale);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q  (both [BC, D], summed over q rows)
       tile_mm<true, false, BC, D, BR>(dVs, G::LDO, Ps, G::LDS, dOs, G::LDT,
@@ -853,19 +791,18 @@ constexpr int dq_simt_smem() {
   using G = Geo<D>;
   return 2 * align128(G::BR * G::LDT * 4) + 2 * align128(G::BC * G::LDT * 4) +
          align128(G::BR * G::LDO * 4) + 3 * align128(G::BR * G::LDS * 4) +
-         2 * align128(G::BR * 4) + align128(G::BR * 4) + align128(G::BC * 4);
+         2 * align128(G::BR * 4);
 }
 
-template <int D, bool BIAS>
+// the f32 bias backward's dq
+template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_bwd_dq_simt_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int* __restrict__ seg_q,
-                         const int* __restrict__ seg_kv, const BiasArgs ba,
+                         const float* __restrict__ delta, const BiasArgs ba,
                          float* __restrict__ dq, int Sq, int Sk, int Hq,
                          int Hk, int causal, float scale) {
   using G = Geo<D>;
@@ -882,37 +819,31 @@ flash_bwd_dq_simt_kernel(const float* __restrict__ q,
   float* dSs = cv.take(BR * G::LDS);
   float* lse_s = cv.take(BR);
   float* dl_s = cv.take(BR);
-  int* sq_s = reinterpret_cast<int*>(cv.take(BR));
-  int* sk_s = reinterpret_cast<int*>(cv.take(BC));
-  const bool seg = seg_q != nullptr;
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hk);
   const int q0 = qt * BR;
-  BiasHead hb{};
-  if constexpr (BIAS) hb = bias_head(ba, b, h, Sk);
+  const BiasHead hb = bias_head(ba, b, h, Sk);
 
   load_rows<BR, D>(Qs, G::LDT, q, b, h, q0, Sq, Hq);
   load_rows<BR, D>(dOs, G::LDT, dout, b, h, q0, Sq, Hq);
   load_stats(lse_s, dl_s, lse, delta, b, h, q0, Sq, Hq, BR);
-  if (seg) load_segs<BR>(sq_s, seg_q, b, q0, Sq);
   for (int e = threadIdx.x; e < BR * G::LDO; e += blockDim.x) dQs[e] = 0.f;
   const int kv_end = causal ? min(Sk, q0 + BR) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += BC) {
     __syncthreads();                 // the last tile's K, V, dS are free
     load_rows<BC, D>(Ks, G::LDT, k, b, hk, k0, Sk, Hk);
     load_rows<BC, D>(Vs, G::LDT, v, b, hk, k0, Sk, Hk);
-    if (seg) load_segs<BC>(sk_s, seg_kv, b, k0, Sk);
     __syncthreads();
     tile_mm<false, true, BR, BC, D>(Ss, G::LDS, Qs, G::LDT, Ks, G::LDT,
                                     false);
     tile_mm<false, true, BR, BC, D>(dPs, G::LDS, dOs, G::LDT, Vs, G::LDT,
                                     false);
     __syncthreads();
-    p_and_ds<D, BIAS>(Ss, dPs, lse_s, dl_s, seg ? sq_s : nullptr, sk_s, ba,
-                      hb, nullptr, dSs, q0, k0, Sq, Sk, causal, scale);
+    p_and_ds<D>(Ss, dPs, lse_s, dl_s, ba, hb, nullptr, dSs, q0, k0, Sq, Sk,
+                causal, scale);
     __syncthreads();
     tile_mm<false, false, BR, D, BC>(dQs, G::LDO, dSs, G::LDS, Ks, G::LDT,
                                      true);
@@ -935,14 +866,12 @@ struct Shape {
   float scale;
 };
 
-// the forward: bias (bf16 on the mma.sync kernel, f32 on SIMT) or the f32
-// one-length route (SIMT)
-template <typename T, int D, bool BIAS>
+// the bias forward: bf16 on the mma.sync kernel, f32 on SIMT
+template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v,
                 const BiasArgs& ba, void* o, void* lse, const Shape& s,
                 cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(BIAS, "the bf16 forwards without a bias: flash_wgmma.cu");
     constexpr int smem = fwd_mma_smem<D>();
     cudaError_t err = set_smem(flash_fwd_mma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
@@ -953,10 +882,10 @@ cudaError_t fwd(const void* q, const void* k, const void* v,
         static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   } else {
     constexpr int smem = fwd_simt_smem<D>();
-    cudaError_t err = set_smem(flash_fwd_simt_kernel<D, BIAS>, smem);
+    cudaError_t err = set_smem(flash_fwd_simt_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B);
-    flash_fwd_simt_kernel<D, BIAS><<<grid, SIMT_THREADS, smem, stream>>>(
+    flash_fwd_simt_kernel<D><<<grid, SIMT_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), ba, static_cast<float*>(o),
         static_cast<float*>(lse), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
@@ -970,218 +899,116 @@ struct BwdIn {
   const float *lse, *delta;
 };
 
-template <typename T, int D, bool SEG, bool BIAS>
-cudaError_t dkv(const BwdIn& in, const int* sq, const int* skv,
-                const BiasArgs& ba, void* dk, void* dv, const Shape& s,
-                cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t dkv(const BwdIn& in, const BiasArgs& ba, void* dk, void* dv,
+                const Shape& s, cudaStream_t stream) {
   const T* q_ = static_cast<const T*>(in.q);
   const T* k_ = static_cast<const T*>(in.k);
   const T* v_ = static_cast<const T*>(in.v);
   const T* do_ = static_cast<const T*>(in.dout);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    // bf16 takes a bias here; its segment backward is flash_wgmma.cu's
-    if constexpr (!BIAS) {
-      return cudaErrorInvalidValue;
-    } else {
-      constexpr int smem = dkv_mma_smem<D>();
-      err = set_smem(flash_bwd_dkv_mma_kernel<D>, smem);
-      if (err != cudaSuccess) return err;
-      flash_bwd_dkv_mma_kernel<D>
-          <<<dim3((s.Sk + TKV - 1) / TKV, s.Hk, s.B), MMA_THREADS, smem,
-             stream>>>(q_, k_, v_, do_, in.lse, in.delta, ba,
-                       static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk,
-                       s.Hq, s.Hk, s.causal, s.scale);
-    }
+    constexpr int smem = dkv_mma_smem<D>();
+    err = set_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_mma_kernel<D>
+        <<<dim3((s.Sk + TKV - 1) / TKV, s.Hk, s.B), MMA_THREADS, smem,
+           stream>>>(q_, k_, v_, do_, in.lse, in.delta, ba,
+                     static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk,
+                     s.Hq, s.Hk, s.causal, s.scale);
   } else {
     constexpr int smem = dkv_simt_smem<D>();
-    err = set_smem(flash_bwd_dkv_simt_kernel<D, BIAS>, smem);
+    err = set_smem(flash_bwd_dkv_simt_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_simt_kernel<D, BIAS>
+    flash_bwd_dkv_simt_kernel<D>
         <<<dim3((s.Sk + Geo<D>::BC - 1) / Geo<D>::BC, s.Hk, s.B),
            SIMT_THREADS, smem, stream>>>(
-            q_, k_, v_, do_, in.lse, in.delta, SEG ? sq : nullptr,
-            SEG ? skv : nullptr, ba, static_cast<T*>(dk),
+            q_, k_, v_, do_, in.lse, in.delta, ba, static_cast<T*>(dk),
             static_cast<T*>(dv), s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool SEG, bool BIAS>
-cudaError_t dq(const BwdIn& in, const int* sq, const int* skv,
-               const BiasArgs& ba, void* dq_out, const Shape& s,
-               cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t dq(const BwdIn& in, const BiasArgs& ba, void* dq_out,
+               const Shape& s, cudaStream_t stream) {
   const T* q_ = static_cast<const T*>(in.q);
   const T* k_ = static_cast<const T*>(in.k);
   const T* v_ = static_cast<const T*>(in.v);
   const T* do_ = static_cast<const T*>(in.dout);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    // bf16 takes a bias here; its segment backward is flash_wgmma.cu's
-    if constexpr (!BIAS) {
-      return cudaErrorInvalidValue;
-    } else {
-      constexpr int smem = dq_mma_smem<D>();
-      err = set_smem(flash_bwd_dq_mma_kernel<D>, smem);
-      if (err != cudaSuccess) return err;
-      flash_bwd_dq_mma_kernel<D>
-          <<<dim3((s.Sq + TQ - 1) / TQ, s.Hq, s.B), MMA_THREADS, smem,
-             stream>>>(q_, k_, v_, do_, in.lse, in.delta, ba,
-                       static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq, s.Hk,
-                       s.causal, s.scale);
-    }
+    constexpr int smem = dq_mma_smem<D>();
+    err = set_smem(flash_bwd_dq_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_mma_kernel<D>
+        <<<dim3((s.Sq + TQ - 1) / TQ, s.Hq, s.B), MMA_THREADS, smem,
+           stream>>>(q_, k_, v_, do_, in.lse, in.delta, ba,
+                     static_cast<T*>(dq_out), s.Sq, s.Sk, s.Hq, s.Hk,
+                     s.causal, s.scale);
   } else {
     constexpr int smem = dq_simt_smem<D>();
-    err = set_smem(flash_bwd_dq_simt_kernel<D, BIAS>, smem);
+    err = set_smem(flash_bwd_dq_simt_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_simt_kernel<D, BIAS>
+    flash_bwd_dq_simt_kernel<D>
         <<<dim3((s.Sq + Geo<D>::BR - 1) / Geo<D>::BR, s.Hq, s.B),
            SIMT_THREADS, smem, stream>>>(
-            q_, k_, v_, do_, in.lse, in.delta, SEG ? sq : nullptr,
-            SEG ? skv : nullptr, ba, static_cast<T*>(dq_out), s.Sq, s.Sk,
-            s.Hq, s.Hk, s.causal, s.scale);
+            q_, k_, v_, do_, in.lse, in.delta, ba, static_cast<T*>(dq_out),
+            s.Sq, s.Sk, s.Hq, s.Hk, s.causal, s.scale);
   }
   return cudaGetLastError();
 }
 
 // shape checks shared by the entries: 0 = launch, -1 = nothing to do,
-// else the error to return. Causal with Sq != Sk (top-left) is taken by
-// the bias entries only.
+// else the error to return. Causal takes any Sq and Sk (top-left).
 int check_shape(const Shape& s, int D, const BiasArgs& ba) {
   if (s.B <= 0 || s.Sq <= 0 || s.Sk <= 0) return -1;
   if (s.Hk <= 0 || s.Hq % s.Hk != 0 || (D != 64 && D != 128) ||
-      (s.causal && s.Sq != s.Sk && ba.kind == 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ba.kind != 0 &&
-      (ba.kind < kBiasAlibi || ba.kind > kBiasDense || ba.p == nullptr ||
-       ba.R < 0))
+      ba.kind < kBiasAlibi || ba.kind > kBiasDense || ba.p == nullptr ||
+      ba.R < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
-// one launch over (D, SEG, BIAS): CALL(DD, SEG, BIAS) names the launch
-// expression; a bias takes no segment ids
+// one launch at D = 64 or 128 after the shape checks: CALL(DD) names the
+// launch expression
 #define PTT_DISPATCH(CALL)                                                  \
   do {                                                                      \
     const int c = check_shape(s, D, ba);                                    \
     if (c != 0) return c < 0 ? static_cast<int>(cudaSuccess) : c;           \
-    const bool seg_ = sq != nullptr;                                        \
-    const bool bias_ = ba.kind != 0;                                        \
-    cudaError_t err_;                                                       \
-    if (D == 64)                                                            \
-      err_ = bias_ ? CALL(64, false, true)                                  \
-                   : seg_ ? CALL(64, true, false) : CALL(64, false, false); \
-    else                                                                    \
-      err_ = bias_ ? CALL(128, false, true)                                 \
-                   : seg_ ? CALL(128, true, false)                          \
-                          : CALL(128, false, false);                        \
-    return static_cast<int>(err_);                                          \
+    return static_cast<int>(D == 64 ? CALL(64) : CALL(128));                \
   } while (0)
 
 template <typename T>
 int fwd_any(const void* q, const void* k, const void* v, const BiasArgs& ba,
             void* o, void* lse, const Shape& s, int D, void* stream) {
-  const int c = check_shape(s, D, ba);
-  if (c != 0) return c < 0 ? static_cast<int>(cudaSuccess) : c;
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (ba.kind != 0)
-    err = D == 64 ? fwd<T, 64, true>(q, k, v, ba, o, lse, s, st)
-                  : fwd<T, 128, true>(q, k, v, ba, o, lse, s, st);
-  else if constexpr (std::is_same<T, float>::value)
-    err = D == 64 ? fwd<T, 64, false>(q, k, v, ba, o, lse, s, st)
-                  : fwd<T, 128, false>(q, k, v, ba, o, lse, s, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
-template <typename T>
-int dkv_any(const BwdIn& in, const int* sq, const int* skv,
-            const BiasArgs& ba, void* dk, void* dv, const Shape& s, int D,
-            void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-#define PTT_CALL(DD, SEG, BIAS) \
-  dkv<T, DD, SEG, BIAS>(in, sq, skv, ba, dk, dv, s, st)
+#define PTT_CALL(DD) fwd<T, DD>(q, k, v, ba, o, lse, s, st)
   PTT_DISPATCH(PTT_CALL);
 #undef PTT_CALL
 }
 
 template <typename T>
-int dq_any(const BwdIn& in, const int* sq, const int* skv,
-           const BiasArgs& ba, void* dq_out, const Shape& s, int D,
-           void* stream) {
+int dkv_any(const BwdIn& in, const BiasArgs& ba, void* dk, void* dv,
+            const Shape& s, int D, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define PTT_CALL(DD, SEG, BIAS) \
-  dq<T, DD, SEG, BIAS>(in, sq, skv, ba, dq_out, s, st)
+#define PTT_CALL(DD) dkv<T, DD>(in, ba, dk, dv, s, st)
+  PTT_DISPATCH(PTT_CALL);
+#undef PTT_CALL
+}
+
+template <typename T>
+int dq_any(const BwdIn& in, const BiasArgs& ba, void* dq_out, const Shape& s,
+           int D, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define PTT_CALL(DD) dq<T, DD>(in, ba, dq_out, s, st)
   PTT_DISPATCH(PTT_CALL);
 #undef PTT_CALL
 }
 
 #undef PTT_DISPATCH
 
-constexpr BiasArgs kNoBias{0, 0, nullptr, nullptr, 0, 0, 0, 0};
-
-template <typename T>
-int bwd_any(const BwdIn& in, void* dq_out, void* dk, void* dv,
-            const Shape& s, int D, void* stream) {
-  const int err =
-      dkv_any<T>(in, nullptr, nullptr, kNoBias, dk, dv, s, D, stream);
-  if (err != 0) return err;
-  return dq_any<T>(in, nullptr, nullptr, kNoBias, dq_out, s, D, stream);
-}
-
 }  // namespace
-
-// ---- one sequence length, no segment ids, f32 (bf16: flash_wgmma.cu) ----
-
-extern "C" int ptt_flash_attention_fwd_f32(const void* q, const void* k,
-                                           const void* v, void* o, void* lse,
-                                           int B, int S, int Hq, int Hk,
-                                           int D, int causal, float scale,
-                                           void* stream) {
-  return fwd_any<float>(q, k, v, kNoBias, o, lse,
-                        Shape{B, S, S, Hq, Hk, causal, scale}, D, stream);
-}
-
-extern "C" int ptt_flash_attention_bwd_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-    int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
-  return bwd_any<float>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
-                              static_cast<const float*>(delta)},
-                        dq, dk, dv, Shape{B, S, S, Hq, Hk, causal, scale}, D,
-                        stream);
-}
-
-// ---- the f32 segment backward: q and kv lengths of their own, optional
-// segment ids (int32 [B, Sq] and [B, Sk], both or neither): the
-// padding-mask, packed and cross-length routes in f32 (their forward and
-// the bf16 backward are flash_wgmma.cu's) ----
-
-extern "C" int ptt_flash_attention_seg_dkv_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* seg_q,
-    const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
-    int Hk, int D, int causal, float scale, void* stream) {
-  return dkv_any<float>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
-                              static_cast<const float*>(delta)},
-                        static_cast<const int*>(seg_q),
-                        static_cast<const int*>(seg_kv), kNoBias, dk, dv,
-                        Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);
-}
-
-extern "C" int ptt_flash_attention_seg_dq_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* seg_q,
-    const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,
-    int D, int causal, float scale, void* stream) {
-  return dq_any<float>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),
-                             static_cast<const float*>(delta)},
-                       static_cast<const int*>(seg_q),
-                       static_cast<const int*>(seg_kv), kNoBias, dq,
-                       Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);
-}
 
 // ---- bias (flash_attention_biased): kind 1 alibi (slopes f32 [Hq]), 2
 // rel_table (f32 [Hq, 2R + 1]), 3 dense (f32 read through the element
@@ -1212,7 +1039,7 @@ extern "C" int ptt_flash_attention_seg_dq_f32(
     if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);            \
     return dkv_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),    \
                             static_cast<const float*>(delta)},                \
-                      nullptr, nullptr, PTT_BIAS_VALUE, dk, dv,               \
+                      PTT_BIAS_VALUE, dk, dv,                                 \
                       Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);    \
   }                                                                           \
   extern "C" int ptt_flash_attention_bias_dq_##SUFFIX(                        \
@@ -1221,7 +1048,7 @@ extern "C" int ptt_flash_attention_seg_dq_f32(
     if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);            \
     return dq_any<T>(BwdIn{q, k, v, dout, static_cast<const float*>(lse),     \
                            static_cast<const float*>(delta)},                 \
-                     nullptr, nullptr, PTT_BIAS_VALUE, dq,                    \
+                     PTT_BIAS_VALUE, dq,                                      \
                      Shape{B, Sq, Sk, Hq, Hk, causal, scale}, D, stream);     \
   }
 

@@ -1,21 +1,19 @@
 // Flash attention on a TMA + mbarrier + wgmma core (sm_90a), BSHD in and
 // out, causal or full, MHA and GQA (q head h reads kv head h / (Hq /
-// Hk)), head dim 64 or 128, no bias. Two routes run here:
-//   - the bf16 one-length route (q and kv of one length S, no segment
-//     ids): the entries `ptt_flash_attention_fwd_bf16` and
-//     `ptt_flash_attention_bwd_bf16` (LLaMA training, sdpa without a
-//     mask), forward and backward;
-//   - the segment route (`ptt_flash_attention_seg_fwd_bf16` / `_f32`,
-//     `ptt_flash_attention_seg_dkv_bf16`, `_seg_dq_bf16`: padding masks,
-//     packed documents, q and kv lengths Sq and Sk of their own, with
-//     int32 segment ids [B, Sq] / [B, Sk] or none): the forward in bf16
-//     on flash_fwd_wgmma_kernel<D, SEG> and in f32 on its 3xTF32 form
-//     flash_fwd_tf32_kernel<D, SEG>; the bf16 backward on
-//     flash_bwd_dkv_wgmma_kernel<D, SEG> and flash_bwd_dq_wgmma_kernel<D,
-//     SEG>, the one-length route's backward with two lengths, ids and
-//     visit plans.
-// The bias routes, the f32 one-length route and every f32 backward stay
-// on flash_attention.cu.
+// Hk)), head dim 64 or 128, no bias; bf16 and f32, forward and backward.
+// Two routes run here:
+//   - the one-length route (q and kv of one length S, no segment ids):
+//     `ptt_flash_attention_fwd_*` and `ptt_flash_attention_bwd_*` (LLaMA
+//     training, ERNIE's encoder, sdpa without a mask);
+//   - the segment route (`ptt_flash_attention_seg_fwd_*`, `_seg_dkv_*`,
+//     `_seg_dq_*`: padding masks, packed documents, q and kv lengths Sq
+//     and Sk of their own, with int32 segment ids [B, Sq] / [B, Sk] or
+//     none).
+// bf16 runs flash_fwd_wgmma_kernel<D, SEG>, flash_bwd_dkv_wgmma_kernel<D,
+// SEG> and flash_bwd_dq_wgmma_kernel<D, SEG>; f32 their 3xTF32 forms
+// flash_fwd_tf32_kernel<D, SEG>, flash_bwd_dkv_tf32_kernel<D, SEG> and
+// flash_bwd_dq_tf32_kernel<D, SEG> (the one-length route is SEG = false).
+// Only the bias route stays on flash_attention.cu.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
 //   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
@@ -33,7 +31,9 @@
 //   512, 12, 64] does 4 d per pair the segments leave (33.8 M pairs, 8.7
 //   GFLOP) against 50 MB (bf16) or 101 MB (f32): bf16 is bound by bytes
 //   (0.015 ms); f32 by operations, three tf32 products per product (26
-//   GFLOP at 495 TFLOP/s: 0.052 ms).
+//   GFLOP at 495 TFLOP/s: 0.052 ms). The f32 backward at ERNIE's [16,
+//   512, 12, 64] full: 2.5 times the forward's 12.9 GFLOP, three tf32
+//   products a product (97 GFLOP at 495 TFLOP/s: 0.195 ms).
 // Design (FlashAttention-3's shape, without its ping-pong between
 //   consumers): one block of three warpgroups owns one tile. Warpgroup 0
 //   is the producer (registers cut by setmaxnreg): one thread issues
@@ -117,13 +117,32 @@
 //     forward's plan at its own tiles (seg_plan<128, 64>); dkv walks the
 //     q tiles of its own plan (seg_dkv_plan: the transposed rule, decided
 //     once per kv block for every head of the group), its stages filled
-//     by three producer warps (TMA; LSE and D; ids), which keeps each
-//     under setmaxnreg's 24 registers without a spill. The ids are
-//     compared from shared memory, against the thread's two rows' ids in
-//     registers, and only on mixed tiles.
-//   P and dS are rounded to bf16 before their products, as the mma.sync
-//   kernels and every flash kernel do; `scale` multiplies the f32 scores
-//   (MHA); GQA callers pass q pre-scaled in q's dtype and scale = 1.
+//     by three producer warps (dkv_produce: TMA; LSE and D; ids), which
+//     keeps each under setmaxnreg's 24 registers without a spill. The ids
+//     are compared from shared memory, against the thread's two rows' ids
+//     in registers, and only on mixed tiles (dkv_p_ds, dq_ds).
+//   f32 backward (flash_bwd_dkv_tf32_kernel, flash_bwd_dq_tf32_kernel):
+//     the bf16 walks, producers, plans and masks above, as the same code
+//     (dkv_produce, seg_produce, the plans, dkv_p_ds, dq_ds), with every
+//     product in 3xTF32 as the f32 forward forms it. tf32 is read K-major only,
+//     and 3xTF32 keeps each operand twice, so everything sits in shared
+//     memory as tf32 hi and lo parts: the block's resident tiles (dkv: K
+//     and V; dq: Q and dO) split once, each streamed tile split by the
+//     consumers as it lands, the value-like products' B operands
+//     transposed there (dkv: Q^T and dO^T, q rows permuted within each
+//     group of 8 as the forward's V^T keys are; dq: K^T), published by an
+//     async-proxy fence and a barrier of the consumers. P^T, dS^T (dkv)
+//     and dS (dq) are never rounded: they are split hi + lo in registers
+//     straight from the score accumulators. The budget of 227 KB sets the
+//     tiles (Tf32BwdGeo): at D = 64 two consumers of 64 rows against
+//     32-row tiles (dkv one stage, dq two); at D = 128 one consumer of 64
+//     rows against 16-row q tiles (dkv) or 32-key tiles (dq), one stage.
+//     Neither runs the bf16 dq's software pipeline: their products wait
+//     in order, which keeps each under 240 registers.
+//   The bf16 kernels round P and dS to bf16 before their products, as the
+//   mma.sync kernels and every flash kernel do; `scale` multiplies the
+//   f32 scores (MHA); GQA callers pass q pre-scaled in q's dtype and
+//   scale = 1.
 
 #include <climits>
 
@@ -247,16 +266,17 @@ __device__ __forceinline__ int warp_max_i(int v) {
 // own position (i < Sk and seg_kv[i] == seg_q[i], as padding masks with
 // Sq == Sk and packed self-attention give), which proves that no row of
 // it lacks one; any other block visits every tile. Returns the number of
-// visited tiles; qmm = the block's rows' {min, max} segment.
-template <int BM, int BN>
+// visited tiles; qmm = the block's rows' {min, max} segment. NT: the
+// block's threads.
+template <int BM, int BN, int NT = kThreads>
 __device__ __forceinline__ int seg_plan(const int* __restrict__ seg_q,
                                         const int* __restrict__ seg_kv,
                                         int b, int q0, int Sq, int Sk,
                                         int n_kv, int* part,
                                         uint32_t* visit, int (&qmm)[2]) {
-  static_assert(BM <= kThreads, "one thread a q row");
+  static_assert(BM <= NT, "one thread a q row");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < kVisitWords; i += kThreads) visit[i] = 0u;
+  for (int i = tid; i < kVisitWords; i += NT) visit[i] = 0u;
   if (warp < BM / 32) {
     const int row = q0 + tid;
     int mn = INT_MAX, mx = INT_MIN, bad = 0;
@@ -284,7 +304,7 @@ __device__ __forceinline__ int seg_plan(const int* __restrict__ seg_q,
     bad |= part[4 * w + 2];
   }
   const int n_scan = min(n_kv, kVisitTiles);
-  for (int j = warp; j < n_scan; j += kThreads / 32) {
+  for (int j = warp; j < n_scan; j += NT / 32) {
     int mn = INT_MAX, mx = INT_MIN;
     for (int r = lane; r < BN; r += 32) {
       const int key = j * BN + r;
@@ -989,17 +1009,17 @@ __device__ __forceinline__ float lse_log2(float lse) {
 // Beside the visit bits it sets the mixed bits: a tile whose rows and
 // the block's keys are not all of one segment, whose pairs the consumers
 // must compare (tiles past kVisitTiles count as mixed). Returns the
-// number of visited tiles.
-template <int BM, int BN>
+// number of visited tiles. NT: the block's threads.
+template <int BM, int BN, int NT = kThreads>
 __device__ __forceinline__ int seg_dkv_plan(const int* __restrict__ seg_q,
                                             const int* __restrict__ seg_kv,
                                             int b, int k0, int q_begin,
                                             int Sq, int Sk, int n_q,
                                             int* part, uint32_t* visit,
                                             uint32_t* mixed) {
-  static_assert(BM <= kThreads, "one thread a kv row");
+  static_assert(BM <= NT, "one thread a kv row");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < kVisitWords; i += kThreads) {
+  for (int i = tid; i < kVisitWords; i += NT) {
     visit[i] = 0u;
     mixed[i] = 0u;
   }
@@ -1022,7 +1042,7 @@ __device__ __forceinline__ int seg_dkv_plan(const int* __restrict__ seg_q,
     kmm[1] = max(kmm[1], part[4 * w + 1]);
   }
   const int n_scan = min(n_q, kVisitTiles);
-  for (int j = warp; j < n_scan; j += kThreads / 32) {
+  for (int j = warp; j < n_scan; j += NT / 32) {
     int mn = INT_MAX, mx = INT_MIN, bad = 0;
     for (int r = lane; r < BN; r += 32) {
       const int row = q_begin + j * BN + r;
@@ -1050,6 +1070,116 @@ __device__ __forceinline__ int seg_dkv_plan(const int* __restrict__ seg_q,
 }
 
 // ------------------------------ backward: dkv ------------------------------
+
+// full[s]'s arrivals in a dkv stage: the TMA thread, the LSE / D warp and,
+// with ids, the ids warp (dkv_produce)
+__host__ __device__ constexpr int dkv_full_arrivals(bool seg) {
+  return seg ? 65 : 33;
+}
+
+// The dkv producer warpgroup, shared by the bf16 and 3xTF32 kernels: the
+// `total` stages are every q head of the group in turn over the visited
+// q tiles (BN rows each, the first at row q_begin). Three warps fill each
+// stage, so that none holds more than setmaxnreg's 24 registers: warp 0's
+// first thread starts the q tile's TMA loads (`tma(stage, head, q0)`:
+// its arrive-expect-tx and loads against full[stage]), warp 1 stages the
+// tile's LSE (log2 units; +inf past Sq: P = 0) and D into lsd, and with
+// ids warp 2 stages the tile's segments and the header {q0, mixed} (the
+// plan's mixed bit) into segs.
+template <int BN, int STAGES, bool SEG, class Tma>
+__device__ __forceinline__ void dkv_produce(
+    Tma&& tma, const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ seg_q, float* lsd, int* segs,
+    const uint32_t* visit, const uint32_t* mixed, uint64_t* full,
+    uint64_t* empty, int b, int hk, int group, int Hq, int Sq, int q_begin,
+    int n_q, int total) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto walk = [&](auto&& fill) {
+    for (int it = 0, g = 0, j = -1; it < total; ++it) {
+      do {                                     // the next visited tile
+        if (++j == n_q) {
+          j = 0;
+          ++g;
+        }
+      } while (SEG && !visited(visit, j));
+      const int s = it % STAGES;
+      hw::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      fill(s, hk * group + g, j, q_begin + j * BN);
+    }
+  };
+  if (warp == 0 && lane == 0) {
+    walk([&](int s, int h, int, int q0) { tma(s, h, q0); });
+  } else if (warp == 1) {
+    walk([&](int s, int h, int, int q0) {
+      float* ls = lsd + s * 2 * BN;
+#pragma unroll
+      for (int r = lane; r < BN; r += 32) {
+        const int row = q0 + r;
+        const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
+        ls[r] = row < Sq ? lse_log2(lse[i]) : INFINITY;
+        ls[BN + r] = row < Sq ? delta[i] : 0.f;
+      }
+      hw::mbar_arrive(&full[s]);
+    });
+  } else if (SEG && warp == 2) {
+    walk([&](int s, int, int j, int q0) {
+      int* hdr = segs + s * (kSegHdr + BN);
+#pragma unroll
+      for (int r = lane; r < BN; r += 32) {
+        const int row = q0 + r;
+        hdr[kSegHdr + r] =
+            row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
+      }
+      if (lane == 0) {
+        hdr[0] = q0;
+        hdr[1] = j >= kVisitTiles || ((mixed[j >> 5] >> (j & 31)) & 1u);
+      }
+      hw::mbar_arrive(&full[s]);
+    });
+  }
+}
+
+// P^T and dS^T in place of a dkv consumer's S^T and dP^T accumulators [64
+// x BN] (its kv rows r0 and r0 + 8 against the q tile from row q0; ls the
+// tile's LSE in log2 units, then its D; hdr the stage's segment slice,
+// sk the thread's kv rows' segments). A pair whose segments differ (a
+// mixed tile: the q segments from shared memory against sk) takes
+// kSegMask; a q row past Sq, a key past Sk or one above the causal
+// diagonal P = 0 (edge tiles only).
+template <int BN, bool SEG>
+__device__ __forceinline__ void dkv_p_ds(float (&st)[BN / 2],
+                                         float (&dpt)[BN / 2],
+                                         const float* ls, const int* hdr,
+                                         const int (&sk)[2], int q0,
+                                         int kv_lo, int r0, int c_off,
+                                         int Sq, int Sk, int causal,
+                                         float sl2) {
+  const bool mix = SEG && hdr[1];
+  const int* qid = hdr + kSegHdr;
+  const bool edge = (causal && q0 < kv_lo + 64) || q0 + BN > Sq ||
+                    kv_lo + 64 > Sk;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int hh = (i >> 1) & 1;
+    const int kj = r0 + 8 * hh;
+    const int c0 = 8 * (i >> 2) + c_off;     // the pair's first q
+    int2 qs = make_int2(0, 0);
+    if (mix) qs = *reinterpret_cast<const int2*>(qid + c0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + e;                  // q column
+      float y = fmaf(st[i + e], sl2, -ls[c]);
+      if (mix && (e ? qs.y : qs.x) != sk[hh]) y = kSegMask - ls[c];
+      float p = ex2(y);
+      if (edge) {
+        const int qi = q0 + c;
+        if (qi >= Sq || kj >= Sk || (causal && kj > qi)) p = 0.f;
+      }
+      st[i + e] = p;                                  // P^T
+      dpt[i + e] = p * (dpt[i + e] - ls[BN + c]);     // dS^T
+    }
+  }
+}
 
 template <int D>
 using DkvGeo = Geo<D, 128, 64>;              // 128 kv rows; q tiles of 64
@@ -1110,8 +1240,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     hw::mbar_init(kv_full, 1);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      // the TMA thread, the LSE / D warp and, with ids, the ids warp
-      hw::mbar_init(&full[s], SEG ? 65 : 33);
+      hw::mbar_init(&full[s], dkv_full_arrivals(SEG));
       hw::mbar_init(&empty[s], 8);
     }
     hw::fence_barrier_init();
@@ -1129,61 +1258,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
     hw::setmaxnreg_dec<24>();
-    // The `total` stages: every q head of the group in turn over the
-    // visited q tiles. Three producer warps fill each stage, so that
-    // none holds more than its 24 registers: warp 0's first thread loads
-    // Q and dO by TMA, warp 1 stages the tile's LSE (log2 units; +inf
-    // past Sq: P = 0) and D, and with ids warp 2 stages the tile's
-    // segments and the header {q0, mixed} (the plan's mixed bit).
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    auto walk = [&](auto&& fill) {
-      for (int it = 0, g = 0, j = -1; it < total; ++it) {
-        do {                                   // the next visited tile
-          if (++j == n_q) {
-            j = 0;
-            ++g;
-          }
-        } while (SEG && !visited(visit, j));
-        const int s = it % STAGES;
-        hw::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        fill(s, hk * group + g, j, q_begin + j * BN);
-      }
-    };
-    if (warp == 0 && lane == 0) {
-      walk([&](int s, int h, int, int q0) {
-        hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_BYTES);
-        bf16* Qs = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
-        load_tile<G::NB, BN>(Qs, &map_q, &full[s], b, h, q0);
-        load_tile<G::NB, BN>(Qs + BN * D, &map_do, &full[s], b, h, q0);
-      });
-    } else if (warp == 1) {
-      walk([&](int s, int h, int, int q0) {
-        float* ls = lsd + s * 2 * BN;
-#pragma unroll
-        for (int r = lane; r < BN; r += 32) {
-          const int row = q0 + r;
-          const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
-          ls[r] = row < Sq ? lse_log2(lse[i]) : INFINITY;
-          ls[BN + r] = row < Sq ? delta[i] : 0.f;
-        }
-        hw::mbar_arrive(&full[s]);
-      });
-    } else if (SEG && warp == 2) {
-      walk([&](int s, int, int j, int q0) {
-        int* hdr = segs + s * (kSegHdr + BN);
-#pragma unroll
-        for (int r = lane; r < BN; r += 32) {
-          const int row = q0 + r;
-          hdr[kSegHdr + r] =
-              row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
-        }
-        if (lane == 0) {
-          hdr[0] = q0;
-          hdr[1] = j >= kVisitTiles || ((mixed[j >> 5] >> (j & 31)) & 1u);
-        }
-        hw::mbar_arrive(&full[s]);
-      });
-    }
+    dkv_produce<BN, STAGES, SEG>(
+        [&](int s, int h, int q0) {
+          hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_BYTES);
+          bf16* Qs = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
+          load_tile<G::NB, BN>(Qs, &map_q, &full[s], b, h, q0);
+          load_tile<G::NB, BN>(Qs + BN * D, &map_do, &full[s], b, h, q0);
+        },
+        lse, delta, seg_q, lsd, segs, visit, mixed, full, empty, b, hk,
+        group, Hq, Sq, q_begin, n_q, total);
   } else {
     hw::setmaxnreg_inc<240>();
     const int cw = wgi - 1;
@@ -1233,40 +1316,16 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hw::fence_regs(st);
         hw::fence_regs(dpt);
 
-        // a pair whose segments differ (a mixed tile: the q segments
-        // from shared memory against this thread's kv rows') takes
-        // kSegMask; a q row past Sq, a key past Sk or one above the
-        // causal diagonal P = 0 (edge tiles only)
-        const bool mixed = SEG && hdr[1];
-        const int* qid = hdr + kSegHdr;
-        const bool edge = (causal && q0 < kv_lo + 64) || q0 + BN > Sq ||
-                          kv_lo + 64 > Sk;
-        uint32_t pf[BN / 16][4], dsf[BN / 16][4];
+        dkv_p_ds<BN, SEG>(st, dpt, ls, hdr, sk, q0, kv_lo, r0, c_off, Sq, Sk,
+                          causal, sl2);
+        uint32_t pf[BN / 16][4], dsf[BN / 16][4];   // P^T, dS^T in bf16
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             const int i = 8 * kk + 2 * x;
-            const int hh = x & 1;
-            const int kj = r0 + 8 * hh;
-            const int c0 = 8 * (i >> 2) + c_off;   // the pair's first q
-            int2 qs = make_int2(0, 0);
-            if (mixed) qs = *reinterpret_cast<const int2*>(qid + c0);
-            float p[2], ds[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = c0 + e;                  // q column
-              float y = fmaf(st[i + e], sl2, -ls[c]);
-              if (mixed && (e ? qs.y : qs.x) != sk[hh]) y = kSegMask - ls[c];
-              p[e] = ex2(y);
-              if (edge) {
-                const int qi = q0 + c;
-                if (qi >= Sq || kj >= Sk || (causal && kj > qi)) p[e] = 0.f;
-              }
-              ds[e] = p[e] * (dpt[i + e] - ls[BN + c]);
-            }
-            pf[kk][x] = ptt::pack_bf16(p[0], p[1]);     // P^T
-            dsf[kk][x] = ptt::pack_bf16(ds[0], ds[1]);  // dS^T
+            pf[kk][x] = ptt::pack_bf16(st[i], st[i + 1]);
+            dsf[kk][x] = ptt::pack_bf16(dpt[i], dpt[i + 1]);
           }
         hw::fence_regs(adv);
         hw::fence_regs(adk);
@@ -1320,6 +1379,43 @@ constexpr int dq_smem() {
   // plan's partials and visit bits
   return 2 * G::M_BYTES + G::STAGES * 2 * G::N_BYTES +
          seg_extra<G::BM, G::STAGES, G::BN>();
+}
+
+// dS in place of a dq consumer's dP accumulators [64 x BN] (its q rows
+// r0 and r0 + 8, from the S accumulators sc, against the kv tile from key
+// k0; lse2 / dl the rows' LSE in log2 units and D, sq their segments, hdr
+// the stage's segment slice). A pair whose segments differ (a mixed
+// tile: the staged kv segments against sq) takes kSegMask; a key past Sk
+// or above the causal diagonal P = 0 (edge tiles only).
+template <int BN, bool SEG>
+__device__ __forceinline__ void dq_ds(const float (&sc)[BN / 2],
+                                      float (&dp)[BN / 2], const int* hdr,
+                                      const int (&sq)[2],
+                                      const float (&lse2)[2],
+                                      const float (&dl)[2], int k0,
+                                      int row_lo, int r0, int c_off, int Sk,
+                                      int causal, float sl2) {
+  const bool mix = SEG && hdr[1];
+  const int* ids = hdr + kSegHdr;
+  const bool edge = (causal && k0 + BN > row_lo) || k0 + BN > Sk;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int hh = (i >> 1) & 1;
+    const int cl = 8 * (i >> 2) + c_off;     // the pair's first key
+    int2 ks = make_int2(0, 0);
+    if (mix) ks = *reinterpret_cast<const int2*>(ids + cl);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float y = fmaf(sc[i + e], sl2, -lse2[hh]);
+      if (mix && (e ? ks.y : ks.x) != sq[hh]) y = kSegMask - lse2[hh];
+      float p = ex2(y);
+      if (edge) {
+        const int kj = k0 + cl + e;
+        if (kj >= Sk || (causal && kj > r0 + 8 * hh)) p = 0.f;
+      }
+      dp[i + e] = p * (dp[i + e] - dl[hh]);  // dS
+    }
+  }
 }
 
 // dq for q, dO [B, Sq, Hq, D] against k/v [B, Sk, Hk, D]; SEG: segment
@@ -1460,30 +1556,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       hw::fence_regs(sc);
       hw::fence_regs(dp);
-      // a pair whose segments differ (a mixed tile: the staged kv
-      // segments against this thread's rows') takes kSegMask; a key past
-      // Sk or above the causal diagonal P = 0 (edge tiles only)
-      const bool mixed = SEG && hdr[1];
-      const int* ids = hdr + kSegHdr;
-      const bool edge = (causal && k0 + BN > row_lo) || k0 + BN > Sk;
-#pragma unroll
-      for (int i = 0; i < BN / 2; i += 2) {
-        const int hh = (i >> 1) & 1;
-        const int cl = 8 * (i >> 2) + c_off;   // the pair's first key
-        int2 ks = make_int2(0, 0);
-        if (mixed) ks = *reinterpret_cast<const int2*>(ids + cl);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float y = fmaf(sc[i + e], sl2, -lse2[hh]);
-          if (mixed && (e ? ks.y : ks.x) != sq[hh]) y = kSegMask - lse2[hh];
-          float p = ex2(y);
-          if (edge) {
-            const int kj = k0 + cl + e;
-            if (kj >= Sk || (causal && kj > r0 + 8 * hh)) p = 0.f;
-          }
-          dp[i + e] = p * (dp[i + e] - dl[hh]);  // dS
-        }
-      }
+      dq_ds<BN, SEG>(sc, dp, hdr, sq, lse2, dl, k0, row_lo, r0, c_off, Sk,
+                     causal, sl2);
       if (j > 0) {
         hw::wgmma_wait<0>();
         hw::fence_regs(acc);
@@ -1521,6 +1595,513 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
         *reinterpret_cast<uint32_t*>(dst + 8 * jj) = ptt::pack_bf16(
+            acc[4 * jj + 2 * hh] * scale, acc[4 * jj + 2 * hh + 1] * scale);
+    }
+  }
+}
+
+// -------------------------- backward, f32 (3xTF32) -------------------------
+
+// The f32 backward's tiles: NC consumers of 64 resident rows each (BM =
+// 64 NC: kv rows in dkv, q rows in dq) against streamed tiles of BN rows
+// (q rows in dkv, keys in dq) in a ring of STAGES. Every operand is held
+// as tf32 hi and lo parts in shared memory (the resident tiles split
+// once, each streamed tile as it lands), and the value-like products'
+// operands (Q^T and dO^T in dkv, K^T in dq: tf32 is read K-major only)
+// are transposed there too; a transposed tile keeps its 128-byte rows
+// (D rows of max(BN, 32) floats).
+//   dkv, D = 64: 128 kv rows (K, V hi and lo: 128 KB) against 32-row q
+//     tiles (a stage: Q and dO split in place, their lo parts, Q^T and
+//     dO^T hi and lo: 64 KB), one stage; D = 128: 64 kv rows (128 KB)
+//     against 16-row q tiles (96 KB), one stage.
+//   dq, D = 64: 128 q rows (Q, dO hi and lo: 128 KB) against 32-key kv
+//     tiles (K and V split in place, their lo parts, K^T hi and lo: 48
+//     KB), two stages; D = 128: 64 q rows (128 KB) against 32-key tiles
+//     (96 KB), one stage.
+template <int D, bool DQ>
+struct Tf32BwdGeo {
+  static constexpr int NC = D == 64 ? 2 : 1;
+  static constexpr int BM = 64 * NC;
+  static constexpr int BN = (DQ || D == 64) ? 32 : 16;
+  static constexpr int STAGES = (DQ && D == 64) ? 2 : 1;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int NB = D / 32;                 // 32-float boxes a row
+  static constexpr int M_FLOATS = BM * D;           // a resident tile
+  static constexpr int N_FLOATS = BN * D;           // a streamed tile
+  static constexpr int T_FLOATS = D * (BN < 32 ? 32 : BN);  // transposed
+  // dkv: Q, Q lo, dO, dO lo, Q^T hi, lo, dO^T hi, lo; dq: K, K lo, V, V
+  // lo, K^T hi, lo
+  static constexpr int STAGE_FLOATS =
+      4 * N_FLOATS + (DQ ? 2 : 4) * T_FLOATS;
+  // the resident hi and lo tiles (dkv: K, V; dq: Q, dO) and the ring
+  static constexpr int TILE_BYTES =
+      4 * (4 * M_FLOATS + STAGES * STAGE_FLOATS);
+};
+
+template <int D>
+constexpr int dkv_tf32_smem() {
+  using G = Tf32BwdGeo<D, false>;
+  // the tiles; per stage the q tile's LSE (log2 units) and D; the
+  // barriers, the stages' segment slices, the plan's partials, visit and
+  // mixed bits, the alignment slack
+  return G::TILE_BYTES + G::STAGES * 2 * G::BN * 4 +
+         seg_extra<G::BM, G::STAGES, G::BN>() + kVisitWords * 4;
+}
+
+template <int D>
+constexpr int dq_tf32_smem() {
+  using G = Tf32BwdGeo<D, true>;
+  return G::TILE_BYTES + seg_extra<G::BM, G::STAGES, G::BN>();
+}
+
+// Split this consumer's 64 rows of a resident f32 tile of BM rows (boxes
+// [BM][32 floats]) in place into tf32 hi, and its lo parts into lo (the
+// same layout). t: the thread within the consumer.
+template <int BM, int D>
+__device__ __forceinline__ void split_rows(float* hi, float* lo, int cw,
+                                           int t) {
+  for (int i = t; i < 64 * D / 4; i += 128) {
+    const int nb = i / (64 * 8), r = (i / 8) % 64, ch = i % 8;
+    const int at = nb * BM * 32 + (cw * 64 + r) * 32 + ch * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + at);
+    float4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<float4*>(hi + at) = h;
+    *reinterpret_cast<float4*>(lo + at) = l;
+  }
+}
+
+// Split a streamed f32 tile x of BN rows (boxes [BN][32 floats]) in place
+// into tf32 hi, its lo parts into lo; with TRANS also into the transposed
+// tiles th and tl (D rows, row d holding element (r, d) at position
+// vt_pos(r)), so that an accumulator pair of the rows goes to its tf32 A
+// fragment as it stands. i0, step: this thread's share of the tile's
+// float4s.
+template <int BN, int D, bool TRANS>
+__device__ __forceinline__ void split_tile(float* x, float* lo, float* th,
+                                           float* tl, int i0, int step) {
+  for (int i = i0; i < BN * D / 4; i += step) {
+    const int r = i % BN, d0 = 4 * (i / BN);
+    const int at = f32_at<BN>(r, d0);
+    const float4 v = *reinterpret_cast<const float4*>(x + at);
+    const float xs[4] = {v.x, v.y, v.z, v.w};
+    float h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(xs[e], h[e], l[e]);
+    *reinterpret_cast<float4*>(x + at) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(lo + at) = make_float4(l[0], l[1], l[2], l[3]);
+    if constexpr (TRANS) {
+      const int kap = vt_pos(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        th[f32_at<D>(d0 + e, kap)] = h[e];
+        tl[f32_at<D>(d0 + e, kap)] = l[e];
+      }
+    }
+  }
+}
+
+// acc (+)= A B over D / 8 k8 slices in 3xTF32, both operands K-major in
+// shared memory: A's 64 rows from row a0 of hi / lo tiles of AR rows, B's
+// BN rows of hi / lo tiles; the small terms first, the sum started
+// afresh (scale-d 0).
+template <int AR, int BN, int D, int N>
+__device__ __forceinline__ void tf32_ss3(float (&acc)[N], const float* ah,
+                                         const float* al, int a0,
+                                         const float* bh, const float* bl) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    hw::wgmma_tf32_ss(acc, kmajor_f32<AR>(ah, a0, kk),
+                      kmajor_f32<BN>(bl, 0, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    hw::wgmma_tf32_ss(acc, kmajor_f32<AR>(al, a0, kk),
+                      kmajor_f32<BN>(bh, 0, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    hw::wgmma_tf32_ss(acc, kmajor_f32<AR>(ah, a0, kk),
+                      kmajor_f32<BN>(bh, 0, kk), 1);
+}
+
+// acc += A B^T-tile over the K / 8 k8 slices of A held in registers as
+// tf32 hi / lo fragments (ah, al) against a transposed tile of D rows
+// (th, tl), in 3xTF32, small terms first; `first`: the sum starts here.
+template <int K, int D, int N>
+__device__ __forceinline__ void tf32_rs3(float (&acc)[N],
+                                         const uint32_t (&ah)[K / 8][4],
+                                         const uint32_t (&al)[K / 8][4],
+                                         const float* th, const float* tl,
+                                         bool first) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    hw::wgmma_tf32_rs(acc, ah[kk], kmajor_f32<D>(tl, 0, kk),
+                      !first || kk > 0);
+    hw::wgmma_tf32_rs(acc, al[kk], kmajor_f32<D>(th, 0, kk), 1);
+    hw::wgmma_tf32_rs(acc, ah[kk], kmajor_f32<D>(th, 0, kk), 1);
+  }
+}
+
+// The k8 slice kk of an accumulator tile [64 x N] as the tf32 A fragment
+// of the next product over its N columns, split hi + lo: the columns run
+// in vt_pos order in the B tile, so the thread's pair (8kk + 2c, + 1) of
+// rows g and g + 8 is the fragment's (c, c + 4) as it stands.
+template <int N>
+__device__ __forceinline__ void tf32_frag(const float (&x)[N / 2], int kk,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  const float p[4] = {x[4 * kk], x[4 * kk + 2], x[4 * kk + 1],
+                      x[4 * kk + 3]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float h, l;
+    split_tf32(p[e], h, l);
+    hi[e] = __float_as_uint(h);
+    lo[e] = __float_as_uint(l);
+  }
+}
+
+// dk, dv (f32) for k/v [B, Sk, Hk, D] against q, dO [B, Sq, Hq, D] in
+// 3xTF32: the bf16 dkv's walk, producers and masks (dkv_produce,
+// dkv_p_ds: the GQA group's q heads over the visited q tiles; SEG: the
+// dkv plan, the staged ids, kSegMask) with every product hi lo + lo hi +
+// hi hi. K and V are split
+// once (each consumer its own 64 rows); each q tile is split and
+// transposed by the consumers together once it lands (Q^T and dO^T are
+// dK's and dV's B operands), published by an async-proxy fence and a
+// barrier of the consumers. P^T and dS^T are split in registers straight
+// from the S^T and dP^T accumulators, never rounded.
+template <int D, bool SEG>
+__global__ void __launch_bounds__(Tf32BwdGeo<D, false>::THREADS, 1)
+flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ seg_q,
+                          const int* __restrict__ seg_kv,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int Sq, int Sk, int Hq, int Hk, int causal,
+                          float scale) {
+  using G = Tf32BwdGeo<D, false>;
+  constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES, NC = G::NC;
+  constexpr int NT = G::THREADS;
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  unsigned char* smem = align1024(fa_smem);
+  float* Kh = reinterpret_cast<float*>(smem);
+  float* Kl = Kh + G::M_FLOATS;
+  float* Vh = Kl + G::M_FLOATS;
+  float* Vl = Vh + G::M_FLOATS;
+  float* ring = Vl + G::M_FLOATS;
+  // stage s: Q, Q lo, dO, dO lo, then Q^T hi, lo, dO^T hi, lo
+  auto qtile = [&](int s, int which) {
+    return ring + s * G::STAGE_FLOATS + which * G::N_FLOATS;
+  };
+  auto ttile = [&](int s, int which) {
+    return ring + s * G::STAGE_FLOATS + 4 * G::N_FLOATS + which * G::T_FLOATS;
+  };
+  float* lsd = ring + STAGES * G::STAGE_FLOATS;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lsd + STAGES * 2 * BN);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(kv_full) + 64);
+  int* part = segs + STAGES * (kSegHdr + BN);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
+  uint32_t* mixed = visit + kVisitWords;
+
+  const int k0 = blockIdx.x * BM;              // early keys see the most q
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = Hq / Hk;
+  const int q_begin = causal ? k0 : 0;         // k0 is a multiple of BN
+  const int n_q = q_begin < Sq ? (Sq - q_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], dkv_full_arrivals(SEG));
+      hw::mbar_init(&empty[s], 4 * NC);      // one arrival per consumer warp
+    }
+    hw::fence_barrier_init();
+    hw::mbar_arrive_expect_tx(kv_full, 2 * G::M_FLOATS * 4);
+    load_tile<G::NB, BM>(Kh, &map_k, kv_full, b, hk, k0);
+    load_tile<G::NB, BM>(Vh, &map_v, kv_full, b, hk, k0);
+  }
+  __syncthreads();
+  const int n_vis =
+      SEG ? seg_dkv_plan<BM, BN, NT>(seg_q, seg_kv, b, k0, q_begin, Sq, Sk,
+                                     n_q, part, visit, mixed)
+          : n_q;
+  const int total = group * n_vis;             // stages: heads x tiles
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    if constexpr (NC == 2) hw::setmaxnreg_dec<24>();
+    dkv_produce<BN, STAGES, SEG>(
+        [&](int s, int h, int q0) {
+          hw::mbar_arrive_expect_tx(&full[s], 2 * G::N_FLOATS * 4);
+          load_tile<G::NB, BN>(qtile(s, 0), &map_q, &full[s], b, h, q0);
+          load_tile<G::NB, BN>(qtile(s, 2), &map_do, &full[s], b, h, q0);
+        },
+        lse, delta, seg_q, lsd, segs, visit, mixed, full, empty, b, hk,
+        group, Hq, Sq, q_begin, n_q, total);
+  } else {
+    if constexpr (NC == 2) hw::setmaxnreg_inc<240>();
+    const int cw = wgi - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int kv_lo = k0 + cw * 64;            // this consumer's 64 kv rows
+    const int r0 = kv_lo + (t >> 5) * 16 + (lane >> 2);   // + 8 hh
+    const int c_off = 2 * (lane & 3);
+    const float sl2 = scale * kLog2e;
+    int sk[2] = {0, 0};                        // this thread's rows' segments
+    if (SEG) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 8 * hh;
+        sk[hh] = row < Sk ? seg_kv[static_cast<size_t>(b) * Sk + row] : 0;
+      }
+    }
+    // K and V: this consumer's rows split once
+    hw::mbar_wait(kv_full, 0);
+    split_rows<BM, D>(Kh, Kl, cw, t);
+    split_rows<BM, D>(Vh, Vl, cw, t);
+
+    float adk[D / 2], adv[D / 2];              // dK, dV [64 x D]
+    bool started = false;
+    for (int it = 0; it < total; ++it) {
+      const int s = it % STAGES;
+      hw::mbar_wait(&full[s], (it / STAGES) & 1);
+      // the q tile split and transposed by all the consumers' threads
+      split_tile<BN, D, true>(qtile(s, 0), qtile(s, 1), ttile(s, 0),
+                              ttile(s, 1), cw * 128 + t, NC * 128);
+      split_tile<BN, D, true>(qtile(s, 2), qtile(s, 3), ttile(s, 2),
+                              ttile(s, 3), cw * 128 + t, NC * 128);
+      hw::fence_proxy_async();
+      hw::named_sync(1, NC * 128);
+      const int* hdr = segs + s * (kSegHdr + BN);
+      const int q0 = SEG ? hdr[0] : q_begin + (it % n_q) * BN;
+      // every q row of the tile precedes every kv row of this consumer
+      if (!(causal && q0 + BN <= kv_lo)) {
+        const float* ls = lsd + s * 2 * BN;
+        float st[BN / 2], dpt[BN / 2];         // S^T, dP^T [64 x BN]
+        hw::fence_regs(st);
+        hw::fence_regs(dpt);
+        hw::wgmma_fence();
+        tf32_ss3<BM, BN, D>(st, Kh, Kl, cw * 64, qtile(s, 0), qtile(s, 1));
+        tf32_ss3<BM, BN, D>(dpt, Vh, Vl, cw * 64, qtile(s, 2), qtile(s, 3));
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(st);
+        hw::fence_regs(dpt);
+
+        dkv_p_ds<BN, SEG>(st, dpt, ls, hdr, sk, q0, kv_lo, r0, c_off, Sq, Sk,
+                          causal, sl2);
+        uint32_t ph[BN / 8][4], pl[BN / 8][4], dh[BN / 8][4], dl[BN / 8][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          tf32_frag<BN>(st, kk, ph[kk], pl[kk]);
+          tf32_frag<BN>(dpt, kk, dh[kk], dl[kk]);
+        }
+        hw::fence_regs(adv);
+        hw::fence_regs(adk);
+        hw::wgmma_fence();
+        tf32_rs3<BN, D>(adv, ph, pl, ttile(s, 2), ttile(s, 3), !started);
+        tf32_rs3<BN, D>(adk, dh, dl, ttile(s, 0), ttile(s, 1), !started);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(adv);
+        hw::fence_regs(adk);
+        started = true;
+      }
+      if (lane == 0) hw::mbar_arrive(&empty[s]);
+    }
+
+    // a consumer that visited no tile (every q tile skipped by the plan,
+    // or past its rows under causal) writes zeros
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row >= Sk) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sk + row) * Hk + hk) * D + c_off;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int i = 4 * jj + 2 * hh;
+        *reinterpret_cast<float2*>(dk + base + 8 * jj) =
+            started ? make_float2(adk[i] * scale, adk[i + 1] * scale)
+                    : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(dv + base + 8 * jj) =
+            started ? make_float2(adv[i], adv[i + 1]) : make_float2(0.f, 0.f);
+      }
+    }
+  }
+}
+
+// dq (f32) for q, dO [B, Sq, Hq, D] against k/v [B, Sk, Hk, D] in
+// 3xTF32: the bf16 dq's walk, producer and masks (SEG: seg_plan at these
+// tiles, seg_produce, dq_ds) with every product hi lo + lo hi + hi hi,
+// without its software pipeline. Q and dO are split once (each consumer
+// its own 64 rows); each kv tile is split by the consumers together once
+// it lands, K also transposed (dQ += dS K reads K^T, keys in vt_pos
+// order). dS is split in registers straight from the accumulators.
+template <int D, bool SEG>
+__global__ void __launch_bounds__(Tf32BwdGeo<D, true>::THREADS, 1)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_kv,
+                         float* __restrict__ dq, int Sq, int Sk, int Hq,
+                         int Hk, int causal, float scale) {
+  using G = Tf32BwdGeo<D, true>;
+  constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES, NC = G::NC;
+  constexpr int NT = G::THREADS;
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  unsigned char* smem = align1024(fa_smem);
+  float* Qh = reinterpret_cast<float*>(smem);
+  float* Ql = Qh + G::M_FLOATS;
+  float* dOh = Ql + G::M_FLOATS;
+  float* dOl = dOh + G::M_FLOATS;
+  float* ring = dOl + G::M_FLOATS;
+  // stage s: K, K lo, V, V lo, then K^T hi, lo
+  auto kvtile = [&](int s, int which) {
+    return ring + s * G::STAGE_FLOATS + which * G::N_FLOATS;
+  };
+  auto ttile = [&](int s, int which) {
+    return ring + s * G::STAGE_FLOATS + 4 * G::N_FLOATS + which * G::T_FLOATS;
+  };
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE_FLOATS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* part = segs + STAGES * (kSegHdr + BN);
+  uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hk);
+  const int q0 = qt * BM;
+  const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
+  const int n_kv = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], SEG ? 32 : 1);
+      hw::mbar_init(&empty[s], 4 * NC);
+    }
+    hw::fence_barrier_init();
+    hw::mbar_arrive_expect_tx(q_full, 2 * G::M_FLOATS * 4);
+    load_tile<G::NB, BM>(Qh, &map_q, q_full, b, h, q0);
+    load_tile<G::NB, BM>(dOh, &map_do, q_full, b, h, q0);
+  }
+  __syncthreads();
+  int qmm[2] = {0, 0};
+  const int n_vis =
+      SEG ? seg_plan<BM, BN, NT>(seg_q, seg_kv, b, q0, Sq, Sk, n_kv, part,
+                                 visit, qmm)
+          : n_kv;
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    if constexpr (NC == 2) hw::setmaxnreg_dec<24>();
+    auto load = [&](int s, int j) {
+      load_tile<G::NB, BN>(kvtile(s, 0), &map_k, &full[s], b, hk, j * BN);
+      load_tile<G::NB, BN>(kvtile(s, 2), &map_v, &full[s], b, hk, j * BN);
+    };
+    if (SEG) {
+      if (threadIdx.x < 32)
+        seg_produce<BN, STAGES>(seg_kv, b, Sk, n_kv, visit, qmm, segs, full,
+                                empty, 2 * G::N_FLOATS * 4, load);
+    } else if (threadIdx.x == 0) {
+      produce_all<STAGES>(n_kv, full, empty, 2 * G::N_FLOATS * 4, load);
+    }
+  } else {
+    if constexpr (NC == 2) hw::setmaxnreg_inc<240>();
+    const int cw = wgi - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int row_lo = q0 + cw * 64;
+    const int r0 = row_lo + (t >> 5) * 16 + (lane >> 2);  // + 8 hh
+    const int c_off = 2 * (lane & 3);
+    const float sl2 = scale * kLog2e;
+    // this thread's two rows: LSE in log2 units (+inf past Sq: P = 0), D,
+    // and their segments
+    float lse2[2], dl[2];
+    int sq[2] = {0, 0};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      const size_t i = (static_cast<size_t>(b) * Hq + h) * Sq + row;
+      lse2[hh] = row < Sq ? lse_log2(lse[i]) : INFINITY;
+      dl[hh] = row < Sq ? delta[i] : 0.f;
+      if (SEG) sq[hh] = row < Sq ? seg_q[static_cast<size_t>(b) * Sq + row] : 0;
+    }
+    // Q and dO: this consumer's rows split once
+    hw::mbar_wait(q_full, 0);
+    split_rows<BM, D>(Qh, Ql, cw, t);
+    split_rows<BM, D>(dOh, dOl, cw, t);
+
+    // Every branch around a product depends on j alone, so a consumer
+    // runs the fully masked tiles past its rows too, as zeros
+    float acc[D / 2];                          // dQ [64 x D]
+    for (int j = 0; j < n_vis; ++j) {
+      const int s = j % STAGES;
+      hw::mbar_wait(&full[s], (j / STAGES) & 1);
+      split_tile<BN, D, true>(kvtile(s, 0), kvtile(s, 1), ttile(s, 0),
+                              ttile(s, 1), cw * 128 + t, NC * 128);
+      split_tile<BN, D, false>(kvtile(s, 2), kvtile(s, 3), nullptr, nullptr,
+                               cw * 128 + t, NC * 128);
+      hw::fence_proxy_async();
+      hw::named_sync(1, NC * 128);
+      const int* hdr = segs + s * (kSegHdr + BN);
+      const int k0 = SEG ? hdr[0] : j * BN;
+      float sc[BN / 2], dp[BN / 2];            // S, dP [64 x BN], then dS
+      hw::fence_regs(sc);
+      hw::fence_regs(dp);
+      hw::wgmma_fence();
+      tf32_ss3<BM, BN, D>(sc, Qh, Ql, cw * 64, kvtile(s, 0), kvtile(s, 1));
+      tf32_ss3<BM, BN, D>(dp, dOh, dOl, cw * 64, kvtile(s, 2), kvtile(s, 3));
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(sc);
+      hw::fence_regs(dp);
+      dq_ds<BN, SEG>(sc, dp, hdr, sq, lse2, dl, k0, row_lo, r0, c_off, Sk,
+                     causal, sl2);
+      uint32_t dh[BN / 8][4], dlo[BN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) tf32_frag<BN>(dp, kk, dh[kk], dlo[kk]);
+      hw::fence_regs(acc);
+      hw::wgmma_fence();
+      tf32_rs3<BN, D>(acc, dh, dlo, ttile(s, 0), ttile(s, 1), j == 0);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc);
+      if (lane == 0) hw::mbar_arrive(&empty[s]);
+    }
+
+    // (n_vis >= 1: q0 < Sq, and the plan visits the tile of some row's
+    // own key)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 8 * hh;
+      if (row >= Sq) continue;
+      float* dst =
+          dq + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<float2*>(dst + 8 * jj) = make_float2(
             acc[4 * jj + 2 * hh] * scale, acc[4 * jj + 2 * hh + 1] * scale);
     }
   }
@@ -1656,8 +2237,61 @@ int dq_launch(const BwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool SEG>
+int dkv_tf32_launch(const BwdArgs& a, cudaStream_t stream) {
+  using G = Tf32BwdGeo<D, false>;
+  CUtensorMap mq, mdo, mk, mv;
+  int err = hw::tma_map_bshd(&mq, a.q, a.B, a.Sq, a.Hq, D, G::BN, 4);
+  if (err == 0) err = hw::tma_map_bshd(&mdo, a.dout, a.B, a.Sq, a.Hq, D, G::BN, 4);
+  if (err == 0) err = hw::tma_map_bshd(&mk, a.k, a.B, a.Sk, a.Hk, D, G::BM, 4);
+  if (err == 0) err = hw::tma_map_bshd(&mv, a.v, a.B, a.Sk, a.Hk, D, G::BM, 4);
+  if (err != 0) return err;
+  constexpr int smem = dkv_tf32_smem<D>();
+  cudaError_t e = prepare(flash_bwd_dkv_tf32_kernel<D, SEG>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.Sk + G::BM - 1) / G::BM, a.Hk, a.B);
+  flash_bwd_dkv_tf32_kernel<D, SEG><<<grid, G::THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.Hq,
+      a.Hk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool SEG>
+int dq_tf32_launch(const BwdArgs& a, cudaStream_t stream) {
+  using G = Tf32BwdGeo<D, true>;
+  CUtensorMap mq, mdo, mk, mv;
+  int err = hw::tma_map_bshd(&mq, a.q, a.B, a.Sq, a.Hq, D, G::BM, 4);
+  if (err == 0) err = hw::tma_map_bshd(&mdo, a.dout, a.B, a.Sq, a.Hq, D, G::BM, 4);
+  if (err == 0) err = hw::tma_map_bshd(&mk, a.k, a.B, a.Sk, a.Hk, D, G::BN, 4);
+  if (err == 0) err = hw::tma_map_bshd(&mv, a.v, a.B, a.Sk, a.Hk, D, G::BN, 4);
+  if (err != 0) return err;
+  constexpr int smem = dq_tf32_smem<D>();
+  cudaError_t e = prepare(flash_bwd_dq_tf32_kernel<D, SEG>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.Sq + G::BM - 1) / G::BM, a.Hq, a.B);
+  flash_bwd_dq_tf32_kernel<D, SEG><<<grid, G::THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+      static_cast<float*>(a.dq), a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 (EB = 2) on the wgmma kernels, f32 (EB = 4) on their 3xTF32 form
+template <int D, int EB, bool SEG>
+int dkv_any(const BwdArgs& a, cudaStream_t st) {
+  if constexpr (EB == 4) return dkv_tf32_launch<D, SEG>(a, st);
+  else return dkv_launch<D, SEG>(a, st);
+}
+
+template <int D, int EB, bool SEG>
+int dq_any(const BwdArgs& a, cudaStream_t st) {
+  if constexpr (EB == 4) return dq_tf32_launch<D, SEG>(a, st);
+  else return dq_launch<D, SEG>(a, st);
+}
+
 // the dkv launch, then the dq launch, of what a.dk / a.dq ask for; the
 // segment instantiations when ids are given
+template <int EB>
 int bwd_any(const BwdArgs& a, void* stream) {
   const int c = check_shape(a.B, a.Sq, a.Sk, a.Hq, a.Hk, a.D, a.causal,
                             a.seg_q, a.seg_kv);
@@ -1667,14 +2301,15 @@ int bwd_any(const BwdArgs& a, void* stream) {
   int err = 0;
   if (a.dk != nullptr) {
     if (a.D == 64)
-      err = seg ? dkv_launch<64, true>(a, st) : dkv_launch<64, false>(a, st);
+      err = seg ? dkv_any<64, EB, true>(a, st) : dkv_any<64, EB, false>(a, st);
     else
-      err = seg ? dkv_launch<128, true>(a, st) : dkv_launch<128, false>(a, st);
+      err = seg ? dkv_any<128, EB, true>(a, st)
+                : dkv_any<128, EB, false>(a, st);
   }
   if (err != 0 || a.dq == nullptr) return err;
   if (a.D == 64)
-    return seg ? dq_launch<64, true>(a, st) : dq_launch<64, false>(a, st);
-  return seg ? dq_launch<128, true>(a, st) : dq_launch<128, false>(a, st);
+    return seg ? dq_any<64, EB, true>(a, st) : dq_any<64, EB, false>(a, st);
+  return seg ? dq_any<128, EB, true>(a, st) : dq_any<128, EB, false>(a, st);
 }
 
 template <typename T>
@@ -1700,35 +2335,41 @@ int delta_any(const void* o, const void* dout, void* delta, int B, int S,
 
 }  // namespace
 
-// ---- the one-length bf16 route (the training slice): the wgmma core ----
+// ---- the one-length route (q and kv of one length, no ids: LLaMA
+// training, ERNIE's encoder, sdpa without a mask): bf16 on the wgmma
+// core, f32 on its 3xTF32 form ----
 
-extern "C" int ptt_flash_attention_fwd_bf16(const void* q, const void* k,
-                                            const void* v, void* o, void* lse,
-                                            int B, int S, int Hq, int Hk,
-                                            int D, int causal, float scale,
-                                            void* stream) {
-  return fwd_any<2>(FwdArgs{q, k, v, nullptr, nullptr, o, lse, B, S, S, Hq,
-                            Hk, D, causal, scale},
-                    stream);
-}
+#define PTT_ONE_LENGTH_ENTRIES(SUFFIX, EB)                                    \
+  extern "C" int ptt_flash_attention_fwd_##SUFFIX(                            \
+      const void* q, const void* k, const void* v, void* o, void* lse, int B, \
+      int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {  \
+    return fwd_any<EB>(FwdArgs{q, k, v, nullptr, nullptr, o, lse, B, S, S,    \
+                               Hq, Hk, D, causal, scale},                     \
+                       stream);                                               \
+  }                                                                           \
+  /* dkv, then dq, from the delta pre-pass's D */                             \
+  extern "C" int ptt_flash_attention_bwd_##SUFFIX(                            \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, void* dq, void* dk, void* dv,       \
+      int B, int S, int Hq, int Hk, int D, int causal, float scale,           \
+      void* stream) {                                                         \
+    return bwd_any<EB>(BwdArgs{q, k, v, dout, static_cast<const float*>(lse), \
+                               static_cast<const float*>(delta), nullptr,     \
+                               nullptr, dq, dk, dv, B, S, S, Hq, Hk, D,       \
+                               causal, scale},                                \
+                       stream);                                               \
+  }
 
-// dkv, then dq, from the delta pre-pass's D (ptt_flash_attention_delta_*)
-extern "C" int ptt_flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-    int S, int Hq, int Hk, int D, int causal, float scale, void* stream) {
-  return bwd_any(BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta), nullptr, nullptr,
-                         dq, dk, dv, B, S, S, Hq, Hk, D, causal, scale},
-                 stream);
-}
+PTT_ONE_LENGTH_ENTRIES(bf16, 2)
+PTT_ONE_LENGTH_ENTRIES(f32, 4)
+
+#undef PTT_ONE_LENGTH_ENTRIES
 
 // ---- the segment route (padding masks, packed documents, q and kv
 // lengths of their own): q [B, Sq, Hq, D], k/v [B, Sk, Hk, D], seg_q /
-// seg_kv int32 [B, Sq] / [B, Sk] (both or neither). The forward: bf16 on
-// the wgmma core, f32 on its 3xTF32 form; the bf16 backward (dkv, dq,
-// from the delta pre-pass's D) on the wgmma core; the f32 backward is
-// flash_attention.cu's SIMT. ----
+// seg_kv int32 [B, Sq] / [B, Sk] (both or neither). Forward, dkv and dq
+// (the backward from the delta pre-pass's D): bf16 on the wgmma core,
+// f32 on its 3xTF32 form. ----
 
 extern "C" int ptt_flash_attention_seg_fwd_bf16(
     const void* q, const void* k, const void* v, const void* seg_q,
@@ -1750,31 +2391,36 @@ extern "C" int ptt_flash_attention_seg_fwd_f32(
                     stream);
 }
 
-extern "C" int ptt_flash_attention_seg_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* seg_q,
-    const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,
-    int Hk, int D, int causal, float scale, void* stream) {
-  return bwd_any(BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta),
-                         static_cast<const int*>(seg_q),
-                         static_cast<const int*>(seg_kv), nullptr, dk, dv, B,
-                         Sq, Sk, Hq, Hk, D, causal, scale},
-                 stream);
-}
+#define PTT_SEG_BWD_ENTRIES(SUFFIX, EB)                                       \
+  extern "C" int ptt_flash_attention_seg_dkv_##SUFFIX(                        \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, const void* seg_q,                  \
+      const void* seg_kv, void* dk, void* dv, int B, int Sq, int Sk, int Hq,  \
+      int Hk, int D, int causal, float scale, void* stream) {                 \
+    return bwd_any<EB>(BwdArgs{q, k, v, dout, static_cast<const float*>(lse), \
+                               static_cast<const float*>(delta),              \
+                               static_cast<const int*>(seg_q),                \
+                               static_cast<const int*>(seg_kv), nullptr, dk,  \
+                               dv, B, Sq, Sk, Hq, Hk, D, causal, scale},      \
+                       stream);                                               \
+  }                                                                           \
+  extern "C" int ptt_flash_attention_seg_dq_##SUFFIX(                         \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, const void* seg_q,                  \
+      const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,    \
+      int D, int causal, float scale, void* stream) {                         \
+    return bwd_any<EB>(BwdArgs{q, k, v, dout, static_cast<const float*>(lse), \
+                               static_cast<const float*>(delta),              \
+                               static_cast<const int*>(seg_q),                \
+                               static_cast<const int*>(seg_kv), dq, nullptr,  \
+                               nullptr, B, Sq, Sk, Hq, Hk, D, causal, scale}, \
+                       stream);                                               \
+  }
 
-extern "C" int ptt_flash_attention_seg_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, const void* seg_q,
-    const void* seg_kv, void* dq, int B, int Sq, int Sk, int Hq, int Hk,
-    int D, int causal, float scale, void* stream) {
-  return bwd_any(BwdArgs{q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta),
-                         static_cast<const int*>(seg_q),
-                         static_cast<const int*>(seg_kv), dq, nullptr,
-                         nullptr, B, Sq, Sk, Hq, Hk, D, causal, scale},
-                 stream);
-}
+PTT_SEG_BWD_ENTRIES(bf16, 2)
+PTT_SEG_BWD_ENTRIES(f32, 4)
+
+#undef PTT_SEG_BWD_ENTRIES
 
 // D = rowsum(dout * o) in f32: o, dout BSHD [B, S, H, D] -> delta [B, H, S]
 extern "C" int ptt_flash_attention_delta_bf16(const void* o, const void* dout,

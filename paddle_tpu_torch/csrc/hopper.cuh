@@ -4,10 +4,10 @@
 // the wgmma fence / commit / wait, the bf16 products with f32
 // accumulators (m64n256k16 from shared memory; m64n64k16 and m64n128k16
 // with A from shared memory or from registers), the tf32 products
-// (m64n32k8 and m64n64k8 with A from shared memory, m64n32k8, m64n64k8
-// and m64n128k8 with A from registers), the async-proxy fence and named
-// barriers, setmaxnreg, and the host-side tensor-map encoders (a
-// row-major matrix; one head of a bf16 or f32 BSHD tensor).
+// (m64n16k8, m64n32k8 and m64n64k8 with A from shared memory, m64n32k8,
+// m64n64k8 and m64n128k8 with A from registers), the async-proxy fence
+// and named barriers, setmaxnreg, and the host-side tensor-map encoders
+// (a row-major matrix; one head of a bf16 or f32 BSHD tensor).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format" and
 // "Shared Memory Matrix Layout"; one 128-byte-swizzled tile is what a TMA
@@ -378,6 +378,19 @@ __device__ __forceinline__ float tf32_round(float x) {
           "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
           "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
           "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// d[64 x 16] (+)= A[64 x 8] B[8 x 16], tf32, both K-major from shared
+// memory
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : PTT_D4(0), PTT_D4(4)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
 // d[64 x 32] (+)= A[64 x 8] B[8 x 32], tf32, both K-major from shared
 // memory

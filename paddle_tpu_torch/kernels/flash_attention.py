@@ -7,10 +7,11 @@ A CUDA tensor runs a `torch.autograd.Function` over hand-written
 kernels: `flash_attention_fwd` (O and the f32 log-sum-exp) and
 `flash_attention_bwd` (the delta pre-pass `flash_attention_delta`, D =
 rowsum(dO * O) in f32 over the stored O, then the dkv and dq kernels,
-which recompute P from the saved LSE). In bf16 they run the TMA +
-mbarrier + wgmma core of `csrc/flash_wgmma.cu`; in f32 the SIMT kernels
-of `csrc/flash_attention.cu` (chip_smoke.py's `expected_flash_routes`
-states the rule and holds the card's launches to it). A CPU
+which recompute P from the saved LSE). They run the TMA + mbarrier +
+wgmma core of `csrc/flash_wgmma.cu`: bf16 on the tensor cores in bf16,
+f32 in 3xTF32 (every f32 operand split into two tf32 parts, three tf32
+products a product; chip_smoke.py's `expected_flash_routes` states the
+rule and holds the card's launches to it). A CPU
 tensor runs `_plain`, the reference's dense `_sdpa` (models/llama.py:
 190-200: f32 scores and softmax, `jnp.repeat` of the kv heads for GQA)
 under autograd — what the reference's model runs on the CPU. A CUDA
@@ -27,22 +28,23 @@ forward with int32 segment ids (bf16; f32 on its 3xTF32 form, three
 tf32 products a product, on the tensor cores too), skipping the kv tiles
 no pair of whose can share a segment (`testing.seg_visit_plan` mirrors
 the rule). The backward is the delta pre-pass `flash_attention_delta`,
-then `flash_attention_seg_dkv` and `flash_attention_seg_dq`: in bf16 the
-wgmma core's dkv and dq with ids and two lengths, each skipping the
-tiles its own plan proves empty (`testing.seg_dkv_visit_plan` and
-`seg_visit_plan` at `SEG_BWD_TILES`); in f32 the SIMT kernels of
-`csrc/flash_attention.cu` (chip_smoke.py's `expected_seg_routes`). A
-score counts where the q and kv segments are equal. A padding mask [B,
-Sk] lowers to segment ids as the reference lowers it (l.327-336, GQA
-l.136-139): kv_seg = mask, q_seg = kv_seg when Sq == Sk, else all ones.
-So a padded query row attends to the padded keys only, as on the TPU; a
-query row with no key of its own segment averages V over all keys
-(upstream's finite mask value), and its backward recomputes P = 1 from
-an LSE that rounds to that value, as upstream's does. `_SegPlain` is that function in plain PyTorch, with the
+then `flash_attention_seg_dkv` and `flash_attention_seg_dq`: the wgmma
+core's dkv and dq with ids and two lengths (f32: their 3xTF32 form),
+each skipping the tiles its own plan proves empty
+(`testing.seg_dkv_visit_plan` and `seg_visit_plan` at `SEG_BWD_TILES`;
+chip_smoke.py's `expected_seg_routes`). A score counts where the q and
+kv segments are equal. A padding mask [B, Sk] lowers to segment ids as
+the reference lowers it (l.327-336, GQA l.136-139): kv_seg = mask, q_seg
+= kv_seg when Sq == Sk, else all ones. So a padded query row attends to
+the padded keys only, as on the TPU; a query row with no key of its own
+segment averages V over all keys (upstream's finite mask value), and its
+backward recomputes P = 1 from an LSE that rounds to that value, as
+upstream's does. `_SegPlain` is that function in plain PyTorch, with the
 flash backward written out. Causal with Sq != Sk is not ported (upstream
 aligns that mask top-left, the port's dense route bottom-right).
 
-Bias (`bias=`, `flash_attention_biased`): the same kernels with a bias
+Bias (`bias=`, `flash_attention_biased`): the kernels of
+`csrc/flash_attention.cu` (bf16 on mma.sync, f32 on SIMT) with a bias
 made or read at the score assembly (`flash_attention_bias_fwd`,
 `flash_attention_bias_dkv`, `flash_attention_bias_dq`; `_bias_args`
 lowers "alibi" slopes, a "rel_table" and a "dense" bias to the kernels'

@@ -607,9 +607,9 @@ def attn_seg_case(B, S, hq, hk, d, causal, kind, Sk=None,
 
 def seg_flash_readings(seed=0):
     """Segment-id flash on the card at the "bert", "cross_len",
-    "gqa_causal_pad" and "qpad_causal" cases (the forward and the bf16
-    backward on csrc/flash_wgmma.cu, the f32 backward on the SIMT kernels
-    of csrc/flash_attention.cu), bf16 and f32: for each output the worst
+    "gqa_causal_pad" and "qpad_causal" cases (csrc/flash_wgmma.cu's
+    forward, dkv and dq: the wgmma core in bf16, its 3xTF32 form in
+    f32), bf16 and f32: for each output the worst
     err/limit over the cases under the element limit (terms; lse 1e-4 +
     1e-5 |plain|), f32's outputs as "<label>_f32". Above 1 is a miss."""
     out = {}
@@ -643,10 +643,15 @@ SEG_FWD_TILES = {(torch.bfloat16, 64): (128, 128),
                  (torch.bfloat16, 128): (128, 128),
                  (torch.float32, 64): (128, 64),
                  (torch.float32, 128): (128, 32)}
-# The bf16 segment backward's tiles there, at both head dims: dq (q rows
-# a block, keys a kv tile), walking `seg_visit_plan`'s tiles; dkv (kv
-# rows a block, q rows a q tile), walking `seg_dkv_visit_plan`'s.
-SEG_BWD_TILES = {"dq": (128, 64), "dkv": (128, 64)}
+# The segment backward's tiles there by (dtype, head dim): dq (q rows a
+# block, keys a kv tile), walking `seg_visit_plan`'s tiles; dkv (kv rows
+# a block, q rows a q tile), walking `seg_dkv_visit_plan`'s. bf16: 128 x
+# 64 both; f32 (3xTF32, `Tf32BwdGeo`): 128 x 32 both at D = 64, dq 64 x
+# 32 and dkv 64 x 16 at D = 128.
+SEG_BWD_TILES = {(torch.bfloat16, 64): {"dq": (128, 64), "dkv": (128, 64)},
+                 (torch.bfloat16, 128): {"dq": (128, 64), "dkv": (128, 64)},
+                 (torch.float32, 64): {"dq": (128, 32), "dkv": (128, 32)},
+                 (torch.float32, 128): {"dq": (64, 32), "dkv": (64, 16)}}
 VISIT_TILES = 2048
 
 
@@ -766,12 +771,13 @@ def seg_plan_grads(q, k, v, do, seg_q, seg_kv, causal, scale,
     segment), D = rowsum(dO * O) over the whole forward's O; dq sums over
     the pairs of the tiles `seg_visit_plan` visits at tiles["dq"] (q rows
     a block, keys a tile), dk and dv over those `seg_dkv_visit_plan`
-    visits at tiles["dkv"] (kv rows a block, q rows a tile); tiles:
-    `SEG_BWD_TILES` by default. Equal to the whole segment backward
+    visits at tiles["dkv"] (kv rows a block, q rows a tile); tiles: the
+    kernels' for q's dtype and head dim (`SEG_BWD_TILES`) by default.
+    Equal to the whole segment backward
     (`_SegPlain`'s) when both plans are exact. q, k, v, do BSHD; returns
     (dq, dk, dv) BSHD f32."""
     from .kernels import flash_attention as kfa
-    tiles = tiles or SEG_BWD_TILES
+    tiles = tiles or SEG_BWD_TILES[(q.dtype, q.shape[-1])]
     s = kfa._seg_scores(q, k, seg_q, seg_kv, causal, scale)
     Sq, Sk = s.shape[-2], s.shape[-1]
     group = q.shape[2] // k.shape[2]

@@ -407,9 +407,10 @@ def test_unfused_flag_still_launches_every_kernel():
 # the readings function, the output whose check must then fail). The
 # wgmma core of csrc/flash_wgmma.cu is what `testing.flash_readings`
 # reads (the one-length bf16 route) and, with segment ids and two
-# lengths, what `testing.seg_flash_readings` reads in bf16, forward and
-# backward (its "gqa_causal_pad" and "qpad_causal" cases are causal,
-# "cross_len" holds a batch row with no valid key); the mma.sync kernels
+# lengths, what `testing.seg_flash_readings` reads in bf16 and, in its
+# 3xTF32 form, in f32 ("<label>_f32"), forward and backward (its
+# "gqa_causal_pad" and "qpad_causal" cases are causal, "cross_len" holds
+# a batch row with no valid key); the mma.sync kernels
 # of csrc/flash_attention.cu run the bias route that
 # `testing.bias_flash_readings` reads, so the old core stays guarded.
 _FLASH_FAULTS = {
@@ -426,18 +427,19 @@ _FLASH_FAULTS = {
         r"const int n_kv = \(kv_end \+ TKV - 1\) / TKV;",
         "const int n_kv = max(1, (kv_end + TKV - 1) / TKV - 1);",
         "bias_flash_readings", "o"),
-    # the segment dq counts the future keys of the diagonal tile
+    # the segment dq counts the future keys of the diagonal tile (the dS
+    # step both dq kernels share)
     "dq_diagonal_mask_off": (
-        "flash_wgmma.cu", "flash_bwd_dq_wgmma_kernel(",
+        "flash_wgmma.cu", "dq_ds(",
         r"if \(kj >= Sk \|\| \(causal && kj > r0 \+ 8 \* hh\)\) p = 0\.f;",
         "if (kj >= Sk) p = 0.f;", "seg_flash_readings", "dq"),
     # the segment dk and dv count the earlier queries of the diagonal
-    # tile
+    # tile (the P / dS step both dkv kernels share)
     "dkv_diagonal_mask_off": (
-        "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
+        "flash_wgmma.cu", "dkv_p_ds(",
         r"if \(qi >= Sq \|\| kj >= Sk \|\| \(causal && kj > qi\)\) "
-        r"p\[e\] = 0\.f;",
-        "if (qi >= Sq || kj >= Sk) p[e] = 0.f;", "seg_flash_readings", "dv"),
+        r"p = 0\.f;",
+        "if (qi >= Sq || kj >= Sk) p = 0.f;", "seg_flash_readings", "dv"),
     # the mma.sync (bias) dk and dv skip the last q tile: the last keys
     # get none of it
     "dkv_skips_last_q_tile": (
@@ -461,15 +463,15 @@ _FLASH_FAULTS = {
         "flash_readings", "o"),
     # the wgmma dq counts the future keys of the diagonal tiles
     "wgmma_dq_diagonal_mask_off": (
-        "flash_wgmma.cu", "flash_bwd_dq_wgmma_kernel(",
+        "flash_wgmma.cu", "dq_ds(",
         r"if \(kj >= Sk \|\| \(causal && kj > r0 \+ 8 \* hh\)\) p = 0\.f;",
         "if (kj >= Sk) p = 0.f;", "flash_readings", "dq"),
     # the wgmma dk and dv count the earlier queries of the diagonal tiles
     "wgmma_dkv_diagonal_mask_off": (
-        "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
+        "flash_wgmma.cu", "dkv_p_ds(",
         r"if \(qi >= Sq \|\| kj >= Sk \|\| \(causal && kj > qi\)\) "
-        r"p\[e\] = 0\.f;",
-        "if (qi >= Sq || kj >= Sk) p[e] = 0.f;", "flash_readings", "dv"),
+        r"p = 0\.f;",
+        "if (qi >= Sq || kj >= Sk) p = 0.f;", "flash_readings", "dv"),
     # the wgmma dk and dv skip the last q tile (of the last head)
     "wgmma_dkv_skips_last_q_tile": (
         "flash_wgmma.cu", "flash_bwd_dkv_wgmma_kernel(",
@@ -480,6 +482,27 @@ _FLASH_FAULTS = {
     "delta_drops_last_vector": (
         "flash_wgmma.cu", "flash_delta_kernel(", r"  if \(row < rows\) \{",
         "  if (row < rows && c + V < D) {", "flash_readings", "delta"),
+    # the f32 dkv drops the lo hi term of dV += P^T dO (P's lo parts
+    # zeroed): the keys of the causal diagonal, which few rows see, keep
+    # P's tf32 rounding
+    "tf32_dkv_drops_lo_hi_in_dv": (
+        "flash_wgmma.cu", "flash_bwd_dkv_tf32_kernel(",
+        r"tf32_frag<BN>\(st, kk, ph\[kk\], pl\[kk\]\);",
+        "tf32_frag<BN>(st, kk, ph[kk], pl[kk]); "
+        "pl[kk][0] = pl[kk][1] = pl[kk][2] = pl[kk][3] = 0u;",
+        "seg_flash_readings", "dv_f32"),
+    # the f32 kernels' transposed tiles (dkv's Q^T and dO^T) keep the
+    # rows in order, where the A fragments hand them over in vt_pos order
+    "tf32_transpose_wrong_row_order": (
+        "flash_wgmma.cu", "split_tile(",
+        r"const int kap = vt_pos\(r\);", "const int kap = r;",
+        "seg_flash_readings", "dk_f32"),
+    # the f32 dq plans its walk at twice its kv tile: it skips tiles its
+    # rows' keys lie in
+    "tf32_dq_plan_at_wrong_tiles": (
+        "flash_wgmma.cu", "flash_bwd_dq_tf32_kernel(",
+        r"seg_plan<BM, BN, NT>\(", "seg_plan<BM, 2 * BN, NT>(",
+        "seg_flash_readings", "dq_f32"),
 }
 
 
@@ -755,9 +778,9 @@ def test_segment_flash_matches_plain(dtype, case):
 def test_segment_backward_matches_plain(dtype, case):
     """The segment route's backward as its autograd function runs it on
     the card (`_SegFlash`: the forward, the delta pre-pass, dkv and dq;
-    bf16 on the wgmma core, f32 on SIMT) against `_SegPlain` on f32
-    copies, at every `testing.ATTN_SEG_CASES` case: dq, dk and dv by the
-    terms rule of testing.py."""
+    bf16 on the wgmma core, f32 on its 3xTF32 form) against `_SegPlain`
+    on f32 copies, at every `testing.ATTN_SEG_CASES` case: dq, dk and dv
+    by the terms rule of testing.py."""
     _card()
     dt = getattr(torch, dtype)
     kw = testing.ATTN_SEG_CASES[case]
@@ -775,6 +798,41 @@ def test_segment_backward_matches_plain(dtype, case):
         ref, terms = refs[label]
         assert bool(torch.isfinite(leaf.grad).all()), label
         assert _within_terms(leaf.grad, ref, terms, dtype), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["one_length", "segment"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_backward_is_deterministic(route, d):
+    """The f32 dkv and dq (3xTF32, no atomics) give bitwise-equal dq, dk
+    and dv on two runs: the one-length route (GQA, causal) and the
+    segment route (the "qpad_causal" ids, GQA)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, S, hq, hk = 2, 300, 4, 2
+    q, do = (torch.randn(B, S, hq, d, generator=g, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn(B, S, hk, d, generator=g, device="cuda")
+            for _ in range(2))
+    sq = skv = None
+    if route == "segment":
+        kw = dict(testing.ATTN_SEG_CASES["qpad_causal"], d=d)
+        q, k, v, do, sq, skv = testing.attn_seg_case(**kw,
+                                                     dtype=torch.float32)
+    o, lse = t_fa.flash_attention_seg_fwd(q, k, v, sq, skv, True, 1.0)
+
+    def grads():
+        if route == "one_length":
+            return t_fa.flash_attention_bwd(q, k, v, o, lse, do, True, 1.0)
+        args = (q, k, v, do, lse, t_fa.flash_attention_delta(o, do), sq,
+                skv, True, 1.0)
+        return (t_fa.flash_attention_seg_dq(*args),
+                *t_fa.flash_attention_seg_dkv(*args))
+
+    first, second = grads(), grads()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1098,3 +1156,31 @@ def test_attention_checks_fail_planted_faults(fault, tmp_path):
         assert all(r <= 1.0 for r in readings.values())
     else:
         assert readings[out] > 1.0
+
+
+# Every planted fault above as (source, anchor, pattern, replacement)
+_PLANTED = {
+    **{f"flash-{k}": v[:4] for k, v in _FLASH_FAULTS.items()},
+    **{f"attn-{k}": v[:4] for k, v in _ATTN_FAULTS.items()},
+    **{f"ce-{k}": ("cross_entropy.cu", *v[:3]) for k, v in _CE_FAULTS.items()},
+    **{f"paged-{k}": ("paged_attention.cu", *v)
+       for k, v in _PAGED_FAULTS.items()},
+}
+
+
+@pytest.mark.parametrize("fault", list(_PLANTED))
+def test_planted_fault_lies_in_its_source(fault):
+    """Each planted fault's pattern is in its source past its anchor, as
+    `_readings_with_fault` plants it (the sources alone: on any device),
+    so that a kernel moved into a shared helper cannot leave a card test
+    planting nothing."""
+    source, anchor, pattern, _ = _PLANTED[fault]
+    pkg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "paddle_tpu_torch")
+    path = os.path.join(pkg, *([source] if "/" in source
+                               else ["csrc", source]))
+    with open(path) as f:
+        src = f.read()
+    assert anchor in src, f"{anchor}: the anchor is not in {source}"
+    assert len(re.findall(pattern, src[src.index(anchor):])) >= 1, \
+        f"{pattern}: the pattern is not in the kernel"

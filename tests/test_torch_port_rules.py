@@ -217,6 +217,27 @@ _FLASH_NAMES = {
     "const*": ("forward", "simt"),
     "void (anonymous namespace)::flash_bwd_dq_simt_kernel<128, true>(float "
     "const*": ("dq", "simt"),
+    # the f32 backward on the 3xTF32 core (one length, and the segment
+    # route with ids); the bias route's f32 kernels stay SIMT
+    "void (anonymous namespace)::flash_bwd_dkv_tf32_kernel<64, true>("
+    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+    "const*, float const*, int const*, int const*, float*, float*, int, "
+    "int, int, int, int, float)": ("dkv", "wgmma-tf32"),
+    "void (anonymous namespace)::flash_bwd_dkv_tf32_kernel<128, false>("
+    "CUtensorMap_st": ("dkv", "wgmma-tf32"),
+    "void (anonymous namespace)::flash_bwd_dq_tf32_kernel<64, false>("
+    "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float "
+    "const*, float const*, int const*, int const*, float*, int, int, int, "
+    "int, int, float)": ("dq", "wgmma-tf32"),
+    "void (anonymous namespace)::flash_bwd_dq_tf32_kernel<128, true>("
+    "CUtensorMap_st": ("dq", "wgmma-tf32"),
+    "void (anonymous namespace)::flash_fwd_simt_kernel<64>(float const*, "
+    "float const*, float const*, (anonymous namespace)::BiasArgs, float*, "
+    "float*, int, int, int, int, int, float)": ("forward", "simt"),
+    "void (anonymous namespace)::flash_bwd_dkv_simt_kernel<128>(float "
+    "const*": ("dkv", "simt"),
+    "void (anonymous namespace)::flash_bwd_dq_simt_kernel<64>(float "
+    "const*": ("dq", "simt"),
     # PyTorch's own flash kernels (SDPA) and the SwiGLU core are not ours
     "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<128, 128, "
     "64, 4, false, false, cutlass::bfloat16_t": None,
@@ -236,7 +257,8 @@ def test_flash_route_of_reads_kernel_names(name):
 
 
 _WGMMA = dict(forward="wgmma", dkv="wgmma", dq="wgmma", delta="simt")
-_SIMT = dict(forward="simt", dkv="simt", dq="simt", delta="simt")
+_TF32 = dict(forward="wgmma-tf32", dkv="wgmma-tf32", dq="wgmma-tf32",
+             delta="simt")
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
@@ -246,13 +268,15 @@ _SIMT = dict(forward="simt", dkv="simt", dq="simt", delta="simt")
     ((2, 256, 4, 4, 64, False), "bfloat16", _WGMMA),
     ((1, 1000, 4, 4, 128, True), "bfloat16", _WGMMA),
     ((2, 1000, 4, 2, 64, False), "bfloat16", _WGMMA),
-    ((4, 2048, 32, 32, 128, True), "float32", _SIMT)],
+    ((4, 2048, 32, 32, 128, True), "float32", _TF32),
+    ((16, 512, 12, 12, 64, False), "float32", _TF32),
+    ((2, 1000, 4, 2, 64, False), "float32", _TF32)],
     ids=["llama_7b", "llama_1b", "gqa_causal", "d64_full", "ragged_causal",
-         "ragged_gqa_d64", "f32"])
+         "ragged_gqa_d64", "f32", "ernie_f32", "ragged_gqa_d64_f32"])
 def test_expected_flash_routes(shape, dtype, want):
     """Every bf16 call of flash_attention_fwd / flash_attention_bwd runs
-    the wgmma core, every f32 call the SIMT kernels, whatever the shape
-    (ragged S included)."""
+    the wgmma core, every f32 call its 3xTF32 form (no SIMT kernel),
+    whatever the shape (ragged S included)."""
     got = _chip_smoke().expected_flash_routes(*shape, getattr(torch, dtype))
     assert got == want
 
@@ -266,7 +290,8 @@ def test_expected_flash_routes_refuses_untaken_shapes(shape):
 
 
 _SEG_BF16 = dict(forward="wgmma", dkv="wgmma", dq="wgmma", delta="simt")
-_SEG_F32 = dict(forward="wgmma-tf32", dkv="simt", dq="simt", delta="simt")
+_SEG_F32 = dict(forward="wgmma-tf32", dkv="wgmma-tf32", dq="wgmma-tf32",
+                delta="simt")
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
@@ -279,10 +304,9 @@ _SEG_F32 = dict(forward="wgmma-tf32", dkv="simt", dq="simt", delta="simt")
     ids=["bert", "bert_f32", "packed_7b", "gqa_causal_f32", "cross_len",
          "mqa_f32"])
 def test_expected_seg_routes(shape, dtype, want):
-    """The segment forward runs the wgmma core in bf16 and its 3xTF32
-    kernel in f32, never an mma.sync or SIMT forward; the segment
-    backward runs the wgmma core in bf16 and SIMT in f32, after the
-    delta pre-pass."""
+    """The segment forward and backward run the wgmma core in bf16 and
+    its 3xTF32 kernels in f32, never an mma.sync or SIMT kernel; the
+    backward after the delta pre-pass."""
     got = _chip_smoke().expected_seg_routes(*shape, getattr(torch, dtype))
     assert got == want
 
@@ -295,6 +319,15 @@ def test_expected_seg_routes(shape, dtype, want):
 def test_expected_seg_routes_refuses_untaken_shapes(shape):
     with pytest.raises(ValueError, match="segment route takes no"):
         _chip_smoke().expected_seg_routes(*shape, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,core", [("bfloat16", "mma.sync"),
+                                        ("float32", "simt")])
+def test_expected_bias_routes(dtype, core):
+    """The bias route keeps csrc/flash_attention.cu's kernels: mma.sync in
+    bf16 and SIMT in f32, forward, dkv and dq (its D is plain PyTorch)."""
+    got = _chip_smoke().expected_bias_routes(getattr(torch, dtype))
+    assert got == dict(forward=core, dkv=core, dq=core)
 
 
 def test_every_segment_case_has_a_route():

@@ -15,9 +15,11 @@
   segment-route grads (`jax.vjp` through the same interpret-mode
   splash), and the dkv plan visits little more than the pairs packed
   documents need;
-- the f32 forward's 3xTF32 split (`tf32_split`) and its V^T key order
-  (`vt_positions`), and that three tf32 products a product meet the f32
-  element limits of `testing.py` where one does not.
+- the f32 kernels' 3xTF32 split (`tf32_split`) and their transposed
+  operands' order (`vt_positions`), and that three tf32 products a
+  product meet the f32 element limits of `testing.py` where one does
+  not, in the forward and in the backward (dq, dk and dv with segments
+  and GQA).
 
 Limit for the plan: max|a - b| / max|b| <= 1e-5 (f32 summation order,
 the attention tests' KERNEL_RTOL).
@@ -221,9 +223,12 @@ def _reference_grads(name):
     return tuple(np.asarray(g) for g in vjp(jnp.asarray(do))), do
 
 
-# the backward's (dq, dkv) tiles: the kernels' (testing.SEG_BWD_TILES)
-# and two small ones at which both plans skip at these sizes
-GRAD_TILES = {"bf16": testing.SEG_BWD_TILES,
+# the backward's (dq, dkv) tiles: the kernels' (testing.SEG_BWD_TILES:
+# bf16, and f32 at both head dims) and two small ones at which both
+# plans skip at these sizes
+GRAD_TILES = {"bf16": testing.SEG_BWD_TILES[(torch.bfloat16, 64)],
+              "f32_d64": testing.SEG_BWD_TILES[(torch.float32, 64)],
+              "f32_d128": testing.SEG_BWD_TILES[(torch.float32, 128)],
               "small_16x8": {"dq": (16, 8), "dkv": (16, 8)},
               "small_32x16": {"dq": (32, 16), "dkv": (32, 16)}}
 
@@ -309,12 +314,42 @@ def test_dkv_plan_visits_little_more_than_packed_documents_need():
         torch.tensor(lengths))[None]
     S = seg.shape[1]
     need = sum(n * (n + 1) // 2 for n in lengths)
-    BM, BN = testing.SEG_BWD_TILES["dkv"]
+    BM, BN = testing.SEG_BWD_TILES[(torch.bfloat16, 128)]["dkv"]
     plan = testing.seg_dkv_visit_plan(seg, seg, True, BM, BN)
     keep = testing.seg_plan_keep(plan, BM, BN, S, S)[0]     # [key, query]
     visited = int(keep.t().tril().sum())
     assert visited <= 1.3 * need
     assert S * (S + 1) // 2 > 5.5 * need
+
+
+@pytest.mark.parametrize("tiles", ["f32_d64", "f32_d128"])
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_dkv_plan_at_the_f32_tiles(name, tiles):
+    """At the f32 kernels' dkv tiles (testing.SEG_BWD_TILES) every q tile
+    the dkv plan skips shares no segment with its kv block and has a key
+    of its own segment at each row's position (so a tile holding a row
+    with no key of its own segment is visited by each block that walks
+    it), and the packed and padded cases skip some."""
+    _, seg_q, seg_kv = _plan_inputs(name)
+    causal = PLAN_CASES[name][CAUSAL]
+    BM, BN = GRAD_TILES[tiles]["dkv"]
+    plan = testing.seg_dkv_visit_plan(seg_q, seg_kv, causal, BM, BN)
+    B, n_kb, n_qt = plan.shape
+    Sq, Sk = seg_q.shape[1], seg_kv.shape[1]
+    skipped = 0
+    for b in range(B):
+        for i in range(n_kb):
+            keys = set(seg_kv[b, i * BM:(i + 1) * BM].tolist())
+            for j in range(i * BM // BN if causal else 0, n_qt):
+                if plan[b, i, j]:
+                    continue
+                skipped += 1
+                rows = range(j * BN, min((j + 1) * BN, Sq))
+                assert all(r < Sk and seg_kv[b, r] == seg_q[b, r]
+                           for r in rows)
+                assert not keys & {int(seg_q[b, r]) for r in rows}
+    if name in ("packed_causal", "padded", "gqa_packed_causal"):
+        assert skipped > 0
 
 
 def test_tf32_split_reconstructs_within_2_pow_22():
@@ -392,3 +427,70 @@ def test_three_tf32_products_meet_the_f32_limits():
             testing.worst(lse, lse_x, 1e-4, 1e-5))
     assert max(readings[3]) < 0.05
     assert min(readings[1]) > 1.0
+
+
+def _mm(a, b, split):
+    """a @ b in f64 with the products formed as the f32 kernels form
+    them: split=3 from hi/lo tf32 parts (hi lo + lo hi + hi hi), split=1
+    from one tf32 rounding, split=0 exactly."""
+    if split == 0:
+        return a.double() @ b.double()
+    if split == 1:
+        return testing.tf32_round(a).double() @ testing.tf32_round(b).double()
+    ah, al = testing.tf32_split(a)
+    bh, bl = testing.tf32_split(b)
+    return (ah.double() @ bl.double() + al.double() @ bh.double()
+            + ah.double() @ bh.double())
+
+
+def _emulated_bwd(q, k, v, do, seg_q, seg_kv, split):
+    """The segment backward in f64 with its five products (S, dP, dV +=
+    P^T dO, dK += dS^T Q, dQ += dS K) formed by `_mm`; P and dS enter
+    their products as the f32 values the kernels hold in registers. The
+    forward's lse and D = rowsum(dO O) exact. Returns (dq, dk, dv) BSHD."""
+    group = q.shape[2] // k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+    kh, vh = (t.repeat_interleave(group, dim=1) for t in (kh, vh))
+    same = seg_q[:, None, :, None] == seg_kv[:, None, None, :]
+    s_x = torch.where(same, _mm(qh, kh.transpose(-1, -2), 0) * scale,
+                      t_fa._SEG_MASK)
+    lse = torch.logsumexp(s_x, -1, keepdim=True)
+    o = torch.softmax(s_x, -1) @ vh.double()
+    delta = (doh.double() * o).sum(-1, keepdim=True)
+    s = torch.where(same, _mm(qh, kh.transpose(-1, -2), split) * scale,
+                    t_fa._SEG_MASK)
+    p = torch.exp(s - lse).float()
+    ds = (p.double() * (_mm(doh, vh.transpose(-1, -2), split)
+                        - delta)).float()
+    dq = _mm(ds, kh, split) * scale
+    dk = t_fa._group_sum(_mm(ds.transpose(-1, -2), qh, split), group) * scale
+    dv = t_fa._group_sum(_mm(p.transpose(-1, -2), doh, split), group)
+    return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
+
+
+def test_three_tf32_products_meet_the_f32_limits_in_the_backward():
+    """At BERT-like inputs (N(0, 1), D = 64, padding segments with a
+    short row, GQA 4 / 2) three tf32 products a product keep dq, dk and
+    dv within a small share of the f32 limit (testing.TERM_FRAC: 1e-4 of
+    each element's sum of |terms|, `seg_flash_terms`, which counts |dP| +
+    |D| in dS so the cancellation in dP - D is covered); one tf32 product
+    misses it on each. Products exact in f64, as the tensor cores form a
+    tf32 product exactly."""
+    g = torch.Generator().manual_seed(0)
+    B, S, hq, hk, D = 2, 256, 4, 2, 64
+    q, do = (torch.randn(B, S, hq, D, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, S, hk, D, generator=g) for _ in range(2))
+    pm = torch.arange(S)[None, :] < torch.tensor([S, 190])[:, None]
+    seg_q, seg_kv = t_fa.padding_segments(pm, S, S)
+    exact = _emulated_bwd(q, k, v, do, seg_q, seg_kv, 0)
+    terms = testing.seg_flash_terms(q, k, v, do, seg_q, seg_kv, False,
+                                    D ** -0.5)[1:]
+    frac = testing.TERM_FRAC[torch.float32]
+    readings = {split: [testing.worst(got, want, frac * t, 0.0)
+                        for got, want, t in zip(
+                            _emulated_bwd(q, k, v, do, seg_q, seg_kv, split),
+                            exact, terms)]
+                for split in (3, 1)}
+    assert max(readings[3]) < 0.05, readings
+    assert min(readings[1]) > 1.0, readings
