@@ -91,6 +91,16 @@ Phases, each of which fails the run on a miss:
    bias as attn_mask. The biased routes (float mask, alibi) launch one
    bias forward, one dkv and one dq each, and no block-stats kernel.
 
+Paged decode attention (row 13) is timed at the bucketed engine's case
+and at generate's own cache, ragged paged attention (row 9) at the
+serving step's mixed case and at the ragged burst's decode-only steady
+state (`RAGGED_ROWS`), each by events and by the card's own time
+(`device_ms`, `traced_device_ms`: each trace must hold one launch of
+the kernel a call, and a reading under the bound fails), each call on
+its own copy of the pools so that its pages are cold in L2
+(`pool_copies`); then the split size they share is swept
+(`split_sweep`, `SPLIT_SWEEP`).
+
 The kernel phase also holds the three segment-id flash kernels, the
 block-stats kernel and the three bias kernels against their plain
 versions at `testing.ATTN_SEG_CASES`, `testing.STATS_CASES` and
@@ -126,7 +136,9 @@ bias forward, dkv and dq at each dtype is traced and held to
     python3 chip_smoke.py --ab PARENT_DIR
 
 compares this checkout with another (an unpacked `git archive` of the
-parent commit) on one card: `route_times` (row 10's 1B and 7B flash
+parent commit) on one card: `route_times` (rows 9 and 13 at their
+kernel-phase cases by events and device time, `paged_times`, alone with
+`--ab PARENT_DIR paged`; row 10's 1B and 7B flash
 forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
 and forward + backward, the alibi route's peak memory, the segment
 forward at BERT's shape in bf16 and f32 and packed at 8192 tokens, the
@@ -354,22 +366,38 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def traced_device_ms(fn, iters=10):
+def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
     """The card's own time for one call of fn: the summed device time of
     the CUDA kernels it runs, traced by torch.profiler over `iters` calls
     after one warm-up call, divided by iters. Beside `time_ms`, which the
     host bounds where a call enqueues many small launches (SDPA's
     backward through autograd at BERT's width), it says what the card
-    spends."""
+    spends. With `kernel` (a name fragment of the one kernel a call
+    launches) the trace must hold exactly `iters` launches of it: a trace
+    that lost events is taken again, up to `attempts` times, and then
+    fails."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    sums, _ = _device_ms(prof, (), "all")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        sums, _ = _device_ms(prof, (), "all")
+        if kernel is None:
+            break
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if n == iters:
+            break
+        print(f"traced_device_ms: {n} launches of {kernel} traced of "
+              f"{iters}; tracing again", flush=True)
+    else:
+        check(False, f"traced_device_ms: the trace never held {iters} "
+                     f"launches of {kernel}")
     return sums.get("all", 0.0) / iters
 
 
@@ -383,14 +411,22 @@ def bound_ms(nbytes, flops, dtype_name):
                                        else "operations")
 
 
-def ragged_case(torch, dtype, gen):
+# ragged paged attention's cases, (q_start, q_len, kv_len) per slot:
+# "mixed" is a prefill chunk deep in a 700-token prompt, a decode row at
+# 300, an idle slot and a fresh 64-token prefill, plus 3 padding rows;
+# "decode_only" the ragged burst's steady state after its prefills end,
+# four decode rows at 18/101/301/701 keys and 124 padding rows
+RAGGED_ROWS = {"mixed": [(0, 60, 700), (60, 1, 300), (0, 0, 0),
+                         (61, 64, 64)],
+               "decode_only": [(0, 1, 18), (1, 1, 101), (2, 1, 301),
+                               (3, 1, 701)]}
+
+
+def ragged_case(torch, dtype, gen, rows=RAGGED_ROWS["mixed"]):
     """The slice's attention shapes: T=128 packed rows, 32 heads of 128,
-    pages of 16, 64 pages per sequence, 4 slots mixing a prefill chunk
-    deep in a 700-token prompt, a decode row at 300, an idle slot and a
-    fresh 64-token prefill, plus 3 padding rows."""
+    pages of 16, 64 pages per sequence, 4 slots (`RAGGED_ROWS`)."""
     T, nh, d, page, B, ppmax = 128, 32, 128, 16, 4, 64
     n_pages = B * ppmax + 1
-    rows = [(0, 60, 700), (60, 1, 300), (0, 0, 0), (61, 64, 64)]
     q = torch.randn((T, nh, d), generator=gen, device="cuda").to(dtype)
     kp = torch.randn((nh, n_pages, page, d), generator=gen,
                      device="cuda").to(dtype)
@@ -584,30 +620,183 @@ def kernel_phase(report):
                 swiglu_route_check(T, H, M)
 
         # ragged paged attention at the slice's shapes
-        args, rows = ragged_case(torch, dtype, gen)
-        q = args[0]
-        nh, d = q.shape[1], q.shape[2]
-        kv_tokens = sum(kl for _, _, kl in rows)
-        nbytes = (2 * q.numel() * it + 2 * kv_tokens * nh * d * it
-                  + sum(m.numel() * 4 for m in args[3:]))
-        flops = sum(4 * (kl - ql + t + 1) * d * nh
-                    for _, ql, kl in rows for t in range(ql))
-        scale = 1.0 / d ** 0.5
-        m = held("ragged_paged_attention",
-                 lambda: krpa.ragged_paged_attention(*args, use_kernel=True),
-                 lambda: krpa._dense_fallback(*args, scale),
-                 lambda: krpa._dense_fallback(
-                     (q * scale).float(), args[1].float(), args[2].float(),
-                     *args[3:], 1.0),
-                 nbytes=nbytes, flops=flops, iters=50)
-        if m:
-            report["ragged_paged_attention"] = entry(
-                "ragged_paged_attention", m)
-        del args, q
+        for tag, rows in RAGGED_ROWS.items():
+            ragged_kernel(report, dtype, dname, gen, tag, rows)
         paged_kernels(report, dtype)
+        if dtype == torch.bfloat16:
+            split_sweep(report)
         training_kernels(report, dtype, gen)
         torch.cuda.empty_cache()
         attention_kernels(report, dtype)
+
+
+def ragged_kernel(report, dtype, dname, gen, tag, rows):
+    """ragged_paged_attention at one of `RAGGED_ROWS`, checked against its
+    plain version; bf16 timed by events and by the card's own time, each
+    call on its own copy of the pools (`pool_copies`)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+
+    args, _ = ragged_case(torch, dtype, gen, rows)
+    q = args[0]
+    scale = 1.0 / q.shape[2] ** 0.5
+    out = krpa.ragged_paged_attention(*args, use_kernel=True)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        ref = krpa._dense_fallback((q * scale).float(), args[1].float(),
+                                   args[2].float(), *args[3:], 1.0)
+    else:
+        ref = krpa._dense_fallback(*args, scale)
+    err = compare("ragged_paged_attention", dname, [("out", out, ref)],
+                  f" [{tag}]")
+    del out, ref
+    if dtype != torch.bfloat16:
+        return
+    call = ragged_call(krpa, args)
+    m = timed("ragged_paged_attention", err, call,
+              lambda: krpa._dense_fallback(*args, scale),
+              *ragged_work(args, rows), iters=100, tag=f" [{tag}]")
+    m["device_ms"] = held_device_ms(call, RAGGED_KERNEL, m["bound_ms"],
+                                    f"ragged_paged_attention [{tag}]")
+    if tag == "mixed":
+        report["ragged_paged_attention"] = entry("ragged_paged_attention",
+                                                 m)
+    else:
+        report["ragged_paged_attention"][tag] = m
+
+
+# the device kernels of rows 9 and 13 (one launch a call, no other
+# kernel): `traced_device_ms` counts their launches
+RAGGED_KERNEL = "ragged_paged_attention_kernel"
+PAGED_KERNEL = "paged_decode_kernel"
+
+
+def ragged_work(args, rows):
+    """(bytes, flops) that ragged paged attention must spend at one of
+    `RAGGED_ROWS`: q of the rows a sequence owns read once (the kernel
+    reads no padding row), every row of out written once, each sequence's
+    K and V rows up to kv_len read once, the metadata; 4 d flops a head
+    per (row, key) under the causal limit."""
+    q = args[0]
+    T, nh, d = q.shape
+    it = q.element_size()
+    owned = sum(ql for _, ql, _ in rows)
+    kv_tokens = sum(kl for _, _, kl in rows)
+    nbytes = ((owned + T) * nh * d * it + 2 * kv_tokens * nh * d * it
+              + sum(m.numel() * 4 for m in args[3:]))
+    flops = sum(4 * (kl - ql + t + 1) * d * nh
+                for _, ql, kl in rows for t in range(ql))
+    return nbytes, flops
+
+
+def paged_work(args):
+    """(bytes, flops) that paged decode attention must spend: the live K
+    and V rows once, q and out once, lengths and table; 4 d flops a q
+    head per live key."""
+    q, kp, _, lens, pt = args
+    nh, d = q.shape[1], q.shape[2]
+    kvh, it = kp.shape[0], q.element_size()
+    live = int(lens.sum())
+    return (2 * live * kvh * d * it + 2 * q.numel() * it
+            + lens.numel() * 4 + pt.numel() * 4), 4 * live * nh * d
+
+
+def held_device_ms(call, kernel, bound, what):
+    """`traced_device_ms` of one call of a paged kernel (40 calls, each
+    launch of `kernel` counted), failing below the call's bound: a
+    reading under the bound lost events or miscounts the work."""
+    ms = traced_device_ms(call, 40, kernel=kernel)
+    print(f"kernel {what}: device_ms={ms:.6g} (bound {bound:.6g})",
+          flush=True)
+    check(ms >= bound, f"{what}: device_ms {ms:.6g} below its bound "
+                       f"{bound:.6g}")
+    return ms
+
+
+# split sizes (keys) the sweep times beside the one in use
+# (`_paged_split.SPLIT_KEYS`, shared by rows 13 and 9): paged decode at
+# the bucketed engine's case and at generate's cache, ragged attention at
+# its decode-only and mixed cases
+SPLIT_SWEEP = (64, 128, 256, 512)
+
+
+def split_sweep(report):
+    """The card's own time of rows 13 and 9 at each of `SPLIT_SWEEP`'s
+    split sizes (`_paged_split.SPLIT_KEYS` set for the sweep and
+    restored), each call on its own copy of the pools, each point held to
+    its launch count and bound (`held_device_ms`): how the split size was
+    chosen. Recorded as the entries' `split_sweep`."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import _paged_split
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+
+    def sweep(name, call, kernel, work, tag):
+        saved = _paged_split.SPLIT_KEYS
+        bound = bound_ms(*work, "bfloat16")[0]
+        got = {}
+        try:
+            for sk in SPLIT_SWEEP:
+                _paged_split.SPLIT_KEYS = sk
+                got[sk] = held_device_ms(call, kernel, bound,
+                                         f"{name} [{tag}] at {sk} keys")
+        finally:
+            _paged_split.SPLIT_KEYS = saved
+        print(f"split sweep {name} [{tag}] (device ms; SPLIT_KEYS in use "
+              f"{saved}): " + " ".join(f"{k}={v:.6g}" for k, v in
+                                       got.items()), flush=True)
+        return got
+
+    got = {}
+    for tag, args in testing.paged_decode_cases(
+            torch.bfloat16, tags=("engine", "generate_cache")):
+        got[tag] = sweep("paged_decode_attention", paged_call(kpa, args),
+                         PAGED_KERNEL, paged_work(args), tag)
+    report["paged_decode_attention"]["split_sweep"] = got
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    got = {}
+    for tag in ("decode_only", "mixed"):
+        args, rows = ragged_case(torch, torch.bfloat16, gen,
+                                 RAGGED_ROWS[tag])
+        got[tag] = sweep("ragged_paged_attention", ragged_call(krpa, args),
+                         RAGGED_KERNEL, ragged_work(args, rows), tag)
+    report["ragged_paged_attention"]["split_sweep"] = got
+    torch.cuda.empty_cache()
+
+
+def pool_copies(args, n=8):
+    """n argument tuples of a paged kernel, the first `args` itself and
+    each other with its own clone of the K and V pools (args[1], args[2];
+    a clone keeps a strided view's strides): calls that take them in turn
+    find their pages cold in the 50 MB L2, as each layer's call does on
+    the main path."""
+    return [args] + [(args[0], args[1].clone(), args[2].clone(), *args[3:])
+                     for _ in range(n - 1)]
+
+
+def cold_calls(fn, argsets):
+    """A call of fn on the next of argsets, in turn."""
+    turn = [0]
+
+    def call():
+        a = argsets[turn[0] % len(argsets)]
+        turn[0] += 1
+        return fn(*a)
+
+    return call
+
+
+def ragged_call(krpa, args):
+    return cold_calls(lambda *a: krpa.ragged_paged_attention(
+        *a, use_kernel=True), pool_copies(args))
+
+
+def paged_call(kpa, args):
+    return cold_calls(lambda *a: kpa.paged_decode_attention(
+        *a, use_kernel=True), pool_copies(args))
 
 
 def paged_kernels(report, dtype):
@@ -625,7 +814,6 @@ def paged_kernels(report, dtype):
     from paddle_tpu_torch.kernels import paged_attention as kpa
 
     dname = str(dtype).split(".")[1]
-    it = torch.finfo(dtype).bits // 8
     check(testing.PAGED_DECODE_CASES["generate_cache"][1]["S"]
           == -(-(GEN_PROMPT + GEN_NEW) // 16) * 16,
           "the generate_cache case is not the generate phase's cache")
@@ -637,42 +825,40 @@ def paged_kernels(report, dtype):
         del args, out, ref
     if dtype != torch.bfloat16:
         return
-    # (a), timed. The kernel cycles through 8 copies of the pool (146 MB
-    # of live pages against the 50 MB L2), so each launch finds its pages
-    # cold, as each layer's launch does in the engine.
-    q, kp, vp, lens, pt = testing.paged_decode_case(dtype=dtype)
-    B, nh, d = q.shape
-    kvh, _, page, _ = kp.shape
-    scale = 1.0 / d ** 0.5
-    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(7)]
-    turn = [0]
-
-    def kernel():
-        k_, v_ = pools[turn[0] % len(pools)]
-        turn[0] += 1
-        return kpa.paged_decode_attention(q, k_, v_, lens, pt,
-                                          use_kernel=True)
-
-    # the library yardstick: SDPA on q [B, nh, 1, d] against the
-    # contiguous K/V [B, nh, S, d] with a boolean length mask
-    S = pt.shape[1] * page
-    kc, vc = (torch.movedim(x[:, pt.long()], 0, 1).reshape(B, kvh, S, d)
-              for x in (kp, vp))
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    live = int(lens.sum())
-    report["paged_decode_attention"] = entry("paged_decode_attention", timed(
-        "paged_decode_attention", errs["engine"], kernel,
-        lambda: kpa._plain(q, kp, vp, lens, pt, scale),
-        # the live K and V rows once, q and out once, lengths and table
-        nbytes=(2 * live * kvh * d * it + 2 * q.numel() * it
-                + lens.numel() * 4 + pt.numel() * 4),
-        flops=4 * live * nh * d,
-        library=lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask),
-        iters=200))
-    del pools, kc, vc
-    torch.cuda.empty_cache()
+    # (a) and generate's own cache, timed by events and by the card's own
+    # time: each call takes the next of 8 copies of the pool (the engine
+    # case's are 146 MB of live pages against the 50 MB L2), so each
+    # launch finds its pages cold, as each layer's launch does
+    for tag in ("engine", "generate_cache"):
+        ((_, args),) = testing.paged_decode_cases(dtype, tags=(tag,))
+        q, kp, vp, lens, pt = args
+        B, _, d = q.shape
+        kvh, _, page, _ = kp.shape
+        scale = 1.0 / d ** 0.5
+        # the library yardstick: SDPA on q [B, nh, 1, d] against the
+        # contiguous K/V [B, nh, S, d] with a boolean length mask
+        S = pt.shape[1] * page
+        kc, vc = (torch.movedim(x[:, pt.long()], 0, 1).reshape(B, kvh, S, d)
+                  for x in (kp, vp))
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        call = paged_call(kpa, args)
+        m = timed(
+            "paged_decode_attention", errs[tag], call,
+            lambda: kpa._plain(q, kp, vp, lens, pt, scale),
+            *paged_work(args),
+            library=lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask),
+            iters=200, tag=f" [{tag}]")
+        m["device_ms"] = held_device_ms(call, PAGED_KERNEL, m["bound_ms"],
+                                        f"paged_decode_attention [{tag}]")
+        if tag == "engine":
+            report["paged_decode_attention"] = entry(
+                "paged_decode_attention", m)
+        else:
+            report["paged_decode_attention"][tag] = m
+        del call, kc, vc, args, kp, vp
+        torch.cuda.empty_cache()
 
 
 # The SwiGLU bf16 products' two cores in csrc/swiglu.cu, told apart by
@@ -2983,8 +3169,64 @@ def card_state():
     return {"sm_clock_mhz": clock, "temp_c": temp, "power_w": power}
 
 
-def route_times():
-    """Rows 2-4's, row 10's and row 12's times for the `paddle_tpu_torch`
+def host_us(fn, iters=100, rounds=5):
+    """Host microseconds to enqueue one call of fn: `iters` calls with no
+    synchronisation among them (the card runs behind; 100 launches stay
+    well inside its launch queue), the least of `rounds` rounds."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * best / iters
+
+
+def paged_times():
+    """Rows 9 and 13 for the `paddle_tpu_torch` first on sys.path, bf16,
+    by events, by the card's own time (`traced_device_ms`, each launch
+    counted) and by the host's time to enqueue one wrapper call
+    (`host_us`), each call on its own copy of the pools (`pool_copies`):
+    paged decode attention at the bucketed engine's case and at
+    generate's cache (`testing.PAGED_DECODE_CASES` "engine",
+    "generate_cache"), ragged paged attention at each of
+    `RAGGED_ROWS`."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+
+    out = {}
+    for tag in ("engine", "generate_cache"):
+        ((_, args),) = testing.paged_decode_cases(torch.bfloat16,
+                                                  tags=(tag,))
+        call = paged_call(kpa, args)
+        out[f"paged_decode_{tag}_ms"] = time_ms(call, 200)
+        out[f"paged_decode_{tag}_device_ms"] = traced_device_ms(
+            call, 40, kernel=PAGED_KERNEL)
+        out[f"paged_decode_{tag}_host_us"] = host_us(call)
+        del call, args
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for tag, rows in RAGGED_ROWS.items():
+        args, _ = ragged_case(torch, torch.bfloat16, gen, rows)
+        call = ragged_call(krpa, args)
+        out[f"ragged_{tag}_ms"] = time_ms(call, 100)
+        out[f"ragged_{tag}_device_ms"] = traced_device_ms(
+            call, 40, kernel=RAGGED_KERNEL)
+        out[f"ragged_{tag}_host_us"] = host_us(call)
+        del call, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_times(only=None):
+    """Rows 9 and 13 (`paged_times`; alone with only="paged"), then rows
+    2-4's, row 10's and row 12's times for the `paddle_tpu_torch`
     first on sys.path, bf16 on one card, as one JSON object: the 1B and 7B
     flash forward and backward kernels (causal [4, 2048, 16 and 32, 128];
     the backward with its delta pre-pass); flash_
@@ -3017,6 +3259,9 @@ def route_times():
     from paddle_tpu_torch.nn import functional as TF
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = paged_times()
+    if only == "paged":
+        return out
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(*shape):
@@ -3026,7 +3271,6 @@ def route_times():
         leaves = [t.detach().requires_grad_() for t in inputs]
         fn(*leaves).backward(do)
 
-    out = {}
     scale = 128 ** -0.5
     # row 10 at llama_1b's training shape, then llama_7b's (whose inputs
     # the alibi route below reuses)
@@ -3196,10 +3440,11 @@ def route_times():
     return out
 
 
-def ab_main(parent):
+def ab_main(parent, only=None):
     """`route_times` for the parent checkout and this one in fresh
     processes, in the order parent, change, change, parent; prints each
-    run and then, per metric, the parent's and the change's readings."""
+    run and then, per metric, the parent's and the change's readings.
+    only="paged": rows 9 and 13 alone."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     _, _, smi_line = device_phase()
@@ -3208,7 +3453,8 @@ def ab_main(parent):
                       ("change", here), ("parent", parent)):
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--route-times",
-             root], capture_output=True, text=True, timeout=900)
+             root, *([only] if only else [])], capture_output=True,
+            text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
             return 1
@@ -3271,14 +3517,14 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--route-times":
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--route-times":
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         import paddle_tpu_torch
         check(paddle_tpu_torch.__file__.startswith(
             os.path.abspath(sys.argv[2])), "route_times imported another "
             "checkout's package")
-        print(json.dumps(route_times()))
+        print(json.dumps(route_times(*sys.argv[3:])))
         sys.exit(0)
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
-        sys.exit(ab_main(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
+        sys.exit(ab_main(*sys.argv[2:]))
     sys.exit(main())

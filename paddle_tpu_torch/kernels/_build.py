@@ -100,14 +100,19 @@ _SIGNATURES = {
     "ptt_block_attention_fwd_f32": (_P,) * 8 + (_I,) * 5 + (_LL,) * 4
                                    + (_F, _P),
     # q, k_pages, v_pages, q_start, q_len, kv_len, page_table, out,
-    # T, nh, kvh, n_pages, page, d, B, ppmax, scale, stream
-    "ptt_ragged_paged_attention_bf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),
-    "ptt_ragged_paged_attention_f32": (_P,) * 8 + (_I,) * 8 + (_F, _P),
-    # q, k_pages, v_pages, lengths, page_indices, out, B, nh, kvh, page,
-    # ppseq, d, pool strides (head, page, token; elements), scale, stream
-    "ptt_paged_decode_attention_bf16": (_P,) * 6 + (_I,) * 6 + (_LL,) * 3
+    # split scratch (or null), tickets, T, nh, kvh, page, d, B, ppmax,
+    # keys per split, pool strides (head, page, token; elements), scale,
+    # stream
+    "ptt_ragged_paged_attention_bf16": (_P,) * 10 + (_I,) * 8 + (_LL,) * 3
                                        + (_F, _P),
-    "ptt_paged_decode_attention_f32": (_P,) * 6 + (_I,) * 6 + (_LL,) * 3
+    "ptt_ragged_paged_attention_f32": (_P,) * 10 + (_I,) * 8 + (_LL,) * 3
+                                      + (_F, _P),
+    # q, k_pages, v_pages, lengths, page_indices, out, split scratch (or
+    # null), tickets, B, nh, kvh, page, ppseq, pages per split, d, pool
+    # strides (head, page, token; elements), scale, stream
+    "ptt_paged_decode_attention_bf16": (_P,) * 8 + (_I,) * 7 + (_LL,) * 3
+                                       + (_F, _P),
+    "ptt_paged_decode_attention_f32": (_P,) * 8 + (_I,) * 7 + (_LL,) * 3
                                       + (_F, _P),
     # logits, labels, labels are int64, loss, m, l (out), N, V,
     # ignore_index, stream

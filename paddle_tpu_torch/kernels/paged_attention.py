@@ -13,6 +13,12 @@ A CUDA tensor launches `csrc/paged_attention.cu`; a CPU tensor runs
 take q pre-scaled in q's own dtype (the reference's l.71: its kernel
 applies no scale), and keep f32 from there on; the output is q's dtype.
 
+The kernel is split-KV: each sequence's keys are cut into splits of
+`_paged_split.SPLIT_KEYS` keys (whole pages), one block each, merged
+exactly in split order (`_paged_split`; its scratch and tickets are kept
+per device and stream); `_split_plain` runs the same schedule and merge in plain
+PyTorch for the CPU tests.
+
 The pool may be any strided view with unit stride along d: the kernel
 takes the three outer strides, so `paginate_cache`'s views of a
 contiguous [B, S, kvh, d] cache are read in place and nothing is
@@ -25,11 +31,12 @@ step counts the token it just wrote.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from . import _build
+from . import _build, _paged_split
 
 __all__ = ["decode_attention", "paged_decode_attention", "paginate_cache",
            "supported"]
@@ -113,6 +120,60 @@ def _plain(q, k_pages, v_pages, lengths, page_indices, scale):
                            page_indices)
 
 
+def _split_pages(page, ppseq):
+    """Pages per split of the kernel's schedule: SPLIT_KEYS keys' worth,
+    at least one page, and no more than MAX_SPLITS splits a sequence."""
+    return _paged_split.split_keys(_paged_split.SPLIT_KEYS, ppseq * page,
+                                   page) // page
+
+
+def _heads_per_block(rep):
+    """q heads one block serves (the kernel's G): every q head of a kv
+    head, up to 8."""
+    return 1 if rep <= 1 else 2 if rep <= 2 else 4 if rep <= 4 else 8
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(B, nh, kvh, page, ppseq, d, split_keys):
+    """(pages per split, tickets, f32 scratch elements) of a launch,
+    worked out once a shape: the wrapper runs every decode step of every
+    layer."""
+    sp = _paged_split.split_keys(split_keys, ppseq * page, page) // page
+    rep = nh // kvh
+    return (sp, B * kvh * -(-rep // _heads_per_block(rep)),
+            _paged_split.scratch_floats(-(-ppseq // sp), B * nh, d))
+
+
+def _split_plain(q, k_pages, v_pages, lengths, page_indices, scale):
+    """The kernel's split schedule and merge in plain PyTorch, f32 math
+    (`_paged_split.split_attention`): sequence b's keys [0, len) cut into
+    splits of `_split_pages` pages, each q head's partial per split,
+    merged in split order. For the CPU tests; the output is q's dtype."""
+    B, nh, d = q.shape
+    kvh, _, page, _ = k_pages.shape
+    ppseq = page_indices.shape[1]
+    S = ppseq * page
+
+    def gather(pages):                                     # -> [B, S, nh, d]
+        x = torch.movedim(pages[:, page_indices.long()], 0, 3)
+        x = x.reshape(B, S, kvh, d).float()
+        return torch.repeat_interleave(x, nh // kvh, dim=2)
+
+    k, v = gather(k_pages), gather(v_pages)
+    qs = (q * scale).float()
+    s = torch.einsum("bhd,bshd->bhs", qs, k).reshape(B * nh, S)
+    lens = lengths.to(q.device).long().clamp(0, S)
+    valid = torch.arange(S, device=q.device)[None, :] < lens[:, None]
+    sk = _split_pages(page, ppseq) * page
+    n_live = torch.clamp((lens + sk - 1) // sk, min=1)
+    o = _paged_split.split_attention(
+        s, v.permute(0, 2, 1, 3).reshape(B * nh, S, d),
+        valid.repeat_interleave(nh, 0),
+        torch.full((B * nh,), sk, device=q.device),
+        n_live.repeat_interleave(nh))
+    return o.reshape(B, nh, d).to(q.dtype)
+
+
 def _launch(q, k_pages, v_pages, lengths, page_indices, scale):
     B, nh, d = q.shape
     kvh, _, page, _ = k_pages.shape
@@ -124,16 +185,20 @@ def _launch(q, k_pages, v_pages, lengths, page_indices, scale):
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     pidx = page_indices.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(qc)
+    sp, n_tickets, n_scratch = _launch_plan(B, nh, kvh, page, ppseq, d,
+                                            _paged_split.SPLIT_KEYS)
     lib = _build.library()
     fn = (lib.ptt_paged_decode_attention_bf16 if q.dtype == torch.bfloat16
           else lib.ptt_paged_decode_attention_f32)
     s_head, s_page, s_tok, _ = k_pages.stride()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream, tickets, part = _paged_split.buffers(dev, n_tickets,
+                                                     n_scratch)
         _build.check(fn(qc.data_ptr(), k_pages.data_ptr(),
                         v_pages.data_ptr(), lens.data_ptr(), pidx.data_ptr(),
-                        out.data_ptr(), B, nh, kvh, page, ppseq, d, s_head,
-                        s_page, s_tok, float(scale), stream),
+                        out.data_ptr(), part, tickets, B, nh, kvh, page,
+                        ppseq, sp, d, s_head, s_page, s_tok, float(scale),
+                        stream),
                      "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -56,7 +56,9 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "swiglu_bwd_terms",
            "swiglu_bwd_pairs", "paged_decode_case", "paged_decode_views_case",
            "PAGED_DECODE_CASES", "paged_decode_cases", "paged_decode_pair",
-           "paged_decode_readings", "CE_LIMITS", "CE_DX_FRAC",
+           "paged_decode_readings", "RAGGED_CASES", "ragged_case",
+           "ragged_cases", "ragged_pair", "paged_split_readings",
+           "CE_LIMITS", "CE_DX_FRAC",
            "fused_ce_case", "fused_ce_pairs", "FUSED_CE_CASES",
            "fused_ce_readings", "train_launches", "train_counters",
            "seg_flash_terms", "seg_flash_pairs", "seg_flash_readings",
@@ -326,6 +328,103 @@ def paged_decode_readings(seed=0):
     reading above 1 is a miss)."""
     out, ref = paged_decode_pair(*paged_decode_case(seed=seed))
     return {"o": worst(out, ref, 1e-5, BF16_RTOL)}
+
+
+def ragged_case(rows, T=128, nh=32, kvh=32, d=128, page=16, ppmax=64,
+                dtype=torch.bfloat16, seed=0, views=False):
+    """Ragged paged attention inputs on the card, by default at the
+    serving step's llama_7b shapes: q [T, nh, d], a pool [kvh, B*ppmax +
+    1, page, d] of random values (or, with views, `paginate_cache`'s
+    strided views of a contiguous [B, ppmax * page, kvh, d] cache, read
+    in place), per-slot (q_start, q_len, kv_len) from `rows` and a block
+    table giving slot s ceil(kv_len / page) distinct pages in random
+    order (page 0 never used, as the engine's scratch page). Returns
+    (q, k_pages, v_pages, q_start, q_len, kv_len, page_table)."""
+    from .kernels import paged_attention as kpa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(rows)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q = rand(T, nh, d)
+    if views:
+        kp, vp, pt = kpa.paginate_cache(rand(B, ppmax * page, kvh, d),
+                                        rand(B, ppmax * page, kvh, d),
+                                        page)
+    else:
+        n_pages = B * ppmax + 1
+        kp, vp = rand(kvh, n_pages, page, d), rand(kvh, n_pages, page, d)
+        perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                + 1).to(torch.int32)
+        pt = torch.zeros((B, ppmax), dtype=torch.int32, device="cuda")
+        nxt = 0
+        for s, (_, _, kl) in enumerate(rows):
+            n = -(-kl // page)
+            pt[s, :n] = perm[nxt:nxt + n]
+            nxt += n
+    meta = [torch.tensor([r[i] for r in rows], dtype=torch.int32,
+                         device="cuda") for i in range(3)]
+    return (q, kp, vp, *meta, pt)
+
+
+# The ragged paged attention cases the card checks: tag -> ragged_case's
+# kwargs. "mixed" and "decode_only" are chip_smoke.py's (its RAGGED_ROWS:
+# a 60-row chunk deep in a 700-token prompt, a decode row at 300, an idle
+# slot, a fresh 64-token prefill and 3 padding rows; the burst's steady
+# state of four decode rows at 18/101/301/701 keys); then GQA 32/8, d =
+# 64 with GQA 8/2 and pages of 8 (a chunk whose packed rows fill two
+# tensor tiles, decode rows, a short chunk on the walk), and the
+# "mixed" rows read through paginate_cache's strided views.
+RAGGED_CASES = {
+    "mixed": dict(rows=[(0, 60, 700), (60, 1, 300), (0, 0, 0),
+                        (61, 64, 64)]),
+    "decode_only": dict(rows=[(0, 1, 18), (1, 1, 101), (2, 1, 301),
+                              (3, 1, 701)]),
+    "gqa_32_8": dict(rows=[(0, 60, 700), (60, 1, 300), (0, 0, 0),
+                           (61, 64, 64)], kvh=8),
+    "d64_gqa_8_2_page8": dict(rows=[(0, 33, 400), (33, 1, 1), (34, 1, 257),
+                                    (35, 2, 70), (0, 0, 0)],
+                              T=40, nh=8, kvh=2, d=64, page=8),
+    "views": dict(rows=[(0, 60, 700), (60, 1, 300), (0, 0, 0),
+                        (61, 64, 64)], views=True, ppmax=48),
+}
+
+
+def ragged_cases(dtype, tags=None, seed=0):
+    """Yields (tag, ragged_case(...)) for each tag of `RAGGED_CASES` (all
+    by default), one case built at a time."""
+    for tag in tags or RAGGED_CASES:
+        yield tag, ragged_case(dtype=dtype, seed=seed, **RAGGED_CASES[tag])
+
+
+def ragged_pair(q, k_pages, v_pages, q_start, q_len, kv_len, page_table):
+    """The ragged paged attention kernel and its plain version on f32
+    copies of the same inputs (q pre-scaled in q's dtype, the plain
+    side's one low-precision step). Returns (kernel, plain)."""
+    from .kernels import ragged_paged_attention as krpa
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    meta = (q_start, q_len, kv_len, page_table)
+    out = krpa.ragged_paged_attention(q, k_pages, v_pages, *meta,
+                                      use_kernel=True)
+    ref = krpa._dense_fallback((q * scale).float(), k_pages.float(),
+                               v_pages.float(), *meta, 1.0)
+    return out, ref
+
+
+def paged_split_readings(seed=0):
+    """bf16 split-KV checks on the card, each the worst err/limit under
+    atol 1e-5 + 2^-7 |plain| (a reading above 1 is a miss): paged decode
+    at the bucketed engine's case (700 keys: six splits), ragged paged
+    attention at the serving step's mixed case (a tensor tile of three
+    splits, a decode row of three) and at the decode-only case."""
+    out, ref = paged_decode_pair(*paged_decode_case(seed=seed))
+    readings = {"decode": worst(out, ref, 1e-5, BF16_RTOL)}
+    for tag in ("mixed", "decode_only"):
+        ((_, args),) = ragged_cases(torch.bfloat16, tags=(tag,), seed=seed)
+        out, ref = ragged_pair(*args)
+        readings[f"ragged_{tag}"] = worst(out, ref, 1e-5, BF16_RTOL)
+    return readings
 
 
 # fused cross-entropy forward outputs, f32 from either logits dtype:

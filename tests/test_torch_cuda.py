@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import testing
+from paddle_tpu_torch.kernels import _paged_split
 from paddle_tpu_torch.kernels import cross_entropy as t_ce
 from paddle_tpu_torch.kernels import flash_attention as t_fa
 from paddle_tpu_torch.kernels import fused_norm_residual as t_fnr
@@ -713,8 +714,8 @@ _PAGED_FAULTS = {
     # every sequence reads page j / page of sequence 0's block table
     "reads_sequence_0_pages": (
         "paged_decode_kernel(",
-        r"page_indices\[static_cast<size_t>\(b\) \* ppseq \+ i\]",
-        "page_indices[i]"),
+        r"page_indices \+ static_cast<size_t>\(b\) \* ppseq",
+        "page_indices"),
 }
 
 
@@ -737,6 +738,269 @@ def test_paged_decode_check_fails_planted_faults(fault, tmp_path):
         assert readings["o"] <= 0.5
     else:
         assert readings["o"] > 10.0
+
+
+# ---------------------------------------------- split-KV paged attention
+
+
+def _split_lengths(split, page, end):
+    """Key lengths at the split schedule's edges: 1, page - 1, page,
+    split, split + 1, 2 * split and the block table's end."""
+    return [1, page - 1, page, split, split + 1, 2 * split, end]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split_keys", [32, None], ids=["split32", "default"])
+@pytest.mark.parametrize("nh,kvh,d,page", [(8, 2, 64, 8), (4, 4, 128, 16),
+                                           (8, 2, 128, 16), (4, 4, 64, 8),
+                                           (4, 2, 64, 12)],
+                         ids=["gqa_8_2_d64_p8", "mha_d128_p16",
+                              "gqa_8_2_d128_p16", "mha_d64_p8",
+                              "gqa_4_2_d64_p12"])
+def test_paged_decode_split_edges_match_plain(dtype, split_keys, nh, kvh, d,
+                                              page, monkeypatch):
+    """Paged decode at lengths on the split schedule's edges (one
+    sequence each; a small split and the wrapper's own), GQA and MHA,
+    d 64 and 128, pages of 8 and 16, and of 12 (the page index by
+    division, not shift)."""
+    _card()
+    if split_keys:
+        monkeypatch.setattr(_paged_split, "SPLIT_KEYS", split_keys)
+    dt = getattr(torch, dtype)
+    ppseq = 48
+    split = t_pa._split_pages(page, ppseq) * page
+    lengths = _split_lengths(split, page, ppseq * page)
+    args = testing.paged_decode_case(lengths=tuple(min(n, ppseq * page)
+                                                   for n in lengths),
+                                     nh=nh, kvh=kvh, d=d, page=page,
+                                     ppseq=ppseq, dtype=dt, seed=5)
+    out, ref = testing.paged_decode_pair(*args)
+    if dt == torch.float32:
+        assert _max_rel(out, ref) <= 2e-5
+    else:
+        assert _within(out, ref, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split_keys", [64, None], ids=["split64", "default"])
+@pytest.mark.parametrize("nh,kvh,d,page", [(8, 2, 64, 8), (4, 4, 128, 16),
+                                           (8, 2, 128, 16), (4, 4, 64, 8)],
+                         ids=["gqa_8_2_d64_p8", "mha_d128_p16",
+                              "gqa_8_2_d128_p16", "mha_d64_p8"])
+def test_ragged_split_edges_match_plain(dtype, split_keys, nh, kvh, d, page,
+                                        monkeypatch):
+    """Ragged paged attention with decode rows at lengths on the split
+    schedule's edges, a chunk whose causal limit ends mid-split (its
+    packed rows on tensor tiles in bf16), a fresh short prefill, an idle
+    slot and padding rows (zeros); a small split and the wrapper's own."""
+    _card()
+    if split_keys:
+        monkeypatch.setattr(_paged_split, "SPLIT_KEYS", split_keys)
+    dt = getattr(torch, dtype)
+    ppmax = 512 // page
+    split = t_rpa._split_keys(ppmax * page)
+    lengths = _split_lengths(split, page, ppmax * page)
+    rows = [(0, 20, split + split // 2)]
+    rows += [(20 + i, 1, n) for i, n in enumerate(lengths)]
+    rows += [(0, 0, 0), (27, 3, 3)]
+    T = 36
+    args = testing.ragged_case(rows, T=T, nh=nh, kvh=kvh, d=d, page=page,
+                               ppmax=ppmax, dtype=dt, seed=6)
+    out, ref = testing.ragged_pair(*args)
+    assert out.shape == args[0].shape and out.dtype == dt
+    assert torch.all(out[30:] == 0)              # padding rows
+    if dt == torch.float32:
+        assert _max_rel(out, ref) <= 2e-5
+    else:
+        assert _within(out, ref, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(testing.RAGGED_CASES))
+def test_ragged_cases_match_plain(dtype, case):
+    """chip_smoke.py's ragged cases (`testing.RAGGED_CASES`: the serving
+    step's mixed rows, the burst's decode-only steady state), GQA 32/8,
+    d = 64 with GQA 8/2 and pages of 8, and the mixed rows read through
+    paginate_cache's strided views in place."""
+    _card()
+    dt = getattr(torch, dtype)
+    ((_, args),) = testing.ragged_cases(dt, tags=(case,), seed=3)
+    if testing.RAGGED_CASES[case].get("views"):
+        assert not args[1].is_contiguous()
+    out, ref = testing.ragged_pair(*args)
+    owned = torch.zeros(out.shape[0], dtype=torch.bool, device="cuda")
+    for qs, ql in zip(args[3].tolist(), args[4].tolist()):
+        owned[qs:qs + ql] = True
+    assert torch.all(out[~owned] == 0)
+    if dt == torch.float32:
+        assert _max_rel(out, ref) <= 2e-5
+    else:
+        assert _within(out, ref, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged_decode", "ragged_mixed",
+                                    "ragged_decode_only"])
+def test_paged_split_kernels_are_bitwise_repeatable(kernel):
+    """Two runs of each split-KV kernel on the same inputs are bitwise
+    equal (the merge reads every split back in split order; no float
+    atomics), after a run on other inputs in between."""
+    _card()
+    if kernel == "paged_decode":
+        args = testing.paged_decode_case(dtype=torch.bfloat16, seed=1)
+        other = testing.paged_decode_case(dtype=torch.bfloat16, seed=2)
+        fn = t_pa.paged_decode_attention
+    else:
+        tag = kernel[len("ragged_"):]
+        ((_, args),) = testing.ragged_cases(torch.bfloat16, (tag,), seed=1)
+        ((_, other),) = testing.ragged_cases(torch.bfloat16, (tag,), seed=2)
+        fn = t_rpa.ragged_paged_attention
+    a = fn(*args)
+    fn(*other)
+    b = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _partials_written(fn, args, n_split, R):
+    """[n_split, R] bool: the (split, row) partials one launch of fn
+    writes to its stream's split scratch (`_paged_split.buffers`; (m, l)
+    pairs first), read as the l entries that are no longer the NaN the
+    scratch was filled with."""
+    fn(*args)                               # makes the stream's scratch
+    torch.cuda.synchronize()
+    dev = args[0].device
+    _, part = _paged_split._buffers[
+        (dev, torch.cuda.current_stream(dev).cuda_stream)]
+    part.fill_(float("nan"))
+    fn(*args)
+    torch.cuda.synchronize()
+    ml = part[:2 * n_split * R].view(n_split, R, 2)
+    return ~torch.isnan(ml[..., 1]).cpu()
+
+
+def _written_by_schedule(live, n_split):
+    """[n_split, R] bool from each row's live splits: a row of one split
+    writes its output directly, a row of n > 1 writes splits 0..n-1."""
+    z = torch.arange(n_split)[:, None]
+    return (live[None, :] > 1) & (z < live[None, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_keys", [64, None], ids=["split64", "default"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(testing.RAGGED_CASES))
+def test_ragged_schedule_is_the_kernels(case, dtype, split_keys,
+                                        monkeypatch):
+    """The schedule the CPU tests emulate (`_schedule`: tiles of packed
+    rows, each tile's live splits) is the kernel's: the split partials a
+    launch writes are exactly those of the rows whose tile has more than
+    one live split, for its first n splits."""
+    _card()
+    if split_keys:
+        monkeypatch.setattr(_paged_split, "SPLIT_KEYS", split_keys)
+    dt = getattr(torch, dtype)
+    ((_, args),) = testing.ragged_cases(dt, tags=(case,))
+    q, kp = args[0], args[1]
+    T, nh, _ = q.shape
+    kvh, rep = kp.shape[0], nh // kp.shape[0]
+    S = args[6].shape[1] * kp.shape[2]
+    n_split = -(-S // t_rpa._split_keys(S))
+    q_start, q_len, kv_len = (x.cpu() for x in args[3:6])
+    live = torch.ones(T * nh, dtype=torch.long)
+    for s, tiles in enumerate(t_rpa._schedule(q_len, kv_len, rep, S,
+                                              dt == torch.bfloat16)):
+        for r0, r1, _, _, n in tiles:
+            for r in range(r0, r1):
+                i, g = divmod(r, rep)
+                heads = torch.arange(kvh) * rep + g
+                live[(int(q_start[s]) + i) * nh + heads] = n
+    assert n_split > 1 and int(live.max()) > 1
+    got = _partials_written(t_rpa.ragged_paged_attention, args, n_split,
+                            T * nh)
+    assert torch.equal(got, _written_by_schedule(live, n_split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_keys", [64, None], ids=["split64", "default"])
+@pytest.mark.parametrize("case", ["engine", "gqa_32_8", "b1",
+                                  "generate_views"])
+def test_paged_decode_schedule_is_the_kernels(case, split_keys, monkeypatch):
+    """The split schedule `_split_plain` emulates is the kernel's: a
+    sequence of n > 1 live splits (ceil(length / split), cut to the
+    table) writes the partials of splits 0..n-1 for every q head, a
+    sequence of one writes none."""
+    _card()
+    if split_keys:
+        monkeypatch.setattr(_paged_split, "SPLIT_KEYS", split_keys)
+    ((_, args),) = testing.paged_decode_cases(torch.bfloat16, tags=(case,))
+    q, kp, _, lens, pt = args
+    B, nh, _ = q.shape
+    page, ppseq = kp.shape[2], pt.shape[1]
+    sk = t_pa._split_pages(page, ppseq) * page
+    n_split = -(-ppseq * page // sk)
+    live = torch.clamp(-(-lens.long().cpu().clamp(0, ppseq * page) // sk),
+                       min=1).repeat_interleave(nh)
+    assert n_split > 1 and int(live.max()) > 1
+    got = _partials_written(t_pa.paged_decode_attention, args, n_split,
+                            B * nh)
+    assert torch.equal(got, _written_by_schedule(live, n_split))
+
+
+@pytest.mark.cuda
+def test_ragged_refuses_a_layout_it_does_not_take():
+    """A CUDA pool whose d is not unit-stride raises; nothing is copied
+    behind the caller's back."""
+    _card()
+    q, kp, vp, *meta = testing.ragged_case([(0, 3, 9), (3, 1, 5)], T=8, nh=4,
+                                           kvh=4, d=64, ppmax=4)
+    kt = kp.transpose(2, 3).contiguous().transpose(2, 3)
+    vt = vp.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="strides"):
+        t_rpa.ragged_paged_attention(q, kt, vt, *meta)
+
+
+# Faults planted in a copy of csrc/paged_split.cuh, which both split-KV
+# kernels share: (anchor, pattern, replacement).
+_SPLIT_FAULTS = {
+    # the merge takes split 1's partial without its rescale 2^(m_1 - M)
+    "merge_drops_split_rescale": (
+        "merge_rows(",
+        r"\? 0\.f : exp2f\(ml\.x - M\) / L;",
+        "? 0.f : (z == 1 ? 1.f : exp2f(ml.x - M)) / L;"),
+    # every split but the first starts one page late
+    "split_boundary_off_by_one_page": (
+        "split_range(",
+        r"k0 = z \* split_pages \* page;",
+        "k0 = (z * split_pages + (z > 0)) * page;"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", [None, *_SPLIT_FAULTS],
+                         ids=["intact", *_SPLIT_FAULTS])
+def test_paged_split_check_fails_planted_faults(fault, tmp_path):
+    """The split-KV checks (`testing.paged_split_readings`: paged decode
+    at the bucketed engine's case, ragged attention at the serving
+    step's mixed and decode-only cases, bf16) pass the kernels as written
+    (worst err/limit <= 1; the output's one bf16 rounding alone reads up
+    to 0.5) and fail each planted fault in the shared split schedule or
+    merge, in both kernels."""
+    _card()
+    readings = _readings_with_fault(
+        tmp_path, "paged_split.cuh",
+        None if fault is None else _SPLIT_FAULTS[fault],
+        "paged_split_readings")
+    print(f"paged split readings, {fault or 'intact'}: "
+          f"{json.dumps(readings)}")
+    if fault is None:
+        assert all(r <= 1.0 for r in readings.values())
+    else:
+        assert readings["decode"] > 1.0
+        assert readings["ragged_mixed"] > 1.0
 
 
 # ------------------------------------------- masked and packed attention
@@ -1165,6 +1429,8 @@ _PLANTED = {
     **{f"ce-{k}": ("cross_entropy.cu", *v[:3]) for k, v in _CE_FAULTS.items()},
     **{f"paged-{k}": ("paged_attention.cu", *v)
        for k, v in _PAGED_FAULTS.items()},
+    **{f"split-{k}": ("paged_split.cuh", *v)
+       for k, v in _SPLIT_FAULTS.items()},
 }
 
 
