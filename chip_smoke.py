@@ -101,11 +101,18 @@ its own copy of the pools so that its pages are cold in L2
 (`pool_copies`); then the split size they share is swept
 (`split_sweep`, `SPLIT_SWEEP`).
 
+rms_norm at its four timed shapes and the block-stats kernel at
+`STATS_TIMED` carry, beside their event times, the card's own time
+(`device_ms`, each trace held to its launches of `RMS_KERNEL` /
+`STATS_KERNEL` and to the bound) and the host's time to enqueue one
+wrapper call (`host_us`), by `split_times`.
+
 The kernel phase also holds the three segment-id flash kernels, the
 block-stats kernel and the three bias kernels against their plain
 versions at `testing.ATTN_SEG_CASES`, `testing.STATS_CASES` and
 `testing.BIAS_CASES` (the two phases' shapes among them), bf16 and f32,
-and times them. It traces one SwiGLU forward, da and dW launch at the
+and times them; every traced device time of a port kernel holds its
+trace to the launches it made (`traced_device_ms(..., kernel=)`). It traces one SwiGLU forward, da and dW launch at the
 7B training shape and at the card tests' scalar_edges shape and holds
 each product's core (the wgmma kernel, name fragment `WGMMA_KERNEL`,
 or the mma.sync `mma_kernel`) to `expected_swiglu_routes`; beside row
@@ -136,7 +143,10 @@ bias forward, dkv and dq at each dtype is traced and held to
     python3 chip_smoke.py --ab PARENT_DIR
 
 compares this checkout with another (an unpacked `git archive` of the
-parent commit) on one card: `route_times` (rows 9 and 13 at their
+parent commit) on one card: `route_times` (rows 1 and 8 alone with
+`--ab PARENT_DIR norm`, `norm_times`: rms_norm at the serving, decode and
+training shapes and block stats at its timed cases, by events, device
+time and host enqueue time; rows 9 and 13 at their
 kernel-phase cases by events and device time, `paged_times`, alone with
 `--ab PARENT_DIR paged`; row 10's 1B and 7B flash
 forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
@@ -293,8 +303,10 @@ SOURCES = {
     "flash_attention_seg_dq": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                                "paddle_tpu/kernels/flash_attention.py:333"),
     # the block-stats kernel (ring attention's per-round compute; no
-    # longer on the biased route), held in the kernel phase
-    "block_attention_stats": ("paddle_tpu_torch/csrc/block_attention.cu",
+    # longer on the biased route), held in the kernel phase: bf16, the
+    # entry's route, in flash_wgmma.cu's STATS mode; f32 (the entry's
+    # `sdpa_bias_f32`) on block_attention.cu's SIMT kernel
+    "block_attention_stats": ("paddle_tpu_torch/csrc/flash_wgmma.cu",
                               "paddle_tpu/kernels/block_attention.py:138"),
     # flash_attention_biased: one fused biased forward, dkv and dq on the
     # flash core (the reference runs the block-stats kernel per chunk)
@@ -366,6 +378,13 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# `traced_device_ms`'s marker: torch.cuda._sleep's kernel, about 50 us
+# long, MARKER_LEAD of them before the calls
+MARKER_KERNEL = "spin_kernel"
+MARKER_CYCLES = 100000
+MARKER_LEAD = 8
+
+
 def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
     """The card's own time for one call of fn: the summed device time of
     the CUDA kernels it runs, traced by torch.profiler over `iters` calls
@@ -375,7 +394,10 @@ def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
     spends. With `kernel` (a name fragment of the one kernel a call
     launches) the trace must hold exactly `iters` launches of it: a trace
     that lost events is taken again, up to `attempts` times, and then
-    fails."""
+    fails. Late in a long run a trace has dropped the first few records
+    of its window (1-3 kernels, up to ~300 us of card time, at every
+    attempt): `MARKER_LEAD` marker kernels lead each window and one
+    closes it, and their time stays out of the sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -383,18 +405,33 @@ def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # marker kernels (`MARKER_KERNEL`, outside the sums) lead the
+            # calls and close them: a long process's traces have been seen
+            # to drop the first few records of their window (PERF.md §6)
+            for _ in range(MARKER_LEAD):
+                torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
+            torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
-        sums, _ = _device_ms(prof, (), "all")
+        sums, _ = _device_ms(prof, ((MARKER_KERNEL, "marker"),), "all")
         if kernel is None:
             break
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
+        cuda = [(e.key, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        n = sum(c for key, c in cuda if kernel in key)
         if n == iters:
             break
+        line = sorted((e.time_range.start, e.name[:40])
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        t0 = line[0][0] if line else 0
         print(f"traced_device_ms: {n} launches of {kernel} traced of "
-              f"{iters}; tracing again", flush=True)
+              f"{iters} (the trace's kernels: "
+              f"{[(key[:70], c) for key, c in cuda]}; their starts, us: "
+              f"{[(round(t - t0, 1), name) for t, name in line]}); "
+              f"tracing again", flush=True)
     else:
         check(False, f"traced_device_ms: the trace never held {iters} "
                      f"launches of {kernel}")
@@ -592,10 +629,18 @@ def kernel_phase(report):
                      flops=4 * x.numel(),
                      library=lambda: F.rms_norm(x, (H,), w, eps),
                      tag=f" [{rows}x{H}]", time_it=path is not None)
-            if m and path == "serving":
-                report["rms_norm"] = entry("rms_norm", m)
-            elif m:
-                report["rms_norm"][path] = m
+            if m:
+                # beside the event time: the card's own time of one call
+                # (each trace held to its launches and to the bound) and
+                # the host's time to enqueue one
+                m.update(split_times(
+                    lambda: krn.rms_norm(x, w, eps, use_kernel=True),
+                    RMS_KERNEL, m["bound_ms"],
+                    f"rms_norm bf16 [{rows}x{H}]"))
+                if path == "serving":
+                    report["rms_norm"] = entry("rms_norm", m)
+                else:
+                    report["rms_norm"][path] = m
 
         # swiglu: a [rows, H] @ w_gate_up [H, 2M]
         for T, H, M, path in shapes:
@@ -670,6 +715,9 @@ def ragged_kernel(report, dtype, dname, gen, tag, rows):
 # kernel): `traced_device_ms` counts their launches
 RAGGED_KERNEL = "ragged_paged_attention_kernel"
 PAGED_KERNEL = "paged_decode_kernel"
+# rows 1 and 8 (a fragment the parent's kernels share: `--ab ... norm`)
+RMS_KERNEL = "rms_norm_kernel"
+STATS_KERNEL = "block_stats_"
 
 
 def ragged_work(args, rows):
@@ -700,6 +748,20 @@ def paged_work(args):
     live = int(lens.sum())
     return (2 * live * kvh * d * it + 2 * q.numel() * it
             + lens.numel() * 4 + pt.numel() * 4), 4 * live * nh * d
+
+
+def split_times(call, kernel, bound, what):
+    """Rows 1 and 8's readings beside the event time: `device_ms`, the
+    card's own time of one call (`held_device_ms`: each trace holds its
+    launches of `kernel` and reads at or above `bound`), and `host_us`,
+    the host's time to enqueue one, the call under `torch.no_grad` as
+    the serving steps run it."""
+    import torch
+    with torch.no_grad():
+        out = {"device_ms": held_device_ms(call, kernel, bound, what),
+               "host_us": host_us(call)}
+    print(f"kernel {what}: host_us={out['host_us']:.6g}", flush=True)
+    return out
 
 
 def held_device_ms(call, kernel, bound, what):
@@ -1435,10 +1497,13 @@ def attention_kernels(report, dtype):
     packed causal [8192, 32, 128] of the 7B-width case, small GQA,
     cross-length and packed MQA cases), and the block-stats kernel at
     `testing.STATS_CASES` (sdpa's bias route at bert width, a 512-key
-    alibi chunk at 7B width, a masked ragged case), element by element.
-    Timed: the segment kernels at "bert" (bf16: the entry; f32: the BERT
-    phase's dtype, "bert_f32") and "packed_7b" (bf16); the block-stats
-    kernel at "sdpa_bias" (the entry) and "alibi_7b"; in f32 the
+    alibi chunk at 7B width, a masked ragged case, the diagonal round of
+    ring attention at 7B width), element by element. Timed: the segment
+    kernels at "bert" (bf16: the entry; f32: the BERT phase's dtype,
+    "bert_f32") and "packed_7b" (bf16); the block-stats kernel at
+    `STATS_TIMED` (bf16 "sdpa_bias" the entry, "alibi_7b", "ring_7b";
+    f32 "sdpa_bias_f32"), each with its traced device time and host
+    enqueue time (`stats_timed`); in f32 the
     one-length flash kernels at ERNIE's shape (`ernie_flash_f32`). One
     forward, delta pre-pass, dkv and dq at every bf16 case, and at
     "bert" in f32, is traced to its cores (`seg_route_check`)."""
@@ -1493,33 +1558,67 @@ def attention_kernels(report, dtype):
         err = compare("block_attention_stats", dname,
                       testing.block_stats_pairs(q, k, v, mask, scale, bias),
                       shape)
-        if bf16 and tag in ("sdpa_bias", "alibi_7b"):
-            B, Sq, H, d = q.shape
-            Sk = k.shape[1]
-            valid = (bias > -5e29).expand(B, H, Sq, Sk)
-            if mask is not None:
-                valid = valid & mask
-            pairs = int(valid.sum())
-            del valid
-            m = timed(
-                "block_attention_stats", err,
-                lambda: kba.block_attention_fwd(q, k, v, mask, scale, bias),
-                lambda: kba._dense_stats(q, k, v, mask, scale, bias),
-                # q, k, v and the bias as the route passes it (compact,
-                # read in place) in; m, l, o f32 out
-                nbytes=((q.numel() + 2 * k.numel()) * it + bias.numel() * 4
-                        + (0 if mask is None else mask.numel())
-                        + 2 * B * H * Sq * 4 + q.numel() * 4),
-                # Q K^T and P V over the entries the bias leaves valid
-                flops=4 * pairs * d, iters=20, plain_iters=5, tag=shape)
-            if tag == "sdpa_bias":
+        if tag in STATS_TIMED[bf16]:
+            m = stats_timed(kba, err, q, k, v, mask, scale, bias, shape)
+            if bf16 and tag == "sdpa_bias":
                 report["block_attention_stats"] = entry(
                     "block_attention_stats", m)
             else:
-                report["block_attention_stats"][tag] = m
+                report["block_attention_stats"][
+                    tag if bf16 else f"{tag}_f32"] = m
         del q, k, v, mask, bias
         torch.cuda.empty_cache()
     bias_kernels(report, dtype)
+
+
+# row 8's timed cases (`testing.STATS_CASES`), by dtype: bf16 on the
+# wgmma core, f32 on the SIMT kernel
+STATS_TIMED = {True: ("sdpa_bias", "alibi_7b", "ring_7b"),
+               False: ("sdpa_bias",)}
+
+
+def stats_work(q, k, mask, bias):
+    """The bytes and operations of one block-stats call: q, k, v, the mask
+    and the bias as the route passes them (compact, read in place) in, m,
+    l and o f32 out; Q K^T and P V over the entries the mask and the bias
+    leave valid (the causal ring round: its lower triangle)."""
+    B, Sq, H, d = q.shape
+    Sk = k.shape[1]
+    it = q.element_size()
+    valid = None
+    if bias is not None:
+        valid = (bias > -5e29).expand(B, H, Sq, Sk)
+    if mask is not None:
+        mk = mask.bool().expand(Sq, Sk)
+        valid = mk.expand(B, H, Sq, Sk) if valid is None else valid & mk
+    pairs = B * H * Sq * Sk if valid is None else int(valid.sum())
+    nbytes = ((q.numel() + 2 * k.numel()) * it
+              + (0 if bias is None else bias.numel() * 4)
+              + (0 if mask is None else mask.numel())
+              + 2 * B * H * Sq * 4 + q.numel() * 4)
+    return nbytes, 4 * pairs * d
+
+
+def stats_timed(kba, err, q, k, v, mask, scale, bias, shape):
+    """Row 8 at one case: events beside the plain version (`_dense_stats`)
+    and the bound (bf16 at the tensor-core rate; f32, which runs SIMT, at
+    the f32 rate), the card's own time and the host's time to enqueue a
+    call (`split_times`); no library call returns the unnormalised
+    (m, l, o)."""
+    bf16 = q.element_size() == 2
+    nbytes, flops = stats_work(q, k, mask, bias)
+
+    def call():
+        return kba.block_attention_fwd(q, k, v, mask, scale, bias)
+
+    m = timed("block_attention_stats", err, call,
+              lambda: kba._dense_stats(q, k, v, mask, scale, bias),
+              nbytes=nbytes, flops=flops, iters=20, plain_iters=3, tag=shape,
+              ops_dtype="bfloat16" if bf16 else "float32",
+              dname="bf16" if bf16 else "f32")
+    m.update(split_times(call, STATS_KERNEL, m["bound_ms"],
+                         f"block_attention_stats{shape}"))
+    return m
 
 
 def bias_kernels(report, dtype):
@@ -1708,10 +1807,12 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        attn_mask=allow),
         iters=20, plain_iters=3, tag=shape))
+    core = "wgmma" if bf16 else "tf32"       # the kernels' name fragment
     if not bf16:
         m = report["flash_attention_seg_fwd"][key]
         m["device_ms"] = traced_device_ms(
-            lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s))
+            lambda: kfa.flash_attention_seg_fwd(q, k, v, sq, skv, causal, s),
+            kernel=f"flash_fwd_{core}_kernel")
         m["library_device_ms"] = traced_device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    attn_mask=allow))
@@ -1762,8 +1863,10 @@ def seg_timings(report, tag, dtype, errs, q, k, v, do, sq, skv, causal, s,
             plain_bwd, nbytes=nbytes, flops=flops, library=library,
             iters=10, plain_iters=2, tag=shape)
         m["library_fwd_bwd_ms"] = lib_fb_ms
-        # the card's own time of the launch and of SDPA's backward alone
-        m["device_ms"] = traced_device_ms(fn)
+        # the card's own time of the launch (its trace held to one launch
+        # a call) and of SDPA's backward alone
+        m["device_ms"] = traced_device_ms(
+            fn, kernel=f"flash_bwd_{name.rsplit('_', 1)[1]}_{core}_kernel")
         m["library_device_ms"] = traced_device_ms(library)
         extra = ("" if bf16 else
                  f"; the f32 rate's bound_simt_ms={m['bound_simt_ms']:.6g}")
@@ -1812,7 +1915,8 @@ def ernie_flash_f32(report):
         library=lambda: F.scaled_dot_product_attention(qr, kr, vr),
         iters=10, plain_iters=3, tag=tag)
     m["device_ms"] = traced_device_ms(
-        lambda: kfa.flash_attention_fwd(q, k, v, causal, scale))
+        lambda: kfa.flash_attention_fwd(q, k, v, causal, scale),
+        kernel="flash_fwd_tf32_kernel")
     m["library_device_ms"] = traced_device_ms(
         lambda: F.scaled_dot_product_attention(qr, kr, vr))
     report["flash_attention_fwd"]["ernie_f32"] = m
@@ -1838,8 +1942,11 @@ def ernie_flash_f32(report):
         nbytes=bwd_bytes, flops=fwd_flops * 5 // 2, library=library,
         iters=10, plain_iters=3, tag=tag)
     m["library_fwd_bwd_ms"] = time_ms(library_fwd_bwd, 10)
+    # one dkv and one dq launch a call (after the delta pre-pass): the
+    # trace holds the dq launches
     m["device_ms"] = traced_device_ms(
-        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale))
+        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale),
+        kernel="flash_bwd_dq_tf32_kernel")
     m["library_device_ms"] = traced_device_ms(library)
     fwd = report["flash_attention_fwd"]["ernie_f32"]
     print(f"kernel flash_attention f32{tag}: the f32 rate's bound_simt_ms "
@@ -3224,8 +3331,80 @@ def paged_times():
     return out
 
 
+def norm_times():
+    """Rows 1 and 8 for the `paddle_tpu_torch` first on sys.path, each
+    reading as `split_times` takes it (events ms, the card's own time with
+    each trace held to its launches, the host's enqueue time of one
+    wrapper call under `torch.no_grad`): rms_norm at the kernel phase's
+    timed shapes, bf16; block_attention_stats at "sdpa_bias" (bf16 and
+    f32), "alibi_7b" and the ring diagonal round [1, 4096, 32, 128] with
+    the causal mask (built here: the parent's testing module has no such
+    case), then the bf16 kernel at the ring round's grid walking 1, 16 and
+    64 kv tiles (its cost a block and a tile). Uses only entry points the
+    parent commit has."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import block_attention as kba
+    from paddle_tpu_torch.kernels import rms_norm as krn
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for rows, H, tag in ((128, 4096, "serving"), (4, 4096, "decode"),
+                         (8192, 2048, "training"),
+                         (8192, 4096, "training_7b")):
+        x = torch.randn((rows, H), generator=gen, device="cuda").bfloat16()
+        w = 1 + 0.1 * torch.randn((H,), generator=gen, device="cuda")
+
+        def call():
+            return krn.rms_norm(x, w, 1e-5)
+
+        with torch.no_grad():
+            out[f"rms_{tag}_ms"] = time_ms(call, 100)
+            out[f"rms_{tag}_device_ms"] = traced_device_ms(
+                call, 40, kernel=RMS_KERNEL)
+            out[f"rms_{tag}_host_us"] = host_us(call)
+        del x, w
+    bf, f32 = torch.bfloat16, torch.float32
+    for tag, dt in (("sdpa_bias", bf), ("alibi_7b", bf), ("ring_7b", bf),
+                    ("sdpa_bias", f32)):
+        if tag == "ring_7b":
+            q, k, v = (torch.randn((1, 4096, 32, 128), generator=gen,
+                                   device="cuda").to(dt) for _ in range(3))
+            mask = torch.ones((4096, 4096), dtype=torch.bool,
+                              device="cuda").tril()
+            scale, bias = 128 ** -0.5, None
+        else:
+            q, k, v, mask, scale, bias = testing.stats_case(
+                **testing.STATS_CASES[tag], dtype=dt)
+
+        def call():
+            return kba.block_attention_fwd(q, k, v, mask, scale, bias)
+
+        key = f"stats_{tag}{'' if dt == bf else '_f32'}"
+        with torch.no_grad():
+            out[f"{key}_ms"] = time_ms(call, 20)
+            out[f"{key}_device_ms"] = traced_device_ms(call, 10,
+                                                       kernel=STATS_KERNEL)
+            out[f"{key}_host_us"] = host_us(call, iters=20)
+        del q, k, v, mask, bias
+        torch.cuda.empty_cache()
+    # the bf16 kernel's cost a block and a kv tile: the ring round's 1024
+    # blocks (32 bands x 32 heads) walking 1, 16 and 64 tiles of 64 keys,
+    # no mask, no bias
+    q = torch.randn((1, 4096, 32, 128), generator=gen, device="cuda").to(bf)
+    for sk in (64, 1024, 4096):
+        k, v = (torch.randn((1, sk, 32, 128), generator=gen,
+                            device="cuda").to(bf) for _ in range(2))
+        out[f"stats_walk_sk{sk}_device_ms"] = traced_device_ms(
+            lambda: kba.block_attention_fwd(q, k, v, None, 0.088), 10,
+            kernel=STATS_KERNEL)
+    return out
+
+
 def route_times(only=None):
-    """Rows 9 and 13 (`paged_times`; alone with only="paged"), then rows
+    """Rows 1 and 8 alone with only="norm" (`norm_times`). Otherwise rows
+    9 and 13 (`paged_times`; alone with only="paged"), then rows
     2-4's, row 10's and row 12's times for the `paddle_tpu_torch`
     first on sys.path, bf16 on one card, as one JSON object: the 1B and 7B
     flash forward and backward kernels (causal [4, 2048, 16 and 32, 128];
@@ -3259,6 +3438,8 @@ def route_times(only=None):
     from paddle_tpu_torch.nn import functional as TF
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if only == "norm":
+        return norm_times()
     out = paged_times()
     if only == "paged":
         return out
@@ -3444,7 +3625,8 @@ def ab_main(parent, only=None):
     """`route_times` for the parent checkout and this one in fresh
     processes, in the order parent, change, change, parent; prints each
     run and then, per metric, the parent's and the change's readings.
-    only="paged": rows 9 and 13 alone."""
+    only="paged": rows 9 and 13 alone; only="norm": rows 1 and 8 alone
+    (`norm_times`)."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
     _, _, smi_line = device_phase()

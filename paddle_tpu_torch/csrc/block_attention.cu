@@ -1,7 +1,9 @@
-// Block attention with softmax statistics: the unnormalised (m, l, o) of
-// q against one block of keys, with an optional boolean mask and an
-// optional additive f32 bias. BSHD layout, one head count for q and kv,
-// head dim 64 or 128, any sequence lengths.
+// Block attention with softmax statistics, the f32 route: the
+// unnormalised (m, l, o) of q against one block of keys, with an optional
+// boolean mask and an optional additive f32 bias. BSHD layout, one head
+// count for q and kv, head dim 64 or 128, any sequence lengths. The bf16
+// route runs the wgmma forward core in its block-stats mode
+// (flash_wgmma.cu, block_stats_wgmma_kernel).
 //
 // Replaces: paddle_tpu/kernels/block_attention.py::block_attention_stats
 //   -> _pallas_fwd (the pallas_call at l.138): the per-chunk compute of
@@ -13,19 +15,15 @@
 //   o = sum p v. A fully masked row gives (-1e30, 0, 0); a -inf bias is
 //   one more masked entry (no NaN: -inf is selected away before any
 //   subtraction). m, l [B, H, Sq] f32; o [B, Sq, H, D] f32.
-// Bound on the H100: bytes where a full bias is read (sdpa's bias route
-//   at BERT width reads a [16, 12, 512, 512] f32 bias, 201 MB, against
-//   12.9 GFLOP of products), operations where the bias is narrow.
-// Design: the TPU kernel walks the k blocks on a sequential grid axis
-//   with (m, l, o) in VMEM scratch; here a block owns one (q tile, head,
-//   batch) and loops over 64-key tiles, as csrc/flash_attention.cu's
-//   forward does, with the f32 score tile in registers (bf16: mma.sync,
-//   P rounded to bf16 for its product with V) or shared memory (f32:
-//   SIMT). The bias is read in place through four element strides
-//   (batch, head, q, k), so a bias broadcast over heads, batch or queries
-//   (stride 0) is never materialised. Each thread keeps the validity of
-//   its 32 score elements in a bit mask, so masking is by the flags and
-//   not by comparing scores against the mask value.
+// Bound on the H100: operations at f32's 67 TFLOP/s outside the tensor
+//   cores where the bias is narrow (sdpa's bias route at BERT width: 12.9
+//   GFLOP of products against 101 MB), bytes where a full bias is read.
+// Design (the first design, kept for f32): a block owns one (q tile,
+//   head, batch) and loops over 64-key tiles with the f32 score tile in
+//   shared memory (SIMT products); the bias is read in place through four
+//   element strides (batch, head, q, k), so a bias broadcast over heads,
+//   batch or queries (stride 0) is never materialised; the mask is read
+//   from rows of mask_ld bytes.
 
 #include "attention_tiles.cuh"
 
@@ -42,10 +40,10 @@ struct Bias {
 };
 
 __device__ __forceinline__ bool entry(float& x, const unsigned char* mask,
-                                      const Bias& bias, int b, int h, int qi,
-                                      int kj, int Sq, int Sk) {
+                                      int mask_ld, const Bias& bias, int b,
+                                      int h, int qi, int kj, int Sq, int Sk) {
   if (qi >= Sq || kj >= Sk) return false;
-  if (mask != nullptr && !mask[static_cast<size_t>(qi) * Sk + kj])
+  if (mask != nullptr && !mask[static_cast<size_t>(qi) * mask_ld + kj])
     return false;
   if (bias.p != nullptr) {
     const float bv = bias.p[b * bias.sb + h * bias.sh + qi * bias.sq +
@@ -54,134 +52,6 @@ __device__ __forceinline__ bool entry(float& x, const unsigned char* mask,
     x += bv;
   }
   return true;
-}
-
-template <int D>
-constexpr int stats_mma_smem() {
-  return 5 * TQ * (D + 8) * 2;       // Q, K x 2, V x 2
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-block_stats_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const unsigned char* __restrict__ mask, Bias bias,
-                       float* __restrict__ m_out, float* __restrict__ l_out,
-                       float* __restrict__ o_out, int Sq, int Sk, int H,
-                       float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + TQ * LD;           // [2][64][LD]
-  bf16* Vs = Ks + 2 * TKV * LD;      // [2][64][LD]
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * TQ;
-  const int lane = threadIdx.x & 31;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const int g = lane >> 2;
-  const int t2 = (lane & 3) * 2;
-
-  cp_rows<D>(Qs, q, b, h, q0, Sq, H);
-  cp_rows<D>(Ks, k, b, h, 0, Sk, H);
-  cp_rows<D>(Vs, v, b, h, 0, Sk, H);
-  ptt::cp_async_commit();
-  const int n_kv = (Sk + TKV - 1) / TKV;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  float m_r[2] = {kNeg, kNeg};
-  float l_r[2] = {0.f, 0.f};         // this thread's share of the row sum
-
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) {
-      const int nb = (j + 1) & 1;
-      cp_rows<D>(Ks + nb * TKV * LD, k, b, h, (j + 1) * TKV, Sk, H);
-      cp_rows<D>(Vs + nb * TKV * LD, v, b, h, (j + 1) * TKV, Sk, H);
-      ptt::cp_async_commit();
-      ptt::cp_async_wait<1>();
-    } else {
-      ptt::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kb = Ks + (j & 1) * TKV * LD;
-    const bf16* Vb = Vs + (j & 1) * TKV * LD;
-
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-    mma_rows_nk<8, KS>(s, Qs, LD, wr, Kb, LD, 0);
-
-    const int k0 = j * TKV;
-    uint32_t valid = 0u;             // bit 4 i + e: element (i, e)
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[i][e] * scale;
-        const bool ok = entry(x, mask, bias, b, h, q0 + wr + g + (e >> 1) * 8,
-                              k0 + i * 8 + t2 + (e & 1), Sq, Sk);
-        if (ok) valid |= 1u << (4 * i + e);
-        x = ok ? x : kNeg;
-        s[i][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], m_new[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_r[r], quad_max(mx[r]));
-      alpha[r] = expf(m_r[r] - m_new[r]);
-      m_r[r] = m_new[r];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (valid >> (4 * i + e)) & 1u
-                            ? expf(s[i][e] - m_new[e >> 1]) : 0.f;
-        s[i][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      acc[i][0] *= alpha[0];
-      acc[i][1] *= alpha[0];
-      acc[i][2] *= alpha[1];
-      acc[i][3] *= alpha[1];
-    }
-    mma_acc_kn<ND, TKV / 16>(acc, s, Vb, LD, 0);
-    __syncthreads();                 // buffer j & 1 is free for tile j + 2
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_r[r]);
-    const int row = q0 + wr + g + r * 8;
-    if (row >= Sq) continue;
-    float* dst = o_out + ((static_cast<size_t>(b) * Sq + row) * H + h) * D +
-                 t2;
-#pragma unroll
-    for (int i = 0; i < ND; ++i)
-      *reinterpret_cast<float2*>(dst + i * 8) =
-          make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
-    if ((lane & 3) == 0) {
-      const size_t st = (static_cast<size_t>(b) * H + h) * Sq + row;
-      m_out[st] = m_r[r];
-      l_out[st] = l;
-    }
-  }
 }
 
 template <int D>
@@ -197,10 +67,10 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 block_stats_simt_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
-                        const unsigned char* __restrict__ mask, Bias bias,
-                        float* __restrict__ m_out, float* __restrict__ l_out,
-                        float* __restrict__ o_out, int Sq, int Sk, int H,
-                        float scale) {
+                        const unsigned char* __restrict__ mask,
+                        int mask_ld, Bias bias, float* __restrict__ m_out,
+                        float* __restrict__ l_out, float* __restrict__ o_out,
+                        int Sq, int Sk, int H, float scale) {
   using G = Geo<D>;
   constexpr int BR = G::BR, BC = G::BC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -242,7 +112,8 @@ block_stats_simt_kernel(const float* __restrict__ q,
       float mx = kNeg;
       for (int c = lane; c < BC; c += 32) {
         float x = Ss[r * G::LDS + c] * scale;
-        const bool ok = entry(x, mask, bias, b, h, q0 + r, k0 + c, Sq, Sk);
+        const bool ok = entry(x, mask, mask_ld, bias, b, h, q0 + r, k0 + c,
+                              Sq, Sk);
         ok_s[r * G::LDS + c] = ok;
         x = ok ? x : kNeg;
         Ss[r * G::LDS + c] = x;
@@ -293,43 +164,36 @@ block_stats_simt_kernel(const float* __restrict__ q,
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const unsigned char* mask, const Bias& bias,
-                        float* m, float* l, float* o, int B, int Sq, int Sk,
-                        int H, float scale, cudaStream_t stream) {
-  constexpr int smem = stats_mma_smem<D>();
-  cudaError_t err = set_smem(block_stats_mma_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  block_stats_mma_kernel<D>
-      <<<dim3((Sq + TQ - 1) / TQ, H, B), MMA_THREADS, smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), mask, bias, m, l, o, Sq, Sk, H, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const unsigned char* mask, const Bias& bias, float* m,
-                       float* l, float* o, int B, int Sq, int Sk, int H,
-                       float scale, cudaStream_t stream) {
+                       const unsigned char* mask, int mask_ld,
+                       const Bias& bias, float* m, float* l, float* o, int B,
+                       int Sq, int Sk, int H, float scale,
+                       cudaStream_t stream) {
   constexpr int smem = stats_simt_smem<D>();
   cudaError_t err = set_smem(block_stats_simt_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   block_stats_simt_kernel<D>
       <<<dim3((Sq + Geo<D>::BR - 1) / Geo<D>::BR, H, B), SIMT_THREADS, smem,
          stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                   static_cast<const float*>(v), mask, bias, m, l, o, Sq, Sk,
-                   H, scale);
+                   static_cast<const float*>(v), mask, mask_ld, bias, m, l, o,
+                   Sq, Sk, H, scale);
   return cudaGetLastError();
 }
 
-template <bool BF16>
-int stats_any(const void* q, const void* k, const void* v, const void* mask,
-              const void* bias, void* m, void* l, void* o, int B, int Sq,
-              int Sk, int H, int D, long long sb, long long sh, long long sq,
-              long long sk, float scale, void* stream) {
+}  // namespace
+
+// q [B, Sq, H, D], k/v [B, Sk, H, D] f32; mask uint8 rows of mask_ld bytes
+// (>= Sk) or null; bias f32 read at bias[b sb + h sh + i sq + j sk], or
+// null; m, l [B, H, Sq] and o [B, Sq, H, D] f32 out. The bf16 entry is
+// flash_wgmma.cu's.
+extern "C" int ptt_block_attention_fwd_f32(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, void* m, void* l, void* o, int B, int Sq, int Sk, int H,
+    int D, int mask_ld, long long sb, long long sh, long long sq,
+    long long sk, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
-  if (Sk <= 0 || (D != 64 && D != 128))
+  if (Sk <= 0 || (D != 64 && D != 128) ||
+      (mask != nullptr && mask_ld < Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Bias bs{static_cast<const float*>(bias), sb, sh, sq, sk};
   const auto* mk = static_cast<const unsigned char*>(mask);
@@ -337,39 +201,10 @@ int stats_any(const void* q, const void* k, const void* v, const void* mask,
   auto* lo = static_cast<float*>(l);
   auto* oo = static_cast<float*>(o);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (BF16)
-    err = D == 64 ? launch_bf16<64>(q, k, v, mk, bs, mo, lo, oo, B, Sq, Sk, H,
-                                    scale, st)
-                  : launch_bf16<128>(q, k, v, mk, bs, mo, lo, oo, B, Sq, Sk,
-                                     H, scale, st);
-  else
-    err = D == 64 ? launch_f32<64>(q, k, v, mk, bs, mo, lo, oo, B, Sq, Sk, H,
-                                   scale, st)
-                  : launch_f32<128>(q, k, v, mk, bs, mo, lo, oo, B, Sq, Sk, H,
-                                    scale, st);
+  const cudaError_t err =
+      D == 64 ? launch_f32<64>(q, k, v, mk, mask_ld, bs, mo, lo, oo, B, Sq,
+                               Sk, H, scale, st)
+              : launch_f32<128>(q, k, v, mk, mask_ld, bs, mo, lo, oo, B, Sq,
+                                Sk, H, scale, st);
   return static_cast<int>(err);
-}
-
-}  // namespace
-
-// q [B, Sq, H, D], k/v [B, Sk, H, D] in one dtype; mask uint8 [Sq, Sk] or
-// null; bias f32 read at bias[b sb + h sh + i sq + j sk], or null; m, l
-// [B, H, Sq] and o [B, Sq, H, D] f32 out.
-extern "C" int ptt_block_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, void* m, void* l, void* o, int B, int Sq, int Sk, int H,
-    int D, long long sb, long long sh, long long sq, long long sk,
-    float scale, void* stream) {
-  return stats_any<true>(q, k, v, mask, bias, m, l, o, B, Sq, Sk, H, D, sb,
-                         sh, sq, sk, scale, stream);
-}
-
-extern "C" int ptt_block_attention_fwd_f32(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, void* m, void* l, void* o, int B, int Sq, int Sk, int H,
-    int D, long long sb, long long sh, long long sq, long long sk,
-    float scale, void* stream) {
-  return stats_any<false>(q, k, v, mask, bias, m, l, o, B, Sq, Sk, H, D, sb,
-                          sh, sq, sk, scale, stream);
 }

@@ -13,7 +13,9 @@
 // SEG> and flash_bwd_dq_wgmma_kernel<D, SEG>; f32 their 3xTF32 forms
 // flash_fwd_tf32_kernel<D, SEG>, flash_bwd_dkv_tf32_kernel<D, SEG> and
 // flash_bwd_dq_tf32_kernel<D, SEG> (the one-length route is SEG = false).
-// Only the bias route stays on flash_attention.cu.
+// Only the bias route stays on flash_attention.cu. The bf16 forward's body
+// also runs the block-stats kernel (`ptt_block_attention_fwd_bf16`,
+// block_stats_wgmma_kernel<D>: its STATS mode, below).
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py::flash_attention_bshd
 //   -> upstream jax/experimental/pallas/ops/tpu/flash_attention.py (fwd
@@ -21,7 +23,9 @@
 //   splash MQA kernel (`_splash_gqa`) for GQA; the delta pre-pass is the
 //   jnp rowsum(dO * O) of upstream's backward (l.1664). With `SegmentIds`,
 //   the same forward behind `padding_mask=` (flash_attention.py:327-336,
-//   GQA l.136-139) and `flash_attention_packed` (l.406).
+//   GQA l.136-139) and `flash_attention_packed` (l.406). The STATS mode:
+//   paddle_tpu/kernels/block_attention.py::block_attention_stats ->
+//   _pallas_fwd (the pallas_call at l.138), bf16.
 // Bound on the H100: operations. At llama_7b's training shape [4, 2048,
 //   32, 128] causal the forward does 4 B H D S(S+1)/2 = 137.5 GFLOP
 //   against 134 MB (0.139 ms at 989 TFLOP/s), the backward 2.5 times
@@ -139,12 +143,34 @@
 //     rows against 16-row q tiles (dkv) or 32-key tiles (dq), one stage.
 //     Neither runs the bf16 dq's software pipeline: their products wait
 //     in order, which keeps each under 240 registers.
+//   Block stats (STATS, bf16; the reference's semantics, block_attention.
+//     py:89-126): the unnormalised (m, l, o) of q against one block of
+//     keys, one head count, any Sq and Sk, an optional [Sq, Sk] boolean
+//     mask and an optional f32 bias broadcastable to [B, H, Sq, Sk]. It is
+//     bound by bytes where a full bias is read (the alibi chunk at
+//     llama_7b width: the bias and the f32 o are 268 of its 371 MB), by
+//     operations otherwise (the diagonal round of ring attention). The
+//     forward's body with three changes: 64-key tiles whose ring stage
+//     also holds the tile's bias and mask rows (a full bias tile by TMA
+//     where its strides allow, else by one producer warp's 4-byte
+//     cp.async, a dimension it is broadcast along staged once; the mask
+//     rows by 16-byte cp.async), all completing on the stage's full
+//     barrier beside K and V's TMA bytes; the scores assembled as (s scale
+//     + bias) log2(e) where the entry is valid (key < Sk, the mask set,
+//     the bias > -5e29) and -inf where not (p = 0 exactly, a fully masked
+//     row keeps m = -inf: written as (-1e30, 0, 0)); and m, l [B, H, Sq]
+//     and o [B, Sq, H, D] written in f32, unnormalised. Its grid runs the
+//     batch fastest, so the blocks sharing a bias broadcast over batch
+//     read it together from L2. P is rounded to bf16 for P V, as the
+//     mma.sync kernel it replaces did (the SIMT f32 kernel stays in
+//     block_attention.cu).
 //   The bf16 kernels round P and dS to bf16 before their products, as the
 //   mma.sync kernels and every flash kernel do; `scale` multiplies the
 //   f32 scores (MHA); GQA callers pass q pre-scaled in q's dtype and
 //   scale = 1.
 
 #include <climits>
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 #include "hopper.cuh"
@@ -372,6 +398,11 @@ __device__ __forceinline__ void seg_produce(const int* __restrict__ seg_kv,
   }
 }
 
+template <int N>
+__device__ __forceinline__ void softmax_update(float (&sc)[N],
+                                              float (&m2)[2], float (&l)[2],
+                                              float (&alpha)[2]);
+
 // The online-softmax step shared by the forwards: sc (this thread's
 // elements of S [64 x BN]) into P in log2 units, against the row state
 // m2 / l; alpha the rescale of the previous tiles. Entries whose segments
@@ -387,7 +418,6 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BN / 2],
                                             const int (&sq)[2], bool edge,
                                             int k0, int c_off, int r0,
                                             int Sk, int causal) {
-  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < BN / 2; i += 2) {
     const int hh = (i >> 1) & 1;
@@ -405,8 +435,22 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BN / 2],
     }
     sc[i] = x0;
     sc[i + 1] = x1;
-    mx[hh] = fmaxf(mx[hh], fmaxf(x0, x1));
   }
+  softmax_update(sc, m2, l, alpha);
+}
+
+// The online-softmax update shared by the forwards and the block-stats
+// mode: against the row state m2 / l, the log2-unit scores sc (this
+// thread's elements of S [64 x 2N]; -inf where masked) become P, alpha
+// the rescale of the previous tiles. A row whose every score so far is
+// -inf keeps m2 = -inf and takes P = 0 and alpha = 0.
+template <int N>
+__device__ __forceinline__ void softmax_update(float (&sc)[N],
+                                              float (&m2)[2], float (&l)[2],
+                                              float (&alpha)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < N; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   float m_use[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -417,7 +461,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BN / 2],
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
+  for (int i = 0; i < N; ++i) {
     sc[i] = ex2(sc[i] - m_use[(i >> 1) & 1]);
     rs[(i >> 1) & 1] += sc[i];
   }
@@ -434,11 +478,18 @@ __device__ __forceinline__ float row_lse(float m2, float lsum) {
 template <int D>
 using FwdGeo = Geo<D, 128, 128>;
 
+// the barriers after a ring: the resident tile's, then full and empty
+// per stage, 8 bytes each, in 64 bytes or, past three stages, the next
+// 16-byte multiple; the stages' segment slices start after them
+__host__ __device__ constexpr int mbar_area(int stages) {
+  return 8 * (1 + 2 * stages) <= 64 ? 64 : (8 * (1 + 2 * stages) + 15) / 16 * 16;
+}
+
 // Q, the ring (K then V per stage), the barriers, the stages' segment
 // slices, the plan's partials and visit bits, and the alignment slack
 template <int BM, int STAGES, int BN>
 constexpr int seg_extra() {
-  return 64 + STAGES * (kSegHdr + BN) * 4 + 4 * (BM / 32) * 4 +
+  return mbar_area(STAGES) + STAGES * (kSegHdr + BN) * 4 + 4 * (BM / 32) * 4 +
          kVisitWords * 4 + 1024;
 }
 
@@ -449,36 +500,309 @@ constexpr int fwd_smem() {
          seg_extra<G::BM, G::STAGES, G::BN>();
 }
 
-// The bf16 forward, for q [B, Sq, Hq, D] against k/v [B, Sk, Hk, D]; SEG:
-// segment ids seg_q [B, Sq], seg_kv [B, Sk] (the visit plan, the staged
-// slices, kSegMask). Causal needs Sq == Sk. Without ids every tile is
-// visited and the producer is one thread.
-template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                       const __grid_constant__ CUtensorMap map_k,
-                       const __grid_constant__ CUtensorMap map_v,
-                       const int* __restrict__ seg_q,
-                       const int* __restrict__ seg_kv,
-                       bf16* __restrict__ o, float* __restrict__ lse, int Sq,
-                       int Sk, int Hq, int Hk, int causal, float scale) {
-  using G = FwdGeo<D>;
+// ------------------------- forward: block-stats mode ------------------------
+
+constexpr float kStatsNeg = -1e30f;          // block_attention.py's _NEG
+constexpr float kMaskedBias = -5e29f;        // a bias at or below: masked
+// the stats tiles: 128 q rows (a band) against 64 keys
+constexpr int kStatsBM = 128, kStatsBN = 64;
+// the tile classes of a mask (stats_mask_bits_kernel)
+constexpr unsigned char kTileNone = 0, kTileAll = 1, kTileMixed = 2;
+
+// The block-stats mode's operands: the mask as bits, one 64-bit word per
+// row per 64-key tile, tile-major ([n_tiles][bits_ld] words: bit c of word
+// (j, i) is entry (i, 64 j + c)), and each tile's class per 128-row band
+// ([bands][n_tiles]), both from stats_mask_bits_kernel, or null; the f32
+// bias read at bias[b sb + h sh + i sq + j sk] or null (bias_tma where a
+// full bias tile comes by TMA, `map_bias`); the
+// unnormalised m, l [B, H, Sq] and o [B, Sq, H, D], f32, out.
+struct StatsArgs {
+  const uint64_t* bits;
+  const unsigned char* tiles;
+  const float* bias;
+  long long sb, sh, sq, sk;
+  float *m, *l, *o;
+  int n_tiles, bits_ld, bias_tma;
+};
+
+// The block-stats mode's tiles: 128 q rows against 64-key tiles. A ring
+// stage holds K, V, the tile's bias and the mask bits of its 128 rows
+// (1 KB). FULL (a bias that varies along queries and keys, as a
+// materialised alibi chunk): the bias tile [128][64] f32 as two 128-byte
+// swizzled boxes of 32 keys (the TMA's layout, which keeps the score
+// assembly's float2 reads at two ways a bank), 64 KB a stage at D = 128:
+// two stages there, three at D = 64. Otherwise the bias is at most a row
+// of 64 or a column of 128 floats, and four stages fit.
+template <int D, bool FULL>
+struct StatsGeo {
+  static constexpr int BM = kStatsBM, BN = kStatsBN, NB = D / 64;
+  static constexpr int STAGES = FULL ? (D == 64 ? 3 : 2) : 4;
+  static constexpr int M_BYTES = BM * D * 2, N_BYTES = BN * D * 2;
+  static constexpr int BIAS_BYTES = FULL ? BM * BN * 4 : 1024;
+  static constexpr int BITS_BYTES = BM * 8;
+  static constexpr int STAGE_BYTES =
+      (2 * N_BYTES + BIAS_BYTES + BITS_BYTES + 1023) / 1024 * 1024;
+};
+
+// a forward ring stage: K, then V (STATS: then the bias and the mask bits)
+template <int D, int STATS>
+__host__ __device__ constexpr int fwd_stage_bytes() {
+  if constexpr (STATS != 0) return StatsGeo<D, STATS == 2>::STAGE_BYTES;
+  else return 2 * FwdGeo<D>::N_BYTES;
+}
+
+template <int D, bool FULL>
+constexpr int stats_smem() {
+  using G = StatsGeo<D, FULL>;
+  return G::M_BYTES + G::STAGES * G::STAGE_BYTES +
+         seg_extra<G::BM, G::STAGES, G::BN>() + kVisitWords * 4;
+}
+
+// the byte offset of bias entry (r, c) in a FULL stage's bias tile: box c
+// / 32 of [128 rows][128 bytes], 16-byte chunk (c % 32) / 4 of row r at
+// chunk ((c % 32) / 4) ^ (r % 8) (CU_TENSOR_MAP_SWIZZLE_128B)
+__host__ __device__ __forceinline__ int bias_at(int r, int c) {
+  return (c >> 5) * (kStatsBM * 128) + r * 128 +
+         ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// The tile classes and bits of a block-stats mask [Sq, mask_ld] uint8
+// (nonzero: set): one block of 128 threads a (band, key tile), a thread a
+// row. Writes the row's 64-bit word (keys past Sk and rows past Sq clear)
+// and the tile's class: kTileNone where no entry of it is set, kTileAll
+// where every entry (row < Sq, key < Sk) is, kTileMixed otherwise.
+__global__ void __launch_bounds__(kStatsBM)
+stats_mask_bits_kernel(const unsigned char* __restrict__ mask, int mask_ld,
+                       int Sq, int Sk, uint64_t* __restrict__ bits,
+                       int bits_ld, unsigned char* __restrict__ tiles) {
+  const int j = blockIdx.x, band = blockIdx.y;
+  const int row = band * kStatsBM + threadIdx.x;
+  const int k0 = j * kStatsBN;
+  uint64_t w = 0;
+  if (row < Sq) {
+    const unsigned char* src = mask + static_cast<size_t>(row) * mask_ld + k0;
+#pragma unroll
+    for (int c = 0; c < kStatsBN; c += 16) {
+      if (k0 + c >= Sk) break;                 // Sk <= mask_ld, both % 16
+      const uint4 v = *reinterpret_cast<const uint4*>(src + c);
+      const unsigned char* e = reinterpret_cast<const unsigned char*>(&v);
+#pragma unroll
+      for (int x = 0; x < 16; ++x)
+        if (e[x] != 0 && k0 + c + x < Sk) w |= 1ull << (c + x);
+    }
+  }
+  bits[static_cast<size_t>(j) * bits_ld + row] = w;
+  const int n = min(kStatsBN, Sk - k0);
+  const uint64_t full = n >= 64 ? ~0ull : (1ull << n) - 1ull;
+  const int any = __syncthreads_or(w != 0);
+  const int all = __syncthreads_and(row >= Sq || w == full);
+  if (threadIdx.x == 0)
+    tiles[static_cast<size_t>(band) * gridDim.x + j] =
+        any ? (all ? kTileAll : kTileMixed) : kTileNone;
+}
+
+// The block-stats mode's visit plan, run by all the block's threads
+// before the roles split: with a mask, the classes of the block's band
+// mark the kv tiles to visit (any class but kTileNone) in visit[] and
+// those whose mask bits must be read (kTileMixed) in visit[kVisitWords +
+// ...]; a tile past kVisitTiles is visited and mixed. Skipping a
+// kTileNone tile is exact: its entries take p = 0 and no part in the row
+// max. A band with no tile to visit visits tile 0, mixed (every entry
+// invalid: (-1e30, 0, 0)). Without a mask every tile is visited, none
+// mixed. Returns the number of visited tiles.
+__device__ __forceinline__ int stats_plan(const StatsArgs& sa, int band,
+                                          int n_kv, uint32_t* visit) {
+  const int tid = threadIdx.x;
+  uint32_t* mixed = visit + kVisitWords;
+  for (int i = tid; i < 2 * kVisitWords; i += kThreads) visit[i] = 0u;
+  __syncthreads();
+  const int n_scan = min(n_kv, kVisitTiles);
+  for (int j = tid; j < n_scan; j += kThreads) {
+    const int c = sa.tiles == nullptr
+                      ? kTileAll
+                      : sa.tiles[static_cast<size_t>(band) * sa.n_tiles + j];
+    if (c != kTileNone) atomicOr(&visit[j >> 5], 1u << (j & 31));
+    if (c == kTileMixed) atomicOr(&mixed[j >> 5], 1u << (j & 31));
+  }
+  __syncthreads();
+  int n = n_kv - n_scan;
+  for (int w = 0; w < (n_scan + 31) / 32; ++w) n += __popc(visit[w]);
+  if (n == 0) {
+    if (tid == 0) {
+      visit[0] = 1u;
+      mixed[0] = 1u;
+    }
+    __syncthreads();
+    n = 1;
+  }
+  return n;
+}
+
+// The block-stats producer, one warp (the producer warpgroup's other
+// three exit: a warp spinning on a barrier takes issue slots from the
+// consumer warps of its SM sub-partition): for each visited kv tile j, in
+// stage s, lane 0 writes the stage's header (k0, whether the tile is
+// mixed) and starts K and V, and a FULL bias tile where it comes by TMA
+// (`map_bias`: dims {Sk, Sq, H or 1, B or 1}, a dimension the bias is
+// broadcast along kept at size 1), all on full[s]'s transaction count;
+// the lanes copy the rest by cp.async, each lane's completion arriving
+// on full[s] (1 + 32 arrivals a phase): a FULL bias that TMA cannot read
+// (4-byte copies into the same swizzled layout), a narrower bias (a row of
+// 64 or a column of 128 floats, or one value), and a mixed tile's mask
+// bits (1 KB). Copies are zero-filled past Sq and Sk. Before it exits,
+// the warp waits for the last tile's copies.
+template <class G, bool FULL, class Load>
+__device__ __forceinline__ void stats_produce(
+    const StatsArgs& sa, const CUtensorMap* map_bias, int b, int h, int q0,
+    int Sq, int Sk, int n_kv, int n_vis, const uint32_t* visit,
+    unsigned char* ring, int* segs, uint64_t* full, uint64_t* empty,
+    Load load) {
   constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES;
+  constexpr int SB = G::STAGE_BYTES;
+  const int lane = threadIdx.x;
+  const bool tma = FULL && sa.bias_tma;
+  const float* bias =
+      sa.bias == nullptr ? nullptr : sa.bias + b * sa.sb + h * sa.sh;
+  for (int j = 0, it = 0; j < n_kv; ++j) {
+    if (!visited(visit, j)) continue;
+    const int s = it % STAGES;
+    hw::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+    unsigned char* st = ring + s * SB + 2 * G::N_BYTES;
+    const int k0 = j * BN;
+    const bool mixed = sa.bits != nullptr && visited(visit + kVisitWords, j);
+    if (lane == 0) {
+      int* hdr = segs + s * (kSegHdr + BN);
+      hdr[0] = k0;
+      hdr[1] = mixed;
+      hw::mbar_arrive_expect_tx(&full[s],
+                                2 * G::N_BYTES + (tma ? BM * BN * 4 : 0));
+      load(s, j);
+      if (tma) {
+        hw::tma_load_4d(st, map_bias, &full[s], k0, q0, sa.sh ? h : 0,
+                        sa.sb ? b : 0);
+        hw::tma_load_4d(st + BM * 128, map_bias, &full[s], k0 + 32, q0,
+                        sa.sh ? h : 0, sa.sb ? b : 0);
+      }
+    }
+    if (bias != nullptr && !tma) {
+      // FULL: every (r, c) at its swizzled place; otherwise the row (sq
+      // == 0: c), the column (sk == 0: r) or the one value
+      const int rows = sa.sq != 0 ? BM : 1, cols = sa.sk != 0 ? BN : 1;
+      for (int e = lane; e < rows * cols; e += 32) {
+        const int r = e / cols, c = e % cols;
+        const bool in = q0 + r < Sq && k0 + c < Sk;
+        hw::cp_async4(st + (FULL ? bias_at(r, c) : 4 * (r + c)),
+                      in ? bias + (q0 + r) * sa.sq + (k0 + c) * sa.sk
+                         : sa.bias,
+                      in ? 4 : 0);
+      }
+    }
+    if (mixed) {
+      const uint64_t* src = sa.bits + static_cast<size_t>(j) * sa.bits_ld + q0;
+      for (int e = lane; e < BM / 2; e += 32)
+        ptt::cp_async16(st + G::BIAS_BYTES + 16 * e, src + 2 * e, 16);
+    }
+    hw::cp_async_arrive_noinc(&full[s]);
+    ++it;
+  }
+  // a lane must not exit with its copies' arrivals pending
+  hw::mbar_wait(&full[(n_vis - 1) % STAGES], ((n_vis - 1) / STAGES) & 1);
+}
+
+// The block-stats mode's score assembly: this thread's elements of S [64
+// x 64] into log2-unit scores (s scale + bias) log2(e) where the entry is
+// valid (its key < Sk, its mask bit set, its bias > -5e29) and -inf where
+// it is not, so that it takes p = 0 exactly and no part in the row max (a
+// -inf bias is one more invalid entry, never subtracted). stg: the stage's
+// bias (FULL: the swizzled tile; else a row (brow false), a column (bcol
+// false) or one value); bits: the stage's mask bits or null (a tile every
+// entry of which is set); row: this thread's first row in the block's
+// band (its second is row + 8).
+template <class G, bool FULL>
+__device__ __forceinline__ void stats_scores(
+    float (&sc)[G::BN / 2], float scale, const unsigned char* stg,
+    bool bias, bool brow, bool bcol, const uint64_t* bits, int row, int k0,
+    int c_off, int Sk) {
+  uint64_t mw[2] = {~0ull, ~0ull};
+  if (bits != nullptr) {
+    mw[0] = bits[row];
+    mw[1] = bits[row + 8];
+  }
+  const float* bs = reinterpret_cast<const float*>(stg);
+#pragma unroll
+  for (int i = 0; i < G::BN / 2; i += 2) {
+    const int hh = (i >> 1) & 1;
+    const int cl = 8 * (i >> 2) + c_off;         // the pair's first key
+    const int r = row + 8 * hh;
+    float x0 = sc[i] * scale, x1 = sc[i + 1] * scale;
+    bool v0 = k0 + cl < Sk && ((mw[hh] >> cl) & 1u);
+    bool v1 = k0 + cl + 1 < Sk && ((mw[hh] >> (cl + 1)) & 1u);
+    if (bias) {
+      float b0, b1;
+      if (FULL) {
+        const float2 bb = *reinterpret_cast<const float2*>(stg + bias_at(r, cl));
+        b0 = bb.x;
+        b1 = bb.y;
+      } else if (bcol) {
+        const float2 bb = *reinterpret_cast<const float2*>(bs + cl);
+        b0 = bb.x;
+        b1 = bb.y;
+      } else {
+        b0 = b1 = bs[brow ? r : 0];
+      }
+      v0 = v0 && b0 > kMaskedBias;
+      v1 = v1 && b1 > kMaskedBias;
+      x0 += b0;
+      x1 += b1;
+    }
+    sc[i] = v0 ? x0 * kLog2e : -INFINITY;
+    sc[i + 1] = v1 ? x1 * kLog2e : -INFINITY;
+  }
+}
+
+// The bf16 forward's body, for q [B, Sq, Hq, D] against k/v [B, Sk, Hk,
+// D]; SEG: segment ids seg_q [B, Sq], seg_kv [B, Sk] (the visit plan, the
+// staged slices, kSegMask). Causal needs Sq == Sk. Without ids every tile
+// is visited and the producer is one thread. STATS (block_stats_wgmma_
+// kernel; Hq == Hk, not causal, no ids; 2: a FULL bias tile, 1: a narrower
+// bias or none): the StatsGeo tiles, the visit plan of the mask's tile
+// classes (stats_plan), the bias and mask bits staged beside K and V by
+// one producer warp (stats_produce), the scores assembled by
+// stats_scores, and the unnormalised (m, l, o) written in f32 instead of
+// o and the lse.
+template <int D, bool SEG, int STATS>
+__device__ __forceinline__ void fwd_wgmma_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, const CUtensorMap* map_bias,
+    const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
+    bf16* __restrict__ o, float* __restrict__ lse, const StatsArgs& sa,
+    int Sq, int Sk, int Hq, int Hk, int causal, float scale) {
+  using G = std::conditional_t<STATS != 0, StatsGeo<D, STATS == 2>,
+                               FwdGeo<D>>;
+  constexpr int BM = G::BM, BN = G::BN, STAGES = G::STAGES;
+  constexpr int SB = fwd_stage_bytes<D, STATS>();
+  static_assert(8 * (1 + 2 * STAGES) <= mbar_area(STAGES),
+                "the barriers overlap the stages' headers");
   extern __shared__ __align__(128) unsigned char fa_smem[];
   unsigned char* smem = align1024(fa_smem);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   unsigned char* ring = smem + G::M_BYTES;     // stage s: K, then V
   uint64_t* q_full =
-      reinterpret_cast<uint64_t*>(ring + STAGES * 2 * G::N_BYTES);
+      reinterpret_cast<uint64_t*>(ring + STAGES * SB);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
-  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + mbar_area(STAGES));
   int* part = segs + STAGES * (kSegHdr + BN);
   uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // heavy tiles first (causal; the stats grid's last bands visit the most
+  // tiles under a causal mask); the stats grid runs the batch fastest: the
+  // blocks that share a bias broadcast over batch run together and read it
+  // once from L2
+  const int qt = STATS ? gridDim.y - 1 - blockIdx.y
+                       : gridDim.x - 1 - blockIdx.x;
+  const int h = STATS ? blockIdx.z : blockIdx.y;
+  const int b = STATS ? blockIdx.x : blockIdx.z;
   const int hk = h / (Hq / Hk);
   const int q0 = qt * BM;
   const int kv_end = causal ? min(Sk, q0 + BM) : Sk;
@@ -488,7 +812,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     hw::mbar_init(q_full, 1);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      hw::mbar_init(&full[s], SEG ? 32 : 1);
+      hw::mbar_init(&full[s], SEG ? 32 : (STATS ? 33 : 1));
       hw::mbar_init(&empty[s], 8);           // one arrival per consumer warp
     }
     hw::fence_barrier_init();
@@ -497,20 +821,29 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
   int qmm[2] = {0, 0};
-  const int n_vis =
-      SEG ? seg_plan<BM, BN>(seg_q, seg_kv, b, q0, Sq, Sk, n_kv, part, visit,
-                             qmm)
-          : n_kv;
+  int n_vis = n_kv;
+  if constexpr (SEG)
+    n_vis = seg_plan<BM, BN>(seg_q, seg_kv, b, q0, Sq, Sk, n_kv, part, visit,
+                             qmm);
+  if constexpr (STATS != 0) n_vis = stats_plan(sa, qt, n_kv, visit);
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    hw::setmaxnreg_dec<24>();
+    // the stats producer's copy loops take 32 registers; the consumers
+    // then keep 232 (384 x 168 in all)
+    if constexpr (STATS) hw::setmaxnreg_dec<32>();
+    else hw::setmaxnreg_dec<24>();
     auto load = [&](int s, int j) {
-      bf16* Ks = reinterpret_cast<bf16*>(ring + s * 2 * G::N_BYTES);
+      bf16* Ks = reinterpret_cast<bf16*>(ring + s * SB);
       load_tile<G::NB, BN>(Ks, &map_k, &full[s], b, hk, j * BN);
       load_tile<G::NB, BN>(Ks + BN * D, &map_v, &full[s], b, hk, j * BN);
     };
-    if (SEG) {
+    if constexpr (STATS != 0) {
+      if (threadIdx.x < 32)
+        stats_produce<G, STATS == 2>(sa, map_bias, b, h, q0, Sq, Sk, n_kv,
+                                     n_vis, visit, ring, segs, full, empty,
+                                     load);
+    } else if (SEG) {
       if (threadIdx.x < 32)
         seg_produce<BN, STAGES>(seg_kv, b, Sk, n_kv, visit, qmm, segs, full,
                                 empty, 2 * G::N_BYTES, load);
@@ -518,7 +851,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       produce_all<STAGES>(n_kv, full, empty, 2 * G::N_BYTES, load);
     }
   } else {
-    hw::setmaxnreg_inc<240>();
+    if constexpr (STATS) hw::setmaxnreg_inc<232>();
+    else hw::setmaxnreg_inc<240>();
     const int cw = wgi - 1;
     const int t = threadIdx.x % 128;
     const int lane = t & 31;
@@ -548,9 +882,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int s = j % STAGES;
       const int sp = (j + STAGES - 1) % STAGES;  // the previous tile's
       hw::mbar_wait(&full[s], (j / STAGES) & 1);
-      const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * 2 * G::N_BYTES);
+      const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * SB);
       const int* st = segs + s * (kSegHdr + BN);
-      const int k0 = SEG ? st[0] : j * BN;
+      const int k0 = (SEG || STATS) ? st[0] : j * BN;
 
       hw::fence_regs(sc);
       hw::fence_regs(acc);
@@ -562,7 +896,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       hw::wgmma_commit();
       if (j > 0) {
         const bf16* Vp = reinterpret_cast<const bf16*>(
-                             ring + sp * 2 * G::N_BYTES) + BN * D;
+                             ring + sp * SB) + BN * D;
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
           hw::wgmma_rs<1>(acc, pf[kk], mnmajor<BN>(Vp, kk), j > 1 || kk > 0);
@@ -574,9 +908,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       hw::fence_regs(sc);
 
       float alpha[2];
-      softmax_step<BN>(sc, m2, l, alpha, sl2, SEG && st[1], st + kSegHdr,
-                       sq, (causal && k0 + BN > row_lo) || k0 + BN > Sk, k0,
-                       c_off, r0, Sk, causal);
+      if constexpr (STATS != 0) {
+        const unsigned char* stg = ring + s * SB + 2 * G::N_BYTES;
+        stats_scores<G, STATS == 2>(
+            sc, scale, stg, sa.bias != nullptr, sa.sq != 0, sa.sk != 0,
+            st[1] ? reinterpret_cast<const uint64_t*>(stg + G::BIAS_BYTES)
+                  : nullptr,
+            r0 - q0, k0, c_off, Sk);
+        softmax_update(sc, m2, l, alpha);
+      } else {
+        softmax_step<BN>(sc, m2, l, alpha, sl2, SEG && st[1], st + kSegHdr,
+                         sq, (causal && k0 + BN > row_lo) || k0 + BN > Sk, k0,
+                         c_off, r0, Sk, causal);
+      }
       if (j > 0) {
         // the previous tile's P V has retired: its V is read, O is whole
         hw::wgmma_wait<0>();
@@ -598,7 +942,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       // the tile of some row's own key)
       const int sl = (n_vis + STAGES - 1) % STAGES;
       const bf16* Vl =
-          reinterpret_cast<const bf16*>(ring + sl * 2 * G::N_BYTES) + BN * D;
+          reinterpret_cast<const bf16*>(ring + sl * SB) + BN * D;
       hw::fence_regs(acc);
       hw::wgmma_fence();
 #pragma unroll
@@ -614,17 +958,61 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const float lsum = quad_sum(l[hh]);
       const int row = r0 + 8 * hh;
       if (row >= Sq) continue;
-      const float inv = 1.f / lsum;
-      bf16* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
+      if constexpr (STATS != 0) {
+        // unnormalised, f32; a row with no valid entry: (-1e30, 0, 0)
+        float* dst = sa.o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj)
-        *reinterpret_cast<uint32_t*>(dst + 8 * jj) = ptt::pack_bf16(
-            acc[4 * jj + 2 * hh] * inv, acc[4 * jj + 2 * hh + 1] * inv);
-      if ((lane & 3) == 0)
-        lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
-            row_lse(m2[hh], lsum);
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<float2*>(dst + 8 * jj) =
+              make_float2(acc[4 * jj + 2 * hh], acc[4 * jj + 2 * hh + 1]);
+        if ((lane & 3) == 0) {
+          const size_t at = (static_cast<size_t>(b) * Hq + h) * Sq + row;
+          sa.m[at] = m2[hh] == -INFINITY ? kStatsNeg : m2[hh] * kLn2;
+          sa.l[at] = lsum;
+        }
+      } else {
+        const float inv = 1.f / lsum;
+        bf16* dst = o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + c_off;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(dst + 8 * jj) = ptt::pack_bf16(
+              acc[4 * jj + 2 * hh] * inv, acc[4 * jj + 2 * hh + 1] * inv);
+        if ((lane & 3) == 0)
+          lse[(static_cast<size_t>(b) * Hq + h) * Sq + row] =
+              row_lse(m2[hh], lsum);
+      }
     }
   }
+}
+
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const int* __restrict__ seg_q,
+                       const int* __restrict__ seg_kv,
+                       bf16* __restrict__ o, float* __restrict__ lse, int Sq,
+                       int Sk, int Hq, int Hk, int causal, float scale) {
+  const StatsArgs none{};
+  fwd_wgmma_body<D, SEG, 0>(map_q, map_k, map_v, nullptr, seg_q, seg_kv, o,
+                            lse, none, Sq, Sk, Hq, Hk, causal, scale);
+}
+
+// The block-stats kernel (row 8's bf16 route): the forward core's body in
+// its STATS mode, q [B, Sq, H, D] against k/v [B, Sk, H, D]; FULL: a bias
+// tile that varies along queries and keys (map_bias where sa.bias_tma).
+template <int D, bool FULL>
+__global__ void __launch_bounds__(kThreads, 1)
+block_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_bias,
+                         const __grid_constant__ StatsArgs sa, int Sq,
+                         int Sk, int H, float scale) {
+  fwd_wgmma_body<D, false, FULL ? 2 : 1>(map_q, map_k, map_v, &map_bias,
+                                         nullptr, nullptr, nullptr, nullptr,
+                                         sa, Sq, Sk, H, H, 0, scale);
 }
 
 // -------------------------- forward, f32 (3xTF32) --------------------------
@@ -717,7 +1105,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
       reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
-  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + mbar_area(STAGES));
   int* part = segs + STAGES * (kSegHdr + BN);
   uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
   // stage s: K (hi after the split), K lo, V, V^T hi, V^T lo
@@ -1224,7 +1612,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
   // stage s's slice: {q0, mixed, -, -} then the tile's BN q segments
-  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(kv_full) + 64);
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(kv_full) + mbar_area(STAGES));
   int* part = segs + STAGES * (kSegHdr + BN);
   uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
   uint32_t* mixed = visit + kVisitWords;
@@ -1445,7 +1833,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       reinterpret_cast<uint64_t*>(ring + STAGES * 2 * G::N_BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
-  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + mbar_area(STAGES));
   int* part = segs + STAGES * (kSegHdr + BN);
   uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
 
@@ -1807,7 +2195,7 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(lsd + STAGES * 2 * BN);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
-  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(kv_full) + 64);
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(kv_full) + mbar_area(STAGES));
   int* part = segs + STAGES * (kSegHdr + BN);
   uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
   uint32_t* mixed = visit + kVisitWords;
@@ -1982,7 +2370,7 @@ flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
       reinterpret_cast<uint64_t*>(ring + STAGES * G::STAGE_FLOATS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
-  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + 64);
+  int* segs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(q_full) + mbar_area(STAGES));
   int* part = segs + STAGES * (kSegHdr + BN);
   uint32_t* visit = reinterpret_cast<uint32_t*>(part + 4 * (BM / 32));
 
@@ -2180,6 +2568,59 @@ int fwd_any(const FwdArgs& a, void* stream) {
   if (a.D == 64)
     return seg ? fwd_launch<64, EB, true>(a, st) : fwd_launch<64, EB, false>(a, st);
   return seg ? fwd_launch<128, EB, true>(a, st) : fwd_launch<128, EB, false>(a, st);
+}
+
+// A FULL bias as a TMA map for the stats kernel: dims {Sk, Sq, H or 1, B
+// or 1} (a dimension the bias is broadcast along kept at size 1), boxes
+// of [128 rows][32 keys] f32 with the 128-byte swizzle (stats_produce,
+// bias_at). Returns 0, or nonzero where TMA cannot read it (the key
+// stride not 1, another stride or the base not whole 16-byte vectors, or
+// the encoder refusing).
+inline int stats_bias_map(CUtensorMap* map, const float* bias, int B, int Sq,
+                          int Sk, int H, long long sb, long long sh,
+                          long long sq, long long sk) {
+  if (sk != 1 || sq <= 0 || sq % 4 || sh % 4 || sb % 4 || sh < 0 || sb < 0 ||
+      reinterpret_cast<uintptr_t>(bias) % 16)
+    return 1;
+  hw::EncodeTiledFn fn = hw::encode_tiled();
+  if (fn == nullptr) return 1;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Sk),
+                              static_cast<cuuint64_t>(Sq),
+                              static_cast<cuuint64_t>(sh ? H : 1),
+                              static_cast<cuuint64_t>(sb ? B : 1)};
+  // a size-1 dimension's stride is never stepped: give it the packed one
+  const long long s2 = sh ? sh : sq * Sq, s3 = sb ? sb : s2 * (sh ? H : 1);
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sq * 4),
+                                 static_cast<cuuint64_t>(s2 * 4),
+                                 static_cast<cuuint64_t>(s3 * 4)};
+  const cuuint32_t box[4] = {32, kStatsBM, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return static_cast<int>(fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(bias),
+      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// the block-stats mode (block_stats_wgmma_kernel<D, FULL>): q [B, Sq, H,
+// D] and k/v [B, Sk, H, D] bf16, the grid (B, bands, H)
+template <int D, bool FULL>
+int stats_launch(const void* q, const void* k, const void* v,
+                 const CUtensorMap& map_bias, const StatsArgs& sa, int B,
+                 int Sq, int Sk, int H, float scale, cudaStream_t stream) {
+  using G = StatsGeo<D, FULL>;
+  CUtensorMap mq, mk, mv;
+  int err = hw::tma_map_bshd(&mq, q, B, Sq, H, D, G::BM);
+  if (err == 0) err = hw::tma_map_bshd(&mk, k, B, Sk, H, D, G::BN);
+  if (err == 0) err = hw::tma_map_bshd(&mv, v, B, Sk, H, D, G::BN);
+  if (err != 0) return err;
+  constexpr int smem = stats_smem<D, FULL>();
+  cudaError_t e = prepare(block_stats_wgmma_kernel<D, FULL>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(B, (Sq + G::BM - 1) / G::BM, H);
+  block_stats_wgmma_kernel<D, FULL><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, map_bias, sa, Sq, Sk, H, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the backwards' shape: q, dout [B, Sq, Hq, D], k/v [B, Sk, Hk, D], lse
@@ -2421,6 +2862,59 @@ PTT_SEG_BWD_ENTRIES(bf16, 2)
 PTT_SEG_BWD_ENTRIES(f32, 4)
 
 #undef PTT_SEG_BWD_ENTRIES
+
+// ---- the block-stats kernel's bf16 route (kernels/block_attention.py;
+// its f32 route is block_attention.cu): q [B, Sq, H, D], k/v [B, Sk, H,
+// D] bf16; mask uint8 rows of mask_ld bytes (a multiple of 16, >= Sk) or
+// null, with its scratch: bits [ceil(Sk / 64)][bands * 128] 64-bit words
+// and tiles [bands][ceil(Sk / 64)] bytes (bands = ceil(Sq / 128)); bias
+// f32 read at bias[b sb + h sh + i sq + j sk] or null; m, l [B, H, Sq] and
+// o [B, Sq, H, D] f32 out. With a mask, the mask's bits and tile classes
+// first (stats_mask_bits_kernel), then the stats kernel ----
+
+extern "C" int ptt_block_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, void* m, void* l, void* o, void* bits, void* tiles,
+    int B, int Sq, int Sk, int H, int D, int mask_ld, long long sb,
+    long long sh, long long sq, long long sk, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
+  if (Sk <= 0 || (D != 64 && D != 128) ||
+      (mask != nullptr &&
+       (mask_ld < Sk || mask_ld % 16 != 0 || bits == nullptr ||
+        tiles == nullptr || reinterpret_cast<uintptr_t>(mask) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(bits) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (Sk + kStatsBN - 1) / kStatsBN;
+  const int bands = (Sq + kStatsBM - 1) / kStatsBM;
+  if (mask != nullptr) {
+    stats_mask_bits_kernel<<<dim3(n_tiles, bands), kStatsBM, 0, st>>>(
+        static_cast<const unsigned char*>(mask), mask_ld, Sq, Sk,
+        static_cast<uint64_t*>(bits), bands * kStatsBM,
+        static_cast<unsigned char*>(tiles));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const auto* bp = static_cast<const float*>(bias);
+  const bool full = bias != nullptr && sq != 0 && sk != 0;
+  CUtensorMap map_bias{};
+  const bool tma =
+      full && stats_bias_map(&map_bias, bp, B, Sq, Sk, H, sb, sh, sq, sk) == 0;
+  const StatsArgs sa{mask ? static_cast<const uint64_t*>(bits) : nullptr,
+                     mask ? static_cast<const unsigned char*>(tiles) : nullptr,
+                     bp, sb, sh, sq, sk,
+                     static_cast<float*>(m), static_cast<float*>(l),
+                     static_cast<float*>(o), n_tiles, bands * kStatsBM, tma};
+  if (full)
+    return D == 64 ? stats_launch<64, true>(q, k, v, map_bias, sa, B, Sq, Sk,
+                                            H, scale, st)
+                   : stats_launch<128, true>(q, k, v, map_bias, sa, B, Sq, Sk,
+                                             H, scale, st);
+  return D == 64 ? stats_launch<64, false>(q, k, v, map_bias, sa, B, Sq, Sk, H,
+                                           scale, st)
+                 : stats_launch<128, false>(q, k, v, map_bias, sa, B, Sq, Sk,
+                                            H, scale, st);
+}
 
 // D = rowsum(dout * o) in f32: o, dout BSHD [B, S, H, D] -> delta [B, H, S]
 extern "C" int ptt_flash_attention_delta_bf16(const void* o, const void* dout,

@@ -8,7 +8,7 @@
 //   y and h written once (about 5 flops per element against 8 bytes of
 //   traffic in bf16); at the training slice's [8192, 2048] bf16 the call
 //   moves 134 MB.
-// Design: rms_norm.cu's scheme, one block per row. x and residual are
+// Design: one block per row. x and residual are
 //   read once with 16-byte vector loads; h is formed in f32 and rounded
 //   to the stream dtype BEFORE it is squared and summed (the unfused
 //   path norms the rounded stream, and the kill-switch parity depends on

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for TMA + mbarrier + wgmma pipelines,
-// as inline PTX in the idiom of common.cuh: mbarriers, 2D and 4D TMA tile
-// loads, the wgmma shared-memory descriptor for 128-byte swizzled tiles,
+// as inline PTX in the idiom of common.cuh: mbarriers, cp.async copies
+// whose completion arrives on an mbarrier, 2D and 4D TMA tile loads, the
+// wgmma shared-memory descriptor for 128-byte swizzled tiles,
 // the wgmma fence / commit / wait, the bf16 products with f32
 // accumulators (m64n256k16 from shared memory; m64n64k16 and m64n128k16
 // with A from shared memory or from registers), the tf32 products
@@ -89,6 +90,28 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
   }
+}
+
+// ---- cp.async into an mbarrier-tracked stage --------------------------------
+
+// 4-byte global -> shared copy; the first src_bytes (0 or 4) are read,
+// the rest zero-filled (ptt::cp_async16 is the 16-byte form)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread started before
+// has landed; the arrival counts towards the barrier's expected count
+// (.noinc), so the barrier is initialised with one arrival per thread
+// that calls this
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // ---- TMA ------------------------------------------------------------------

@@ -39,9 +39,9 @@ _LL = ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream are c_void_p: ctypes would
 # otherwise pass a Python int as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    # x, w, y, rows, H, eps, stream
-    "ptt_rms_norm_bf16": (_P, _P, _P, _I, _I, _F, _P),
-    "ptt_rms_norm_f32": (_P, _P, _P, _I, _I, _F, _P),
+    # x, w, y, rows, H, eps, the plan's wpr, rpb, vpt, grid, stream
+    "ptt_rms_norm_bf16": (_P, _P, _P, _I, _I, _F) + (_I,) * 4 + (_P,),
+    "ptt_rms_norm_f32": (_P, _P, _P, _I, _I, _F) + (_I,) * 4 + (_P,),
     # x, residual, w, y, h, rows, H, eps, stream
     "ptt_fused_add_rms_norm_bf16": (_P,) * 5 + (_I, _I, _F, _P),
     "ptt_fused_add_rms_norm_f32": (_P,) * 5 + (_I, _I, _F, _P),
@@ -93,11 +93,13 @@ _SIGNATURES = {
                                         + (_F, _P),
     "ptt_flash_attention_bias_dq_f32": (_P,) * 9 + (_I,) * 9 + (_LL,) * 4
                                        + (_F, _P),
-    # q, k, v, mask (uint8 or null), bias (f32 or null), m, l, o, B, Sq,
-    # Sk, H, D, bias strides (batch, head, q, k; elements), scale, stream
-    "ptt_block_attention_fwd_bf16": (_P,) * 8 + (_I,) * 5 + (_LL,) * 4
+    # q, k, v, mask (uint8 rows or null), bias (f32 or null), m, l, o,
+    # (bf16: the mask's bits and tile classes, scratch), B, Sq, Sk, H, D,
+    # mask row bytes, bias strides (batch, head, q, k; elements), scale,
+    # stream
+    "ptt_block_attention_fwd_bf16": (_P,) * 10 + (_I,) * 6 + (_LL,) * 4
                                     + (_F, _P),
-    "ptt_block_attention_fwd_f32": (_P,) * 8 + (_I,) * 5 + (_LL,) * 4
+    "ptt_block_attention_fwd_f32": (_P,) * 8 + (_I,) * 6 + (_LL,) * 4
                                    + (_F, _P),
     # q, k_pages, v_pages, q_start, q_len, kv_len, page_table, out,
     # split scratch (or null), tickets, T, nh, kvh, page, d, B, ppmax,

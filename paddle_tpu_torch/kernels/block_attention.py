@@ -10,9 +10,14 @@ bool; `bias` an optional additive f32 operand broadcastable to
 [B, H, Sq, Sk], where an entry <= -5e29 counts as masked. Masked entries
 get p = 0 exactly: a fully masked row gives (-1e30, 0, 0).
 
-A CUDA tensor runs the hand-written kernel in `csrc/block_attention.cu`
-(`block_attention_fwd`, one launch; the bias is read in place through
-its broadcast strides, never materialised); a CPU tensor runs
+A CUDA tensor runs a hand-written kernel (`block_attention_fwd`): bf16
+on the wgmma forward core in its block-stats mode (`csrc/flash_wgmma.cu`,
+`block_stats_wgmma_kernel`: the bias tile and the mask's bits staged
+beside each K tile; with a mask, one `stats_mask_bits_kernel` launch
+before it packs the mask into bits and classes each tile, so that tiles
+with no valid entry are skipped), f32 on the SIMT kernel of
+`csrc/block_attention.cu`; either reads the bias in place through its
+broadcast strides, never materialised; a CPU tensor runs
 `_dense_stats`, the reference's jnp route in f32. The backward is the
 reference's analytic VJP (`_stats_bwd`, l.232-275) in plain PyTorch on
 either device — the reference has no backward kernel for this row — with
@@ -77,6 +82,22 @@ def _rows(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def _mask_rows(mask, Sq, Sk):
+    """The [Sq, Sk] mask as uint8 rows of a multiple of 16 bytes (the bf16
+    kernel stages them in 16-byte copies), and that row length: the
+    boolean mask itself where it already is such rows, else a zero-padded
+    copy (nonzero is true, as the reference's mask.bool())."""
+    mk = mask.expand(Sq, Sk)
+    byte = mk.dtype in (torch.bool, torch.uint8)
+    if (byte and Sk % 16 == 0 and mk.is_contiguous()
+            and mk.data_ptr() % 16 == 0):
+        return mk.view(torch.uint8), Sk
+    ld = -(-Sk // 16) * 16
+    out = torch.zeros((Sq, ld), dtype=torch.uint8, device=mask.device)
+    out[:, :Sk] = mk if byte else mk != 0
+    return out, ld
+
+
 def block_attention_fwd(q, k, v, mask, scale, bias=None):
     """Kernel route: (m, l, o) as `block_attention_stats` returns them.
     The bias is read through the strides of its broadcast to
@@ -88,22 +109,34 @@ def block_attention_fwd(q, k, v, mask, scale, bias=None):
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     o = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
-    mk = None
+    mk, mld, bits, tiles = None, 0, None, None
     if mask is not None:
-        mk = mask.to(torch.uint8).expand(Sq, Sk).contiguous()
+        mk, mld = _mask_rows(mask, Sq, Sk)
+        if q.dtype == torch.bfloat16:
+            # the kernel's scratch: the mask as 64-bit words per row and
+            # 64-key tile, and each (128-row band, tile)'s class
+            bands, n_tiles = -(-Sq // 128), -(-Sk // 64)
+            bits = torch.empty((n_tiles, bands * 128), dtype=torch.int64,
+                               device=q.device)
+            tiles = torch.empty((bands, n_tiles), dtype=torch.uint8,
+                                device=q.device)
     bs, strides = None, (0, 0, 0, 0)
     if bias is not None:
         bs = bias if bias.dtype == torch.float32 else bias.float()
         bs = bs.expand(B, H, Sq, Sk)
         strides = bs.stride()
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        _build.check(_fn(lib, q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mk is None else mk.data_ptr(),
             None if bs is None else bs.data_ptr(), m.data_ptr(),
-            l.data_ptr(), o.data_ptr(), B, Sq, Sk, H, D, *strides,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream),
+            l.data_ptr(), o.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        ptrs += [None if bits is None else bits.data_ptr(),
+                 None if tiles is None else tiles.data_ptr()]
+    with torch.cuda.device(q.device):
+        _build.check(_fn(lib, q.dtype)(
+            *ptrs, B, Sq, Sk, H, D, mld, *strides, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream),
             "block_attention_fwd")
     block_attention_fwd.launches += 1
     return m, l, o
@@ -193,4 +226,6 @@ def block_attention_stats(q, k, v, mask, scale, bias=None, use_kernel=None):
     return _BlockStats.apply(q, k, v, bias, mask, float(scale), use_kernel)
 
 
+# the kernel's calls: each launches the stats kernel once, a masked bf16
+# call its mask pre-pass (`stats_mask_bits_kernel`) just before it
 block_attention_fwd.launches = 0

@@ -945,20 +945,30 @@ STATS_O_RTOL = {torch.bfloat16: BF16_RTOL, torch.float32: 0.0}
 # first 512-key chunk of the causal alibi case at llama_7b width (of 4),
 # "alibi_7b_4096" that of its 2 x 4096 memory case (of 8); "masked" a
 # small case with a boolean mask, a full bias holding -1e30
-# and -inf rows and keys, and a ragged edge.
+# and -inf rows and keys, and a ragged edge; "ring_7b" the diagonal round
+# of ring attention at llama_7b width (16,384 tokens over four ranks: a
+# rank's 4096 queries against its own 4096 keys, no bias, the causal
+# [4096, 4096] boolean mask), the kernel's next caller. "row_500" and
+# "mask_328" hold the narrow-bias geometry (four ring stages) to ragged
+# key counts over more tiles than it has stages: sdpa's [B, 1, 1, Sk]
+# padding bias at Sk = 500, and a boolean mask with no bias (a fully
+# masked row 11) at Sk = 328.
 STATS_CASES = {
     "sdpa_bias": dict(B=16, Sq=512, Sk=512, H=12, d=64, kind="sdpa_bias"),
     "alibi_7b": dict(B=4, Sq=2048, Sk=512, H=32, d=128, kind="alibi"),
     "alibi_7b_4096": dict(B=2, Sq=4096, Sk=512, H=32, d=128, kind="alibi"),
     "masked": dict(B=2, Sq=200, Sk=328, H=3, d=128, kind="masked"),
+    "ring_7b": dict(B=1, Sq=4096, Sk=4096, H=32, d=128, kind="ring"),
+    "row_500": dict(B=3, Sq=300, Sk=500, H=3, d=64, kind="sdpa_bias"),
+    "mask_328": dict(B=2, Sq=200, Sk=328, H=3, d=128, kind="mask"),
 }
 
 
 def stats_case(B, Sq, Sk, H, d, kind, dtype=torch.bfloat16, seed=0):
     """Inputs of a block-stats case on the card: q [B, Sq, H, d], k, v
     [B, Sk, H, d] N(0, 1) in dtype, a mask or None, the scale, and the
-    f32 bias as the route passes it (compact, broadcastable). Returns
-    (q, k, v, mask, scale, bias)."""
+    f32 bias as the route passes it (compact, broadcastable) or None.
+    Returns (q, k, v, mask, scale, bias)."""
     from .kernels import flash_attention as kfa
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -974,6 +984,13 @@ def stats_case(B, Sq, Sk, H, d, kind, dtype=torch.bfloat16, seed=0):
     elif kind == "alibi":
         bias = kfa._bias_chunk("alibi", alibi_slopes(H), Sq, 0, Sk, True,
                                None)
+    elif kind == "ring":
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda").tril()
+        bias = None
+    elif kind == "mask":
+        mask = torch.rand((Sq, Sk), generator=gen, device="cuda") > 0.3
+        mask[11] = False
+        bias = None
     else:
         mask = torch.rand((Sq, Sk), generator=gen, device="cuda") > 0.3
         bias = 0.5 * torch.randn((B, H, Sq, Sk), generator=gen,

@@ -174,6 +174,8 @@ STATS_CASES = {
     "masked_rows_and_neg_inf_bias": (1, 128, 128, 2, 64, True, "full",
                                      "masked"),
     "sk640": (1, 128, 640, 1, 64, True, None, None),
+    # a ring-attention diagonal round: no bias, the causal mask
+    "ring_causal": (1, 256, 256, 2, 128, "causal", None, None),
 }
 
 
@@ -182,7 +184,10 @@ def _stats_inputs(case, seed=1):
     rng = np.random.default_rng(seed)
     q = _rand(rng, B, Sq, H, D)
     k, v = _rand(rng, B, Sk, H, D), _rand(rng, B, Sk, H, D)
-    mask = rng.random((Sq, Sk)) > 0.3 if use_mask else None
+    if use_mask == "causal":
+        mask = np.tril(np.ones((Sq, Sk), bool))
+    else:
+        mask = rng.random((Sq, Sk)) > 0.3 if use_mask else None
     bias = None
     if bias_kind == "full":
         bias = 0.5 * _rand(rng, B, H, Sq, Sk)

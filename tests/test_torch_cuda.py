@@ -78,19 +78,68 @@ def _card():
         pytest.skip("needs a CUDA card")
 
 
+# rms_norm's plan at its edges: row counts around its spreading and
+# grid-walking thresholds, widths that need 1, 2, 4 and 5 warps a row and
+# the largest row `supported` takes (48 KB); "noncontig" a strided view
+RMS_ROWS = [1, 3, 4, 37, 129, 8191]
+RMS_WIDTHS = [256, 2048, 4096, 5120, "max"]
+
+
+def _rms_check(got, x, w, dt):
+    """rms_norm's limits (chip_smoke.TOL): f32 5e-5 absolute, bf16 1e-5 +
+    2^-7 |plain| against the plain version on f32 copies."""
+    if dt == torch.float32:
+        return _within(got, t_rms._plain(x, w, 1e-5), 5e-5, 0.0)
+    return _within(got, t_rms._plain(x.float(), w, 1e-5), atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rms_norm_matches_plain(dtype):
+@pytest.mark.parametrize("H", RMS_WIDTHS)
+@pytest.mark.parametrize("rows", RMS_ROWS + ["noncontig"])
+def test_rms_norm_matches_plain(dtype, H, rows):
+    """The kernel against its plain version at the plan's edge rows and
+    widths (every launch counted once), and a strided input."""
     _card()
     dt = getattr(torch, dtype)
+    if H == "max":
+        H = t_rms._MAX_ROW_BYTES * 8 // torch.finfo(dt).bits
+    assert t_rms.supported((1, H), dt)
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(37, 256, generator=g, device="cuda").to(dt)
-    w = torch.rand(256, generator=g, device="cuda") + 0.5
-    got = t_rms.rms_norm(x, w, 1e-5)
-    if dt == torch.float32:
-        assert _max_rel(got, t_rms._plain(x, w, 1e-5)) <= 1e-5
+    w = torch.rand(H, generator=g, device="cuda") + 0.5
+    if rows == "noncontig":
+        x = torch.randn(16, 2 * H, generator=g, device="cuda").to(dt)[:, ::2]
+        assert not x.is_contiguous()
     else:
-        assert _within(got, t_rms._plain(x.float(), w, 1e-5), atol=1e-5)
+        x = torch.randn(rows, H, generator=g, device="cuda").to(dt)
+    before = t_rms.rms_norm.launches
+    got = t_rms.rms_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert t_rms.rms_norm.launches == before + 1
+    assert _rms_check(got, x, w, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_grad_route_matches_lean_route(dtype):
+    """Under grad mode with x requiring grad the wrapper runs the kernel
+    inside its autograd Function: the forward equals the lean route's
+    (no_grad) bitwise, and the backward is the plain `_bwd`."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(129, 4096, generator=g, device="cuda").to(dt)
+    w = torch.rand(4096, generator=g, device="cuda") + 0.5
+    dy = torch.randn(129, 4096, generator=g, device="cuda").to(dt)
+    with torch.no_grad():
+        lean = t_rms.rms_norm(x, w, 1e-5)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = t_rms.rms_norm(xl, wl, 1e-5)
+    assert y.grad_fn is not None and torch.equal(y.detach(), lean)
+    y.backward(dy)
+    dx, dw = t_rms._bwd(x, w, dy, 1e-5)
+    assert torch.equal(xl.grad, dx) and torch.equal(wl.grad, dw)
+    assert _rms_check(lean, x, w, dt)
 
 
 # (rows, H, M). bf16: vector_tiles and scalar_edges run the mma.sync
@@ -418,7 +467,7 @@ _FLASH_FAULTS = {
     # the segment forward drops each q tile's last kv tile (non-causal:
     # the last keys; causal: the diagonal)
     "fwd_drops_last_kv_tile": (
-        "flash_wgmma.cu", "flash_fwd_wgmma_kernel(",
+        "flash_wgmma.cu", "fwd_wgmma_body(",
         r"const int n_kv = \(kv_end \+ BN - 1\) / BN;",
         "const int n_kv = max(1, (kv_end + BN - 1) / BN - 1);",
         "seg_flash_readings", "o"),
@@ -458,7 +507,7 @@ _FLASH_FAULTS = {
         r"\+ row\] == v\);", "bad |= 0;", "seg_flash_readings", "dv"),
     # the wgmma forward drops each q tile's diagonal kv tile
     "wgmma_fwd_drops_diagonal_kv_tile": (
-        "flash_wgmma.cu", "flash_fwd_wgmma_kernel(",
+        "flash_wgmma.cu", "fwd_wgmma_body(",
         r"const int n_kv = \(kv_end \+ BN - 1\) / BN;",
         "const int n_kv = max(1, (kv_end + BN - 1) / BN - 1);",
         "flash_readings", "o"),
@@ -1128,22 +1177,58 @@ def test_segment_forward_without_ids_matches_plain(dtype, hq, hk, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["masked", "sdpa_bias"])
+@pytest.mark.parametrize("case", list(testing.STATS_CASES))
 def test_block_stats_matches_plain(dtype, case):
-    """The block-stats kernel against `_dense_stats` on f32 copies: m and
-    l within `testing.STATS_LIMITS`, o by the terms rule; the masked case
-    holds -1e30 and -inf rows and keys, which must give (-1e30, 0, 0)
-    and no NaN."""
+    """The block-stats kernel against `_dense_stats` on f32 copies at
+    every `testing.STATS_CASES` case: m and l within
+    `testing.STATS_LIMITS`, o by the terms rule, every output finite; the
+    masked case holds -1e30 and -inf rows and keys and a fully masked row
+    (11), which must give (-1e30, 0, 0)."""
     _card()
     dt = getattr(torch, dtype)
     args = testing.stats_case(**testing.STATS_CASES[case], dtype=dt)
     pairs = testing.block_stats_pairs(*args)
     for label, got, ref, atol, rtol in pairs:
+        assert bool(torch.isfinite(got).all()), label
         assert testing.worst(got, ref, atol, rtol) <= 1.0, label
     if case == "masked":
         m, l, o = (p[1] for p in pairs)
-        assert float(m[0, 0, 3]) == float(np.float32(-1e30))
-        assert float(l[0, 0, 3]) == 0.0 and bool((o[0, 3, 0] == 0).all())
+        for b, h, row in ((0, 0, 3), (0, 1, 11), (1, 2, 11)):
+            assert float(m[b, h, row]) == float(np.float32(-1e30))
+            assert float(l[b, h, row]) == 0.0
+            assert bool((o[b, row, h] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_stats_route(dtype):
+    """bf16 block stats launch the wgmma core's stats kernel
+    (`block_stats_wgmma_kernel`, csrc/flash_wgmma.cu), after the mask's
+    pre-pass (`stats_mask_bits_kernel`) once at this masked case, and f32
+    the SIMT kernel of csrc/block_attention.cu alone, one launch each a
+    call, which `launches` counts once."""
+    _card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import block_attention as t_ba
+    dt = getattr(torch, dtype)
+    args = testing.stats_case(**testing.STATS_CASES["masked"], dtype=dt)
+    t_ba.block_attention_fwd(*args[:5], args[5])
+    torch.cuda.synchronize()
+    before = t_ba.block_attention_fwd.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_ba.block_attention_fwd(*args[:5], args[5])
+        torch.cuda.synchronize()
+    assert t_ba.block_attention_fwd.launches == before + 1
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and ("block_stats" in e.key or "stats_mask" in e.key)]
+    want = (("block_stats_wgmma_kernel", "stats_mask_bits_kernel")
+            if dt == torch.bfloat16 else ("block_stats_simt_kernel",))
+    assert len(names) == len(want), names
+    for w in want:
+        assert [c for key, c in names if w in key] == [1], (w, names)
 
 
 @pytest.mark.cuda
@@ -1367,11 +1452,12 @@ _ATTN_FAULTS = {
         "flash_wgmma.cu", "flash_fwd_tf32_kernel(",
         r"hw::wgmma_tf32_rs\(sc, qlo\[kk\], kmajor_f32<BN>\(Kh, 0, kk\), 1\);",
         "(void)qlo;", "seg_flash_readings", "o_f32"),
-    # the block-stats kernel drops the -5e29 threshold: a -1e30 bias is
-    # an ordinary score
+    # the block-stats kernel (bf16: the wgmma core's stats mode) drops
+    # the -5e29 threshold: a -1e30 bias is an ordinary score
     "stats_threshold_dropped": (
-        "block_attention.cu", "bool entry(",
-        r"    if \(!\(bv > kMaskedBias\)\) return false;\n", "",
+        "flash_wgmma.cu", "stats_scores(",
+        r"      v0 = v0 && b0 > kMaskedBias;\n"
+        r"      v1 = v1 && b1 > kMaskedBias;\n", "",
         "block_stats_readings", "l"),
     # dk and dv recompute P from the raw scores: the bias (with the
     # scale and the masks applied beside it) dropped
