@@ -26,11 +26,29 @@ Phases, each of which fails the run on a miss:
    3xTF32 products, three a product), 67 in f32 elementwise work);
 4. serving — full-width llama_7b (32 layers, random weights from a
    seeded generator) behind the port's HTTP gateway, 4 concurrent
-   streamed requests; every kernel's launch counter must account for
-   every step; three captured mixed prefill/decode steps re-run through
-   the kernel route and the plain route must agree within `STEP_ATOL`
-   and `STEP_MEAN_ATOL`; the first is then timed on both routes and
-   traced by torch.profiler, its device time split by kernel group;
+   streamed requests queued in a fixed order before the first tick,
+   through the default engine: self-speculative decoding armed (4
+   drafts); every kernel's launch counter must account for every step;
+   drafted, accepted, acceptance rate, ticks, TTFT and tokens/s; three
+   captured mixed prefill/decode steps and at least one step with a
+   speculative verify entry (q_len > 1) re-run through the kernel route
+   and the plain route must agree within `STEP_ATOL` and
+   `STEP_MEAN_ATOL` at the [B, K, V] logits of their live rows; the
+   verify lm-head (`_verify_logits`, K products of [4, 1, 4096]) must
+   equal under torch.equal the last-row products of the same rows, and
+   a product's rows must not depend on the batch's other rows; the first
+   captured step is then timed on both routes and traced by
+   torch.profiler, its device time split by kernel group;
+4b. the same burst through the engine with `speculative=False` (the
+   kill switch): each stream's tokens equal to phase 4's; ticks and
+   tokens/s beside phase 4's;
+4c. the same burst through the speculative engine with an oracle
+   drafter (`_draft_for_slot` replaced): it proposes 4b's own tokens,
+   the one for every output position p with p % 3 == 2 corrupted; the
+   tokens must equal 4b's, the accepted count must equal what the
+   corruption pattern predicts for the drafts proposed, at least one
+   tick must commit several tokens and one roll drafts back, and the
+   pool must be free after the run;
 5. generate — the same llama_7b through `LlamaForCausalLM.generate`,
    4 prompts of 128 tokens (`default_rng(0)`), 64 new tokens, greedy:
    prefill ms, per-token decode ms and decode tokens/s by CUDA events;
@@ -93,8 +111,13 @@ Phases, each of which fails the run on a miss:
 
 Paged decode attention (row 13) is timed at the bucketed engine's case
 and at generate's own cache, ragged paged attention (row 9) at the
-serving step's mixed case and at the ragged burst's decode-only steady
-state (`RAGGED_ROWS`), each by events and by the card's own time
+serving step's mixed case, at the ragged burst's decode-only steady
+state and at a speculative verify step (`RAGGED_ROWS`; the decode and
+verify entries flagged in `row_tiles`, as the speculative engine
+launches them; the verify case's 20 rows must each equal under
+torch.equal the same row launched alone as a decode row, and the
+reading without row tiles is printed beside it), each by events and by
+the card's own time
 (`device_ms`, `traced_device_ms`: each trace must hold one launch of
 the kernel a call, and a reading under the bound fails), each call on
 its own copy of the pools so that its pages are cold in L2
@@ -148,7 +171,9 @@ parent commit) on one card: `route_times` (rows 1 and 8 alone with
 training shapes and block stats at its timed cases, by events, device
 time and host enqueue time; rows 9 and 13 at their
 kernel-phase cases by events and device time, `paged_times`, alone with
-`--ab PARENT_DIR paged`; row 10's 1B and 7B flash
+`--ab PARENT_DIR paged` (row 9's decode-only and verify cases with row
+tiles where the checkout's wrapper takes them, and without); row 10's
+1B and 7B flash
 forward and backward, the alibi 4 x 2048 and float-mask biased routes forward
 and forward + backward, the alibi route's peak memory, the segment
 forward at BERT's shape in bf16 and f32 and packed at 8192 tokens, the
@@ -171,6 +196,7 @@ from __future__ import annotations
 
 import contextlib
 import http.client
+import inspect
 import json
 import os
 import re
@@ -379,10 +405,12 @@ def time_ms(fn, iters, warmup=3):
 
 
 # `traced_device_ms`'s marker: torch.cuda._sleep's kernel, about 50 us
-# long, MARKER_LEAD of them before the calls
+# long, MARKER_LEAD of them before the calls; TRACE_SETTLE_S seconds of
+# host sleep open each window before them
 MARKER_KERNEL = "spin_kernel"
 MARKER_CYCLES = 100000
 MARKER_LEAD = 8
+TRACE_SETTLE_S = 0.05
 
 
 def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
@@ -397,7 +425,11 @@ def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
     fails. Late in a long run a trace has dropped the first few records
     of its window (1-3 kernels, up to ~300 us of card time, at every
     attempt): `MARKER_LEAD` marker kernels lead each window and one
-    closes it, and their time stays out of the sum."""
+    closes it, and their time stays out of the sum. A trace has also
+    lost its markers and the first 3-5 of ten 0.6 ms launches, about
+    2-3 ms of card time after the window opened, at every attempt: the
+    window now opens with `TRACE_SETTLE_S` of host sleep before any
+    launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -408,6 +440,7 @@ def traced_device_ms(fn, iters=10, kernel=None, attempts=3):
             # marker kernels (`MARKER_KERNEL`, outside the sums) lead the
             # calls and close them: a long process's traces have been seen
             # to drop the first few records of their window (PERF.md §6)
+            time.sleep(TRACE_SETTLE_S)
             for _ in range(MARKER_LEAD):
                 torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
@@ -452,11 +485,27 @@ def bound_ms(nbytes, flops, dtype_name):
 # "mixed" is a prefill chunk deep in a 700-token prompt, a decode row at
 # 300, an idle slot and a fresh 64-token prefill, plus 3 padding rows;
 # "decode_only" the ragged burst's steady state after its prefills end,
-# four decode rows at 18/101/301/701 keys and 124 padding rows
+# four decode rows at 18/101/301/701 keys and 124 padding rows; "verify"
+# a speculative step of the same burst, four entries of a decode row and
+# 4 drafts at 22/105/305/705 keys and 108 padding rows. The speculative
+# engine flags every decode and verify entry in `row_tiles`
+# (`ROW_TILED`).
 RAGGED_ROWS = {"mixed": [(0, 60, 700), (60, 1, 300), (0, 0, 0),
                          (61, 64, 64)],
                "decode_only": [(0, 1, 18), (1, 1, 101), (2, 1, 301),
-                               (3, 1, 701)]}
+                               (3, 1, 701)],
+               "verify": [(0, 5, 22), (5, 5, 105), (10, 5, 305),
+                          (15, 5, 705)]}
+ROW_TILED = ("decode_only", "verify")
+
+
+def row_tiles_for(torch, tag, rows):
+    """The `row_tiles` flags the speculative engine passes at one of
+    `RAGGED_ROWS`: every decode and verify entry, i32[B] on the card;
+    None for the mixed step's case."""
+    if tag not in ROW_TILED:
+        return None
+    return torch.ones(len(rows), dtype=torch.int32, device="cuda")
 
 
 def ragged_case(torch, dtype, gen, rows=RAGGED_ROWS["mixed"]):
@@ -681,12 +730,15 @@ def ragged_kernel(report, dtype, dname, gen, tag, rows):
     call on its own copy of the pools (`pool_copies`)."""
     import torch
 
+    from paddle_tpu_torch import testing
     from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
 
     args, _ = ragged_case(torch, dtype, gen, rows)
     q = args[0]
     scale = 1.0 / q.shape[2] ** 0.5
-    out = krpa.ragged_paged_attention(*args, use_kernel=True)
+    flags = row_tiles_for(torch, tag, rows)
+    out = krpa.ragged_paged_attention(*args, use_kernel=True,
+                                      row_tiles=flags)
     torch.cuda.synchronize()
     if dtype == torch.bfloat16:
         ref = krpa._dense_fallback((q * scale).float(), args[1].float(),
@@ -696,14 +748,39 @@ def ragged_kernel(report, dtype, dname, gen, tag, rows):
     err = compare("ragged_paged_attention", dname, [("out", out, ref)],
                   f" [{tag}]")
     del out, ref
+    bitwise = None
+    if tag == "verify":
+        # each verify row against the same row launched alone as a decode
+        # row (the kill switch's launch) over the same pool; without row
+        # tiles for the record
+        same, n = testing.verify_bitwise(krpa.ragged_paged_attention, args,
+                                         flags)
+        plain_same, _ = testing.verify_bitwise(
+            krpa.ragged_paged_attention, args)
+        bitwise = {"rows": n, "equal": same, "equal_without_row_tiles":
+                   plain_same}
+        print(f"kernel ragged_paged_attention {dname} [verify]: rows equal "
+              f"to their decode rows under torch.equal {same}/{n} "
+              f"(without row tiles {plain_same}/{n}) "
+              f"{'ok' if same == n else 'MISS'}", flush=True)
+        check(same == n, f"ragged_paged_attention {dname}: {n - same} "
+              f"verify rows differ from their decode rows")
     if dtype != torch.bfloat16:
         return
-    call = ragged_call(krpa, args)
+    call = ragged_call(krpa, args, row_tiles=flags)
     m = timed("ragged_paged_attention", err, call,
               lambda: krpa._dense_fallback(*args, scale),
               *ragged_work(args, rows), iters=100, tag=f" [{tag}]")
     m["device_ms"] = held_device_ms(call, RAGGED_KERNEL, m["bound_ms"],
                                     f"ragged_paged_attention [{tag}]")
+    m["row_tiles"] = flags is not None
+    if bitwise:
+        m["bitwise_decode_rows"] = bitwise
+    if flags is not None:
+        # the same case without row tiles: what the design costs
+        m["device_ms_without_row_tiles"] = held_device_ms(
+            ragged_call(krpa, args), RAGGED_KERNEL, m["bound_ms"],
+            f"ragged_paged_attention [{tag}] without row tiles")
     if tag == "mixed":
         report["ragged_paged_attention"] = entry("ragged_paged_attention",
                                                  m)
@@ -851,9 +928,9 @@ def cold_calls(fn, argsets):
     return call
 
 
-def ragged_call(krpa, args):
+def ragged_call(krpa, args, **kw):
     return cold_calls(lambda *a: krpa.ragged_paged_attention(
-        *a, use_kernel=True), pool_copies(args))
+        *a, use_kernel=True, **kw), pool_copies(args))
 
 
 def paged_call(kpa, args):
@@ -1992,8 +2069,9 @@ def plain_routes():
         lambda logits, labels, ignore_index=-100, use_kernel=None:
         kce._plain(logits, labels, ignore_index))
     krpa.ragged_paged_attention = (
-        lambda q, kp, vp, qs, ql, kl, pt, scale=None, use_kernel=None:
-        krpa._dense_fallback(q, kp, vp, qs, ql, kl, pt, scale))
+        lambda q, kp, vp, qs, ql, kl, pt, scale=None, use_kernel=None,
+        row_tiles=None: krpa._dense_fallback(q, kp, vp, qs, ql, kl, pt,
+                                             scale))
     kfnr.fused_add_rms_norm = (
         lambda x, r, w, eps=1e-6, use_kernel=None: kfnr._plain(x, r, w, eps))
     def plain_bshd(q, k, v, causal=False, scale=None, padding_mask=None,
@@ -2062,6 +2140,9 @@ def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
 
 
 def slice_phase(report, smi_line):
+    """Phases 4, 4b and 4c: the ragged serving burst through the default
+    engine (speculation armed), through the kill switch, and through the
+    speculative engine with an oracle drafter."""
     import numpy as np
     import torch
 
@@ -2079,11 +2160,17 @@ def slice_phase(report, smi_line):
     print(f"slice: llama_7b bf16 built in {time.perf_counter() - t0:.3f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters",
           flush=True)
-    engine = gw.build_engine(model, max_batch=4, max_seq=1024, page_size=16,
-                             max_chunk_tokens=64, device="cuda")
+    knobs = dict(max_batch=4, max_seq=1024, page_size=16,
+                 max_chunk_tokens=64, device="cuda")
+    engine = gw.build_engine(model, **knobs)
     check(engine._T_pack == 128, f"packed rows {engine._T_pack} != 128")
+    check(engine._spec and engine.max_draft_tokens == 4,
+          "the default engine did not arm speculation with 4 drafts")
+    K = engine.max_draft_tokens + 1
+    verify_lm_head_check(L, engine, cfg, smi_line)
 
-    # capture three mixed prefill + decode steps' inputs (pools before)
+    # capture three mixed prefill + decode steps' inputs and up to two
+    # steps with a verify entry (pools before)
     captured = []
     real_fn = engine._ragged_fn
 
@@ -2091,15 +2178,20 @@ def slice_phase(report, smi_line):
         step = real_fn()
 
         def run(state, toks, k_pool, v_pool, page_ids, offs, pos,
-                page_table, q_start, q_len, kv_len, produce, prev, g):
-            if (len(captured) < 3 and bool((q_len > 1).any())
-                    and bool((q_len == 1).any())
-                    and int((q_len > 0).sum()) >= 3):
+                page_table, q_start, q_len, kv_len, produce, verify, g):
+            mixed = (bool((q_len > 1).any()) and bool((q_len == 1).any())
+                     and int((q_len > 0).sum()) >= 3)
+            spec = bool((verify & (q_len > 1)).any())
+            n_mixed = sum(not c[2] for c in captured)
+            n_spec = sum(c[2] for c in captured)
+            if (mixed and n_mixed < 3) or (spec and n_spec < 2):
                 captured.append(([t.clone() for t in (
                     toks, pos, page_ids, offs, page_table, q_start, q_len,
-                    kv_len)], (k_pool.clone(), v_pool.clone())))
+                    kv_len)], (k_pool.clone(), v_pool.clone()), spec,
+                    verify.clone()))
             return step(state, toks, k_pool, v_pool, page_ids, offs, pos,
-                        page_table, q_start, q_len, kv_len, produce, prev, g)
+                        page_table, q_start, q_len, kv_len, produce, verify,
+                        g)
 
         return run
 
@@ -2113,61 +2205,213 @@ def slice_phase(report, smi_line):
     max_new = 32
     kernels = {"rms_norm": krn.rms_norm, "swiglu": ksw.swiglu,
                "ragged_paged_attention": krpa.ragged_paged_attention}
-    results, wall, launches, (steps, ticks) = serve_burst(
-        engine, prompts, max_new, kernels, "request",
-        lambda: (engine.model_steps, engine.ticks))
-    health = engine.health_snapshot()
     L_ = cfg.num_hidden_layers
-    want = {"rms_norm": steps * (2 * L_ + 1), "swiglu": steps * L_,
-            "ragged_paged_attention": steps * L_}
-    for name, n in launches.items():
-        print(f"launches {name}: {n} (steps {steps} -> expected "
-              f"{want[name]})", flush=True)
-        check(n == want[name] and n > 0,
-              f"{name} launched {n} times, expected {want[name]}")
-        add_launches(report, name, "serving", n)
-    ttfts = [results[i]["ttft_s"] for i in range(len(prompts))]
-    n_tok = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
-    print(f"serve: ticks={ticks} steps={steps} prompts="
-          f"{[len(p) for p in prompts]} max_new={max_new} "
-          f"prefix_cache={health.get('prefix_cache', {}).get('hits')} hits "
-          f"preemptions={health['counters']['preemptions']} "
-          f"[{smi_line}]", flush=True)
-    print(f"serve: ttft_ms={[round(1e3 * t, 3) for t in ttfts]} "
-          f"wall_s={wall:.6g} tokens_per_s={n_tok / wall:.6g} "
-          f"[{smi_line}]", flush=True)
+
+    def burst(eng, what, path=None):
+        """One in-order burst; launch counts held per step; returns
+        (results, wall, steps, ticks, drafted, accepted)."""
+        results, wall, launches, (steps, ticks, drafted, accepted) = \
+            serve_burst(eng, prompts, max_new, kernels, what,
+                        lambda: (eng.model_steps, eng.ticks,
+                                 eng.spec_drafted, eng.spec_accepted),
+                        in_order=True)
+        want = {"rms_norm": steps * (2 * L_ + 1), "swiglu": steps * L_,
+                "ragged_paged_attention": steps * L_}
+        for name, n in launches.items():
+            print(f"launches {name} ({what}): {n} (steps {steps} -> "
+                  f"expected {want[name]})", flush=True)
+            check(n == want[name] and n > 0,
+                  f"{name} launched {n} times in the {what}, expected "
+                  f"{want[name]}")
+            if path:
+                add_launches(report, name, path, n)
+        ttfts = [results[i]["ttft_s"] for i in range(len(prompts))]
+        n_tok = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
+        rate = accepted / drafted if drafted else 0.0
+        print(f"serve ({what}): ticks={ticks} steps={steps} prompts="
+              f"{[len(p) for p in prompts]} max_new={max_new} "
+              f"drafted={drafted} accepted={accepted} "
+              f"acceptance_rate={rate:.6g} preemptions={eng.preemptions} "
+              f"[{smi_line}]", flush=True)
+        print(f"serve ({what}): ttft_ms={[round(1e3 * t, 3) for t in ttfts]} "
+              f"wall_s={wall:.6g} tokens_per_s={n_tok / wall:.6g} "
+              f"[{smi_line}]", flush=True)
+        return results, wall, steps, ticks, drafted, accepted
+
+    # 4: the default engine, speculation armed
+    res_on, wall_on, steps, ticks_on, drafted, _ = burst(
+        engine, "request", "serving")
+    health = engine.health_snapshot()
+    print(f"serve: health speculative={json.dumps(health['speculative'])} "
+          f"prefix_cache={health.get('prefix_cache', {}).get('hits')} hits",
+          flush=True)
+    check(health["speculative"]["armed"], "healthz: speculation not armed")
 
     # the captured steps through the kernel route and the plain route
-    check(len(captured) == 3, f"{len(captured)} of 3 mixed prefill/decode "
-          f"steps with 3+ live sequences were captured")
-    for i, (args, (kp0, vp0)) in enumerate(captured):
+    n_mixed = sum(not c[2] for c in captured)
+    n_spec = sum(c[2] for c in captured)
+    check(n_mixed == 3, f"{n_mixed} of 3 mixed prefill/decode steps with "
+          f"3+ live sequences were captured")
+    check(n_spec >= 1, f"no step with a verify entry of q_len > 1 was "
+          f"captured (drafted {drafted} in the burst)")
+    j = torch.arange(K, device="cuda")[None, :]
+    for i, (args, (kp0, vp0), spec, verify) in enumerate(captured):
+        kw = dict(verify_rows=K, row_tiles=verify, wls=engine._wls)
         with torch.no_grad():
             lg_k, _, _ = L._ragged_step_paged(
                 engine.state, cfg, args[0], args[1], kp0.clone(),
-                vp0.clone(), *args[2:], wls=engine._wls)
+                vp0.clone(), *args[2:], **kw)
             torch.cuda.synchronize()
             with plain_routes():
                 lg_p, _, _ = L._ragged_step_paged(
                     engine.state, cfg, args[0], args[1], kp0.clone(),
-                    vp0.clone(), *args[2:], wls=engine._wls)
+                    vp0.clone(), *args[2:], **kw)
             torch.cuda.synchronize()
-        live = args[6] > 0
+        q_len = args[6]
+        live = (q_len[:, None] > 0) & (j >= K - torch.clamp(q_len, max=K)
+                                       [:, None])
         diff = (lg_k[live] - lg_p[live]).abs()
         err = diff.max().item()
         agree = int((lg_k[live].argmax(-1) == lg_p[live].argmax(-1)).sum())
         mean = diff.mean().item()
         ok = (err <= STEP_ATOL and mean <= STEP_MEAN_ATOL
-              and bool(torch.isfinite(lg_k).all()))
-        print(f"step {i}: q_len={args[6].tolist()} kernel vs plain route "
-              f"logits max_abs_err={err:.6g} (limit {STEP_ATOL:g}) "
+              and bool(torch.isfinite(lg_k[live]).all()))
+        print(f"step {i} ({'verify' if spec else 'mixed'}): q_len="
+              f"{q_len.tolist()} verify={verify.int().tolist()} kernel vs "
+              f"plain route logits of {int(live.sum())} live rows "
+              f"max_abs_err={err:.6g} (limit {STEP_ATOL:g}) "
               f"mean_abs_err={mean:.6g} (limit {STEP_MEAN_ATOL:g}) "
               f"max|logit|={lg_p[live].abs().max().item():.6g} "
               f"argmax agree {agree}/{int(live.sum())} "
               f"{'ok' if ok else 'MISS'}", flush=True)
         check(ok, f"kernel-route step {i} disagrees with the plain route")
-    args, (kp0, vp0) = captured[0]
-    step_breakdown(L, engine, cfg, args, kp0, vp0, wall / steps, smi_line)
+    args, (kp0, vp0), _, verify = captured[0]
+    step_breakdown(L, engine, cfg, args, kp0, vp0, wall_on / steps,
+                   smi_line, verify_rows=K, row_tiles=verify)
+    del captured, engine
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4b: the kill switch, token-identical stream by stream
+    off = gw.build_engine(model, speculative=False, **knobs)
+    check(not off._spec, "speculative=False armed speculation")
+    res_off, wall_off, _, ticks_off, _, _ = burst(off, "kill switch")
+    for i in range(len(prompts)):
+        a, b = res_on[i]["tokens"], res_off[i]["tokens"]
+        first = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None if a == b else min(len(a), len(b)))
+        print(f"stream {i}: speculative tokens == kill switch tokens: "
+              f"{first is None}"
+              f"{'' if first is None else f' (first difference at {first})'}",
+              flush=True)
+        check(first is None, f"stream {i}: speculation changed the tokens")
+    n_tok = len(prompts) * max_new
+    print(f"serve: speculative ticks={ticks_on} tokens_per_s="
+          f"{n_tok / wall_on:.6g}; kill switch ticks={ticks_off} "
+          f"tokens_per_s={n_tok / wall_off:.6g} [{smi_line}]", flush=True)
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4c: the oracle drafter, every third position corrupted
+    oracle_engine(model, knobs, prompts, res_off, max_new, burst, smi_line)
     return model, prompts, max_new
+
+
+def oracle_engine(model, knobs, prompts, res_off, max_new, burst, smi_line):
+    """Phase 4c: the speculative engine with `_draft_for_slot` replaced by
+    a drafter proposing the kill switch's own tokens (`res_off`), the one
+    for every output position p with p % 3 == 2 corrupted. A proposal's
+    predicted acceptance is its run of uncorrupted drafts."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch.inference import gateway as gw
+
+    eng = gw.build_engine(model, **knobs)
+    vocab = eng.cfg.vocab_size
+    refs = {tuple(p): res_off[i]["tokens"] for i, p in enumerate(prompts)}
+    proposals = []                       # (drafts, predicted accepted)
+
+    def oracle(i, budget):
+        slot = eng.slots[i]
+        req = slot.req
+        ref = refs.get(tuple(req.prompt))
+        k = min(slot.spec_k, budget, req.max_new_tokens - slot.produced - 1,
+                eng.S - 1 - slot.length)
+        if ref is None or k <= 0:
+            return []
+        m0 = len(req.output)
+        pos = range(m0, min(m0 + k, len(ref)))
+        drafts = [(ref[m] + 1) % vocab if m % 3 == 2 else ref[m]
+                  for m in pos]
+        good = next((n for n, m in enumerate(pos) if m % 3 == 2),
+                    len(drafts))
+        if drafts:
+            proposals.append((len(drafts), good))
+        return drafts
+
+    eng._draft_for_slot = oracle
+    res, _, _, _, drafted, accepted = burst(eng, "oracle drafter")
+    want_d = sum(n for n, _ in proposals)
+    want_a = sum(g for _, g in proposals)
+    multi = sum(1 for _, g in proposals if g >= 1)
+    rolled = sum(1 for n, g in proposals if g < n)
+    print(f"oracle: drafted={drafted} (proposed {want_d}) accepted="
+          f"{accepted} (predicted {want_a}) multi-token commits={multi} "
+          f"rollbacks={rolled} pool free {eng.pool.n_free}/"
+          f"{eng.pool.n_pages - 1} [{smi_line}]", flush=True)
+    for i in range(len(prompts)):
+        check(res[i]["tokens"] == res_off[i]["tokens"],
+              f"oracle stream {i}: tokens differ from the kill switch's")
+    check(drafted == want_d and accepted == want_a,
+          f"oracle: drafted/accepted {drafted}/{accepted}, predicted "
+          f"{want_d}/{want_a}")
+    check(multi >= 1 and rolled >= 1, f"oracle: {multi} multi-token "
+          f"commits and {rolled} rollbacks (need one of each)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def verify_lm_head_check(L, engine, cfg, smi_line):
+    """The verify lm-head at llama_7b width on the engine's weights:
+    `_verify_logits` over the verify case's rows (`RAGGED_ROWS`) against
+    the last-row product `_last_row_logits` of each slot's rows, under
+    torch.equal; a [4, 1, 4096] product's rows against the same rows
+    in another order (the batch's other rows must not matter); one
+    [20, 1, 4096] product against the K products, printed only."""
+    import torch
+
+    rows = RAGGED_ROWS["verify"]
+    K = engine.max_draft_tokens + 1
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h = torch.randn((128, cfg.hidden_size), generator=gen,
+                    device="cuda").to(engine.dtype)
+    qs, ql = (torch.tensor([r[i] for r in rows], dtype=torch.int32,
+                           device="cuda") for i in range(2))
+    with torch.no_grad():
+        got = L._verify_logits(engine.state, h, qs, ql, K)
+        same = [bool(torch.equal(got[:, i], L._last_row_logits(
+            engine.state, h, qs, ql - (K - 1 - i)))) for i in range(K)]
+        last = L._last_row_logits(engine.state, h, qs, ql)
+        perm = torch.tensor([2, 0, 3, 1], device="cuda")
+        moved = L._last_row_logits(engine.state, h, qs[perm], ql[perm])
+        order_free = bool(torch.equal(moved, last[perm]))
+        idx = (qs[:, None]
+               + torch.arange(K, device="cuda")[None, :]).reshape(-1)
+        one = L._lm_head(engine.state, h[idx][:, None]).float()[:, 0]
+        one_same = bool(torch.equal(one.reshape(len(rows), K, -1), got))
+    print(f"verify lm-head: K products equal to the last-row products "
+          f"{same}; a product's rows independent of the others' order "
+          f"{order_free}; one [{len(rows) * K}, 1, {cfg.hidden_size}] "
+          f"product equal to the K products {one_same} (not used) "
+          f"[{smi_line}]", flush=True)
+    check(all(same), "verify lm-head differs from the last-row products")
+    check(order_free, "a lm-head product row depends on the batch's "
+          "other rows")
 
 
 def generate_phase(report, model, smi_line):
@@ -2310,15 +2554,19 @@ def decode_breakdown(L, state, cfg, tok, ck, cv, cur, wls, smi_line):
           + "; ".join(f"{k[:60]}={ms / n:.4g}" for k, ms in top), flush=True)
 
 
-def serve_burst(engine, prompts, max_new, kernels, what, counters):
+def serve_burst(engine, prompts, max_new, kernels, what, counters,
+                in_order=False):
     """The engine behind the HTTP gateway: one warm-up request, then the
     prompts as concurrent streams of max_new tokens, each of which must
     be served whole. The kernels' launch counters are zeroed after the
-    warm-up and read when the burst ends. Returns (results, wall seconds,
-    launches, the change in `counters()` over the burst)."""
+    warm-up and read when the burst ends. in_order: no tick runs until
+    every prompt is queued, in the order given, so that two engines see
+    the same admissions and prefill chunks. Returns (results, wall
+    seconds, launches, the change in `counters()` over the burst)."""
     from paddle_tpu_torch.inference import gateway as gw
 
-    gateway = gw.ServingGateway(gw.EngineRunner(engine), port=0)
+    runner = gw.EngineRunner(engine)
+    gateway = gw.ServingGateway(runner, port=0)
     port = gateway.start()
     try:
         warm = {}
@@ -2334,8 +2582,13 @@ def serve_burst(engine, prompts, max_new, kernels, what, counters):
         threads = [threading.Thread(target=post_stream,
                                     args=(port, p, max_new, results, i))
                    for i, p in enumerate(prompts)]
-        for t in threads:
-            t.start()
+        with (runner.lock if in_order else contextlib.nullcontext()):
+            for i, t in enumerate(threads):
+                t.start()
+                while in_order and len(runner._inbox) <= i:
+                    check(time.perf_counter() - t_burst < 60,
+                          f"{what} {i} was not queued")
+                    time.sleep(0.001)
         for t in threads:
             t.join(timeout=600)
             check(not t.is_alive(), f"a {what} thread did not finish")
@@ -2415,19 +2668,21 @@ _KERNEL_GROUPS = (("rms_norm_kernel", "rms_norm"), ("FwdEpi", "swiglu"),
                   ("cutlass", "gemm"))
 
 
-def step_breakdown(L, engine, cfg, args, kp, vp, wall_per_step_s, smi_line):
-    """Where one serving step's time goes: the captured step through the
-    kernel route and the plain route timed with CUDA events, then three
-    kernel-route steps traced by torch.profiler, device time summed by
-    kernel group; busy share = device time per step over the step's
-    event time. Re-running the step rewrites the same pool slots."""
+def step_breakdown(L, engine, cfg, args, kp, vp, wall_per_step_s, smi_line,
+                   **step_kw):
+    """Where one serving step's time goes: the captured step (with the
+    speculative step's `step_kw`) through the kernel route and the plain
+    route timed with CUDA events, then three kernel-route steps traced by
+    torch.profiler, device time summed by kernel group; busy share =
+    device time per step over the step's event time. Re-running the step
+    rewrites the same pool slots."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def step():
         L._ragged_step_paged(engine.state, cfg, args[0], args[1], kp, vp,
-                             *args[2:], wls=engine._wls)
+                             *args[2:], wls=engine._wls, **step_kw)
 
     with torch.no_grad():
         step_ms = time_ms(step, 10)
@@ -3301,7 +3556,10 @@ def paged_times():
     paged decode attention at the bucketed engine's case and at
     generate's cache (`testing.PAGED_DECODE_CASES` "engine",
     "generate_cache"), ragged paged attention at each of
-    `RAGGED_ROWS`."""
+    `RAGGED_ROWS`, the `ROW_TILED` cases with row tiles where the
+    checkout's wrapper takes them (keys `ragged_<tag>_*`, as the
+    speculative engine launches them) and without (`*_without_row_tiles`;
+    a checkout without row tiles has only these, under `ragged_<tag>_*`)."""
     import torch
 
     from paddle_tpu_torch import testing
@@ -3319,14 +3577,25 @@ def paged_times():
         out[f"paged_decode_{tag}_host_us"] = host_us(call)
         del call, args
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    takes_flags = "row_tiles" in inspect.signature(
+        krpa.ragged_paged_attention).parameters
     for tag, rows in RAGGED_ROWS.items():
         args, _ = ragged_case(torch, torch.bfloat16, gen, rows)
-        call = ragged_call(krpa, args)
-        out[f"ragged_{tag}_ms"] = time_ms(call, 100)
-        out[f"ragged_{tag}_device_ms"] = traced_device_ms(
-            call, 40, kernel=RAGGED_KERNEL)
-        out[f"ragged_{tag}_host_us"] = host_us(call)
-        del call, args
+        flags = row_tiles_for(torch, tag, rows)
+        # a checkout whose wrapper takes row tiles is timed with them
+        # where the speculative engine passes them, and without
+        ways = ([("", {"row_tiles": flags})] if flags is not None
+                and takes_flags else [])
+        ways.append(("_without_row_tiles" if ways else "", {}))
+        for suffix, kw in ways:
+            call = ragged_call(krpa, args, **kw)
+            key = f"ragged_{tag}{suffix}"
+            out[f"{key}_ms"] = time_ms(call, 100)
+            out[f"{key}_device_ms"] = traced_device_ms(
+                call, 40, kernel=RAGGED_KERNEL)
+            out[f"{key}_host_us"] = host_us(call)
+            del call
+        del args
     torch.cuda.empty_cache()
     return out
 

@@ -49,6 +49,14 @@
 //   over warps and splits), not a 16-row tensor tile that is 15/16 empty
 //   with three warps idle. f32 is on no serving path: it stays on the
 //   walk (SIMT) at every row count.
+//   Row tiles: a sequence flagged in row_tiles (the engine's decode and
+//   speculative verify entries) is cut per local row: each row's rep
+//   packed rows form a group tiled exactly as a q_len = 1 sequence's, so
+//   each row reads its own keys up to its own causal limit, in its own
+//   splits, on the tile kind and walk width of a decode row, and its
+//   output is bitwise what that row gives as a decode row (the walk's
+//   unroll and the split count otherwise follow the tile's row count and
+//   last row). The cost is one read of the keys a row.
 //   Split size: 256 keys for both tile kinds, from chip_smoke.py's
 //   sweep on the H100 at the serving step's mixed and decode-only cases
 //   (PERF.md, PR 13). Shorter splits put more blocks on the long walks
@@ -94,10 +102,10 @@ __host__ __device__ constexpr int walk_bytes() {
 }
 
 // the shared-memory bytes before the job buffers: the schedule (q_start,
-// q_len, kv_len, item and tile prefixes), the tile's row ids and the
-// split's page ids
+// q_len, kv_len, row-tile flags, item and tile prefixes), the tile's row
+// ids and the split's page ids
 __host__ __device__ inline int head_bytes(int B, int np_max) {
-  return ptt::attn::align128(4 * (3 * B + 2 * (B + 1) + TILE_ROWS + np_max));
+  return ptt::attn::align128(4 * (4 * B + 2 * (B + 1) + TILE_ROWS + np_max));
 }
 
 // the job buffers: a tensor-core tile's or a walk's, and then, over
@@ -114,11 +122,29 @@ __device__ __forceinline__ int rows_per_tile(bool tc, int nrows) {
   return tc && nrows > WALK_ROWS ? TILE_ROWS : WALK_ROWS;
 }
 
-// keys tile k of a sequence needs: its last row's causal limit, cut to
-// kv_len and to the block table (kcap)
-__device__ __forceinline__ int tile_kend(int k, int rpt, int nrows, int rep,
-                                         int ctx, int kcap) {
-  const int r1 = min((k + 1) * rpt, nrows);
+// How a sequence's q_len * rep packed rows are cut: into groups of gs rows
+// (all of them, or one local row's rep when the sequence is flagged in
+// row_tiles), each group into tpg tiles of rpt rows.
+struct Tiling {
+  int gs, rpt, tpg, tiles;
+  __device__ Tiling(bool tc, bool own, int ql, int rep) {
+    const int nrows = max(ql, 0) * rep;
+    gs = own ? rep : nrows;
+    rpt = rows_per_tile(tc, gs);
+    tpg = (gs + rpt - 1) / rpt;
+    tiles = nrows > 0 ? (own ? ql : 1) * tpg : 0;
+  }
+  // tile k's packed rows [r0, r1)
+  __device__ __forceinline__ void rows(int k, int& r0, int& r1) const {
+    const int g0 = k / tpg * gs;
+    r0 = g0 + k % tpg * rpt;
+    r1 = min(r0 + rpt, g0 + gs);
+  }
+};
+
+// keys a tile whose last packed row is r1 - 1 needs: that row's causal
+// limit, cut to kv_len and to the block table (kcap)
+__device__ __forceinline__ int tile_kend(int r1, int rep, int ctx, int kcap) {
   return min(kcap, ctx + (r1 - 1) / rep + 1);
 }
 
@@ -406,6 +432,7 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
                               const int* __restrict__ q_len,
                               const int* __restrict__ kv_len,
                               const int* __restrict__ page_table,
+                              const int* __restrict__ row_tiles,
                               T* __restrict__ out, float* part_o,
                               float2* part_ml, int* tickets, int T_, int nh,
                               int kvh, int page, int B, int ppmax,
@@ -417,7 +444,8 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
   int* s_qs = reinterpret_cast<int*>(smem_raw);
   int* s_ql = s_qs + B;
   int* s_kl = s_ql + B;
-  int* s_item0 = s_kl + B;                // [B + 1] items before sequence s
+  int* s_own = s_kl + B;                  // [B] row-tile flags
+  int* s_item0 = s_own + B;               // [B + 1] items before sequence s
   int* s_tile0 = s_item0 + B + 1;         // [B + 1] tiles before sequence s
   int* s_rows = s_tile0 + B + 1;          // [TILE_ROWS]
   int* s_pages = s_rows + TILE_ROWS;      // [np_max]
@@ -436,18 +464,19 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
       if (s < B) {
         const int ql = q_len[s];
         const int kl = kv_len[s];
+        const int own = row_tiles != nullptr && row_tiles[s] != 0;
         s_qs[s] = q_start[s];
         s_ql[s] = ql;
         s_kl[s] = kl;
-        const int nrows = max(ql, 0) * rep;
-        if (nrows > 0) {
-          const int rpt = rows_per_tile(TC, nrows);
-          const int ctx = kl - ql;
-          const int kcap = min(kl, kcap_table);
-          nt = (nrows + rpt - 1) / rpt;
-          for (int k = 0; k < nt; ++k)
-            items += pg::live_splits(
-                tile_kend(k, rpt, nrows, rep, ctx, kcap), sk);
+        s_own[s] = own;
+        const Tiling tl(TC, own, ql, rep);
+        const int ctx = kl - ql;
+        const int kcap = min(kl, kcap_table);
+        nt = tl.tiles;
+        for (int k = 0; k < nt; ++k) {
+          int r0, r1;
+          tl.rows(k, r0, r1);
+          items += pg::live_splits(tile_kend(r1, rep, ctx, kcap), sk);
         }
       }
       int a = nt, c = items;
@@ -496,25 +525,23 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     while (s_item0[s + 1] <= item) ++s;
     item -= s_item0[s];
     const int ql = s_ql[s];
-    const int nrows = ql * rep;
-    const int rpt = rows_per_tile(TC, nrows);
+    const Tiling tl(TC, s_own[s] != 0, ql, rep);
+    const int rpt = tl.rpt;
     Job j;
     j.rep = rep;
     j.ctx = s_kl[s] - ql;
     j.kcap = min(s_kl[s], kcap_table);
-    int k = 0;
+    int k = 0, r1 = 0;
     for (;; ++k) {
-      j.n_live = pg::live_splits(
-          tile_kend(k, rpt, nrows, rep, j.ctx, j.kcap), sk);
+      tl.rows(k, j.r0, r1);
+      j.n_live = pg::live_splits(tile_kend(r1, rep, j.ctx, j.kcap), sk);
       if (item < j.n_live) break;
       item -= j.n_live;
     }
     j.z = item;
-    j.r0 = k * rpt;
-    j.nr = min(rpt, nrows - j.r0);
+    j.nr = r1 - j.r0;
     pg::split_range(j.z, sk / page, page,
-                    tile_kend(k, rpt, nrows, rep, j.ctx, j.kcap), j.k0,
-                    j.k1);
+                    tile_kend(r1, rep, j.ctx, j.kcap), j.k0, j.k1);
     for (int r = threadIdx.x; r < rpt; r += THREADS) {
       const int idx = j.r0 + r;
       s_rows[r] = r < j.nr
@@ -581,7 +608,8 @@ int resident_blocks(K kern, size_t smem) {
 
 template <typename T, int D>
 int launch_d(const void* q, const void* kp, const void* vp, const int* qs,
-             const int* ql, const int* kl, const int* pt, void* out,
+             const int* ql, const int* kl, const int* pt, const int* own,
+             void* out,
              void* part, int* tickets, int T_, int nh, int kvh, int page,
              int B, int ppmax, int sk, long long s_head, long long s_page,
              long long s_tok, float scale, cudaStream_t stream) {
@@ -601,10 +629,12 @@ int launch_d(const void* q, const void* kp, const void* vp, const int* qs,
   if (n_split > pg::MAX_SPLITS || (part == nullptr && n_split > 1))
     return static_cast<int>(cudaErrorInvalidValue);
   // tiles: at most one walk tile per sequence of <= WALK_ROWS rows, and
-  // ceil(rows / tile) for the rest
+  // ceil(rows / tile) for the rest; with row tiles, at most one more a
+  // packed row group (a local row)
   const long long rows = static_cast<long long>(T_) * rep;
   const long long tiles = (TC ? (rows + TILE_ROWS - 1) / TILE_ROWS
-                              : (rows + WALK_ROWS - 1) / WALK_ROWS) + B;
+                              : (rows + WALK_ROWS - 1) / WALK_ROWS) + B +
+                          (own != nullptr ? T_ : 0);
   const int resident = resident_blocks(kern, smem);
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long most = tiles * kvh * n_split;
@@ -617,7 +647,7 @@ int launch_d(const void* q, const void* kp, const void* vp, const int* qs,
                             pg::part_o_offset(n_split, R);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), qs, ql, kl, pt, static_cast<T*>(out),
+      static_cast<const T*>(vp), qs, ql, kl, pt, own, static_cast<T*>(out),
       part_o, part_ml, tickets, T_, nh, kvh, page, B, ppmax, sk, s_head,
       s_page, s_tok, scale);
   return static_cast<int>(cudaGetLastError());
@@ -625,7 +655,8 @@ int launch_d(const void* q, const void* kp, const void* vp, const int* qs,
 
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* qs,
-           const void* ql, const void* kl, const void* pt, void* out,
+           const void* ql, const void* kl, const void* pt, const void* own,
+           void* out,
            void* part, void* tickets, int T_, int nh, int kvh, int page,
            int d, int B, int ppmax, int sk, long long s_head,
            long long s_page, long long s_tok, float scale, void* stream) {
@@ -637,13 +668,13 @@ int launch(const void* q, const void* kp, const void* vp, const void* qs,
   auto i32 = [](const void* p) { return static_cast<const int*>(p); };
   auto* tk = static_cast<int*>(tickets);
   if (d == 64)
-    return launch_d<T, 64>(q, kp, vp, i32(qs), i32(ql), i32(kl), i32(pt), out,
-                           part, tk, T_, nh, kvh, page, B, ppmax, sk, s_head,
-                           s_page, s_tok, scale, st);
+    return launch_d<T, 64>(q, kp, vp, i32(qs), i32(ql), i32(kl), i32(pt),
+                           i32(own), out, part, tk, T_, nh, kvh, page, B,
+                           ppmax, sk, s_head, s_page, s_tok, scale, st);
   if (d == 128)
     return launch_d<T, 128>(q, kp, vp, i32(qs), i32(ql), i32(kl), i32(pt),
-                            out, part, tk, T_, nh, kvh, page, B, ppmax, sk,
-                            s_head, s_page, s_tok, scale, st);
+                            i32(own), out, part, tk, T_, nh, kvh, page, B,
+                            ppmax, sk, s_head, s_page, s_tok, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -651,23 +682,25 @@ int launch(const void* q, const void* kp, const void* vp, const void* qs,
 
 extern "C" int ptt_ragged_paged_attention_bf16(
     const void* q, const void* kp, const void* vp, const void* q_start,
-    const void* q_len, const void* kv_len, const void* page_table, void* out,
-    void* part, void* tickets, int T, int nh, int kvh, int page, int d,
-    int B, int ppmax, int sk, long long s_head, long long s_page,
-    long long s_tok, float scale, void* stream) {
+    const void* q_len, const void* kv_len, const void* page_table,
+    const void* row_tiles, void* out, void* part, void* tickets, int T,
+    int nh, int kvh, int page, int d, int B, int ppmax, int sk,
+    long long s_head, long long s_page, long long s_tok, float scale,
+    void* stream) {
   return launch<__nv_bfloat16>(q, kp, vp, q_start, q_len, kv_len, page_table,
-                               out, part, tickets, T, nh, kvh, page, d, B,
-                               ppmax, sk, s_head, s_page, s_tok, scale,
-                               stream);
+                               row_tiles, out, part, tickets, T, nh, kvh,
+                               page, d, B, ppmax, sk, s_head, s_page, s_tok,
+                               scale, stream);
 }
 
 extern "C" int ptt_ragged_paged_attention_f32(
     const void* q, const void* kp, const void* vp, const void* q_start,
-    const void* q_len, const void* kv_len, const void* page_table, void* out,
-    void* part, void* tickets, int T, int nh, int kvh, int page, int d,
-    int B, int ppmax, int sk, long long s_head, long long s_page,
-    long long s_tok, float scale, void* stream) {
-  return launch<float>(q, kp, vp, q_start, q_len, kv_len, page_table, out,
-                       part, tickets, T, nh, kvh, page, d, B, ppmax, sk,
-                       s_head, s_page, s_tok, scale, stream);
+    const void* q_len, const void* kv_len, const void* page_table,
+    const void* row_tiles, void* out, void* part, void* tickets, int T,
+    int nh, int kvh, int page, int d, int B, int ppmax, int sk,
+    long long s_head, long long s_page, long long s_tok, float scale,
+    void* stream) {
+  return launch<float>(q, kp, vp, q_start, q_len, kv_len, page_table,
+                       row_tiles, out, part, tickets, T, nh, kvh, page, d, B,
+                       ppmax, sk, s_head, s_page, s_tok, scale, stream);
 }

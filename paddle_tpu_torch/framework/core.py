@@ -2,8 +2,9 @@
 policy (counterpart of paddle_tpu/framework/core.py).
 
 Only the flags the ported slices read are registered, with the
-reference's names and defaults (the serving features not yet ported
-default to the reference's kill switches); `get_flag` reads the
+reference's names and defaults (the serving features not yet ported,
+the SLO layer and request tracing, default to the reference's kill
+switches); `get_flag` reads the
 environment first, as the reference does, and `get_bool_flag`
 normalises env strings so `FLAGS_x=0` turns a kill switch off.
 
@@ -45,14 +46,17 @@ _flags: dict = {
     # (kernels/cross_entropy.py) on a CUDA tensor; 0, the default, keeps
     # the plain f32 log-softmax route, as in the reference
     "FLAGS_use_fused_ce": False,
-    # Serving features the reference arms by default (its defaults:
-    # True, 4, True, True). They stand here at the reference's
-    # kill-switch values until ROADMAP Queue 1 items 1 (speculative
-    # decoding), 2 (the SLO layer) and 5 (request tracing) port the
-    # features; `ContinuousBatchingEngine` raises NotImplementedError
-    # when one resolves on.
-    "FLAGS_speculative": False,
-    "FLAGS_speculative_draft_tokens": 0,
+    # self-speculative decoding (chunked-prefill regime, greedy only):
+    # n-gram prompt-lookup drafts of up to FLAGS_speculative_draft_tokens
+    # tokens a decode slot, verified as extra rows of the same ragged
+    # step; 0 is the kill switch (single-token decode rows)
+    "FLAGS_speculative": True,
+    "FLAGS_speculative_draft_tokens": 4,
+    # Serving features the reference arms by default (its defaults: True,
+    # True). They stand here at the reference's kill-switch values until
+    # ROADMAP Queue 1 items 2 (the SLO layer) and 5 (request tracing)
+    # port the features; `ContinuousBatchingEngine` raises
+    # NotImplementedError when one resolves on.
     "FLAGS_serving_slo": False,
     "FLAGS_request_trace": False,
     # read by jit.TrainStep after each step, as the reference's TrainStep

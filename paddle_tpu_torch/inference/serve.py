@@ -3,8 +3,12 @@ serving front-end over a saved model (counterpart of
 paddle_tpu/inference/serve.py; same CLI plus --device).
 
 Artifact: `<prefix>.pt` + `<prefix>.config.json` (or --config), as
-written by `gateway.save_for_serving`. Serves `POST /v1/generate` and
-`GET /healthz`. Prints `serving on http://<host>:<port>` once listening.
+written by `gateway.save_for_serving`. Serves `POST /v1/generate` (one
+SSE frame a tick, with every token the tick produced: several when
+speculative drafts were accepted) and `GET /healthz` (the engine's
+health snapshot, its `speculative` block among it: armed, the draft
+cap, drafted, accepted, acceptance rate). Prints
+`serving on http://<host>:<port>` once listening.
 
 Signals: SIGTERM/SIGINT start a graceful drain — /healthz flips to 503,
 new submits get 503, in-flight streams finish (bounded by
@@ -52,9 +56,11 @@ def _build_parser():
     p.add_argument("--quantize", choices=("int8",), default=None,
                    help="not ported yet — setting it is an error")
     p.add_argument("--max-draft-tokens", type=int, default=None,
-                   help="self-speculative draft-length cap "
-                        "(speculation is not ported yet — a value > 0 is "
-                        "an error; 0 is the reference's kill switch)")
+                   help="self-speculative draft-length cap (default "
+                        "FLAGS_speculative_draft_tokens, 4; 0 disables "
+                        "drafting for this engine); GET /healthz reports "
+                        "it under engine.speculative with the drafted and "
+                        "accepted counts")
     p.add_argument("--keepalive-s", type=float, default=0.5,
                    help="SSE keepalive interval (doubles as the "
                         "client-disconnect probe)")

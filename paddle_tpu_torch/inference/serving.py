@@ -24,6 +24,26 @@ selected by `ragged=` or FLAGS_ragged_attention (default on):
 Both regimes preempt the latest-admitted sequence on pool exhaustion
 (recompute-style resume).
 
+Self-speculative decoding (`speculative=` / FLAGS_speculative, default
+on with FLAGS_speculative_draft_tokens = 4 drafts, as in the reference;
+ragged regime, greedy only): an n-gram prompt-lookup drafter
+(`_ngram_propose`) proposes up to k continuation tokens per decode slot
+from the request's own prompt and output. They ride the decode row as
+extra rows of the same ragged step (q_len = 1 + k), funded only from the
+tick's leftover `max_chunk_tokens` budget and never from the pool's last
+free page, so `_T_pack` stays the one padded shape. Greedy verification
+commits the longest agreeing prefix plus the bonus token, exactly the
+tokens the non-speculative engine would produce one tick at a time;
+rejected rows roll back by truncating the slot's length, and pages
+wholly past it return through the refcounted free. Each slot halves its
+draft length on low acceptance and doubles it back after
+`spec_hysteresis` ticks of full acceptance. On the card every row of a
+decode or verify entry attends on a tile of its own
+(`ragged_paged_attention(row_tiles=)`) and the verify logits are K
+products of the last-row lm-head shape, so a verify row is bitwise the
+decode row it stands for. FLAGS_speculative=0 (or `max_draft_tokens=0`)
+is the kill switch: the step runs exactly as without speculation.
+
 Differences from the reference, by design:
 * the KV pools are torch tensors updated IN PLACE by index writes (the
   reference donates its pools to the compiled step instead);
@@ -33,20 +53,17 @@ Differences from the reference, by design:
 Not ported yet — asking for them raises NotImplementedError: the SLO
 layer (`slo=True` / FLAGS_serving_slo: priorities, deadlines, queue
 bound, shedding, degradation, fault isolation; a request with a
-`priority` or a `deadline_s` is refused at submission), speculative
-decoding (`speculative=True` / FLAGS_speculative, or a draft length
-`max_draft_tokens` / FLAGS_speculative_draft_tokens > 0 unless
-`speculative=False`), request tracing (`request_trace=True` /
-FLAGS_request_trace), int8 weights. The metrics/export/fault-injection
-hooks the reference engine calls are absent.
+`priority` or a `deadline_s` is refused at submission), request tracing
+(`request_trace=True` / FLAGS_request_trace), int8 weights. The
+metrics/export/fault-injection hooks the reference engine calls are
+absent (speculation's fault points, counters and trace events among
+them).
 
 Defaults: the reference arms speculation, the SLO layer and request
-tracing by default; the port's flags default to the reference's
-kill-switch values (False / 0), so the port's default engine is the
-reference's engine built with `speculative=False, slo=False,
-request_trace=False`. Greedy tokens are identical to the reference's
-default engine by design (speculation is token-exact); ticks, TTFT and
-rates are those of the kill-switch configuration.
+tracing by default; the port arms speculation as the reference does,
+and its SLO and tracing flags default to the reference's kill-switch
+values (False), so the port's default engine is the reference's engine
+built with `slo=False, request_trace=False`.
 """
 from __future__ import annotations
 
@@ -88,6 +105,10 @@ class GenerationRequest:
     first_token_s: Optional[float] = None
     status: str = "queued"
     error: Optional[str] = None
+    # speculative decoding: draft tokens this request's slot proposed
+    # and had confirmed
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     # cache-aware admission: how many times a hotter-prefix waiter was
     # admitted ahead of this one (bounded by cache_jump_limit)
     admit_bypassed: int = 0
@@ -99,7 +120,8 @@ class GenerationRequest:
 
 class _Slot:
     __slots__ = ("req", "length", "produced", "last_token", "admit_seq",
-                 "pending", "prefix_tokens", "cache_upto", "cache_key")
+                 "pending", "prefix_tokens", "cache_upto", "cache_key",
+                 "spec_k", "spec_calm")
 
     def __init__(self):
         self.req: Optional[GenerationRequest] = None
@@ -114,6 +136,11 @@ class _Slot:
         self.prefix_tokens: List[int] = []
         self.cache_upto = 0
         self.cache_key = b""
+        # speculative decoding: the slot's current draft-length cap
+        # (adaptive) and its count of full-acceptance ticks since the cap
+        # last moved
+        self.spec_k = 0
+        self.spec_calm = 0
 
     @property
     def free(self):
@@ -360,6 +387,38 @@ class _PrefixCache:
                 if self.pages_seen else 0.0}
 
 
+# ---------------- self-speculative drafting ---------------------------------
+
+
+def _ngram_propose(ctx: List[int], k: int, max_ngram: int,
+                   min_ngram: int) -> List[int]:
+    """Prompt-lookup drafting (the self-speculative n-gram rule): match
+    the last n tokens of `ctx` (prompt + generated history) against the
+    earlier context, longest n first, and propose up to k continuation
+    tokens from the MOST RECENT occurrence, preferring the most recent
+    one with a full k-token continuation. No draft model: the bet is that
+    output quotes its input or repeats itself, and exact verification
+    makes a wrong bet cost only the tick's spare rows."""
+    L = len(ctx)
+    if k <= 0 or L < min_ngram + 1:
+        return []
+    arr = np.asarray(ctx, np.int64)
+    for n in range(min(max_ngram, L - 1), min_ngram - 1, -1):
+        pat = arr[L - n:]
+        # windows over ctx[:-1], so every match has >= 1 continuation
+        # token; a match overlapping the suffix is how a period-p
+        # repetition extends itself
+        win = np.lib.stride_tricks.sliding_window_view(arr[:L - 1], n)
+        hits = np.nonzero((win == pat).all(axis=1))[0]
+        if hits.size:
+            # a match butting up against the end of history truncates
+            # the proposal: prefer the newest one with k tokens after it
+            full = hits[hits + n + k <= L]
+            j = int(full[-1]) if full.size else int(hits[-1])
+            return [int(t) for t in arr[j + n:j + n + k]]
+    return []
+
+
 # ---------------- engine ---------------------------------------------------
 
 def _next_tokens(logits, greedy, gen):
@@ -381,13 +440,21 @@ class ContinuousBatchingEngine:
     max_chunk_tokens bounds the prefill tokens packed into one ragged
     tick; prefix_cache=None follows FLAGS_prefix_cache (ragged regime
     only). device: where the step runs (default `cuda`;
-    with no card this raises unless device='cpu' is passed). The
-    reference's other knobs are accepted with their defaults; asking for
-    an unported feature raises NotImplementedError (module docstring).
-    speculative, slo and request_trace resolve as the reference's do
-    (the flag when the argument is None), but the port's flags default
-    to the reference's kill switches: the default engine is the
-    reference's with speculation, the SLO layer and tracing off."""
+    with no card this raises unless device='cpu' is passed).
+
+    speculative=None follows FLAGS_speculative (ragged + greedy only):
+    self-speculative n-gram drafting with multi-token verification rows;
+    max_draft_tokens caps the per-slot draft length (None =
+    FLAGS_speculative_draft_tokens), spec_min_ngram / spec_max_ngram
+    bound the prompt-lookup match, and spec_hysteresis is the count of
+    full-acceptance ticks before a backed-off slot doubles its draft
+    length again.
+
+    The reference's other knobs are accepted with their defaults; asking
+    for an unported feature raises NotImplementedError (module
+    docstring). slo and request_trace resolve as the reference's do (the
+    flag when the argument is None), but the port's flags for them
+    default to the reference's kill switches."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 256,
                  prefill_buckets=(32, 64, 128, 256), quantize=None,
@@ -397,7 +464,8 @@ class ContinuousBatchingEngine:
                  prefix_cache: Optional[bool] = None,
                  speculative: Optional[bool] = None,
                  max_draft_tokens: Optional[int] = None,
-                 cache_jump_limit: int = 8,
+                 spec_min_ngram: int = 1, spec_max_ngram: int = 3,
+                 spec_hysteresis: int = 4, cache_jump_limit: int = 8,
                  slo: Optional[bool] = None,
                  max_queue_tokens: Optional[int] = None,
                  request_trace: Optional[bool] = None,
@@ -407,23 +475,13 @@ class ContinuousBatchingEngine:
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))
         # resolved as the reference resolves them: the flag when the
-        # argument is None (the port's flags default to the reference's
-        # kill switches)
-        spec = (_core.get_bool_flag("FLAGS_speculative")
-                if speculative is None else bool(speculative))
-        drafts = (int(_core.get_flag("FLAGS_speculative_draft_tokens", 0)
-                      or 0) if max_draft_tokens is None
-                  else int(max_draft_tokens))
+        # argument is None (the port's flags for the unported features
+        # default to the reference's kill switches)
         slo_on = (_core.get_bool_flag("FLAGS_serving_slo")
                   if slo is None else bool(slo))
         trace_on = (_core.get_bool_flag("FLAGS_request_trace")
                     if request_trace is None else bool(request_trace))
-        unported = [(spec, "speculative decoding (speculative / "
-                           "FLAGS_speculative)"),
-                    (drafts > 0 and speculative is not False,
-                     f"speculative decoding (max_draft_tokens / "
-                     f"FLAGS_speculative_draft_tokens = {drafts})"),
-                    (slo_on, "the SLO layer (slo / FLAGS_serving_slo)"),
+        unported = [(slo_on, "the SLO layer (slo / FLAGS_serving_slo)"),
                     (max_queue_tokens is not None,
                      "admission control (max_queue_tokens, SLO layer)"),
                     (trace_on, "request tracing (request_trace / "
@@ -484,6 +542,24 @@ class ContinuousBatchingEngine:
                if prefix_cache is None else bool(prefix_cache))
         self._pcache = (_PrefixCache(self.pool, page)
                         if pfx and self._ragged else None)
+        # self-speculative decoding: ragged + GREEDY only (verification
+        # is greedy-argmax agreement, so a sampling engine never
+        # speculates); FLAGS_speculative=0 or max_draft_tokens=0 is the
+        # kill switch. Draft rows ride the max_chunk_tokens budget, so
+        # _T_pack stays the one padded shape.
+        spec = (_core.get_bool_flag("FLAGS_speculative", True)
+                if speculative is None else bool(speculative))
+        if max_draft_tokens is None:
+            max_draft_tokens = int(_core.get_flag(
+                "FLAGS_speculative_draft_tokens", 4) or 0)
+        self.max_draft_tokens = max(int(max_draft_tokens), 0)
+        self._spec = (spec and self._ragged and self.greedy
+                      and self.max_draft_tokens > 0)
+        self.spec_min_ngram = max(int(spec_min_ngram), 1)
+        self.spec_max_ngram = max(int(spec_max_ngram), self.spec_min_ngram)
+        self.spec_hysteresis = max(int(spec_hysteresis), 1)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self.cache_jump_limit = max(int(cache_jump_limit), 1)
         self.cache_aware_admits = 0
         self._probe_memo: Dict[int, Tuple[int, int, int]] = {}
@@ -505,8 +581,26 @@ class ContinuousBatchingEngine:
         page_table, q_start[B], q_len[B], kv_len[B], produce[B], prev[B],
         generator) -> (next[B], k_pool, v_pool) — ONE mixed prefill +
         decode step; next[b] comes from sequence b's last packed row and
-        stays prev[b] where produce[b] is False."""
+        stays prev[b] where produce[b] is False. Speculation armed, the
+        13th argument is `verify[B]` (the decode and verify entries)
+        instead of prev, and next is the argmax of each sequence's last
+        min(K, q_len) rows, [B, K] right-aligned (K = max_draft_tokens
+        + 1)."""
         cfg, greedy, wls = self.cfg, self.greedy, self._wls
+        if self._spec:
+            K = self.max_draft_tokens + 1
+
+            def rstep_spec(state, toks, k_pool, v_pool, page_ids, offs,
+                           pos, page_table, q_start, q_len, kv_len,
+                           produce, verify, gen):
+                lg, k_pool, v_pool = L._ragged_step_paged(
+                    state, cfg, toks, pos, k_pool, v_pool, page_ids, offs,
+                    page_table, q_start, q_len, kv_len, verify_rows=K,
+                    wls=wls, row_tiles=verify)
+                return (torch.argmax(lg, dim=-1).to(torch.int32), k_pool,
+                        v_pool)
+
+            return rstep_spec
 
         def rstep(state, toks, k_pool, v_pool, page_ids, offs, pos,
                   page_table, q_start, q_len, kv_len, produce, prev, gen):
@@ -832,6 +926,8 @@ class ContinuousBatchingEngine:
             slot.prefix_tokens = eff
             slot.cache_upto = len(cached)
             slot.cache_key = ckey
+            slot.spec_k = self.max_draft_tokens
+            slot.spec_calm = 0
             slot.admit_seq = self._admit_seq
             self._admit_seq += 1
             self.slot_pages[i] = list(cached)
@@ -876,6 +972,11 @@ class ContinuousBatchingEngine:
                 entries.append((i, list(slot.pending[:chunk]), True))
                 self.prefill_tokens_total += chunk
                 budget -= chunk
+            if self._spec and budget > 0:
+                # the leftover row budget funds draft tokens: prefill
+                # always outranks speculation, and the packed total still
+                # fits _T_pack
+                self._fund_drafts(entries, budget)
             if entries:
                 return entries
             active = [i for i, s in enumerate(self.slots) if not s.free]
@@ -884,6 +985,120 @@ class ContinuousBatchingEngine:
             victims = [i for i in active if self.slot_pages[i]] or active
             self._preempt(max(victims,
                               key=lambda j: self.slots[j].admit_seq))
+
+    # -- self-speculative decoding -------------------------------------------
+
+    def _draft_for_slot(self, i: int, budget: int) -> List[int]:
+        """Up to slot.spec_k draft tokens for decode-phase slot i,
+        clamped by the tick's spare row budget, the request's remaining
+        token allowance (k + 1 tokens can land per verified entry), and
+        the slot's KV capacity (rows write positions length..length+k)."""
+        slot = self.slots[i]
+        req = slot.req
+        k = min(slot.spec_k, budget,
+                req.max_new_tokens - slot.produced - 1,
+                self.S - 1 - slot.length)
+        if k <= 0:
+            return []
+        return _ngram_propose(list(req.prompt) + list(req.output), k,
+                              self.spec_max_ngram, self.spec_min_ngram)
+
+    def _fund_drafts(self, entries, budget: int) -> None:
+        """Extend decode rows with draft tokens, funding their KV pages
+        at token granularity. Speculation is best-effort: it never takes
+        the pool's LAST free page and never preempts, so decode growth,
+        prefill chunks and admission are never starved by a bet."""
+        page = self.page
+        for idx, (i, rows, is_prefill) in enumerate(entries):
+            if budget <= 0:
+                break
+            if is_prefill:
+                continue
+            drafts = self._draft_for_slot(i, budget)
+            if not drafts:
+                continue
+            slot = self.slots[i]
+            have = len(self.slot_pages[i]) * page
+            spare = max(self.pool.n_free - 1, 0)
+            # page funding, the per-slot KV ceiling and the verify window
+            # (max_draft_tokens + 1 rows), enforced here even when an
+            # overriding drafter ignores _draft_for_slot's clamps
+            cap_tokens = min(have + spare * page - slot.length - 1,
+                             self.S - 1 - slot.length,
+                             self.max_draft_tokens, budget)
+            drafts = drafts[:max(cap_tokens, 0)]
+            if not drafts:
+                continue
+            need = (-(-(slot.length + 1 + len(drafts)) // page)
+                    - len(self.slot_pages[i]))
+            if need > 0:
+                pages = self.pool.alloc(need)   # <= spare: succeeds
+                if pages is None:
+                    continue
+                n0 = len(self.slot_pages[i])
+                self.slot_pages[i].extend(pages)
+                self.page_table[i, n0:n0 + need] = pages
+            entries[idx] = (i, rows + drafts, False)
+            budget -= len(drafts)
+
+    def _verify_and_commit(self, i: int, rows: List[int], row_tok):
+        """Greedy verification: row j's argmax is the true next token
+        after row j's input, and draft d_j rode row j, so d_j is confirmed
+        iff row j-1's argmax equals it. The longest agreeing prefix
+        commits, plus the bonus token of the first disagreeing row;
+        commits stop at max_new_tokens, at EOS and at the capacity cap.
+        Rejected rows roll back exactly: the slot's length truncates, and
+        pages wholly past it return to the pool through the refcounted
+        free (draft rows only ever write past the prompt, so a
+        prefix-shared page is never written; the refcount keeps it in any
+        case). row_tok: [B, K] right-aligned verify-row argmax, this
+        entry's n rows at K-n..K-1."""
+        slot = self.slots[i]
+        req = slot.req
+        n = len(rows)
+        drafted = n - 1
+        K = row_tok.shape[1]
+        cap = min(self.S, (self.pool.n_pages - 1) * self.page)
+        appended = 0
+        for j in range(n):
+            t = int(row_tok[i, K - n + j])
+            req.output.append(t)
+            appended += 1
+            slot.last_token = t
+            slot.produced = len(req.output)
+            if (slot.produced >= req.max_new_tokens
+                    or (req.eos_token_id is not None
+                        and t == req.eos_token_id)
+                    or slot.length + j + 2 > cap - 1):
+                break                    # the request finishes here
+            if j + 1 < n and rows[j + 1] != t:
+                break                    # draft j+1 refuted: t replaces it
+        slot.length += appended
+        accepted = min(appended - 1, drafted)
+        keep = -(-slot.length // self.page)
+        if len(self.slot_pages[i]) > keep:
+            extra = self.slot_pages[i][keep:]
+            del self.slot_pages[i][keep:]
+            self.page_table[i, keep:keep + len(extra)] = 0
+            self.pool.free(extra)
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        req.spec_drafted += drafted
+        req.spec_accepted += accepted
+        # adaptive draft length: back off fast, regrow slowly
+        if accepted == drafted and drafted > 0:
+            slot.spec_calm += 1
+            if (slot.spec_calm >= self.spec_hysteresis
+                    and slot.spec_k < self.max_draft_tokens):
+                slot.spec_k = min(self.max_draft_tokens,
+                                  max(slot.spec_k * 2, 1))
+                slot.spec_calm = 0
+        else:
+            slot.spec_calm = 0
+            if 2 * accepted < drafted:
+                slot.spec_k = max(1, slot.spec_k // 2)
+        self._note_first_token(req)
+        self._maybe_finish(i)
 
     def _offer_prefix(self, i: int):
         """Offer slot i's newly COMPLETED prompt pages to the index."""
@@ -917,7 +1132,8 @@ class ContinuousBatchingEngine:
         kv_len = np.zeros((B,), np.int32)
         produce = np.zeros((B,), bool)
         prev = np.zeros((B,), np.int32)
-        cur = 0
+        verify = np.zeros((B,), bool)    # decode entries (spec): every
+        cur = 0                          # row's argmax may be consumed
         for i, rows, is_prefill in entries:
             slot = self.slots[i]
             n = len(rows)
@@ -925,6 +1141,7 @@ class ContinuousBatchingEngine:
             q_len[i] = n
             kv_len[i] = slot.length + n
             prev[i] = slot.last_token
+            verify[i] = not is_prefill
             # only a COMPLETED prompt (or a decode row) yields a token
             produce[i] = (not is_prefill) or n == len(slot.pending)
             for t, tok in enumerate(rows):
@@ -939,13 +1156,21 @@ class ContinuousBatchingEngine:
         nxt, self.k_pool, self.v_pool = self._ragged_fn()(
             self.state, dev(toks), self.k_pool, self.v_pool, dev(page_ids),
             dev(offs), dev(pos), dev(self.page_table), dev(q_start),
-            dev(q_len), dev(kv_len), dev(produce), dev(prev), self._gen)
+            dev(q_len), dev(kv_len), dev(produce),
+            # the speculative step takes the verify mask where the
+            # non-speculative one takes the previous tokens
+            dev(verify if self._spec else prev), self._gen)
         self.model_steps += 1
         nxt = nxt.cpu().numpy()
         for i, rows, is_prefill in entries:
             slot = self.slots[i]
             req = slot.req
             n = len(rows)
+            if self._spec and not is_prefill and n > 1:
+                # a decode row carrying drafts: commit the longest
+                # agreeing prefix, roll the rest back
+                self._verify_and_commit(i, rows, nxt)
+                continue
             slot.length += n
             if is_prefill:
                 del slot.pending[:n]
@@ -955,7 +1180,9 @@ class ContinuousBatchingEngine:
                     self._offer_prefix(i)
                 if slot.pending:
                     continue             # prompt still streaming in
-            tok = int(nxt[i])
+            # speculation armed, a sequence's produced token is its last
+            # row's, in the last slot of its right-aligned window
+            tok = int(nxt[i, -1] if self._spec else nxt[i])
             slot.last_token = tok
             req.output.append(tok)
             slot.produced = len(req.output)
@@ -1006,6 +1233,15 @@ class ContinuousBatchingEngine:
             "accepting": True,
             "counters": {"preemptions": self.preemptions,
                          "cache_aware_admits": self.cache_aware_admits},
+            "speculative": {
+                "armed": self._spec,
+                "max_draft_tokens": self.max_draft_tokens,
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": (
+                    round(self.spec_accepted / self.spec_drafted, 4)
+                    if self.spec_drafted else 0.0),
+            },
         }
         if self._pcache is not None:
             snap["prefix_cache"] = {**self._pcache.stats(),

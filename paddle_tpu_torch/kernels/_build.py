@@ -101,13 +101,13 @@ _SIGNATURES = {
                                     + (_F, _P),
     "ptt_block_attention_fwd_f32": (_P,) * 8 + (_I,) * 6 + (_LL,) * 4
                                    + (_F, _P),
-    # q, k_pages, v_pages, q_start, q_len, kv_len, page_table, out,
-    # split scratch (or null), tickets, T, nh, kvh, page, d, B, ppmax,
-    # keys per split, pool strides (head, page, token; elements), scale,
-    # stream
-    "ptt_ragged_paged_attention_bf16": (_P,) * 10 + (_I,) * 8 + (_LL,) * 3
+    # q, k_pages, v_pages, q_start, q_len, kv_len, page_table, row-tile
+    # flags (or null), out, split scratch (or null), tickets, T, nh, kvh,
+    # page, d, B, ppmax, keys per split, pool strides (head, page, token;
+    # elements), scale, stream
+    "ptt_ragged_paged_attention_bf16": (_P,) * 11 + (_I,) * 8 + (_LL,) * 3
                                        + (_F, _P),
-    "ptt_ragged_paged_attention_f32": (_P,) * 10 + (_I,) * 8 + (_LL,) * 3
+    "ptt_ragged_paged_attention_f32": (_P,) * 11 + (_I,) * 8 + (_LL,) * 3
                                       + (_F, _P),
     # q, k_pages, v_pages, lengths, page_indices, out, split scratch (or
     # null), tickets, B, nh, kvh, page, ppseq, pages per split, d, pool

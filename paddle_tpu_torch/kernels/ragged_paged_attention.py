@@ -21,10 +21,13 @@ kernel): per kv head, a sequence's rows with their rep q heads packed in
 are cut into tiles (64-row tensor-core tiles in bf16 for a sequence of
 more than 8 packed rows, else 8-row walk tiles), and each tile's keys
 into splits of `_paged_split.SPLIT_KEYS` keys, merged exactly in split
-order. `_schedule` mirrors the kernel's schedule and
-`_split_plain` runs it in plain PyTorch for the CPU tests. The pool may
-be any strided view with unit stride along d (the kernel takes its outer
-strides); it is never copied.
+order. A sequence flagged in `row_tiles` (the engine's decode and
+speculative verify entries) is cut per local row instead: each row's rep
+packed rows are tiled as a q_len = 1 sequence's, so every row of such an
+entry computes bitwise what it would as a decode row. `_schedule`
+mirrors the kernel's schedule and `_split_plain` runs it in plain
+PyTorch for the CPU tests. The pool may be any strided view with unit
+stride along d (the kernel takes its outer strides); it is never copied.
 """
 from __future__ import annotations
 
@@ -119,44 +122,52 @@ def _split_keys(S):
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plan(T, nh, kvh, d, B, S, bf16, split_keys):
+def _launch_plan(T, nh, kvh, d, B, S, bf16, split_keys, row_tiles):
     """(keys per split, tickets, f32 scratch elements) of a launch, worked
     out once a shape: the wrapper runs every serving step of every layer.
     Tickets: one a tile and kv head, with one walk tile per sequence of
-    <= WALK_ROWS packed rows and ceil(rows / tile) for the rest."""
+    <= WALK_ROWS packed rows and ceil(rows / tile) for the rest, and with
+    row tiles one more a local row."""
     sk = _paged_split.split_keys(split_keys, S, _KT)
-    tiles = -(-T * (nh // kvh) // (TILE_ROWS if bf16 else WALK_ROWS)) + B
+    tiles = (-(-T * (nh // kvh) // (TILE_ROWS if bf16 else WALK_ROWS)) + B
+             + (T if row_tiles else 0))
     return (sk, tiles * kvh,
             _paged_split.scratch_floats(-(-S // sk), T * nh, d))
 
 
-def _schedule(q_len, kv_len, rep, S, tensor_tiles):
+def _schedule(q_len, kv_len, rep, S, tensor_tiles, row_tiles=None):
     """The kernel's tiles, per sequence: a list of (r0, r1, keys per
     split, kend, live splits) over its q_len * rep packed rows (packed
-    row r = local row r // rep, head r % rep of the kv head). A sequence
-    of more than WALK_ROWS packed rows takes TILE_ROWS-row tiles when
-    `tensor_tiles` (bf16), else WALK_ROWS-row walk tiles; a tile's keys
-    end at its last row's causal limit, cut to kv_len and to the table's
-    S keys."""
+    row r = local row r // rep, head r % rep of the kv head). The rows
+    are cut into groups: all of them, or each local row's rep where
+    `row_tiles` flags the sequence. A group of more than WALK_ROWS
+    packed rows takes TILE_ROWS-row tiles when `tensor_tiles` (bf16),
+    else WALK_ROWS-row walk tiles; a tile's keys end at its last row's
+    causal limit, cut to kv_len and to the table's S keys."""
     sk = _split_keys(S)
+    own = ([False] * len(q_len) if row_tiles is None
+           else [bool(x) for x in row_tiles.tolist()])
     out = []
-    for ql, kl in zip(q_len.tolist(), kv_len.tolist()):
+    for ql, kl, rt in zip(q_len.tolist(), kv_len.tolist(), own):
         nrows = max(ql, 0) * rep
-        rpt = TILE_ROWS if tensor_tiles and nrows > WALK_ROWS else WALK_ROWS
+        gs = rep if rt else nrows
+        rpt = TILE_ROWS if tensor_tiles and gs > WALK_ROWS else WALK_ROWS
         tiles = []
-        for r0 in range(0, nrows, rpt):
-            r1 = min(r0 + rpt, nrows)
-            kend = min(kl, S, kl - ql + (r1 - 1) // rep + 1)
-            tiles.append((r0, r1, sk, kend,
-                          1 if kend <= 0 else -(-kend // sk)))
+        for g0 in range(0, nrows, max(gs, 1)):
+            for r0 in range(g0, g0 + gs, rpt):
+                r1 = min(r0 + rpt, g0 + gs)
+                kend = min(kl, S, kl - ql + (r1 - 1) // rep + 1)
+                tiles.append((r0, r1, sk, kend,
+                              1 if kend <= 0 else -(-kend // sk)))
         out.append(tiles)
     return out
 
 
 def _split_plain(q, k_pages, v_pages, q_start, q_len, kv_len, page_table,
-                 scale, tensor_tiles=None):
+                 scale, tensor_tiles=None, row_tiles=None):
     """The kernel's schedule (`_schedule`; tensor_tiles defaults to q's
-    dtype being bf16) and merge in plain PyTorch, f32 math
+    dtype being bf16; `row_tiles` as the wrapper's) and merge in plain
+    PyTorch, f32 math
     (`_paged_split.split_attention`): each row's keys up to its causal
     limit, cut into its tile's splits, merged in split order; rows of no
     sequence are zero. For the CPU tests; the output is q's dtype."""
@@ -169,7 +180,8 @@ def _split_plain(q, k_pages, v_pages, q_start, q_len, kv_len, page_table,
         tensor_tiles = q.dtype == torch.bfloat16
     q_start, q_len, kv_len = (x.long().cpu() for x in (q_start, q_len,
                                                        kv_len))
-    sched = _schedule(q_len, kv_len, rep, S, tensor_tiles)
+    sched = _schedule(q_len, kv_len, rep, S, tensor_tiles,
+                      None if row_tiles is None else row_tiles.cpu())
     # each (row, head): its sequence, its key limit and its tile's split
     sid = torch.zeros(T, nh, dtype=torch.long)
     kend = torch.zeros(T, nh, dtype=torch.long)
@@ -209,7 +221,8 @@ def _split_plain(q, k_pages, v_pages, q_start, q_len, kv_len, page_table,
     return o.reshape(T, nh, d).to(q.dtype)
 
 
-def _launch(q, k_pages, v_pages, q_start, q_len, kv_len, page_table, scale):
+def _launch(q, k_pages, v_pages, q_start, q_len, kv_len, page_table, scale,
+            row_tiles):
     T, nh, d = q.shape
     kvh, _, page, _ = k_pages.shape
     B, ppmax = page_table.shape
@@ -219,10 +232,13 @@ def _launch(q, k_pages, v_pages, q_start, q_len, kv_len, page_table, scale):
         raise ValueError("ragged_paged_attention: q is not 16-byte aligned")
     meta = [x.to(device=dev, dtype=torch.int32).contiguous()
             for x in (q_start, q_len, kv_len, page_table)]
+    if row_tiles is not None:
+        row_tiles = row_tiles.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(qc)          # every row is written by the kernel
     bf16 = q.dtype == torch.bfloat16
     sk, n_tickets, n_scratch = _launch_plan(T, nh, kvh, d, B, ppmax * page,
-                                            bf16, _paged_split.SPLIT_KEYS)
+                                            bf16, _paged_split.SPLIT_KEYS,
+                                            row_tiles is not None)
     lib = _build.library()
     fn = (lib.ptt_ragged_paged_attention_bf16 if bf16
           else lib.ptt_ragged_paged_attention_f32)
@@ -232,6 +248,7 @@ def _launch(q, k_pages, v_pages, q_start, q_len, kv_len, page_table, scale):
                                                      n_scratch)
         _build.check(fn(qc.data_ptr(), k_pages.data_ptr(),
                         v_pages.data_ptr(), *(m.data_ptr() for m in meta),
+                        None if row_tiles is None else row_tiles.data_ptr(),
                         out.data_ptr(), part, tickets, T, nh, kvh, page, d, B,
                         ppmax, sk, s_head, s_page, s_tok, float(scale),
                         stream),
@@ -241,13 +258,17 @@ def _launch(q, k_pages, v_pages, q_start, q_len, kv_len, page_table, scale):
 
 
 def ragged_paged_attention(q, k_pages, v_pages, q_start, q_len, kv_len,
-                           page_table, scale=None, use_kernel=None):
+                           page_table, scale=None, use_kernel=None,
+                           row_tiles=None):
     """Packed ragged causal attention over the paged KV pool.
 
     q: [T, nh, d]; k/v_pages: [kvh, n_pages, page, d] (any strides with
     unit stride on d on the card); q_start/q_len/kv_len: i32[B];
-    page_table: i32[B, ppmax]. Returns
-    [T, nh, d] in q.dtype (f32 math).
+    page_table: i32[B, ppmax]; row_tiles: None or bool/i32[B], the
+    sequences whose rows each take tiles of their own on the card (every
+    row bitwise what it gives as a q_len = 1 decode row; the CPU route
+    computes each row alone in any case). Returns [T, nh, d] in q.dtype
+    (f32 math).
 
     use_kernel=None routes by device (kernel on CUDA, plain on CPU);
     True demands the kernel and raises ValueError for a CPU tensor or a
@@ -280,7 +301,7 @@ def ragged_paged_attention(q, k_pages, v_pages, q_start, q_len, kv_len,
             f"strides {k_pages.stride()} / {v_pages.stride()} (need unit "
             f"stride on d, equal k/v strides, 16-byte vectors)")
     return _launch(q, k_pages, v_pages, q_start, q_len, kv_len, page_table,
-                   scale)
+                   scale, row_tiles)
 
 
 ragged_paged_attention.launches = 0

@@ -684,14 +684,15 @@ def _decode_step_paged(state, cfg, toks, k_pool, v_pool, page_table, lens,
 
 
 def _block_ragged(cfg, h, wl, kp, vp, pos, page_ids, offs, page_table,
-                  q_start, q_len, kv_len):
+                  q_start, q_len, kv_len, row_tiles=None):
     """One decoder layer over packed ragged rows against the page pool.
 
     h: [T, H] packed rows; kp/vp: [kvh, P, page, d] (this layer's pool,
     written IN PLACE); pos: i32[T] absolute positions; page_ids/offs:
     i32[T] page id + in-page offset for each row's KV write (padding
     rows carry page 0 = scratch); page_table: i32[B, ppmax];
-    q_start/q_len/kv_len: i32[B] (kv_len includes this step's rows).
+    q_start/q_len/kv_len: i32[B] (kv_len includes this step's rows);
+    row_tiles: the attention kernel's per-row tiling flags (None: off).
     Returns h."""
     T = h.shape[0]
     nh, d = cfg.num_attention_heads, cfg.head_dim
@@ -705,7 +706,8 @@ def _block_ragged(cfg, h, wl, kp, vp, pos, page_ids, offs, page_table,
     kp[:, pid, off] = k.transpose(0, 1).to(kp.dtype)
     vp[:, pid, off] = v.transpose(0, 1).to(vp.dtype)
     o = krpa.ragged_paged_attention(q, kp, vp, q_start, q_len, kv_len,
-                                    page_table, scale=1.0 / math.sqrt(d))
+                                    page_table, scale=1.0 / math.sqrt(d),
+                                    row_tiles=row_tiles)
     h = h + o.to(h.dtype).reshape(T, nh * d) @ wl["self_attn.o_proj"]
     a2 = _rms(h, wl["post_attention_layernorm.weight"], cfg.rms_norm_eps)
     up = _serving_mlp(a2, wl)
@@ -715,7 +717,7 @@ def _block_ragged(cfg, h, wl, kp, vp, pos, page_ids, offs, page_table,
 @torch.no_grad()
 def _ragged_step_paged(state, cfg, toks, pos, k_pool, v_pool, page_ids,
                        offs, page_table, q_start, q_len, kv_len,
-                       verify_rows=None, wls=None):
+                       verify_rows=None, wls=None, row_tiles=None):
     """Mixed prefill-chunk + decode rows in ONE step over the page pool.
 
     toks/pos/page_ids/offs: i32[T] packed rows (padding rows: token 0,
@@ -725,23 +727,53 @@ def _ragged_step_paged(state, cfg, toks, pos, k_pool, v_pool, page_ids,
     logits at sequence b's LAST packed row (garbage for q_len == 0
     slots — callers mask). `wls` passes pre-gathered per-layer weights
     (`_gather_layer_weights`) so a caller stepping repeatedly gathers
-    once. The speculative `verify_rows` branch is not ported yet."""
-    if verify_rows:
-        raise NotImplementedError(
-            "verify_rows (speculative verification) is not ported yet")
-    T = toks.shape[0]
+    once.
+
+    verify_rows=K (speculation armed): returns f32 logits [B, K, V] for
+    each sequence's LAST min(K, q_len) packed rows instead, right-
+    aligned (slot K-1 is the last row; short sequences repeat their
+    first row in the unused leading slots — callers mask). Each slot is
+    its own lm-head product of the last-row branch's [B, 1, H] shape,
+    so a row's logits are bitwise what that branch gives for the same
+    row. row_tiles: bool/i32[B], the sequences (decode and verify
+    entries) whose every row the attention kernel tiles as a q_len = 1
+    decode row, so that a verify row is bitwise a decode row."""
     h = state["model.embed_tokens"][toks.long()]             # [T, H]
     if wls is None:
         wls = _gather_layer_weights(state, cfg)
+    if row_tiles is not None:
+        row_tiles = row_tiles.to(torch.int32)   # once, not once a layer
     for li, wl in enumerate(wls):
         h = _block_ragged(cfg, h, wl, k_pool[li], v_pool[li], pos, page_ids,
-                          offs, page_table, q_start, q_len, kv_len)
+                          offs, page_table, q_start, q_len, kv_len,
+                          row_tiles)
     h = _rms(h, state["model.norm.weight"], cfg.rms_norm_eps)
-    # rank-3 matmul, as in the reference (its parity note: the batched
-    # form is what every other decode path uses)
-    last = torch.clamp(q_start.long() + q_len.long() - 1, 0, T - 1)
-    h_last = h[last][:, None]                                # [B, 1, H]
-    return _lm_head(state, h_last).float()[:, 0], k_pool, v_pool
+    if verify_rows:
+        return _verify_logits(state, h, q_start, q_len,
+                              int(verify_rows)), k_pool, v_pool
+    return _last_row_logits(state, h, q_start, q_len), k_pool, v_pool
+
+
+def _last_row_logits(state, h, q_start, q_len):
+    """f32 logits [B, V] of each sequence's last packed row of h [T, H]:
+    one rank-3 product [B, 1, H] @ W, as in the reference (its parity
+    note: the batched form is what every other decode path uses)."""
+    last = torch.clamp(q_start.long() + q_len.long() - 1, 0, h.shape[0] - 1)
+    return _lm_head(state, h[last][:, None]).float()[:, 0]
+
+
+def _verify_logits(state, h, q_start, q_len, K):
+    """f32 logits [B, K, V] of each sequence's last min(K, q_len) packed
+    rows of h [T, H], right-aligned. K products of `_last_row_logits`'
+    [B, 1, H] shape, not one of [B * K, 1, H], whose algorithm may follow
+    its row count: slot i of sequence b is bitwise the last-row logits
+    of that row."""
+    j = torch.arange(K, device=h.device)
+    rows = q_start.long()[:, None] + torch.clamp(
+        q_len.long()[:, None] - K + j[None, :], min=0)
+    rows = torch.clamp(rows, 0, h.shape[0] - 1)              # [B, K]
+    return torch.stack([_lm_head(state, h[rows[:, i]][:, None])
+                        .float()[:, 0] for i in range(K)], dim=1)
 
 
 def llama_tiny(**kw):

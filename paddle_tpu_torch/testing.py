@@ -57,7 +57,8 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "swiglu_bwd_pairs", "paged_decode_case", "paged_decode_views_case",
            "PAGED_DECODE_CASES", "paged_decode_cases", "paged_decode_pair",
            "paged_decode_readings", "RAGGED_CASES", "ragged_case",
-           "ragged_cases", "ragged_pair", "paged_split_readings",
+           "ragged_cases", "ragged_pair", "verify_bitwise",
+           "paged_split_readings",
            "CE_LIMITS", "CE_DX_FRAC",
            "fused_ce_case", "fused_ce_pairs", "FUSED_CE_CASES",
            "fused_ce_readings", "train_launches", "train_counters",
@@ -375,12 +376,21 @@ def ragged_case(rows, T=128, nh=32, kvh=32, d=128, page=16, ppmax=64,
 # state of four decode rows at 18/101/301/701 keys); then GQA 32/8, d =
 # 64 with GQA 8/2 and pages of 8 (a chunk whose packed rows fill two
 # tensor tiles, decode rows, a short chunk on the walk), and the
-# "mixed" rows read through paginate_cache's strided views.
+# "mixed" rows read through paginate_cache's strided views. "verify" is
+# chip_smoke.py's speculative verify step (four entries of a decode row
+# and 4 drafts at 22/105/305/705 keys) and "verify_gqa_32_8" verify
+# entries of 9, 5, 2 and 1 rows under GQA 32/8 (36 and 20 packed rows,
+# which an unflagged launch puts on tensor tiles); the engine launches
+# both with every entry flagged in `row_tiles`.
 RAGGED_CASES = {
     "mixed": dict(rows=[(0, 60, 700), (60, 1, 300), (0, 0, 0),
                         (61, 64, 64)]),
     "decode_only": dict(rows=[(0, 1, 18), (1, 1, 101), (2, 1, 301),
                               (3, 1, 701)]),
+    "verify": dict(rows=[(0, 5, 22), (5, 5, 105), (10, 5, 305),
+                         (15, 5, 705)]),
+    "verify_gqa_32_8": dict(rows=[(0, 9, 300), (9, 5, 64), (14, 2, 700),
+                                  (16, 1, 33)], kvh=8),
     "gqa_32_8": dict(rows=[(0, 60, 700), (60, 1, 300), (0, 0, 0),
                            (61, 64, 64)], kvh=8),
     "d64_gqa_8_2_page8": dict(rows=[(0, 33, 400), (33, 1, 1), (34, 1, 257),
@@ -410,6 +420,31 @@ def ragged_pair(q, k_pages, v_pages, q_start, q_len, kv_len, page_table):
     ref = krpa._dense_fallback((q * scale).float(), k_pages.float(),
                                v_pages.float(), *meta, 1.0)
     return out, ref
+
+
+def verify_bitwise(fn, args, row_tiles=None):
+    """(rows equal, rows): the rows of ragged_case's packed entries, fn
+    called with `row_tiles`, that equal under torch.equal the same row
+    sent alone as a q_len = 1 decode row at its own kv length (fn
+    without row tiles, the non-speculative engine's call) over the same
+    pool. Row j of every entry goes in one call, entries of j rows or
+    fewer idle."""
+    q, kp, vp, q_start, q_len, kv_len, pt = args
+    kw = {} if row_tiles is None else {"row_tiles": row_tiles}
+    out = fn(q, kp, vp, q_start, q_len, kv_len, pt, **kw)
+    zero = torch.zeros_like(q_start)
+    same = n = 0
+    for j in range(int(q_len.max())):
+        live = q_len > j
+        dec = fn(q, kp, vp, torch.where(live, q_start + j, zero),
+                 live.to(q_len.dtype),
+                 torch.where(live, kv_len - q_len + j + 1, zero), pt)
+        for s in range(q_start.shape[0]):
+            if int(q_len[s]) > j:
+                t = int(q_start[s]) + j
+                same += bool(torch.equal(out[t], dec[t]))
+                n += 1
+    return same, n
 
 
 def paged_split_readings(seed=0):

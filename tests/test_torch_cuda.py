@@ -752,6 +752,62 @@ def test_generate_and_bucketed_engine_launch_every_kernel():
     assert eng.pool.n_free == eng.pool.n_pages - 1
 
 
+@pytest.mark.cuda
+def test_speculative_engine_matches_kill_switch():
+    """A llama_tiny bf16 ragged engine on the card with speculation armed
+    and a drafter proposing the kill switch's own tokens (each third one
+    corrupted): tokens equal to the kill switch's, drafts accepted and
+    refuted, rms_norm 2L+1, swiglu L and ragged attention L launches per
+    step, the pool free after the run."""
+    _card()
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    GenerationRequest)
+    from paddle_tpu_torch.models import llama as TL
+    cfg = TL.llama_tiny(dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 90)]
+
+    def run(spec, drafter=None):
+        eng = ContinuousBatchingEngine(model, max_batch=3, max_seq=256,
+                                       max_chunk_tokens=32,
+                                       speculative=spec, device="cuda")
+        if drafter:
+            eng._draft_for_slot = drafter(eng)
+        reqs = [GenerationRequest(list(p), max_new_tokens=24)
+                for p in prompts]
+        kernels = (t_rms.rms_norm, t_sw.swiglu, t_rpa.ragged_paged_attention)
+        before = [k.launches for k in kernels]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        L, n = cfg.num_hidden_layers, eng.model_steps
+        assert [k.launches - b for k, b in zip(kernels, before)] == \
+            [n * (2 * L + 1), n * L, n * L]
+        assert eng.pool.n_free == eng.pool.n_pages - 1
+        return eng, [r.output for r in reqs]
+
+    _, off = run(False)
+    refs = {tuple(p): o for p, o in zip(prompts, off)}
+
+    def oracle(eng):
+        def draft(i, budget):
+            slot = eng.slots[i]
+            req = slot.req
+            k = min(slot.spec_k, budget,
+                    req.max_new_tokens - slot.produced - 1)
+            ref = refs[tuple(req.prompt)]
+            m0 = len(req.output)
+            return [(ref[m] + 1) % cfg.vocab_size if m % 3 == 2 else ref[m]
+                    for m in range(m0, min(m0 + max(k, 0), len(ref)))]
+        return draft
+
+    eng, on = run(True, oracle)
+    assert on == off
+    assert 0 < eng.spec_accepted < eng.spec_drafted
+
+
 # Faults planted in a copy of csrc/paged_attention.cu: (anchor, pattern,
 # replacement).
 _PAGED_FAULTS = {
@@ -971,6 +1027,55 @@ def test_ragged_schedule_is_the_kernels(case, dtype, split_keys,
     got = _partials_written(t_rpa.ragged_paged_attention, args, n_split,
                             T * nh)
     assert torch.equal(got, _written_by_schedule(live, n_split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_keys", [64, None], ids=["split64", "default"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["verify", "verify_gqa_32_8", "mixed"])
+def test_ragged_row_tiles_are_decode_rows(case, dtype, split_keys,
+                                          monkeypatch):
+    """Every entry flagged in row_tiles: each row equals under
+    torch.equal the same row launched alone as a q_len = 1 decode row,
+    the launch writes exactly the split partials `_schedule(...,
+    row_tiles)` predicts, and the output holds the plain version's
+    limit."""
+    _card()
+    if split_keys:
+        monkeypatch.setattr(_paged_split, "SPLIT_KEYS", split_keys)
+    dt = getattr(torch, dtype)
+    ((_, args),) = testing.ragged_cases(dt, tags=(case,))
+    q, kp = args[0], args[1]
+    T, nh, _ = q.shape
+    kvh, rep = kp.shape[0], nh // kp.shape[0]
+    S = args[6].shape[1] * kp.shape[2]
+    B = args[3].shape[0]
+    flags = torch.ones(B, dtype=torch.int32, device=q.device)
+    same, n = testing.verify_bitwise(t_rpa.ragged_paged_attention, args,
+                                     flags)
+    assert same == n > 0
+    n_split = -(-S // t_rpa._split_keys(S))
+    q_start, q_len, kv_len = (x.cpu() for x in args[3:6])
+    live = torch.ones(T * nh, dtype=torch.long)
+    for s, tiles in enumerate(t_rpa._schedule(
+            q_len, kv_len, rep, S, dt == torch.bfloat16, flags.cpu())):
+        for r0, r1, _, _, nz in tiles:
+            for r in range(r0, r1):
+                i, g = divmod(r, rep)
+                heads = torch.arange(kvh) * rep + g
+                live[(int(q_start[s]) + i) * nh + heads] = nz
+    got = _partials_written(
+        lambda *a: t_rpa.ragged_paged_attention(*a, row_tiles=flags), args,
+        n_split, T * nh)
+    assert torch.equal(got, _written_by_schedule(live, n_split))
+    out = t_rpa.ragged_paged_attention(*args, row_tiles=flags)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ref = t_rpa._dense_fallback((q * scale).float(), kp.float(),
+                                args[2].float(), *args[3:], 1.0)
+    if dt == torch.float32:
+        assert _max_rel(out, ref) <= 2e-5
+    else:
+        assert _within(out, ref, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -166,12 +166,26 @@ def test_unfused_flag_keeps_swiglu_layout_off_cpu(ckpt_fused):
 
 
 def test_verify_rows_not_ported():
+    """The verify_rows branch (speculative verification, once refused
+    here) is ported: [B, K, V] right-aligned logits against the
+    reference's at the live window slots, its last slot bitwise the
+    last-row branch's logits."""
+    jm = _jax_model()
     cfg = TL.llama_tiny(dtype="float32")
-    tm = TL.LlamaForCausalLM(cfg, device="cpu")
-    toks, pos, kp, vp, page_ids, offs, pt, qs, ql, kl = _step_inputs(cfg)
-    with pytest.raises(NotImplementedError, match="verify_rows"):
-        TL._ragged_step_paged(
-            dict(tm.state_dict()), cfg,
-            *(torch.from_numpy(x) for x in (toks, pos, kp, vp, page_ids,
-                                            offs, pt, qs, ql, kl)),
-            verify_rows=4)
+    state = state_from_jax(_np_state(jm), cfg, "cpu")
+    inp = _step_inputs(cfg)
+    jstate = {k: v.data for k, v in jm.state_dict().items()}
+    want, _, _ = JL._ragged_step_paged(
+        jstate, jm.cfg, *(jnp.asarray(x) for x in inp), verify_rows=4)
+    got, _, _ = TL._ragged_step_paged(
+        state, cfg, *(torch.from_numpy(x.copy()) for x in inp),
+        verify_rows=4)
+    assert got.shape == (4, 4, cfg.vocab_size)
+    ql = inp[8]
+    live = (ql[:, None] > 0) & (np.arange(4)[None, :] >= 4 - np.minimum(
+        ql, 4)[:, None])
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               rtol=0, atol=1e-4)
+    last, _, _ = TL._ragged_step_paged(
+        state, cfg, *(torch.from_numpy(x.copy()) for x in inp))
+    assert torch.equal(got[:, -1], last)

@@ -235,6 +235,111 @@ def test_ragged_split_plain_bf16_matches_jax(small_splits):
                                atol=ATOL)
 
 
+# ------------------------- verify entries on row tiles (speculation)
+
+def _verify_case(nh, kvh, d, page, seed=0):
+    """Speculative verify entries of q_len 2..9 (a decode row and its
+    drafts) at kv lengths around the 64-key splits, a plain decode row, a
+    12-row prefill chunk and an idle slot; every entry but the chunk is
+    flagged for row tiles. A table of 256 keys."""
+    rng = np.random.RandomState(seed)
+    ppmax = 256 // page
+    rows, cur = [], 0
+    for ql, kl in zip(range(2, 10), (2, 9, 64, 66, 130, 127, 200, 256)):
+        rows.append((cur, ql, kl))
+        cur += ql
+    rows += [(cur, 1, 65), (cur + 1, 12, 140), (0, 0, 0)]
+    T = cur + 16
+    B = len(rows)
+    n_pages = B * ppmax + 1
+    q = rng.randn(T, nh, d).astype(np.float32)
+    kp, vp = _pool(rng, kvh, n_pages, page, d)
+    pt = _table(rng, [kl for _, _, kl in rows], ppmax, page, n_pages)
+    meta = [np.array([r[i] for r in rows], np.int32) for i in range(3)]
+    flags = np.array([1] * 9 + [0, 0], np.int32)
+    return (q, kp, vp, *meta, pt), flags
+
+
+@pytest.mark.parametrize("tensor_tiles", [True, False],
+                         ids=["bf16_schedule", "walk_schedule"])
+@pytest.mark.parametrize("nh,kvh,d,page", [(4, 4, 64, 8), (8, 2, 64, 16)],
+                         ids=["rep1_d64_p8", "rep4_d64_p16"])
+def test_ragged_row_tiles_split_plain_matches_jax(nh, kvh, d, page,
+                                                  tensor_tiles,
+                                                  small_splits):
+    """Verify entries (q_len 2-9) on row tiles, in the kernel's schedule
+    and merge, against the JAX package at rep 1 and 4."""
+    case, flags = _verify_case(nh, kvh, d, page)
+    scale = 1.0 / math.sqrt(d)
+    want = _ragged_jax(case, scale)
+    got = t_rpa._split_plain(*(_t(c) for c in case), scale,
+                             tensor_tiles=tensor_tiles,
+                             row_tiles=_t(flags)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("tensor_tiles", [True, False],
+                         ids=["bf16_schedule", "walk_schedule"])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_ragged_row_tiles_schedule_is_decode_rows(rep, tensor_tiles,
+                                                  small_splits):
+    """A flagged entry's tiles are its decode rows': local row i of an
+    entry with q_len ql and kv_len kl is tiled exactly as a q_len = 1
+    sequence at kv_len kl - ql + i + 1 (its rep packed rows, its causal
+    limit, its live splits), for q_len 2-9; unflagged entries keep the
+    tiling of the whole sequence."""
+    case, flags = _verify_case(4 * rep, 4, 64, 8)
+    q_len, kv_len = _t(case[4]), _t(case[5])
+    S = case[6].shape[1] * 8
+    got = t_rpa._schedule(q_len, kv_len, rep, S, tensor_tiles, _t(flags))
+    plain = t_rpa._schedule(q_len, kv_len, rep, S, tensor_tiles)
+    for s, (ql, kl) in enumerate(zip(q_len.tolist(), kv_len.tolist())):
+        if not flags[s]:
+            assert got[s] == plain[s]
+            continue
+        want = []
+        for i in range(ql):
+            (one,) = t_rpa._schedule(torch.tensor([1]),
+                                     torch.tensor([kl - ql + i + 1]), rep,
+                                     S, tensor_tiles)
+            want += [(r0 + i * rep, r1 + i * rep, sk, kend, live)
+                     for r0, r1, sk, kend, live in one]
+        assert got[s] == want
+        assert len(got[s]) == ql * (1 if rep <= 8 or tensor_tiles else
+                                    -(-rep // 8))
+    # unflagged, the 5-row entry at 66 keys is one walk tile of two
+    # splits at rep 1, where its first row (62 keys) alone has one: the
+    # walk's unroll and split count follow the tile's last row
+    if rep == 1:
+        assert plain[3] == [(0, 5, 64, 66, 2)]
+        assert got[3][0] == (0, 1, 64, 62, 1)
+
+
+def test_verify_bitwise_sends_each_row_at_its_own_position():
+    """`testing.verify_bitwise` (the card's check) sends row j of every
+    entry as a decode row at that row's own position: a stand-in kernel
+    whose row t returns q[t] times its absolute position agrees on all
+    20 rows of chip_smoke's verify case, and on none when the row tiles
+    flag shifts every position by one."""
+    rows = testing.RAGGED_CASES["verify"]["rows"]
+    q_start, q_len, kv_len = (torch.tensor([r[i] for r in rows],
+                                           dtype=torch.int32)
+                              for i in range(3))
+    q = torch.randn(128, 2, 8, generator=torch.Generator().manual_seed(0))
+
+    def fake(q, kp, vp, qs, ql, kl, pt, row_tiles=None):
+        out = torch.zeros_like(q)
+        shift = 0 if row_tiles is None else int(row_tiles[0])
+        for s_, l_, k_ in zip(qs.tolist(), ql.tolist(), kl.tolist()):
+            for t in range(l_):
+                out[s_ + t] = q[s_ + t] * (k_ - l_ + t + 1 + shift)
+        return out
+
+    args = (q, None, None, q_start, q_len, kv_len, None)
+    assert testing.verify_bitwise(fake, args) == (20, 20)
+    assert testing.verify_bitwise(fake, args, torch.ones(4)) == (0, 20)
+
+
 # ------------------------------------------------------- shared helpers
 
 @pytest.mark.parametrize("want,S,unit,expect", [

@@ -1,7 +1,8 @@
 """Port serving engine and gateway (paddle_tpu_torch.inference) against
 the JAX engine, on llama_tiny in fp32 on the CPU: the JAX engine runs
-with speculative=False, slo=False, request_trace=False (kill switches
-that are bitwise in the reference), the port with the same scheduler
+with slo=False, request_trace=False (kill switches that are bitwise in
+the reference) and speculation armed, as the port's default engine arms
+it, or both with speculative=False; the port with the same scheduler
 knobs; greedy outputs must be token-identical tick for tick."""
 import json
 import os
@@ -72,12 +73,14 @@ def _drive(engine, req_cls, workload, max_ticks=400):
     return reqs, trace
 
 
+@pytest.mark.parametrize("spec", ["default", "kill_switch"])
 @pytest.mark.parametrize("scenario", ["mixed_chunk_prefix", "preempt"])
-def test_engine_token_identical_to_jax(models, scenario):
+def test_engine_token_identical_to_jax(models, scenario, spec):
     """The port's default engine (no speculative / slo / request_trace
-    argument: its flags default to the reference's kill switches) against
-    the JAX engine built with those kill switches off: token- and
-    tick-identical."""
+    argument: speculation armed, the SLO and tracing flags at the
+    reference's kill switches) against the JAX engine built with
+    speculative=True, slo=False, request_trace=False; and both with
+    speculative=False: token- and tick-identical."""
     jm, tm = models
     if scenario == "preempt":
         knobs = dict(max_batch=2, max_seq=64, total_pages=5,
@@ -86,14 +89,18 @@ def test_engine_token_identical_to_jax(models, scenario):
     else:
         knobs = dict(max_batch=2, max_seq=64, max_chunk_tokens=8)
         workload = _mixed_workload()
-    je = JEngine(jm, speculative=False, slo=False, request_trace=False,
-                 **knobs)
-    te = TEngine(tm, device="cpu", **knobs)
+    port_kw = {} if spec == "default" else {"speculative": False}
+    je = JEngine(jm, speculative=spec == "default", slo=False,
+                 request_trace=False, **knobs)
+    te = TEngine(tm, device="cpu", **knobs, **port_kw)
+    assert te._spec == je._spec == (spec == "default")
     jreqs, jtrace = _drive(je, JReq, workload)
     treqs, ttrace = _drive(te, TReq, workload)
     assert [r.output for r in treqs] == [r.output for r in jreqs]
     assert [r.status for r in treqs] == ["served"] * len(workload)
     assert ttrace == jtrace
+    assert (te.spec_drafted, te.spec_accepted) == (je.spec_drafted,
+                                                   je.spec_accepted)
     assert te.prefill_tokens_total == je.prefill_tokens_total
     assert te.preemptions == je.preemptions
     assert te.pool.n_free == te.pool.n_pages - 1
@@ -202,9 +209,7 @@ def test_engine_fault_fails_open_streams(models):
 # ------------------------------------------------ serving defaults
 
 
-@pytest.mark.parametrize("flag", ["FLAGS_speculative",
-                                  "FLAGS_speculative_draft_tokens",
-                                  "FLAGS_serving_slo", "FLAGS_request_trace"])
+@pytest.mark.parametrize("flag", ["FLAGS_serving_slo", "FLAGS_request_trace"])
 def test_unported_serving_flags_raise(models, flag, monkeypatch):
     """The reference arms these features by default; the port registers
     their flags at the kill-switch values, and a flag set to 1 asks for
@@ -217,14 +222,14 @@ def test_unported_serving_flags_raise(models, flag, monkeypatch):
         TEngine(tm, max_batch=2, max_seq=64, device="cpu")
 
 
-def test_draft_length_raises_unless_speculation_is_off(models):
+@pytest.mark.parametrize("knob,value", [
+    ("slo", True), ("request_trace", True), ("max_queue_tokens", 100),
+    ("quantize", "int8")])
+def test_unported_engine_knobs_raise(models, knob, value):
+    """The engine arguments of the features still to port raise."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="max_draft_tokens"):
-        TEngine(tm, max_batch=2, max_seq=64, max_draft_tokens=4,
-                device="cpu")
-    # the reference's kill switch: no drafting whatever the cap
-    TEngine(tm, max_batch=2, max_seq=64, max_draft_tokens=4,
-            speculative=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TEngine(tm, max_batch=2, max_seq=64, device="cpu", **{knob: value})
 
 
 def test_gateway_refuses_priority_and_deadline(models):
