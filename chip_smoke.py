@@ -61,6 +61,24 @@ Phases, each of which fails the run on a miss:
    served whole, paged decode attention launched L times per decode
    tick, rms_norm and swiglu per prefill call and decode tick; TTFTs,
    tokens/s, ticks;
+6b. SLO layer — the same llama_7b through the default engine, the SLO
+   layer armed (with speculation): (a) phase 4's burst armed and under
+   FLAGS_serving_slo=0, each stream's tokens and the per-tick trace
+   (packed rows, finished, preemptions) identical, 0 quarantines, step
+   ms, tokens/s and the host ms a tick in `_slo_pre_tick` +
+   `_slo_post_tick`; (b) through the gateway: a priority-1 request
+   queued behind three others finishes first, a deadline_s of 1e-9
+   answers 504, a full queue answers 429 with an integer Retry-After in
+   [1, 60], a pool held above 0.85 utilisation shows `degraded` and a
+   halved `effective_chunk_tokens` at /healthz and still serves every
+   request with the pool whole; (c) NaN written into a victim request's
+   KV pages after its prefill: the next step, through row 9's kernel,
+   quarantines exactly that request with "non-finite logits", the
+   other streams are token-identical to a clean run, and a request
+   then served on the victim's reclaimed pages is token-identical to
+   the same request on a fresh engine; the same through the bucketed
+   engine and row 13's kernel; (d) FLAGS_fault_inject=serving.tick:
+   raise@3 fails one request alone, the others token-identical;
 7. training — full-depth llama_1b (22 layers, bf16, random weights from
    a seeded generator) through `TrainStep` with AdamW, batch 4 x seq
    2048 on one repeated batch, as bench.py runs it: 2 warm-up steps,
@@ -1040,6 +1058,30 @@ def expected_swiglu_routes(T, H, M):
             "recompute": core(H, M), "da": core(2 * M), "dw": core(H, 2 * M)}
 
 
+def device_trace(run, complete=None, attempts=3):
+    """torch.profiler's CUDA trace of `run()`, taken again (up to
+    `attempts` times, after `TRACE_SETTLE_S` of host sleep) while it
+    holds no device kernel at all or `complete(prof)` says a launch is
+    missing from it: traces on the card have come back empty, and
+    without the backward's kernels of a forward and backward. A trace
+    that lost nothing is returned as it is; so is the last attempt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
+            run()
+            torch.cuda.synchronize()
+        if (any(e.device_type == DeviceType.CUDA
+                for e in prof.key_averages())
+                and (complete is None or complete(prof))):
+            break
+        print(f"device trace: a launch is missing from the trace (attempt "
+              f"{i + 1} of {attempts}), tracing again", flush=True)
+    return prof
+
+
 def swiglu_route_check(T, H, M):
     """Trace one swiglu forward, one swiglu_bwd_da and one swiglu_bwd_dw in
     bf16 and hold the cores their device kernels name against
@@ -1047,7 +1089,6 @@ def swiglu_route_check(T, H, M):
     every product must be a WGMMA_KERNEL launch."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.kernels import swiglu as ksw
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1057,18 +1098,23 @@ def swiglu_route_check(T, H, M):
                                   device="cuda")).bfloat16()
 
     a, wgu, do = rand(T, H), rand(H, 2 * M, std=0.02), rand(T, M)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         ksw.swiglu(a, wgu, use_kernel=True)
         _, dgu = ksw.swiglu_bwd_da(a, wgu, do)
         ksw.swiglu_bwd_dw(a, dgu)
-        torch.cuda.synchronize()
-    got = {}
-    for e in prof.key_averages():
-        route = (swiglu_route_of(e.key) if e.device_type == DeviceType.CUDA
-                 else None)
-        if route:
-            got.setdefault(route[0], set()).add(route[1])
+
+    def read(prof):
+        got = {}
+        for e in prof.key_averages():
+            route = (swiglu_route_of(e.key)
+                     if e.device_type == DeviceType.CUDA else None)
+            if route:
+                got.setdefault(route[0], set()).add(route[1])
+        return got
+
     want = expected_swiglu_routes(T, H, M)
+    got = read(device_trace(run, lambda p: set(want) <= set(read(p))))
     tag = f"[{T}x{H} @ {H}x{2 * M}]"
     print(f"swiglu route {tag}: " + " ".join(
         f"{p}={'+'.join(sorted(got.get(p, ()))) or 'none'}" for p in want)
@@ -1076,7 +1122,7 @@ def swiglu_route_check(T, H, M):
         flush=True)
     check(got == {p: {c} for p, c in want.items()},
           f"swiglu {tag}: the products ran on {got}, not {want}")
-    del a, wgu, do, dgu
+    del a, wgu, do
 
 
 # Flash attention's cores, told apart by their device kernels' names:
@@ -1127,27 +1173,32 @@ def expected_flash_routes(B, S, Hq, Hk, D, causal, dtype):
     return {"forward": core, "dkv": core, "dq": core, "delta": "simt"}
 
 
-def traced_flash_routes(run):
+def traced_flash_routes(run, launches=()):
     """Trace `run()` twice (a trace can miss a kernel that starts at the
     very edge of its window: a single forward launched first read as
-    absent on an H100) and return ({launch: {cores}} of the flash device
-    kernels it ran, every device kernel's name)."""
-    import torch
+    absent on an H100), taken again while one of `launches` (forward,
+    dkv, dq, delta) is absent from it, and return ({launch: {cores}} of
+    the flash device kernels it ran, every device kernel's name). A
+    launch on the wrong core is no absence: the caller's check fails."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def twice():
         for _ in range(2):
             run()
-        torch.cuda.synchronize()
-    got, names = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        names.append(e.key)
-        route = flash_route_of(e.key)
-        if route:
-            got.setdefault(route[0], set()).add(route[1])
-    return got, names
+
+    def read(prof):
+        got, names = {}, []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            names.append(e.key)
+            route = flash_route_of(e.key)
+            if route:
+                got.setdefault(route[0], set()).add(route[1])
+        return got, names
+
+    prof = device_trace(twice, lambda p: set(launches) <= set(read(p)[0]))
+    return read(prof)
 
 
 def hold_routes(what, label, got, names, want):
@@ -1208,12 +1259,12 @@ def seg_route_check(tag, dtype):
         kfa.flash_attention_seg_dkv(*args)
         kfa.flash_attention_seg_dq(*args)
 
-    got, names = traced_flash_routes(run)
     B, Sq, hq, d = q.shape
     Sk, hk = k.shape[1], k.shape[2]
+    want = expected_seg_routes(B, Sq, Sk, hq, hk, d, causal, dtype)
+    got, names = traced_flash_routes(run, want)
     hold_routes("segment route", f"[{tag} {str(dtype).split('.')[-1]}]",
-                got, names,
-                expected_seg_routes(B, Sq, Sk, hq, hk, d, causal, dtype))
+                got, names, want)
     del q, k, v, do
 
 
@@ -1236,9 +1287,10 @@ def bias_route_check(dtype):
         kfa.flash_attention_bias_dkv(*args)
         kfa.flash_attention_bias_dq(*args)
 
-    got, names = traced_flash_routes(run)
+    want = expected_bias_routes(dtype)
+    got, names = traced_flash_routes(run, want)
     hold_routes("bias route", f"[sdpa_float {str(dtype).split('.')[-1]}]",
-                got, names, expected_bias_routes(dtype))
+                got, names, want)
     del q, k, v, do, a
 
 
@@ -1264,11 +1316,11 @@ def flash_route_check(B, S, Hq, Hk, D, causal, dtype=None):
         o, lse = kfa.flash_attention_fwd(q, k, v, causal, scale)
         kfa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
 
-    got, names = traced_flash_routes(run)
+    want = expected_flash_routes(B, S, Hq, Hk, D, causal, dtype)
+    got, names = traced_flash_routes(run, want)
     hold_routes("flash route",
                 f"[B{B} S{S} H{Hq}/{Hk} D{D} {'causal' if causal else 'full'}"
-                f" {str(dtype).split('.')[-1]}]", got, names,
-                expected_flash_routes(B, S, Hq, Hk, D, causal, dtype))
+                f" {str(dtype).split('.')[-1]}]", got, names, want)
     del q, do, k, v
 
 
@@ -2108,15 +2160,18 @@ def plain_routes():
          kfa._SegFlash, kba.block_attention_fwd) = saved
 
 
-def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
-    """POST one streamed /v1/generate; record TTFT, tokens, end status.
-    Gives up (end None) after deadline_s: keepalive frames would keep a
-    stalled stream open forever."""
+def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0,
+                extra=None):
+    """POST one streamed /v1/generate (`extra`: more body fields); record
+    TTFT, tokens, end status and the end time. Gives up (end None) after
+    deadline_s: keepalive frames would keep a stalled stream open
+    forever."""
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     conn.request("POST", "/v1/generate",
                  body=json.dumps({"prompt": prompt,
-                                  "max_new_tokens": max_new}),
+                                  "max_new_tokens": max_new,
+                                  **(extra or {})}),
                  headers={"Content-Type": "application/json"})
     resp = conn.getresponse()
     toks, ttft, end, event = [], None, None, None
@@ -2135,8 +2190,9 @@ def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0):
             else:
                 end = (event, payload)
     conn.close()
+    t1 = time.perf_counter()
     out[idx] = {"tokens": toks, "ttft_s": ttft, "end": end,
-                "wall_s": time.perf_counter() - t0}
+                "wall_s": t1 - t0, "t_end": t1}
 
 
 def slice_phase(report, smi_line):
@@ -2658,6 +2714,506 @@ def bucketed_phase(report, model, prompts, max_new, smi_line):
           f"[{smi_line}]", flush=True)
     del engine
     torch.cuda.empty_cache()
+
+
+SLO_KNOBS = dict(max_batch=4, max_seq=1024, page_size=16, max_chunk_tokens=64,
+                 device="cuda")
+
+
+def post_json(port, body, path="/v1/generate", method="POST"):
+    """One non-streamed request: (HTTP status, headers, JSON body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request(method, path,
+                 body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    doc = json.loads(resp.read() or b"{}")
+    headers = dict(resp.getheaders())
+    conn.close()
+    return resp.status, headers, doc
+
+
+def queued_posts(runner, port, posts, what):
+    """Start one post_stream thread per (prompt, max_new, extra) while
+    the tick thread is held, so that every request is queued, in order,
+    before the next tick. Returns (threads, results)."""
+    results = {}
+    threads = [threading.Thread(target=post_stream,
+                                args=(port, p, n, results, i),
+                                kwargs={"extra": extra})
+               for i, (p, n, extra) in enumerate(posts)]
+    t0 = time.perf_counter()
+    with runner.lock:
+        for i, t in enumerate(threads):
+            t.start()
+            while len(runner._inbox) <= i:
+                check(time.perf_counter() - t0 < 60,
+                      f"{what}: request {i} was not queued")
+                time.sleep(0.001)
+    return threads, results
+
+
+def join_all(threads, what):
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), f"a {what} thread did not finish")
+
+
+def drive(eng, reqs, on_tick=None, cap=4000):
+    """Queue `reqs` and tick the engine directly until it drains;
+    on_tick(eng, tick) runs after each step. Returns the ticks."""
+    for r in reqs:
+        eng.add_request(r)
+    n = 0
+    while eng.has_work and n < cap:
+        eng.step()
+        n += 1
+        if on_tick is not None:
+            on_tick(eng, n)
+    check(not eng.has_work, "the engine did not drain")
+    return n
+
+
+def free_engine(*_):
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slo_phase(report, model, prompts, max_new, smi_line):
+    """Phase 6b: the SLO layer, armed by default, on the serving
+    phases' llama_7b (module docstring)."""
+    slo_parity(report, model, prompts, max_new, smi_line)
+    slo_gateway(model, smi_line)
+    slo_kernel_nonfinite()
+    for ragged in (True, False):
+        slo_nan_pages(report, model, ragged, smi_line)
+    slo_tick_fault(model, smi_line)
+
+
+def slo_parity(report, model, prompts, max_new, smi_line):
+    """(a) phase 4's burst with the layer's inert defaults and under
+    FLAGS_serving_slo=0, twice each (armed, off, off, armed): tokens and
+    per-tick trace identical; step ms, tokens/s and the layer's host ms
+    a tick, each order's mean."""
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import gateway as gw
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+
+    L_ = model.cfg.num_hidden_layers
+    kernels = {"rms_norm": krn.rms_norm, "swiglu": ksw.swiglu,
+               "ragged_paged_attention": krpa.ragged_paged_attention}
+
+    def run(eng, what, path=None):
+        trace, step_s, slo_s, marks = [], [], [0.0], []
+        real_step = eng.step
+
+        def step():
+            t = time.perf_counter()
+            done = real_step()
+            step_s.append(time.perf_counter() - t)
+            trace.append((eng.last_packed_tokens, len(done),
+                          eng.preemptions))
+            return done
+
+        def timed(fn):
+            def run_timed():
+                t = time.perf_counter()
+                fn()
+                slo_s[0] += time.perf_counter() - t
+            return run_timed
+
+        eng.step = step
+        if eng._slo:
+            eng._slo_pre_tick = timed(eng._slo_pre_tick)
+            eng._slo_post_tick = timed(eng._slo_post_tick)
+
+        def counters():
+            marks.append((len(step_s), slo_s[0]))
+            return (eng.model_steps,)
+
+        results, wall, launches, (steps,) = serve_burst(
+            eng, prompts, max_new, kernels, what, counters, in_order=True)
+        (n0, s0), (n1, s1) = marks
+        want = {"rms_norm": steps * (2 * L_ + 1), "swiglu": steps * L_,
+                "ragged_paged_attention": steps * L_}
+        for name, n in launches.items():
+            print(f"launches {name} ({what}): {n} (steps {steps} -> "
+                  f"expected {want[name]})", flush=True)
+            check(n == want[name] and n > 0,
+                  f"{name} launched {n} times in the {what}, expected "
+                  f"{want[name]}")
+            if path:
+                add_launches(report, name, path, n)
+        ticks = n1 - n0
+        step_ms = 1e3 * sum(step_s[n0:n1]) / ticks
+        slo_ms = 1e3 * (s1 - s0) / ticks
+        n_tok = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
+        print(f"slo (a) {what}: ticks={ticks} step_ms={step_ms:.6g} "
+              f"tokens_per_s={n_tok / wall:.6g} slo_host_ms_per_tick="
+              f"{slo_ms:.6g} quarantines={eng.quarantines} [{smi_line}]",
+              flush=True)
+        check(eng.quarantines == 0, f"{what}: {eng.quarantines} "
+              f"quarantines on a clean run")
+        return results, trace, step_ms, n_tok / wall, slo_ms
+
+    def engine(slo):
+        if slo:
+            eng = gw.build_engine(model, **SLO_KNOBS)
+            check(eng._slo and eng._spec, "the default engine did not arm "
+                  "the SLO layer and speculation")
+            return eng
+        fcore.set_flags({"FLAGS_serving_slo": False})
+        try:
+            eng = gw.build_engine(model, **SLO_KNOBS)
+        finally:
+            fcore.set_flags({"FLAGS_serving_slo": True})
+        check(not eng._slo, "FLAGS_serving_slo=0 armed the SLO layer")
+        return eng
+
+    # armed, kill switch, kill switch, armed: the two orders cancel a
+    # drift of the host's speed through the phase
+    runs = []
+    for i, slo in enumerate((True, False, False, True)):
+        eng = engine(slo)
+        what = f"SLO {'armed' if slo else 'kill switch'} run {i + 1}"
+        runs.append((slo,) + run(eng, what, "slo_serving" if i == 0
+                                 else None))
+        del eng
+        free_engine()
+    res_on, tr_on = runs[0][1:3]
+    for i, (slo, res, trace, step_ms, tok_s, slo_ms) in enumerate(runs):
+        same = [res_on[k]["tokens"] == res[k]["tokens"]
+                for k in range(len(prompts))]
+        print(f"slo (a) run {i + 1} ({'armed' if slo else 'kill switch'}): "
+              f"tokens of each stream == run 1's: {same}; per-tick trace "
+              f"== run 1's: {trace == tr_on} ({len(trace)} ticks)",
+              flush=True)
+        check(all(same), f"run {i + 1}: the SLO layer changed the tokens")
+        check(trace == tr_on, f"run {i + 1}: the SLO layer changed the "
+              f"per-tick trace")
+
+    def mean(k, slo):
+        vals = [r[k] for r in runs if r[0] == slo]
+        return sum(vals) / len(vals)
+
+    print(f"slo (a) step_ms armed {mean(3, True):.6g} kill switch "
+          f"{mean(3, False):.6g}; tokens_per_s armed {mean(4, True):.6g} "
+          f"kill switch {mean(4, False):.6g}; slo_host_ms_per_tick "
+          f"{mean(5, True):.6g} (runs 1 and 4 against 2 and 3) "
+          f"[{smi_line}]", flush=True)
+
+
+def slo_gateway(model, smi_line):
+    """(b) priority order, 504, 429 with a bounded Retry-After and
+    degradation, through the gateway."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import gateway as gw
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.RandomState(11)
+
+    def prompt(n):
+        return rng.randint(1, vocab, n).tolist()
+
+    knobs = dict(SLO_KNOBS, max_batch=1, max_queue_tokens=600)
+    eng = gw.build_engine(model, **knobs)
+    runner = gw.EngineRunner(eng)
+    gateway = gw.ServingGateway(runner, port=0)
+    port = gateway.start()
+    try:
+        # priority: three priority-0 requests, then a priority-1 one, all
+        # queued before a tick; one slot serves them one at a time
+        posts = [(prompt(16), 8, None) for _ in range(3)]
+        posts.append((prompt(16), 8, {"priority": 1}))
+        threads, res = queued_posts(runner, port, posts, "priority")
+        join_all(threads, "priority")
+        for i in range(4):
+            check(res[i]["end"] and res[i]["end"][1]["status"] == "served",
+                  f"priority request {i} ended {res[i]['end']}")
+        order = sorted(range(4), key=lambda i: res[i]["t_end"])
+        print(f"slo (b) finish order (3 = priority 1, queued last): "
+              f"{order}", flush=True)
+        check(order == [3, 0, 1, 2], f"finish order {order}, not the "
+              f"priority-1 request first and the rest in FIFO order")
+        # a deadline that has passed before the first tick
+        status, _, doc = post_json(port, {"prompt": prompt(16),
+                                          "max_new_tokens": 8,
+                                          "deadline_s": 1e-9,
+                                          "stream": False})
+        print(f"slo (b) deadline_s=1e-9: HTTP {status} {doc.get('status')}"
+              f" ({doc.get('error')})", flush=True)
+        check(status == 504 and doc["status"] == "deadline_missed"
+              and "DeadlineExceeded" in doc["error"],
+              f"deadline request answered {status} {doc}")
+        # the queue bound: two 400-token prompts queued together against
+        # a bound of 600
+        got = {}
+
+        def post(i, body):
+            got[i] = post_json(port, body)
+
+        bodies = [{"prompt": prompt(400), "max_new_tokens": 4,
+                   "stream": False} for _ in range(2)]
+        threads = [threading.Thread(target=post, args=(i, b))
+                   for i, b in enumerate(bodies)]
+        t0 = time.perf_counter()
+        with runner.lock:
+            for i, t in enumerate(threads):
+                t.start()
+                while len(runner._inbox) <= i:
+                    check(time.perf_counter() - t0 < 60,
+                          "queue-bound request was not queued")
+                    time.sleep(0.001)
+        join_all(threads, "queue-bound")
+        (s0, _, d0), (s1, h1, d1) = got[0], got[1]
+        retry = h1.get("Retry-After")
+        print(f"slo (b) queue bound 600: first HTTP {s0} "
+              f"{d0.get('status')}, second HTTP {s1} Retry-After={retry} "
+              f"retry_after_s={d1.get('retry_after_s')}", flush=True)
+        check(s0 == 200 and d0["status"] == "served",
+              f"the request under the bound answered {s0} {d0}")
+        check(s1 == 429 and retry is not None and retry.isdigit()
+              and 1 <= int(retry) <= 60,
+              f"the request over the bound answered {s1}, Retry-After "
+              f"{retry!r}")
+        check(eng.quarantines == 0 and eng.pool.n_free ==
+              eng.pool.n_pages - 1, "gateway engine: quarantines or pages "
+              "left after the priority, deadline and bound checks")
+    finally:
+        gateway.drain(timeout=60)
+        gateway.stop()
+    del eng, runner, gateway
+    free_engine()
+
+    # degradation: 20 allocatable pages (320 tokens); a 260-token prompt
+    # holds 17 of them (0.85) and its decode an 18th
+    eng = gw.build_engine(model, **dict(SLO_KNOBS, max_batch=2,
+                                        total_pages=21))
+    chunks = []
+    real_step = eng.step
+
+    def step():
+        done = real_step()
+        chunks.append(eng._eff_chunk)
+        return done
+
+    eng.step = step
+    runner = gw.EngineRunner(eng)
+    gateway = gw.ServingGateway(runner, port=0)
+    port = gateway.start()
+    try:
+        posts = [(prompt(260), 16, None), (prompt(8), 8, None)]
+        threads, res = queued_posts(runner, port, posts, "degradation")
+        join_all(threads, "degradation")
+        status, _, health = post_json(port, None, path="/healthz",
+                                      method="GET")
+    finally:
+        gateway.drain(timeout=60)
+        gateway.stop()
+    e = health["engine"]
+    print(f"slo (b) degradation: effective chunk a tick {chunks}; /healthz "
+          f"degraded={e['degraded']} effective_chunk_tokens="
+          f"{e['effective_chunk_tokens']} of {e['max_chunk_tokens']}, "
+          f"pages free {e['kv_pages']['free']}/{e['kv_pages']['total']}",
+          flush=True)
+    for i in range(2):
+        check(res[i]["end"] and res[i]["end"][1]["status"] == "served",
+              f"degradation request {i} ended {res[i]['end']}")
+    check(32 in chunks, "the chunk budget never halved to 32")
+    check(e["degraded"] and e["effective_chunk_tokens"] <= 32,
+          "/healthz does not show the degraded budget")
+    check(e["kv_pages"]["free"] == e["kv_pages"]["total"],
+          "pages left after the degradation run")
+    del eng, runner, gateway
+    free_engine()
+
+
+def slo_kernel_nonfinite():
+    """(c), first on the kernels alone: rows 9 and 13 hold
+    `testing.nonfinite_checks` in bf16 and f32 (stale NaN and inf past
+    the lengths do not reach the output; a NaN key reaches its own
+    sequence's rows and no other's)."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, ok in testing.nonfinite_checks(krpa, kpa, dtype, "cuda"):
+            print(f"slo (c) kernel {label}: {'ok' if ok else 'MISS'}",
+                  flush=True)
+            check(ok, f"kernel non-finite semantics: {label}")
+
+
+def slo_nan_pages(report, model, ragged, smi_line):
+    """(c) NaN in a victim's KV pages after its prefill: quarantined
+    exactly through the route's attention kernel, the others
+    token-identical to a clean run, and a request served on the
+    reclaimed pages token-identical to a fresh engine's."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference import gateway as gw
+    from paddle_tpu_torch.inference.serving import GenerationRequest
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+
+    route = "ragged" if ragged else "bucketed"
+    attn = (krpa.ragged_paged_attention if ragged
+            else kpa.paged_decode_attention)
+    kernels = {"rms_norm": krn.rms_norm, "swiglu": ksw.swiglu,
+               attn.__name__: attn}
+    knobs = dict(SLO_KNOBS, ragged=ragged)
+    rng = np.random.RandomState(23)
+    vocab = model.cfg.vocab_size
+    # the victim comes last and its prompt fills no page: its pages are
+    # not indexed by the prefix cache (they return to the free list)
+    # and the others' prompt pages are all allocated before it fails
+    prompts = [rng.randint(1, vocab, n).tolist() for n in (40, 60, 12)]
+    late = rng.randint(1, vocab, 5).tolist()
+
+    def reqs():
+        return [GenerationRequest(list(p), max_new_tokens=16)
+                for p in prompts]
+
+    clean_eng = gw.build_engine(model, **knobs)
+    clean = reqs()
+    drive(clean_eng, clean)
+    check(clean_eng.quarantines == 0, f"{route}: a clean run quarantined")
+    del clean_eng
+    free_engine()
+
+    eng = gw.build_engine(model, **knobs)
+    work = reqs()
+    victim = work[2]
+    hit = {}
+
+    def poison(e, tick):
+        if hit or victim.status != "running":
+            return
+        i = next(j for j, s in enumerate(e.slots) if s.req is victim)
+        if e.slots[i].pending or not victim.output:
+            return                       # prefill not done yet
+        pages = list(e.slot_pages[i])
+        idx = torch.tensor(pages, device=e.device)
+        e.k_pool[:, :, idx] = float("nan")
+        e.v_pool[:, :, idx] = float("nan")
+        hit.update(tick=tick, pages=pages, q0=e.quarantines)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    steps0 = (eng.model_steps, eng.decode_steps,
+              sum(eng.prefill_calls.values()))
+    drive(eng, work, on_tick=poison)
+    steps = (eng.model_steps - steps0[0], eng.decode_steps - steps0[1],
+             sum(eng.prefill_calls.values()) - steps0[2])
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    check(bool(hit), f"{route}: the victim's prefill never completed")
+    others_same = [r.output == c.output for r, c in zip(work[:2], clean[:2])]
+    print(f"slo (c) {route}: NaN in the victim's pages {hit['pages']} after "
+          f"tick {hit['tick']}; victim {victim.status} ({victim.error}); "
+          f"quarantines {eng.quarantines}; other streams token-identical "
+          f"to the clean run: {others_same}; launches {launches} "
+          f"(steps {steps}) [{smi_line}]", flush=True)
+    check(victim.status == "failed" and victim.error == "non-finite logits",
+          f"{route}: the victim ended {victim.status} ({victim.error})")
+    check(eng.quarantines == 1, f"{route}: {eng.quarantines} quarantines, "
+          f"not exactly the victim")
+    check(all(r.status == "served" for r in work[:2]) and all(others_same),
+          f"{route}: another stream changed or failed")
+    L_ = model.cfg.num_hidden_layers
+    fwd = steps[0] + steps[1] + steps[2]
+    want = ({"rms_norm": (2 * L_ + 1) * fwd, "swiglu": L_ * fwd,
+             attn.__name__: L_ * (steps[0] if ragged else steps[1])})
+    for name, n in launches.items():
+        check(n == want[name] and n > 0, f"{route}: {name} launched {n} "
+              f"times, expected {want[name]}")
+        add_launches(report, name, f"slo_nan_{route}", n)
+    # a new request on the victim's reclaimed pages: they go to the head
+    # of the free list, so its first allocation takes them
+    free = eng.pool._free
+    for p in hit["pages"]:
+        check(p in free, f"{route}: victim page {p} was not reclaimed")
+        free.remove(p)
+    free.extend(reversed(hit["pages"]))
+    got = GenerationRequest(list(late), max_new_tokens=16)
+    seen = set()
+
+    def pages_of(e, tick):
+        for j, s in enumerate(e.slots):
+            if s.req is got:
+                seen.update(e.slot_pages[j])
+
+    drive(eng, [got], on_tick=pages_of)
+    del eng
+    free_engine()
+    fresh_eng = gw.build_engine(model, **knobs)
+    want_req = GenerationRequest(list(late), max_new_tokens=16)
+    drive(fresh_eng, [want_req])
+    del fresh_eng
+    free_engine()
+    reused = sorted(seen & set(hit["pages"]))
+    print(f"slo (c) {route}: a request on the reclaimed pages {reused} "
+          f"(stale NaN past its length): tokens identical to a fresh "
+          f"engine's: {got.output == want_req.output} ({got.status})",
+          flush=True)
+    check(reused, f"{route}: the new request took none of the victim's "
+          f"pages")
+    check(got.status == "served" and got.output == want_req.output,
+          f"{route}: the request on reclaimed pages differs from a fresh "
+          f"engine's")
+
+
+def slo_tick_fault(model, smi_line):
+    """(d) FLAGS_fault_inject=serving.tick:raise@3 fails the latest
+    admission alone."""
+    import numpy as np
+
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import gateway as gw
+    from paddle_tpu_torch.inference.serving import GenerationRequest
+
+    rng = np.random.RandomState(31)
+    prompts = [rng.randint(1, model.cfg.vocab_size, 20).tolist()
+               for _ in range(3)]
+
+    def run():
+        eng = gw.build_engine(model, **dict(SLO_KNOBS, max_batch=3))
+        reqs = [GenerationRequest(list(p), max_new_tokens=8)
+                for p in prompts]
+        drive(eng, reqs)
+        out = (reqs, eng.quarantines, eng.pool.n_free == eng.pool.n_pages - 1)
+        del eng
+        free_engine()
+        return out
+
+    clean, q_clean, _ = run()
+    check(q_clean == 0, "the clean run quarantined a request")
+    fcore.set_flags({"FLAGS_fault_inject": "serving.tick:raise@3"})
+    try:
+        reqs, quarantines, whole = run()
+    finally:
+        fcore.set_flags({"FLAGS_fault_inject": ""})
+    same = [r.output == c.output for r, c in zip(reqs[:2], clean[:2])]
+    print(f"slo (d) serving.tick:raise@3: statuses "
+          f"{[r.status for r in reqs]}, the failed one's error "
+          f"{reqs[2].error!r}; quarantines {quarantines}; the others "
+          f"token-identical to the clean run: {same}; pool whole {whole}",
+          flush=True)
+    check([r.status for r in reqs] == ["served", "served", "failed"]
+          and "FaultInjected" in (reqs[2].error or ""),
+          "the tick fault did not fail exactly the latest admission")
+    check(quarantines == 1 and all(same) and whole,
+          "the tick fault touched another stream or left pages")
 
 
 # device-kernel name fragments -> the group a step's time is charged to
@@ -3944,6 +4500,7 @@ def main():
         torch.cuda.empty_cache()
         generate_phase(report, model, smi_line)
         bucketed_phase(report, model, prompts, max_new, smi_line)
+        slo_phase(report, model, prompts, max_new, smi_line)
         del model
         gc.collect()
         torch.cuda.empty_cache()

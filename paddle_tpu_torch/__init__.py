@@ -19,7 +19,11 @@ kernels), decode (`generate`, the bucketed engine, paged decode
 attention), 7B pretraining (remat, the fused cross-entropy kernels), and
 BERT inference with the attention surface (`models.bert`,
 `nn.functional` attention, `nn.layer.MultiHeadAttention`, the
-segment-id flash and block-stats kernels).
+segment-id flash and block-stats kernels), self-speculative decoding,
+and the serving SLO layer armed by default (priorities, deadlines, the
+queue bound, shedding, degradation, per-request fault isolation) with
+`utils.fault_injection`, `observability` (the metrics and health
+registries) and `distributed.watchdog`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.

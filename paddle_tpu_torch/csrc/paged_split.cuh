@@ -193,7 +193,7 @@ __device__ void finish_split(const int* rows, int nrows, const float* res_m,
       if (row < 0) continue;
       const float l = res_l[r];
       out[static_cast<size_t>(row) * D + e % D] =
-          ptt::from_f<T>(l > 0.f ? res_o[e] / l : 0.f);
+          ptt::from_f<T>(l == 0.f ? 0.f : res_o[e] / l);   // NaN stays
     }
     return;
   }
@@ -285,9 +285,16 @@ __device__ __forceinline__ void walk_split(
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float cmax = -INFINITY;
+      bool bad = false;                     // a valid key scored NaN
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) cmax = fmaxf(cmax, sc[g][u]);
-      if (cmax == -INFINITY) continue;      // no key of this row here
+      for (int u = 0; u < UNROLL; ++u) {
+        cmax = fmaxf(cmax, sc[g][u]);       // fmaxf drops a NaN
+        bad |= isnan(sc[g][u]);
+      }
+      // no key of this row here; a NaN score (fmaxf left cmax at -inf if
+      // it was the round's only one) goes on, so that l and acc turn NaN
+      // as the softmax would
+      if (cmax == -INFINITY && !bad) continue;
       const float m_new = fmaxf(m[g], cmax);
       const float alpha = exp2f(m[g] - m_new);  // 0 while m is -inf
       l[g] *= alpha;
@@ -353,15 +360,15 @@ __device__ __forceinline__ void combine_warps(const float* s_m,
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, s_m[w * G + g]);
+    // a warp with no key has l = 0 and acc = 0 and weighs 0; a NaN l or
+    // acc (a NaN score) stays NaN, whatever its weight
     float lsum = 0.f, o = 0.f;
-    if (mx != -INFINITY) {
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        const float mw = s_m[w * G + g];
-        const float c = mw == -INFINITY ? 0.f : exp2f(mw - mx);
-        lsum += s_l[w * G + g] * c;
-        o += s_acc[(w * G + g) * D + dd] * c;
-      }
+    for (int w = 0; w < WARPS; ++w) {
+      const float mw = s_m[w * G + g];
+      const float c = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      lsum += s_l[w * G + g] * c;
+      o += s_acc[(w * G + g) * D + dd] * c;
     }
     s_acc[g * D + dd] = o;
     if (dd == 0) {

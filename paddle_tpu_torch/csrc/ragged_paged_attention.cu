@@ -344,13 +344,13 @@ __device__ __forceinline__ void tile_job(
       if (row_a >= 0)
         *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_a) * D +
                                      col) =
-            ptt::pack_bf16(l_a > 0.f ? o[nd][0] / l_a : 0.f,
-                           l_a > 0.f ? o[nd][1] / l_a : 0.f);
+            ptt::pack_bf16(l_a == 0.f ? 0.f : o[nd][0] / l_a,
+                           l_a == 0.f ? 0.f : o[nd][1] / l_a);
       if (row_b >= 0)
         *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row_b) * D +
                                      col) =
-            ptt::pack_bf16(l_b > 0.f ? o[nd][2] / l_b : 0.f,
-                           l_b > 0.f ? o[nd][3] / l_b : 0.f);
+            ptt::pack_bf16(l_b == 0.f ? 0.f : o[nd][2] / l_b,
+                           l_b == 0.f ? 0.f : o[nd][3] / l_b);
     }
     return;
   }

@@ -2,11 +2,13 @@
 policy (counterpart of paddle_tpu/framework/core.py).
 
 Only the flags the ported slices read are registered, with the
-reference's names and defaults (the serving features not yet ported,
-the SLO layer and request tracing, default to the reference's kill
-switches); `get_flag` reads the
-environment first, as the reference does, and `get_bool_flag`
-normalises env strings so `FLAGS_x=0` turns a kill switch off.
+reference's names and defaults (request tracing, not ported yet, stands
+at the reference's kill switch); `get_flag` reads the environment
+first, as the reference does, and `get_bool_flag` normalises env
+strings so `FLAGS_x=0` turns a kill switch off. `set_flags` applies the
+reference's side effects of the two observability flags the port has:
+`FLAGS_fault_inject` re-arms `utils.fault_injection`, `FLAGS_metrics`
+arms or disarms `observability.metrics`.
 
 Every other flag raises rather than being silently dropped:
 `set_flags` refuses a name the port does not register, and
@@ -52,13 +54,19 @@ _flags: dict = {
     # step; 0 is the kill switch (single-token decode rows)
     "FLAGS_speculative": True,
     "FLAGS_speculative_draft_tokens": 4,
-    # Serving features the reference arms by default (its defaults: True,
-    # True). They stand here at the reference's kill-switch values until
-    # ROADMAP Queue 1 items 2 (the SLO layer) and 5 (request tracing)
-    # port the features; `ContinuousBatchingEngine` raises
-    # NotImplementedError when one resolves on.
-    "FLAGS_serving_slo": False,
+    # the serving SLO layer (priorities, deadlines, the queue bound,
+    # shedding, degradation, per-request fault isolation), armed by
+    # default as in the reference; 0 is the kill switch (the FIFO engine)
+    "FLAGS_serving_slo": True,
+    # request tracing, which the reference arms by default: it stands at
+    # the reference's kill switch until ROADMAP Queue 1 item 5 ports it;
+    # `ContinuousBatchingEngine` raises NotImplementedError when it
+    # resolves on
     "FLAGS_request_trace": False,
+    # fault-injection schedule (utils/fault_injection.py grammar; "" is
+    # disarmed) and the metrics registry's arming (observability)
+    "FLAGS_fault_inject": "",
+    "FLAGS_metrics": False,
     # read by jit.TrainStep after each step, as the reference's TrainStep
     # reads them (paddle_tpu/jit/__init__.py): a non-finite loss or
     # updated parameter raises FloatingPointError; the step's wall time
@@ -73,8 +81,9 @@ _flags: dict = {
 # every name with its default. A name here that `_flags` above does not
 # register is not ported: setting it raises (`set_flags`,
 # `check_env_flags`). Among them FLAGS_gemm_use_half_precision_compute_type
-# (TF32 on or off, ROADMAP Queue 2) and the observability flags (metrics,
-# flight recorder, request-trace sink, lock witness: ROADMAP Queue 1).
+# (TF32 on or off, ROADMAP Queue 2) and the observability flags not ported
+# yet (metrics port and snapshots, flight recorder, span ring, request-
+# trace sink, lock witness: ROADMAP Queue 1 item 5).
 _REFERENCE_FLAGS = {
     "FLAGS_check_nan_inf": False,
     "FLAGS_check_nan_inf_warn_only": False,
@@ -149,6 +158,17 @@ def _not_ported(key) -> str:
             f"{', '.join(sorted(_flags))}")
 
 
+def _apply_flag(key, value) -> None:
+    """The reference's side effects of the flags that steer a global
+    subsystem (paddle_tpu/framework/core.py `_apply_flag`)."""
+    if key == "FLAGS_fault_inject":
+        from ..utils import fault_injection
+        fault_injection.configure(value if isinstance(value, str) else None)
+    elif key == "FLAGS_metrics":
+        from .. import observability
+        observability.enable(value not in _FALSY)
+
+
 def set_flags(flags: dict) -> None:
     """Set registered flags; a name the port does not register raises
     NotImplementedError and nothing is set."""
@@ -157,6 +177,7 @@ def set_flags(flags: dict) -> None:
             raise NotImplementedError(f"set_flags: {_not_ported(k)}")
     for k, v in flags.items():
         _flags[k] = v
+        _apply_flag(k, v)
 
 
 def _is_default(env: str, default) -> bool:

@@ -4,15 +4,22 @@ ThreadingHTTPServer, no framework dependencies).
 
 * `POST /v1/generate` — JSON body: `prompt` token ids,
   `max_new_tokens`, `eos_token_id`, `priority`, `deadline_s`, `stream`
-  (a `priority` other than 0 or a `deadline_s` gets a 400 naming the
-  SLO layer, which is not ported).
-  `stream` (default true) answers Server-Sent Events over a
-  close-delimited HTTP/1.0 body: one `data: {"tokens": [...]}` frame
-  per engine tick carrying every token that tick produced for the
-  request, then a terminal `event: end` (served) or `event: error`
-  (failed / cancelled) frame. `stream: false` answers one JSON document.
-* `GET /healthz` — the engine's health snapshot; 200 while accepting,
-  503 + Retry-After while draining or after an engine fault.
+  (a field that does not parse gets a 400). `stream` (default true)
+  answers Server-Sent Events over a close-delimited HTTP/1.0 body: one
+  `data: {"tokens": [...]}` frame per engine tick carrying every token
+  that tick produced for the request, then a terminal `event: end`
+  (served) or `event: error` (failed / shed / deadline_missed /
+  cancelled) frame. `stream: false` answers one JSON document, its HTTP
+  status from the terminal status (`_STATUS_HTTP`: deadline_missed 504,
+  shed 503, failed 500).
+* Backpressure: the engine's `QueueFull` at submit (its
+  `max_queue_tokens` bound) becomes a 429 with a `Retry-After` header
+  from the engine's `retry_after_s` hint; a draining gateway answers
+  503 the same way.
+* `GET /healthz` — the engine's health snapshot (the SLO layer's
+  queue, degradation and counters among it); 200 while the gateway and
+  the engine accept, 503 + Retry-After while draining, after an engine
+  fault, or while the engine's queue is full.
 * A mid-stream client disconnect cancels the request in the engine
   (slot + pages reclaimed). Graceful drain: stop accepting, finish
   in-flight streams, then stop.
@@ -21,12 +28,15 @@ Saved weights are the port's own: `<prefix>.pt` holding
 `torch.save(state_dict)` plus the reference's `<prefix>.config.json`
 sidecar (the reference's `.pdparams` pickle names paddle_tpu classes and
 cannot load without that package). Not ported yet: `/metrics`,
-`/v1/trace`, `/v1/infer` and the 429 queue bound (SLO layer).
+`/v1/trace` and `/v1/infer`. The `serving.http_request` fault point
+sits at the top of each POST and before each streamed frame.
 
 Threading: ONE tick thread owns the engine loop (`EngineRunner`) and
 selects the engine's CUDA device before its first step; HTTP handler
-threads reach it only through the runner lock (submit/cancel) and per-
-request event queues (token delivery).
+threads reach it only through the runner's inbox (submit/cancel: the
+tick thread admits a submit between ticks and answers it, accepted or
+rejected, on the request's stream) and per-request event queues (token
+delivery).
 """
 from __future__ import annotations
 
@@ -40,8 +50,9 @@ from typing import Optional
 
 import torch
 
+from ..utils.fault_injection import fault_point
 from .router import _retry_after_header
-from .serving import ContinuousBatchingEngine, GenerationRequest
+from .serving import ContinuousBatchingEngine, GenerationRequest, QueueFull
 
 __all__ = ["EngineRunner", "ServingGateway", "resolve_config",
            "save_for_serving", "load_generation_model", "build_engine"]
@@ -113,7 +124,11 @@ def load_generation_model(path_prefix: str, config=None, device=None):
 
 
 def build_engine(model, **knobs) -> ContinuousBatchingEngine:
-    """ContinuousBatchingEngine with the serving front-end's knobs."""
+    """ContinuousBatchingEngine with the serving front-end's defaults: a
+    bounded queue of 8 * max_seq tokens (the 429 path) unless the caller
+    chose a bound."""
+    if knobs.get("max_queue_tokens", None) is None:
+        knobs["max_queue_tokens"] = 8 * int(knobs.get("max_seq", 256))
     return ContinuousBatchingEngine(model, **knobs)
 
 
@@ -121,13 +136,17 @@ def build_engine(model, **knobs) -> ContinuousBatchingEngine:
 
 class _TokenStream:
     """Per-request event funnel from the tick thread to one handler
-    thread: ('tokens', [ids...]) frames, one per tick, then one
-    ('end', status, error)."""
+    thread: `admitted` is set once the tick thread took the submit
+    (`rejected` holds the exception when `add_request` raised); then
+    ('tokens', [ids...]) frames, one per tick, and one ('end', status,
+    error)."""
 
     def __init__(self, req: GenerationRequest):
         self.req = req
         self.q: queue.Queue = queue.Queue()
         self.sent = 0
+        self.admitted = threading.Event()
+        self.rejected: Optional[BaseException] = None
 
 
 class EngineRunner:
@@ -186,9 +205,9 @@ class EngineRunner:
 
     def submit(self, req: GenerationRequest) -> _TokenStream:
         """Queue one request for the next tick and return its token
-        stream. An impossible prompt raises ValueError here, a priority
-        or deadline NotImplementedError (the SLO layer is not ported); a
-        failed engine raises RuntimeError."""
+        stream. An impossible prompt raises ValueError here and a failed
+        engine RuntimeError; what `add_request` raises on the tick
+        thread (QueueFull) comes back through `wait_admitted`."""
         self.engine.check_request(req)
         st = _TokenStream(req)
         with self._inbox_lock:
@@ -199,6 +218,18 @@ class EngineRunner:
             self._inbox.append(("submit", st))
         self._wake.set()
         return st
+
+    def wait_admitted(self, stream: _TokenStream) -> None:
+        """Block until the tick thread took the submit; re-raise what
+        `add_request` raised there (QueueFull, a fault), or RuntimeError
+        when the engine failed first."""
+        while not stream.admitted.wait(0.05):
+            if self.fatal is not None:
+                raise RuntimeError(
+                    f"engine failed: {type(self.fatal).__name__}: "
+                    f"{self.fatal}")
+        if stream.rejected is not None:
+            raise stream.rejected
 
     def cancel(self, req: GenerationRequest,
                reason: str = "client disconnected") -> None:
@@ -230,8 +261,13 @@ class EngineRunner:
         for op in ops:
             if op[0] == "submit":
                 st = op[1]
-                self.engine.add_request(st.req)
-                self._streams[st.req.request_id] = st
+                try:
+                    self.engine.add_request(st.req)
+                except Exception as exc:     # QueueFull, a fault point
+                    st.rejected = exc
+                else:
+                    self._streams[st.req.request_id] = st
+                st.admitted.set()
             else:
                 _, req, reason = op
                 self._streams.pop(req.request_id, None)
@@ -243,11 +279,14 @@ class EngineRunner:
         with self._inbox_lock:
             self.fatal = exc
             ops, self._inbox = self._inbox, []
-        streams = list(self._streams.values()) + [
-            op[1] for op in ops if op[0] == "submit"]
-        for st in streams:
+        for st in self._streams.values():
             st.q.put(("end", "failed", f"engine fault: {exc}"))
         self._streams.clear()
+        for op in ops:
+            if op[0] == "submit":
+                op[1].rejected = RuntimeError(
+                    f"engine failed: {type(exc).__name__}: {exc}")
+                op[1].admitted.set()
 
     def _loop(self):
         if self.engine.device.type == "cuda":
@@ -295,7 +334,8 @@ class EngineRunner:
 
 # ---------------- the HTTP gateway -----------------------------------------
 
-_STATUS_HTTP = {"served": 200, "failed": 500, "cancelled": 500}
+_STATUS_HTTP = {"served": 200, "deadline_missed": 504, "shed": 503,
+                "failed": 500, "cancelled": 500}
 
 
 class ServingGateway:
@@ -355,7 +395,10 @@ class ServingGateway:
         path = h.path.split("?", 1)[0].rstrip("/")
         if path == "/healthz":
             body = self._health()
-            status = 200 if body["accepting"] else 503
+            # readiness keys on the gateway's gate (draining, fatal) and
+            # the engine's (queue full)
+            status = (200 if body["accepting"]
+                      and body["engine"].get("accepting", True) else 503)
             extra = {}
             if status != 200:
                 extra["Retry-After"] = _retry_after_header(
@@ -367,6 +410,7 @@ class ServingGateway:
     def _handle_post(self, h):
         path = h.path.split("?", 1)[0].rstrip("/")
         try:
+            fault_point("serving.http_request")
             n = int(h.headers.get("Content-Length") or 0)
             try:
                 spec = json.loads(h.rfile.read(n) or b"{}")
@@ -414,9 +458,17 @@ class ServingGateway:
                                 priority=priority, deadline_s=deadline)
         try:
             stream = self.runner.submit(req)
-        except (ValueError, NotImplementedError) as e:
-            # an oversized prompt, or a priority / deadline (the SLO
-            # layer is not ported), rejected at submit
+            self.runner.wait_admitted(stream)
+        except QueueFull as e:
+            # the engine's backpressure: a finite Retry-After from its
+            # throughput hint, clamped to the ceiling
+            self._json(h, 429,
+                       {"error": str(e),
+                        "retry_after_s": round(e.retry_after_s, 3)},
+                       {"Retry-After": _retry_after_header(
+                           e.retry_after_s)})
+            return
+        except ValueError as e:         # oversized prompt, rejected at submit
             self._json(h, 400, {"error": str(e)})
             return
         except RuntimeError as e:       # engine went fatal
@@ -444,6 +496,7 @@ class ServingGateway:
                     h.wfile.write(b": keepalive\n\n")
                     h.wfile.flush()
                     continue
+                fault_point("serving.http_request")
                 if ev[0] == "tokens":
                     h.wfile.write(b"data: " + json.dumps(
                         {"tokens": ev[1]}).encode() + b"\n\n")

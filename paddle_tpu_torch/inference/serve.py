@@ -6,9 +6,13 @@ Artifact: `<prefix>.pt` + `<prefix>.config.json` (or --config), as
 written by `gateway.save_for_serving`. Serves `POST /v1/generate` (one
 SSE frame a tick, with every token the tick produced: several when
 speculative drafts were accepted) and `GET /healthz` (the engine's
-health snapshot, its `speculative` block among it: armed, the draft
-cap, drafted, accepted, acceptance rate). Prints
-`serving on http://<host>:<port>` once listening.
+health snapshot: the SLO layer's queue depth, degradation and
+counters, and the `speculative` block: armed, the draft cap, drafted,
+accepted, acceptance rate). The engine runs the SLO layer (FLAGS_serving_slo,
+default on): a request's `priority` and `deadline_s` are honoured, a
+full queue (--max-queue-tokens) answers 429 with Retry-After, and a
+deadline that passes answers 504 (`"stream": false`) or an error frame.
+Prints `serving on http://<host>:<port>` once listening.
 
 Signals: SIGTERM/SIGINT start a graceful drain — /healthz flips to 503,
 new submits get 503, in-flight streams finish (bounded by
@@ -51,8 +55,8 @@ def _build_parser():
     p.add_argument("--total-pages", type=int, default=None)
     p.add_argument("--max-chunk-tokens", type=int, default=64)
     p.add_argument("--max-queue-tokens", type=int, default=None,
-                   help="queue bound behind the 429 path (SLO layer; "
-                        "not ported yet — setting it is an error)")
+                   help="queue bound behind the 429 backpressure path "
+                        "(default: 8 * max_seq)")
     p.add_argument("--quantize", choices=("int8",), default=None,
                    help="not ported yet — setting it is an error")
     p.add_argument("--max-draft-tokens", type=int, default=None,

@@ -44,30 +44,53 @@ products of the last-row lm-head shape, so a verify row is bitwise the
 decode row it stands for. FLAGS_speculative=0 (or `max_draft_tokens=0`)
 is the kill switch: the step runs exactly as without speculation.
 
+SLO layer (`slo=` / FLAGS_serving_slo, default on as in the reference;
+`=0` is the kill switch: the FIFO engine, the same admissions, victims,
+packing and step outputs): `GenerationRequest.priority` (higher wins)
+and `deadline_s` (from arrival) order the wait queue by (priority,
+earliest deadline), stable within equal keys; preemption never evicts a
+higher-priority page holder for a lower one; an expired request fails
+fast (`deadline_missed`, DeadlineExceeded in its error) and gives back
+its slot and pages. `max_queue_tokens` bounds the queue: `add_request`
+raises QueueFull with a `retry_after_s` hint from the tick throughput,
+and `shed_patience` admission-starved ticks shed the lowest-priority,
+most-slack waiter. Under pool pressure (`degrade_high_water`) the
+ragged chunk budget halves down to `min_chunk_tokens`, and regrows
+after `degrade_hysteresis` calm ticks (`_T_pack` does not change: only
+the packing does). A tick that raises fails ONE request (the latest
+admission) and the engine keeps serving; a row whose consumed logits
+are not finite (a per-row flag the step computes and returns in the
+same device-to-host copy as the tokens) fails exactly its request, and
+the tick is discarded before any slot state advanced, the sampling
+generator rewound with it. The fault points are
+`utils.fault_injection`'s `serving.*`; `tick_timeout_s` arms a private
+`distributed.watchdog.CommWatchdog` around each tick; the `serving.*`
+counters, gauges and histograms record while `observability` is armed;
+SLO-armed engines publish `health_snapshot()` through
+`observability.export`'s health registry (`serving_health`).
+
 Differences from the reference, by design:
 * the KV pools are torch tensors updated IN PLACE by index writes (the
-  reference donates its pools to the compiled step instead);
+  reference donates its pools to the compiled step instead); a
+  discarded tick's writes stay, as the reference keeps its discarded
+  step's pools, and the retry rewrites the same positions;
 * the steps run eagerly on `device` (no jit, no compile cache); sampling
-  draws from an explicit `torch.Generator` on the engine's device.
+  draws from an explicit `torch.Generator` on the engine's device;
+* the SLO layer's isolation boundary lets a kernel's or the card's own
+  error through (`kernels._build.is_device_fault`: a build, load or
+  launch failure, a CUDA runtime error, device memory exhausted): it
+  raises out of `step()` and fails no request, where the reference
+  quarantines whatever a tick raises.
 
-Not ported yet — asking for them raises NotImplementedError: the SLO
-layer (`slo=True` / FLAGS_serving_slo: priorities, deadlines, queue
-bound, shedding, degradation, fault isolation; a request with a
-`priority` or a `deadline_s` is refused at submission), request tracing
-(`request_trace=True` / FLAGS_request_trace), int8 weights. The
-metrics/export/fault-injection hooks the reference engine calls are
-absent (speculation's fault points, counters and trace events among
-them).
-
-Defaults: the reference arms speculation, the SLO layer and request
-tracing by default; the port arms speculation as the reference does,
-and its SLO and tracing flags default to the reference's kill-switch
-values (False), so the port's default engine is the reference's engine
-built with `slo=False, request_trace=False`.
+Not ported yet — asking for them raises NotImplementedError: request
+tracing (`request_trace=True` / FLAGS_request_trace, whose port flag
+stands at the reference's kill switch) and int8 weights. So the port's
+default engine is the reference's built with `request_trace=False`.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -76,22 +99,105 @@ import torch
 
 from ..framework import core as _core
 from ..framework.core import resolve_device
+from ..kernels import _build
 from ..kernels.ragged_paged_attention import _size_class
 from ..models import llama as L
+from ..observability import metrics as _metrics
+from ..utils.fault_injection import fault_point
+from .router import RETRY_AFTER_CEILING_S
 from .router import chain_key as _chain_key
 
-__all__ = ["GenerationRequest", "ContinuousBatchingEngine", "PagePool"]
+__all__ = ["GenerationRequest", "ContinuousBatchingEngine", "PagePool",
+           "DeadlineExceeded", "QueueFull", "serving_health"]
+
+_TTFT = _metrics.histogram(
+    "serving.ttft_seconds",
+    "request arrival to first generated token (time-to-first-token)")
+_TPOT = _metrics.histogram(
+    "serving.tpot_seconds",
+    "mean per-output-token latency after the first token")
+_KV_PAGES = _metrics.gauge(
+    "serving.kv_pages_in_use",
+    "allocated (non-free, non-scratch) pages in the KV page pool")
+_PREEMPTS = _metrics.counter(
+    "serving.preemptions_total",
+    "recompute-style preemptions forced by KV pool pressure")
+_PACKED = _metrics.histogram(
+    "serving.packed_tokens_per_tick",
+    "ragged rows (prefill-chunk + decode) packed into one mixed step",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0))
+_DEADLINE_MISSES = _metrics.counter(
+    "serving.deadline_misses_total",
+    "requests failed fast with DeadlineExceeded (waiting or in-flight)")
+_SHEDS = _metrics.counter(
+    "serving.sheds_total",
+    "waiting requests shed under sustained admission starvation")
+_QUARANTINES = _metrics.counter(
+    "serving.quarantines_total",
+    "requests failed individually by tick-fault / non-finite isolation")
+_QUEUE_DEPTH = _metrics.gauge(
+    "serving.queue_depth", "requests waiting for admission (per tick)")
+_DEGRADED = _metrics.gauge(
+    "serving.degraded",
+    "1 while adaptive degradation holds the effective prefill chunk "
+    "budget below max_chunk_tokens")
+_PREFIX_HITS = _metrics.counter(
+    "serving.prefix_hits_total",
+    "admissions that attached at least one cached prefix page")
+_PREFIX_MISSES = _metrics.counter(
+    "serving.prefix_misses_total",
+    "admissions that found no cached prefix page")
+_PREFIX_REUSED = _metrics.counter(
+    "serving.prefix_pages_reused_total",
+    "KV pages attached from the prefix cache instead of prefilled")
+_PREFIX_RATIO = _metrics.gauge(
+    "serving.prefix_reuse_ratio",
+    "cumulative cacheable-prompt-pages served from the prefix cache "
+    "(reused / seen)")
+_SPEC_DRAFTED = _metrics.counter(
+    "serving.spec_drafted_total",
+    "draft tokens proposed by the n-gram prompt-lookup drafter")
+_SPEC_ACCEPTED = _metrics.counter(
+    "serving.spec_accepted_total",
+    "draft tokens confirmed by greedy multi-row verification")
+_SPEC_RATE = _metrics.gauge(
+    "serving.spec_acceptance_rate",
+    "cumulative draft acceptance rate (accepted / drafted) across the "
+    "engine lifetime; per-request rates live on GenerationRequest")
+_CACHE_AWARE = _metrics.counter(
+    "serving.cache_aware_admits_total",
+    "admissions reordered ahead of FIFO because their prompt prefix "
+    "was hot in the prefix cache")
+
+
+class DeadlineExceeded(RuntimeError):
+    """A request's deadline_s passed before it finished; the engine
+    failed it fast (terminal status 'deadline_missed') and reclaimed its
+    slot and pages."""
+
+
+class QueueFull(RuntimeError):
+    """add_request rejected at submit: the bounded wait queue
+    (max_queue_tokens) is full. `retry_after_s` estimates when enough
+    queue will have drained, from the engine's tick throughput; the
+    gateway sends it as a 429's Retry-After."""
+
+    def __init__(self, msg: str, retry_after_s: float):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
 
 
 # ---------------- requests -------------------------------------------------
 
 @dataclass
 class GenerationRequest:
-    """One decode job. `status` tracks the lifecycle: queued -> running
-    -> served / failed / cancelled; `error` carries the terminal error
-    text for the non-served outcomes. `priority` and `deadline_s` are
-    the reference's SLO fields; the engine refuses a request that sets
-    either (NotImplementedError) until the SLO layer is ported."""
+    """One decode job. SLO fields (read only while the engine's SLO
+    layer is armed): `priority`, higher wins admission and retention,
+    equal priorities keep FIFO order; `deadline_s`, seconds from arrival
+    after which the request fails fast with DeadlineExceeded. `status`
+    tracks the lifecycle: queued -> running -> served / shed /
+    deadline_missed / failed / cancelled; `error` carries the terminal
+    error text for the non-served outcomes."""
     prompt: List[int]
     max_new_tokens: int = 32
     eos_token_id: Optional[int] = None
@@ -116,6 +222,13 @@ class GenerationRequest:
     @property
     def done(self) -> bool:
         return self.finished_s is not None
+
+    @property
+    def deadline_at(self) -> Optional[float]:
+        """Absolute perf_counter deadline, or None (no deadline)."""
+        if self.deadline_s is None:
+            return None
+        return self.arrived_s + float(self.deadline_s)
 
 
 class _Slot:
@@ -182,6 +295,7 @@ class PagePool:
     def alloc(self, n: int) -> Optional[List[int]]:
         """n pages or None. Shortfalls first reclaim idle-cached pages
         (refcount-0 LRU) from the attached prefix cache."""
+        fault_point("serving.page_alloc")
         if n > len(self._free) and self._cache is not None:
             self._cache.evict(n - len(self._free))
         if n > len(self._free):
@@ -281,8 +395,13 @@ class _PrefixCache:
             self.pool.share(pages)
             self.hits += 1
             self.pages_reused += len(pages)
+            _PREFIX_HITS.inc()
+            _PREFIX_REUSED.inc(len(pages))
         else:
             self.misses += 1
+            _PREFIX_MISSES.inc()
+        if self.pages_seen:
+            _PREFIX_RATIO.set(self.pages_reused / self.pages_seen)
         return pages, key
 
     def probe(self, eff: List[int]) -> int:
@@ -321,6 +440,7 @@ class _PrefixCache:
         """Reclaim up to `need` idle-cached (refcount-0) pages, leaves
         first (LRU among leaves), else a ref-0 inner entry with its now
         unreachable subtree."""
+        fault_point("serving.prefix_evict")
         freed = 0
         while freed < need:
             cands = [e for e in self.entries.values()
@@ -423,9 +543,14 @@ def _ngram_propose(ctx: List[int], k: int, max_ngram: int,
 
 def _next_tokens(logits, greedy, gen):
     """logits [B, V] f32 -> i32[B]: argmax, or one draw per row from
-    softmax(logits) with `gen`."""
+    softmax(logits) with `gen`. A row with a non-finite logit draws from
+    zeros instead (multinomial refuses NaN, and on the card asserts):
+    the SLO layer discards that row's token, and every row still takes
+    one draw, so the other rows' draws do not move."""
     if greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
+    finite = torch.isfinite(logits).all(dim=-1, keepdim=True)
+    logits = torch.where(finite, logits, 0.0)
     return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                              generator=gen)[:, 0].to(torch.int32)
 
@@ -450,11 +575,17 @@ class ContinuousBatchingEngine:
     full-acceptance ticks before a backed-off slot doubles its draft
     length again.
 
-    The reference's other knobs are accepted with their defaults; asking
-    for an unported feature raises NotImplementedError (module
-    docstring). slo and request_trace resolve as the reference's do (the
-    flag when the argument is None), but the port's flags for them
-    default to the reference's kill switches."""
+    SLO layer (slo=None follows FLAGS_serving_slo; module docstring):
+    max_queue_tokens bounds the wait queue (None = unbounded, shedding
+    off); shed_patience = consecutive admission-starved ticks before one
+    waiter is shed; min_chunk_tokens is the degradation floor and
+    degrade_high_water / degrade_low_water / degrade_hysteresis the pool
+    utilization thresholds and calm-tick count steering the effective
+    chunk budget; tick_timeout_s arms a per-tick watchdog (None = off).
+
+    request_trace resolves as the reference's does (the flag when the
+    argument is None); it and quantize raise NotImplementedError when
+    asked for (module docstring)."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 256,
                  prefill_buckets=(32, 64, 128, 256), quantize=None,
@@ -468,23 +599,22 @@ class ContinuousBatchingEngine:
                  spec_hysteresis: int = 4, cache_jump_limit: int = 8,
                  slo: Optional[bool] = None,
                  max_queue_tokens: Optional[int] = None,
+                 shed_patience: int = 8, min_chunk_tokens: int = 8,
+                 degrade_high_water: float = 0.85,
+                 degrade_low_water: float = 0.5,
+                 degrade_hysteresis: int = 16,
+                 tick_timeout_s: Optional[float] = None,
                  request_trace: Optional[bool] = None,
                  device=None):
         _core.check_env_flags("ContinuousBatchingEngine")
         self.device = resolve_device(device)
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))
-        # resolved as the reference resolves them: the flag when the
-        # argument is None (the port's flags for the unported features
-        # default to the reference's kill switches)
-        slo_on = (_core.get_bool_flag("FLAGS_serving_slo")
-                  if slo is None else bool(slo))
+        # resolved as the reference resolves it: the flag when the
+        # argument is None (the port's flag stands at the kill switch)
         trace_on = (_core.get_bool_flag("FLAGS_request_trace")
                     if request_trace is None else bool(request_trace))
-        unported = [(slo_on, "the SLO layer (slo / FLAGS_serving_slo)"),
-                    (max_queue_tokens is not None,
-                     "admission control (max_queue_tokens, SLO layer)"),
-                    (trace_on, "request tracing (request_trace / "
+        unported = [(trace_on, "request tracing (request_trace / "
                                "FLAGS_request_trace)"),
                     (quantize is not None, f"quantize={quantize!r}")]
         for asked, what in unported:
@@ -564,6 +694,39 @@ class ContinuousBatchingEngine:
         self.cache_aware_admits = 0
         self._probe_memo: Dict[int, Tuple[int, int, int]] = {}
         self.ticks = 0
+        # the serving step, called through the engine (a test may wrap it)
+        self._ragged_step = L._ragged_step_paged
+        # -- the SLO layer. Disarmed, every branch it guards is skipped
+        # and the engine is the FIFO scheduler (kill-switch parity).
+        self._slo = (_core.get_bool_flag("FLAGS_serving_slo", True)
+                     if slo is None else bool(slo))
+        self.max_queue_tokens = (None if max_queue_tokens is None
+                                 else int(max_queue_tokens))
+        self.shed_patience = max(int(shed_patience), 1)
+        self.min_chunk_tokens = max(
+            1, min(int(min_chunk_tokens), self.max_chunk_tokens))
+        self.degrade_high_water = float(degrade_high_water)
+        self.degrade_low_water = float(degrade_low_water)
+        self.degrade_hysteresis = max(int(degrade_hysteresis), 1)
+        self._eff_chunk = self.max_chunk_tokens
+        self._calm_ticks = 0
+        self._pressure_ticks = 0
+        self._admitted_this_tick = False
+        self._tick_failures = 0
+        self._last_tick_s: Optional[float] = None
+        self._tokens_per_s = 0.0          # EMA over ticks (retry hints)
+        self.deadline_misses = 0
+        self.sheds = 0
+        self.quarantines = 0
+        self._wd = None
+        if self._slo and tick_timeout_s is not None:
+            # a private watchdog: a wedged tick warns, naming
+            # 'serving.tick', and the engine itself is left alone
+            from ..distributed.watchdog import CommWatchdog
+            self._wd = CommWatchdog(timeout=float(tick_timeout_s),
+                                    on_timeout="warn")
+        if self._slo:
+            _register_health_engine(self)
 
     # -- memory accounting ---------------------------------------------------
 
@@ -585,32 +748,60 @@ class ContinuousBatchingEngine:
         13th argument is `verify[B]` (the decode and verify entries)
         instead of prev, and next is the argmax of each sequence's last
         min(K, q_len) rows, [B, K] right-aligned (K = max_draft_tokens
-        + 1)."""
-        cfg, greedy, wls = self.cfg, self.greedy, self._wls
+        + 1). SLO layer armed, the step also returns `ok[B]` after next:
+        whether every logit of the rows the host consumes is finite
+        (a producing row; under speculation every row of a decode or
+        verify entry and only the last row of a producing chunk)."""
+        cfg, greedy, wls, slo = self.cfg, self.greedy, self._wls, self._slo
+        step_ragged = self._ragged_step
         if self._spec:
             K = self.max_draft_tokens + 1
 
             def rstep_spec(state, toks, k_pool, v_pool, page_ids, offs,
                            pos, page_table, q_start, q_len, kv_len,
                            produce, verify, gen):
-                lg, k_pool, v_pool = L._ragged_step_paged(
+                lg, k_pool, v_pool = step_ragged(
                     state, cfg, toks, pos, k_pool, v_pool, page_ids, offs,
                     page_table, q_start, q_len, kv_len, verify_rows=K,
                     wls=wls, row_tiles=verify)
-                return (torch.argmax(lg, dim=-1).to(torch.int32), k_pool,
-                        v_pool)
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)   # [B, K]
+                if not slo:
+                    return nxt, k_pool, v_pool
+                j = torch.arange(K, device=lg.device)[None, :]
+                in_window = ((j >= K - torch.clamp(q_len, max=K)[:, None])
+                             & (q_len > 0)[:, None])
+                consumed = torch.where(
+                    verify[:, None], in_window,
+                    (produce & ~verify)[:, None] & (j == K - 1))
+                poison = ~torch.isfinite(lg).all(dim=-1) & consumed
+                return nxt, ~poison.any(dim=-1), k_pool, v_pool
 
             return rstep_spec
 
         def rstep(state, toks, k_pool, v_pool, page_ids, offs, pos,
                   page_table, q_start, q_len, kv_len, produce, prev, gen):
-            lg, k_pool, v_pool = L._ragged_step_paged(
+            lg, k_pool, v_pool = step_ragged(
                 state, cfg, toks, pos, k_pool, v_pool, page_ids, offs,
                 page_table, q_start, q_len, kv_len, wls=wls)
             nxt = torch.where(produce, _next_tokens(lg, greedy, gen), prev)
-            return nxt, k_pool, v_pool
+            if not slo:
+                return nxt, k_pool, v_pool
+            # mid-prompt and idle rows are exempt
+            ok = torch.isfinite(lg).all(dim=-1) | ~produce
+            return nxt, ok, k_pool, v_pool
 
         return rstep
+
+    def _read_back(self, nxt, ok):
+        """next tokens and the SLO layer's ok flags on the host in ONE
+        device-to-host copy: (next as numpy, ok as a numpy bool[B])."""
+        B = self.B
+        both = torch.cat([nxt.reshape(B, -1).to(torch.int32),
+                          torch.as_tensor(ok, device=nxt.device)
+                          .reshape(B, 1).to(torch.int32)], dim=1)
+        both = both.cpu().numpy()
+        tok = both[:, :-1]
+        return (tok if nxt.dim() > 1 else tok[:, 0]), both[:, -1] != 0
 
     def _write_fn(self, k_new, v_new, page_ids, offs):
         """k_new/v_new [L, N, kvh, d] into the pools at (page_ids[N],
@@ -623,15 +814,8 @@ class ContinuousBatchingEngine:
     # -- scheduler ----------------------------------------------------------
 
     def check_request(self, req: GenerationRequest) -> None:
-        """Reject a prompt that can never fit (ValueError) and a
-        priority or deadline (NotImplementedError: the SLO layer is not
-        ported). Reads only the engine's fixed sizes, so any thread may
-        call it."""
-        if req.priority != 0 or req.deadline_s is not None:
-            raise NotImplementedError(
-                f"request priority={req.priority}, deadline_s="
-                f"{req.deadline_s}: priorities and deadlines are the SLO "
-                f"layer's, which is not ported yet")
+        """Reject a prompt that can never fit (ValueError). Reads only the
+        engine's fixed sizes, so any thread may call it."""
         need = -(-len(req.prompt) // self.page)
         if need > self.pool.n_pages - 1:
             raise ValueError(
@@ -642,7 +826,21 @@ class ContinuousBatchingEngine:
                 f"prompt length {len(req.prompt)} exceeds max_seq {self.S}")
 
     def add_request(self, req: GenerationRequest):
+        """Queue a request. An impossible prompt raises ValueError; under
+        the SLO layer a full queue (max_queue_tokens) raises QueueFull
+        with a retry hint, and the request never enters the queue."""
         self.check_request(req)
+        if self._slo:
+            fault_point("serving.admit")
+            if self.max_queue_tokens is not None:
+                queued = self._queued_tokens()
+                if queued + len(req.prompt) > self.max_queue_tokens:
+                    retry = self._retry_after_hint(
+                        queued + len(req.prompt) - self.max_queue_tokens)
+                    raise QueueFull(
+                        f"wait queue full ({queued} queued tokens, "
+                        f"bound {self.max_queue_tokens}); retry in "
+                        f"~{retry:.2f}s", retry_after_s=retry)
         if req.request_id is None:
             req.request_id = self._next_id
             self._next_id += 1
@@ -650,6 +848,18 @@ class ContinuousBatchingEngine:
         req.status = "queued"
         self.waiting.append(req)
         return req.request_id
+
+    def _queued_tokens(self) -> int:
+        return sum(len(r.prompt) + len(r.output) for r in self.waiting)
+
+    def _retry_after_hint(self, overflow_tokens: int) -> float:
+        """Seconds until ~overflow_tokens of queue should have drained,
+        from the tick throughput's EMA; 1.0 on a cold engine or a
+        near-zero EMA, at most RETRY_AFTER_CEILING_S."""
+        if self.ticks > 0 and self._tokens_per_s > 1e-6:
+            return min(max(overflow_tokens / self._tokens_per_s, 0.01),
+                       RETRY_AFTER_CEILING_S)
+        return 1.0
 
     def _free_slot_pages(self, i):
         if self.slot_pages[i]:
@@ -669,6 +879,7 @@ class ContinuousBatchingEngine:
         req.status = "queued"
         self.waiting.insert(0, req)
         self.preemptions += 1
+        _PREEMPTS.inc()
 
     def _oversized(self, eff_len: int) -> bool:
         return (-(-eff_len // self.page) > self.pool.n_pages - 1
@@ -683,6 +894,11 @@ class ContinuousBatchingEngine:
     def _note_first_token(self, req):
         if len(req.output) == 1 and req.first_token_s is None:
             req.first_token_s = time.perf_counter()
+            ttft = req.first_token_s - req.arrived_s
+            if self._slo:
+                _TTFT.observe(ttft, priority=str(req.priority))
+            else:
+                _TTFT.observe(ttft)
 
     def _maybe_finish(self, i):
         slot = self.slots[i]
@@ -696,6 +912,13 @@ class ContinuousBatchingEngine:
         if slot.produced >= req.max_new_tokens or eos_hit or full:
             req.finished_s = time.perf_counter()
             req.status = "served"
+            if req.first_token_s is not None and len(req.output) > 1:
+                tpot = ((req.finished_s - req.first_token_s)
+                        / (len(req.output) - 1))
+                if self._slo:
+                    _TPOT.observe(tpot, priority=str(req.priority))
+                else:
+                    _TPOT.observe(tpot)
             self.finished.append(req)
             slot.req = None
             slot.pending = []
@@ -720,7 +943,21 @@ class ContinuousBatchingEngine:
                     break
                 victims = [j for j, s in enumerate(self.slots)
                            if j != i and not s.free and self.slot_pages[j]]
-                if victims:
+                if self._slo:
+                    # never evict a higher-priority page holder for a
+                    # lower-priority grower; among the eligible take the
+                    # lowest priority, latest admission
+                    mine = slot.req.priority
+                    victims = [j for j in victims
+                               if self.slots[j].req.priority <= mine]
+                    if victims:
+                        self._preempt(max(
+                            victims,
+                            key=lambda j: (-self.slots[j].req.priority,
+                                           self.slots[j].admit_seq)))
+                    else:
+                        self._preempt(i)     # everything else outranks it
+                elif victims:
                     self._preempt(max(
                         victims, key=lambda j: self.slots[j].admit_seq))
                 else:
@@ -824,6 +1061,7 @@ class ContinuousBatchingEngine:
             self.page_table[i, :need] = pages
             slot.req = req
             req.status = "running"
+            self._admitted_this_tick = True
             slot.length = T
             slot.produced = len(req.output) + 1
             slot.last_token = int(toks[j])
@@ -845,6 +1083,7 @@ class ContinuousBatchingEngine:
                                   np.int32))
         lens = np.array([s.length for s in self.slots], np.int32)
         active = self._dev(active)
+        gen_before = None if self.greedy else self._gen.get_state()
         # one token for every active slot, straight over the page pool;
         # inactive slots keep their token
         lg, self.k_pool, self.v_pool = L._decode_step_paged(
@@ -854,7 +1093,15 @@ class ContinuousBatchingEngine:
         nxt = torch.where(active, _next_tokens(lg, self.greedy, self._gen),
                           toks)
         self.decode_steps += 1
-        nxt = nxt.cpu().numpy()
+        if self._slo:
+            # a slot whose logits are not finite is quarantined exactly
+            # (idle rows exempt)
+            nxt, ok = self._read_back(
+                nxt, torch.isfinite(lg).all(dim=-1) | ~active)
+            if self._discard_poisoned(ok, gen_before):
+                return
+        else:
+            nxt = nxt.cpu().numpy()
         for i, slot in enumerate(self.slots):
             if slot.free:
                 continue
@@ -887,7 +1134,13 @@ class ContinuousBatchingEngine:
             else:
                 hot = self._pcache.probe(list(r.prompt) + list(r.output))
             fresh[r.request_id] = (epoch, ctx_len, hot)
-            key = (-hot, j)
+            if self._slo:
+                # heat ranks below the SLO order (priority, then EDF)
+                dl = r.deadline_at
+                key = (-r.priority,
+                       dl if dl is not None else float("inf"), -hot, j)
+            else:
+                key = (-hot, j)
             if best_key is None or key < best_key:
                 best, best_key, best_hot = j, key, hot
         self._probe_memo = fresh
@@ -895,6 +1148,7 @@ class ContinuousBatchingEngine:
             for r in self.waiting[:best]:
                 r.admit_bypassed += 1
             self.cache_aware_admits += 1
+            _CACHE_AWARE.inc()
         return best
 
     def _admit_ragged(self):
@@ -919,6 +1173,7 @@ class ContinuousBatchingEngine:
                 cached, ckey = self._pcache.lookup(eff)
             slot.req = req
             req.status = "running"
+            self._admitted_this_tick = True
             slot.length = len(cached) * self.page
             slot.produced = len(req.output)
             slot.last_token = 0
@@ -943,7 +1198,9 @@ class ContinuousBatchingEngine:
         Returns [(slot_idx, row_tokens, is_prefill)]."""
         while True:
             entries: List[Tuple[int, List[int], bool]] = []
-            budget = self.max_chunk_tokens
+            # adaptive degradation (SLO): the effective budget may sit
+            # below max_chunk_tokens under pool pressure; _T_pack stays
+            budget = self._eff_chunk if self._slo else self.max_chunk_tokens
             for i, slot in enumerate(self.slots):
                 if not slot.free and not slot.pending:
                     entries.append((i, [slot.last_token], False))
@@ -983,8 +1240,14 @@ class ContinuousBatchingEngine:
             if not active:
                 return entries
             victims = [i for i in active if self.slot_pages[i]] or active
-            self._preempt(max(victims,
-                              key=lambda j: self.slots[j].admit_seq))
+            if self._slo:
+                # the lowest priority yields first
+                self._preempt(max(
+                    victims, key=lambda j: (-self.slots[j].req.priority,
+                                            self.slots[j].admit_seq)))
+            else:
+                self._preempt(max(victims,
+                                  key=lambda j: self.slots[j].admit_seq))
 
     # -- self-speculative decoding -------------------------------------------
 
@@ -1000,6 +1263,7 @@ class ContinuousBatchingEngine:
                 self.S - 1 - slot.length)
         if k <= 0:
             return []
+        fault_point("serving.draft")
         return _ngram_propose(list(req.prompt) + list(req.output), k,
                               self.spec_max_ngram, self.spec_min_ngram)
 
@@ -1077,6 +1341,7 @@ class ContinuousBatchingEngine:
         accepted = min(appended - 1, drafted)
         keep = -(-slot.length // self.page)
         if len(self.slot_pages[i]) > keep:
+            fault_point("serving.verify_rollback")
             extra = self.slot_pages[i][keep:]
             del self.slot_pages[i][keep:]
             self.page_table[i, keep:keep + len(extra)] = 0
@@ -1085,6 +1350,12 @@ class ContinuousBatchingEngine:
         self.spec_accepted += accepted
         req.spec_drafted += drafted
         req.spec_accepted += accepted
+        if drafted:
+            _SPEC_DRAFTED.inc(drafted)
+        if accepted:
+            _SPEC_ACCEPTED.inc(accepted)
+        if self.spec_drafted:
+            _SPEC_RATE.set(self.spec_accepted / self.spec_drafted)
         # adaptive draft length: back off fast, regrow slowly
         if accepted == drafted and drafted > 0:
             slot.spec_calm += 1
@@ -1152,8 +1423,10 @@ class ContinuousBatchingEngine:
                 offs[cur] = p % page
                 cur += 1
         self.last_packed_tokens = cur
+        _PACKED.observe(float(cur))
         dev = self._dev
-        nxt, self.k_pool, self.v_pool = self._ragged_fn()(
+        gen_before = None if self.greedy else self._gen.get_state()
+        out = self._ragged_fn()(
             self.state, dev(toks), self.k_pool, self.v_pool, dev(page_ids),
             dev(offs), dev(pos), dev(self.page_table), dev(q_start),
             dev(q_len), dev(kv_len), dev(produce),
@@ -1161,7 +1434,14 @@ class ContinuousBatchingEngine:
             # non-speculative one takes the previous tokens
             dev(verify if self._spec else prev), self._gen)
         self.model_steps += 1
-        nxt = nxt.cpu().numpy()
+        if self._slo:
+            nxt, ok, self.k_pool, self.v_pool = out
+            nxt, ok = self._read_back(nxt, ok)
+            if self._discard_poisoned(ok, gen_before):
+                return
+        else:
+            nxt, self.k_pool, self.v_pool = out
+            nxt = nxt.cpu().numpy()
         for i, rows, is_prefill in entries:
             slot = self.slots[i]
             req = slot.req
@@ -1211,27 +1491,195 @@ class ContinuousBatchingEngine:
         self.finished.append(req)
         return True
 
-    def health_snapshot(self) -> dict:
-        """Readiness view (the non-SLO part of the reference's): pure
-        host-side state, no device sync."""
+    # -- the SLO layer -----------------------------------------------------
+
+    def _discard_poisoned(self, ok, gen_before) -> bool:
+        """After a step, before any slot state advanced: when a consumed
+        row's logits were not finite, quarantine exactly those requests
+        and discard the tick (True). The other rows reschedule next tick
+        and rewrite the same KV; a sampling engine's generator rewinds
+        with the tick, so their draws repeat."""
+        if ok.all():
+            return False
+        if gen_before is not None:
+            self._gen.set_state(gen_before)
+        for i in np.nonzero(~ok)[0]:
+            self._quarantine_slot(int(i), "non-finite logits")
+        return True
+
+    def _pool_utilization(self) -> float:
         alloc = self.pool.n_pages - 1
+        return (alloc - self.pool.n_free) / alloc if alloc else 0.0
+
+    def _slo_pre_tick(self):
+        """Deadline sweeps (waiting and in flight), the SLO queue order
+        and the degradation controller: what must settle before this
+        tick's admission and scheduling."""
+        now = time.perf_counter()
+        keep = []
+        for r in self.waiting:
+            dl = r.deadline_at
+            if dl is not None and now >= dl:
+                self._miss_deadline(r)
+            else:
+                keep.append(r)
+        self.waiting[:] = keep
+        for i, slot in enumerate(self.slots):
+            if slot.free:
+                continue
+            dl = slot.req.deadline_at
+            if dl is not None and now >= dl:
+                req = slot.req
+                slot.req = None
+                slot.pending = []
+                self._free_slot_pages(i)
+                self._miss_deadline(req)
+        # (priority, earliest deadline) order; the sort is stable, so
+        # equal keys keep FIFO / resume order
+        if len(self.waiting) > 1:
+            self.waiting.sort(key=lambda r: (
+                -r.priority,
+                r.deadline_at if r.deadline_at is not None
+                else float("inf")))
+        # degradation: halve the effective chunk budget under pool
+        # pressure, double it back after a full hysteresis window of calm
+        if self._ragged:
+            util = self._pool_utilization()
+            if util >= self.degrade_high_water:
+                self._calm_ticks = 0
+                if self._eff_chunk > self.min_chunk_tokens:
+                    self._eff_chunk = max(self.min_chunk_tokens,
+                                          self._eff_chunk // 2)
+            elif util <= self.degrade_low_water:
+                self._calm_ticks += 1
+                if (self._calm_ticks >= self.degrade_hysteresis
+                        and self._eff_chunk < self.max_chunk_tokens):
+                    self._eff_chunk = min(self.max_chunk_tokens,
+                                          self._eff_chunk * 2)
+                    self._calm_ticks = 0
+            else:
+                self._calm_ticks = 0     # hysteresis band: hold
+            _DEGRADED.set(
+                1.0 if self._eff_chunk < self.max_chunk_tokens else 0.0)
+
+    def _slo_post_tick(self):
+        """Queue telemetry, the throughput EMA behind retry hints, and
+        the shed controller (admission starvation)."""
+        _QUEUE_DEPTH.set(float(len(self.waiting)))
+        now = time.perf_counter()
+        if self._last_tick_s is not None:
+            dt = max(now - self._last_tick_s, 1e-6)
+            tokens = (self.last_packed_tokens if self._ragged
+                      else sum(not s.free for s in self.slots))
+            rate = tokens / dt
+            self._tokens_per_s = (rate if not self._tokens_per_s
+                                  else 0.8 * self._tokens_per_s
+                                  + 0.2 * rate)
+        self._last_tick_s = now
+        if self.max_queue_tokens is None:
+            return                       # no admission control: no shed
+        if self.waiting and not self._admitted_this_tick:
+            self._pressure_ticks += 1
+        else:
+            self._pressure_ticks = 0
+        if self._pressure_ticks >= self.shed_patience:
+            self._shed_one()
+            self._pressure_ticks = 0
+
+    def _shed_one(self):
+        """Shed the (lowest-priority, most-slack, latest-submitted)
+        waiting request."""
+        if not self.waiting:
+            return
+
+        def shed_key(r: GenerationRequest):
+            slack = (r.deadline_at - time.perf_counter()
+                     if r.deadline_at is not None else float("inf"))
+            return (r.priority, -slack, -(r.request_id or 0))
+
+        victim = min(self.waiting, key=shed_key)
+        self.waiting.remove(victim)
+        victim.status = "shed"
+        victim.error = ("shed under sustained admission starvation "
+                        f"({self.shed_patience} ticks)")
+        victim.finished_s = time.perf_counter()
+        self.finished.append(victim)
+        self.sheds += 1
+        _SHEDS.inc()
+
+    def _miss_deadline(self, req: GenerationRequest):
+        req.status = "deadline_missed"
+        req.error = (f"DeadlineExceeded: deadline_s={req.deadline_s} "
+                     f"passed after {len(req.output)} token(s)")
+        req.finished_s = time.perf_counter()
+        self.finished.append(req)
+        self.deadline_misses += 1
+        _DEADLINE_MISSES.inc()
+
+    def _fail_quarantined(self, req: GenerationRequest, reason: str):
+        req.status = "failed"
+        req.error = reason
+        req.finished_s = time.perf_counter()
+        self.finished.append(req)
+        self.quarantines += 1
+        _QUARANTINES.inc()
+
+    def _quarantine_slot(self, i: int, reason: str):
+        """Fail ONE in-flight request (slot and pages reclaimed) and keep
+        serving everyone else."""
+        slot = self.slots[i]
+        req = slot.req
+        slot.req = None
+        slot.pending = []
+        self._free_slot_pages(i)
+        self._fail_quarantined(req, reason)
+
+    def _on_tick_failure(self, exc: BaseException):
+        """A tick raised a request-level fault. With no row to blame,
+        suspicion falls on the latest admission (the data newest to the
+        failing batch); with no active slot, on the queue head. More
+        than B + 1 failures in a row re-raise: that is the engine's
+        fault, not a request's. Called inside the except clause, so a
+        bare raise re-raises `exc`."""
+        self._tick_failures += 1
+        if self._tick_failures > self.B + 1:
+            raise
+        active = [i for i, s in enumerate(self.slots) if not s.free]
+        if active:
+            victim = max(active, key=lambda j: self.slots[j].admit_seq)
+            self._quarantine_slot(victim, f"{type(exc).__name__}: {exc}")
+        elif self.waiting:
+            self._fail_quarantined(self.waiting.pop(0),
+                                   f"{type(exc).__name__}: {exc}")
+        else:
+            raise                        # nothing to attribute it to
+
+    def health_snapshot(self) -> dict:
+        """Readiness view: pure host-side state, no device sync."""
+        alloc = self.pool.n_pages - 1
+        queued = self._queued_tokens()
+        accepting = (self.max_queue_tokens is None
+                     or queued < self.max_queue_tokens)
         snap = {
             "ready": True,
-            "slo_armed": False,
+            "slo_armed": self._slo,
             "device": str(self.device),
             "ticks": self.ticks,
             "queue_depth": len(self.waiting),
-            "queued_tokens": sum(len(r.prompt) + len(r.output)
-                                 for r in self.waiting),
+            "queued_tokens": queued,
             "active_slots": sum(not s.free for s in self.slots),
             "max_batch": self.B,
             "kv_pages": {"total": alloc, "free": self.pool.n_free,
-                         "utilization": round(
-                             (alloc - self.pool.n_free) / alloc
-                             if alloc else 0.0, 4)},
+                         "utilization": round(self._pool_utilization(), 4)},
+            "degraded": self._eff_chunk < self.max_chunk_tokens,
+            "effective_chunk_tokens": self._eff_chunk,
             "max_chunk_tokens": self.max_chunk_tokens,
-            "accepting": True,
-            "counters": {"preemptions": self.preemptions,
+            "tokens_per_s_ema": round(self._tokens_per_s, 3),
+            "accepting": accepting,
+            "counters": {"deadline_misses": self.deadline_misses,
+                         "sheds": self.sheds,
+                         "quarantines": self.quarantines,
+                         "preemptions": self.preemptions,
                          "cache_aware_admits": self.cache_aware_admits},
             "speculative": {
                 "armed": self._spec,
@@ -1249,18 +1697,48 @@ class ContinuousBatchingEngine:
                                     "epoch": self._pcache.epoch,
                                     "heat": self._pcache.heat(),
                                     "heat_ts": time.time()}
+        if not accepting:
+            snap["retry_after_s"] = round(self._retry_after_hint(
+                max(queued - self.max_queue_tokens, 1)), 3)
         return snap
 
-    def step(self) -> List[GenerationRequest]:
-        """One scheduler tick. Ragged regime: admit, grow, then ONE mixed
-        prefill-chunk + decode step. Bucketed regime: admit (batched
-        prefills), grow, then one decode step for every active slot.
-        Returns requests finished this tick."""
-        n_done_before = len(self.finished)
+    def _tick(self):
         if self._ragged:
             self._step_ragged()
         else:
             self._step_bucketed()
+
+    def step(self) -> List[GenerationRequest]:
+        """One scheduler tick. Ragged regime: admit, grow, then ONE mixed
+        prefill-chunk + decode step. Bucketed regime: admit (batched
+        prefills), grow, then one decode step for every active slot. SLO
+        layer armed: deadline sweeps and the queue order before the
+        tick, the isolation boundary (and the watchdog's section) around
+        it, shedding and telemetry after it; a kernel's or the card's
+        own error (`kernels._build.is_device_fault`) passes the boundary
+        and raises here. Returns requests finished this tick."""
+        n_done_before = len(self.finished)
+        if not self._slo:
+            self._tick()
+        else:
+            self._slo_pre_tick()
+            self._admitted_this_tick = False
+            try:
+                if self._wd is not None:
+                    with self._wd.section("serving.tick"):
+                        fault_point("serving.tick")
+                        self._tick()
+                else:
+                    fault_point("serving.tick")
+                    self._tick()
+                self._tick_failures = 0
+            except Exception as exc:
+                if _build.is_device_fault(exc):
+                    raise
+                self._on_tick_failure(exc)
+            self._slo_post_tick()
+        if _metrics.enabled():
+            _KV_PAGES.set(float(self.pool.n_pages - 1 - self.pool.n_free))
         self.ticks += 1
         return self.finished[n_done_before:]
 
@@ -1290,3 +1768,22 @@ class ContinuousBatchingEngine:
                 continue
             self.step()
         return self.finished
+
+
+# -- the /healthz provider ---------------------------------------------------
+
+_health_engines = weakref.WeakSet()
+
+
+def serving_health() -> dict:
+    """Readiness view of every live SLO-armed engine (the "serving" part
+    of `observability.export.health_payload()`)."""
+    return {"engines": [e.health_snapshot() for e in list(_health_engines)]}
+
+
+def _register_health_engine(engine) -> None:
+    """SLO-armed engines publish health_snapshot() through the health
+    registry. The registration is weak: an engine dies with its owner."""
+    from ..observability import export as _oexp
+    _health_engines.add(engine)
+    _oexp.register_health_provider("serving", serving_health)

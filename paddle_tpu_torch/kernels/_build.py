@@ -13,7 +13,9 @@ a concurrent loader never opens a half-written file.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check`
 raises when it is not 0. A build failure raises with nvcc's output —
-there is no fallback.
+there is no fallback. Both raise `KernelError`; `is_device_fault` also
+names the card's own runtime errors, which the serving engine's SLO
+isolation boundary lets through instead of failing one request.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["library", "check", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["library", "check", "KernelError", "is_device_fault",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -132,13 +135,36 @@ _lock = threading.Lock()
 _lib = None
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch."""
+
+
+# messages of the CUDA runtime's and its libraries' errors as PyTorch
+# raises them
+_CUDA_MESSAGES = ("CUDA error", "CUBLAS_STATUS", "cuDNN error")
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether `exc` is a kernel's (build, load, launch) or the card's
+    (a CUDA runtime error, device memory exhausted) rather than a
+    request's."""
+    import torch
+    kinds = [KernelError, torch.cuda.OutOfMemoryError, torch.cuda.CudaError]
+    if hasattr(torch, "AcceleratorError"):
+        kinds.append(torch.AcceleratorError)
+    if isinstance(exc, tuple(kinds)):
+        return True
+    return (isinstance(exc, RuntimeError)
+            and any(m in str(exc) for m in _CUDA_MESSAGES))
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDACXX"), shutil.which("nvcc"),
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDACXX or put the CUDA "
-                       "toolkit's bin on PATH)")
+    raise KernelError("nvcc not found (set CUDACXX or put the CUDA "
+                      "toolkit's bin on PATH)")
 
 
 def _digest(sources) -> str:
@@ -164,12 +190,12 @@ def _compile(so: str, cus) -> None:
             if p.returncode != 0:
                 errors.append(f"{cu}:\n{out.decode(errors='replace')}")
         if errors:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+            raise KernelError("nvcc failed:\n" + "\n".join(errors))
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=600)
         if link.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n"
+            raise KernelError("nvcc link failed:\n"
                                + link.stdout.decode(errors="replace"))
         os.replace(tmp, so)
     finally:
@@ -198,7 +224,10 @@ def library() -> ctypes.CDLL:
             fcntl.flock(lock_file, fcntl.LOCK_EX)
             if not os.path.exists(so):
                 _compile(so, cus)
-        lib = ctypes.CDLL(so)
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError as exc:
+            raise KernelError(f"cannot load {so}: {exc}") from exc
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
@@ -210,4 +239,4 @@ def library() -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     """Raise when a C entry reported a CUDA error for its launch."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise KernelError(f"{what}: CUDA launch failed with error {err}")

@@ -75,6 +75,9 @@ def split_attention(s, v, valid, sk, n_live):
     n_live is 1, else the merge in split order (zeros for a row with no
     valid key)."""
     S = s.shape[-1]
+    # invalid keys are selected out of V (the kernels never load them):
+    # a weight of 0 times a stale non-finite value would be NaN
+    v = torch.where(valid[..., None], v, 0.0)
     key = torch.arange(S, device=s.device)
     zkey = key[None, :] // sk[:, None]
     ms, ls, os_ = [], [], []
@@ -92,7 +95,7 @@ def split_attention(s, v, valid, sk, n_live):
     L = (l * c).sum(0)
     w = torch.where((L > 0)[None], c / torch.where(L > 0, L, 1.0)[None], 0.0)
     merged = (w[..., None] * o).sum(0)
-    direct = torch.where((l[0] > 0)[:, None],
-                         o[0] / torch.where(l[0] > 0, l[0], 1.0)[:, None],
-                         0.0)
+    # l == 0 (no valid key) gives zeros; a NaN l stays NaN, as the kernels'
+    direct = torch.where((l[0] == 0)[:, None], 0.0,
+                         o[0] / torch.where(l[0] == 0, 1.0, l[0])[:, None])
     return torch.where((n_live == 1)[:, None], direct, merged)

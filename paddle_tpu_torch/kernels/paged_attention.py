@@ -109,7 +109,10 @@ def _dense_fallback(q, k_pages, v_pages, lengths, page_indices):
              < lengths.to(q.device).long()[:, None])
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhs,bshd->bhd", p, v.float())
+    # keys past the length are selected out of V, not weighted by p = 0:
+    # a reused page may hold a non-finite value there
+    v = torch.where(valid[:, :, None, None], v.float(), 0.0)
+    o = torch.einsum("bhs,bshd->bhd", p, v)
     return o.to(q.dtype)
 
 

@@ -109,7 +109,10 @@ def _dense_fallback(q, k_pages, v_pages, q_start, q_len, kv_len,
             & valid_row[:, None])
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("ths,tshd->thd", p, v.float())
+    # masked keys are selected out of V, not weighted by p = 0: a reused
+    # page may hold a non-finite value past the sequence's length
+    v = torch.where(mask[:, :, None, None], v.float(), 0.0)
+    o = torch.einsum("ths,tshd->thd", p, v)
     # fully-masked rows (padding / idle slots) softmax to nan: drop them
     o = torch.where(valid_row[:, None, None], o, torch.zeros_like(o))
     return o.to(q.dtype)

@@ -447,6 +447,108 @@ def verify_bitwise(fn, args, row_tiles=None):
     return same, n
 
 
+# Non-finite values in the page pool (the serving SLO layer's non-finite
+# isolation): (q_start, q_len, kv_len) of the ragged case, a decode row
+# of one split, one of three, a 12-row chunk (bf16: a tensor-core tile)
+# and a 5-row chunk on the walk; the decode case's lengths.
+NONFINITE_RAGGED_ROWS = ((0, 1, 40), (1, 1, 600), (2, 12, 300),
+                         (14, 5, 20))
+NONFINITE_PAGED_LENS = (40, 600, 300)
+
+
+def _nonfinite_pages(lens, page):
+    """A page table giving each sequence its own pages (page 0 is the
+    scratch page, one page stays unallocated) and the pool's page count."""
+    ppmax = max(-(-n // page) for n in lens) + 1
+    pt = torch.zeros(len(lens), ppmax, dtype=torch.int32)
+    nxt = 1
+    for s, n in enumerate(lens):
+        k = -(-n // page)
+        pt[s, :k] = torch.arange(nxt, nxt + k, dtype=torch.int32)
+        nxt += k
+    return pt, nxt + 1
+
+
+def nonfinite_checks(rpa, pa, dtype, device, nh=8, kvh=2, d=128, page=16,
+                     seed=0):
+    """[(label, ok)]: the NaN semantics of `rpa.ragged_paged_attention`
+    (row 9) and `pa.paged_decode_attention` (row 13) on `device` (the
+    kernels on the card, the plain routes on the CPU). Stale values past
+    each sequence's length in its pages, in the scratch page and in an
+    unallocated page (NaN keys, inf values) must not reach the output:
+    torch.equal to the clean pool's. A NaN key at position 0 of sequence
+    s (seen by every row of s) makes every row of s NaN and leaves the
+    other sequences' rows torch.equal to the clean output."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+
+    def pools(n_pages):
+        return (torch.randn(kvh, n_pages, page, d, generator=g),
+                torch.randn(kvh, n_pages, page, d, generator=g))
+
+    def stale(kp, vp, pt, lens):
+        held = torch.zeros(kp.shape[1], page, dtype=torch.bool)
+        for s, n in enumerate(lens):
+            pos = torch.arange(n)
+            held[pt[s, pos // page].long(), pos % page] = True
+        k, v = kp.clone(), vp.clone()
+        k[:, ~held] = float("nan")
+        v[:, ~held] = float("inf")
+        return k, v
+
+    def on(*ts):
+        return [t.to(device) for t in ts]
+
+    def check_route(name, call, kp, vp, pt, lens, rows_of):
+        clean = call(kp, vp)
+        got = call(*stale(kp, vp, pt, lens))
+        out.append((f"{name}: stale non-finite values past the lengths",
+                    bool(torch.equal(got, clean))))
+        for s in range(len(lens)):
+            k = kp.clone()
+            k[:, int(pt[s, 0]), 0] = float("nan")
+            got = call(k, vp)
+            mine = rows_of(s)
+            rest = torch.ones(got.shape[0], dtype=torch.bool)
+            rest[mine] = False
+            ok = (bool(torch.isnan(got[mine]).all())
+                  and bool(torch.equal(got[rest], clean[rest])))
+            out.append((f"{name}: a NaN key of sequence {s} (kv_len "
+                        f"{lens[s]}) reaches its rows alone", ok))
+
+    rows = NONFINITE_RAGGED_ROWS
+    lens = [r[2] for r in rows]
+    pt, n_pages = _nonfinite_pages(lens, page)
+    kp, vp = pools(n_pages)
+    T = 32
+    q = torch.randn(T, nh, d, generator=g)
+    qs, ql, kl = (torch.tensor([r[i] for r in rows], dtype=torch.int32)
+                  for i in range(3))
+
+    def ragged(k, v):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        return rpa.ragged_paged_attention(
+            *on(qq, kk, vv, qs, ql, kl, pt)).float().cpu()
+
+    check_route(f"ragged_paged_attention {dtype}", ragged, kp, vp, pt,
+                lens, lambda s: torch.arange(rows[s][0],
+                                             rows[s][0] + rows[s][1]))
+    lens = list(NONFINITE_PAGED_LENS)
+    pt, n_pages = _nonfinite_pages(lens, page)
+    kp, vp = pools(n_pages)
+    qd = torch.randn(len(lens), nh, d, generator=g)
+    ln = torch.tensor(lens, dtype=torch.int32)
+
+    def paged(k, v):
+        qq, kk, vv = (t.to(dtype) for t in (qd, k, v))
+        return pa.paged_decode_attention(
+            *on(qq, kk, vv, ln, pt)).float().cpu()
+
+    check_route(f"paged_decode_attention {dtype}", paged, kp, vp, pt, lens,
+                lambda s: torch.tensor([s]))
+    return out
+
+
 def paged_split_readings(seed=0):
     """bf16 split-KV checks on the card, each the worst err/limit under
     atol 1e-5 + 2^-7 |plain| (a reading above 1 is a miss): paged decode

@@ -947,6 +947,20 @@ def test_ragged_cases_match_plain(dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernels_nonfinite_semantics(dtype):
+    """Rows 9 and 13 on `testing.nonfinite_checks`: stale NaN keys and
+    inf values past every length (and in the scratch and a free page)
+    leave the output bitwise the clean pool's; a NaN key a sequence sees
+    makes all its rows NaN and no other sequence's (the serving SLO
+    layer quarantines on it)."""
+    _card()
+    got = testing.nonfinite_checks(t_rpa, t_pa, getattr(torch, dtype),
+                                   "cuda")
+    assert [label for label, ok in got if not ok] == []
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["paged_decode", "ragged_mixed",
                                     "ragged_decode_only"])
 def test_paged_split_kernels_are_bitwise_repeatable(kernel):

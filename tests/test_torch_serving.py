@@ -1,9 +1,10 @@
 """Port serving engine and gateway (paddle_tpu_torch.inference) against
 the JAX engine, on llama_tiny in fp32 on the CPU: the JAX engine runs
-with slo=False, request_trace=False (kill switches that are bitwise in
-the reference) and speculation armed, as the port's default engine arms
-it, or both with speculative=False; the port with the same scheduler
-knobs; greedy outputs must be token-identical tick for tick."""
+with request_trace=False (a kill switch that is bitwise in the
+reference) and speculation and the SLO layer armed, as the port's
+default engine arms them, or both with speculative=False, slo=False;
+the port with the same scheduler knobs; greedy outputs must be
+token-identical tick for tick."""
 import json
 import os
 import signal
@@ -77,10 +78,10 @@ def _drive(engine, req_cls, workload, max_ticks=400):
 @pytest.mark.parametrize("scenario", ["mixed_chunk_prefix", "preempt"])
 def test_engine_token_identical_to_jax(models, scenario, spec):
     """The port's default engine (no speculative / slo / request_trace
-    argument: speculation armed, the SLO and tracing flags at the
-    reference's kill switches) against the JAX engine built with
-    speculative=True, slo=False, request_trace=False; and both with
-    speculative=False: token- and tick-identical."""
+    argument: speculation and the SLO layer armed, the tracing flag at
+    the reference's kill switch) against the JAX engine's default built
+    with request_trace=False; and both with speculative=False,
+    slo=False: token- and tick-identical."""
     jm, tm = models
     if scenario == "preempt":
         knobs = dict(max_batch=2, max_seq=64, total_pages=5,
@@ -89,11 +90,11 @@ def test_engine_token_identical_to_jax(models, scenario, spec):
     else:
         knobs = dict(max_batch=2, max_seq=64, max_chunk_tokens=8)
         workload = _mixed_workload()
-    port_kw = {} if spec == "default" else {"speculative": False}
-    je = JEngine(jm, speculative=spec == "default", slo=False,
-                 request_trace=False, **knobs)
-    te = TEngine(tm, device="cpu", **knobs, **port_kw)
+    off = {} if spec == "default" else {"speculative": False, "slo": False}
+    je = JEngine(jm, request_trace=False, **knobs, **off)
+    te = TEngine(tm, device="cpu", **knobs, **off)
     assert te._spec == je._spec == (spec == "default")
+    assert te._slo == je._slo == (spec == "default")
     jreqs, jtrace = _drive(je, JReq, workload)
     treqs, ttrace = _drive(te, TReq, workload)
     assert [r.output for r in treqs] == [r.output for r in jreqs]
@@ -103,6 +104,7 @@ def test_engine_token_identical_to_jax(models, scenario, spec):
                                                    je.spec_accepted)
     assert te.prefill_tokens_total == je.prefill_tokens_total
     assert te.preemptions == je.preemptions
+    assert te.quarantines == je.quarantines == 0
     assert te.pool.n_free == te.pool.n_pages - 1
     if scenario == "preempt":
         assert te.preemptions >= 1
@@ -211,11 +213,18 @@ def test_engine_fault_fails_open_streams(models):
 
 @pytest.mark.parametrize("flag", ["FLAGS_serving_slo", "FLAGS_request_trace"])
 def test_unported_serving_flags_raise(models, flag, monkeypatch):
-    """The reference arms these features by default; the port registers
-    their flags at the kill-switch values, and a flag set to 1 asks for
-    a feature that is not ported."""
+    """The reference arms both features by default. The SLO layer is
+    ported: its flag defaults on and arms it, and 0 is the kill switch.
+    Request tracing is not: its flag stands at the kill switch, and set
+    to 1 it asks for a feature that is not ported."""
     from paddle_tpu_torch.framework import core as t_core
     _, tm = models
+    if flag == "FLAGS_serving_slo":
+        assert t_core.get_bool_flag(flag)
+        assert TEngine(tm, max_batch=2, max_seq=64, device="cpu")._slo
+        monkeypatch.setitem(t_core._flags, flag, 0)
+        assert not TEngine(tm, max_batch=2, max_seq=64, device="cpu")._slo
+        return
     assert not t_core.get_bool_flag(flag)
     monkeypatch.setitem(t_core._flags, flag, 1)
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -226,31 +235,50 @@ def test_unported_serving_flags_raise(models, flag, monkeypatch):
     ("slo", True), ("request_trace", True), ("max_queue_tokens", 100),
     ("quantize", "int8")])
 def test_unported_engine_knobs_raise(models, knob, value):
-    """The engine arguments of the features still to port raise."""
+    """The engine arguments of the features still to port raise; those
+    of the SLO layer arm it."""
     _, tm = models
+    if knob in ("slo", "max_queue_tokens"):
+        eng = TEngine(tm, max_batch=2, max_seq=64, device="cpu",
+                      **{knob: value})
+        assert eng._slo
+        assert eng.max_queue_tokens == (value if knob == "max_queue_tokens"
+                                        else None)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         TEngine(tm, max_batch=2, max_seq=64, device="cpu", **{knob: value})
 
 
 def test_gateway_refuses_priority_and_deadline(models):
-    """A request with a priority or a deadline gets a 400 naming the SLO
-    layer at submission; the server keeps serving."""
+    """The gateway takes `priority` and `deadline_s` and refuses only a
+    value that does not parse (400, the server keeps serving): a
+    priority-2 request is served, and a deadline that has passed before
+    the first tick answers 504 with DeadlineExceeded."""
     _, tm = models
     eng = TEngine(tm, max_batch=2, max_seq=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="SLO"):
-        eng.add_request(TReq([1, 2, 3], max_new_tokens=2, priority=1))
+    eng.add_request(TReq([1, 2, 3], max_new_tokens=2, priority=1))
+    assert eng.waiting[0].priority == 1
+    eng.waiting.clear()
     gateway = t_gw.ServingGateway(t_gw.EngineRunner(eng), port=0)
     port = gateway.start()
     try:
-        for extra in ({"priority": 2}, {"deadline_s": 5.0}):
+        for extra in ({"priority": "high"}, {"deadline_s": "soon"}):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _post(port, {"prompt": [1, 2, 3], "max_new_tokens": 2,
                              **extra})
             assert err.value.code == 400
-            assert "SLO layer" in json.loads(err.value.read())["error"]
+            assert "priority/eos_token_id/deadline_s" in json.loads(
+                err.value.read())["error"]
         doc = json.loads(_post(port, {"prompt": [1, 2, 3],
-                                      "max_new_tokens": 2, "priority": 0,
+                                      "max_new_tokens": 2, "priority": 2,
                                       "stream": False}))
         assert doc["status"] == "served" and len(doc["output"]) == 2
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(port, {"prompt": [1, 2, 3], "max_new_tokens": 2,
+                         "deadline_s": 1e-9, "stream": False})
+        assert err.value.code == 504
+        body = json.loads(err.value.read())
+        assert body["status"] == "deadline_missed"
+        assert "DeadlineExceeded" in body["error"]
     finally:
         gateway.stop()
