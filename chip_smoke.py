@@ -79,6 +79,27 @@ Phases, each of which fails the run on a miss:
    the same request on a fresh engine; the same through the bucketed
    engine and row 13's kernel; (d) FLAGS_fault_inject=serving.tick:
    raise@3 fails one request alone, the others token-identical;
+6c. request tracing and the serving telemetry — the same llama_7b
+   through the default engine, tracing armed by default: (a) phase 4's
+   burst with observability armed (request traces, CUDA event pairs
+   around each step) and under FLAGS_request_trace=0 with it off (armed,
+   off, off, armed): each stream's tokens and the per-tick trace
+   identical, step ms, tokens/s and the host ms a tick inside the trace
+   and device-event calls (`HookClock`), then the same prompts driven
+   tick by tick under torch.profiler on each side: the same count of
+   synchronizing CUDA runtime calls (`testing.sync_calls`); (b) through
+   the gateway, one stream with a `traceparent`: an X-Request-Id on
+   every stream (the traceparent's id kept), each GET /v1/trace/<id>
+   `served` with arrival, admitted, prefill_chunk, first_token and
+   finished and buckets summing to the wall within 1e-6 s, 404 for an
+   unknown id, /metrics with `serving_attribution_seconds` exemplars,
+   one `xla.execute_seconds{executable="serving.ragged_step"}` reading
+   a tick, each > 0 and within its tick's host wall; (c)
+   FLAGS_flight_recorder with `tick_timeout_s` 0.5 and one tick delayed
+   1.5 s (`serving.tick:delay:1.5@4`): a dump naming
+   `watchdog:serving.tick` with the section's span open, every request
+   served; (d) FLAGS_request_trace_sink during (b): each request's
+   terminal JSONL record equal to its /v1/trace snapshot;
 7. training — full-depth llama_1b (22 layers, bf16, random weights from
    a seeded generator) through `TrainStep` with AdamW, batch 4 x seq
    2048 on one repeated batch, as bench.py runs it: 2 warm-up steps,
@@ -2161,19 +2182,22 @@ def plain_routes():
 
 
 def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0,
-                extra=None):
-    """POST one streamed /v1/generate (`extra`: more body fields); record
-    TTFT, tokens, end status and the end time. Gives up (end None) after
-    deadline_s: keepalive frames would keep a stalled stream open
-    forever."""
+                extra=None, headers=None):
+    """POST one streamed /v1/generate (`extra`: more body fields,
+    `headers`: more request headers); record TTFT, tokens, end status,
+    the end time and the X-Request-Id response header. Gives up (end
+    None) after deadline_s: keepalive frames would keep a stalled stream
+    open forever."""
     t0 = time.perf_counter()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     conn.request("POST", "/v1/generate",
                  body=json.dumps({"prompt": prompt,
                                   "max_new_tokens": max_new,
                                   **(extra or {})}),
-                 headers={"Content-Type": "application/json"})
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
     resp = conn.getresponse()
+    request_id = resp.getheader("X-Request-Id")
     toks, ttft, end, event = [], None, None, None
     for raw in resp:
         if time.perf_counter() - t0 > deadline_s:
@@ -2192,7 +2216,7 @@ def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0,
     conn.close()
     t1 = time.perf_counter()
     out[idx] = {"tokens": toks, "ttft_s": ttft, "end": end,
-                "wall_s": t1 - t0, "t_end": t1}
+                "wall_s": t1 - t0, "t_end": t1, "request_id": request_id}
 
 
 def slice_phase(report, smi_line):
@@ -2733,14 +2757,16 @@ def post_json(port, body, path="/v1/generate", method="POST"):
     return resp.status, headers, doc
 
 
-def queued_posts(runner, port, posts, what):
+def queued_posts(runner, port, posts, what, headers=None):
     """Start one post_stream thread per (prompt, max_new, extra) while
     the tick thread is held, so that every request is queued, in order,
-    before the next tick. Returns (threads, results)."""
+    before the next tick; `headers` maps a post's index to its request
+    headers. Returns (threads, results)."""
     results = {}
     threads = [threading.Thread(target=post_stream,
                                 args=(port, p, n, results, i),
-                                kwargs={"extra": extra})
+                                kwargs={"extra": extra,
+                                        "headers": (headers or {}).get(i)})
                for i, (p, n, extra) in enumerate(posts)]
     t0 = time.perf_counter()
     with runner.lock:
@@ -3214,6 +3240,474 @@ def slo_tick_fault(model, smi_line):
           "the tick fault did not fail exactly the latest admission")
     check(quarantines == 1 and all(same) and whole,
           "the tick fault touched another stream or left pages")
+
+
+def trace_phase(report, model, prompts, max_new, smi_line):
+    """Phase 6c: request tracing and the serving telemetry, armed by
+    default, on the serving phases' llama_7b (module docstring)."""
+    trace_parity(report, model, prompts, max_new, smi_line)
+    trace_gateway(model, prompts, max_new, smi_line)
+    trace_flight_recorder(model, smi_line)
+
+
+class HookClock:
+    """Host seconds spent inside the request-trace and device-event calls
+    (`install` wraps them; nested calls count once, to the outermost),
+    in all and by the wrapped call's name."""
+
+    def __init__(self):
+        self.seconds, self.depth, self.saved = 0.0, 0, []
+        self.by_name = {}
+
+    def wrap(self, fn, name):
+        def timed(*a, **kw):
+            if self.depth:
+                return fn(*a, **kw)
+            self.depth += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                self.seconds += dt
+                self.by_name[name] = self.by_name.get(name, 0.0) + dt
+                self.depth -= 1
+        return timed
+
+    def install(self, eng):
+        from paddle_tpu_torch.observability import device_events, reqtrace
+        for owner, name in ((reqtrace.RequestTrace, "charge"),
+                            (reqtrace.RequestTrace, "event"),
+                            (reqtrace.RequestTrace, "finish"),
+                            (reqtrace.RequestTrace, "preload"),
+                            (reqtrace, "new_trace"),
+                            (device_events.execution, "__enter__"),
+                            (device_events.execution, "__exit__")):
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self.wrap(fn, f"{owner.__name__}.{name}"))
+        for name in ("_trace_settle", "_trace_charge_tick"):
+            setattr(eng, name, self.wrap(getattr(eng, name), name))
+
+    def remove(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved = []
+
+
+def traced_engine(model, armed, **knobs):
+    """The default engine with observability armed (tracing and the
+    device events on, as `serve` runs it), or FLAGS_request_trace=0 with
+    observability off."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import gateway as gw
+    obs.enable(armed)
+    if armed:
+        eng = gw.build_engine(model, **dict(SLO_KNOBS, **knobs))
+        check(eng._rtrace and eng._slo and eng._spec, "the default engine "
+              "did not arm request tracing, the SLO layer and speculation")
+        return eng
+    fcore.set_flags({"FLAGS_request_trace": False})
+    try:
+        eng = gw.build_engine(model, **dict(SLO_KNOBS, **knobs))
+    finally:
+        fcore.set_flags({"FLAGS_request_trace": True})
+    check(not eng._rtrace, "FLAGS_request_trace=0 armed request tracing")
+    return eng
+
+
+def trace_parity(report, model, prompts, max_new, smi_line):
+    """(a) phase 4's burst armed and under FLAGS_request_trace=0, twice
+    each (armed, off, off, armed): tokens and per-tick trace identical;
+    step ms, tokens/s and the hooks' host ms a tick, each side's mean;
+    then the same prompts driven tick by tick under torch.profiler, the
+    synchronizing CUDA runtime calls counted on each side."""
+    import torch
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.inference.serving import GenerationRequest
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+
+    L_ = model.cfg.num_hidden_layers
+    kernels = {"rms_norm": krn.rms_norm, "swiglu": ksw.swiglu,
+               "ragged_paged_attention": krpa.ragged_paged_attention}
+
+    def run(armed, what, path=None):
+        eng = traced_engine(model, armed)
+        trace, step_s, marks, clock = [], [], [], HookClock()
+        real_step = eng.step
+
+        def step():
+            t = time.perf_counter()
+            done = real_step()
+            step_s.append(time.perf_counter() - t)
+            trace.append((eng.last_packed_tokens, len(done),
+                          eng.preemptions))
+            return done
+
+        eng.step = step
+        if armed:
+            clock.install(eng)
+
+        def counters():
+            marks.append((len(step_s), clock.seconds))
+            return (eng.model_steps,)
+
+        try:
+            results, wall, launches, (steps,) = serve_burst(
+                eng, prompts, max_new, kernels, what, counters,
+                in_order=True)
+        finally:
+            clock.remove()
+            obs.enable(False)
+        (n0, s0), (n1, s1) = marks
+        want = {"rms_norm": steps * (2 * L_ + 1), "swiglu": steps * L_,
+                "ragged_paged_attention": steps * L_}
+        for name, n in launches.items():
+            print(f"launches {name} ({what}): {n} (steps {steps} -> "
+                  f"expected {want[name]})", flush=True)
+            check(n == want[name] and n > 0,
+                  f"{name} launched {n} times in the {what}, expected "
+                  f"{want[name]}")
+            if path:
+                add_launches(report, name, path, n)
+        ticks = n1 - n0
+        step_ms = 1e3 * sum(step_s[n0:n1]) / ticks
+        hook_ms = 1e3 * (s1 - s0) / ticks
+        n_tok = sum(len(results[i]["tokens"]) for i in range(len(prompts)))
+        print(f"trace (a) {what}: ticks={ticks} step_ms={step_ms:.6g} "
+              f"tokens_per_s={n_tok / wall:.6g} trace_hook_host_ms_per_tick="
+              f"{hook_ms:.6g} [{smi_line}]", flush=True)
+        if armed:
+            # the whole run's (warm-up request included), by call
+            n_all = len(step_s)
+            print(f"trace (a) {what}: hook host ms a tick by call over all "
+                  f"{n_all} ticks: " + ", ".join(
+                      f"{k} {1e3 * v / n_all:.4g}" for k, v in sorted(
+                          clock.by_name.items(), key=lambda kv: -kv[1])),
+                  flush=True)
+        del eng
+        free_engine()
+        return results, trace, step_ms, n_tok / wall, hook_ms
+
+    runs = []
+    for i, armed in enumerate((True, False, False, True)):
+        what = (f"tracing {'armed' if armed else 'kill switch'} "
+                f"run {i + 1}")
+        runs.append((armed,) + run(armed, what, "traced_serving" if i == 0
+                                   else None))
+    res_on, tr_on = runs[0][1:3]
+    for i, (armed, res, trace, *_) in enumerate(runs):
+        same = [res_on[k]["tokens"] == res[k]["tokens"]
+                for k in range(len(prompts))]
+        side = "armed" if armed else "kill switch"
+        print(f"trace (a) run {i + 1} ({side}): tokens of each stream == "
+              f"run 1's: {same}; "
+              f"per-tick trace == run 1's: {trace == tr_on} ({len(trace)} "
+              f"ticks)", flush=True)
+        check(all(same), f"run {i + 1}: tracing changed the tokens")
+        check(trace == tr_on, f"run {i + 1}: tracing changed the per-tick "
+              f"trace")
+
+    def mean(k, armed):
+        vals = [r[k] for r in runs if r[0] == armed]
+        return sum(vals) / len(vals)
+
+    print(f"trace (a) step_ms armed {mean(3, True):.6g} kill switch "
+          f"{mean(3, False):.6g}; tokens_per_s armed {mean(4, True):.6g} "
+          f"kill switch {mean(4, False):.6g}; trace_hook_host_ms_per_tick "
+          f"{mean(5, True):.6g} (runs 1 and 4 against 2 and 3) "
+          f"[{smi_line}]", flush=True)
+
+    # the same prompts driven tick by tick on this thread, with no
+    # gateway threads to take the GIL when a call releases it (a CUDA
+    # event record does; so does every ctypes kernel launch)
+    def direct(armed, i):
+        eng = traced_engine(model, armed)
+        clock, walls = HookClock(), []
+        real_step = eng.step
+
+        def step():
+            t = time.perf_counter()
+            done = real_step()
+            walls.append(time.perf_counter() - t)
+            return done
+
+        eng.step = step
+        if armed:
+            clock.install(eng)
+        reqs = [GenerationRequest(list(p), max_new_tokens=max_new)
+                for p in prompts]
+        try:
+            ticks = drive(eng, reqs)
+        finally:
+            clock.remove()
+            obs.enable(False)
+        step_ms, hook_ms = 1e3 * sum(walls) / ticks, 1e3 * clock.seconds / ticks
+        side = "armed" if armed else "kill switch"
+        print(f"trace (a) direct drive run {i} ({side}): ticks={ticks} "
+              f"step_ms={step_ms:.6g} trace_hook_host_ms_per_tick="
+              f"{hook_ms:.6g}" + (" by call: " + ", ".join(
+                  f"{k} {1e3 * v / ticks:.4g}" for k, v in sorted(
+                      clock.by_name.items(), key=lambda kv: -kv[1]))
+                  if armed else "") + f" [{smi_line}]", flush=True)
+        out = [r.output for r in reqs]
+        del eng
+        free_engine()
+        return step_ms, hook_ms, out
+
+    drives = [(armed,) + direct(armed, i + 1)
+              for i, armed in enumerate((True, False, False, True))]
+    check(all(d[3] == drives[0][3] for d in drives),
+          "the direct drives' tokens differ")
+
+    def dmean(k, armed):
+        vals = [d[k] for d in drives if d[0] == armed]
+        return sum(vals) / len(vals)
+
+    print(f"trace (a) direct drive step_ms armed {dmean(1, True):.6g} kill "
+          f"switch {dmean(1, False):.6g}; trace_hook_host_ms_per_tick "
+          f"{dmean(2, True):.6g} [{smi_line}]", flush=True)
+
+    # the synchronizing runtime calls, the same ticks on both sides
+    syncs = {}
+    for armed in (True, False):
+        eng = traced_engine(model, armed)
+        reqs = [GenerationRequest(list(p), max_new_tokens=max_new)
+                for p in prompts]
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                ticks = drive(eng, reqs)
+        finally:
+            obs.enable(False)
+        check(all(r.status == "served" for r in reqs),
+              "a profiled request was not served")
+        events = prof.events()
+        syncs[armed] = (testing.sync_calls(events), ticks,
+                        [r.output for r in reqs])
+        names = {}
+        for e in events:
+            if e.name in testing.SYNC_CALLS:
+                names[e.name] = names.get(e.name, 0) + 1
+        print(f"trace (a) {'armed' if armed else 'kill switch'}: "
+              f"synchronizing calls by name {names}", flush=True)
+        del eng, prof
+        free_engine()
+    (a_n, a_t, a_out), (o_n, o_t, o_out) = syncs[True], syncs[False]
+    print(f"trace (a) synchronizing CUDA runtime calls: armed {a_n} in "
+          f"{a_t} ticks ({a_n / a_t:.6g} a tick), kill switch {o_n} in "
+          f"{o_t} ticks ({o_n / o_t:.6g} a tick); tokens equal "
+          f"{a_out == o_out}", flush=True)
+    check(a_t == o_t and a_out == o_out, "the profiled drives differ")
+    check(a_n == o_n and a_n > 0, "the telemetry changed the count of "
+          "synchronizing CUDA runtime calls")
+
+
+def get_raw(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    return resp.status, body
+
+
+def trace_gateway(model, prompts, max_new, smi_line):
+    """(b) phase 4's burst through the gateway, armed, one stream with a
+    `traceparent`: an X-Request-Id on every stream, each /v1/trace
+    served with its timeline and an exact ledger, 404 for an unknown id,
+    /metrics with attribution exemplars, one xla.execute_seconds
+    reading a ragged step within its tick's host wall; (d) with
+    FLAGS_request_trace_sink set, each terminal JSONL record equal to the
+    request's /v1/trace snapshot."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import gateway as gw
+    from paddle_tpu_torch.observability import device_events
+    from paddle_tpu_torch.observability import metrics as om
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    sink = os.path.join(tmp, "traces.jsonl")
+    fcore.set_flags({"FLAGS_request_trace_sink": sink})
+    eng = traced_engine(model, True)
+    tap = testing.ObservationTap(device_events._H_EXECUTE)
+    device_events._H_EXECUTE = tap
+    ticks = []                     # (host wall, model steps in the tick)
+    real_step = eng.step
+
+    def step():
+        n0, t = eng.model_steps, time.perf_counter()
+        done = real_step()
+        ticks.append((time.perf_counter() - t, eng.model_steps - n0))
+        return done
+
+    eng.step = step
+    runner = gw.EngineRunner(eng)
+    gateway = gw.ServingGateway(runner, port=0)
+    port = gateway.start()
+    tid = "c0ffee00" * 4
+    try:
+        warm = {}
+        post_stream(port, [1, 2, 3, 4, 5], 2, warm, 0)
+        check(warm[0]["end"] and warm[0]["end"][1]["status"] == "served",
+              f"traced warm-up did not serve: {warm[0]['end']}")
+        device_events.flush()
+        om.reset()
+        tap.seen.clear()
+        ticks.clear()
+        steps0, ticks0 = eng.model_steps, eng.ticks
+        threads, res = queued_posts(
+            runner, port, [(p, max_new, None) for p in prompts], "traced",
+            headers={1: {"traceparent": f"00-{tid}-00f067aa0ba902b7-01"}})
+        join_all(threads, "traced")
+        gateway.drain(timeout=60)
+        device_events.flush()
+        steps, n_ticks = eng.model_steps - steps0, eng.ticks - ticks0
+        docs = {}
+        for i in range(len(prompts)):
+            r = res[i]
+            rid = r["request_id"]
+            check(r["end"] is not None and r["end"][1]["status"] == "served"
+                  and len(r["tokens"]) == max_new,
+                  f"traced stream {i} ended {r['end']}")
+            check(bool(rid) and r["end"][1].get("trace_id") == rid,
+                  f"stream {i}: X-Request-Id {rid!r}, terminal frame "
+                  f"{r['end'][1]}")
+            status, body = get_raw(port, f"/v1/trace/{rid}")
+            check(status == 200, f"/v1/trace/{rid} answered {status}")
+            doc = json.loads(body)
+            names = [e["ev"] for e in doc["events"]]
+            gap = abs(sum(doc["buckets"].values()) - doc["wall"])
+            print(f"trace (b) stream {i}: id {rid} status {doc['status']} "
+                  f"events {names} decode_ticks {doc['decode_ticks']} "
+                  f"buckets {json.dumps(doc['buckets'])} wall "
+                  f"{doc['wall']:.6g} |sum - wall| {gap:.3g}", flush=True)
+            check(doc["status"] == "served" and doc["terminal"],
+                  f"trace {rid} status {doc['status']}")
+            for must in ("arrival", "admitted", "prefill_chunk",
+                         "first_token", "finished"):
+                check(must in names, f"trace {rid} lacks {must}: {names}")
+            check(gap <= 1e-6, f"trace {rid}: buckets sum off the wall by "
+                  f"{gap}")
+            docs[rid] = doc
+        check(res[1]["request_id"] == tid, f"the traceparent id {tid} came "
+              f"back as {res[1]['request_id']}")
+        status, _ = get_raw(port, "/v1/trace/" + "0" * 32)
+        check(status == 404, f"an unknown trace id answered {status}")
+        status, body = get_raw(port, "/metrics")
+        text = body.decode()
+        attr = [ln for ln in text.splitlines()
+                if ln.startswith("serving_attribution_seconds_bucket")]
+        exemplars = [ln for ln in attr if '# {trace_id="' in ln]
+        count = [ln for ln in text.splitlines() if ln.startswith(
+            'xla_execute_seconds_count{executable="serving.ragged_step"}')]
+        print(f"trace (b) /metrics: HTTP {status}, {len(text)} bytes, "
+              f"{len(attr)} attribution bucket lines, {len(exemplars)} with "
+              f"an exemplar; {count}; traceparent id kept; unknown id 404",
+              flush=True)
+        check(status == 200 and exemplars, "/metrics lacks attribution "
+              "exemplars")
+        readings = [v for tag, v in tap.seen if tag == "serving.ragged_step"]
+        walls = [w for w, n in ticks if n]
+        print(f"trace (b) xla.execute_seconds serving.ragged_step: "
+              f"{len(readings)} readings for {steps} steps in {n_ticks} "
+              f"ticks; ms min {1e3 * min(readings):.6g} mean "
+              f"{1e3 * sum(readings) / len(readings):.6g} max "
+              f"{1e3 * max(readings):.6g}; host ms a tick mean "
+              f"{1e3 * sum(walls) / len(walls):.6g} [{smi_line}]",
+              flush=True)
+        check(len(readings) == steps == n_ticks and count
+              and count[0].endswith(f" {steps}"),
+              f"{len(readings)} execute readings for {steps} steps and "
+              f"{n_ticks} ticks ({count})")
+        check(all(n == 1 for _, n in ticks), "a tick ran no step or two")
+        check(all(0 < v <= w for v, w in zip(readings, walls)),
+              "an execute reading is not within its tick's host wall")
+        # (d) the sink's terminal records against /v1/trace
+        with open(sink) as f:
+            terminal = {r["trace_id"]: r for r in map(json.loads, f)
+                        if r["ev"] == "terminal"}
+        keys = ("status", "wall", "buckets", "decode_ticks", "events")
+        same = [all(terminal[rid][k] == docs[rid][k] for k in keys)
+                for rid in docs]
+        print(f"trace (d) FLAGS_request_trace_sink: {len(terminal)} terminal "
+              f"records; each stream's == its /v1/trace snapshot: {same}",
+              flush=True)
+        check(all(same), "a sink record differs from /v1/trace")
+    finally:
+        device_events._H_EXECUTE = tap.inner
+        gateway.drain(timeout=60)
+        gateway.stop()
+        fcore.set_flags({"FLAGS_request_trace_sink": ""})
+        shutil.rmtree(tmp, ignore_errors=True)
+        obs.enable(False)
+        om.reset()
+        del eng
+        free_engine()
+
+
+def trace_flight_recorder(model, smi_line):
+    """(c) FLAGS_flight_recorder with a tick watchdog and one tick delayed
+    three timeouts: the dump names the watchdog's section and its open
+    span, and every request is still served."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference.serving import GenerationRequest
+
+    timeout = 0.5
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    path = os.path.join(tmp, "flight.jsonl")
+    rng = np.random.RandomState(41)
+    reqs = [GenerationRequest(rng.randint(1, model.cfg.vocab_size,
+                                          20).tolist(), max_new_tokens=8)
+            for _ in range(3)]
+    fcore.set_flags({"FLAGS_flight_recorder": path,
+                     "FLAGS_fault_inject":
+                     f"serving.tick:delay:{3 * timeout}@4"})
+    try:
+        eng = traced_engine(model, True, max_batch=3,
+                            tick_timeout_s=timeout)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            drive(eng, reqs)
+        fired = eng._wd.timeouts
+        eng._wd.shutdown()
+    finally:
+        fcore.set_flags({"FLAGS_fault_inject": "",
+                         "FLAGS_flight_recorder": ""})
+        from paddle_tpu_torch import observability as obs
+        obs.enable(False)
+    with open(path) as f:
+        dumps = [r for r in map(json.loads, f) if r["ev"] == "dump"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    open_spans = [s["name"] for d in dumps for s in d["open_spans"]]
+    print(f"trace (c) FLAGS_flight_recorder, tick_timeout_s={timeout}, "
+          f"serving.tick:delay:{3 * timeout}@4: watchdog fired {fired}; "
+          f"dumps {[d['reason'] for d in dumps]}; open spans {open_spans}; "
+          f"statuses {[r.status for r in reqs]}", flush=True)
+    check(fired >= 1 and dumps
+          and dumps[0]["reason"].startswith("watchdog:serving.tick")
+          and "watchdog.serving.tick" in open_spans,
+          "the watchdog's flight dump is missing or does not name the "
+          "stuck tick")
+    check(all(r.status == "served" for r in reqs),
+          "a request was not served across the delayed tick")
+    del eng
+    free_engine()
 
 
 # device-kernel name fragments -> the group a step's time is charged to
@@ -4501,6 +4995,7 @@ def main():
         generate_phase(report, model, smi_line)
         bucketed_phase(report, model, prompts, max_new, smi_line)
         slo_phase(report, model, prompts, max_new, smi_line)
+        trace_phase(report, model, prompts, max_new, smi_line)
         del model
         gc.collect()
         torch.cuda.empty_cache()

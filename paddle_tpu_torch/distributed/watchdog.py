@@ -5,14 +5,16 @@ A daemon monitor thread times named critical sections and fires when
 one overruns its timeout: it counts the overrun (`timeouts`, and the
 `watchdog.timeouts_total` counter labelled by section) and warns with a
 RuntimeWarning naming the section, once per section entry; the section
-itself runs on. The serving engine keeps a private instance per engine
-for its ticks (`tick_timeout_s`).
+itself runs on. A firing watchdog appends a flight-recorder dump
+naming the section (`observability.export.flight_dump`, a no-op unless
+FLAGS_flight_recorder installed one), and each section is an armed span
+("watchdog.<name>"), so the dump lists it among the open spans. The
+serving engine keeps a private instance per engine for its ticks
+(`tick_timeout_s`).
 
-Not ported yet: `on_timeout="abort"` and the fire hooks, the
-flight-recorder dump a firing watchdog writes in the reference (its
-flag, FLAGS_flight_recorder, is refused), the elastic master's
-suspect-peer query, `wrap` and the process-wide `watch()` singleton
-(ROADMAP Queue 1 items 5 and 12).
+Not ported yet: `on_timeout="abort"` and the fire hooks, the elastic
+master's suspect-peer query, `wrap` and the process-wide `watch()`
+singleton (ROADMAP Queue 1 items 9 and 12).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from typing import Optional
 
 from ..framework import core
 from ..observability import metrics as _m
+from ..observability.export import flight_dump
+from ..observability.spans import span as _span
 
 __all__ = ["CommWatchdog"]
 
@@ -80,6 +84,10 @@ class CommWatchdog:
                     f"[CommWatchdog] step '{name}' has not completed after "
                     f"{elapsed:.1f}s (timeout {self.timeout:g}s) on rank "
                     f"{rank}", RuntimeWarning)
+                # the post-mortem record: the stuck section, the open
+                # spans and the metrics at this instant
+                flight_dump(f"watchdog:{name} after {elapsed:.1f}s "
+                            f"(timeout {self.timeout:g}s, rank {rank})")
 
     @contextlib.contextmanager
     def section(self, name: str = "step"):
@@ -91,7 +99,8 @@ class CommWatchdog:
             key = (name, self._token)
             self._active[key] = time.monotonic()
         try:
-            yield
+            with _span("watchdog." + name):
+                yield
         finally:
             with self._lock:
                 self._active.pop(key, None)

@@ -2,13 +2,17 @@
 policy (counterpart of paddle_tpu/framework/core.py).
 
 Only the flags the ported slices read are registered, with the
-reference's names and defaults (request tracing, not ported yet, stands
-at the reference's kill switch); `get_flag` reads the environment
+reference's names and defaults; `get_flag` reads the environment
 first, as the reference does, and `get_bool_flag` normalises env
 strings so `FLAGS_x=0` turns a kill switch off. `set_flags` applies the
-reference's side effects of the two observability flags the port has:
+reference's side effects of the observability flags the port has:
 `FLAGS_fault_inject` re-arms `utils.fault_injection`, `FLAGS_metrics`
-arms or disarms `observability.metrics`.
+arms or disarms `observability.metrics` and `spans`,
+`FLAGS_metrics_port` starts, moves or (0) stops the /metrics endpoint,
+`FLAGS_flight_recorder` installs or ("") removes the flight recorder,
+`FLAGS_span_ring_size` re-bounds the span ring and
+`FLAGS_request_trace_sink` points or ("") closes the request-trace
+JSONL sink.
 
 Every other flag raises rather than being silently dropped:
 `set_flags` refuses a name the port does not register, and
@@ -58,15 +62,22 @@ _flags: dict = {
     # shedding, degradation, per-request fault isolation), armed by
     # default as in the reference; 0 is the kill switch (the FIFO engine)
     "FLAGS_serving_slo": True,
-    # request tracing, which the reference arms by default: it stands at
-    # the reference's kill switch until ROADMAP Queue 1 item 5 ports it;
-    # `ContinuousBatchingEngine` raises NotImplementedError when it
-    # resolves on
-    "FLAGS_request_trace": False,
+    # request tracing (inference/serving.py + observability/reqtrace.py):
+    # per-request event timelines and the exact attribution ledger, armed
+    # by default as in the reference; 0 leaves the tick loop bitwise as
+    # without it. The sink is an append-only JSONL path ("" = the
+    # in-memory store only)
+    "FLAGS_request_trace": True,
+    "FLAGS_request_trace_sink": "",
     # fault-injection schedule (utils/fault_injection.py grammar; "" is
-    # disarmed) and the metrics registry's arming (observability)
+    # disarmed), the metrics registry's and spans' arming, the /metrics
+    # endpoint's port (0 = off), the flight recorder's JSONL path ("" =
+    # off) and the span ring's bound (observability)
     "FLAGS_fault_inject": "",
     "FLAGS_metrics": False,
+    "FLAGS_metrics_port": 0,
+    "FLAGS_flight_recorder": "",
+    "FLAGS_span_ring_size": 512,
     # read by jit.TrainStep after each step, as the reference's TrainStep
     # reads them (paddle_tpu/jit/__init__.py): a non-finite loss or
     # updated parameter raises FloatingPointError; the step's wall time
@@ -82,8 +93,8 @@ _flags: dict = {
 # register is not ported: setting it raises (`set_flags`,
 # `check_env_flags`). Among them FLAGS_gemm_use_half_precision_compute_type
 # (TF32 on or off, ROADMAP Queue 2) and the observability flags not ported
-# yet (metrics port and snapshots, flight recorder, span ring, request-
-# trace sink, lock witness: ROADMAP Queue 1 item 5).
+# yet (metrics snapshots and their interval, the lock witness: ROADMAP
+# Queue 1 items 9 and 11).
 _REFERENCE_FLAGS = {
     "FLAGS_check_nan_inf": False,
     "FLAGS_check_nan_inf_warn_only": False,
@@ -167,6 +178,21 @@ def _apply_flag(key, value) -> None:
     elif key == "FLAGS_metrics":
         from .. import observability
         observability.enable(value not in _FALSY)
+    elif key == "FLAGS_metrics_port":
+        from ..observability import export as _oexp
+        _oexp.serve_metrics(int(value or 0))
+    elif key == "FLAGS_flight_recorder":
+        from ..observability import export as _oexp
+        if value:
+            _oexp.install_flight_recorder(str(value))
+        else:
+            _oexp.uninstall_flight_recorder()
+    elif key == "FLAGS_span_ring_size":
+        from ..observability import spans as _ospans
+        _ospans.set_ring_size(int(value))
+    elif key == "FLAGS_request_trace_sink":
+        from ..observability import reqtrace as _ortrace
+        _ortrace.set_sink(str(value) if value else None)
 
 
 def set_flags(flags: dict) -> None:

@@ -20,6 +20,17 @@ ThreadingHTTPServer, no framework dependencies).
   queue, degradation and counters among it); 200 while the gateway and
   the engine accept, 503 + Retry-After while draining, after an engine
   fault, or while the engine's queue is full.
+* `GET /metrics` — the Prometheus text of the metrics registry
+  (`observability.export.http_get_payload`, the same bytes the
+  FLAGS_metrics_port endpoint serves; histogram buckets carry their
+  exemplar trace id).
+* `GET /v1/trace/<id>` — the request trace's snapshot (status, wall,
+  the attribution buckets that sum to it, decode ticks, the event
+  timeline) from the in-process store; 404 for an unknown id. A
+  request's id is the `X-Request-Trace` header's, else a W3C
+  `traceparent`'s trace id, else minted; it comes back as the
+  `X-Request-Id` response header and as `trace_id` in the terminal SSE
+  frame or the JSON document.
 * A mid-stream client disconnect cancels the request in the engine
   (slot + pages reclaimed). Graceful drain: stop accepting, finish
   in-flight streams, then stop.
@@ -27,16 +38,18 @@ ThreadingHTTPServer, no framework dependencies).
 Saved weights are the port's own: `<prefix>.pt` holding
 `torch.save(state_dict)` plus the reference's `<prefix>.config.json`
 sidecar (the reference's `.pdparams` pickle names paddle_tpu classes and
-cannot load without that package). Not ported yet: `/metrics`,
-`/v1/trace` and `/v1/infer`. The `serving.http_request` fault point
-sits at the top of each POST and before each streamed frame.
+cannot load without that package). Not ported yet: `/v1/infer`. The
+`serving.http_request` fault point sits at the top of each POST and
+before each streamed frame.
 
 Threading: ONE tick thread owns the engine loop (`EngineRunner`) and
 selects the engine's CUDA device before its first step; HTTP handler
 threads reach it only through the runner's inbox (submit/cancel: the
 tick thread admits a submit between ticks and answers it, accepted or
 rejected, on the request's stream) and per-request event queues (token
-delivery).
+delivery). The tick thread also charges a traced request's ledger the
+time it spends handing that request's tokens to its stream
+(`stream_write`).
 """
 from __future__ import annotations
 
@@ -50,6 +63,8 @@ from typing import Optional
 
 import torch
 
+from ..observability import export as _oexp
+from ..observability import reqtrace as _rtrace
 from ..utils.fault_injection import fault_point
 from .router import _retry_after_header
 from .serving import ContinuousBatchingEngine, GenerationRequest, QueueFull
@@ -82,24 +97,14 @@ def resolve_config(spec):
     raise TypeError(f"unsupported config spec: {type(spec).__name__}")
 
 
-def _atomic_write(path: str, write) -> None:
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            write(f)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-
-
 def save_for_serving(model, path_prefix: str) -> None:
     """Persist a causal LM the gateway can reload: `<prefix>.pt`
     (torch.save of the state dict, on the CPU) + `<prefix>.config.json`."""
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    _atomic_write(path_prefix + ".pt", lambda f: torch.save(state, f))
+    _oexp.atomic_write(path_prefix + ".pt", lambda f: torch.save(state, f))
     blob = json.dumps(dataclasses.asdict(model.cfg), indent=1).encode()
-    _atomic_write(path_prefix + ".config.json", lambda f: f.write(blob))
+    _oexp.atomic_write(path_prefix + ".config.json",
+                       lambda f: f.write(blob))
 
 
 def load_generation_model(path_prefix: str, config=None, device=None):
@@ -322,8 +327,17 @@ class EngineRunner:
         for rid, st in self._streams.items():
             out = st.req.output
             if st.sent < len(out):
+                first = st.sent == 0
                 st.q.put(("tokens", list(out[st.sent:])))
                 st.sent = len(out)
+                tr = st.req.trace
+                if tr is not None and tr.status is None:
+                    # the span since the tick's last charge went to
+                    # handing tokens to the stream (this thread ran the
+                    # step, so the ledger's mark is still its own)
+                    tr.charge("stream_write")
+                    if first:
+                        tr.event("stream_write", n=st.sent)
             if st.req.done:
                 st.q.put(("end", st.req.status, st.req.error))
                 done.append(rid)
@@ -405,6 +419,18 @@ class ServingGateway:
                     body["engine"].get("retry_after_s", 1.0))
             self._json(h, status, body, extra)
             return
+        if path in ("", "/metrics"):
+            status, ctype, body = _oexp.http_get_payload("/metrics")
+            self._raw(h, status, ctype, body)
+            return
+        if path.startswith("/v1/trace/"):
+            tid = path.rsplit("/", 1)[1]
+            snap = _rtrace.lookup(tid)
+            if snap is None:
+                self._json(h, 404, {"error": f"unknown trace {tid!r}"})
+            else:
+                self._json(h, 200, snap)
+            return
         self._json(h, 404, {"error": f"no route for {h.path!r}"})
 
     def _handle_post(self, h):
@@ -456,6 +482,11 @@ class ServingGateway:
         req = GenerationRequest(prompt=[int(t) for t in prompt],
                                 max_new_tokens=max_new, eos_token_id=eos,
                                 priority=priority, deadline_s=deadline)
+        # honour an incoming trace id (X-Request-Trace, else a
+        # traceparent), mint one otherwise
+        req.trace_id = (_rtrace.parse_trace_header(
+            h.headers.get("X-Request-Trace")
+            or h.headers.get("traceparent")) or _rtrace.mint_trace_id())
         try:
             stream = self.runner.submit(req)
             self.runner.wait_admitted(stream)
@@ -488,6 +519,7 @@ class ServingGateway:
             h.send_header("Content-Type", "text/event-stream")
             h.send_header("Cache-Control", "no-cache")
             h.send_header("Connection", "close")
+            h.send_header("X-Request-Id", req.trace_id)
             h.end_headers()
             while True:
                 try:
@@ -503,7 +535,8 @@ class ServingGateway:
                     h.wfile.flush()
                     continue
                 _, status, error = ev
-                payload = {"status": status, "n_tokens": len(req.output)}
+                payload = {"status": status, "n_tokens": len(req.output),
+                           "trace_id": req.trace_id}
                 name = b"end"
                 if status != "served":
                     payload["error"] = error
@@ -522,15 +555,20 @@ class ServingGateway:
             if ev[0] == "end":
                 _, status, error = ev
                 break
-        body = {"status": status, "output": list(req.output)}
+        body = {"status": status, "output": list(req.output),
+                "trace_id": req.trace_id}
         if error:
             body["error"] = error
-        self._json(h, _STATUS_HTTP.get(status, 500), body)
+        self._json(h, _STATUS_HTTP.get(status, 500), body,
+                   {"X-Request-Id": req.trace_id})
 
     def _json(self, h, status, obj, extra_headers=None):
-        body = json.dumps(obj).encode()
+        self._raw(h, status, "application/json", json.dumps(obj).encode(),
+                  extra_headers)
+
+    def _raw(self, h, status, ctype, body, extra_headers=None):
         h.send_response(status)
-        h.send_header("Content-Type", "application/json")
+        h.send_header("Content-Type", ctype)
         h.send_header("Content-Length", str(len(body)))
         for k, v in (extra_headers or {}).items():
             h.send_header(k, v)

@@ -12,7 +12,15 @@ accepted, acceptance rate). The engine runs the SLO layer (FLAGS_serving_slo,
 default on): a request's `priority` and `deadline_s` are honoured, a
 full queue (--max-queue-tokens) answers 429 with Retry-After, and a
 deadline that passes answers 504 (`"stream": false`) or an error frame.
-Prints `serving on http://<host>:<port>` once listening.
+Observability is armed, as in the reference's server: `GET /metrics`
+answers the Prometheus text (the `serving.*` series, per-step
+`xla.dispatch_seconds` / `xla.execute_seconds{executable=...}`, the
+`serving.attribution_seconds{bucket=...}` ledger with trace-id
+exemplars), and request tracing (FLAGS_request_trace, default on)
+answers `GET /v1/trace/<id>` for the id in each response's
+`X-Request-Id` header. `--metrics-port N` also serves /metrics and
+/healthz on a port of their own (FLAGS_metrics_port). Prints `serving
+on http://<host>:<port>` once listening.
 
 Signals: SIGTERM/SIGINT start a graceful drain — /healthz flips to 503,
 new submits get 503, in-flight streams finish (bounded by
@@ -23,6 +31,7 @@ Example:
   python -m paddle_tpu_torch.inference.serve --model /path/m --port 8008
   curl -N localhost:8008/v1/generate \\
       -d '{"prompt": [3, 5, 7], "max_new_tokens": 8}'
+  curl localhost:8008/v1/trace/<X-Request-Id>; curl localhost:8008/metrics
 """
 from __future__ import annotations
 
@@ -69,12 +78,21 @@ def _build_parser():
                    help="SSE keepalive interval (doubles as the "
                         "client-disconnect probe)")
     p.add_argument("--drain-timeout", type=float, default=30.0)
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="also serve the standalone observability "
+                        "/metrics endpoint (FLAGS_metrics_port)")
     return p
 
 
 def main(argv=None):
     args = _build_parser().parse_args(argv)
+    from .. import observability as obs
+    from ..framework import core as _core
     from . import gateway as gw
+
+    obs.enable(True)
+    if args.metrics_port:
+        _core.set_flags({"FLAGS_metrics_port": args.metrics_port})
 
     if not os.path.exists(args.model + ".pt"):
         print(f"no servable artifact at {args.model!r} (need "
@@ -93,7 +111,8 @@ def main(argv=None):
                           port=args.port, keepalive_s=args.keepalive_s)
     port = g.start()
     print(f"serving on http://{args.host}:{port}  "
-          f"(POST /v1/generate, GET /healthz) on {engine.device}",
+          f"(POST /v1/generate, GET /healthz, /metrics, /v1/trace/<id>) "
+          f"on {engine.device}",
           flush=True)
 
     stop = threading.Event()

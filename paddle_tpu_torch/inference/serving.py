@@ -69,6 +69,24 @@ counters, gauges and histograms record while `observability` is armed;
 SLO-armed engines publish `health_snapshot()` through
 `observability.export`'s health registry (`serving_health`).
 
+Request tracing (`request_trace=` / FLAGS_request_trace, default on as
+in the reference; `=0` is the kill switch: tokens, ticks and packed rows
+bitwise as without it): every request gets a `RequestTrace`
+(observability/reqtrace.py) at `add_request` under its `trace_id`
+(minted unless the caller set one), carrying its event timeline
+(arrival, admitted / resumed, prefill chunks, first token, drafts,
+preemption, prefix reuse, the terminal event) and its attribution
+ledger: each tick, every request that played a role is charged the span
+since its last charge to that role (prefill_compute, decode_compute,
+draft_overhead for a tick whose drafts were all refuted, page_wait while
+parked), waits are charged to queue_wait or preempted, and each terminal
+path settles the rest, so `sum(buckets) == wall`. The settled buckets go
+into `serving.attribution_seconds{bucket}` with the trace id as the
+exemplar. Each step's launches run inside `observability.device_events.
+execution` ("serving.prefill", "serving.ragged_step", "serving.decode"),
+closed before the step's read-back, so the CUDA event that ends the step
+has completed once the read-back returns.
+
 Differences from the reference, by design:
 * the KV pools are torch tensors updated IN PLACE by index writes (the
   reference donates its pools to the compiled step instead); a
@@ -82,10 +100,8 @@ Differences from the reference, by design:
   raises out of `step()` and fails no request, where the reference
   quarantines whatever a tick raises.
 
-Not ported yet — asking for them raises NotImplementedError: request
-tracing (`request_trace=True` / FLAGS_request_trace, whose port flag
-stands at the reference's kill switch) and int8 weights. So the port's
-default engine is the reference's built with `request_trace=False`.
+Not ported yet — asking for it raises NotImplementedError: int8
+weights (`quantize=`).
 """
 from __future__ import annotations
 
@@ -102,7 +118,9 @@ from ..framework.core import resolve_device
 from ..kernels import _build
 from ..kernels.ragged_paged_attention import _size_class
 from ..models import llama as L
+from ..observability import device_events as _devev
 from ..observability import metrics as _metrics
+from ..observability import reqtrace as _rtrace
 from ..utils.fault_injection import fault_point
 from .router import RETRY_AFTER_CEILING_S
 from .router import chain_key as _chain_key
@@ -168,6 +186,12 @@ _CACHE_AWARE = _metrics.counter(
     "serving.cache_aware_admits_total",
     "admissions reordered ahead of FIFO because their prompt prefix "
     "was hot in the prefix cache")
+_ATTR = _metrics.histogram(
+    "serving.attribution_seconds",
+    "per-request wall decomposed into the request-trace attribution "
+    "buckets (label bucket=queue_wait|prefill_compute|decode_compute|"
+    "preempted|page_wait|draft_overhead|failover|stream_write); per "
+    "request, sum over buckets == wall by construction")
 
 
 class DeadlineExceeded(RuntimeError):
@@ -218,6 +242,14 @@ class GenerationRequest:
     # cache-aware admission: how many times a hotter-prefix waiter was
     # admitted ahead of this one (bounded by cache_jump_limit)
     admit_bypassed: int = 0
+    # request tracing: the trace id (the gateway honours or mints it; the
+    # engine mints one when it is None), seconds spent on failed hops
+    # before this engine saw the request (preloaded into the ledger's
+    # `failover` bucket and its wall), and the engine-attached
+    # RequestTrace (None with tracing off)
+    trace_id: Optional[str] = None
+    failover_preload_s: float = 0.0
+    trace: Optional[object] = field(default=None, repr=False)
 
     @property
     def done(self) -> bool:
@@ -583,9 +615,8 @@ class ContinuousBatchingEngine:
     utilization thresholds and calm-tick count steering the effective
     chunk budget; tick_timeout_s arms a per-tick watchdog (None = off).
 
-    request_trace resolves as the reference's does (the flag when the
-    argument is None); it and quantize raise NotImplementedError when
-    asked for (module docstring)."""
+    request_trace=None follows FLAGS_request_trace (module docstring);
+    quantize raises NotImplementedError (not ported)."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 256,
                  prefill_buckets=(32, 64, 128, 256), quantize=None,
@@ -610,16 +641,9 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))
-        # resolved as the reference resolves it: the flag when the
-        # argument is None (the port's flag stands at the kill switch)
-        trace_on = (_core.get_bool_flag("FLAGS_request_trace")
-                    if request_trace is None else bool(request_trace))
-        unported = [(trace_on, "request tracing (request_trace / "
-                               "FLAGS_request_trace)"),
-                    (quantize is not None, f"quantize={quantize!r}")]
-        for asked, what in unported:
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if quantize is not None:
+            raise NotImplementedError(
+                f"quantize={quantize!r} is not ported yet")
         if int(max_chunk_tokens) < 1:
             raise ValueError(
                 f"max_chunk_tokens must be >= 1, got {max_chunk_tokens}")
@@ -727,6 +751,13 @@ class ContinuousBatchingEngine:
                                     on_timeout="warn")
         if self._slo:
             _register_health_engine(self)
+        # -- request tracing, resolved once; every hook guards on the
+        # bool, and no scheduling decision reads it
+        self._rtrace = (_core.get_bool_flag("FLAGS_request_trace", True)
+                        if request_trace is None else bool(request_trace))
+        # request_id -> (req, bucket) for the requests that did something
+        # this tick; charged into each request's ledger at the end of step()
+        self._tick_roles: Dict[int, tuple] = {}
 
     # -- memory accounting ---------------------------------------------------
 
@@ -846,6 +877,14 @@ class ContinuousBatchingEngine:
             self._next_id += 1
         req.arrived_s = time.perf_counter()
         req.status = "queued"
+        if self._rtrace:
+            tr = _rtrace.new_trace(req.trace_id, now=req.arrived_s)
+            req.trace = tr
+            req.trace_id = tr.trace_id
+            if req.failover_preload_s > 0:
+                tr.preload("failover", req.failover_preload_s)
+            tr.event("arrival", prompt_tokens=len(req.prompt),
+                     priority=req.priority)
         self.waiting.append(req)
         return req.request_id
 
@@ -877,6 +916,15 @@ class ContinuousBatchingEngine:
         slot.pending = []
         self._free_slot_pages(i)
         req.status = "queued"
+        if self._rtrace and req.trace is not None:
+            tr = req.trace
+            # the span up to now goes to the last charged bucket (the
+            # reference drops this tick's role first); from here to
+            # re-admission the request waits as `preempted`
+            self._tick_roles.pop(req.request_id, None)
+            tr.charge(tr.pending_bucket)
+            tr.pending_bucket = "preempted"
+            tr.event("preempted")
         self.waiting.insert(0, req)
         self.preemptions += 1
         _PREEMPTS.inc()
@@ -885,20 +933,61 @@ class ContinuousBatchingEngine:
         return (-(-eff_len // self.page) > self.pool.n_pages - 1
                 or eff_len > self.S)
 
+    def _trace_settle(self, req, event: str, **fields):
+        """Terminal trace bookkeeping: charge the span from the last mark
+        to finished_s to the request's role this tick (else its pending
+        bucket), record the terminal event (through the sink too), and
+        observe each bucket into serving.attribution_seconds with the
+        trace id as the exemplar."""
+        if not self._rtrace or req.trace is None:
+            return
+        tr = req.trace
+        if tr.status is not None:
+            return                       # already terminal
+        now = (req.finished_s if req.finished_s is not None
+               else time.perf_counter())
+        ent = self._tick_roles.pop(req.request_id, None)
+        tr.charge(ent[1] if ent is not None else tr.pending_bucket, now)
+        if req.error:
+            fields.setdefault("error", req.error)
+        tr.finish(req.status, event, now=now, **fields)
+        for name, secs in tr.buckets.items():
+            _ATTR.observe(secs, exemplar=tr.trace_id, bucket=name)
+
+    def _trace_charge_tick(self):
+        """End of a tick: every request that played a role in it is
+        charged the span since its last mark to that role (a request
+        already terminal is skipped)."""
+        if not self._tick_roles:
+            return
+        now = time.perf_counter()
+        for req, bucket in self._tick_roles.values():
+            tr = req.trace
+            if tr is None or tr.status is not None:
+                continue
+            tr.charge(bucket, now)
+        self._tick_roles.clear()
+
     def _fail_request(self, req):
         req.status = "failed"
         req.error = "oversized resume stream"
         req.finished_s = time.perf_counter()
+        self._trace_settle(req, "failed")
         self.finished.append(req)
 
     def _note_first_token(self, req):
         if len(req.output) == 1 and req.first_token_s is None:
             req.first_token_s = time.perf_counter()
             ttft = req.first_token_s - req.arrived_s
+            # exemplar=None leaves the histogram cells as without tracing
+            ex = (req.trace_id
+                  if self._rtrace and req.trace is not None else None)
             if self._slo:
-                _TTFT.observe(ttft, priority=str(req.priority))
+                _TTFT.observe(ttft, exemplar=ex, priority=str(req.priority))
             else:
-                _TTFT.observe(ttft)
+                _TTFT.observe(ttft, exemplar=ex)
+            if ex is not None:
+                req.trace.event("first_token", ttft_s=ttft)
 
     def _maybe_finish(self, i):
         slot = self.slots[i]
@@ -915,10 +1004,14 @@ class ContinuousBatchingEngine:
             if req.first_token_s is not None and len(req.output) > 1:
                 tpot = ((req.finished_s - req.first_token_s)
                         / (len(req.output) - 1))
+                ex = (req.trace_id
+                      if self._rtrace and req.trace is not None else None)
                 if self._slo:
-                    _TPOT.observe(tpot, priority=str(req.priority))
+                    _TPOT.observe(tpot, exemplar=ex,
+                                  priority=str(req.priority))
                 else:
-                    _TPOT.observe(tpot)
+                    _TPOT.observe(tpot, exemplar=ex)
+            self._trace_settle(req, "finished", n_tokens=len(req.output))
             self.finished.append(req)
             slot.req = None
             slot.pending = []
@@ -1024,18 +1117,23 @@ class ContinuousBatchingEngine:
             n_valid[j] = T
         self.prefill_calls[(bucket, k)] = (
             self.prefill_calls.get((bucket, k), 0) + 1)
-        cfg = self.cfg
-        ck = torch.zeros((cfg.num_hidden_layers, k, bucket, cfg.kv_heads,
-                          cfg.head_dim), dtype=self.dtype, device=self.device)
-        cv = torch.zeros_like(ck)
-        zeros = torch.zeros((k,), dtype=torch.int32, device=self.device)
-        logits, k_new, v_new = L._forward_with_cache(
-            self.state, cfg, self._dev(ids), ck, cv, zeros, wls=self._wls)
-        last = logits[torch.arange(k, device=self.device),
-                      self._dev(n_valid).long() - 1]
-        # ONE flat write for the whole group: [L, k, T, kvh, d] ->
-        # [L, k*T, kvh, d]; padding rows and beyond-prompt positions land
-        # on the scratch page
+        if self._rtrace:
+            # close the waiting span now, before the prefill, so the
+            # compute lands in prefill_compute (charged at the end of
+            # step() or at finish)
+            for _, req, _, T, need, _ in group:
+                tr = req.trace
+                if tr is None:
+                    continue
+                wait = tr.pending_bucket
+                tr.charge(wait)
+                tr.event("resumed" if wait == "preempted" else "admitted",
+                         tokens=T, pages=need)
+                tr.event("prefill_chunk", tokens=T, pages=need)
+                self._tick_roles[req.request_id] = (req, "prefill_compute")
+        # the pages and offsets of ONE flat write for the whole group:
+        # [L, k, T, kvh, d] -> [L, k*T, kvh, d]; padding rows and
+        # beyond-prompt positions land on the scratch page
         pos = np.arange(bucket)
         page_ids = np.zeros((k, bucket), np.int32)
         offs = np.broadcast_to(pos % self.page, (k, bucket)).astype(np.int32)
@@ -1045,14 +1143,27 @@ class ContinuousBatchingEngine:
                 np.asarray(pages, np.int32)[
                     np.minimum(pos // self.page, need - 1)],
                 0)
-        L_ = k_new.shape[0]
-        k_flat = k_new.reshape(L_, k * bucket, *k_new.shape[3:])
-        v_flat = v_new.reshape(L_, k * bucket, *v_new.shape[3:])
-        self._write_fn(k_flat, v_flat, self._dev(page_ids.reshape(-1)),
-                       self._dev(offs.reshape(-1)))
-        # a sampling engine SAMPLES the admission token too (the first
-        # token of every request and of every preemption resume)
-        toks = _next_tokens(last, self.greedy, self._gen).cpu().numpy()
+        cfg = self.cfg
+        with _devev.execution("serving.prefill", self.device):
+            ck = torch.zeros((cfg.num_hidden_layers, k, bucket, cfg.kv_heads,
+                              cfg.head_dim), dtype=self.dtype,
+                             device=self.device)
+            cv = torch.zeros_like(ck)
+            zeros = torch.zeros((k,), dtype=torch.int32, device=self.device)
+            logits, k_new, v_new = L._forward_with_cache(
+                self.state, cfg, self._dev(ids), ck, cv, zeros,
+                wls=self._wls)
+            last = logits[torch.arange(k, device=self.device),
+                          self._dev(n_valid).long() - 1]
+            L_ = k_new.shape[0]
+            k_flat = k_new.reshape(L_, k * bucket, *k_new.shape[3:])
+            v_flat = v_new.reshape(L_, k * bucket, *v_new.shape[3:])
+            self._write_fn(k_flat, v_flat, self._dev(page_ids.reshape(-1)),
+                           self._dev(offs.reshape(-1)))
+            # a sampling engine SAMPLES the admission token too (the first
+            # token of every request and of every preemption resume)
+            toks = _next_tokens(last, self.greedy, self._gen)
+        toks = toks.cpu().numpy()
         for j, (i, req, eff, T, need, pages) in enumerate(group):
             slot = self.slots[i]
             self.prefill_tokens_total += T
@@ -1086,18 +1197,20 @@ class ContinuousBatchingEngine:
         gen_before = None if self.greedy else self._gen.get_state()
         # one token for every active slot, straight over the page pool;
         # inactive slots keep their token
-        lg, self.k_pool, self.v_pool = L._decode_step_paged(
-            self.state, self.cfg, toks, self.k_pool, self.v_pool,
-            self._dev(self.page_table), self._dev(lens), active,
-            wls=self._wls)
-        nxt = torch.where(active, _next_tokens(lg, self.greedy, self._gen),
-                          toks)
+        with _devev.execution("serving.decode", self.device):
+            lg, self.k_pool, self.v_pool = L._decode_step_paged(
+                self.state, self.cfg, toks, self.k_pool, self.v_pool,
+                self._dev(self.page_table), self._dev(lens), active,
+                wls=self._wls)
+            nxt = torch.where(active,
+                              _next_tokens(lg, self.greedy, self._gen), toks)
+            if self._slo:
+                # a slot whose logits are not finite is quarantined
+                # exactly (idle rows exempt)
+                ok = torch.isfinite(lg).all(dim=-1) | ~active
         self.decode_steps += 1
         if self._slo:
-            # a slot whose logits are not finite is quarantined exactly
-            # (idle rows exempt)
-            nxt, ok = self._read_back(
-                nxt, torch.isfinite(lg).all(dim=-1) | ~active)
+            nxt, ok = self._read_back(nxt, ok)
             if self._discard_poisoned(ok, gen_before):
                 return
         else:
@@ -1109,6 +1222,10 @@ class ContinuousBatchingEngine:
             slot.produced += 1
             slot.last_token = int(nxt[i])
             slot.req.output.append(slot.last_token)
+            if self._rtrace and slot.req.trace is not None:
+                self._tick_roles.setdefault(
+                    slot.req.request_id, (slot.req, "decode_compute"))
+                slot.req.trace.event("decode_tick")
             self._maybe_finish(i)
 
     # -- chunked-prefill (ragged) scheduler ---------------------------------
@@ -1189,6 +1306,14 @@ class ContinuousBatchingEngine:
             self.page_table[i, :] = 0
             if cached:
                 self.page_table[i, :len(cached)] = cached
+            if self._rtrace and req.trace is not None:
+                tr = req.trace
+                wait = tr.pending_bucket
+                tr.charge(wait)
+                tr.event("resumed" if wait == "preempted" else "admitted",
+                         cached_pages=len(cached))
+                if cached:
+                    tr.event("prefix_reuse", pages=len(cached))
 
     def _schedule_chunks(self) -> List[Tuple[int, List[int], bool]]:
         """This tick's ragged batch: one decode row per decode-phase slot
@@ -1368,6 +1493,17 @@ class ContinuousBatchingEngine:
             slot.spec_calm = 0
             if 2 * accepted < drafted:
                 slot.spec_k = max(1, slot.spec_k // 2)
+        if self._rtrace and req.trace is not None and drafted:
+            tr = req.trace
+            tr.event("draft_proposed", n=drafted)
+            if accepted:
+                tr.event("draft_accepted", n=accepted)
+            if drafted - accepted:
+                tr.event("draft_rejected", n=drafted - accepted)
+            # a tick whose every draft was refuted bought nothing: its
+            # wall is speculation overhead, not decode progress
+            self._tick_roles[req.request_id] = (
+                req, "draft_overhead" if accepted == 0 else "decode_compute")
         self._note_first_token(req)
         self._maybe_finish(i)
 
@@ -1393,6 +1529,33 @@ class ContinuousBatchingEngine:
         if not entries:
             self.last_packed_tokens = 0
             return
+        if self._rtrace:
+            # what each request in flight does this tick; the span since
+            # its last mark is charged to it at the end of step() or at
+            # finish
+            scheduled = set()
+            for i, rows, is_prefill in entries:
+                scheduled.add(i)
+                r = self.slots[i].req
+                if r is None or r.trace is None:
+                    continue
+                if is_prefill:
+                    self._tick_roles[r.request_id] = (r, "prefill_compute")
+                    r.trace.event("prefill_chunk", tokens=len(rows),
+                                  pages=len(self.slot_pages[i]))
+                else:
+                    self._tick_roles.setdefault(
+                        r.request_id, (r, "decode_compute"))
+                    r.trace.event("decode_tick")
+            for i, slot in enumerate(self.slots):
+                if slot.free or i in scheduled:
+                    continue
+                r = slot.req
+                if r is None or r.trace is None:
+                    continue
+                # active but unscheduled: parked on a dry pool or a spent
+                # chunk budget
+                self._tick_roles[r.request_id] = (r, "page_wait")
         B, page, T = self.B, self.page, self._T_pack
         toks = np.zeros((T,), np.int32)
         pos = np.zeros((T,), np.int32)
@@ -1426,13 +1589,14 @@ class ContinuousBatchingEngine:
         _PACKED.observe(float(cur))
         dev = self._dev
         gen_before = None if self.greedy else self._gen.get_state()
-        out = self._ragged_fn()(
-            self.state, dev(toks), self.k_pool, self.v_pool, dev(page_ids),
-            dev(offs), dev(pos), dev(self.page_table), dev(q_start),
-            dev(q_len), dev(kv_len), dev(produce),
-            # the speculative step takes the verify mask where the
-            # non-speculative one takes the previous tokens
-            dev(verify if self._spec else prev), self._gen)
+        with _devev.execution("serving.ragged_step", self.device):
+            out = self._ragged_fn()(
+                self.state, dev(toks), self.k_pool, self.v_pool,
+                dev(page_ids), dev(offs), dev(pos), dev(self.page_table),
+                dev(q_start), dev(q_len), dev(kv_len), dev(produce),
+                # the speculative step takes the verify mask where the
+                # non-speculative one takes the previous tokens
+                dev(verify if self._spec else prev), self._gen)
         self.model_steps += 1
         if self._slo:
             nxt, ok, self.k_pool, self.v_pool = out
@@ -1488,6 +1652,7 @@ class ContinuousBatchingEngine:
         req.status = "cancelled"
         req.error = reason
         req.finished_s = time.perf_counter()
+        self._trace_settle(req, "cancelled")
         self.finished.append(req)
         return True
 
@@ -1603,6 +1768,7 @@ class ContinuousBatchingEngine:
         victim.error = ("shed under sustained admission starvation "
                         f"({self.shed_patience} ticks)")
         victim.finished_s = time.perf_counter()
+        self._trace_settle(victim, "shed")
         self.finished.append(victim)
         self.sheds += 1
         _SHEDS.inc()
@@ -1612,6 +1778,7 @@ class ContinuousBatchingEngine:
         req.error = (f"DeadlineExceeded: deadline_s={req.deadline_s} "
                      f"passed after {len(req.output)} token(s)")
         req.finished_s = time.perf_counter()
+        self._trace_settle(req, "deadline_miss")
         self.finished.append(req)
         self.deadline_misses += 1
         _DEADLINE_MISSES.inc()
@@ -1620,6 +1787,7 @@ class ContinuousBatchingEngine:
         req.status = "failed"
         req.error = reason
         req.finished_s = time.perf_counter()
+        self._trace_settle(req, "failed")
         self.finished.append(req)
         self.quarantines += 1
         _QUARANTINES.inc()
@@ -1737,6 +1905,8 @@ class ContinuousBatchingEngine:
                     raise
                 self._on_tick_failure(exc)
             self._slo_post_tick()
+        if self._rtrace:
+            self._trace_charge_tick()
         if _metrics.enabled():
             _KV_PAGES.set(float(self.pool.n_pages - 1 - self.pool.n_free))
         self.ticks += 1

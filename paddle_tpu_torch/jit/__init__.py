@@ -18,9 +18,18 @@ FLAGS_check_nan_inf raises FloatingPointError on a non-finite loss or
 updated floating parameter (the parameters are updated first, as the
 reference's compiled step updates them); FLAGS_benchmark prints the
 step's wall time in ms on stderr, after a synchronize;
-FLAGS_log_memory_stats prints the device's allocated and peak bytes on
-stderr on a CUDA device, and nothing on the CPU (where the reference's
-CPU backend reports no memory stats).
+FLAGS_log_memory_stats prints the allocated and peak bytes of the host's
+CUDA devices on stderr, through `observability.update_device_memory_gauges`
+(which also sets the device.* gauges), and nothing on the CPU (where the
+reference's CPU backend reports no memory stats).
+
+While observability is armed, each step runs inside
+`observability.device_events.execution("train_step", device)` (host
+dispatch wall; device seconds from CUDA events on a card) and closes a
+goodput window (`goodput.step_boundary`), as the reference's step does
+(l.813-814, 880-884). The reference passes its executable's
+cost-analysis FLOPs to the boundary for the MFU gauge; the port has no
+FLOP count of its step, so it passes none and the gauge stays unset.
 """
 from __future__ import annotations
 
@@ -29,7 +38,10 @@ import time
 
 import torch
 
+from .. import observability
 from ..framework import core, remat
+from ..observability import device_events as _devev
+from ..observability import goodput as _goodput
 
 __all__ = ["TrainStep", "resolve_remat_policy"]
 
@@ -96,11 +108,13 @@ class TrainStep:
     def __call__(self, *batch):
         bench = core.get_bool_flag("FLAGS_benchmark")
         t0 = time.perf_counter()
-        with core.remat_policy_guard(self._remat_policy):
-            loss = self.step_fn(*batch)
-            loss.backward()
-        self.optimizer.step()
-        self.optimizer.clear_grad(set_to_zero=False)
+        device = next(self.model.parameters()).device
+        with _devev.execution("train_step", device):
+            with core.remat_policy_guard(self._remat_policy):
+                loss = self.step_fn(*batch)
+                loss.backward()
+            self.optimizer.step()
+            self.optimizer.clear_grad(set_to_zero=False)
         n = self.optimizer._step_count
         if bench:
             if loss.is_cuda:
@@ -108,11 +122,15 @@ class TrainStep:
             print(f"TrainStep[{n}]: "
                   f"{(time.perf_counter() - t0) * 1e3:.2f} ms",
                   file=sys.stderr)
-        if core.get_bool_flag("FLAGS_log_memory_stats") and loss.is_cuda:
-            print(f"TrainStep[{n}] memory: "
-                  f"in_use={torch.cuda.memory_allocated(loss.device)} "
-                  f"peak={torch.cuda.max_memory_allocated(loss.device)}",
-                  file=sys.stderr)
+        if core.get_bool_flag("FLAGS_log_memory_stats"):
+            # the allocator's readings, mirrored into the registry's
+            # device.bytes_in_use / device.peak_bytes_in_use gauges; None
+            # with no card, and then nothing is printed
+            mem = observability.update_device_memory_gauges()
+            if mem is not None:
+                print(f"TrainStep[{n}] memory: "
+                      f"in_use={mem['bytes_in_use']} "
+                      f"peak={mem['peak_bytes_in_use']}", file=sys.stderr)
         if core.get_bool_flag("FLAGS_check_nan_inf"):
             if not bool(torch.isfinite(loss).all()):
                 raise FloatingPointError(
@@ -126,4 +144,5 @@ class TrainStep:
                 raise FloatingPointError(
                     f"NaN or Inf in updated parameters {bad[:5]} "
                     "(FLAGS_check_nan_inf)")
+        _goodput.step_boundary()
         return loss.detach()

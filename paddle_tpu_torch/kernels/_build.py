@@ -15,7 +15,10 @@ Every C entry returns `cudaGetLastError()` after its launch; `check`
 raises when it is not 0. A build failure raises with nvcc's output —
 there is no fallback. Both raise `KernelError`; `is_device_fault` also
 names the card's own runtime errors, which the serving engine's SLO
-isolation boundary lets through instead of failing one request.
+isolation boundary lets through instead of failing one request. A
+build's seconds go to `observability.device_events.note_compile`
+(xla.compile_seconds under the step tag active at build time, the
+goodput ledger's `compile` bucket).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 __all__ = ["library", "check", "KernelError", "is_device_fault",
            "BUILD_DIR", "NVCC_FLAGS"]
@@ -223,7 +227,10 @@ def library() -> ctypes.CDLL:
         with open(so + ".lock", "w") as lock_file:
             fcntl.flock(lock_file, fcntl.LOCK_EX)
             if not os.path.exists(so):
+                t0 = time.perf_counter()
                 _compile(so, cus)
+                from ..observability import device_events
+                device_events.note_compile(time.perf_counter() - t0)
         try:
             lib = ctypes.CDLL(so)
         except OSError as exc:

@@ -19,18 +19,23 @@ snake-case id and then recorded through the returned handle:
 
 `counter()/gauge()/histogram()` are get-or-create: re-requesting an id
 returns the existing instrument; requesting it as a different type
-raises. Not ported yet: exemplars, collectors, the Prometheus text.
+raises. `Histogram.observe(v, exemplar="<trace id>")` pins the last
+`{trace_id, value, ts}` on the bucket the observation landed in, so a
+tail bucket in the Prometheus text (`export.prometheus_text`) names a
+request trace to pull at `GET /v1/trace/<id>`. Not ported yet:
+collectors.
 """
 from __future__ import annotations
 
 import re
 import threading
+import time
 from bisect import bisect_left
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
            "enable", "enabled", "snapshot", "reset", "instruments",
-           "DEFAULT_BUCKETS"]
+           "split_label_key", "DEFAULT_BUCKETS"]
 
 # fast-path guard: every record call reads this module global and returns
 # when False
@@ -69,6 +74,36 @@ def _label_key(labels: Optional[dict]) -> str:
         return ""
     return ",".join(f"{k}={_esc_label_value(labels[k])}"
                     for k in sorted(labels))
+
+
+def split_label_key(key: str) -> List[Tuple[str, str]]:
+    """Inverse of _label_key: [(k, v), ...] with escapes resolved (a
+    char scanner: escapes consume in pairs, so a value ending in a
+    backslash still parses)."""
+    if not key:
+        return []
+    out = []
+    k: list = []
+    v: list = []
+    cur = k
+    i, n = 0, len(key)
+    while i < n:
+        c = key[i]
+        if c == "\\" and i + 1 < n:
+            cur.append(key[i + 1])
+            i += 2
+            continue
+        if c == "=" and cur is k:
+            cur = v
+        elif c == ",":
+            out.append(("".join(k), "".join(v)))
+            k, v = [], []
+            cur = k
+        else:
+            cur.append(c)
+        i += 1
+    out.append(("".join(k), "".join(v)))
+    return out
 
 
 class _Instrument:
@@ -122,7 +157,8 @@ class Gauge(_Instrument):
 class Histogram(_Instrument):
     """Fixed-bucket histogram: per-bucket counts + sum + count per label
     set. Bucket bounds are upper-inclusive edges; an implicit +Inf bucket
-    takes the tail."""
+    takes the tail. An observation with `exemplar=` also pins the last
+    `{trace_id, value, ts}` on its bucket (OpenMetrics exemplars)."""
 
     kind = "histogram"
     __slots__ = ("buckets",)
@@ -135,7 +171,8 @@ class Histogram(_Instrument):
             raise ValueError(f"histogram {name!r}: needs >= 1 bucket")
         self.buckets = b
 
-    def observe(self, v: float, **labels) -> None:
+    def observe(self, v: float, exemplar: Optional[str] = None,
+                **labels) -> None:
         if not _enabled:
             return
         key = _label_key(labels)
@@ -143,20 +180,32 @@ class Histogram(_Instrument):
         with self._vlock:
             cell = self._values.get(key)
             if cell is None:
-                # [counts per bucket + overflow, sum, count]
+                # [counts per bucket + overflow, sum, count,
+                #  {bucket index: [trace_id, value, ts]}]
                 cell = self._values[key] = \
-                    [[0] * (len(self.buckets) + 1), 0.0, 0]
+                    [[0] * (len(self.buckets) + 1), 0.0, 0, {}]
             cell[0][i] += 1
             cell[1] += v
             cell[2] += 1
+            if exemplar is not None:
+                cell[3][i] = [str(exemplar), float(v), time.time()]
 
     def snapshot(self) -> dict:
+        edges = ["%g" % b for b in self.buckets] + ["+Inf"]
         with self._vlock:
-            return {key: {"buckets": [[b, c] for b, c in
-                                      zip(self.buckets, counts)]
-                          + [["+Inf", counts[-1]]],
-                          "sum": total, "count": n}
-                    for key, (counts, total, n) in self._values.items()}
+            out = {}
+            for key, (counts, total, n, exemplars) in self._values.items():
+                d = {"buckets": [[b, c] for b, c in
+                                 zip(self.buckets, counts)]
+                     + [["+Inf", counts[-1]]],
+                     "sum": total, "count": n}
+                if exemplars:
+                    d["exemplars"] = {
+                        edges[i]: {"trace_id": ex[0], "value": ex[1],
+                                   "ts": ex[2]}
+                        for i, ex in sorted(exemplars.items())}
+                out[key] = d
+            return out
 
 
 def _get_or_create(cls, name: str, help: str, **kw):

@@ -1,0 +1,328 @@
+"""Request-scope tracing: per-request event timelines and the exact
+attribution ledger (counterpart of paddle_tpu/observability/reqtrace.py,
+stdlib only).
+
+Aggregate histograms (`serving.ttft_seconds`, `serving.tpot_seconds`)
+cannot say which layer made one request slow. This module gives every
+request a `traceparent`-style trace id (minted at the gateway, honoured
+when a client sends one) and records, per trace id:
+
+- an **event timeline** in a bounded per-trace list (arrival, admission,
+  each prefill chunk with token and page counts, preempt/resume, draft
+  proposed/accepted/rejected, prefix pages reused, deadline, shed,
+  cancel), request-scoped so concurrent streams never interleave;
+- an **attribution ledger**: wall time decomposed into named buckets
+  with `sum(buckets) == wall` BY CONSTRUCTION — every charge advances a
+  single mark, so the buckets partition the request's lifetime with no
+  gap and no double count (floating-point association error only).
+
+Event names are a registered taxonomy (`EVENTS`); `event()` rejects
+anything else, so a typo cannot fork a new series.
+
+A JSONL **sink** (append + flush per line, handle kept open) persists
+every non-coalesced event live and the terminal record at finish, so a
+process killed with SIGKILL still leaves its requests' records on disk.
+`decode_tick` events are coalesced to a counter and surface only in the
+terminal record. Arm with FLAGS_request_trace_sink=<path> (the
+environment, read at import by observability/__init__, or set_flags) or
+`set_sink(path)`.
+
+Everything here is pure observation: the serving engine guards each
+call site on its once-resolved `FLAGS_request_trace` bool, and `=0`
+leaves the tick loop bitwise as without tracing.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+import uuid
+from collections import OrderedDict
+from typing import Dict, List, Optional
+
+__all__ = ["EVENTS", "BUCKETS", "RequestTrace", "mint_trace_id",
+           "parse_trace_header", "new_trace", "get_trace", "lookup",
+           "traces", "clear", "set_sink", "sink_path", "set_store_size"]
+
+# -- registered taxonomy -----------------------------------------------------
+
+# Every event a request timeline may carry; event() raises on anything
+# else, so a typo cannot silently fork a new event series.
+EVENTS = frozenset((
+    "arrival",          # request entered the gateway queue
+    "admitted",         # scheduler granted a slot (fields: cached_pages)
+    "prefill_chunk",    # one chunk scheduled (fields: tokens, pages)
+    "decode_tick",      # coalesced: counted, not stored per-event
+    "preempted",        # slot reclaimed, pages released
+    "resumed",          # re-admitted after preemption
+    "draft_proposed",   # speculative rows funded (fields: n)
+    "draft_accepted",   # verification kept n draft tokens (fields: n)
+    "draft_rejected",   # verification dropped n draft tokens (fields: n)
+    "prefix_reuse",     # prefix-cache hit at admission (fields: pages)
+    "first_token",      # TTFT point (fields: ttft_s)
+    "deadline_miss",    # SLO deadline exceeded
+    "shed",             # dropped by overload shedding
+    "cancelled",        # client disconnect / explicit cancel
+    "failed",           # engine fault terminal
+    "finished",         # clean completion (fields: n_tokens)
+    "failover_hop",     # router retried on another replica (fields: hop,
+                        # replica)
+    "stream_write",     # gateway pushed tokens to the client stream
+))
+
+# The attribution buckets; decode_compute completes the partition
+# (without it decode time would hide inside another bucket and the
+# exactness invariant would not hold).
+BUCKETS = ("queue_wait", "prefill_compute", "decode_compute", "preempted",
+           "page_wait", "draft_overhead", "failover", "stream_write")
+
+_TERMINAL_EVENTS = frozenset((
+    "finished", "failed", "cancelled", "shed", "deadline_miss"))
+
+_EVENTS_PER_TRACE = 256      # per-trace timeline bound
+_DEFAULT_STORE = 1024        # live + recently-finished traces kept
+
+_lock = threading.RLock()
+_store: "OrderedDict[str, RequestTrace]" = OrderedDict()
+_store_max = _DEFAULT_STORE
+
+_sink_path: Optional[str] = None
+_sink_fh = None
+
+
+# -- trace ids ---------------------------------------------------------------
+
+def mint_trace_id() -> str:
+    """A fresh 32-hex trace id (the W3C traceparent trace-id width)."""
+    return uuid.uuid4().hex
+
+
+def parse_trace_header(value: Optional[str]) -> Optional[str]:
+    """Extract a trace id from an incoming header value: either a bare
+    hex id (our `X-Request-Trace`) or a W3C `traceparent`
+    (`00-<32hex trace>-<16hex span>-flags`). Returns None when the value
+    is absent or malformed — the caller mints instead."""
+    if not value:
+        return None
+    v = value.strip()
+    if "-" in v:                       # traceparent form
+        parts = v.split("-")
+        if len(parts) >= 2:
+            v = parts[1]
+        else:
+            return None
+    v = v.lower()
+    if 8 <= len(v) <= 64 and all(c in "0123456789abcdef" for c in v):
+        return v
+    return None
+
+
+# -- the per-request record --------------------------------------------------
+
+class RequestTrace:
+    """One request's timeline + attribution ledger.
+
+    The ledger is a single monotonic `mark`: `charge(bucket, now)` adds
+    `now - mark` to `bucket` and advances the mark. Because every
+    instant between the first mark and the last charge lands in exactly
+    one bucket, `sum(buckets)` equals the marked wall span by
+    construction. `preload()` adds seconds spent BEFORE this process saw
+    the request (router failover time, carried in on a header) to both a
+    bucket and the reported wall, preserving the invariant end-to-end.
+    """
+
+    __slots__ = ("trace_id", "events", "decode_ticks", "buckets", "mark",
+                 "start_mark", "preloaded", "start_ts", "status",
+                 "terminal_ts", "wall", "pending_bucket")
+
+    def __init__(self, trace_id: str, now: Optional[float] = None):
+        self.trace_id = trace_id
+        self.events: List[dict] = []
+        self.decode_ticks = 0
+        self.buckets: Dict[str, float] = {}
+        now = time.perf_counter() if now is None else now
+        self.mark = now
+        self.start_mark = now
+        self.preloaded = 0.0
+        self.start_ts = time.time()
+        self.status: Optional[str] = None
+        self.terminal_ts: Optional[float] = None
+        self.wall: Optional[float] = None
+        # the bucket the IN-PROGRESS span (mark..now) belongs to when
+        # the next charger does not know better: charge() keeps it at
+        # the last charged bucket; preemption overrides it to
+        # `preempted` so the re-admission wait does not bill to
+        # `queue_wait`. A request that dies before its first charge
+        # bills its whole life to queue_wait — the only place it was.
+        self.pending_bucket: str = "queue_wait"
+
+    # -- ledger --
+
+    def charge(self, bucket: str, now: Optional[float] = None) -> None:
+        if bucket not in BUCKETS:
+            raise ValueError(f"unregistered attribution bucket {bucket!r} "
+                             f"(registered: {BUCKETS})")
+        now = time.perf_counter() if now is None else now
+        with _lock:
+            self.buckets[bucket] = \
+                self.buckets.get(bucket, 0.0) + (now - self.mark)
+            self.mark = now
+            self.pending_bucket = bucket
+
+    def preload(self, bucket: str, seconds: float) -> None:
+        """Credit seconds spent before arrival (router failover) to
+        `bucket` AND to the reported wall, keeping sum==wall exact."""
+        if bucket not in BUCKETS:
+            raise ValueError(f"unregistered attribution bucket {bucket!r}")
+        if seconds <= 0:
+            return
+        with _lock:
+            self.buckets[bucket] = self.buckets.get(bucket, 0.0) + seconds
+            self.preloaded += seconds
+
+    # -- timeline --
+
+    def event(self, name: str, ts: Optional[float] = None,
+              **fields) -> None:
+        if name not in EVENTS:
+            raise ValueError(f"unregistered trace event {name!r} "
+                             f"(register it in reqtrace.EVENTS)")
+        if name == "decode_tick":      # coalesced: count only
+            with _lock:
+                self.decode_ticks += int(fields.get("n", 1))
+            return
+        ev = {"ev": name, "ts": time.time() if ts is None else ts}
+        if fields:
+            ev.update(fields)
+        with _lock:
+            if len(self.events) < _EVENTS_PER_TRACE:
+                self.events.append(ev)
+        _sink_write({"trace_id": self.trace_id, **ev})
+
+    def finish(self, status: str, event: str,
+               now: Optional[float] = None, **fields) -> dict:
+        """Terminal: charge nothing (callers settle the ledger first),
+        record the terminal event, stamp status/wall, and write the full
+        terminal record through the sink. Idempotent per trace."""
+        if event not in _TERMINAL_EVENTS:
+            raise ValueError(f"{event!r} is not a terminal trace event "
+                             f"({sorted(_TERMINAL_EVENTS)})")
+        now = time.perf_counter() if now is None else now
+        with _lock:
+            if self.status is not None:        # already terminal
+                return self.snapshot()
+            self.status = status
+            self.terminal_ts = time.time()
+            self.wall = (now - self.start_mark) + self.preloaded
+        self.event(event, **fields)
+        rec = self.snapshot()
+        _sink_write({"trace_id": self.trace_id, "ev": "terminal", **{
+            k: rec[k] for k in ("ts", "status", "wall", "buckets",
+                                "decode_ticks", "events")}})
+        return rec
+
+    def snapshot(self) -> dict:
+        with _lock:
+            return {
+                "trace_id": self.trace_id,
+                "ts": self.start_ts,
+                "status": self.status,
+                "terminal": self.status is not None,
+                "wall": self.wall,
+                "buckets": dict(self.buckets),
+                "decode_ticks": self.decode_ticks,
+                "events": [dict(e) for e in self.events],
+            }
+
+
+# -- the process-wide store --------------------------------------------------
+
+def set_store_size(n: int) -> None:
+    global _store_max
+    with _lock:
+        _store_max = max(int(n), 1)
+        while len(_store) > _store_max:
+            _store.popitem(last=False)
+
+
+def new_trace(trace_id: Optional[str] = None,
+              now: Optional[float] = None) -> RequestTrace:
+    """Create (or return the existing) trace for `trace_id`, bounded
+    LRU: the oldest trace falls out when the store is full."""
+    tid = trace_id or mint_trace_id()
+    with _lock:
+        tr = _store.get(tid)
+        if tr is not None:
+            _store.move_to_end(tid)
+            return tr
+        tr = RequestTrace(tid, now=now)
+        _store[tid] = tr
+        while len(_store) > _store_max:
+            _store.popitem(last=False)
+        return tr
+
+
+def get_trace(trace_id: str) -> Optional[RequestTrace]:
+    with _lock:
+        return _store.get(trace_id)
+
+
+def lookup(trace_id: str) -> Optional[dict]:
+    """Snapshot view for `GET /v1/trace/<id>`; None when unknown."""
+    tr = get_trace(trace_id)
+    return tr.snapshot() if tr is not None else None
+
+
+def traces() -> List[str]:
+    with _lock:
+        return list(_store.keys())
+
+
+def clear() -> None:
+    with _lock:
+        _store.clear()
+
+
+# -- JSONL sink --------------------------------------------------------------
+
+def set_sink(path: Optional[str]) -> None:
+    """Point the write-through sink at `path` (append-only JSONL, handle
+    kept open, flushed per line — survives SIGKILL like the flight
+    recorder). None closes it."""
+    global _sink_path, _sink_fh
+    with _lock:
+        if _sink_fh is not None:
+            try:
+                _sink_fh.close()
+            except OSError:
+                pass
+            _sink_fh = None
+        _sink_path = path
+        if path:
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            _sink_fh = open(path, "a")
+
+
+def sink_path() -> Optional[str]:
+    return _sink_path
+
+
+def _sink_write(obj: dict) -> None:
+    if _sink_fh is None:
+        return
+    try:
+        line = json.dumps(obj) + "\n"
+    except (TypeError, ValueError):
+        return
+    with _lock:
+        fh = _sink_fh
+        if fh is None:
+            return
+        try:
+            fh.write(line)
+            fh.flush()                 # to the kernel: survives SIGKILL
+        except (OSError, ValueError, RuntimeError):
+            pass    # a broken sink must not break the serving path

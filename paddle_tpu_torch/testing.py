@@ -1365,3 +1365,33 @@ BERT_SEQ_ATOL = 2e-3
 BERT_SEQ_MEAN_ATOL = 2e-4
 BERT_LOGIT_ATOL = 2e-3
 BERT_LOGIT_MEAN_ATOL = 2e-4
+
+
+# CUDA runtime calls that hold the host until the card (a stream, an
+# event, the whole device) has caught up, by the names torch.profiler
+# reports them; a `.cpu()` read-back is a cudaMemcpyAsync then a
+# cudaStreamSynchronize. The telemetry's event record and query
+# (cudaEventRecord, cudaEventQuery) and its elapsed-time read
+# (cudaEventElapsedTime) do not wait.
+SYNC_CALLS = frozenset(("cudaDeviceSynchronize", "cudaStreamSynchronize",
+                        "cudaEventSynchronize", "cudaMemcpy",
+                        "cudaMemcpy2D"))
+
+
+def sync_calls(events) -> int:
+    """How many of a torch.profiler run's events (`prof.events()`) are
+    synchronizing CUDA runtime calls (`SYNC_CALLS`)."""
+    return sum(1 for e in events if e.name in SYNC_CALLS)
+
+
+class ObservationTap:
+    """Stands in for a metrics histogram (`device_events._H_EXECUTE`):
+    records each observation as (executable label, value) in `seen`
+    and passes it on to the histogram it wraps."""
+
+    def __init__(self, inner):
+        self.inner, self.seen = inner, []
+
+    def observe(self, v, exemplar=None, **labels):
+        self.seen.append((labels.get("executable"), v))
+        self.inner.observe(v, exemplar=exemplar, **labels)

@@ -753,6 +753,89 @@ def test_generate_and_bucketed_engine_launch_every_kernel():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "bucketed"])
+def test_step_telemetry_adds_no_sync(ragged, monkeypatch):
+    """A llama_tiny bf16 engine on the card with observability and
+    request tracing armed: one xla.execute_seconds observation (> 0, from
+    CUDA events) per tagged step, each no longer than its tick's host
+    wall; against the kill switch with observability off, the same
+    tokens and ticks and the same count of synchronizing CUDA runtime
+    calls (torch.profiler's runtime events)."""
+    _card()
+    import time
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    GenerationRequest)
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.observability import device_events
+    from paddle_tpu_torch.observability import metrics as om
+    cfg = TL.llama_tiny(dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [5, 3, 5], list(range(1, 40))]
+    tap = testing.ObservationTap(device_events._H_EXECUTE)
+    monkeypatch.setattr(device_events, "_H_EXECUTE", tap)
+
+    def steps(eng):
+        return (eng.model_steps if ragged
+                else eng.decode_steps + sum(eng.prefill_calls.values()))
+
+    def run(armed):
+        obs.enable(armed)
+        om.reset()
+        tap.seen.clear()
+        eng = ContinuousBatchingEngine(model, max_batch=3, max_seq=128,
+                                       max_chunk_tokens=16, ragged=ragged,
+                                       request_trace=armed, device="cuda")
+        reqs = [GenerationRequest(list(p), max_new_tokens=8)
+                for p in prompts]
+        for r in reqs:
+            eng.add_request(r)
+        eng.step()                       # warm-up tick, not profiled
+        ticks = []                       # (host wall, steps in the tick)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            while eng.has_work:
+                n0, t0 = steps(eng), time.perf_counter()
+                eng.step()
+                ticks.append((time.perf_counter() - t0, steps(eng) - n0))
+        device_events.flush()
+        n_sync = testing.sync_calls(prof.events())
+        snap = om.snapshot()["histograms"]["xla.execute_seconds"]
+        obs.enable(False)
+        return eng, reqs, ticks, n_sync, snap, list(tap.seen)
+
+    try:
+        eng, reqs, ticks, n_sync, exe, seen = run(True)
+        off, oreqs, oticks, o_sync, oexe, oseen = run(False)
+    finally:
+        obs.enable(False)
+        om.reset()
+    assert [r.output for r in reqs] == [r.output for r in oreqs]
+    assert eng.ticks == off.ticks and len(ticks) == len(oticks)
+    assert all(r.trace.snapshot()["status"] == "served" for r in reqs)
+    assert oexe == {} and oseen == []
+    print(f"ragged={ragged}: {n_sync} synchronizing calls in {len(ticks)} "
+          f"ticks armed, {o_sync} in {len(oticks)} off")
+    assert n_sync == o_sync and n_sync > 0
+    tags = ({"serving.ragged_step": eng.model_steps} if ragged else
+            {"serving.decode": eng.decode_steps,
+             "serving.prefill": sum(eng.prefill_calls.values())})
+    assert {k: v["count"] for k, v in exe.items()} == \
+        {f"executable={t}": n for t, n in tags.items()}
+    assert all(v > 0 for _, v in seen)
+    if ragged:
+        # one step a tick: the profiled ticks' readings, in order, each
+        # within its tick's host wall
+        walls = [w for w, n in ticks if n]
+        assert all(n in (0, 1) for _, n in ticks)
+        got = [v for _, v in seen][-len(walls):]
+        assert all(v <= w for v, w in zip(got, walls)), (got, walls)
+
+
+@pytest.mark.cuda
 def test_speculative_engine_matches_kill_switch():
     """A llama_tiny bf16 ragged engine on the card with speculation armed
     and a drafter proposing the kill switch's own tokens (each third one

@@ -501,6 +501,7 @@ def test_gateway_streams_bucketed_engine(mha):
     finally:
         gateway.drain(timeout=30)
         gateway.stop()
+    assert len(doc.pop("trace_id")) == 32      # tracing armed by default
     assert doc == {"status": "served",
                    "output": _expected(tm, prompt, 6, None)}
     assert eng.decode_steps >= 5 and eng.model_steps == 0

@@ -87,10 +87,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     {"max_queue_tokens": 512}],
     ids=["speculative", "slo", "request_trace", "int8", "queue_bound"])
 def test_unported_features_raise(knob):
-    """The engine features still to port raise; speculative decoding and
-    the SLO layer are ported, and asking for one arms it."""
+    """The engine feature still to port (int8 weights) raises;
+    speculative decoding, the SLO layer and request tracing are ported,
+    and asking for one arms it."""
     if "speculative" in knob:
         assert ContinuousBatchingEngine(_tiny(), device="cpu", **knob)._spec
+        return
+    if "request_trace" in knob:
+        assert ContinuousBatchingEngine(_tiny(), device="cpu",
+                                        **knob)._rtrace
         return
     if "slo" in knob or "max_queue_tokens" in knob:
         eng = ContinuousBatchingEngine(_tiny(), device="cpu", **knob)

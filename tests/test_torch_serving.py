@@ -159,11 +159,16 @@ def test_serve_cli_streams_engine_tokens(models, tmp_path):
                 toks.extend(json.loads(frame[6:])["tokens"])
             elif frame.startswith("event: end"):
                 end = json.loads(frame.split("data: ", 1)[1])
+        # the terminal frame names the request's trace (tracing is armed
+        # by default)
+        tid = end.pop("trace_id")
+        assert len(tid) == 32 and int(tid, 16) >= 0
         assert end == {"status": "served", "n_tokens": 6}
         assert toks == ref.output
         doc = json.loads(_post(port, {"prompt": prompt,
                                       "max_new_tokens": 6,
                                       "stream": False}))
+        assert len(doc.pop("trace_id")) == 32
         assert doc == {"status": "served", "output": ref.output}
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
@@ -211,42 +216,48 @@ def test_engine_fault_fails_open_streams(models):
 # ------------------------------------------------ serving defaults
 
 
-@pytest.mark.parametrize("flag", ["FLAGS_serving_slo", "FLAGS_request_trace"])
+@pytest.mark.parametrize("flag", ["FLAGS_serving_slo", "FLAGS_request_trace",
+                                  "FLAGS_lock_witness"])
 def test_unported_serving_flags_raise(models, flag, monkeypatch):
-    """The reference arms both features by default. The SLO layer is
-    ported: its flag defaults on and arms it, and 0 is the kill switch.
-    Request tracing is not: its flag stands at the kill switch, and set
-    to 1 it asks for a feature that is not ported."""
+    """The reference arms the SLO layer and request tracing by default.
+    Both are ported: each flag defaults on and arms its feature, and 0
+    is the kill switch. The lock witness is not ported: set in the
+    environment, it asks for a feature the engine refuses."""
     from paddle_tpu_torch.framework import core as t_core
     _, tm = models
-    if flag == "FLAGS_serving_slo":
-        assert t_core.get_bool_flag(flag)
-        assert TEngine(tm, max_batch=2, max_seq=64, device="cpu")._slo
-        monkeypatch.setitem(t_core._flags, flag, 0)
-        assert not TEngine(tm, max_batch=2, max_seq=64, device="cpu")._slo
+    if flag == "FLAGS_lock_witness":
+        monkeypatch.setenv(flag, "1")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TEngine(tm, max_batch=2, max_seq=64, device="cpu")
         return
-    assert not t_core.get_bool_flag(flag)
-    monkeypatch.setitem(t_core._flags, flag, 1)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TEngine(tm, max_batch=2, max_seq=64, device="cpu")
+    attr = "_slo" if flag == "FLAGS_serving_slo" else "_rtrace"
+    assert t_core.get_bool_flag(flag)
+    assert getattr(TEngine(tm, max_batch=2, max_seq=64, device="cpu"), attr)
+    monkeypatch.setitem(t_core._flags, flag, 0)
+    assert not getattr(TEngine(tm, max_batch=2, max_seq=64, device="cpu"),
+                       attr)
 
 
 @pytest.mark.parametrize("knob,value", [
     ("slo", True), ("request_trace", True), ("max_queue_tokens", 100),
     ("quantize", "int8")])
 def test_unported_engine_knobs_raise(models, knob, value):
-    """The engine arguments of the features still to port raise; those
-    of the SLO layer arm it."""
+    """The engine argument of the feature still to port (int8 weights)
+    raises; those of the SLO layer arm it, and request_trace arms
+    tracing."""
     _, tm = models
-    if knob in ("slo", "max_queue_tokens"):
-        eng = TEngine(tm, max_batch=2, max_seq=64, device="cpu",
-                      **{knob: value})
-        assert eng._slo
-        assert eng.max_queue_tokens == (value if knob == "max_queue_tokens"
-                                        else None)
+    if knob == "quantize":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TEngine(tm, max_batch=2, max_seq=64, device="cpu",
+                    **{knob: value})
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TEngine(tm, max_batch=2, max_seq=64, device="cpu", **{knob: value})
+    eng = TEngine(tm, max_batch=2, max_seq=64, device="cpu", **{knob: value})
+    if knob == "request_trace":
+        assert eng._rtrace
+        return
+    assert eng._slo
+    assert eng.max_queue_tokens == (value if knob == "max_queue_tokens"
+                                    else None)
 
 
 def test_gateway_refuses_priority_and_deadline(models):

@@ -23,6 +23,7 @@ import torch
 
 from paddle_tpu import observability as j_obs
 from paddle_tpu.inference import gateway as j_gw
+from paddle_tpu.inference.serving import ContinuousBatchingEngine as JEngine
 from paddle_tpu.inference.serving import GenerationRequest as JReq
 from paddle_tpu.observability import metrics as j_metrics
 from paddle_tpu.utils import fault_injection as j_fi
@@ -467,7 +468,9 @@ def _metric_cells(snap):
 
 def test_slo_counters_and_priority_labels(models):
     """Metrics armed in both packages: the serving.* counters, gauges
-    and histogram counts (TTFT and TPOT labeled by priority) agree."""
+    and histogram counts (TTFT and TPOT labeled by priority, and the
+    request-trace attribution by bucket) agree, both engines with
+    request tracing armed as their defaults arm it."""
     for obs in (j_obs, t_obs):
         obs.enable(True)
     knobs = dict(max_batch=1, max_seq=64, max_chunk_tokens=8,
@@ -475,7 +478,10 @@ def test_slo_counters_and_priority_labels(models):
     workload = [(0, req([3, 5], 25, priority=1))]
     workload += [(0, req([6 + i, 2], 4)) for i in range(3)]
     workload += [(0, req([2, 2], 4, deadline_s=1e-9))]
-    je, te = pair(models, **knobs)
+    jm, tm = models
+    je = JEngine(jm, slo=True, **knobs)
+    te = TEngine(tm, device="cpu", **knobs)
+    assert je._rtrace and te._rtrace
     drive(je, JReq, workload)
     jcells = _metric_cells(j_metrics.snapshot())
     drive(te, TReq, workload)
@@ -486,6 +492,7 @@ def test_slo_counters_and_priority_labels(models):
     assert ("gauges", "serving.queue_depth") in tcells
     ttft = tcells[("histograms", "serving.ttft_seconds")]
     assert any("priority=" in k for k in ttft)
+    assert ("histograms", "serving.attribution_seconds") in tcells
 
 
 def test_metrics_disarmed_by_default_and_armed_by_flag(models):

@@ -428,7 +428,10 @@ def test_every_reference_flag_is_registered_or_refused():
     assert {"FLAGS_fault_inject", "FLAGS_metrics",
             "FLAGS_serving_slo"} <= set(registered)
     assert {"FLAGS_metrics_port", "FLAGS_flight_recorder",
-            "FLAGS_request_trace_sink"} <= set(refused)
+            "FLAGS_span_ring_size", "FLAGS_request_trace",
+            "FLAGS_request_trace_sink"} <= set(registered)
+    assert {"FLAGS_metrics_snapshot", "FLAGS_metrics_snapshot_interval",
+            "FLAGS_lock_witness"} <= set(refused)
     with pytest.raises(NotImplementedError, match="FLAGS_no_such_flag"):
         ptt.set_flags({"FLAGS_no_such_flag": 1})
 
@@ -436,14 +439,16 @@ def test_every_reference_flag_is_registered_or_refused():
 @pytest.mark.parametrize("env,raises", [
     (("FLAGS_gemm_use_half_precision_compute_type", "0"), True),
     (("FLAGS_metrics", "1"), False),
-    (("FLAGS_metrics_port", "9100"), True),
+    (("FLAGS_metrics_port", "9100"), False),
+    (("FLAGS_metrics_snapshot", "snap.json"), True),
+    (("FLAGS_lock_witness", "1"), True),
     (("FLAGS_comm_timeout", "30"), True),
     (("FLAGS_gemm_use_half_precision_compute_type", "1"), False),
     (("FLAGS_comm_timeout", "1800"), False),
     (("FLAGS_check_nan_inf", "1"), False),
     (("FLAGS_no_such_flag", "1"), False)],
-    ids=["tf32_off", "metrics_on", "metrics_port", "comm_timeout_30",
-         "tf32_default",
+    ids=["tf32_off", "metrics_on", "metrics_port", "metrics_snapshot",
+         "lock_witness", "comm_timeout_30", "tf32_default",
          "comm_timeout_default", "registered", "not_a_reference_flag"])
 def test_env_flags_checked_at_construction(monkeypatch, env, raises):
     """An unported reference flag in the environment at a value other
