@@ -135,6 +135,33 @@ Phases, each of which fails the run on a miss:
    attention kernel; the kernel route against the plain route at valid
    rows within testing's BERT limits; one forward traced by
    torch.profiler, its device time split by kernel group;
+9b. encoder training — bench.py's two encoder configurations
+   (bench.py:399-421, 462) at full width and depth, f32, batch 16 x 512
+   of `default_rng(0)` ids, `model.loss(ids, ids)`, AdamW(1e-4, weight
+   decay 0.01) through `TrainStep`, dropout armed (train mode, 0.1),
+   ENC_WARMUP warm-up and ENC_STEPS timed steps: (a) ErnieForPretraining
+   at ernie_base: step ms by CUDA events, wall per step, tokens/s, MFU by
+   bench.py's count over 989 TFLOP/s and its share of the f32 rate (67),
+   peak memory; row 10's one-length f32 flash forward, delta and backward
+   launched exactly 12 times a step each (`testing.encoder_launches`),
+   every other attention kernel 0; one traced step split by group
+   (cuBLAS, flash, AdamW, plain torch, busy share), its flash launches
+   held to their 3xTF32 cores (`expected_flash_routes`); two more steps'
+   dropout masks each binomial and all new in the second step; (b) a
+   2-layer full-width ernie_base at dropout 0, one train-mode forward and
+   backward on the kernel route against `plain_routes()` within
+   testing's ENCODER_LOSS_RTOL / ENCODER_GRAD_RTOL; (c)
+   BertForMaskedLM at bert_base (hidden and probs dropout 0.1: the
+   reference's dense route), the readings of (a) with 0 attention kernel
+   launches; (d) a 2-layer full-width bert_base, dropout 0, on the
+   padded batch of `testing.bert_lengths()` with -100 labels on padding:
+   the f32 segment forward, delta, dkv and dq once a layer each and no
+   other attention kernel, held to their 3xTF32 cores, against the plain
+   route within BERT_TRAIN_LOSS_RTOL / BERT_TRAIN_GRAD_RTOL; (e) dropout
+   on the card: a 16 x 512 x 768 keep mask within DROPOUT_SIGMAS of the
+   binomial, equal masks from equal generator seeds, the stream after
+   `core.seed(s)` equal to a generator seeded s, p = 1 zeroes, p = 0
+   and eval the identity; the phase's wall is printed;
 10. attention surface — bf16: sdpa with the boolean [16, 1, 1, 512]
    padding mask, sdpa with the additive float mask (the bias route) and
    flash_attn_unpadded on the same batch packed, each against its plain
@@ -1201,25 +1228,28 @@ def traced_flash_routes(run, launches=()):
     dkv, dq, delta) is absent from it, and return ({launch: {cores}} of
     the flash device kernels it ran, every device kernel's name). A
     launch on the wrong core is no absence: the caller's check fails."""
-    from torch.autograd import DeviceType
-
     def twice():
         for _ in range(2):
             run()
 
-    def read(prof):
-        got, names = {}, []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            names.append(e.key)
-            route = flash_route_of(e.key)
-            if route:
-                got.setdefault(route[0], set()).add(route[1])
-        return got, names
+    prof = device_trace(twice, lambda p: set(launches)
+                        <= set(flash_routes_of(p)[0]))
+    return flash_routes_of(prof)
 
-    prof = device_trace(twice, lambda p: set(launches) <= set(read(p)[0]))
-    return read(prof)
+
+def flash_routes_of(prof):
+    """({launch: {cores}} of the flash device kernels in a torch.profiler
+    trace, every device kernel's name)."""
+    from torch.autograd import DeviceType
+    got, names = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        names.append(e.key)
+        route = flash_route_of(e.key)
+        if route:
+            got.setdefault(route[0], set()).add(route[1])
+    return got, names
 
 
 def hold_routes(what, label, got, names, want):
@@ -4310,6 +4340,351 @@ def _rel(a, b):
             / b.float().abs().max().clamp_min(1e-30)).item()
 
 
+# ------------------------------------------------------ encoder training
+
+# bench.py's encoder configurations (bench.py:399-421, 462): batch 16 x
+# 512 of default_rng(0) ids, `model.loss(ids, ids)`, AdamW(1e-4, weight
+# decay 0.01) through TrainStep, dropout armed (train mode, 0.1)
+ENC_BATCH, ENC_SEQ = 16, 512
+ENC_WARMUP, ENC_STEPS = 2, 5
+# the encoder step's device kernels -> group, first match wins
+_ENC_GROUPS = (("flash_fwd_", "flash_fwd"), ("flash_bwd_", "flash_bwd"),
+               ("flash_delta_", "flash_bwd"), ("gemm", "cublas"),
+               ("nvjet", "cublas"), ("xmma", "cublas"),
+               ("cutlass", "cublas"))
+
+
+def encoder_train_phase(report, smi_line):
+    """bench.py's two encoder training configurations on the card,
+    dropout armed: (a) ERNIE pretraining, (b) ERNIE's kernel route
+    against its plain route, (c) BERT masked-LM fine-tuning on the dense
+    probs-dropout route, (d) BERT with a padding mask and probs dropout
+    0 on the segment kernels against the plain route, (e) the dropout
+    masks on the card. The module docstring lists what each holds."""
+    t0 = time.perf_counter()
+    model, masks = encoder_train_run(report, "ernie", smi_line)
+    del model
+    encoder_route_check(report, "ernie", smi_line)
+    model, _ = encoder_train_run(report, "bert", smi_line)
+    del model
+    encoder_route_check(report, "bert_mask", smi_line)
+    dropout_card_check(masks, smi_line)
+    print(f"encoder training phase: wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def _encoder(which, device="cuda", seed=0, **kw):
+    """(config, model) of bench.py's `which` encoder at full width, built
+    on the card from a seeded generator; kw replaces config fields."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.models import ernie as TE
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if which == "ernie":
+        cfg = dataclasses.replace(TE.ernie_base(), **kw)
+        return cfg, TE.ErnieForPretraining(cfg, device=device, generator=gen)
+    cfg = dataclasses.replace(TB.bert_base(), **kw)
+    return cfg, TB.BertForMaskedLM(cfg, device=device, generator=gen)
+
+
+def encoder_train_run(report, which, smi_line):
+    """(a) / (c): `which` ("ernie" or "bert") at its base config, f32,
+    ENC_BATCH x ENC_SEQ, through TrainStep with dropout armed:
+    ENC_WARMUP, then ENC_STEPS timed steps (CUDA events and wall), tokens
+    /s, MFU by bench.py's count over the bf16 peak and its share of the
+    f32 rate, peak memory; the attention kernels' launches exact
+    (`testing.encoder_launches`: ERNIE's one-length flash kernels 12 a
+    step each, BERT's dense route none); one more step traced, its
+    device time by group, ERNIE's flash launches held to their 3xTF32
+    cores. Two more steps record their dropout masks (returned): each
+    keep share binomial, the second step's masks all new."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.functional import common as fcommon
+
+    B, S = ENC_BATCH, ENC_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = _encoder(which)
+    model.train()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to("cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = popt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     weight_decay=0.01)
+    step = TrainStep(model, opt, lambda i, l: model.loss(i, l))
+    L = cfg.num_hidden_layers
+    route = "flash" if which == "ernie" else "dense"
+    name = f"{which}_train"
+    drop = (f"hidden {cfg.hidden_dropout_prob}" if which == "ernie" else
+            f"hidden {cfg.hidden_dropout_prob}, probs "
+            f"{cfg.attention_probs_dropout_prob}")
+    torch.cuda.synchronize()
+    print(f"{name}: {which}_base f32 built in {time.perf_counter() - t0:.3f}"
+          f" s, {n_params} parameters, batch {B} x {S}, dropout {drop}, "
+          f"attention route {route}", flush=True)
+
+    losses = [step(ids, ids) for _ in range(ENC_WARMUP)]
+    torch.cuda.synchronize()
+    counters = testing.encoder_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(ENC_STEPS + 1)]
+    wall0 = time.perf_counter()
+    events[0].record()
+    for i in range(ENC_STEPS):
+        losses.append(step(ids, ids))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    losses = [float(x) for x in losses]
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(ENC_STEPS)]
+    mean_ms = events[0].elapsed_time(events[-1]) / ENC_STEPS
+    tokens = B * S
+    tok_s = tokens / (mean_ms / 1e3)
+    flops = (6 * n_params + 12 * L * cfg.hidden_size * S) * tokens
+    mfu = flops / (mean_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    f32_share = flops / (mean_ms / 1e3) / PEAK_FLOPS["float32"]
+    print(f"{name}: losses={[round(x, 6) for x in losses]} (first "
+          f"{ENC_WARMUP} warm-up)", flush=True)
+    print(f"{name}: step_ms={mean_ms:.6g} per step "
+          f"{[round(x, 4) for x in step_ms]} wall_per_step_ms="
+          f"{1e3 * wall / ENC_STEPS:.6g} tokens_per_s={tok_s:.6g} "
+          f"mfu={mfu:.6g} (bench.py's count {flops:.6g} FLOP a step over "
+          f"989 TFLOP/s) f32_rate_share={f32_share:.6g} (over 67 TFLOP/s) "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.6g} "
+          f"[{smi_line}]", flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"a {name} loss is not finite")
+    want = testing.encoder_launches(L, ENC_STEPS, route)
+    _expect_launches(counters, launches, want,
+                     f"{name}, {ENC_STEPS} steps")
+    for n in want:
+        add_launches(report, n, name, launches[n])
+
+    # one more step, traced: the forward and backward in one trace, the
+    # optimizer in another, so AdamW's elementwise kernels are its own
+    flash = route == "flash"
+    prof_fb = device_trace(
+        lambda: model.loss(ids, ids).backward(),
+        (lambda p: {"forward", "dkv", "dq", "delta"}
+         <= set(flash_routes_of(p)[0])) if flash else None)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_opt:
+        opt.step()
+        opt.clear_grad(set_to_zero=False)
+        torch.cuda.synchronize()
+    if flash:
+        got, names = flash_routes_of(prof_fb)
+        hold_routes(f"{name} step", "[flash, f32]", got, names,
+                    expected_flash_routes(B, S, cfg.num_attention_heads,
+                                          cfg.num_attention_heads,
+                                          cfg.head_dim, False,
+                                          torch.float32))
+    groups, others = _device_ms(prof_fb, _ENC_GROUPS, "plain_torch")
+    opt_groups, _ = _device_ms(prof_opt, (), "adamw")
+    groups["adamw"] = opt_groups.get("adamw", 0.0)
+    busy = sum(groups.values())
+    if busy == 0.0:
+        print(f"{name} profile: not measured (the profiler saw no device "
+              f"time)", flush=True)
+    else:
+        parts = " ".join(f"{g}={groups.get(g, 0.0):.6g}" for g in
+                         ("cublas", "flash_fwd", "flash_bwd", "adamw",
+                          "plain_torch"))
+        print(f"{name} profile (device ms, one step): {parts} total="
+              f"{busy:.6g} busy_share={busy / mean_ms:.4f} [{smi_line}]",
+              flush=True)
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+        print(f"{name} profile, largest plain torch kernels (ms): "
+              + "; ".join(f"{k[:70]}={ms:.4g}" for k, ms in top), flush=True)
+
+    # (e), on this model's steps: two more steps, each mask recorded
+    drawn = []
+    real = fcommon._keep_mask
+
+    def record(shape, p, generator, device):
+        keep = real(shape, p, generator, device)
+        drawn.append((p, keep))
+        return keep
+
+    fcommon._keep_mask = record
+    try:
+        more = [float(step(ids, ids)) for _ in range(2)]
+    finally:
+        fcommon._keep_mask = real
+    n = len(drawn) // 2
+    sig = [testing.keep_share_sigmas(keep, p) for p, keep in drawn]
+    same = sum(torch.equal(a[1], b[1]) for a, b in zip(drawn[:n], drawn[n:]))
+    print(f"{name} masks: {n} a step, keep share sigmas max "
+          f"{max(abs(z) for z in sig):.4g} (limit {testing.DROPOUT_SIGMAS:g})"
+          f", masks equal between two steps {same} of {n}, losses {more} "
+          f"[{smi_line}]", flush=True)
+    check(len(drawn) == 2 * n and n == 1 + (1 if flash else 3) * L,
+          f"{name}: {len(drawn)} masks drawn in two steps")
+    check(all(abs(z) <= testing.DROPOUT_SIGMAS for z in sig),
+          f"{name}: a keep share is off the binomial")
+    check(same == 0, f"{name}: two steps drew {same} equal masks")
+    check(all(math.isfinite(x) for x in more), f"a {name} loss is not finite")
+    del opt, step, prof_fb, prof_opt
+    masks = drawn[0][1] if flash else None
+    return model, masks
+
+
+def encoder_route_check(report, which, smi_line):
+    """(b) "ernie": a 2-layer full-width ernie_base, dropout 0, one
+    train-mode forward and backward on the kernel route (the one-length
+    f32 kernels, once a layer each) against `plain_routes()`. (d)
+    "bert_mask": a 2-layer full-width bert_base, dropout 0, on the
+    padded batch of `testing.bert_lengths()` with -100 labels on the
+    padding (valid rows decide the loss and every grad): the f32 segment
+    forward, delta, dkv and dq once a layer each and no other attention
+    kernel, held to their 3xTF32 cores, against the plain route. |loss
+    difference| / |loss| and each parameter's grad relative L2 within
+    testing's limits."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import testing
+
+    B, S = ENC_BATCH, ENC_SEQ
+    ernie = which == "ernie"
+    cfg, model = _encoder("ernie" if ernie else "bert", seed=1,
+                          num_hidden_layers=2, **(
+                              dict(hidden_dropout_prob=0.0) if ernie else
+                              dict(hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0)))
+    model.train()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to("cuda")
+    if ernie:
+        def fb():
+            return model.loss(ids, ids)
+        route, lrt, grt = ("flash", testing.ENCODER_LOSS_RTOL,
+                           testing.ENCODER_GRAD_RTOL)
+    else:
+        lengths = testing.bert_lengths(B, S)
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < torch.tensor(lengths, device="cuda")[:, None]).long()
+        labels = torch.where(mask.bool(), ids, -100)
+
+        def fb():
+            return model.loss(ids, labels, attention_mask=mask)
+        route, lrt, grt = ("segment", testing.BERT_TRAIN_LOSS_RTOL,
+                           testing.BERT_TRAIN_GRAD_RTOL)
+
+    def loss_and_grads():
+        loss = fb()
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    counters = testing.encoder_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    tag = ("ernie (b)" if ernie else "bert (d)") + " route agreement"
+    want = testing.encoder_launches(2, 1, route)
+    _expect_launches(counters, launches, want, f"{tag}, one pass")
+    for n in want:
+        add_launches(report, n, f"{which}_route_check", launches[n])
+    if not ernie:
+        got, names = traced_flash_routes(lambda: fb().backward(),
+                                         ("forward", "dkv", "dq", "delta"))
+        model.zero_grad(set_to_none=True)
+        hold_routes(tag, "[segment, f32]", got, names,
+                    expected_seg_routes(B, S, S, cfg.num_attention_heads,
+                                        cfg.num_attention_heads,
+                                        cfg.head_dim, False, torch.float32))
+    with plain_routes():
+        loss_p, grads_p = loss_and_grads()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(set(grads_k) == set(grads_p), f"{tag}: the routes' grads differ "
+          f"in which parameters they reach")
+    rel = {n: ((grads_k[n] - grads_p[n]).norm()
+               / grads_p[n].norm().clamp_min(1e-30)).item() for n in grads_p}
+    worst = max(rel, key=rel.get)
+    ok = loss_err <= lrt and rel[worst] <= grt
+    print(f"{tag} (2 layers, full width, dropout 0): loss kernel "
+          f"{loss_k:.8g} plain {loss_p:.8g} rel_err={loss_err:.6g} (limit "
+          f"{lrt:g}); grads max rel L2 {rel[worst]:.6g} at {worst} (limit "
+          f"{grt:g}) {'ok' if ok else 'MISS'} [{smi_line}]", flush=True)
+    print(f"{tag}, grad rel L2 by parameter: "
+          + "; ".join(f"{n}={e:.4g}" for n, e in rel.items()), flush=True)
+    check(ok, f"{tag}: the kernel route disagrees with the plain route")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def dropout_card_check(step_mask, smi_line):
+    """(e) dropout on the card: a 16 x 512 x 768 keep mask's share within
+    `testing.DROPOUT_SIGMAS` of the binomial (an explicit generator, and
+    the first mask of an ERNIE training step, `step_mask`); the same
+    generator seed gives equal masks, another seed others; the stream
+    after `core.seed(s)` draws what a generator seeded s draws; p = 1
+    zeroes, p = 0 and eval return the input."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import common as fcommon
+
+    shape, p = (ENC_BATCH, ENC_SEQ, 768), 0.1
+
+    def gen(s):
+        return torch.Generator(device="cuda").manual_seed(s)
+
+    a = fcommon._keep_mask(shape, p, gen(5), "cuda")
+    b = fcommon._keep_mask(shape, p, gen(5), "cuda")
+    c = fcommon._keep_mask(shape, p, gen(6), "cuda")
+    z = testing.keep_share_sigmas(a, p)
+    z_step = testing.keep_share_sigmas(step_mask, p)
+    core.seed(21)
+    x = torch.randn(shape, device="cuda", generator=gen(7))
+    stream = F.dropout(x, p)
+    seeded = F.dropout(x, p, generator=gen(21))
+    checks = {
+        "keep share (explicit generator)": abs(z) <= testing.DROPOUT_SIGMAS,
+        "keep share (an ERNIE step's first mask)":
+            abs(z_step) <= testing.DROPOUT_SIGMAS,
+        "same seed, equal masks": torch.equal(a, b),
+        "other seed, other mask": not torch.equal(a, c),
+        "stream after seed(s) = generator seeded s":
+            torch.equal(stream, seeded),
+        "kept elements scaled by 1 / (1 - p)": bool(torch.allclose(
+            stream[stream != 0], x[stream != 0] / (1 - p))),
+        "p = 1 zeroes": not F.dropout(x, 1.0).any(),
+        "p = 0 is the identity": F.dropout(x, 0.0) is x,
+        "eval is the identity": F.dropout(x, p, training=False) is x,
+    }
+    print(f"dropout (e) on the card: keep share sigmas {z:.4g} (explicit "
+          f"generator), {z_step:.4g} (an ERNIE step), limit "
+          f"{testing.DROPOUT_SIGMAS:g}; " + "; ".join(
+              f"{k} {'ok' if v else 'MISS'}" for k, v in checks.items())
+          + f" [{smi_line}]", flush=True)
+    check(all(checks.values()), "dropout on the card: "
+          + ", ".join(k for k, v in checks.items() if not v))
+
+
 def surface_phase(report, smi_line):
     """The nn.functional attention surface in bf16. At bert_base
     attention width on the BERT phase's lengths: sdpa with the boolean
@@ -5006,6 +5381,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         bert_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        encoder_train_phase(report, smi_line)
         gc.collect()
         torch.cuda.empty_cache()
         surface_phase(report, smi_line)

@@ -23,7 +23,10 @@ segment-id flash and block-stats kernels), self-speculative decoding,
 and the serving SLO layer armed by default (priorities, deadlines, the
 queue bound, shedding, degradation, per-request fault isolation) with
 `utils.fault_injection`, `observability` (the metrics and health
-registries) and `distributed.watchdog`.
+registries) and `distributed.watchdog`, request tracing and the
+serving telemetry, and encoder training (`models.ernie`, BERT's training
+route, the dropout functionals and layers drawn from the dropout stream
+of `framework.core`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.

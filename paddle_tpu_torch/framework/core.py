@@ -1,5 +1,12 @@
-"""Flag registry, seeding, device resolution and the armed remat
-policy (counterpart of paddle_tpu/framework/core.py).
+"""Flag registry, seeding, the dropout stream, device resolution and
+the armed remat policy (counterpart of paddle_tpu/framework/core.py).
+
+The dropout stream is the counterpart of the reference's `_rng` /
+`next_rng_key` (l.203-273): one `torch.Generator` per device, created on
+first use from the last `seed(s)` (0 before any), so a seeded run draws
+the same dropout masks in the same order. `dropout_generator(device)`
+returns it; `nn.functional.dropout` draws from it when the caller passes
+no generator. Its state is not saved or restored.
 
 Only the flags the ported slices read are registered, with the
 reference's names and defaults; `get_flag` reads the environment
@@ -31,8 +38,8 @@ import threading
 import torch
 
 __all__ = ["set_flags", "get_flag", "get_bool_flag", "check_env_flags",
-           "seed", "resolve_device", "current_remat_policy",
-           "remat_policy_guard"]
+           "seed", "dropout_generator", "resolve_device",
+           "current_remat_policy", "remat_policy_guard"]
 
 _flags: dict = {
     # fused transformer hot path: the serving blocks run the wide QKV
@@ -246,14 +253,41 @@ def get_bool_flag(key, default=False) -> bool:
     return get_flag(key, default) not in _FALSY
 
 
+# the dropout stream: the seed of the last `seed(s)` and one generator
+# per device, made from it on first use
+_dropout_seed = 0
+_dropout_gens: dict = {}
+_dropout_lock = threading.Lock()
+
+
 def seed(s: int) -> torch.Generator:
-    """Seed torch's global generators (CPU and every CUDA device) and
-    return a CPU `torch.Generator` seeded with `s`. Code that samples
-    takes an explicit generator; this is for callers that want one."""
+    """Seed torch's global generators (CPU and every CUDA device) and the
+    dropout stream, and return a CPU `torch.Generator` seeded with `s`.
+    Code that samples takes an explicit generator; this is for callers
+    that want one."""
+    global _dropout_seed
     torch.manual_seed(int(s))
+    with _dropout_lock:
+        _dropout_seed = int(s)
+        _dropout_gens.clear()
     g = torch.Generator()
     g.manual_seed(int(s))
     return g
+
+
+def dropout_generator(device) -> torch.Generator:
+    """The dropout stream's generator on `device`: made from the last
+    `seed(s)` (0 before any) on first use, then advanced by each draw."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _dropout_lock:
+        g = _dropout_gens.get(dev)
+        if g is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(_dropout_seed)
+            _dropout_gens[dev] = g
+        return g
 
 
 def resolve_device(device=None) -> torch.device:

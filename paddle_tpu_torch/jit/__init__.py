@@ -8,7 +8,13 @@ the port's step is the same sequence run in order on one device:
 dropped (`clear_grad(set_to_zero=False)`, as the compiled body does).
 The remat policy is armed around the forward and the backward, as the
 reference arms it around its trace (l.708-717); it acts where a model
-rematerialises its layers (`cfg.use_recompute`). Gradient scaling,
+rematerialises its layers (`cfg.use_recompute`), so the encoders (BERT,
+ERNIE), which have no remat site, run the same under every policy.
+Dropout draws its masks from the dropout stream
+(`framework.core.dropout_generator`) as the forward reaches each
+dropout, so each step takes new masks in the forward's order; the
+reference folds the step count into one key per step instead, and the
+draws cannot match `jax.random`'s either way. Gradient scaling,
 sharding and gradient accumulation are not ported: asking for any of
 them raises, and so does an unported reference flag set in the
 environment (`core.check_env_flags`).

@@ -10,19 +10,28 @@ linear layers Xavier-uniform from an explicit generator.
 Attention: each layer's fused QKV projection, then
 `flash_attention_bshd(q, k, v, causal=False, padding_mask=
 attention_mask)` (the reference's l.135-137), or with no mask when none
-is given: the segment-id flash kernels on the card, their plain version
-(`_SegPlain`) on the CPU. So a padded query row attends to the padded
-keys, as on the TPU; the reference's CPU route (its dense branch,
-l.139-150) has it attend to the valid keys. Valid rows, the pooled
-output (row 0) and a masked-LM loss whose padding labels are -100 agree
-either way. LayerNorm (eps 1e-12, f32 statistics) and exact-erf GELU are
-plain PyTorch, as they are plain jnp in the reference.
+is given: the segment-id flash kernels on the card (the one-length ones
+without a mask), their plain versions on the CPU. So a padded query row
+attends to the padded keys, as on the TPU; the reference's CPU route
+(its dense branch, l.139-150) has it attend to the valid keys. Valid
+rows, the pooled output (row 0) and a masked-LM loss whose padding
+labels are -100 agree either way. LayerNorm (eps 1e-12, f32 statistics)
+and exact-erf GELU are plain PyTorch, as they are plain jnp in the
+reference.
 
-Inference only: dropout is not ported, so a forward in training mode
-with any dropout probability above 0 raises NotImplementedError (call
-`model.eval()`). On the card `FLAGS_use_flash_attention=0` raises too
-(no dense attention runs there); on the CPU it selects the reference's
-dense branch with its additive mask.
+The reference's dense branch (`_dense_attention`: f32 products, the
+additive (1 - mask) * f32-min term, softmax) runs on both devices where
+the reference takes it on every device: in training with
+`attention_probs_dropout_prob > 0`, with the probabilities dropped and
+upscaled (l.141-155), and under `FLAGS_use_flash_attention=0`.
+
+Dropout, as in the reference: `hidden_dropout_prob` after the
+embeddings' LayerNorm (l.97), on the attention output projection
+(l.159), on the FFN output (l.178) and, in
+`BertForSequenceClassification`, on the pooled output before the
+classifier (l.239, 244). Masks are drawn in that forward order from the
+dropout stream (`framework.core.dropout_generator`), the probabilities'
+mask of a layer before its output projection's.
 """
 from __future__ import annotations
 
@@ -37,7 +46,8 @@ from ..framework import core
 from ..framework.core import resolve_device
 from ..kernels import flash_attention as kfa
 from ..nn.functional import loss as floss
-from ..nn.layer.common import LayerNorm, Linear
+from ..nn.functional import common as fcommon
+from ..nn.layer.common import Dropout, LayerNorm, Linear
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
            "BertModel", "BertForMaskedLM", "BertForSequenceClassification",
@@ -97,6 +107,7 @@ class BertEmbeddings(nn.Module):
             (cfg.type_vocab_size, cfg.hidden_size), std, device, generator)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                     device=device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         """position_ids is accepted and, as in the reference, not read:
@@ -108,18 +119,24 @@ class BertEmbeddings(nn.Module):
         tt = (torch.zeros_like(ids) if token_type_ids is None
               else token_type_ids.long())
         x = x + self.token_type_embeddings[tt]
-        return self.layer_norm(x)
+        return self.dropout(self.layer_norm(x))
 
 
-def _dense_attention(q, k, v, mask):
-    """The reference's dense branch (bert.py:139-150): f32 scores, an
-    additive (1 - mask) * f32-min padding term, softmax."""
+def _dense_attention(q, k, v, mask, probs_dropout=0.0):
+    """The reference's dense branch (bert.py:139-155): f32 scores, an
+    additive (1 - mask) * f32-min padding term, softmax, and with
+    probs_dropout > 0 the probabilities kept where a keep mask of their
+    shape is set (`_keep_mask`, the dropout stream) and upscaled by
+    1 / (1 - probs_dropout)."""
     qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
     s = qt @ kt.transpose(-1, -2) / math.sqrt(q.shape[-1])
     if mask is not None:
         s = s + ((1.0 - mask[:, None, None, :].float())
                  * torch.finfo(torch.float32).min)
     p = torch.softmax(s, dim=-1)
+    if probs_dropout > 0.0:
+        keep = fcommon._keep_mask(p.shape, probs_dropout, None, p.device)
+        p = torch.where(keep, p / (1.0 - probs_dropout), 0.0)
     return (p @ vt).transpose(1, 2).to(q.dtype)
 
 
@@ -130,25 +147,26 @@ class BertSelfAttention(nn.Module):
         self.cfg = cfg
         self.qkv = Linear(h, 3 * h, device=device, generator=generator)
         self.out = Linear(h, h, device=device, generator=generator)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_mask=None):
-        """attn_mask: [B, S] validity mask (1 = real token), or None."""
+        """attn_mask: [B, S] validity mask (1 = real token), or None.
+        The flash route, or the reference's dense branch in training
+        with probs dropout and under FLAGS_use_flash_attention=0."""
         cfg = self.cfg
         nh, d = cfg.num_attention_heads, cfg.head_dim
         B, S = x.shape[0], x.shape[1]
         q, k, v = (t.reshape(B, S, nh, d)
                    for t in self.qkv(x).split(cfg.hidden_size, dim=-1))
-        if not core.get_bool_flag("FLAGS_use_flash_attention", True):
-            if x.device.type != "cpu":
-                raise NotImplementedError(
-                    "FLAGS_use_flash_attention=0 selects the reference's "
-                    "dense attention, which the port does not run on the "
-                    "card")
-            o = _dense_attention(q, k, v, attn_mask)
+        attn_p = (cfg.attention_probs_dropout_prob if self.training
+                  else 0.0)
+        if attn_p > 0.0 or not core.get_bool_flag(
+                "FLAGS_use_flash_attention", True):
+            o = _dense_attention(q, k, v, attn_mask, attn_p)
         else:
             o = kfa.flash_attention_bshd(q, k, v, causal=False,
                                          padding_mask=attn_mask)
-        return self.out(o.reshape(B, S, nh * d))
+        return self.dropout(self.out(o.reshape(B, S, nh * d)))
 
 
 class BertLayer(nn.Module):
@@ -162,11 +180,12 @@ class BertLayer(nn.Module):
         self.ffn_out = Linear(cfg.intermediate_size, h, device=device,
                               generator=generator)
         self.ffn_norm = LayerNorm(h, eps, device=device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_mask=None):
         x = self.attn_norm(x + self.attention(x, attn_mask))
         h = self.ffn_out(torch.nn.functional.gelu(self.ffn_in(x)))
-        return self.ffn_norm(x + h)
+        return self.ffn_norm(x + self.dropout(h))
 
 
 class BertModel(nn.Module):
@@ -187,13 +206,6 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         """(sequence output [B, S, h], pooled output [B, h])."""
-        cfg = self.cfg
-        if self.training and (cfg.hidden_dropout_prob > 0.0
-                              or cfg.attention_probs_dropout_prob > 0.0):
-            raise NotImplementedError(
-                "BERT training with dropout is not ported yet: call "
-                "model.eval(), or set hidden_dropout_prob and "
-                "attention_probs_dropout_prob to 0")
         x = self.embeddings(input_ids, token_type_ids)
         for lyr in self.layers:
             x = lyr(x, attention_mask)
@@ -242,9 +254,10 @@ class BertForSequenceClassification(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.bert = BertModel(cfg, dev, generator)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
         self.classifier = Linear(cfg.hidden_size, num_classes, device=dev,
                                  generator=generator)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
-        return self.classifier(pooled)
+        return self.classifier(self.dropout(pooled))

@@ -1,2 +1,6 @@
-"""Neural-network functionals of the port (counterpart of
-paddle_tpu/nn)."""
+"""Neural-network functionals and layers of the port (counterpart of
+paddle_tpu/nn): the ported layers at the top level, as the reference
+exports them, and `nn.functional`."""
+from . import functional  # noqa: F401
+from .layer import (AlphaDropout, Dropout, Dropout2D,  # noqa: F401
+                    Dropout3D, LayerNorm, Linear, MultiHeadAttention)

@@ -16,10 +16,14 @@ TPU, where `_sdpa_ref` has it attend to the valid ones; every valid row
 agrees. `flash_attn_unpadded` is the packed route with 1-based segment
 ids from cu_seqlens (`_packed_segments`).
 
-Dropout in training (the reference's dense route with an output dropout,
-l.129-136) is not ported and raises NotImplementedError, as does causal
-`flash_attn_unpadded` over q and kv packings that differ (the
-reference's dense fallback).
+With `dropout_p > 0`, sdpa (and `flash_attention`) takes the
+reference's dense route on both devices, as the reference takes it on
+every device (l.129-136): `_sdpa_ref`, then in training `F.dropout` on
+the output. `flash_attn_unpadded` with `dropout > 0` in training takes
+the reference's dense packed route (`_unpadded_dense`, l.196-231), which
+applies no dropout, as the reference's applies none. Causal
+`flash_attn_unpadded` over q and kv packings that differ (the other case
+of that dense route) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import math
 import torch
 
 from ...kernels import flash_attention as fa
+from .common import dropout as _dropout
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "sdp_kernel"]
@@ -35,10 +40,11 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
 
 def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
     """The reference's dense route, [B, S, H, D], f32 inside: a boolean
-    mask drops entries (-inf), a float mask adds. No dropout. No route
-    of the port takes it (the kernels' functions run on both devices);
-    it records the reference's CPU semantics, which the tests hold it to
-    and hold the routes to at the rows where the two agree."""
+    mask drops entries (-inf), a float mask adds. No dropout (sdpa
+    applies it to the output). sdpa takes it when dropout_p > 0, as the
+    reference does; without dropout the kernels' functions run on both
+    devices, and the tests hold them to this route at the rows where the
+    two agree."""
     del dropout_p
     qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
     s = (qt @ kt.transpose(-1, -2)) * scale
@@ -90,12 +96,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     convention), scale 1/sqrt(head_dim). Returns the output in query's
     dtype."""
     del name
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: dropout_p > 0 in training (the "
-            "reference's dense route with dropout) is not ported yet")
     q, k, v = query, key, value
     scale = 1.0 / math.sqrt(q.shape[-1])
+    if dropout_p > 0.0:
+        mask = None if attn_mask is None else attn_mask.to(q.device)
+        out = _sdpa_ref(q, k, v, mask, dropout_p, is_causal, scale)
+        if training:
+            out = _dropout(out, p=dropout_p, training=True)
+        return out
     if attn_mask is None:
         return fa.flash_attention_bshd(q, k, v, causal=is_causal,
                                        scale=scale)
@@ -144,13 +152,12 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         name=None):
     """Varlen attention over PACKED sequences: q [total_q, Hq, D], k/v
     [total_k, Hk, D], cu_seqlens the sequences' offsets. The packed
-    segment kernels at batch 1 with 1-based segment ids; returns (out,
-    None). Causal needs q and kv to share the packing."""
+    segment kernels at batch 1 with 1-based segment ids; with dropout > 0
+    in training, the reference's dense packed route (`_unpadded_dense`,
+    no dropout applied). Returns (out, None). Causal needs q and kv to
+    share the packing."""
     del max_seqlen_q, max_seqlen_k, return_softmax, fixed_seed_offset
     del rng_name, name
-    if dropout > 0.0 and training:
-        raise NotImplementedError(
-            "flash_attn_unpadded: dropout > 0 in training is not ported yet")
     q, k, v = query, key, value
     cq = torch.as_tensor(cu_seqlens_q)
     ck = torch.as_tensor(cu_seqlens_k)
@@ -159,11 +166,39 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
         raise NotImplementedError(
             "flash_attn_unpadded: causal over q and kv packings that differ "
             "(the reference's dense fallback) is not ported")
-    seg_q = _packed_segments(cq.to(q.device), q.shape[0])
-    seg_kv = _packed_segments(ck.to(q.device), k.shape[0])
+    cq, ck = cq.to(q.device), ck.to(q.device)
+    if dropout > 0.0 and training:
+        return _unpadded_dense(q, k, v, cq, ck, causal, scale), None
+    seg_q = _packed_segments(cq, q.shape[0])
+    seg_kv = _packed_segments(ck, k.shape[0])
     out = fa.flash_attention_packed(q, k, v, seg_q, seg_kv, causal=causal,
                                     scale=scale)
     return out, None
+
+
+def _unpadded_dense(q, k, v, cq, ck, causal, scale):
+    """The reference's dense packed route (attention.py:208-228): f32
+    scores over every (q, kv) token pair, kept where the 0-based
+    sequence ids agree (and, causal, where the key's position in its
+    sequence is at most the query's), softmax, a row with no kept key
+    zeroed; kv heads repeated for GQA."""
+    if q.shape[1] != k.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    cq, ck = cq.long().reshape(-1), ck.long().reshape(-1)
+    seg_q = _packed_segments(cq, q.shape[0]).long() - 1
+    seg_k = _packed_segments(ck, k.shape[0]).long() - 1
+    s = torch.einsum("qhd,khd->hqk", q.float(), k.float()) * scale
+    valid = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        pos_q = torch.arange(q.shape[0], device=q.device) - cq[seg_q]
+        pos_k = torch.arange(k.shape[0], device=q.device) - ck[seg_k]
+        valid = valid & (pos_k[None, :] <= pos_q[:, None])
+    s = torch.where(valid[None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    return torch.einsum("hqk,khd->qhd", p, v.float()).to(q.dtype)
 
 
 class sdp_kernel:

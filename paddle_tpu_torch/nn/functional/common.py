@@ -1,0 +1,89 @@
+"""Dropout functionals (counterpart of the dropout part of
+paddle_tpu/nn/functional/common.py, l.40-106): `dropout` with `axis=`
+and its two modes, `dropout2d`, `dropout3d`, `alpha_dropout` and
+`feature_alpha_dropout`, float for float.
+
+Every mask comes from `_keep_mask(shape, p, generator, device)`: a bool
+keep mask, `uniform < 1 - p` over `shape`, drawn from `generator`, or
+from the dropout stream of `framework.core` (one generator per device,
+seeded by `core.seed`) when it is None. The mask and the select are
+plain PyTorch, as the reference's are plain jnp outside any kernel. The
+draws cannot reproduce `jax.random`'s; the same generator state gives
+the same masks.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...framework import core
+
+__all__ = ["dropout", "dropout2d", "dropout3d", "alpha_dropout",
+           "feature_alpha_dropout"]
+
+
+def _keep_mask(shape, p, generator, device):
+    """A bool mask over `shape`, True with probability 1 - p: a uniform
+    [0, 1) draw below 1 - p, from `generator` (None: the dropout stream
+    on `device`)."""
+    g = core.dropout_generator(device) if generator is None else generator
+    return torch.rand(tuple(shape), generator=g, device=device) < 1.0 - p
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, generator=None):
+    """Zero each element (or, with `axis`, each slice along the named
+    axes: the mask is 1 on the other axes) with probability p.
+    "upscale_in_train" scales the kept elements by 1 / (1 - p) in
+    training and returns x at inference; "downscale_in_infer" keeps them
+    as they are in training and returns x * (1 - p) at inference."""
+    del name
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return x * 0.0
+    shape = tuple(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        mask_shape = tuple(s if i in axes else 1 for i, s in enumerate(shape))
+    else:
+        mask_shape = shape
+    keep = _keep_mask(mask_shape, p, generator, x.device)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None,
+              generator=None):
+    """Whole channels of an [N, C, H, W] (or NHWC) input."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training, generator=generator)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None,
+              generator=None):
+    """Whole channels of an [N, C, D, H, W] (or NDHWC) input."""
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=axis, training=training, generator=generator)
+
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None, generator=None):
+    """SELU's dropout: a dropped element takes -alpha * scale, then the
+    affine a * x + b keeps the mean and variance."""
+    del name
+    if not training or p == 0.0:
+        return x
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    keep = _keep_mask(x.shape, p, generator, x.device)
+    a = (1.0 / ((1.0 - p) * (1.0 + p * alpha_p ** 2)) ** 0.5)
+    b = -a * alpha_p * p
+    return (a * torch.where(keep, x, alpha_p) + b).to(x.dtype)
+
+
+feature_alpha_dropout = alpha_dropout

@@ -1,5 +1,10 @@
 """`Linear` and `LayerNorm` in the reference's layout (counterpart of
-paddle_tpu/nn/layer/common.py::Linear and norm.py::LayerNorm).
+paddle_tpu/nn/layer/common.py::Linear and norm.py::LayerNorm), and the
+dropout layers (common.py:66-110): `Dropout`, `Dropout2D`, `Dropout3D`
+and `AlphaDropout`, which apply `nn.functional`'s forms in training mode
+and pass the input through in eval (`Dropout`'s "downscale_in_infer"
+scales it by 1 - p there). Each takes an optional `generator`; None
+draws from the dropout stream (`framework.core.dropout_generator`).
 
 `Linear` holds `weight` [in, out] and `bias` [out] (`x @ W + b`, paddle's
 layout, so a reference state dict loads as is); its weight is drawn
@@ -17,8 +22,10 @@ import torch
 from torch import nn
 
 from ...framework.core import resolve_device
+from ..functional import common as F
 
-__all__ = ["Linear", "LayerNorm", "layer_norm"]
+__all__ = ["Linear", "LayerNorm", "layer_norm", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout"]
 
 
 class Linear(nn.Module):
@@ -66,3 +73,54 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.weight, self.bias, self.epsilon)
+
+
+class Dropout(nn.Module):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 generator=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(nn.Module):
+    def __init__(self, p=0.5, data_format="NCHW", name=None, generator=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format,
+                           generator=self.generator)
+
+
+class Dropout3D(nn.Module):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None,
+                 generator=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format,
+                           generator=self.generator)
+
+
+class AlphaDropout(nn.Module):
+    def __init__(self, p=0.5, name=None, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training,
+                               generator=self.generator)

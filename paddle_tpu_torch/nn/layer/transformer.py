@@ -8,7 +8,8 @@ each a `Linear` with weight [in, out].
 `Cache` is a growing self-attention KV (the new keys are appended);
 `StaticCache` the cross-attention KV projected once from the encoder
 output, whose `key`/`value` arguments are then ignored (ref :247).
-Attention dropout in training is not ported (sdpa raises).
+In training with `dropout > 0`, sdpa takes the reference's dense route
+and drops elements of the attention output (`F.dropout`).
 The rest of the reference's transformer layers are not ported yet.
 """
 from __future__ import annotations

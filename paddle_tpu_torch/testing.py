@@ -75,7 +75,10 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "bias_case", "bias_flash_terms", "bias_flash_pairs",
            "bias_flash_readings", "attention_counters",
            "SURFACE_RTOL", "BERT_SEQ_ATOL", "BERT_SEQ_MEAN_ATOL",
-           "BERT_LOGIT_ATOL", "BERT_LOGIT_MEAN_ATOL"]
+           "BERT_LOGIT_ATOL", "BERT_LOGIT_MEAN_ATOL", "DROPOUT_SIGMAS",
+           "keep_share_sigmas", "ENCODER_LOSS_RTOL", "ENCODER_GRAD_RTOL",
+           "BERT_TRAIN_LOSS_RTOL", "BERT_TRAIN_GRAD_RTOL",
+           "encoder_counters", "encoder_launches"]
 
 BF16_RTOL = 2.0 ** -7
 # share of an element's sum of |terms|: two bf16 roundoffs (the rounded
@@ -1365,6 +1368,80 @@ BERT_SEQ_ATOL = 2e-3
 BERT_SEQ_MEAN_ATOL = 2e-4
 BERT_LOGIT_ATOL = 2e-3
 BERT_LOGIT_MEAN_ATOL = 2e-4
+
+
+# ------------------------------------------------ encoder training
+
+# Dropout masks (chip_smoke.py's encoder phase (e), tests/
+# test_torch_dropout.py and test_torch_encoder_train.py): a keep mask of
+# n elements at drop probability p keeps a binomial count; its share
+# must lie within DROPOUT_SIGMAS standard deviations, sqrt(n p (1 - p)),
+# of n (1 - p). Five give a false alarm about once in 1.7 million draws.
+DROPOUT_SIGMAS = 5.0
+
+
+def keep_share_sigmas(keep, p) -> float:
+    """How many binomial standard deviations a bool keep mask's count
+    lies from n (1 - p)."""
+    n = keep.numel()
+    return (int(keep.sum()) - n * (1.0 - p)) / math.sqrt(n * p * (1.0 - p))
+
+
+# Encoder training, kernel route against plain route (chip_smoke.py's
+# encoder phase): a 2-layer full-width model at 16 x 512 in f32, dropout
+# 0, one train-mode forward and backward on each route from the same
+# weights: |loss difference| / |loss| and the largest per-parameter
+# relative L2 error of the grads. ERNIE (b) runs row 10's one-length
+# f32 kernels (3xTF32), BERT (d) its f32 segment kernels under a
+# padding mask; the plain route keeps f32 products. The kernels and
+# cuBLAS are deterministic at a shape, so a reading repeats. The first
+# readings on an H100 (NVIDIA H100 80GB HBM3, 700 W) are beside each;
+# the grad limits give about ten times that, the loss limits (read 0:
+# the two f32 losses were equal) about eight f32 roundoffs.
+ENCODER_LOSS_RTOL = 1e-6        # read 0
+ENCODER_GRAD_RTOL = 5e-5        # read 4.90e-6 (blocks.1.fc1.weight)
+BERT_TRAIN_LOSS_RTOL = 1e-6     # read 0
+BERT_TRAIN_GRAD_RTOL = 5e-5     # read 4.00e-6 (layers.1.attention.out)
+
+
+def encoder_counters():
+    """The attention kernels' wrappers an encoder's training step can
+    reach, by counter name: the one-length flash kernels (ERNIE, BERT
+    without a mask), the segment kernels (BERT with a padding mask), the
+    bias kernels and the block-stats kernel (on no encoder's route)."""
+    from .kernels import block_attention as kba
+    from .kernels import flash_attention as kfa
+    return {"flash_attention_fwd": kfa.flash_attention_fwd,
+            "flash_attention_delta": kfa.flash_attention_delta,
+            "flash_attention_bwd": kfa.flash_attention_bwd,
+            "flash_attention_seg_fwd": kfa.flash_attention_seg_fwd,
+            "flash_attention_seg_dkv": kfa.flash_attention_seg_dkv,
+            "flash_attention_seg_dq": kfa.flash_attention_seg_dq,
+            "flash_attention_bias_fwd": kfa.flash_attention_bias_fwd,
+            "flash_attention_bias_dkv": kfa.flash_attention_bias_dkv,
+            "flash_attention_bias_dq": kfa.flash_attention_bias_dq,
+            "block_attention_stats": kba.block_attention_fwd}
+
+
+def encoder_launches(L, passes, route):
+    """Launches by `encoder_counters` name of `passes` forward and
+    backward passes through an L-layer encoder: route "flash" (the
+    one-length kernels: a forward, the delta pre-pass and a backward a
+    layer), "segment" (a padding mask: the segment forward, the delta
+    pre-pass, dkv and dq a layer) or "dense" (BERT's probs-dropout
+    route: none). Names left out launch 0 times."""
+    n = L * passes
+    if route == "flash":
+        names = ("flash_attention_fwd", "flash_attention_delta",
+                 "flash_attention_bwd")
+    elif route == "segment":
+        names = ("flash_attention_seg_fwd", "flash_attention_delta",
+                 "flash_attention_seg_dkv", "flash_attention_seg_dq")
+    elif route == "dense":
+        names = ()
+    else:
+        raise ValueError(f"encoder_launches: unknown route {route!r}")
+    return {name: n for name in names}
 
 
 # CUDA runtime calls that hold the host until the card (a stream, an

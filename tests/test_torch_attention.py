@@ -662,9 +662,12 @@ def test_sdpa_route_selection(monkeypatch):
 
 
 def test_sdpa_unported_knobs_raise():
+    """What sdpa still refuses raises; dropout in training is ported
+    (the reference's dense route with an output dropout,
+    tests/test_torch_dropout.py holds it to the reference), so it runs."""
     q = torch.zeros(1, 64, 2, 64)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    out = TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    assert out.shape == q.shape and torch.isfinite(out).all()
     out = TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
                                           training=False)
     assert out.shape == q.shape
@@ -731,15 +734,21 @@ def test_flash_attn_unpadded_matches_reference(hq, hk, causal):
 
 
 def test_flash_attn_unpadded_refusals():
+    """Causal over packings that differ raises; dropout in training is
+    ported (the reference's dense packed route, which applies no
+    dropout: tests/test_torch_dropout.py), so it runs and equals the
+    call without dropout."""
     x = torch.zeros(10, 2, 64)
     with pytest.raises(NotImplementedError, match="packings"):
         TF.flash_attn_unpadded(x, x, x, torch.tensor([0, 5, 10]),
                                torch.tensor([0, 3, 10]), 5, 7, 0.1,
                                causal=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TF.flash_attn_unpadded(x, x, x, torch.tensor([0, 10]),
-                               torch.tensor([0, 10]), 10, 10, 0.1,
-                               dropout=0.1)
+    y = torch.randn(10, 2, 64, generator=torch.Generator().manual_seed(0))
+    cu = torch.tensor([0, 4, 10])
+    out, _ = TF.flash_attn_unpadded(y, y, y, cu, cu, 6, 6, 0.1,
+                                    dropout=0.1)
+    want, _ = TF.flash_attn_unpadded(y, y, y, cu, cu, 6, 6, 0.1)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
 
 
 def test_sdp_kernel_is_a_no_op():

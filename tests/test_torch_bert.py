@@ -157,15 +157,26 @@ def test_dense_kill_switch_matches_reference_on_every_row():
 
 
 def test_training_with_dropout_raises():
+    """Train mode with the default dropout runs and differs from eval;
+    at p = 0 train mode equals eval. tests/test_torch_encoder_train.py
+    holds training to the reference."""
     _, tm = _models()
     ids, mask, _ = _batch()
-    tm.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tm(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask))
+    args = (torch.from_numpy(ids),)
+    kw = dict(attention_mask=torch.from_numpy(mask))
+    with torch.no_grad():
+        want = tm(*args, **kw)
+        tm.train()
+        got = tm(*args, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert not torch.equal(got, want)
     cfg = TB.bert_tiny(hidden_dropout_prob=0.0,
                        attention_probs_dropout_prob=0.0)
     model = TB.BertForMaskedLM(cfg, device="cpu")
-    out = model(torch.from_numpy(ids), attention_mask=torch.from_numpy(mask))
+    with torch.no_grad():
+        out = model(*args, **kw)
+        model.eval()
+        assert torch.equal(model(*args, **kw), out)
     assert out.shape == (len(LENGTHS), ids.shape[1], 1024)
 
 

@@ -1738,3 +1738,108 @@ def test_planted_fault_lies_in_its_source(fault):
     assert anchor in src, f"{anchor}: the anchor is not in {source}"
     assert len(re.findall(pattern, src[src.index(anchor):])) >= 1, \
         f"{pattern}: the pattern is not in the kernel"
+
+
+def _encoder_case(case):
+    """(model, loss fn, attention route) of a 2-layer f32 encoder at a
+    small width (2 heads of 64) on the card: "ernie" the one-length
+    flash kernels, "bert_mask" a padding mask on the segment kernels
+    (dropout 0), "bert_dropout" hidden and probs dropout 0.1 (the dense
+    route)."""
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.models import ernie as TE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S = 4, 256
+    small = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=512, vocab_size=1024)
+    ids = torch.randint(0, 1024, (B, S), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    if case == "ernie":
+        model = TE.ErnieForPretraining(
+            TE.ErnieConfig(hidden_dropout_prob=0.0, **small), device="cuda",
+            generator=gen)
+        return model, lambda: model.loss(ids, ids), "flash"
+    p = 0.1 if case == "bert_dropout" else 0.0
+    model = TB.BertForMaskedLM(
+        TB.BertConfig(hidden_dropout_prob=p, attention_probs_dropout_prob=p,
+                      max_position_embeddings=S, **small), device="cuda",
+        generator=gen)
+    mask = (torch.arange(S, device="cuda")[None]
+            < torch.tensor([[S], [200], [77], [130]], device="cuda")).long()
+    labels = torch.where(mask.bool(), ids, -100)
+    return (model, lambda: model.loss(ids, labels, attention_mask=mask),
+            "dense" if p else "segment")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ernie", "bert_mask", "bert_dropout"])
+def test_encoder_training_on_card(case, monkeypatch):
+    """A train-mode forward and backward of a small f32 encoder launches
+    exactly `testing.encoder_launches(2, 1, route)` and no other
+    attention kernel; on the kernel routes the loss and each grad agree
+    with the plain versions (swapped in for the autograd Functions)
+    within testing's encoder limits. Then two `TrainStep`s with AdamW
+    take finite, falling losses."""
+    _card()
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    model, loss_fn, route = _encoder_case(case)
+    model.train()
+    counters = testing.encoder_counters()
+    before = {n: c.launches for n, c in counters.items()}
+
+    def loss_and_grads():
+        loss = loss_fn()
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    grew = {n: c.launches - before[n] for n, c in counters.items()}
+    want = testing.encoder_launches(2, 1, route)
+    assert grew == {n: want.get(n, 0) for n in counters}
+    if route != "dense":
+        monkeypatch.setattr(
+            t_fa._FlashAttention, "apply",
+            lambda q, k, v, causal, scale: t_fa._plain(q, k, v, causal,
+                                                      scale))
+        monkeypatch.setattr(t_fa._SegFlash, "apply", t_fa._SegPlain.apply)
+        loss_p, grads_p = loss_and_grads()
+        monkeypatch.undo()
+        assert abs(loss_k - loss_p) <= testing.ENCODER_LOSS_RTOL * abs(loss_p)
+        assert set(grads_k) == set(grads_p)
+        for n, g in grads_p.items():
+            err = ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+            assert err <= testing.ENCODER_GRAD_RTOL, (n, err)
+    opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                     weight_decay=0.01)
+    step = TrainStep(model, opt, loss_fn)
+    losses = [step().item() for _ in range(3)]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_dropout_on_card():
+    """The dropout stream on the card: one generator per device, reset
+    by `core.seed`, equal to a generator seeded alike; a keep share
+    within DROPOUT_SIGMAS of the binomial; kept elements upscaled."""
+    _card()
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.nn import functional as TF
+    x = torch.randn(16, 512, 768, device="cuda")
+    core.seed(3)
+    a = TF.dropout(x, 0.1)
+    b = TF.dropout(x, 0.1)
+    assert core.dropout_generator("cuda").device.type == "cuda"
+    core.seed(3)
+    assert torch.equal(TF.dropout(x, 0.1), a)
+    assert not torch.equal(a, b)
+    want = TF.dropout(x, 0.1,
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    assert torch.equal(a, want)
+    keep = a != 0
+    assert abs(testing.keep_share_sigmas(keep, 0.1)) <= testing.DROPOUT_SIGMAS
+    torch.testing.assert_close(a[keep], x[keep] / 0.9)

@@ -325,8 +325,17 @@ def _meta(*shape):
                                   "flash_padding_mask", "flash_bias",
                                   "dense_attention_on_card"])
 def test_unported_training_knobs_raise(knob):
+    """Each knob still to port raises. The bias route's dropout in
+    training is ported (the reference's dense route with an output
+    dropout), so that case runs."""
     m = _tiny_cpu(use_recompute=False)
     opt = topt.AdamW(parameters=m.parameters())
+    if knob == "flash_bias":
+        q = torch.ones(1, 8, 2, 64)
+        out = scaled_dot_product_attention(
+            q, q, q, attn_mask=torch.zeros(1, 2, 8, 8), dropout_p=0.1)
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        return
     with pytest.raises(NotImplementedError, match="not ported|port does"):
         if knob == "scaler":
             TrainStep(m, opt, m.loss, scaler=object())
@@ -344,12 +353,6 @@ def test_unported_training_knobs_raise(knob):
             q, kv = torch.zeros(1, 8, 2, 64), torch.zeros(1, 12, 2, 64)
             t_fa.flash_attention_bshd(q, kv, kv, causal=True,
                                       padding_mask=torch.ones(1, 12))
-        elif knob == "flash_bias":
-            # the bias route is ported; its dropout in training is not
-            q = torch.zeros(1, 8, 2, 64)
-            scaled_dot_product_attention(q, q, q,
-                                         attn_mask=torch.zeros(1, 2, 8, 8),
-                                         dropout_p=0.1)
         elif knob == "dense_attention_on_card":
             ptt.set_flags({"FLAGS_use_flash_attention": False})
             try:
