@@ -162,6 +162,37 @@ Phases, each of which fails the run on a miss:
    binomial, equal masks from equal generator seeds, the stream after
    `core.seed(s)` equal to a generator seeded s, p = 1 zeroes, p = 0
    and eval the identity; the phase's wall is printed;
+9c. the optimizer surface — (a) runs inside phase 8, on its llama_7b
+   after its plain steps, once their optimizer's state is freed: the
+   LLaMA 2 recipe (Touvron et al. 2023, §2.2: AdamW β1 0.9, β2 0.95, eps
+   1e-5, weight decay 0.1, `ClipGradByGlobalNorm(1.0)`, 2000 warmup
+   steps to 3e-4 then cosine to 3e-5, `llama2_schedule`, stepped after
+   each `TrainStep`), RECIPE_WARMUP warm-up and RECIPE_STEPS timed
+   steps: step ms beside the plain step's, peak memory, the lr of each
+   step equal to a fresh schedule's, finite losses, exact launches, the
+   synchronizing CUDA runtime calls of one step beside the plain step's
+   (`step_syncs`), and one more step traced in three windows (forward
+   and backward, the clip alone, the update) for the clip's device ms;
+   (b) llama_1b built f32 and decorated by `amp.decorate(level="O2")` to
+   bf16 (f32 masters), AdamW(3e-4 warmup as (a), weight decay 0.1) and
+   the same clip, batch 4 x 2048: rows 1 and 5 with the bf16 weight
+   held to their plain versions and timed beside an f32 weight; steps
+   without a scaler, then through `TrainStep(scaler=GradScaler(2**15))`
+   (exact launches): step ms beside phase 7's bf16 step, peak memory of
+   each, synchronizing calls a step equal on both; then one step whose
+   grads a hook makes non-finite leaves every parameter, master and
+   moment torch.equal, halves the scale and advances @step, and the next
+   step moves every master; (c) a 2-layer llama_1b-width f32 model on
+   the card and its copy on the CPU: each of `testing.opt_card_cases`
+   (every optimizer but LBFGS, Adam amsgrad, RMSProp centered, Momentum
+   Nesterov, each clip) takes ZOO_STEPS steps on both from the card's
+   grads, parameters and accumulators within testing.OPT_CARD_RTOL of
+   the CPU's and no synchronizing call in a step; LBFGS takes ZOO_STEPS
+   steps through a closure on each device (OPT_LBFGS_RTOL); then
+   llama_1b bf16 at 4 x 2048, one AdamW step with `accumulate_steps=2`
+   against one full-batch step from the same weights: loss and weights
+   within testing.ACCUM_LOSS_RTOL / ACCUM_WEIGHT_RL2, the step's peak
+   memory lower, launches twice a pass's;
 10. attention surface — bf16: sdpa with the boolean [16, 1, 1, 512]
    padding mask, sdpa with the additive float mask (the bias route) and
    flash_attn_unpadded on the same batch packed, each against its plain
@@ -3984,6 +4015,7 @@ def training_phase(report, smi_line):
     check(ok, "the training kernel route disagrees with the plain route")
     del model2, grads_k, grads_p
     torch.cuda.empty_cache()
+    return mean_ms
 
 
 def train7b_phase(report, smi_line):
@@ -4072,6 +4104,8 @@ def train7b_phase(report, smi_line):
                   f"{name} launched {n} times in 7B training, expected "
                   f"{want[name] * TRAIN7B_STEPS}")
             add_launches(report, name, "training_7b", n)
+        plain_syncs = step_syncs(lambda: step(ids, ids))
+        torch.cuda.synchronize()
 
         # one more step, traced as the llama_1b phase traces its own
         with profile(activities=[ProfilerActivity.CPU,
@@ -4104,8 +4138,14 @@ def train7b_phase(report, smi_line):
             print("train7b profile, largest other kernels (ms): "
                   + "; ".join(f"{k[:70]}={ms:.4g}" for k, ms in top),
                   flush=True)
-        del model, opt, step, loss, prof_fb, prof_opt
+        # 9c (a) on the same model: the plain optimizer's state first
+        # freed
+        del opt, step, loss, prof_fb, prof_opt
         import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        recipe7b(report, model, ids, mean_ms, plain_syncs, smi_line)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
         remat_check(cfg, ids)
@@ -4683,6 +4723,509 @@ def dropout_card_check(step_mask, smi_line):
           + f" [{smi_line}]", flush=True)
     check(all(checks.values()), "dropout on the card: "
           + ", ".join(k for k, v in checks.items() if not v))
+
+
+# Phase 9c: the optimizer surface. (a) runs inside `train7b_phase`, on
+# its model (`recipe7b`); (b) and (c) are `optimizer_phase`.
+RECIPE_WARMUP, RECIPE_STEPS = 2, 3
+O2_WARMUP, O2_STEPS = 2, 3
+ZOO_STEPS, ZOO_BATCH, ZOO_SEQ = 3, 1, 128
+
+
+def llama2_schedule(popt):
+    """Touvron et al. 2023, "Llama 2", §2.2: 2000 warmup steps from 0 to
+    3e-4, then cosine decay to 3e-5 (T_max 500000 steps)."""
+    return popt.lr.LinearWarmup(
+        popt.lr.CosineAnnealingDecay(3e-4, T_max=500000, eta_min=3e-5),
+        warmup_steps=2000, start_lr=0.0, end_lr=3e-4)
+
+
+def step_syncs(fn):
+    """Synchronizing CUDA runtime calls (`testing.SYNC_CALLS`) fn makes:
+    those of a torch.profiler window around it (no synchronize inside)
+    less those of an empty window (the profiler's own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import testing
+
+    def window(f):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f()
+        return testing.sync_calls(prof.events())
+
+    return window(fn) - window(lambda: None)
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def _hold_launches(report, launches, want, passes, path, what):
+    """Each kernel's launches in one run of a path against want[name] *
+    passes; records them under the path."""
+    for name, n in launches.items():
+        expect = want[name] * passes
+        print(f"launches {name} ({what}): {n} (expected {expect})",
+              flush=True)
+        check(n == expect, f"{name} launched {n} times in {what}, "
+                           f"expected {expect}")
+        add_launches(report, name, path, n)
+
+
+def recipe7b(report, model, ids, plain_ms, plain_syncs, smi_line):
+    """9c (a): the LLaMA 2 recipe on train7b_phase's llama_7b (remat
+    under save_matmul_outputs, fused CE): AdamW(β2 0.95, eps 1e-5, wd
+    0.1), ClipGradByGlobalNorm(1.0), `llama2_schedule`, stepped after
+    each TrainStep. Bars: finite losses, the lr of each step equal to a
+    fresh copy of the schedule's, exact launches."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt = popt.AdamW(learning_rate=llama2_schedule(popt), beta1=0.9,
+                     beta2=0.95, epsilon=1e-5, weight_decay=0.1,
+                     parameters=model.parameters(),
+                     grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+    expect = llama2_schedule(popt)
+    step = TrainStep(model, opt, lambda i, l: model.loss(i, l))
+    losses, lrs, want_lrs = [], [], []
+
+    def one():
+        losses.append(step(ids, ids))
+        lrs.append(step.last_lr)
+        want_lrs.append(expect())
+        opt._lr.step()
+        expect.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RECIPE_WARMUP):
+        one()
+    torch.cuda.synchronize()
+    counters = testing.train_counters()
+    _zero(counters)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(RECIPE_STEPS + 1)]
+    events[0].record()
+    for i in range(RECIPE_STEPS):
+        one()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    _hold_launches(report, _launches(counters),
+                   testing.train_launches(model.cfg.num_hidden_layers,
+                                          "save_matmul_outputs"),
+                   RECIPE_STEPS, "recipe_7b", "9c (a) the LLaMA 2 recipe")
+    mean_ms = events[0].elapsed_time(events[-1]) / RECIPE_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    syncs = step_syncs(one)
+    torch.cuda.synchronize()
+    # one more step traced in three windows: forward and backward, the
+    # clip alone, the update without the clip
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_fb:
+        with core.remat_policy_guard(step._remat_policy):
+            loss = model.loss(ids, ids)
+            loss.backward()
+        torch.cuda.synchronize()
+    clip = opt._grad_clip
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_clip:
+        clip(opt._parameter_list)
+        torch.cuda.synchronize()
+    opt._grad_clip = None
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_opt:
+            opt.step()
+            opt.clear_grad(set_to_zero=False)
+            torch.cuda.synchronize()
+    finally:
+        opt._grad_clip = clip
+    clip_ms = _device_ms(prof_clip, (), "clip")[0].get("clip", 0.0)
+    adamw_ms = _device_ms(prof_opt, (), "adamw")[0].get("adamw", 0.0)
+    fb_ms = sum(_device_ms(prof_fb, _TRAIN_GROUPS, "other")[0].values())
+    losses = [float(x) for x in losses]
+    print(f"optim (a) LLaMA 2 recipe, llama_7b bf16 4 x 2048: step_ms="
+          f"{mean_ms:.6g} (plain AdamW step {plain_ms:.6g}) peak_mem_gb="
+          f"{peak / 1e9:.6g} device ms: fwd+bwd {fb_ms:.6g} clip "
+          f"{clip_ms:.6g} adamw {adamw_ms:.6g}; synchronizing calls a "
+          f"step {syncs} (plain {plain_syncs}) [{smi_line}]", flush=True)
+    print(f"optim (a) lr per step {lrs}; losses "
+          f"{[round(x, 6) for x in losses]} (first {RECIPE_WARMUP} "
+          f"warm-up)", flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          "a loss of the LLaMA 2 recipe is not finite")
+    check(lrs == want_lrs, f"the recipe's lr sequence {lrs} is not its "
+                           f"schedule's {want_lrs}")
+    del opt, step, loss, prof_fb, prof_clip, prof_opt
+
+
+def optimizer_phase(report, plain_1b_ms, smi_line):
+    """9c (b) O2 with dynamic loss scaling at llama_1b, (c) every
+    optimizer against the CPU and accumulate_steps=2 against one
+    full-batch step. The module docstring lists the bars."""
+    import gc
+
+    import torch
+    t0 = time.perf_counter()
+    o2_check(report, plain_1b_ms, smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_check(report, smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    accumulate_check(report, smi_line)
+    print(f"optimizer phase: wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def _llama1b(dtype, seed, layers=None):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import llama as L
+    cfg = L.llama_1b(dtype=dtype, use_recompute=False,
+                     fuse_attention_qkv=True, fuse_mlp=True)
+    cfg.max_position_embeddings = max(cfg.max_position_embeddings, TRAIN_SEQ)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = L.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    return model, ids
+
+
+def o2_norm_kernels(H, smi_line):
+    """Rows 1 and 5 at the O2 path's shape, [8192, H] bf16 rows with a
+    bf16 weight (the wrappers cast it to f32 each launch), against their
+    plain versions, and timed beside the f32 weight the bf16 config
+    keeps."""
+    import torch
+
+    from paddle_tpu_torch.kernels import fused_norm_residual as kfnr
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(TRAIN_BATCH * TRAIN_SEQ, H, device="cuda",
+                    generator=g).bfloat16()
+    r = torch.randn(x.shape, device="cuda", generator=g).bfloat16()
+    w32 = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
+    w16 = w32.bfloat16()
+    eps = 1e-6
+    y = krn.rms_norm(x, w16, eps)
+    yp = krn._plain(x.float(), w16.float(), eps)
+    (fy, fh) = kfnr.fused_add_rms_norm(x, r, w16, eps)
+    fyp, fhp = kfnr._plain(x.float(), r.float(), w16.float(), eps)
+    compare("rms_norm", "bfloat16", [("out", y, yp)], " (O2 bf16 weight)")
+    compare("fused_add_rms_norm", "bfloat16",
+            [("out", fy, fyp), ("residual", fh, fhp)], " (O2 bf16 weight)")
+    times = {}
+    for tag, w in (("bf16 weight", w16), ("f32 weight", w32)):
+        times[tag] = (time_ms(lambda: krn.rms_norm(x, w, eps), 50),
+                      time_ms(lambda: kfnr.fused_add_rms_norm(x, r, w, eps),
+                              50))
+    print("optim (b) norm kernels at [8192, %d] bf16 rows, ms (rms_norm, "
+          "fused_add_rms_norm): %s [%s]" % (H, "; ".join(
+              f"{k} {a:.6g}, {b:.6g}" for k, (a, b) in times.items()),
+              smi_line), flush=True)
+
+
+def o2_check(report, plain_1b_ms, smi_line):
+    """9c (b): llama_1b built f32, `amp.decorate(level="O2")` to bf16,
+    AdamW(3e-4 warmup as (a), wd 0.1), the global-norm clip; steps
+    without a scaler, then with GradScaler(2**15); one step with a
+    non-finite grad skipped bitwise; the next moves the masters."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.jit import TrainStep
+
+    model, ids = _llama1b("float32", seed=0)
+    opt = popt.AdamW(learning_rate=llama2_schedule(popt), weight_decay=0.1,
+                     parameters=model.parameters(),
+                     grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    n = len(opt._parameter_list)
+    check({p.dtype for p in model.parameters()} == {torch.bfloat16}
+          and len(opt._master_weights) == n,
+          "amp.decorate(O2) did not cast every parameter with a master")
+    o2_norm_kernels(model.cfg.hidden_size, smi_line)
+    fn = lambda i, l: model.loss(i, l)            # noqa: E731
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    counters = testing.train_counters()
+    runs = {}
+    for name, ts in (("unscaled", TrainStep(model, opt, fn)),
+                     ("scaled", TrainStep(model, opt, fn, scaler=scaler))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for _ in range(O2_WARMUP):
+            losses.append(ts(ids, ids))
+            opt._lr.step()
+        torch.cuda.synchronize()
+        _zero(counters)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(O2_STEPS + 1)]
+        events[0].record()
+        for i in range(O2_STEPS):
+            losses.append(ts(ids, ids))
+            opt._lr.step()
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            ts=ts, losses=[float(x) for x in losses],
+            launches=_launches(counters),
+            ms=events[0].elapsed_time(events[-1]) / O2_STEPS,
+            peak=torch.cuda.max_memory_allocated(),
+            syncs=step_syncs(lambda: ts(ids, ids)))
+        torch.cuda.synchronize()
+    want = dict(testing.train_launches(model.cfg.num_hidden_layers,
+                                       "no remat"),
+                fused_cross_entropy=0, fused_cross_entropy_bwd=0)
+    _hold_launches(report, runs["scaled"]["launches"], want, O2_STEPS,
+                   "o2_1b",
+                   "9c (b) O2 with a GradScaler")
+    u, s = runs["unscaled"], runs["scaled"]
+    for name, r in runs.items():
+        print(f"optim (b) O2 {name}: step_ms={r['ms']:.6g} (bf16 config "
+              f"step {plain_1b_ms:.6g}) peak_mem_gb={r['peak'] / 1e9:.6g} "
+              f"synchronizing calls a step {r['syncs']} losses "
+              f"{[round(x, 6) for x in r['losses']]} [{smi_line}]",
+              flush=True)
+    check(all(math.isfinite(x) for r in runs.values() for x in r["losses"]),
+          "an O2 loss is not finite")
+    check(s["syncs"] == u["syncs"], f"the scaler adds synchronizing calls: "
+          f"{s['syncs']} a step against {u['syncs']}")
+
+    # one step whose grads are non-finite: skipped bitwise
+    snap = ([p.detach().clone() for p in model.parameters()],
+            {k: v.clone() for k, v in opt._master_weights.items()},
+            {k: v.clone() for k, v in opt._state.items()})
+    scale, count = scaler.state_dict()["scale"], opt._step_count
+    hook = model.model.layers[0].self_attn.o_proj.register_hook(
+        lambda g: g * float("inf"))
+    try:
+        s["ts"](ids, ids)
+    finally:
+        hook.remove()
+    skipped = opt._step_count
+    same = (all(torch.equal(a, b) for a, b in zip(snap[0],
+                                                  model.parameters()))
+            and all(torch.equal(snap[1][k], v)
+                    for k, v in opt._master_weights.items())
+            and all(torch.equal(snap[2][k], v)
+                    for k, v in opt._state.items()))
+    after = scaler.state_dict()["scale"]
+    moved_loss = float(s["ts"](ids, ids))
+    moved = sum(not torch.equal(snap[1][k], v)
+                for k, v in opt._master_weights.items())
+    print(f"optim (b) skip: parameters, masters and moments bitwise "
+          f"{same}; scale {scale:g} -> {after:g}; @step {count} -> "
+          f"{count + 1}; the next step (loss {moved_loss:.6g}) moved "
+          f"{moved} of {n} masters", flush=True)
+    check(same, "a step with a non-finite grad changed a parameter, a "
+                "master weight or a moment")
+    check(after == scale / 2, "the scale did not halve on a skipped step")
+    check(skipped == count + 1, "@step did not advance on the skip")
+    check(moved == n and math.isfinite(moved_loss),
+          "the step after the skip did not move every master")
+    del snap, model, opt, runs, u, s
+
+
+def zoo_check(report, smi_line):
+    """9c (c), first part: a 2-layer llama_1b-width f32 model on the
+    card, its copy on the CPU; each of `testing.opt_card_cases` takes 3
+    steps on both from the card's grads, LBFGS 3 steps through a closure
+    on each device; parameters and accumulators after the last step
+    held to the CPU's."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.models import llama as L
+
+    model, _ = _llama1b("float32", seed=2, layers=2)
+    cpu = L.LlamaForCausalLM(model.cfg, device="cpu")
+    init = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (ZOO_BATCH, ZOO_SEQ)))
+    ids_c = ids.to("cuda")
+    pc, ph = list(model.parameters()), list(cpu.parameters())
+    counters = testing.train_counters()
+    _zero(counters)
+    passes = 0
+
+    def reset():
+        with torch.no_grad():
+            for (k, p), q in zip(model.named_parameters(), ph):
+                p.copy_(init[k])
+                q.copy_(init[k])
+
+    names = [k for k, _ in model.named_parameters()]
+
+    def worst(oc, oh):
+        """The largest max_rel over parameters and accumulators, and the
+        tensor it was read at."""
+        check(sorted(oc._state) == sorted(oh._state),
+              "the card and the CPU keep different accumulators")
+        errs = {names[i]: testing.max_rel(a.detach().cpu(), b.detach())
+                for i, (a, b) in enumerate(zip(pc, ph))}
+        errs.update({f"{names[i]}.{slot}": testing.max_rel(
+            v.cpu(), oh._state[(i, slot)])
+            for (i, slot), v in oc._state.items()})
+        at = max(errs, key=errs.get)
+        return errs[at], at
+
+    for name, make in testing.opt_card_cases(popt, pnn).items():
+        t0 = time.perf_counter()
+        reset()
+        oc, oh = make(pc), make(ph)
+        syncs = None
+        for s in range(ZOO_STEPS):
+            model.loss(ids_c, ids_c).backward()
+            passes += 1
+            for a, b in zip(pc, ph):
+                b.grad = a.grad.detach().cpu()
+            if s == 1:
+                syncs = step_syncs(oc.step)
+            else:
+                oc.step()
+            oh.step()
+            oc.clear_grad(set_to_zero=False)
+            oh.clear_grad(set_to_zero=False)
+            if hasattr(oc._lr, "step"):
+                oc._lr.step()
+                oh._lr.step()
+        err, at = worst(oc, oh)
+        print(f"optim (c) {name}: max rel err {err:.6g} at {at} (limit "
+              f"{testing.OPT_CARD_RTOL:g}), synchronizing calls a step "
+              f"{syncs}, wall {time.perf_counter() - t0:.3f} s", flush=True)
+        check(err <= testing.OPT_CARD_RTOL,
+              f"{name} on the card disagrees with the CPU")
+        check(syncs == 0, f"{name} synchronizes {syncs} times a step")
+        del oc, oh
+
+    reset()
+    oc = popt.LBFGS(learning_rate=0.1, max_iter=2, history_size=3,
+                    parameters=pc)
+    oh = popt.LBFGS(learning_rate=0.1, max_iter=2, history_size=3,
+                    parameters=ph)
+
+    def closure(m, o, x):
+        def run():
+            nonlocal passes
+            o.clear_grad(set_to_zero=False)
+            loss = m.loss(x, x)
+            loss.backward()
+            passes += x.is_cuda
+            return loss
+        return run
+
+    err = 0.0
+    for s in range(ZOO_STEPS):
+        lc = oc.step(closure(model, oc, ids_c))
+        lh = oh.step(closure(cpu, oh, ids))
+        err = max(err, *(testing.max_rel(a.detach().cpu(), b.detach())
+                         for a, b in zip(pc, ph)),
+                  abs(lc.item() - lh.item()) / abs(lh.item()))
+    print(f"optim (c) lbfgs (closure on each device): max rel err "
+          f"{err:.6g} (limit {testing.OPT_LBFGS_RTOL:g}) [{smi_line}]",
+          flush=True)
+    check(err <= testing.OPT_LBFGS_RTOL, "LBFGS on the card disagrees with "
+                                         "the CPU")
+    want = dict(testing.train_launches(2, "no remat"),
+                fused_cross_entropy=0, fused_cross_entropy_bwd=0)
+    _hold_launches(report, _launches(counters), want, passes,
+                   "optimizer_zoo",
+                   f"9c (c) the optimizers' {passes} forward and backward "
+                   f"passes")
+    del model, cpu, oc, oh
+
+
+def accumulate_check(report, smi_line):
+    """9c (c), second part: llama_1b bf16 at 4 x 2048, one AdamW step
+    with accumulate_steps=2 against one full-batch step from the same
+    weights: loss and weights within testing's ACCUM_* limits, peak
+    memory lower."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.jit import TrainStep
+
+    model, ids = _llama1b("bfloat16", seed=3)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    counters = testing.train_counters()
+    out = {}
+    for k in (1, 2):
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(init[name])
+        opt = popt.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                         parameters=model.parameters())
+        ts = TrainStep(model, opt, lambda i, l: model.loss(i, l),
+                       accumulate_steps=k)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero(counters)
+        loss = float(ts(ids, ids))
+        # the step's own peak: above what was held when it began (the
+        # weights kept from the other run among it)
+        out[k] = dict(loss=loss,
+                      peak=torch.cuda.max_memory_allocated() - base,
+                      launches=_launches(counters),
+                      weights={n: p.detach().clone()
+                               for n, p in model.named_parameters()})
+        del opt, ts
+    want = dict(testing.train_launches(model.cfg.num_hidden_layers,
+                                       "no remat"),
+                fused_cross_entropy=0, fused_cross_entropy_bwd=0)
+    _hold_launches(report, out[2]["launches"], want, 2, "accumulate_1b",
+                   "9c (c) accumulate_steps=2")
+    full, acc = out[1], out[2]
+    loss_err = abs(acc["loss"] - full["loss"]) / abs(full["loss"])
+    rl2 = {n: ((acc["weights"][n].float() - w.float()).norm()
+               / w.float().norm()).item()
+           for n, w in full["weights"].items()}
+    worst = max(rl2, key=rl2.get)
+    print(f"optim (c) accumulate_steps=2 vs one full-batch step, llama_1b "
+          f"bf16 4 x 2048: loss {acc['loss']:.8g} vs {full['loss']:.8g} "
+          f"rel err {loss_err:.6g} (limit {testing.ACCUM_LOSS_RTOL:g}); "
+          f"weights worst rel L2 {rl2[worst]:.6g} at {worst} (limit "
+          f"{testing.ACCUM_WEIGHT_RL2:g}); the step's peak above its start, "
+          f"GB {acc['peak'] / 1e9:.6g} vs {full['peak'] / 1e9:.6g} "
+          f"[{smi_line}]", flush=True)
+    check(loss_err <= testing.ACCUM_LOSS_RTOL
+          and rl2[worst] <= testing.ACCUM_WEIGHT_RL2,
+          "accumulate_steps=2 disagrees with the full-batch step")
+    check(acc["peak"] < full["peak"],
+          "accumulate_steps=2 did not lower peak memory")
+    del model, init, out, full, acc
 
 
 def surface_phase(report, smi_line):
@@ -5374,7 +5917,7 @@ def main():
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        training_phase(report, smi_line)
+        plain_1b_ms = training_phase(report, smi_line)
         gc.collect()
         torch.cuda.empty_cache()
         train7b_phase(report, smi_line)
@@ -5384,6 +5927,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         encoder_train_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        optimizer_phase(report, plain_1b_ms, smi_line)
         gc.collect()
         torch.cuda.empty_cache()
         surface_phase(report, smi_line)

@@ -26,13 +26,17 @@ queue bound, shedding, degradation, per-request fault isolation) with
 registries) and `distributed.watchdog`, request tracing and the
 serving telemetry, and encoder training (`models.ernie`, BERT's training
 route, the dropout functionals and layers drawn from the dropout stream
-of `framework.core`).
+of `framework.core`), and the optimizer surface (`optimizer`'s twelve
+optimizers and `optimizer.lr`'s schedulers, `nn.clip`, `regularizer`,
+`amp.decorate` O2 with f32 master weights, `amp.GradScaler`, and
+`jit.TrainStep(scaler=, accumulate_steps=)`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.
 """
 from .framework.core import (get_bool_flag, get_flag,  # noqa: F401
                              resolve_device, seed, set_flags)
+from . import amp, regularizer  # noqa: F401,E402
 
-__all__ = ["get_bool_flag", "get_flag", "resolve_device", "seed",
-           "set_flags"]
+__all__ = ["amp", "get_bool_flag", "get_flag", "regularizer",
+           "resolve_device", "seed", "set_flags"]

@@ -14,10 +14,24 @@ Dropout draws its masks from the dropout stream
 (`framework.core.dropout_generator`) as the forward reaches each
 dropout, so each step takes new masks in the forward's order; the
 reference folds the step count into one key per step instead, and the
-draws cannot match `jax.random`'s either way. Gradient scaling,
-sharding and gradient accumulation are not ported: asking for any of
-them raises, and so does an unported reference flag set in the
+draws cannot match `jax.random`'s either way. Sharding is not ported:
+asking for it raises, and so does an unported reference flag set in the
 environment (`core.check_env_flags`).
+
+Before its first step `TrainStep` primes the optimizer (l.746-758; the
+port's `prime` creates the missing accumulators), and it reads the
+learning rate on the host once a step (`last_lr`; l.767). With
+`scaler=` a step runs `scaler.scale(loss).backward()`,
+`scaler.step(optimizer)` and `scaler.update()` (l.664-668) and returns
+the unscaled loss. With `accumulate_steps=k` (l.537-602) it splits every
+batch tensor on its leading axis into k micro-batches (an indivisible
+batch raises ValueError), runs k forwards and backwards that accumulate
+the grads in the parameters' dtype, scales the grads of the parameters
+the loss reached by 1/k in that dtype, takes one optimizer step and
+returns the mean of the f32 micro-losses; k > 1 with a scaler raises
+ValueError, as in the reference. `opt_state_bytes_per_rank()` counts the
+optimizer's accumulators and master weights; while observability is
+armed the first step sets it as the `train.opt_state_bytes` gauge.
 
 After each step it reads the reference's three step flags (l.797-878):
 FLAGS_check_nan_inf raises FloatingPointError on a non-finite loss or
@@ -48,8 +62,13 @@ from .. import observability
 from ..framework import core, remat
 from ..observability import device_events as _devev
 from ..observability import goodput as _goodput
+from ..observability import metrics as _om
 
 __all__ = ["TrainStep", "resolve_remat_policy"]
+
+_OPT_STATE_BYTES = _om.gauge(
+    "train.opt_state_bytes",
+    "per-rank optimizer-state bytes of a compiled TrainStep by executable")
 
 
 def resolve_remat_policy(policy):
@@ -95,33 +114,98 @@ class TrainStep:
 
     def __init__(self, model, optimizer, step_fn, scaler=None, shard=None,
                  accumulate_steps=1, remat_policy="save_matmul_outputs"):
-        if scaler is not None:
-            raise NotImplementedError(
-                "TrainStep(scaler=...): loss scaling is not ported yet")
         if shard is not None:
             raise NotImplementedError(
                 "TrainStep(shard=...): sharded training is not ported yet")
-        if int(accumulate_steps) != 1:
-            raise NotImplementedError(
-                "TrainStep(accumulate_steps>1): gradient accumulation is "
-                "not ported yet")
+        self._accum = int(accumulate_steps)
+        if self._accum > 1 and scaler is not None:
+            raise ValueError(
+                "accumulate_steps > 1 is incompatible with a GradScaler: "
+                "micro-grads are merged unscaled (bf16 training does not "
+                "need loss scaling)")
         core.check_env_flags("TrainStep")
         self._remat_policy = resolve_remat_policy(remat_policy)
         self.model = model
         self.optimizer = optimizer
         self.step_fn = step_fn
+        self.scaler = scaler
+        self.last_lr = None
+        self._opt_state_bytes = None
+
+    def _run(self, batch):
+        """One step's forward, backward and update; returns the loss."""
+        if self._accum > 1:
+            return self._run_accum(batch)
+        with core.remat_policy_guard(self._remat_policy):
+            loss = self.step_fn(*batch)
+            if self.scaler is not None:
+                self.scaler.scale(loss).backward()
+            else:
+                loss.backward()
+        if self.scaler is not None:
+            self.scaler.step(self.optimizer)
+            self.scaler.update()
+        else:
+            self.optimizer.step()
+        return loss
+
+    def _run_accum(self, batch):
+        k = self._accum
+
+        def split(x):
+            if x.shape[0] % k:
+                raise ValueError(
+                    f"accumulate_steps={k} must divide the batch leading "
+                    f"dim {x.shape[0]}")
+            return x.chunk(k)
+
+        params = [p for p in self.optimizer._parameter_list
+                  if p.requires_grad]
+        for p in params:
+            p.grad = None
+        # each backward adds into .grad in the parameter's dtype (0 + g1 +
+        # g2 ..., the reference's scan carry); a parameter the loss never
+        # reaches keeps grad None, and the step skips it
+        loss_sum = None
+        for mb in zip(*(split(x) for x in batch)):
+            with core.remat_policy_guard(self._remat_policy):
+                loss = self.step_fn(*mb)
+                loss.backward()
+            part = loss.detach().float()
+            loss_sum = part if loss_sum is None else loss_sum + part
+        inv_k = 1.0 / k
+        with torch.no_grad():
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(inv_k)
+        self.optimizer.step()
+        return loss_sum * inv_k
+
+    def opt_state_bytes_per_rank(self):
+        """Bytes of optimizer state (accumulators and amp master weights)
+        this process holds: one card holds them all."""
+        opt = self.optimizer
+        tensors = list(opt._state.values()) + list(
+            opt._master_weights.values())
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def __call__(self, *batch):
         bench = core.get_bool_flag("FLAGS_benchmark")
         t0 = time.perf_counter()
         device = next(self.model.parameters()).device
+        opt = self.optimizer
+        if self._opt_state_bytes is None:
+            opt.prime()
+        self.last_lr = opt.get_lr()
         with _devev.execution("train_step", device):
-            with core.remat_policy_guard(self._remat_policy):
-                loss = self.step_fn(*batch)
-                loss.backward()
-            self.optimizer.step()
-            self.optimizer.clear_grad(set_to_zero=False)
-        n = self.optimizer._step_count
+            loss = self._run(batch)
+            opt.clear_grad(set_to_zero=False)
+        if self._opt_state_bytes is None:
+            self._opt_state_bytes = self.opt_state_bytes_per_rank()
+            if observability.enabled():
+                _OPT_STATE_BYTES.set(self._opt_state_bytes,
+                                     executable="train_step")
+        n = opt._step_count
         if bench:
             if loss.is_cuda:
                 torch.cuda.synchronize(loss.device)

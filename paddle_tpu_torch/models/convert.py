@@ -11,6 +11,16 @@ keeps every tensor f32 under its own key, as the reference creates
 them. `to_numpy` is the reverse view: a
 model's parameters or their grads as float32 numpy arrays under the
 reference's names.
+
+`optimizer_state_from_jax` carries a reference optimizer's state into
+the port's: its accumulators, amp master weights, `@step` and its LR
+scheduler's state (an inner scheduler of `LinearWarmup` too, which the
+scheduler's own `state_dict` leaves out). Each reference parameter is
+found by its name in the reference model's state dict and mapped to the
+port parameter of that name, through the same layout translation as
+`state_from_jax` (fused and unfused q/k/v and gate/up slots
+concatenated or split on their last axis). It reads the reference's
+objects by their attributes and imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -19,9 +29,9 @@ import torch
 
 from .bert import BertConfig
 from .ernie import ErnieConfig
-from .llama import _translate_fusion_keys, torch_dtype
+from .llama import LlamaConfig, _translate_fusion_keys, torch_dtype
 
-__all__ = ["state_from_jax", "to_numpy"]
+__all__ = ["optimizer_state_from_jax", "state_from_jax", "to_numpy"]
 
 
 def to_numpy(model, grads=False):
@@ -52,3 +62,48 @@ def state_from_jax(np_state, cfg, device, dtype=None):
         want = torch.float32 if k.endswith("norm.weight") else dtype
         out[k] = v.to(device=device, dtype=want).contiguous()
     return out
+
+
+def _scheduler_chain(sched):
+    while sched is not None and hasattr(sched, "state_dict"):
+        yield sched
+        sched = getattr(sched, "lr_sched", None)
+
+
+def optimizer_state_from_jax(jax_opt, jax_model, port_opt, port_model):
+    """Replace `port_opt`'s state with `jax_opt`'s (see the module
+    docstring). Both optimizers update the same model, `jax_model` in
+    the reference and `port_model` in the port."""
+    names = {id(t): k for k, t in jax_model.state_dict().items()}
+    index = {id(p): i for i, p in enumerate(port_opt._parameter_list)}
+    port_index = {k: index[id(p)] for k, p in port_model.named_parameters()
+                  if id(p) in index}
+    cfg = getattr(port_model, "cfg", None)
+
+    def by_port_index(arrays):
+        raw = {}
+        for k, v in arrays.items():
+            a = np.asarray(v)
+            raw[k] = torch.from_numpy(np.array(a.astype(np.float32)))
+        if isinstance(cfg, LlamaConfig):
+            raw = _translate_fusion_keys(raw, cfg)
+        return {port_index[k]: t for k, t in raw.items()}
+
+    port_opt._master_weights = {
+        i: t.to(port_opt._parameter_list[i].device)
+        for i, t in by_port_index(
+            {names[pid]: v for pid, v in jax_opt._master_weights.items()}
+        ).items()}
+    slots: dict = {}
+    for (pid, slot), v in jax_opt._state.items():
+        slots.setdefault(slot, {})[names[pid]] = v
+    state = {}
+    for slot, arrays in slots.items():
+        for i, t in by_port_index(arrays).items():
+            like = port_opt._target(i, port_opt._parameter_list[i])
+            state[(i, slot)] = t.to(device=like.device, dtype=like.dtype)
+    port_opt._state = state
+    port_opt._step_count = int(jax_opt._step_count)
+    for src, dst in zip(_scheduler_chain(getattr(jax_opt, "_lr", None)),
+                        _scheduler_chain(getattr(port_opt, "_lr", None))):
+        dst.set_state_dict(src.state_dict())

@@ -78,7 +78,9 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "BERT_LOGIT_ATOL", "BERT_LOGIT_MEAN_ATOL", "DROPOUT_SIGMAS",
            "keep_share_sigmas", "ENCODER_LOSS_RTOL", "ENCODER_GRAD_RTOL",
            "BERT_TRAIN_LOSS_RTOL", "BERT_TRAIN_GRAD_RTOL",
-           "encoder_counters", "encoder_launches"]
+           "encoder_counters", "encoder_launches", "OPT_CARD_RTOL",
+           "OPT_LBFGS_RTOL", "ACCUM_LOSS_RTOL", "ACCUM_WEIGHT_RL2",
+           "opt_card_cases", "max_rel"]
 
 BF16_RTOL = 2.0 ** -7
 # share of an element's sum of |terms|: two bf16 roundoffs (the rounded
@@ -1442,6 +1444,74 @@ def encoder_launches(L, passes, route):
     else:
         raise ValueError(f"encoder_launches: unknown route {route!r}")
     return {name: n for name in names}
+
+
+# ------------------------------------------------ the optimizer surface
+
+# Each optimizer on the card against the same optimizer on the CPU
+# (chip_smoke phase 9c (c)): both update the same f32 weights from the
+# same grads (the card's, copied to the CPU), so an elementwise update is
+# the same IEEE operations on both sides; a reduction's order (a clip's
+# norm, Lamb's trust ratio) may differ by f32 roundoffs. Every parameter
+# and every accumulator after each step: max|card - cpu| <= OPT_CARD_RTOL
+# * max|cpu| (`max_rel`).
+OPT_CARD_RTOL = 1e-6
+# LBFGS runs its closure on each device: the card's grads come from the
+# kernels (the f32 flash in 3xTF32), the CPU's from the plain routes,
+# about 1e-5 apart relative (ENCODER_GRAD_RTOL), and the two-loop
+# recursion carries that difference into each direction.
+OPT_LBFGS_RTOL = 1e-3
+# accumulate_steps=2 against one full-batch step of llama_1b bf16 at 4 x
+# 2048 from the same weights (9c (c)): the micro-batches' grads are the
+# full batch's up to bf16 roundings of the two partial sums, so the
+# losses agree to f32 summation order and bf16 rows; AdamW's first step
+# moves an element by +-lr whatever the size of its grad, so elements
+# differ only where the two grads' signs differ (grads near 0): 2 lr on
+# weights of std 0.02, 0.03 sqrt(share) relative L2 a tensor.
+ACCUM_LOSS_RTOL = 1e-3
+ACCUM_WEIGHT_RL2 = 5e-3
+
+
+def max_rel(got, want) -> float:
+    """max|got - want| / max|want| (0 when both are all zeros), in f32:
+    the difference of two f32 values within a factor 2 of each other is
+    exact."""
+    den = want.float().abs().max().item()
+    num = (got.float() - want.float()).abs().max().item()
+    return num / den if den else num
+
+
+def opt_card_cases(opt, nn):
+    """name -> factory(parameters) of the optimizers 9c (c) holds on the
+    card: each of the twelve but LBFGS (its closure runs apart), Adam
+    with amsgrad, RMSProp centered with momentum, Momentum with
+    Nesterov, and each gradient clip."""
+    lr = opt.lr
+    return {
+        "sgd": lambda ps: opt.SGD(1e-3, parameters=ps, weight_decay=0.01),
+        "momentum_nesterov": lambda ps: opt.Momentum(
+            1e-3, momentum=0.9, parameters=ps, use_nesterov=True),
+        "adam_amsgrad": lambda ps: opt.Adam(1e-4, parameters=ps,
+                                            amsgrad=True),
+        "adamw": lambda ps: opt.AdamW(
+            lr.CosineAnnealingDecay(1e-4, T_max=10), parameters=ps,
+            weight_decay=0.1),
+        "adamax": lambda ps: opt.Adamax(1e-4, parameters=ps),
+        "adagrad": lambda ps: opt.Adagrad(
+            1e-3, parameters=ps, initial_accumulator_value=0.1),
+        "adadelta": lambda ps: opt.Adadelta(1.0, parameters=ps),
+        "rmsprop_centered": lambda ps: opt.RMSProp(
+            1e-4, momentum=0.9, centered=True, parameters=ps),
+        "lamb": lambda ps: opt.Lamb(1e-4, parameters=ps),
+        "asgd": lambda ps: opt.ASGD(1e-3, batch_num=2, parameters=ps),
+        "rprop": lambda ps: opt.Rprop(1e-4, parameters=ps),
+        "adamw_clip_value": lambda ps: opt.AdamW(
+            1e-4, parameters=ps, grad_clip=nn.ClipGradByValue(1e-3)),
+        "adamw_clip_norm": lambda ps: opt.AdamW(
+            1e-4, parameters=ps, grad_clip=nn.ClipGradByNorm(0.01)),
+        "adamw_clip_global_norm": lambda ps: opt.AdamW(
+            1e-4, parameters=ps, grad_clip=nn.ClipGradByGlobalNorm(0.1)),
+    }
 
 
 # CUDA runtime calls that hold the host until the card (a stream, an

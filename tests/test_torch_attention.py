@@ -46,6 +46,8 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn.functional import attention as t_attn
 from paddle_tpu_torch.nn.layer import MultiHeadAttention as TMHA
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 KERNEL_RTOL = 1e-5
 SURFACE_RTOL = 1e-5
 

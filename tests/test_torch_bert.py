@@ -24,6 +24,8 @@ from paddle_tpu.models import bert as JB
 from paddle_tpu_torch.models import bert as TB
 from paddle_tpu_torch.models.convert import state_from_jax, to_numpy
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 MODEL_RTOL = 1e-5
 LENGTHS = (64, 40, 17)
 

@@ -28,6 +28,8 @@ from paddle_tpu_torch.kernels import paged_attention as t_pa
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 
 def _pair(seed=0, kvh=None):
     paddle.seed(seed)

@@ -30,6 +30,8 @@ from paddle_tpu_torch.nn.layer import MultiHeadAttention as TMHA
 
 from _torch_masks import SharedMasks
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 RTOL = 1e-5
 
 

@@ -49,6 +49,8 @@ from paddle_tpu_torch.nn.functional import common as t_common
 
 from _torch_masks import SharedMasks
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 TRAJ_RTOL = 1e-5

@@ -24,6 +24,8 @@ from paddle_tpu_torch.kernels import flash_attention as t_fa
 from paddle_tpu_torch.models import ernie as TE
 from paddle_tpu_torch.models.convert import state_from_jax, to_numpy
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 MODEL_RTOL = 1e-5
 
 

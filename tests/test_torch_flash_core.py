@@ -18,6 +18,8 @@ import jax.numpy as jnp
 from paddle_tpu.models.llama import _sdpa as j_sdpa
 from paddle_tpu_torch.kernels import flash_attention as t_fa
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 # f32 against f32: summation order only
 RTOL = 1e-5
 

@@ -20,6 +20,8 @@ from paddle_tpu.kernels import cross_entropy as j_ce
 from paddle_tpu_torch.kernels import cross_entropy as t_ce
 from paddle_tpu_torch.nn.functional import cross_entropy
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 # f32: summation order alone (the reference sums exp over 2048-wide
 # vocab blocks, the port over whole rows), max|a - b| / max|b|
 F32_RTOL = 1e-5

@@ -23,6 +23,8 @@ from paddle_tpu_torch.kernels import rms_norm as t_rms
 from paddle_tpu_torch.kernels import rope as t_rope
 from paddle_tpu_torch.kernels import swiglu as t_sw
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -13,6 +13,8 @@ from paddle_tpu_torch import testing
 from paddle_tpu_torch.kernels import flash_attention as t_fa
 from paddle_tpu_torch.kernels import swiglu as t_sw
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 
 def _rand(rng, *shape, nonneg=False):
     x = rng.standard_normal(shape).astype(np.float32)

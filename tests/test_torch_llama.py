@@ -14,6 +14,8 @@ from paddle_tpu.models import llama as JL
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 
 def _jax_model(dtype="float32", fused=True, seed=0):
     paddle.seed(seed)

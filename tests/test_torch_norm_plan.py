@@ -19,6 +19,8 @@ import jax.numpy as jnp
 from paddle_tpu.kernels import rms_norm as j_rms
 from paddle_tpu_torch.kernels import rms_norm as t_rms
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 # the kernel phase's row counts (chip_smoke.py) and the plan's edges
 ROWS = [128, 4, 8192, 32, 512, 2048, 1, 3, 37, 129, 8191]
 WIDTHS = [256, 2048, 4096, 5120, "max"]

@@ -25,6 +25,8 @@ from paddle_tpu_torch.kernels import _paged_split
 from paddle_tpu_torch.kernels import paged_attention as t_pa
 from paddle_tpu_torch.kernels import ragged_paged_attention as t_rpa
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 ATOL = 1e-5
 LAYOUTS = [(8, 2, 64, 8), (4, 4, 128, 16), (8, 2, 128, 16), (4, 4, 64, 8)]
 LAYOUT_IDS = ["gqa_8_2_d64_p8", "mha_d128_p16", "gqa_8_2_d128_p16",

@@ -14,6 +14,8 @@ import torch
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models import llama as TL
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "paddle_tpu_torch")
 FORBIDDEN = ("jax", "paddle_tpu")

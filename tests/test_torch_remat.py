@@ -28,6 +28,8 @@ from paddle_tpu_torch.kernels import swiglu as t_sw
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax, to_numpy
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 POLICIES = [None, "nothing", "save_matmul_outputs", "dots"]
 TRAJ_RTOL = 1e-5        # 5-step losses and final weights vs the reference
 

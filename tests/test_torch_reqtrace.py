@@ -26,6 +26,8 @@ from paddle_tpu_torch.observability import metrics as t_metrics
 from paddle_tpu_torch.observability import reqtrace as t_rt
 from paddle_tpu_torch.observability import spans as t_spans
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 TOL = 1e-6
 PACKAGES = (("jax", j_obs, j_metrics, j_rt, j_goodput, j_export),
             ("torch", t_obs, t_metrics, t_rt, t_goodput, t_export))

@@ -34,6 +34,8 @@ from paddle_tpu_torch.observability import reqtrace as t_rt
 from paddle_tpu_torch.utils import fault_injection as t_fi
 from tests.test_torch_slo import TINY, drive, expire_after, req
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 TOL = 1e-6
 # event fields that read the clock
 CLOCK_FIELDS = ("ts", "ttft_s")

@@ -36,6 +36,8 @@ from paddle_tpu.kernels import flash_attention as j_fa
 from paddle_tpu_torch import testing
 from paddle_tpu_torch.kernels import flash_attention as t_fa
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 KERNEL_RTOL = 1e-5
 
 # (B, Sq, Sk, H, D, causal, kind): "packed" explicit 1-based ids of

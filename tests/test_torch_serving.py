@@ -29,6 +29,8 @@ from paddle_tpu_torch.inference.serving import GenerationRequest as TReq
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -35,6 +35,8 @@ from paddle_tpu_torch.models.convert import state_from_jax
 from paddle_tpu_torch.observability import metrics as t_metrics
 from paddle_tpu_torch.utils import fault_injection as t_fi
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
             max_position_embeddings=256, dtype="float32")

@@ -46,6 +46,8 @@ from tests.test_torch_slo import (assert_same, clean_registries,  # noqa: F401
                                   drive, health, models, pair, req,
                                   run_pair)
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 ROUTES = pytest.mark.parametrize("ragged", [True, False],
                                  ids=["ragged", "bucketed"])
 

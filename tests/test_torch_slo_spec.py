@@ -26,6 +26,8 @@ from tests.test_torch_slo import (assert_same, clean_registries,  # noqa: F401
                                   drive, expire_after, models, pair, req)
 from tests.test_torch_spec import _greedy, _install
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 SPEC = dict(speculative=True, max_draft_tokens=4)
 
 

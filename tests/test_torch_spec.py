@@ -31,6 +31,8 @@ from paddle_tpu_torch.inference.serving import _ngram_propose as t_ngram
 from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
             max_position_embeddings=256, dtype="float32")

@@ -45,6 +45,8 @@ from paddle_tpu_torch.observability import reqtrace as t_rt
 from paddle_tpu_torch.observability import spans
 from tests.test_torch_slo import TINY
 
+from _torch_threads import one_torch_thread  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-6
 KNOBS = dict(max_batch=2, max_seq=64, max_chunk_tokens=8)

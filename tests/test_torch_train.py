@@ -24,6 +24,7 @@ from paddle_tpu.kernels import rms_norm as j_rms
 from paddle_tpu.kernels import swiglu as j_sw
 from paddle_tpu.models import llama as JL
 from paddle_tpu.models.llama import _sdpa as j_sdpa
+from paddle_tpu_torch import amp
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import flash_attention as t_fa
@@ -34,6 +35,8 @@ from paddle_tpu_torch.models import llama as TL
 from paddle_tpu_torch.models.convert import state_from_jax, to_numpy
 from paddle_tpu_torch.nn.functional import (cross_entropy,
                                             scaled_dot_product_attention)
+
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 # fp32 on both sides; the port's plain versions repeat the reference's
 # float order, so differences are summation order (BLAS blocking,
@@ -320,14 +323,15 @@ def _meta(*shape):
     return torch.empty(shape, device="meta")
 
 
-@pytest.mark.parametrize("knob", ["scaler", "shard", "accumulate_steps",
-                                  "lr_scheduler", "multi_precision",
+@pytest.mark.parametrize("knob", ["shard", "amp_auto_cast",
                                   "flash_padding_mask", "flash_bias",
                                   "dense_attention_on_card"])
 def test_unported_training_knobs_raise(knob):
     """Each knob still to port raises. The bias route's dropout in
     training is ported (the reference's dense route with an output
-    dropout), so that case runs."""
+    dropout), so that case runs. Loss scaling, gradient accumulation, LR
+    schedulers and master weights are ported (tests/test_torch_amp.py,
+    test_torch_optimizers.py, test_torch_lr.py)."""
     m = _tiny_cpu(use_recompute=False)
     opt = topt.AdamW(parameters=m.parameters())
     if knob == "flash_bias":
@@ -337,16 +341,12 @@ def test_unported_training_knobs_raise(knob):
         assert out.shape == q.shape and torch.isfinite(out).all()
         return
     with pytest.raises(NotImplementedError, match="not ported|port does"):
-        if knob == "scaler":
-            TrainStep(m, opt, m.loss, scaler=object())
-        elif knob == "shard":
+        if knob == "shard":
             TrainStep(m, opt, m.loss, shard=object())
-        elif knob == "accumulate_steps":
-            TrainStep(m, opt, m.loss, accumulate_steps=2)
-        elif knob == "lr_scheduler":
-            topt.AdamW(learning_rate=lambda: 1e-3, parameters=m.parameters())
-        elif knob == "multi_precision":
-            topt.AdamW(parameters=m.parameters(), multi_precision=True)
+        elif knob == "amp_auto_cast":
+            with amp.auto_cast():
+                m.loss(torch.zeros(1, 4, dtype=torch.long),
+                       torch.zeros(1, 4, dtype=torch.long))
         elif knob == "flash_padding_mask":
             # padding masks are ported; causal with q and kv lengths that
             # differ is not
