@@ -100,6 +100,30 @@ Phases, each of which fails the run on a miss:
    `watchdog:serving.tick` with the section's span open, every request
    served; (d) FLAGS_request_trace_sink during (b): each request's
    terminal JSONL record equal to its /v1/trace snapshot;
+6d. weight-only int8 — the same llama_7b: (a) `serve`'s engine with
+   quantize="int8" (every projection and the lm head int8 with
+   per-column scales, each product on the W8A16 kernel) runs phase 4's
+   burst through the gateway, speculation armed: TTFT, tokens/s, one
+   captured step's ms on both routes, its device ms by kernel group and
+   busy share; launches exact (W8A16 4L + K a step, rms_norm 2L+1 and
+   ragged attention L, the SwiGLU kernel 0); that step's peak
+   allocation above the state and pools below one quantized
+   projection's bf16 size (o_proj: no dequantized weight is made);
+   (b) the bucketed int8 engine on the same burst (W8A16 4L + 1 a
+   forward, paged decode L a decode tick); (c) the verify case of
+   `RAGGED_ROWS` through the int8 layers: 20/20 verify rows bitwise
+   their decode rows (`testing.verify_bitwise`); (d) the model's
+   weights replaced by the dequantized int8 weights, the default bf16
+   engine on the same burst: each stream's tokens equal to (a)'s, or
+   its first difference at a top-2 logit gap of the bf16 model within
+   `testing.INT8_GAP_LIMIT`; (e) the incubate functions at llama_7b
+   width (H 4096, 32 heads of 128, batch 4): `fused_rms_norm`,
+   `block_multihead_attention`, `masked_multihead_attention`,
+   `variable_length_memory_efficient_attention`,
+   `fused_multi_head_attention`, `weight_only_linear` and a 2-layer
+   int8 `fused_multi_transformer` (prefill and one decode step), each
+   against its plain route within `testing.SURFACE_RTOL`, launches of
+   rows 1, 10, 13 and 14 exact, ms a call;
 7. training — full-depth llama_1b (22 layers, bf16, random weights from
    a seeded generator) through `TrainStep` with AdamW, batch 4 x seq
    2048 on one repeated batch, as bench.py runs it: 2 warm-up steps,
@@ -439,6 +463,11 @@ SOURCES = {
                                  "paddle_tpu/kernels/flash_attention.py:215"),
     "flash_attention_bias_dq": ("paddle_tpu_torch/csrc/flash_attention.cu",
                                 "paddle_tpu/kernels/flash_attention.py:215"),
+    # no pallas_call: the reference's int8 dequant, which XLA fuses into
+    # the dot's operand read (`_dequant_state`); incubate's
+    # weight_only_linear (incubate/nn/functional/__init__.py:352)
+    "weight_only_linear": ("paddle_tpu_torch/csrc/weight_only_linear.cu",
+                           "paddle_tpu/inference/serving.py:263"),
 }
 # the training phase: bench.py's accelerator configuration
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
@@ -819,6 +848,79 @@ def kernel_phase(report):
         training_kernels(report, dtype, gen)
         torch.cuda.empty_cache()
         attention_kernels(report, dtype)
+    w8a16_kernels(report)
+    torch.cuda.empty_cache()
+
+
+def w8a16_kernels(report):
+    """Row 14 at llama_7b's quantized serving products
+    (`testing.W8A16_SHAPES`, per-column scales as the engine quantizes),
+    bf16: each at 128 rows (the ragged step's packed rows), 4 (decode,
+    the lm head) and 512 (a bucketed prefill) held against its plain
+    version (`testing.W8A16_LIMIT`); at 128 and 4 rows timed beside the
+    plain route (dequantize, then cuBLAS), the bound (the int8 weight,
+    its scales and the activations read once, the output written once,
+    over 3.35 TB/s; or 2MKN over 989 TFLOP/s), the library call
+    `torch._weight_int8pack_mm` where this PyTorch runs it on the card
+    (none for the SwiGLU epilogue, which no one call computes), and
+    bf16 cuBLAS over the already dequantized weight
+    (`dequant_cublas_ms`: what bf16 weights cost the same product);
+    then each product's 128 rows bitwise their 1-row products."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import swiglu as ksw
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+
+    for name, (K, N, gu) in testing.W8A16_SHAPES.items():
+        for M in (128, 4, 512):
+            a, q, s = testing.w8a16_case(M, K, N, seed=M)
+            out, ref, atol = testing.w8a16_pair(a, q, s, swiglu=gu)
+            torch.cuda.synchronize()
+            tag = f" {name} [{M}x{K} @ {K}x{N}{' swiglu' if gu else ''}]"
+            err = compare("weight_only_linear", "bfloat16",
+                          [("out", out, ref, atol, testing.W8A16_LIMIT[1])],
+                          tag)
+            path = {128: "serving", 4: "decode"}.get(M)
+            if path is None:
+                continue
+            n_out = N // 2 if gu else N
+            nbytes = q.numel() + 4 * s.numel() + 2 * (a.numel() + M * n_out)
+            library = None
+            if not gu and hasattr(torch, "_weight_int8pack_mm"):
+                qt = q.t().contiguous()
+                sb = s.reshape(-1).to(torch.bfloat16)
+                try:
+                    torch._weight_int8pack_mm(a, qt, sb)
+                    torch.cuda.synchronize()
+                    library = (lambda a=a, qt=qt, sb=sb:
+                               torch._weight_int8pack_mm(a, qt, sb))
+                except RuntimeError as e:
+                    print(f"kernel weight_only_linear{tag}: "
+                          f"torch._weight_int8pack_mm does not run here "
+                          f"({str(e)[:120]}): library_ms none", flush=True)
+            m = timed("weight_only_linear", err,
+                      lambda: kwol.weight_only_linear(a, q, s, swiglu=gu,
+                                                      use_kernel=True),
+                      lambda: kwol._plain(a, q, s, None, gu),
+                      nbytes, 2 * M * K * N, library=library, tag=tag)
+            w = kwol.dequantize(q, s, torch.bfloat16)
+            m["dequant_cublas_ms"] = time_ms(
+                (lambda: ksw._ref(a, w)) if gu else (lambda: a @ w), 50)
+            print(f"kernel weight_only_linear{tag}: dequant_cublas_ms="
+                  f"{m['dequant_cublas_ms']:.6g} (bf16 cuBLAS over the "
+                  f"dequantized weight)", flush=True)
+            if name == "qkv" and path == "serving":
+                report["weight_only_linear"] = entry("weight_only_linear", m)
+            else:
+                report["weight_only_linear"][f"{path}_{name}"] = m
+            del w
+        a, q, s = testing.w8a16_case(128, K, N, seed=3)
+        same = testing.w8a16_rows_independent(a, q, s, gu)
+        print(f"kernel weight_only_linear {name}: {same}/128 rows bitwise "
+              f"their 1-row products", flush=True)
+        check(same == 128, f"weight_only_linear {name}: a row depends on "
+              f"the product's other rows")
 
 
 def ragged_kernel(report, dtype, dname, gen, tag, rows):
@@ -2188,10 +2290,12 @@ def plain_routes():
     from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
     from paddle_tpu_torch.kernels import rms_norm as krn
     from paddle_tpu_torch.kernels import swiglu as ksw
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
     saved = (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
              kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
              kpa.paged_decode_attention, kce.fused_cross_entropy,
-             kfa._SegFlash, kba.block_attention_fwd)
+             kfa._SegFlash, kba.block_attention_fwd,
+             kwol.weight_only_linear)
     real_bshd = kfa.flash_attention_bshd
     krn.rms_norm = lambda x, w, eps=1e-6, use_kernel=None: krn._plain(
         x, w, eps)
@@ -2233,13 +2337,24 @@ def plain_routes():
         lambda q, kp, vp, lens, pidx, scale=None, use_kernel=None:
         kpa._plain(q, kp, vp, lens, pidx,
                    q.shape[-1] ** -0.5 if scale is None else scale))
+
+    def plain_wol(a, q, s, bias=None, swiglu=False, use_kernel=None):
+        # the kernel's dequantized weight, an f32 product, one rounding
+        w = kwol.dequantize(q, s, a.dtype).float()
+        out = ksw._ref(a.float(), w) if swiglu else a.float() @ w
+        if bias is not None:
+            out = out.to(a.dtype).float() + bias.float()
+        return out.to(a.dtype)
+
+    kwol.weight_only_linear = plain_wol
     try:
         yield
     finally:
         (krn.rms_norm, ksw.swiglu, krpa.ragged_paged_attention,
          kfnr.fused_add_rms_norm, kfa.flash_attention_bshd,
          kpa.paged_decode_attention, kce.fused_cross_entropy,
-         kfa._SegFlash, kba.block_attention_fwd) = saved
+         kfa._SegFlash, kba.block_attention_fwd,
+         kwol.weight_only_linear) = saved
 
 
 def post_stream(port, prompt, max_new, out, idx, deadline_s=300.0,
@@ -3311,6 +3426,377 @@ def trace_phase(report, model, prompts, max_new, smi_line):
     trace_flight_recorder(model, smi_line)
 
 
+def int8_phase(report, model, prompts, max_new, smi_line):
+    """Phase 6d: weight-only int8 serving on the serving phases'
+    llama_7b, then the incubate functions (module docstring). Leaves
+    the dequantized int8 weights in `model`."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.inference import gateway as gw
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import ragged_paged_attention as krpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import swiglu as ksw
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+    from paddle_tpu_torch.models import llama as L
+
+    cfg = model.cfg
+    L_, H = cfg.num_hidden_layers, cfg.hidden_size
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) serve's engine, int8, speculation armed
+    engine = gw.build_engine(model, quantize="int8", **SLO_KNOBS)
+    check(engine._quantized and engine._spec,
+          "quantize='int8' did not arm int8 on the default engine")
+    K = engine.max_draft_tokens + 1
+    q8 = [v for v in engine.state.values() if isinstance(v, kwol.QuantWeight)]
+    q_bytes = sum(w.q.numel() + 4 * w.scale.numel() for w in q8)
+    rest = sum(v.numel() * v.element_size() for v in engine.state.values()
+               if isinstance(v, torch.Tensor))
+    print(f"int8 (a): {len(q8)} int8 products, {q_bytes / 1e9:.6g} GB int8 "
+          f"+ scales, {rest / 1e9:.6g} GB kept in bf16/f32 (embedding, "
+          f"norms) [{smi_line}]", flush=True)
+    check(len(q8) == 4 * L_ + 1, f"{len(q8)} quantized weights, expected "
+          f"{4 * L_ + 1} (4 a layer and the lm head)")
+    captured = []
+    real_fn = engine._ragged_fn
+
+    def capturing_fn():
+        step = real_fn()
+
+        def run(state, toks, k_pool, v_pool, page_ids, offs, pos,
+                page_table, q_start, q_len, kv_len, produce, verify, g):
+            if not captured and bool((q_len > 1).any()) and int(
+                    (q_len > 0).sum()) >= 3:
+                captured.append(([t.clone() for t in (
+                    toks, pos, page_ids, offs, page_table, q_start, q_len,
+                    kv_len)], verify.clone()))
+            return step(state, toks, k_pool, v_pool, page_ids, offs, pos,
+                        page_table, q_start, q_len, kv_len, produce, verify,
+                        g)
+
+        return run
+
+    engine._ragged_fn = capturing_fn
+    kernels = {"weight_only_linear": kwol.weight_only_linear,
+               "swiglu": ksw.swiglu, "rms_norm": krn.rms_norm,
+               "ragged_paged_attention": krpa.ragged_paged_attention}
+    res_a, wall, launches, (steps, ticks, drafted, accepted) = serve_burst(
+        engine, prompts, max_new, kernels, "int8 request",
+        lambda: (engine.model_steps, engine.ticks, engine.spec_drafted,
+                 engine.spec_accepted), in_order=True)
+    want = {"weight_only_linear": steps * testing.int8_step_launches(L_, K),
+            "swiglu": 0, "rms_norm": steps * (2 * L_ + 1),
+            "ragged_paged_attention": steps * L_}
+    for name, n in launches.items():
+        print(f"launches {name} (int8 serving): {n} (steps {steps} -> "
+              f"expected {want[name]})", flush=True)
+        check(n == want[name], f"{name} launched {n} times in int8 "
+              f"serving, expected {want[name]}")
+        if n:
+            add_launches(report, name, "int8_serving", n)
+    ttfts = [res_a[i]["ttft_s"] for i in range(len(prompts))]
+    n_tok = sum(len(res_a[i]["tokens"]) for i in range(len(prompts)))
+    print(f"int8 (a) serve: ticks={ticks} steps={steps} drafted={drafted} "
+          f"accepted={accepted} ttft_ms={[round(1e3 * t, 3) for t in ttfts]} "
+          f"wall_s={wall:.6g} tokens_per_s={n_tok / wall:.6g} "
+          f"[{smi_line}]", flush=True)
+    check(captured, "no mixed int8 step with 3+ live sequences was captured")
+    args, verify = captured[0]
+    kw = dict(verify_rows=K, row_tiles=verify, wls=engine._wls)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        L._ragged_step_paged(engine.state, cfg, args[0], args[1],
+                             engine.k_pool, engine.v_pool, *args[2:], **kw)
+        torch.cuda.synchronize()
+        grow = torch.cuda.max_memory_allocated() - base
+    o_bf16 = H * H * 2
+    print(f"int8 (a): a ragged step's peak allocation above the state and "
+          f"pools {grow / 1e6:.6g} MB (limit: o_proj in bf16, "
+          f"{o_bf16 / 1e6:.6g} MB) {'ok' if grow < o_bf16 else 'MISS'}",
+          flush=True)
+    check(grow < o_bf16, "an int8 step allocated a dequantized weight's "
+          "worth of memory")
+    step_breakdown(L, engine, cfg, args, engine.k_pool, engine.v_pool,
+                   wall / steps, smi_line, verify_rows=K, row_tiles=verify)
+    del engine, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the bucketed int8 engine
+    beng = gw.build_engine(model, quantize="int8", ragged=False,
+                           max_batch=4, max_seq=1024, page_size=16,
+                           device="cuda")
+    kernels = {"weight_only_linear": kwol.weight_only_linear,
+               "paged_decode_attention": kpa.paged_decode_attention,
+               "rms_norm": krn.rms_norm, "swiglu": ksw.swiglu}
+    res_b, wall_b, launches, (decodes, prefills, ticks_b) = serve_burst(
+        beng, prompts, max_new, kernels, "int8 bucketed request",
+        lambda: (beng.decode_steps, sum(beng.prefill_calls.values()),
+                 beng.ticks))
+    fwd = decodes + prefills
+    want = {"weight_only_linear": fwd * testing.int8_step_launches(L_),
+            "paged_decode_attention": L_ * decodes,
+            "rms_norm": (2 * L_ + 1) * fwd, "swiglu": 0}
+    for name, n in launches.items():
+        print(f"launches {name} (int8 bucketed serving): {n} (decode ticks "
+              f"{decodes}, prefill calls {prefills} -> expected "
+              f"{want[name]})", flush=True)
+        check(n == want[name], f"{name} launched {n} times in int8 "
+              f"bucketed serving, expected {want[name]}")
+        if n:
+            add_launches(report, name, "int8_bucketed_serving", n)
+    ttfts = [res_b[i]["ttft_s"] for i in range(len(prompts))]
+    n_tok = sum(len(res_b[i]["tokens"]) for i in range(len(prompts)))
+    print(f"int8 (b) bucketed serve: ticks={ticks_b} decode_ticks={decodes} "
+          f"prefill_calls={prefills} ttft_ms="
+          f"{[round(1e3 * t, 3) for t in ttfts]} wall_s={wall_b:.6g} "
+          f"tokens_per_s={n_tok / wall_b:.6g} [{smi_line}]", flush=True)
+
+    # (c) verify rows bitwise decode rows through the int8 layers
+    same, n = int8_verify_bitwise(L, beng, cfg)
+    print(f"int8 (c): {same}/{n} verify rows bitwise their decode rows "
+          f"through {L_} int8 layers and the int8 lm head", flush=True)
+    check(n == 20 and same == n, f"int8 verify rows: {same}/{n} bitwise")
+
+    # (d) the bf16 engine over the dequantized weights
+    with torch.no_grad():
+        model.load_state_dict(serving._dequant_state(beng.state, beng.dtype))
+    del beng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = gw.build_engine(model, **SLO_KNOBS)
+    res_d, wall_d, _, _ = serve_burst(ref, prompts, max_new, {},
+                                      "dequantized bf16 request",
+                                      lambda: (), in_order=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, p in enumerate(prompts):
+        a, b = res_a[i]["tokens"], res_d[i]["tokens"]
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        if first is None:
+            print(f"int8 (d) stream {i}: tokens equal to the dequantized "
+                  f"bf16 engine's ({len(a)})", flush=True)
+            continue
+        with torch.no_grad():
+            ids = torch.tensor([p + b[:first]], dtype=torch.int32,
+                               device="cuda")
+            gap = testing.top2_gap(model(ids)[0, -1])
+        ok = gap <= testing.INT8_GAP_LIMIT
+        print(f"int8 (d) stream {i}: first difference at token {first} "
+              f"(int8 {a[first]}, bf16 {b[first]}), the bf16 model's top-2 "
+              f"gap there {gap:.6g} (limit {testing.INT8_GAP_LIMIT:g}) "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+        check(ok, f"int8 stream {i} parts from the dequantized bf16 engine "
+              f"at a top-2 gap of {gap:.6g}")
+
+    # (e) the incubate functions at llama_7b width
+    incubate_card_check(report, smi_line)
+
+
+def int8_verify_bitwise(L, engine, cfg):
+    """`testing.verify_bitwise` through the int8 model: the verify case
+    of `RAGGED_ROWS` (4 entries of 5 rows at 22/105/305/705 keys) as one
+    ragged step over `engine`'s int8 weights and pools, every row's
+    logits (the int8 lm head at 128 rows) against the same row sent as
+    a decode row."""
+    import torch
+
+    from paddle_tpu_torch import testing
+
+    rows = RAGGED_ROWS["verify"]
+    T, page = 128, engine.page
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(1, cfg.vocab_size, (T,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pt = torch.zeros((len(rows), engine.ppmax), dtype=torch.int32,
+                     device="cuda")
+    nxt = 1
+    for s_, (_, _, kl) in enumerate(rows):
+        n = -(-kl // page)
+        pt[s_, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+    meta = [torch.tensor([r[i] for r in rows], dtype=torch.int32,
+                         device="cuda") for i in range(3)]
+    state, wls = engine.state, engine._wls
+    norm = state["model.norm.weight"]
+
+    def fn(toks, kp, vp, q_start, q_len, kv_len, pt, row_tiles=None):
+        pos = torch.zeros(T, dtype=torch.int32)
+        pids = torch.zeros(T, dtype=torch.int32)
+        offs = torch.zeros(T, dtype=torch.int32)
+        qs, ql, kl = (t.tolist() for t in (q_start, q_len, kv_len))
+        ptc = pt.cpu()
+        for s_ in range(len(qs)):
+            for j in range(ql[s_]):
+                p_ = kl[s_] - ql[s_] + j
+                pos[qs[s_] + j] = p_
+                pids[qs[s_] + j] = ptc[s_, p_ // page]
+                offs[qs[s_] + j] = p_ % page
+        pos, pids, offs = (t.cuda() for t in (pos, pids, offs))
+        with torch.no_grad():
+            h = state["model.embed_tokens"][toks.long()]
+            for li, wl in enumerate(wls):
+                h = L._block_ragged(cfg, h, wl, kp[li], vp[li], pos, pids,
+                                    offs, pt, q_start, q_len, kv_len,
+                                    row_tiles)
+            h = L._rms(h, norm, cfg.rms_norm_eps)
+            return L._lm_head(state, h[:, None]).float()[:, 0]
+
+    tiles = torch.ones(len(rows), dtype=torch.int32, device="cuda")
+    return testing.verify_bitwise(fn, (toks, engine.k_pool, engine.v_pool,
+                                       *meta, pt), row_tiles=tiles)
+
+
+def incubate_card_check(report, smi_line):
+    """Phase 6d (e): the incubate functions at llama_7b width, each on
+    the kernel route against the plain route (`plain_routes`) within
+    `testing.SURFACE_RTOL` of max |plain|, its kernels' launches exact,
+    and its ms a call by CUDA events."""
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+    from paddle_tpu_torch.kernels import rms_norm as krn
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+    from paddle_tpu_torch.quantization import comm
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, H, nh, d, inter = 4, 4096, 32, 128, 11008
+    bf = torch.bfloat16
+    lens = (17, 100, 300, 700)
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=g,
+                                    device="cuda")).to(dtype)
+
+    counters = {"rms_norm": krn.rms_norm,
+                "flash_attention_fwd": kfa.flash_attention_fwd,
+                "flash_attention_seg_fwd": kfa.flash_attention_seg_fwd,
+                "paged_decode_attention": kpa.paged_decode_attention,
+                "weight_only_linear": kwol.weight_only_linear}
+    cases = {}
+    # fused_rms_norm: row 1 over [4, 128, 4096]
+    x = rnd(B, 128, H)
+    w = 1 + 0.1 * torch.randn((H,), generator=g, device="cuda")
+    cases["fused_rms_norm"] = (lambda: IF.fused_rms_norm(x, w, epsilon=1e-5),
+                               {"rms_norm": 1})
+    # block_multihead_attention: row 13 over [pages, 32, 16, 128] pools
+    pp = -(-(max(lens) + 1) // 16)
+    kc, vc = rnd(B * pp + 1, nh, 16, d), rnd(B * pp + 1, nh, 16, d)
+    bt = (1 + torch.arange(B * pp, device="cuda",
+                           dtype=torch.int32)).reshape(B, pp)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+    qkv = rnd(B, 3 * H)
+    cases["block_multihead_attention"] = (
+        lambda: IF.block_multihead_attention(
+            qkv, kc, vc, zeros, sl, zeros + 1, block_tables=bt)[0],
+        {"paged_decode_attention": 1})
+    # masked_multihead_attention: row 13 over a [2, 4, 32, 1024, 128]
+    # cache read in place, neox rotary
+    cache = rnd(2, B, nh, 1024, d)
+    cases["masked_multihead_attention"] = (
+        lambda: IF.masked_multihead_attention(
+            qkv, cache, sequence_lengths=sl, rotary_emb_dims=1,
+            use_neox_rotary_style=True)[0],
+        {"paged_decode_attention": 1})
+    # variable_length_memory_efficient_attention: row 10's segment
+    # forward over [4, 32, 512, 128] with per-sequence lengths
+    q4, k4, v4 = rnd(B, nh, 512, d), rnd(B, nh, 512, d), rnd(B, nh, 512, d)
+    vl = torch.tensor((512, 300, 100, 17), dtype=torch.int32, device="cuda")
+    cases["variable_length_memory_efficient_attention"] = (
+        lambda: IF.variable_length_memory_efficient_attention(
+            q4, k4, v4, vl, vl),
+        {"flash_attention_seg_fwd": 1})
+    # fused_multi_head_attention: row 10's forward, eval, pre-LN
+    xa = rnd(B, 512, H)
+    qkvw, lw = rnd(3, nh, d, H, scale=0.02), rnd(H, H, scale=0.02)
+    ones = torch.ones(H, device="cuda", dtype=bf)
+    cases["fused_multi_head_attention"] = (
+        lambda: IF.fused_multi_head_attention(
+            xa, qkvw, lw, pre_layer_norm=True, pre_ln_scale=ones,
+            training=False),
+        {"flash_attention_fwd": 1})
+    # weight_only_linear: row 14, incubate's float order
+    wq, ws = IF.weight_quantize(0.02 * torch.randn((H, 3 * H), generator=g,
+                                                   device="cuda"))
+    xw = rnd(B, H)
+    cases["weight_only_linear"] = (
+        lambda: IF.weight_only_linear(xw, wq, weight_scale=ws),
+        {"weight_only_linear": 1})
+    # fused_multi_transformer: 2 int8 layers, swiglu, rotary, caches;
+    # a prefill of 128 tokens, then one decode step
+    Lf, S = 2, 128
+
+    def pair(shape_kn, stored):
+        wf = 0.02 * torch.randn(shape_kn, generator=g, device="cuda")
+        q, s = comm.channelwise_absmax_int8(wf, axis=0)
+        return (q.reshape(stored), s.reshape((1,) + tuple(stored[1:])))
+
+    fw = dict(
+        ln_scales=[ones] * Lf, ln_biases=None,
+        qkv_weights=[pair((H, 3 * H), (H, 3, nh, d)) for _ in range(Lf)],
+        qkv_biases=None,
+        linear_weights=[pair((H, H), (H, H)) for _ in range(Lf)],
+        linear_biases=None, ffn_ln_scales=[ones] * Lf, ffn_ln_biases=None,
+        ffn1_weights=[pair((H, 2 * inter), (H, 2 * inter))
+                      for _ in range(Lf)],
+        ffn1_biases=None,
+        ffn2_weights=[pair((inter, H), (inter, H)) for _ in range(Lf)],
+        ffn2_biases=None)
+    xf = rnd(B, S + 1, H)
+    caches = [torch.zeros((2, B, nh, 256, d), device="cuda", dtype=bf)
+              for _ in range(Lf)]
+
+    def fmt():
+        kw = dict(rotary_emb_dims=1, activation="swiglu", trans_qkvw=False)
+        out, _ = IF.fused_multi_transformer(xf[:, :S], **fw,
+                                            cache_kvs=caches, **kw)
+        dec, _ = IF.fused_multi_transformer(
+            xf[:, S:], **fw, cache_kvs=caches, time_step=S, **kw)
+        return torch.cat([out, dec], dim=1)
+
+    cases["fused_multi_transformer"] = (fmt, {"weight_only_linear": 8 * Lf})
+
+    for name, (fn, want) in cases.items():
+        for c in counters.values():
+            c.launches = 0
+        with torch.no_grad():
+            out = fn()
+            torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items() if c.launches}
+            with plain_routes():
+                ref = fn()
+            torch.cuda.synchronize()
+        err = ((out.float() - ref.float()).abs().max()
+               / ref.float().abs().max().clamp_min(1e-30)).item()
+        ok = (err <= testing.SURFACE_RTOL and got == want
+              and bool(torch.isfinite(out).all()))
+        with torch.no_grad():
+            ms = time_ms(fn, 10)
+            with plain_routes():
+                plain_ms = time_ms(fn, 3)
+        print(f"incubate (e) {name}: kernel vs plain route max|diff|/max|"
+              f"plain|={err:.6g} (limit {testing.SURFACE_RTOL:g}) launches "
+              f"{got} (expected {want}) ms={ms:.6g} plain_ms={plain_ms:.6g} "
+              f"{'ok' if ok else 'MISS'} [{smi_line}]", flush=True)
+        check(ok, f"incubate {name}: kernel route {err:.6g} off its plain "
+              f"route or launches {got} != {want}")
+        for k, n in want.items():
+            add_launches(report, k, f"incubate_{name}", n)
+
+
 class HookClock:
     """Host seconds spent inside the request-trace and device-event calls
     (`install` wraps them; nested calls count once, to the outermost),
@@ -3772,7 +4258,8 @@ def trace_flight_recorder(model, smi_line):
 
 
 # device-kernel name fragments -> the group a step's time is charged to
-_KERNEL_GROUPS = (("rms_norm_kernel", "rms_norm"), ("FwdEpi", "swiglu"),
+_KERNEL_GROUPS = (("w8a16_kernel", "weight_only_linear"),
+                  ("rms_norm_kernel", "rms_norm"), ("FwdEpi", "swiglu"),
                   ("swiglu_", "swiglu"),
                   ("ragged_paged_attention_kernel", "ragged_paged_attention"),
                   ("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"),
@@ -5914,6 +6401,8 @@ def main():
         bucketed_phase(report, model, prompts, max_new, smi_line)
         slo_phase(report, model, prompts, max_new, smi_line)
         trace_phase(report, model, prompts, max_new, smi_line)
+        # last on this model: (d) overwrites its weights
+        int8_phase(report, model, prompts, max_new, smi_line)
         del model
         gc.collect()
         torch.cuda.empty_cache()

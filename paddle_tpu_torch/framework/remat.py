@@ -48,6 +48,8 @@ import threading
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from ..kernels import weight_only_linear as _kwol
+
 __all__ = ["checkpoint", "site", "matmul", "save_nothing"]
 
 
@@ -148,10 +150,11 @@ def _matmul(a, w, out=None):
 
 def matmul(a, w, name):
     """a @ w at the site `name`. Without autograd (serving, eval) it is
-    the plain product; with it, one autograd.Function whether or not a
-    region is active, so a run with remat and one without go through the
-    same backward."""
+    the plain product, or the W8A16 kernel for an int8 serving weight
+    (`kernels.weight_only_linear.matmul`); with it, one autograd.Function
+    whether or not a region is active, so a run with remat and one
+    without go through the same backward."""
     if not torch.is_grad_enabled():
-        return a @ w
+        return _kwol.matmul(a, w)
     return site(name, _matmul, a, w)
 

@@ -1,2 +1,2 @@
 from .serving import (ContinuousBatchingEngine, GenerationRequest,  # noqa: F401
-                      PagePool)
+                      PagePool, quantize_state_int8)

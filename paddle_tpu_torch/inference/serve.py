@@ -67,7 +67,7 @@ def _build_parser():
                    help="queue bound behind the 429 backpressure path "
                         "(default: 8 * max_seq)")
     p.add_argument("--quantize", choices=("int8",), default=None,
-                   help="not ported yet — setting it is an error")
+                   help="weight-only int8 projections (the W8A16 kernel)")
     p.add_argument("--max-draft-tokens", type=int, default=None,
                    help="self-speculative draft-length cap (default "
                         "FLAGS_speculative_draft_tokens, 4; 0 disables "

@@ -98,10 +98,15 @@ Differences from the reference, by design:
   error through (`kernels._build.is_device_fault`: a build, load or
   launch failure, a CUDA runtime error, device memory exhausted): it
   raises out of `step()` and fails no request, where the reference
-  quarantines whatever a tick raises.
-
-Not ported yet — asking for it raises NotImplementedError: int8
-weights (`quantize=`).
+  quarantines whatever a tick raises;
+* weight-only int8 (`quantize="int8"`, the reference's PTQ absmax rule,
+  `quantize_state_int8`) keeps every quantized projection as an
+  (int8, scale) `QuantWeight` and runs each product through the W8A16
+  kernel (`kernels/weight_only_linear.py`): the dequant happens in the
+  kernel's operand read, where the reference dequantizes the state in
+  the step's trace and leaves the fusion to XLA. No dequantized weight
+  is stored; on the CPU the plain route dequantizes in the reference's
+  float order, so the tokens are the reference's.
 """
 from __future__ import annotations
 
@@ -116,6 +121,7 @@ import torch
 from ..framework import core as _core
 from ..framework.core import resolve_device
 from ..kernels import _build
+from ..kernels import weight_only_linear as _kwol
 from ..kernels.ragged_paged_attention import _size_class
 from ..models import llama as L
 from ..observability import device_events as _devev
@@ -126,7 +132,8 @@ from .router import RETRY_AFTER_CEILING_S
 from .router import chain_key as _chain_key
 
 __all__ = ["GenerationRequest", "ContinuousBatchingEngine", "PagePool",
-           "DeadlineExceeded", "QueueFull", "serving_health"]
+           "DeadlineExceeded", "QueueFull", "quantize_state_int8",
+           "serving_health"]
 
 _TTFT = _metrics.histogram(
     "serving.ttft_seconds",
@@ -209,6 +216,39 @@ class QueueFull(RuntimeError):
     def __init__(self, msg: str, retry_after_s: float):
         super().__init__(msg)
         self.retry_after_s = retry_after_s
+
+
+# ---------------- weight-only int8 PTQ ------------------------------------
+
+def quantize_state_int8(state: Dict[str, torch.Tensor], min_size=4096):
+    """Per-output-channel absmax int8 quantization of the 2-D floating
+    weights with at least `min_size` elements whose names hold neither
+    "embed" nor "norm" (the reference's choice, serving.py:240-260:
+    norm scales are 1-D, embedding rows are gathered, not multiplied;
+    the lm head is quantized). Quantized entries become `QuantWeight`
+    (int8 [K, N], f32 scale [1, N]) pairs, by
+    `quantization.comm.channelwise_absmax_int8` along axis 0."""
+    from ..quantization import comm as _qcomm
+    out = {}
+    for k, v in state.items():
+        if (isinstance(v, torch.Tensor) and v.dim() == 2
+                and v.is_floating_point() and v.numel() >= min_size
+                and "embed" not in k and "norm" not in k):
+            out[k] = _kwol.QuantWeight(
+                *_qcomm.channelwise_absmax_int8(v, axis=0))
+        else:
+            out[k] = v
+    return out
+
+
+def _dequant_state(state, dtype):
+    """Each (int8, scale) entry as a `dtype` weight (the reference's
+    in-trace dequant, serving.py:263-268): what a full-precision engine
+    runs to reproduce the int8 engine's products."""
+    from ..quantization import comm as _qcomm
+    return {k: (_qcomm.dequantize_channelwise(v[0], v[1], dtype)
+                if isinstance(v, tuple) else v)
+            for k, v in state.items()}
 
 
 # ---------------- requests -------------------------------------------------
@@ -616,7 +656,9 @@ class ContinuousBatchingEngine:
     chunk budget; tick_timeout_s arms a per-tick watchdog (None = off).
 
     request_trace=None follows FLAGS_request_trace (module docstring);
-    quantize raises NotImplementedError (not ported)."""
+    quantize="int8" serves weight-only int8 projections
+    (`quantize_state_int8`, the W8A16 kernel; on the card the model is
+    bf16 or f16); any other value but None raises NotImplementedError."""
 
     def __init__(self, model, max_batch: int = 4, max_seq: int = 256,
                  prefill_buckets=(32, 64, 128, 256), quantize=None,
@@ -641,9 +683,15 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self._ragged = (_core.get_bool_flag("FLAGS_ragged_attention", True)
                         if ragged is None else bool(ragged))
-        if quantize is not None:
+        if quantize not in (None, "int8"):
             raise NotImplementedError(
-                f"quantize={quantize!r} is not ported yet")
+                f"quantize={quantize!r} is not ported (int8 is)")
+        if quantize == "int8" and self.device.type == "cuda":
+            wdt = model.state_dict()["model.embed_tokens"].dtype
+            if wdt not in (torch.bfloat16, torch.float16):
+                raise NotImplementedError(
+                    f"quantize='int8' on the card needs a bf16 or f16 "
+                    f"model (the W8A16 kernel's activations), not {wdt}")
         if int(max_chunk_tokens) < 1:
             raise ValueError(
                 f"max_chunk_tokens must be >= 1, got {max_chunk_tokens}")
@@ -658,9 +706,12 @@ class ContinuousBatchingEngine:
         self.buckets = tuple(sorted(
             {b for b in prefill_buckets if b < self.S} | {self.S}))
         self.greedy = greedy
-        self.state = {k: v.detach().to(self.device)
-                      for k, v in model.state_dict().items()}
-        self.dtype = self.state["model.embed_tokens"].dtype
+        raw = {k: v.detach().to(self.device)
+               for k, v in model.state_dict().items()}
+        self.dtype = raw["model.embed_tokens"].dtype
+        self._quantized = quantize == "int8"
+        self.state = quantize_state_int8(raw) if self._quantized else raw
+        del raw
         self._wls = L._gather_layer_weights(self.state, self.cfg)
         cfg = self.cfg
         L_, kvh, d = cfg.num_hidden_layers, cfg.kv_heads, cfg.head_dim

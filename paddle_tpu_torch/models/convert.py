@@ -12,6 +12,11 @@ them. `to_numpy` is the reverse view: a
 model's parameters or their grads as float32 numpy arrays under the
 reference's names.
 
+`incubate_state_from_jax` takes the parameters of the reference's
+`incubate.nn` fused layers (`FusedMultiHeadAttention`,
+`FusedTransformerEncoderLayer`, ...), whose names and shapes the port's
+layers keep, into a state dict for the port's layer.
+
 `optimizer_state_from_jax` carries a reference optimizer's state into
 the port's: its accumulators, amp master weights, `@step` and its LR
 scheduler's state (an inner scheduler of `LinearWarmup` too, which the
@@ -31,7 +36,8 @@ from .bert import BertConfig
 from .ernie import ErnieConfig
 from .llama import LlamaConfig, _translate_fusion_keys, torch_dtype
 
-__all__ = ["optimizer_state_from_jax", "state_from_jax", "to_numpy"]
+__all__ = ["incubate_state_from_jax", "optimizer_state_from_jax",
+           "state_from_jax", "to_numpy"]
 
 
 def to_numpy(model, grads=False):
@@ -61,6 +67,27 @@ def state_from_jax(np_state, cfg, device, dtype=None):
     for k, v in _translate_fusion_keys(raw, cfg).items():
         want = torch.float32 if k.endswith("norm.weight") else dtype
         out[k] = v.to(device=device, dtype=want).contiguous()
+    return out
+
+
+def incubate_state_from_jax(np_state, module, dtype=None):
+    """np_state: {name: np.ndarray} of a reference incubate layer;
+    returns {name: torch.Tensor} on `module`'s device in its parameters'
+    dtype (or `dtype`), ready for `module.load_state_dict`. A name or
+    shape the port's layer does not have raises ValueError."""
+    params = dict(module.named_parameters())
+    if set(np_state) != set(params):
+        raise ValueError(f"parameters differ: reference only "
+                         f"{sorted(set(np_state) - set(params))}, port only "
+                         f"{sorted(set(params) - set(np_state))}")
+    out = {}
+    for k, v in np_state.items():
+        p = params[k]
+        if tuple(np.shape(v)) != tuple(p.shape):
+            raise ValueError(f"{k}: reference shape {np.shape(v)}, port "
+                             f"{tuple(p.shape)}")
+        t = torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+        out[k] = t.to(device=p.device, dtype=dtype or p.dtype)
     return out
 
 

@@ -55,6 +55,7 @@ from ..kernels import ragged_paged_attention as krpa
 from ..kernels import rms_norm as krn
 from ..kernels import rope as krope
 from ..kernels import swiglu as ksw
+from ..kernels import weight_only_linear as kwol
 from ..nn.functional import loss as floss
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
@@ -473,14 +474,14 @@ def _gather_layer_weights(state, cfg):
         if fused:
             wl["self_attn.qkv_proj"] = (
                 get("self_attn.qkv_proj") if cfg.fuse_attention_qkv
-                else torch.cat([get("self_attn.q_proj"),
-                                get("self_attn.k_proj"),
-                                get("self_attn.v_proj")], dim=-1))
+                else _cat([get("self_attn.q_proj"), get("self_attn.k_proj"),
+                           get("self_attn.v_proj")]))
         elif cfg.fuse_attention_qkv:
             qkv = get("self_attn.qkv_proj")
-            wl["self_attn.q_proj"] = qkv[..., : nh * d]
-            wl["self_attn.k_proj"] = qkv[..., nh * d: (nh + kvh) * d]
-            wl["self_attn.v_proj"] = qkv[..., (nh + kvh) * d:]
+            wl["self_attn.q_proj"] = _cols(qkv, 0, nh * d)
+            wl["self_attn.k_proj"] = _cols(qkv, nh * d, (nh + kvh) * d)
+            wl["self_attn.v_proj"] = _cols(qkv, (nh + kvh) * d,
+                                           (nh + 2 * kvh) * d)
         else:
             for n in ("self_attn.q_proj", "self_attn.k_proj",
                       "self_attn.v_proj"):
@@ -488,17 +489,31 @@ def _gather_layer_weights(state, cfg):
         if fused_mlp:
             wl["mlp.gate_up_proj"] = (
                 get("mlp.gate_up_proj") if cfg.fuse_mlp
-                else torch.cat([get("mlp.gate_proj"), get("mlp.up_proj")],
-                               dim=-1))
+                else _cat([get("mlp.gate_proj"), get("mlp.up_proj")]))
         elif cfg.fuse_mlp:
             gu = get("mlp.gate_up_proj")
-            wl["mlp.gate_proj"] = gu[..., :m]
-            wl["mlp.up_proj"] = gu[..., m:]
+            wl["mlp.gate_proj"] = _cols(gu, 0, m)
+            wl["mlp.up_proj"] = _cols(gu, m, 2 * m)
         else:
             wl["mlp.gate_proj"] = get("mlp.gate_proj")
             wl["mlp.up_proj"] = get("mlp.up_proj")
         out.append(wl)
     return out
+
+
+def _cat(parts):
+    """Column concatenation of weights, or of int8 weights with their
+    per-column scales (`QuantWeight.cat`)."""
+    if isinstance(parts[0], kwol.QuantWeight):
+        return kwol.QuantWeight.cat(parts)
+    return torch.cat(parts, dim=-1)
+
+
+def _cols(w, start, stop):
+    """Columns [start, stop) of a weight or an int8 weight."""
+    if isinstance(w, kwol.QuantWeight):
+        return w.columns(start, stop)
+    return w[..., start:stop]
 
 
 def _rms(x, w, eps):
@@ -510,12 +525,16 @@ def _rms(x, w, eps):
 
 def _serving_mlp(a2, wl):
     """SwiGLU for the serving blocks: the kernel over the wide gate_up
-    layout, else (FLAGS_fused_transformer=0 on the CPU only, see
+    layout (an int8 gate_up: the W8A16 kernel's SwiGLU epilogue), else
+    (FLAGS_fused_transformer=0 on the CPU only, see
     `_gather_layer_weights`) the reference's unfused expression."""
     if "mlp.gate_up_proj" in wl:
-        return ksw.swiglu(a2, wl["mlp.gate_up_proj"])
-    return (torch.nn.functional.silu(a2 @ wl["mlp.gate_proj"])
-            * (a2 @ wl["mlp.up_proj"]))
+        w = wl["mlp.gate_up_proj"]
+        if isinstance(w, kwol.QuantWeight):
+            return kwol.weight_only_linear(a2, w.q, w.scale, swiglu=True)
+        return ksw.swiglu(a2, w)
+    return (torch.nn.functional.silu(kwol.matmul(a2, wl["mlp.gate_proj"]))
+            * kwol.matmul(a2, wl["mlp.up_proj"]))
 
 
 def _qkv(cfg, a, wl, pos_ids, max_pos):
@@ -527,9 +546,9 @@ def _qkv(cfg, a, wl, pos_ids, max_pos):
         return krope.fused_qkv_rope(a, wl["self_attn.qkv_proj"], nh, kvh, d,
                                     position_ids=pos_ids,
                                     base=cfg.rope_theta, seq_len=max_pos)
-    q = (a @ wl["self_attn.q_proj"]).reshape(B, T, nh, d)
-    k = (a @ wl["self_attn.k_proj"]).reshape(B, T, kvh, d)
-    v = (a @ wl["self_attn.v_proj"]).reshape(B, T, kvh, d)
+    q = kwol.matmul(a, wl["self_attn.q_proj"]).reshape(B, T, nh, d)
+    k = kwol.matmul(a, wl["self_attn.k_proj"]).reshape(B, T, kvh, d)
+    v = kwol.matmul(a, wl["self_attn.v_proj"]).reshape(B, T, kvh, d)
     q, k = krope.apply_rope(q, k, position_ids=pos_ids, base=cfg.rope_theta,
                             seq_len=max_pos)
     return q, k, v
@@ -583,17 +602,18 @@ def _block_with_cache(cfg, h, wl, ck, cv, pos_ids, cache_mask, paged=None):
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhts,bshd->bthd", p, vv.float())
         o = o.to(h.dtype).reshape(B, T, nh * d)
-    h = h + o @ wl["self_attn.o_proj"]
+    h = h + kwol.matmul(o, wl["self_attn.o_proj"])
     a2 = _rms(h, wl["post_attention_layernorm.weight"], cfg.rms_norm_eps)
     up = _serving_mlp(a2, wl)
-    return h + up @ wl["mlp.down_proj"]
+    return h + kwol.matmul(up, wl["mlp.down_proj"])
 
 
 def _lm_head(state, h):
     """h [..., H] -> logits in the weights' dtype (the tied embedding
-    when the state has no lm_head)."""
+    when the state has no lm_head; an int8 lm_head through the W8A16
+    kernel)."""
     if "lm_head" in state:
-        return h @ state["lm_head"]
+        return kwol.matmul(h, state["lm_head"])
     return h @ state["model.embed_tokens"].transpose(0, 1)
 
 
@@ -649,10 +669,11 @@ def _block_paged(cfg, h, wl, kp, vp, pos_ids, pg, off, page_table, lens):
     o = kpa.paged_decode_attention(q[:, 0], kp, vp,
                                    (lens + 1).to(torch.int32), page_table,
                                    scale=1.0 / math.sqrt(d))
-    h = h + o.to(h.dtype).reshape(B, 1, nh * d) @ wl["self_attn.o_proj"]
+    h = h + kwol.matmul(o.to(h.dtype).reshape(B, 1, nh * d),
+                        wl["self_attn.o_proj"])
     a2 = _rms(h, wl["post_attention_layernorm.weight"], cfg.rms_norm_eps)
     up = _serving_mlp(a2, wl)
-    return h + up @ wl["mlp.down_proj"]
+    return h + kwol.matmul(up, wl["mlp.down_proj"])
 
 
 @torch.no_grad()
@@ -708,10 +729,11 @@ def _block_ragged(cfg, h, wl, kp, vp, pos, page_ids, offs, page_table,
     o = krpa.ragged_paged_attention(q, kp, vp, q_start, q_len, kv_len,
                                     page_table, scale=1.0 / math.sqrt(d),
                                     row_tiles=row_tiles)
-    h = h + o.to(h.dtype).reshape(T, nh * d) @ wl["self_attn.o_proj"]
+    h = h + kwol.matmul(o.to(h.dtype).reshape(T, nh * d),
+                        wl["self_attn.o_proj"])
     a2 = _rms(h, wl["post_attention_layernorm.weight"], cfg.rms_norm_eps)
     up = _serving_mlp(a2, wl)
-    return h + up @ wl["mlp.down_proj"]
+    return h + kwol.matmul(up, wl["mlp.down_proj"])
 
 
 @torch.no_grad()

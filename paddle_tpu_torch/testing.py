@@ -37,6 +37,14 @@ STATS_M_FRAC (1 + |m|) times their own value (their terms, for o). A
 bias far below zero, as alibi gives a row far from the chunk (|m| near
 1000), makes that the larger part.
 
+The W8A16 kernel (row 14, `kernels/weight_only_linear.py`) dequantizes
+its int8 operand to exactly the plain version's bf16 weight and keeps
+f32 accumulators: its output differs from the plain version's f32
+product by the one rounding and the summation order (`W8A16_LIMIT`);
+with a bias, the kernel rounds the product before the add, as PyTorch
+does, so the plain side rounds it too and the atol takes a roundoff of
+the product (`w8a16_pair`).
+
 The fused cross-entropy kernels keep f32 throughout. The forward's f32
 outputs differ from the plain version by summation order and the fast
 exponential alone (`CE_LIMITS`: the row max m is exact, the sum-exp l
@@ -80,7 +88,10 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "BERT_TRAIN_LOSS_RTOL", "BERT_TRAIN_GRAD_RTOL",
            "encoder_counters", "encoder_launches", "OPT_CARD_RTOL",
            "OPT_LBFGS_RTOL", "ACCUM_LOSS_RTOL", "ACCUM_WEIGHT_RL2",
-           "opt_card_cases", "max_rel"]
+           "opt_card_cases", "max_rel", "W8A16_LIMIT", "W8A16_SHAPES",
+           "W8A16_ROWS", "W8A16_LAYOUTS", "w8a16_case", "w8a16_pair",
+           "w8a16_rows_independent", "INT8_GAP_LIMIT", "int8_step_launches",
+           "top2_gap"]
 
 BF16_RTOL = 2.0 ** -7
 # share of an element's sum of |terms|: two bf16 roundoffs (the rounded
@@ -1542,3 +1553,100 @@ class ObservationTap:
     def observe(self, v, exemplar=None, **labels):
         self.seen.append((labels.get("executable"), v))
         self.inner.observe(v, exemplar=exemplar, **labels)
+
+
+# ---------------------------------------------------------------- row 14
+# W8A16 against its plain version: (atol, rtol) of the rule; rtol two
+# bf16 roundoffs, atol the f32 summation order near zero
+W8A16_LIMIT = (1e-4, BF16_RTOL)
+# llama_7b's quantized products in a serving step: name -> (K, N,
+# SwiGLU epilogue); qkv, o, the [Wg | Wu] MLP, down, the lm head
+W8A16_SHAPES = {"qkv": (4096, 12288, False), "o": (4096, 4096, False),
+                "gate_up": (4096, 22016, True),
+                "down": (11008, 4096, False),
+                "lm_head": (4096, 32000, False)}
+# row counts: decode and the lm head's 4, the ragged step's 128 packed
+# rows, ragged edges around the kernel's 64-row tile
+W8A16_ROWS = (1, 4, 5, 63, 64, 65, 127, 128, 130)
+# scale layouts: per column (the serving rule), per tensor, per group
+W8A16_LAYOUTS = ("column", "tensor", "group64", "group128")
+
+
+def w8a16_case(M, K, N, layout="column", dtype=torch.bfloat16, seed=0,
+               device="cuda"):
+    """a [M, K] ~ N(0, 1) in `dtype` and an int8 weight [K, N] quantized
+    from N(0, 0.02) by the layout's rule: "column" the serving rule
+    (`quantization.comm.channelwise_absmax_int8`, scale [1, N]),
+    "tensor" one absmax scale [1], "groupG" incubate's group rule
+    (`weight_quantize(group_size=G)`, scale [K / G, N]). Returns (a, q,
+    scale)."""
+    from .incubate.nn import functional as IF
+    from .quantization import comm
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((M, K), generator=g, device=device).to(dtype)
+    w = 0.02 * torch.randn((K, N), generator=g, device=device)
+    if layout == "column":
+        q, s = comm.channelwise_absmax_int8(w, axis=0)
+    elif layout == "tensor":
+        s = torch.clamp_min(w.abs().max() / 127.0, 1e-8).reshape(1)
+        q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    else:
+        q, s = IF.weight_quantize(w, group_size=int(layout[5:]))
+    return a, q, s
+
+
+def w8a16_pair(a, q, s, swiglu=False, bias=None):
+    """(kernel output, plain f32 output, atol): the kernel on the card
+    against the plain version's dequantized weight (the same bf16
+    values) in an f32 product; with a bias the plain product is rounded
+    to a's dtype before the add, as the kernel does, and the atol takes
+    one roundoff of that product on top of `W8A16_LIMIT`'s."""
+    from .kernels import swiglu as ksw
+    from .kernels import weight_only_linear as kwol
+    out = kwol.weight_only_linear(a, q, s, bias=bias, swiglu=swiglu,
+                                  use_kernel=True)
+    w = kwol.dequantize(q, s, a.dtype).float()
+    atol = W8A16_LIMIT[0]
+    if swiglu:
+        return out, ksw._ref(a.float(), w), atol
+    ref = a.float() @ w
+    if bias is not None:
+        atol = atol + BF16_RTOL * ref.abs()
+        ref = ref.to(a.dtype).float() + bias.float()
+    return out, ref, atol
+
+
+def w8a16_rows_independent(a, q, s, swiglu=False):
+    """How many rows of an M-row kernel product equal, under torch.equal,
+    the 1-row product of the same row (no split-K, no order that
+    follows M or the row's place in its tile)."""
+    from .kernels import weight_only_linear as kwol
+    out = kwol.weight_only_linear(a, q, s, swiglu=swiglu, use_kernel=True)
+    return sum(bool(torch.equal(out[i], kwol.weight_only_linear(
+        a[i:i + 1], q, s, swiglu=swiglu, use_kernel=True)[0]))
+        for i in range(a.shape[0]))
+
+
+# The int8 engine against a bf16 engine over the dequantized weights
+# (the reference's own parity method, tests/test_serving.py:223): both
+# compute the same weights, in another summation order (the W8A16
+# kernel against cuBLAS), so greedy tokens may part only where the
+# reference's top-2 logits nearly tie. A stream's first differing token
+# must sit at a top-2 gap of the bf16 engine's logits no larger than
+# this: the kernel route and the plain route of a 32-layer llama_7b
+# step differ by up to 0.24 in a logit (chip_smoke's STEP_ATOL reading),
+# and a flip needs the gap to close, so twice that.
+INT8_GAP_LIMIT = 0.5
+
+
+def int8_step_launches(L, verify_rows=None):
+    """W8A16 launches of one int8 serving forward of L layers: qkv, o,
+    the SwiGLU MLP and down a layer, then the lm head: one product, or
+    `verify_rows` (K) products on the speculative engine's steps."""
+    return 4 * L + (verify_rows or 1)
+
+
+def top2_gap(logits):
+    """top-1 minus top-2 of a [V] logit row, in f32."""
+    t = torch.topk(logits.float(), 2).values
+    return float(t[0] - t[1])

@@ -1843,3 +1843,143 @@ def test_dropout_on_card():
     keep = a != 0
     assert abs(testing.keep_share_sigmas(keep, 0.1)) <= testing.DROPOUT_SIGMAS
     torch.testing.assert_close(a[keep], x[keep] / 0.9)
+
+
+# ------------------------------------------------------------ row 14: W8A16
+# (K, N, SwiGLU): llama_7b's serving products (testing.W8A16_SHAPES),
+# llama_tiny's (K = 688 is a multiple of 16 but not of the kernel's
+# 64-row step) and a shape whose rows are not whole 16-byte vectors
+# (K % 8, N % 16: the kernel's element-by-element loads)
+W8A16_KN = [*testing.W8A16_SHAPES.values(), (688, 1376, True),
+            (688, 256, False), (256, 1376, True), (100, 72, False),
+            (100, 74, True)]
+W8A16_KN_IDS = [*testing.W8A16_SHAPES, "tiny_gate_up", "tiny_down",
+                "tiny_gu_k256", "scalar_edges", "scalar_edges_gu"]
+
+
+def _w8a16_within(out, ref, atol):
+    return testing.worst(out, ref, atol, testing.W8A16_LIMIT[1]) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", testing.W8A16_ROWS)
+@pytest.mark.parametrize("K,N,swiglu", W8A16_KN, ids=W8A16_KN_IDS)
+def test_w8a16_matches_plain(M, K, N, swiglu):
+    """Both epilogues at the engine's shapes and the ragged ones, per
+    column scales (the serving rule), bf16."""
+    _card()
+    a, q, s = testing.w8a16_case(M, K, N)
+    out, ref, atol = testing.w8a16_pair(a, q, s, swiglu=swiglu)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N // 2 if swiglu else N)
+    assert _w8a16_within(out, ref, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", testing.W8A16_LAYOUTS)
+@pytest.mark.parametrize("swiglu", [False, True], ids=["plain", "swiglu"])
+@pytest.mark.parametrize("M", [4, 130])
+def test_w8a16_scale_layouts(layout, swiglu, M):
+    """Per column, per tensor and per group of 64 and 128 rows."""
+    _card()
+    a, q, s = testing.w8a16_case(M, 4096, 2 * 1376, layout)
+    out, ref, atol = testing.w8a16_pair(a, q, s, swiglu=swiglu)
+    assert _w8a16_within(out, ref, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_w8a16_bias_round_scale_and_f16(dtype):
+    """The plain epilogue's bias, incubate's float order (the scale
+    rounded to the activation dtype first, as `incubate`'s
+    `weight_only_linear` passes it) and f16 activations."""
+    _card()
+    dt = getattr(torch, dtype)
+    for layout in ("column", "group64"):
+        a, q, s = testing.w8a16_case(65, 4096, 4096, layout, dtype=dt)
+        bias = (0.1 * torch.randn(4096, device="cuda")).to(dt)
+        for round_scale in (False, True):
+            sc = s.to(dt).float() if round_scale else s
+            out, ref, atol = testing.w8a16_pair(a, q, sc, bias=bias)
+            assert out.dtype == dt
+            assert _w8a16_within(out, ref, atol), (layout, round_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,swiglu", W8A16_KN, ids=W8A16_KN_IDS)
+def test_w8a16_rows_are_independent(K, N, swiglu):
+    """Row i of a 130-row product is bitwise the 1-row product of row i:
+    what keeps a speculative verify row bitwise a decode row under
+    int8."""
+    _card()
+    a, q, s = testing.w8a16_case(130, K, N)
+    assert testing.w8a16_rows_independent(a, q, s, swiglu) == 130
+
+
+@pytest.mark.cuda
+def test_w8a16_refuses_what_it_does_not_take():
+    """On the card a dtype or scale layout the kernel does not take
+    raises; nothing drops to the plain route."""
+    _card()
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+    a, q, s = testing.w8a16_case(4, 256, 128)
+    with pytest.raises(ValueError):
+        kwol.weight_only_linear(a.float(), q, s)
+    _, q32, s32 = testing.w8a16_case(4, 256, 128, "group64")
+    s32 = s32.repeat_interleave(2, dim=0)            # groups of 32 rows
+    with pytest.raises(ValueError):
+        kwol.weight_only_linear(a, q32, s32)
+    with pytest.raises(ValueError):
+        kwol.weight_only_linear(a, q, s[:, :64])
+
+
+@pytest.mark.cuda
+def test_int8_engine_refuses_f32_on_the_card():
+    """An f32 model has no W8A16 kernel: the int8 engine raises
+    NotImplementedError when it is built, not at its first tick."""
+    _card()
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import llama as TL
+    model = TL.LlamaForCausalLM(TL.llama_tiny(dtype="float32"),
+                                device="cuda")
+    with pytest.raises(NotImplementedError, match="bf16 or f16"):
+        ContinuousBatchingEngine(model, quantize="int8", device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "bucketed"])
+def test_int8_engine_launches(ragged):
+    """A llama_tiny bf16 int8 engine on the card: W8A16 4L + K launches a
+    speculative ragged step (4L + 1 a bucketed forward), no SwiGLU
+    kernel, rms_norm 2L+1 a forward; every stream served whole and the
+    pool free."""
+    _card()
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    GenerationRequest)
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+    from paddle_tpu_torch.models import llama as TL
+    cfg = TL.llama_tiny(dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TL.LlamaForCausalLM(cfg, device="cuda", generator=gen)
+    eng = ContinuousBatchingEngine(model, max_batch=3, max_seq=256,
+                                   max_chunk_tokens=32, quantize="int8",
+                                   ragged=ragged, device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [GenerationRequest(rng.integers(1, cfg.vocab_size, n).tolist(),
+                              max_new_tokens=12) for n in (5, 40, 90)]
+    kernels = (kwol.weight_only_linear, t_sw.swiglu, t_rms.rms_norm)
+    before = [k.launches for k in kernels]
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    if ragged:
+        fwd = eng.model_steps
+        per = testing.int8_step_launches(
+            L, eng.max_draft_tokens + 1 if eng._spec else None)
+    else:
+        fwd = eng.decode_steps + sum(eng.prefill_calls.values())
+        per = testing.int8_step_launches(L)
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [fwd * per, 0, fwd * (2 * L + 1)]
+    assert all(len(r.output) == 12 for r in reqs)
+    assert eng.pool.n_free == eng.pool.n_pages - 1

@@ -83,15 +83,36 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     ContinuousBatchingEngine(model, device="cpu")       # explicit CPU runs
 
 
+@pytest.mark.parametrize("layer", ["FusedLinear", "FusedMultiHeadAttention",
+                                   "FusedTransformerEncoderLayer",
+                                   "FusedEcMoe"])
+def test_incubate_layers_need_a_card_unless_cpu_is_asked(layer):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from paddle_tpu_torch.incubate import nn as inn
+    args = {"FusedLinear": (8, 8), "FusedMultiHeadAttention": (8, 2),
+            "FusedTransformerEncoderLayer": (8, 2, 16),
+            "FusedEcMoe": (8, 16, 2)}[layer]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(inn, layer)(*args)
+    getattr(inn, layer)(*args, device="cpu")        # explicit CPU builds
+
+
 @pytest.mark.parametrize("knob", [
     {"speculative": True}, {"slo": True},
     {"request_trace": True}, {"quantize": "int8"},
     {"max_queue_tokens": 512}],
     ids=["speculative", "slo", "request_trace", "int8", "queue_bound"])
 def test_unported_features_raise(knob):
-    """The engine feature still to port (int8 weights) raises;
-    speculative decoding, the SLO layer and request tracing are ported,
-    and asking for one arms it."""
+    """Speculative decoding, the SLO layer, request tracing and int8
+    weights are ported, and asking for one arms it; a quantize mode
+    other than int8 raises."""
+    if "quantize" in knob:
+        assert ContinuousBatchingEngine(_tiny(), device="cpu",
+                                        **knob)._quantized
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ContinuousBatchingEngine(_tiny(), device="cpu", quantize="int4")
+        return
     if "speculative" in knob:
         assert ContinuousBatchingEngine(_tiny(), device="cpu", **knob)._spec
         return
@@ -104,8 +125,19 @@ def test_unported_features_raise(knob):
         assert eng._slo
         assert eng.max_queue_tokens == knob.get("max_queue_tokens")
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingEngine(_tiny(), device="cpu", **knob)
+    raise AssertionError(f"no case for {knob}")
+
+
+def test_int8_on_the_card_refuses_an_f32_model(monkeypatch):
+    """The W8A16 kernel takes bf16 or f16 activations, so an int8 engine
+    for an f32 model on the card raises NotImplementedError when it is
+    built, not at its first tick. The refusal comes before anything is
+    placed on the device, so a CUDA device name is enough to reach it."""
+    from paddle_tpu_torch.inference import serving
+    monkeypatch.setattr(serving, "resolve_device",
+                        lambda device=None: torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match="bf16 or f16"):
+        ContinuousBatchingEngine(_tiny(), quantize="int8")
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -244,14 +244,15 @@ def test_unported_serving_flags_raise(models, flag, monkeypatch):
     ("slo", True), ("request_trace", True), ("max_queue_tokens", 100),
     ("quantize", "int8")])
 def test_unported_engine_knobs_raise(models, knob, value):
-    """The engine argument of the feature still to port (int8 weights)
-    raises; those of the SLO layer arm it, and request_trace arms
-    tracing."""
+    """quantize="int8" arms int8 weights (another mode raises); the SLO
+    layer's arguments arm it, and request_trace arms tracing."""
     _, tm = models
     if knob == "quantize":
+        assert TEngine(tm, max_batch=2, max_seq=64, device="cpu",
+                       **{knob: value})._quantized
         with pytest.raises(NotImplementedError, match="not ported"):
             TEngine(tm, max_batch=2, max_seq=64, device="cpu",
-                    **{knob: value})
+                    quantize="int4")
         return
     eng = TEngine(tm, max_batch=2, max_seq=64, device="cpu", **{knob: value})
     if knob == "request_trace":
