@@ -321,6 +321,7 @@ import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -864,8 +865,11 @@ def w8a16_kernels(report):
     `torch._weight_int8pack_mm` where this PyTorch runs it on the card
     (none for the SwiGLU epilogue, which no one call computes), and
     bf16 cuBLAS over the already dequantized weight
-    (`dequant_cublas_ms`: what bf16 weights cost the same product);
-    then each product's 128 rows bitwise their 1-row products."""
+    (`dequant_cublas_ms`: what bf16 weights cost the same product), with
+    the card's own time (`device_ms`, traced) and the wrapper's enqueue
+    (`host_us`) beside the events; then each product's rows bitwise
+    their 1-row products at 128 rows and at both sides of every switch
+    of the kernel's plan, 512 included."""
     import torch
 
     from paddle_tpu_torch import testing
@@ -899,28 +903,42 @@ def w8a16_kernels(report):
                     print(f"kernel weight_only_linear{tag}: "
                           f"torch._weight_int8pack_mm does not run here "
                           f"({str(e)[:120]}): library_ms none", flush=True)
-            m = timed("weight_only_linear", err,
-                      lambda: kwol.weight_only_linear(a, q, s, swiglu=gu,
-                                                      use_kernel=True),
+
+            def call(a=a, q=q, s=s, gu=gu):
+                return kwol.weight_only_linear(a, q, s, swiglu=gu,
+                                               use_kernel=True)
+
+            m = timed("weight_only_linear", err, call,
                       lambda: kwol._plain(a, q, s, None, gu),
                       nbytes, 2 * M * K * N, library=library, tag=tag)
             w = kwol.dequantize(q, s, torch.bfloat16)
-            m["dequant_cublas_ms"] = time_ms(
-                (lambda: ksw._ref(a, w)) if gu else (lambda: a @ w), 50)
+            cublas = (lambda: ksw._ref(a, w)) if gu else (lambda: a @ w)
+            m["dequant_cublas_ms"] = time_ms(cublas, 50)
+            m["device_ms"] = traced_device_ms(call, kernel="w8a16_kernel")
+            m["dequant_cublas_device_ms"] = traced_device_ms(cublas)
+            m["host_us"] = host_us(call)
+            p = kwol.plan(M, K, N, gu)
+            m["splits"], m["route"], m["n"] = p.splits, p.route, p.n
             print(f"kernel weight_only_linear{tag}: dequant_cublas_ms="
                   f"{m['dequant_cublas_ms']:.6g} (bf16 cuBLAS over the "
-                  f"dequantized weight)", flush=True)
+                  f"dequantized weight; device "
+                  f"{m['dequant_cublas_device_ms']:.6g}) device_ms="
+                  f"{m['device_ms']:.6g} host_us={m['host_us']:.6g} "
+                  f"S={p.splits} route={p.route} n={p.n}", flush=True)
             if name == "qkv" and path == "serving":
                 report["weight_only_linear"] = entry("weight_only_linear", m)
             else:
                 report["weight_only_linear"][f"{path}_{name}"] = m
             del w
-        a, q, s = testing.w8a16_case(128, K, N, seed=3)
-        same = testing.w8a16_rows_independent(a, q, s, gu)
-        print(f"kernel weight_only_linear {name}: {same}/128 rows bitwise "
-              f"their 1-row products", flush=True)
-        check(same == 128, f"weight_only_linear {name}: a row depends on "
-              f"the product's other rows")
+        for M in (128, *testing.w8a16_switch_rows(K, N, gu)):
+            a, q, s = testing.w8a16_case(M, K, N, seed=3)
+            same = testing.w8a16_rows_independent(a, q, s, gu)
+            print(f"kernel weight_only_linear {name}: {same}/{M} rows "
+                  f"bitwise their 1-row products (plan "
+                  f"{kwol.plan(M, K, N, gu).route}, n "
+                  f"{kwol.plan(M, K, N, gu).n})", flush=True)
+            check(same == M, f"weight_only_linear {name}: a row of {M} "
+                  f"depends on the product's other rows")
 
 
 def ragged_kernel(report, dtype, dname, gen, tag, rows):
@@ -2542,8 +2560,10 @@ def slice_phase(report, smi_line):
               f"{'ok' if ok else 'MISS'}", flush=True)
         check(ok, f"kernel-route step {i} disagrees with the plain route")
     args, (kp0, vp0), _, verify = captured[0]
-    step_breakdown(L, engine, cfg, args, kp0, vp0, wall_on / steps,
-                   smi_line, verify_rows=K, row_tiles=verify)
+    # phase 6d reads the int8 step's device time beside this one
+    report["_bf16_step_device_ms"] = step_breakdown(
+        L, engine, cfg, args, kp0, vp0, wall_on / steps, smi_line,
+        verify_rows=K, row_tiles=verify)
     del captured, engine
     import gc
     gc.collect()
@@ -3523,8 +3543,16 @@ def int8_phase(report, model, prompts, max_new, smi_line):
           flush=True)
     check(grow < o_bf16, "an int8 step allocated a dequantized weight's "
           "worth of memory")
-    step_breakdown(L, engine, cfg, args, engine.k_pool, engine.v_pool,
-                   wall / steps, smi_line, verify_rows=K, row_tiles=verify)
+    dev = step_breakdown(L, engine, cfg, args, engine.k_pool, engine.v_pool,
+                         wall / steps, smi_line, verify_rows=K,
+                         row_tiles=verify)
+    # int8's aim: a step's device time below bf16's (a reading, not a
+    # gate: PERF.md §6 row 14 says what holds the 128-row products back)
+    bf16_dev = report.get("_bf16_step_device_ms")
+    below = dev is not None and bf16_dev is not None and dev < bf16_dev
+    print(f"int8 (a): a ragged step's device ms {dev} against the bf16 "
+          f"step's {bf16_dev} in this run: {'below' if below else 'MISS'} "
+          f"[{smi_line}]", flush=True)
     del engine, captured
     gc.collect()
     torch.cuda.empty_cache()
@@ -4273,7 +4301,8 @@ def step_breakdown(L, engine, cfg, args, kp, vp, wall_per_step_s, smi_line,
     route timed with CUDA events, then three kernel-route steps traced by
     torch.profiler, device time summed by kernel group; busy share =
     device time per step over the step's event time. Re-running the step
-    rewrites the same pool slots."""
+    rewrites the same pool slots. Returns the device ms a step (None when
+    the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4312,13 +4341,14 @@ def step_breakdown(L, engine, cfg, args, kp, vp, wall_per_step_s, smi_line,
     if busy == 0.0:
         print("step profile: not measured (the profiler saw no device "
               "time)", flush=True)
-        return
+        return None
     parts = " ".join(f"{g}={ms:.6g}" for g, ms in groups.items())
     print(f"step profile (device ms per step): {parts} total={busy:.6g} "
           f"busy_share={busy / step_ms:.4f} [{smi_line}]", flush=True)
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
     print("step profile, largest other kernels (ms per step): "
           + "; ".join(f"{k[:60]}={ms:.4g}" for k, ms in top), flush=True)
+    return busy
 
 
 # the generate decode step: the paged decode kernel, then the serving
@@ -6126,8 +6156,141 @@ def norm_times():
     return out
 
 
+def w8a16_times():
+    """Row 14 for the `paddle_tpu_torch` first on sys.path, bf16, at
+    llama_7b's quantized products (`testing.W8A16_SHAPES`) at 4 and 128
+    rows: events, the card's own time (`traced_device_ms`) and the host's
+    enqueue of one wrapper call (`host_us`). Uses only entry points the
+    parent commit has."""
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+    out = {}
+    for name, (K, N, gu) in testing.W8A16_SHAPES.items():
+        for M in (4, 128):
+            a, q, s = testing.w8a16_case(M, K, N, seed=M)
+
+            def call(a=a, q=q, s=s, gu=gu):
+                return kwol.weight_only_linear(a, q, s, swiglu=gu)
+
+            key = f"w8a16_{name}_{M}"
+            out[f"{key}_ms"] = time_ms(call, 50)
+            out[f"{key}_device_ms"] = traced_device_ms(call,
+                                                       kernel="w8a16_kernel")
+            out[f"{key}_host_us"] = host_us(call)
+    return out
+
+
+# Row 14's diagnostic builds (`w8a16_diagnose`): each is the kernel's own
+# source with the named pieces cut out by text, so the kernel keeps no
+# switches. "no_products": the wgmma products skipped (dequant and loads
+# kept); "consumers_only": the producer idle and the consumers never
+# waiting for a stage (dequant and products on whatever shared memory
+# holds); "consumers_only_no_products": both; "loads_only": the
+# consumers release each stage as it lands.
+_W8A16_CUTS = {
+    "mma": ("      Elem<T>::mma(acc, f[kk], hw::desc_sw128(at + kk * 16, 16, "
+            "1024),\n                   !first || kk > 0);\n", ""),
+    "producer": ("      produce<T, GU, NP>(&map_a, &map_q, p, smem, full, "
+                 "empty, KT);\n", "      ;\n"),
+    "full_wait": ("    hw::mbar_wait(&full[st], ph);\n    const float* sc =",
+                  "    const float* sc ="),
+    "release": ("      if (kk == 3 && !first && lane == 0) "
+                "hw::mbar_arrive(&empty[st_prev]);\n", ""),
+    "release_end": ("      hw::fence_regs(acc);\n      if (lane == 0) "
+                    "hw::mbar_arrive(&empty[st_prev]);\n",
+                    "      hw::fence_regs(acc);\n"),
+    "early_release": ("    hw::mbar_wait(&full[st], ph);\n    const float* sc =",
+                      "    hw::mbar_wait(&full[st], ph);\n"
+                      "    if (lane == 0) hw::mbar_arrive(&empty[st]);\n"
+                      "    if (++st == G::STAGES) {\n      st = 0;\n"
+                      "      ph ^= 1;\n    }\n    return;\n"
+                      "    const float* sc ="),
+}
+_W8A16_VARIANTS = {
+    "kernel": (),
+    "no_products": ("mma",),
+    "consumers_only": ("producer", "full_wait", "release", "release_end"),
+    "consumers_only_no_products": ("producer", "full_wait", "release",
+                                   "release_end", "mma"),
+    "loads_only": ("early_release", "release_end"),
+}
+
+
+def w8a16_diagnose():
+    """Where row 14's time goes at llama_7b's products, 4 and 128 rows:
+    the card's own time (`traced_device_ms`) of the kernel and of each
+    diagnostic build of `_W8A16_VARIANTS`, built with nvcc from a copy of
+    csrc/ with the cuts applied and loaded in place of the package's
+    library. A cut whose text is missing from the source fails the run
+    (the kernel changed: update `_W8A16_CUTS`)."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import weight_only_linear as kwol
+
+    _, _, smi_line = device_phase()
+    src_dir = _build.CSRC_DIR
+    with open(os.path.join(src_dir, "weight_only_linear.cu")) as f:
+        source = f.read()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="w8a16_diag_", dir=_build.BUILD_DIR)
+    for name in os.listdir(src_dir):
+        if name.endswith(".cuh"):
+            shutil.copy(os.path.join(src_dir, name), work)
+    procs = {}
+    for variant, cuts in _W8A16_VARIANTS.items():
+        text = source
+        for cut in cuts:
+            old, new = _W8A16_CUTS[cut]
+            check(old in text, f"w8a16_diagnose: the cut {cut!r} is not in "
+                               f"csrc/weight_only_linear.cu")
+            text = text.replace(old, new)
+        cu = os.path.join(work, f"{variant}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(work, f"{variant}.so")
+        procs[variant] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", cu, "-o", so],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for variant, (so, proc) in procs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        check(proc.returncode == 0, f"w8a16_diagnose: {variant} did not "
+                                    f"build:\n{out[-2000:]}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in _build._SIGNATURES.items():
+            if "weight_only" in fn:
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[variant] = lib
+    cases = {(name, M): (*testing.w8a16_case(M, K, N, seed=M), gu)
+             for name, (K, N, gu) in testing.W8A16_SHAPES.items()
+             for M in (4, 128)}
+    out = {}
+    saved = _build._lib
+    try:
+        for variant, lib in libs.items():
+            _build._lib = lib
+            for (name, M), (a, q, s_, gu) in cases.items():
+                def call(a=a, q=q, s_=s_, gu=gu):
+                    return kwol.weight_only_linear(a, q, s_, swiglu=gu)
+                key = f"{variant}_{name}_{M}_device_ms"
+                out[key] = traced_device_ms(call, kernel="w8a16_kernel")
+                print(f"w8a16 diagnose {variant} {name} at {M} rows: "
+                      f"device_ms={out[key]:.6g} [{smi_line}]", flush=True)
+    finally:
+        _build._lib = saved
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def route_times(only=None):
-    """Rows 1 and 8 alone with only="norm" (`norm_times`). Otherwise rows
+    """Rows 1 and 8 alone with only="norm" (`norm_times`), row 14 alone
+    with only="w8a16" (`w8a16_times`). Otherwise rows
     9 and 13 (`paged_times`; alone with only="paged"), then rows
     2-4's, row 10's and row 12's times for the `paddle_tpu_torch`
     first on sys.path, bf16 on one card, as one JSON object: the 1B and 7B
@@ -6164,6 +6327,8 @@ def route_times(only=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     if only == "norm":
         return norm_times()
+    if only == "w8a16":
+        return w8a16_times()
     out = paged_times()
     if only == "paged":
         return out
@@ -6349,7 +6514,8 @@ def ab_main(parent, only=None):
     """`route_times` for the parent checkout and this one in fresh
     processes, in the order parent, change, change, parent; prints each
     run and then, per metric, the parent's and the change's readings.
-    only="paged": rows 9 and 13 alone; only="norm": rows 1 and 8 alone
+    only="paged": rows 9 and 13 alone; only="norm": rows 1 and 8 alone;
+    only="w8a16": row 14 alone
     (`norm_times`)."""
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
@@ -6443,4 +6609,11 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
         sys.exit(ab_main(*sys.argv[2:]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--w8a16-diagnose":
+        try:
+            print(json.dumps(w8a16_diagnose()))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        sys.exit(0)
     sys.exit(main())

@@ -8,7 +8,8 @@
 // (m64n16k8, m64n32k8 and m64n64k8 with A from shared memory, m64n32k8,
 // m64n64k8 and m64n128k8 with A from registers), the async-proxy fence
 // and named barriers, setmaxnreg, and the host-side tensor-map encoders
-// (a row-major matrix; one head of a bf16 or f32 BSHD tensor).
+// (a row-major bf16 matrix, or a byte matrix in the 64-byte swizzle;
+// one head of a bf16 or f32 BSHD tensor).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor Format" and
 // "Shared Memory Matrix Layout"; one 128-byte-swizzled tile is what a TMA
@@ -559,6 +560,28 @@ inline int tma_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A row-major byte matrix [rows, cols] (int8 codes; cols % 16 == 0,
+// 16-byte aligned base) as a TMA map whose box is [box_rows, 64 bytes]
+// with the 64-byte swizzle: a box lands as box_rows rows of 64 bytes,
+// the 16-byte chunk c of row r at chunk c ^ (r / 2 % 4) (512-byte
+// aligned destination), so 8 consecutive rows of one chunk sit in 8
+// different bank groups; out-of-range bytes load as zero. Returns 0 or
+// the encoder's CUresult, as tma_map_bf16.
+inline int tma_map_u8_sw64(CUtensorMap* map, const void* base, uint64_t rows,
+                           uint64_t cols, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return static_cast<int>(fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 

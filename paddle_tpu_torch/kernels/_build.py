@@ -133,14 +133,15 @@ _SIGNATURES = {
                                   + (_I, _I, _LL, _P),
     "ptt_cross_entropy_bwd_f32": (_P, _P, _I) + (_P,) * 4
                                  + (_I, _I, _LL, _P),
-    # a, q (int8), scale (f32), bias (or null), out, M, K, N, group,
-    # scale strides (group row, column; elements), stream
-    "ptt_weight_only_linear_bf16": (_P,) * 5 + (_I,) * 4 + (_LL, _LL, _P),
-    "ptt_weight_only_linear_f16": (_P,) * 5 + (_I,) * 4 + (_LL, _LL, _P),
-    # a, q [K, 2 Mh] (int8), scale (f32), out, M, K, Mh, group, scale
-    # strides, stream
-    "ptt_weight_only_swiglu_bf16": (_P,) * 4 + (_I,) * 4 + (_LL, _LL, _P),
-    "ptt_weight_only_swiglu_f16": (_P,) * 4 + (_I,) * 4 + (_LL, _LL, _P),
+    # a, q (int8), scale (f32), bias (or null), out, the plan's geometry
+    # (int64 [M, K, N, group, scale strides (group row, column), splits,
+    # n, grid] in host memory), tickets, split scratch (or null), stream
+    "ptt_weight_only_linear_bf16": (_P,) * 9,
+    "ptt_weight_only_linear_f16": (_P,) * 9,
+    # a, q [K, 2 Mh] (int8), scale (f32), out, the geometry (Mh the output
+    # columns), tickets, split scratch (or null), stream
+    "ptt_weight_only_swiglu_bf16": (_P,) * 8,
+    "ptt_weight_only_swiglu_f16": (_P,) * 8,
 }
 
 _lock = threading.Lock()

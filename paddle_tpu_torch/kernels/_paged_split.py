@@ -45,15 +45,17 @@ def scratch_floats(n_split, R, d):
     return (2 * n_split * R + 3) // 4 * 4 + n_split * R * d
 
 
-def buffers(device, n_tickets, n_scratch):
+def buffers(device, n_tickets, n_scratch, stream=None):
     """(stream, tickets, scratch) pointers for a launch on `device`'s
-    current stream: at least n_tickets int32 tickets, zero between
+    current stream (or the raw `stream` the caller already read):
+    at least n_tickets int32 tickets, zero between
     launches (the last block of each group resets its ticket, so they are
     zeroed once, when made or grown), and n_scratch f32 elements of
     scratch from torch.empty (0: none, a null pointer). Both are kept per
     device and stream and reused by every launch on that stream, whose
     kernels run one after another."""
-    stream = torch.cuda.current_stream(device).cuda_stream
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
     key = (device, stream)
     tk, part = _buffers.get(key, (None, None))
     if tk is None or tk.numel() < n_tickets:

@@ -89,8 +89,8 @@ __all__ = ["BF16_RTOL", "TERM_FRAC", "worst", "flash_terms",
            "encoder_counters", "encoder_launches", "OPT_CARD_RTOL",
            "OPT_LBFGS_RTOL", "ACCUM_LOSS_RTOL", "ACCUM_WEIGHT_RL2",
            "opt_card_cases", "max_rel", "W8A16_LIMIT", "W8A16_SHAPES",
-           "W8A16_ROWS", "W8A16_LAYOUTS", "w8a16_case", "w8a16_pair",
-           "w8a16_rows_independent", "INT8_GAP_LIMIT", "int8_step_launches",
+           "W8A16_ROWS", "W8A16_LAYOUTS", "W8A16_SWITCH_ROWS", "w8a16_case",
+           "w8a16_pair", "w8a16_switch_rows", "w8a16_rows_independent", "INT8_GAP_LIMIT", "int8_step_launches",
            "top2_gap"]
 
 BF16_RTOL = 2.0 ** -7
@@ -1616,10 +1616,29 @@ def w8a16_pair(a, q, s, swiglu=False, bias=None):
     return out, ref, atol
 
 
+def w8a16_switch_rows(K, N, swiglu=False):
+    """The row counts at both sides of every switch of the W8A16 kernel's
+    `plan` for a [K, N] weight (the products' N, scratch against the
+    in-register merge, one row group against several), and 512 (the
+    bucketed prefill): where the card holds each row of an M-row
+    product bitwise to its 1-row product."""
+    from .kernels import weight_only_linear as kwol
+    rows = {512}
+    for m in kwol.route_switches(K, N, swiglu):
+        rows |= {m, m + 1}
+    return sorted(rows)
+
+
+# the same rows for every shape the card checks: kwol.route_switches
+# gives 8, 32, 64 and 128 wherever S > 1 (test_torch_w8a16_plan.py)
+W8A16_SWITCH_ROWS = (8, 9, 32, 33, 64, 65, 128, 129, 512)
+
+
 def w8a16_rows_independent(a, q, s, swiglu=False):
     """How many rows of an M-row kernel product equal, under torch.equal,
-    the 1-row product of the same row (no split-K, no order that
-    follows M or the row's place in its tile)."""
+    the 1-row product of the same row (the split-K schedule and every
+    sum's order follow K and N only, never M or the row's place in its
+    tile)."""
     from .kernels import weight_only_linear as kwol
     out = kwol.weight_only_linear(a, q, s, swiglu=swiglu, use_kernel=True)
     return sum(bool(torch.equal(out[i], kwol.weight_only_linear(

@@ -1906,14 +1906,16 @@ def test_w8a16_bias_round_scale_and_f16(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", (130, *testing.W8A16_SWITCH_ROWS))
 @pytest.mark.parametrize("K,N,swiglu", W8A16_KN, ids=W8A16_KN_IDS)
-def test_w8a16_rows_are_independent(K, N, swiglu):
-    """Row i of a 130-row product is bitwise the 1-row product of row i:
-    what keeps a speculative verify row bitwise a decode row under
-    int8."""
+def test_w8a16_rows_are_independent(K, N, swiglu, M):
+    """Row i of an M-row product is bitwise the 1-row product of row i:
+    what keeps a speculative verify row bitwise a decode row under int8.
+    M at both sides of every switch of the kernel's plan (the products'
+    N, scratch or the in-register split merge, row groups) and 512."""
     _card()
-    a, q, s = testing.w8a16_case(130, K, N)
-    assert testing.w8a16_rows_independent(a, q, s, swiglu) == 130
+    a, q, s = testing.w8a16_case(M, K, N)
+    assert testing.w8a16_rows_independent(a, q, s, swiglu) == M
 
 
 @pytest.mark.cuda
