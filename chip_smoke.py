@@ -229,6 +229,43 @@ Phases, each of which fails the run on a miss:
    forward and backward timed, the biased route's beside SDPA with its
    bias as attn_mask. The biased routes (float mask, alibi) launch one
    bias forward, one dkv and one dq each, and no block-stats kernel.
+11. nn.Transformer — Transformer base for WMT14 En-De (Vaswani et al.
+   2017, Table 3: 6 + 6 layers, d_model 512, d_ff 2048, 8 heads, P_drop
+   0.1, label smoothing 0.1, a shared 37000-token vocabulary whose
+   embedding is also the output projection, sinusoidal positions) built
+   from the port's `nn` pieces (`_seq2seq`), f32 with TF32 off, random
+   weights from a seeded generator: (a) 64 sentence pairs of
+   default_rng(0) lengths in [16, 128] padded to 128 (an additive 0 /
+   -1e9 [B, 1, 1, S] source mask, `generate_square_subsequent_mask` on
+   the target) through `TrainStep` with label-smoothed cross-entropy,
+   Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000), TR_WARMUP warm-up
+   and TR_STEPS timed steps: step ms, target tokens/s, peak memory,
+   finite losses, 0 launches of every attention kernel (dropout 0.1
+   takes the reference's dense route) and of the fused cross-entropy
+   (label smoothing leaves its fast path), one traced step by group
+   (cuBLAS, Adam, plain torch) and busy share; (b) a 2-layer model at
+   dropout 0, targets as long as the sources, one forward and backward
+   against `plain_routes()` with the float masks (row 12's bias
+   forward, dkv and dq) and with a bool source mask (row 10's segment
+   forward, delta, dkv and dq), launches exact, loss and grads within
+   testing's TRANSFORMER limits, and the bool run's against the float
+   run's within the same limits (a valid target row at a padded source
+   index keeps its keys); (c) beam
+   search: 16 sources of default_rng(1) lengths, `BeamSearchDecoder`
+   (beam 4) over a cell stepping the decoder on its Cache and
+   StaticCache, `dynamic_decode(max_step_num=64)`: 6 bias forwards a
+   encoder forward, and a decode step 6 bias forwards and 6 row-10
+   forwards (the one-length kernel at the first step, the segment
+   kernel without ids after it), exactly; encoder ms, ms a step,
+   generated tokens/s, the host's share of a step (the decode steps
+   traced alone, every attention forward in the trace); token paths and
+   lengths equal to the plain route's, or parting only within
+   testing.BEAM_GAP_LIMIT; (d) row 12's f32 bias forward at the decode
+   shape (q [64, 1, 8, 64] against 128 keys) and the encoder's, and row
+   10's forward at Sq = 1, Sk = 64 without ids, each against its plain
+   version and timed by events and device time beside SDPA with the
+   same mask and the bound: these run right after the kernel phase
+   (late in a long run the profiler has dropped whole traces).
 
 Paged decode attention (row 13) is timed at the bucketed engine's case
 and at generate's own cache, ragged paged attention (row 9) at the
@@ -720,11 +757,13 @@ def timed(name, err, fn_kernel, fn_plain, nbytes, flops, library=None,
 
 
 def timed_3xtf32(name, err, fn_kernel, fn_plain, nbytes, flops, **kw):
-    """`timed` for an f32 flash kernel that runs in 3xTF32 on the tensor
-    cores (csrc/flash_wgmma.cu): bound_ms, and its copy
-    `bound_3xtf32_ms`, counts three tf32 products a product at the tf32
-    rate; `bound_simt_ms` keeps one f32 product at the f32 rate outside
-    the tensor cores beside it. flops: one product's work."""
+    """`timed` for an f32 flash kernel, bound where the card does f32
+    products fastest at f32 accuracy: in 3xTF32 on the tensor cores, as
+    csrc/flash_wgmma.cu runs them (the f32 bias forward, on SIMT, is
+    bound the same way). bound_ms, and its copy `bound_3xtf32_ms`,
+    counts three tf32 products a product at the tf32 rate;
+    `bound_simt_ms` keeps one f32 product at the f32 rate outside the
+    tensor cores beside it. flops: one product's work."""
     m = timed(name, err, fn_kernel, fn_plain, nbytes, 3 * flops,
               ops_dtype="tf32", dname="f32", **kw)
     m["bound_3xtf32_ms"] = m["bound_ms"]
@@ -2296,10 +2335,14 @@ def ernie_flash_f32(report):
 @contextlib.contextmanager
 def plain_routes():
     """Swap the kernel wrappers the model calls for their plain
-    versions (the comparison route; the port itself never does this).
+    versions (the comparison route; the port itself never does this):
+    the bias route (a float mask) runs `_biased_plain_fwd` /
+    `_biased_plain_bwd`, as on the CPU.
     SwiGLU runs on f32 copies and rounds once, as the kernel does; the
     other plain versions already keep f32 inside. All of them are plain
     PyTorch under autograd, so the training backward runs plain too."""
+    import torch
+
     from paddle_tpu_torch.kernels import block_attention as kba
     from paddle_tpu_torch.kernels import cross_entropy as kce
     from paddle_tpu_torch.kernels import flash_attention as kfa
@@ -2331,13 +2374,20 @@ def plain_routes():
     kfnr.fused_add_rms_norm = (
         lambda x, r, w, eps=1e-6, use_kernel=None: kfnr._plain(x, r, w, eps))
     def plain_bshd(q, k, v, causal=False, scale=None, padding_mask=None,
-                   bias=None, use_kernel=None):
-        # one length, no mask: the dense `_plain`; the segment and bias
-        # routes run their own Python with the kernels below swapped
-        if (padding_mask is None and bias is None
-                and q.shape[1] == k.shape[1]):
+                   bias=None, use_kernel=None, mask_queries=None):
+        # one length, no mask: the dense `_plain`; a bias: its plain
+        # versions (`biased_plain`); the segment route runs its own
+        # Python with the kernels below swapped
+        if bias is not None:
+            if padding_mask is not None:
+                padding_mask = padding_mask.to(q.device).bool()
+            return kfa.biased_plain(q, k, v, "dense", bias.to(q.device),
+                                    causal=causal, scale=scale,
+                                    padding_mask=padding_mask)
+        if padding_mask is None and q.shape[1] == k.shape[1]:
             return kfa._plain(q, k, v, causal, scale)
-        return real_bshd(q, k, v, causal, scale, padding_mask, bias)
+        return real_bshd(q, k, v, causal, scale, padding_mask, bias,
+                         mask_queries=mask_queries)
 
     class PlainSeg:
         @staticmethod
@@ -6004,6 +6054,654 @@ def surface_7b(report, counters, name, fn, inputs, do, want, what,
     return fwd_ms, fb_ms
 
 
+# ------------------------------------------------- phase 11: nn.Transformer
+#
+# Transformer base for WMT14 En-De (Vaswani et al. 2017, Table 3 "base"):
+# 6 + 6 layers, d_model 512, d_ff 2048, 8 heads of 64, P_drop 0.1, label
+# smoothing 0.1, a shared 37000-token vocabulary whose embedding is also
+# the output projection (scaled by sqrt(d_model) on input), sinusoidal
+# positions, Adam (0.9, 0.98, 1e-9) under NoamDecay(512, 4000); f32, TF32
+# off. `nn.Transformer`'s own defaults are these widths.
+TR_VOCAB, TR_D, TR_FF, TR_HEADS, TR_LAYERS = 37000, 512, 2048, 8, 6
+TR_DROPOUT, TR_SMOOTH = 0.1, 0.1
+TR_PAD, TR_BOS, TR_EOS = 0, 1, 2
+TR_BATCH, TR_WARMUP, TR_STEPS = 64, 2, 5
+TR_BEAM_SOURCES, TR_MAX_STEPS = 16, 64
+# the training step's device kernels -> group, first match wins; the
+# optimizer's update is traced alone ("adam")
+_TR_GROUPS = (("gemm", "cublas"), ("nvjet", "cublas"), ("xmma", "cublas"),
+              ("cutlass", "cublas"))
+
+
+def _sinusoid(n, d, device):
+    import torch
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    out = torch.zeros((n, d), device=device)
+    out[:, 0::2], out[:, 1::2] = torch.sin(ang), torch.cos(ang)
+    return out
+
+
+def _seq2seq(layers, dropout, seed):
+    """Transformer base as a translation model, from the port's public
+    pieces (`nn.Embedding`, `nn.Transformer`, `nn.Dropout`, `nn.functional.
+    cross_entropy`), on the card, weights drawn from a generator seeded
+    `seed`."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.nn import functional as F
+
+    class Seq2Seq(pnn.Layer):
+        def __init__(self):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            kw = dict(device="cuda", generator=gen)
+            super().__init__(**kw)
+            self.emb = pnn.Embedding(TR_VOCAB, TR_D, padding_idx=TR_PAD, **kw)
+            self.tr = pnn.Transformer(TR_D, TR_HEADS, layers, layers, TR_FF,
+                                      dropout, **kw)
+            self.drop = pnn.Dropout(dropout)
+            self.register_buffer("pe", _sinusoid(testing.TRANSFORMER_MAXLEN,
+                                                 TR_D, "cuda"),
+                                 persistable=False)
+
+        def embed(self, ids):
+            return self.emb(ids) * math.sqrt(TR_D)
+
+        def inputs(self, ids):
+            return self.drop(self.embed(ids) + self.pe[:ids.shape[1]])
+
+        def logits(self, h):
+            return h @ self.emb.weight.T
+
+        def loss(self, src, tgt_in, tgt_out, src_mask, tgt_mask):
+            h = self.tr(self.inputs(src), self.inputs(tgt_in), src_mask,
+                        tgt_mask, src_mask)
+            return F.cross_entropy(self.logits(h), tgt_out,
+                                   ignore_index=TR_PAD,
+                                   label_smoothing=TR_SMOOTH)
+
+        def cell(self, inp, states):
+            """One beam-search step of the decoder: the token's input plus
+            its position, through every layer's growing Cache (made at the
+            first step) and its StaticCache, under the source mask."""
+            incr, static, mask = states
+            pos = incr[0].k.shape[1] if incr else 0
+            x = (inp + self.pe[pos])[:, None, :]
+            if not incr:
+                incr = [layer.self_attn.gen_cache(x)
+                        for layer in self.tr.decoder.layers]
+            out, new = self.tr.decoder(x, None, None, mask,
+                                       list(zip(incr, static)))
+            return out[:, 0], ([c[0] for c in new], [c[1] for c in new],
+                               mask)
+
+    return Seq2Seq()
+
+
+def transformer_batch(equal=False):
+    """The training batch: 64 sentence pairs, source and target lengths
+    default_rng(0).integers(16, 129) (`testing.transformer_lengths`: the
+    first 64 draws are the sources'), token ids default_rng(2) in [3,
+    37000) padded with 0 to 128; a target is BOS, its tokens, EOS. ->
+    (src, tgt_in [B, T], tgt_out [B, T], the source's valid mask [B,
+    128]): T = 127, or with `equal` 128, the target padded one further so
+    that it is as long as the source."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import testing
+    S = testing.TRANSFORMER_MAXLEN
+    rng = np.random.default_rng(0)
+    src_len = rng.integers(16, S + 1, TR_BATCH)
+    tgt_len = rng.integers(16, S + 1, TR_BATCH)
+    check(list(src_len) == testing.transformer_lengths(TR_BATCH, 0),
+          "the source lengths are not testing.transformer_lengths'")
+    ids = np.random.default_rng(2).integers(3, TR_VOCAB, (2, TR_BATCH, S))
+    pos = np.arange(S)[None, :]
+    src = np.where(pos < src_len[:, None], ids[0], TR_PAD)
+    tgt = np.where(pos < tgt_len[:, None] - 1, ids[1], TR_PAD)
+    tgt = np.concatenate([np.full((TR_BATCH, 1), TR_BOS),
+                          tgt if equal else tgt[:, :-1]], 1)
+    tgt[np.arange(TR_BATCH), tgt_len - 1] = TR_EOS
+    src, tgt = (torch.from_numpy(a).to("cuda") for a in (src, tgt))
+    return src, tgt[:, :-1], tgt[:, 1:], src != TR_PAD
+
+
+def transformer_phase(report, smi_line):
+    """Phase 11 (module docstring): (a) training, (b) the kernel route
+    against the plain route with float and bool masks, (c) beam search.
+    Its kernel entries (d) run beside the kernel phase, early in the
+    run, where the profiler's traces hold every launch
+    (`transformer_kernels`)."""
+    import gc
+
+    import torch
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    transformer_train(report, smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    routes = {mask: transformer_route_check(report, mask, smi_line)
+              for mask in ("float", "bool")}
+    transformer_mask_agreement(routes, smi_line)
+    del routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    transformer_beam(report, smi_line)
+    print(f"transformer phase: wall {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def transformer_train(report, smi_line):
+    """(a) Transformer base through TrainStep: label-smoothed cross-
+    entropy over the non-pad target tokens, Adam(0.9, 0.98, 1e-9) under
+    NoamDecay(512, 4000) stepped after each step, dropout 0.1 (so
+    attention takes the reference's dense route: no attention kernel
+    launches, and label smoothing keeps the fused cross-entropy off);
+    TR_WARMUP warm-up and TR_STEPS timed steps by CUDA events, target
+    tokens/s, peak memory; one more step traced, its device time by
+    group and busy share."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import lr as plr
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _seq2seq(TR_LAYERS, TR_DROPOUT, seed=0)
+    model.train()
+    src, tgt_in, tgt_out, valid = transformer_batch()
+    src_mask = torch.where(valid, 0.0, -1e9).float()[:, None, None, :]
+    tgt_mask = pnn.Transformer.generate_square_subsequent_mask(
+        tgt_in.shape[1], device="cuda")
+    sched = plr.NoamDecay(d_model=TR_D, warmup_steps=4000)
+    opt = popt.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                    epsilon=1e-9, parameters=model.parameters())
+    step = TrainStep(model, opt, model.loss)
+    batch = (src, tgt_in, tgt_out, src_mask, tgt_mask)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = int((tgt_out != TR_PAD).sum())
+    torch.cuda.synchronize()
+    print(f"transformer train: base ({TR_LAYERS} + {TR_LAYERS} layers, "
+          f"d_model {TR_D}, d_ff {TR_FF}, {TR_HEADS} heads, vocab "
+          f"{TR_VOCAB}) f32 built in {time.perf_counter() - t0:.3f} s, "
+          f"{n_params} parameters, batch {TR_BATCH} pairs, "
+          f"{int(valid.sum())} source and {tokens} target tokens",
+          flush=True)
+    losses = []
+    for _ in range(TR_WARMUP):
+        losses.append(step(*batch))
+        sched.step()
+    torch.cuda.synchronize()
+    counters = testing.transformer_counters()
+    _zero(counters)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TR_STEPS + 1)]
+    wall0 = time.perf_counter()
+    events[0].record()
+    for i in range(TR_STEPS):
+        losses.append(step(*batch))
+        sched.step()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall0
+    launches = _launches(counters)
+    losses = [float(x) for x in losses]
+    mean_ms = events[0].elapsed_time(events[-1]) / TR_STEPS
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TR_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"transformer train: losses={[round(x, 6) for x in losses]} "
+          f"(first {TR_WARMUP} warm-up), lr {sched.last_lr:.6g}", flush=True)
+    print(f"transformer train: step_ms={mean_ms:.6g} per step "
+          f"{[round(x, 4) for x in step_ms]} wall_per_step_ms="
+          f"{1e3 * wall / TR_STEPS:.6g} target_tokens_per_s="
+          f"{tokens / (mean_ms / 1e3):.6g} peak_mem_gb={peak:.6g} "
+          f"[{smi_line}]", flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          "a transformer training loss is not finite")
+    _hold_launches(report, launches, {n: 0 for n in launches}, TR_STEPS,
+                   "transformer_train", f"transformer train, {TR_STEPS} "
+                   f"steps (dropout 0.1: the dense route; label "
+                   f"smoothing: no fused cross-entropy)")
+
+    prof_fb = device_trace(lambda: model.loss(*batch).backward())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_opt:
+        opt.step()
+        opt.clear_grad(set_to_zero=False)
+        torch.cuda.synchronize()
+    groups, others = _device_ms(prof_fb, _TR_GROUPS, "plain_torch")
+    groups["adam"] = _device_ms(prof_opt, (), "adam")[0].get("adam", 0.0)
+    busy = sum(groups.values())
+    if busy == 0.0:
+        print("transformer train profile: not measured (the profiler saw "
+              "no device time)", flush=True)
+    else:
+        parts = " ".join(f"{g}={groups.get(g, 0.0):.6g}"
+                         for g in ("cublas", "adam", "plain_torch"))
+        print(f"transformer train profile (device ms, one step): {parts} "
+              f"total={busy:.6g} busy_share={busy / mean_ms:.4f} "
+              f"[{smi_line}]", flush=True)
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+        print("transformer train profile, largest plain torch kernels "
+              "(ms): " + "; ".join(f"{k[:70]}={ms:.4g}" for k, ms in top),
+              flush=True)
+    del model, opt, step, prof_fb, prof_opt
+
+
+def _grad_rel(grads, ref):
+    """Each parameter's grad relative L2 against ref's; a k_proj bias's
+    grad is 0 analytically (one constant added to every key's score
+    leaves the softmax as it is): both sides read summation noise there,
+    held against the same layer's q_proj bias grad."""
+    return {n: ((grads[n] - ref[n]).norm()
+                / ref[n.replace("k_proj.bias", "q_proj.bias")].norm()
+                .clamp_min(1e-30)).item() for n in ref}
+
+
+def transformer_route_check(report, mask, smi_line):
+    """(b) a 2-layer Transformer base at dropout 0, one train-mode
+    forward and backward of the training batch's loss, its targets as
+    long as its sources (`transformer_batch(equal=True)`), on the kernel
+    route against `plain_routes()`: mask "float" (every mask additive:
+    row 12's bias forward, dkv and dq) or "bool" (a bool [B, 1, 1, S]
+    source mask: row 10's segment forward, delta, dkv and dq for the
+    encoder's self and the decoder's cross attention; the causal target
+    mask stays float). |loss difference| / |loss| and each parameter's
+    grad relative L2 (`_grad_rel`) within testing's TRANSFORMER limits;
+    launches exact (`testing.transformer_train_launches`). -> the kernel
+    route's (loss, grads)."""
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import testing
+
+    L = 2
+    model = _seq2seq(L, 0.0, seed=1)
+    model.train()
+    src, tgt_in, tgt_out, valid = transformer_batch(equal=True)
+    src_mask = (torch.where(valid, 0.0, -1e9).float() if mask == "float"
+                else valid)[:, None, None, :]
+    tgt_mask = pnn.Transformer.generate_square_subsequent_mask(
+        tgt_in.shape[1], device="cuda")
+    batch = (src, tgt_in, tgt_out, src_mask, tgt_mask)
+
+    def loss_and_grads():
+        loss = model.loss(*batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+        for p in model.parameters():
+            p.grad = None
+        return loss.item(), grads
+
+    counters = testing.transformer_counters()
+    _zero(counters)
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    tag = f"transformer (b) {mask} masks"
+    want = testing.transformer_train_launches(L, mask)
+    _hold_launches(report, _launches(counters),
+                   {n: want.get(n, 0) for n in counters}, 1,
+                   f"transformer_route_{mask}", f"{tag}, one pass")
+    with plain_routes():
+        loss_p, grads_p = loss_and_grads()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(set(grads_k) == set(grads_p), f"{tag}: the routes' grads differ "
+          f"in which parameters they reach")
+    rel = _grad_rel(grads_k, grads_p)
+    worst = max(rel, key=rel.get)
+    ok = (loss_err <= testing.TRANSFORMER_LOSS_RTOL
+          and rel[worst] <= testing.TRANSFORMER_GRAD_RTOL)
+    print(f"{tag} (2 + 2 layers, full width, dropout 0): loss kernel "
+          f"{loss_k:.8g} plain {loss_p:.8g} rel_err={loss_err:.6g} (limit "
+          f"{testing.TRANSFORMER_LOSS_RTOL:g}); grads max rel L2 "
+          f"{rel[worst]:.6g} at {worst} (limit "
+          f"{testing.TRANSFORMER_GRAD_RTOL:g}) {'ok' if ok else 'MISS'} "
+          f"[{smi_line}]", flush=True)
+    print(f"{tag}, largest grad rel L2: " + "; ".join(
+        f"{n}={rel[n]:.4g}" for n in sorted(rel, key=rel.get)[-6:]),
+        flush=True)
+    check(ok, f"{tag}: the kernel route disagrees with the plain route")
+    del model, grads_p
+    torch.cuda.empty_cache()
+    return loss_k, grads_k
+
+
+def transformer_mask_agreement(routes, smi_line):
+    """(b) the bool source mask against the float one on the kernel
+    route, same weights and batch (routes: mask -> (loss, grads) of
+    `transformer_route_check`). Both mask the same keys, so a valid
+    target row at a padded source index must attend to the valid keys
+    under either: the loss and every grad within testing's TRANSFORMER
+    limits."""
+    from paddle_tpu_torch import testing
+    (loss_f, grads_f), (loss_b, grads_b) = routes["float"], routes["bool"]
+    loss_err = abs(loss_b - loss_f) / abs(loss_f)
+    rel = _grad_rel(grads_b, grads_f)
+    worst = max(rel, key=rel.get)
+    ok = (loss_err <= testing.TRANSFORMER_LOSS_RTOL
+          and rel[worst] <= testing.TRANSFORMER_GRAD_RTOL)
+    print(f"transformer (b) bool against float masks (kernel route, T = S "
+          f"= {testing.TRANSFORMER_MAXLEN}): loss bool {loss_b:.8g} float "
+          f"{loss_f:.8g} rel_err={loss_err:.6g}; grads max rel L2 "
+          f"{rel[worst]:.6g} at {worst} {'ok' if ok else 'MISS'} "
+          f"[{smi_line}]", flush=True)
+    check(ok, "transformer (b): the bool source mask disagrees with the "
+              "float one")
+
+
+def _count_kernels(prof, fragment):
+    """The launches of the device kernels whose names hold `fragment` in
+    a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and fragment in e.key)
+
+
+def _nonzero(launches):
+    return {n: k for n, k in launches.items() if k}
+
+
+def _beam_decode(model, src, src_mask, record=None, step_launches=None):
+    """Beam search over the encoded sources: the encoder and the
+    decoder's StaticCaches, then `_beam_steps`. -> (paths, lengths,
+    encoder ms, decode ms, steps), the times by CUDA events."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.no_grad():
+        ev[0].record()
+        static = _beam_encode(model, src, src_mask)
+        ev[1].record()
+        paths, lengths = _beam_steps(model, static, src_mask, record,
+                                     step_launches)
+        ev[2].record()
+    torch.cuda.synchronize()
+    return (paths, lengths, ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]), paths.shape[-1])
+
+
+def _beam_encode(model, src, src_mask):
+    """The encoder's output projected once into every decoder layer's
+    StaticCache (`gen_cache(do_zip=True)`)."""
+    memory = model.tr.encoder(model.inputs(src), src_mask)
+    return model.tr.decoder.gen_cache(memory, do_zip=True)[1]
+
+
+def _beam_steps(model, static, src_mask, record=None, step_launches=None):
+    """`nn.BeamSearchDecoder` (beam testing.TRANSFORMER_BEAM, BOS to EOS)
+    on the model's cell and `nn.dynamic_decode(max_step_num=
+    TR_MAX_STEPS)`, from the StaticCaches. record: a list that receives
+    each step's (log-probs, finished, logits, next tokens, parents);
+    step_launches: (counters, list) that receives each step's launches.
+    -> (paths, lengths)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import testing
+
+    class Decoder(pnn.BeamSearchDecoder):
+        def step(self, time, tokens, state):
+            before = None if step_launches is None else \
+                _launches(step_launches[0])
+            out = super().step(time, tokens, state)
+            if before is not None:
+                after = _launches(step_launches[0])
+                step_launches[1].append(
+                    {n: after[n] - before[n] for n in after})
+            if record is not None:
+                record.append((state[1], state[2], self.last_logits,
+                               out[0], out[1]))
+            return out
+
+    def output_fn(h):
+        logits = model.logits(h)
+        dec.last_logits = logits
+        return logits
+
+    dec = Decoder(model.cell, TR_BOS, TR_EOS, testing.TRANSFORMER_BEAM,
+                  embedding_fn=model.embed, output_fn=output_fn)
+    paths, _, lengths = pnn.dynamic_decode(
+        dec, ([], static, src_mask), TR_MAX_STEPS, return_length=True)
+    return paths, lengths
+
+
+def transformer_beam(report, smi_line):
+    """(c) beam search on Transformer base (phase (a)'s widths, weights
+    from a seeded generator, eval): 16 sources of default_rng(1)
+    lengths in [16, 128] padded to 128, beam 4, at most 64 steps. The
+    encoder launches 6 row-12 bias forwards; each decode step 6 row-12
+    bias forwards (cross-attention against the StaticCache) and 6
+    row-10 forwards (the self-attention over the growing Cache: the
+    one-length kernel at the first step, the segment kernel without ids
+    after it), exactly. Encoder ms, ms a decode step, generated tokens/s
+    and the host's share of a step (1 - the device time of the decode
+    steps, traced alone, over their time by events; "not measured" when
+    the trace lost one of their attention forwards). The token paths and lengths equal those of the same
+    decode on `plain_routes()`, or first differ at a step where that
+    batch row's top candidates lie within testing.BEAM_GAP_LIMIT."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import testing
+
+    L, nb = TR_LAYERS, TR_BEAM_SOURCES
+    model = _seq2seq(L, TR_DROPOUT, seed=3).eval()
+    S = testing.TRANSFORMER_MAXLEN
+    lengths = testing.transformer_lengths(nb, 1)
+    ids = np.random.default_rng(4).integers(3, TR_VOCAB, (nb, S))
+    valid = np.arange(S)[None, :] < np.array(lengths)[:, None]
+    src = torch.from_numpy(np.where(valid, ids, TR_PAD)).to("cuda")
+    src_mask = testing.transformer_src_mask(lengths, S, "cuda")
+    _beam_decode(model, src[:2], src_mask[:2])          # warm-up
+    counters = testing.transformer_counters()
+    per_step = []
+    _zero(counters)
+    wall0 = time.perf_counter()
+    paths, lens, enc_ms, dec_ms, steps = _beam_decode(
+        model, src, src_mask, step_launches=(counters, per_step))
+    wall = time.perf_counter() - wall0
+    launches = _launches(counters)
+    enc_launches = {n: launches[n] - sum(s[n] for s in per_step)
+                    for n in launches}
+    _hold_launches(report, enc_launches,
+                   {n: int(n == "flash_attention_bias_fwd") * L
+                    for n in counters}, 1, "transformer_encoder",
+                   "transformer (c) encoder forward")
+    for t, got in enumerate(per_step):
+        want = testing.transformer_decode_launches(L, t)
+        for n, k in got.items():
+            check(k == want.get(n, 0), f"transformer (c) decode step {t}: "
+                  f"{n} launched {k} times, expected {want.get(n, 0)}")
+    for n in counters:
+        add_launches(report, n, "transformer_decode",
+                     sum(s[n] for s in per_step))
+    print(f"transformer (c) decode: {steps} steps, launches a step exact "
+          f"(step 0: {_nonzero(per_step[0])}; then "
+          f"{_nonzero(per_step[-1])})", flush=True)
+    beam_tokens = nb * testing.TRANSFORMER_BEAM * steps
+    print(f"transformer (c) beam search: {nb} sources (lengths {lengths}), "
+          f"beam {testing.TRANSFORMER_BEAM}, {steps} steps: encoder_ms="
+          f"{enc_ms:.6g} decode_ms={dec_ms:.6g} ms_per_step="
+          f"{dec_ms / steps:.6g} generated_tokens_per_s="
+          f"{nb * steps / (dec_ms / 1e3):.6g} (beam tokens "
+          f"{beam_tokens / (dec_ms / 1e3):.6g}/s) wall_s={wall:.4g} "
+          f"[{smi_line}]", flush=True)
+    # the decode steps alone traced: every step's 2L attention forwards
+    # ("flash_fwd_" kernels) must be in the trace, or it lost records
+    with torch.no_grad():
+        static = _beam_encode(model, src, src_mask)
+    torch.cuda.synchronize()
+    want_fwd = 2 * L * steps
+
+    def complete(prof):
+        return _count_kernels(prof, "flash_fwd_") == want_fwd
+
+    with torch.no_grad():
+        prof = device_trace(lambda: _beam_steps(model, static, src_mask),
+                            complete=complete)
+    dev_ms = sum(_device_ms(prof, (), "all")[0].values())
+    got_fwd = _count_kernels(prof, "flash_fwd_")
+    if dev_ms == 0.0 or got_fwd != want_fwd:
+        print(f"transformer (c) decode profile: not measured (the trace "
+              f"holds {got_fwd} of the {want_fwd} attention forwards)",
+              flush=True)
+    else:
+        print(f"transformer (c) decode profile: device ms a step "
+              f"{dev_ms / steps:.6g} (the decode steps alone) against "
+              f"{dec_ms / steps:.6g} ms by events: host_share="
+              f"{1.0 - dev_ms / dec_ms:.4f} [{smi_line}]", flush=True)
+    del static, prof
+
+    rec = []
+    with plain_routes():
+        paths_p, lens_p, _, _, steps_p = _beam_decode(model, src, src_mask,
+                                                      record=rec)
+    same = (steps == steps_p and torch.equal(paths, paths_p)
+            and torch.equal(lens, lens_p))
+    if same:
+        print(f"transformer (c): token paths and lengths equal the plain "
+              f"route's ({steps} steps)", flush=True)
+    else:
+        rec_k = []
+        _beam_decode(model, src, src_mask, record=rec_k)
+        for b in range(nb):
+            first = next((t for t in range(min(len(rec), len(rec_k)))
+                          if not (torch.equal(rec[t][3][b], rec_k[t][3][b])
+                                  and torch.equal(rec[t][4][b],
+                                                  rec_k[t][4][b]))), None)
+            if first is None:
+                continue
+            lp, fin, logits = rec[first][:3]
+            gap = float(testing.beam_gaps(lp, fin, logits, TR_EOS,
+                                          testing.TRANSFORMER_BEAM)[b])
+            ok = gap <= testing.BEAM_GAP_LIMIT
+            print(f"transformer (c): source {b} first differs from the "
+                  f"plain route at step {first}, top-candidate gap {gap:.6g}"
+                  f" (limit {testing.BEAM_GAP_LIMIT:g}) "
+                  f"{'ok' if ok else 'MISS'}", flush=True)
+            check(ok, f"transformer (c): source {b}'s beams part from the "
+                      f"plain route's at a gap of {gap}")
+    check(bool((lens >= 1).all()) and paths.shape == (
+        nb, testing.TRANSFORMER_BEAM, steps), "transformer (c): bad output")
+    del model, rec
+    torch.cuda.empty_cache()
+
+
+def transformer_kernels(report, smi_line):
+    """(d) the kernel entries at phase 11's shapes, f32: row 12's bias
+    forward (with its dkv and dq held too) at the decode and encoder
+    shapes of `testing.TRANSFORMER_BIAS_CASES`, and row 10's segment
+    forward without ids at `testing.TRANSFORMER_SEG_CASE`, each against
+    its plain version element by element, then timed by events and by
+    the card's own time beside the plain version, SDPA with the same
+    mask (the library call) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.kernels import flash_attention as kfa
+
+    dt, it = torch.float32, 4
+    for tag, kw in testing.TRANSFORMER_BIAS_CASES.items():
+        c = testing.bias_case(**kw, dtype=dt, seed=6)
+        q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+        B, Sq, hq, d = q.shape
+        Sk = k.shape[1]
+        shape = f" [{tag} B{B} Sq{Sq}/{Sk} H{hq} D{d} f32 source mask]"
+        pairs, _ = testing.bias_flash_pairs(
+            q, k, v, do, c["kind"], c["param"], c["R"], c["padding_mask"],
+            c["causal"], c["scale"])
+        err = compare("flash_attention_bias_fwd", "float32", pairs[:2], shape)
+        compare("flash_attention_bias_dkv", "float32", pairs[3:], shape)
+        compare("flash_attention_bias_dq", "float32", pairs[2:3], shape)
+        del pairs
+        a = kfa._bias_args(c["kind"], c["param"], c["R"], None, q.shape,
+                           k.shape)
+        plain = (c["kind"], c["param"], None, False, c["scale"], None, None)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def kernel():
+            return kfa.flash_attention_bias_fwd(q, k, v, a, False,
+                                                c["scale"])
+
+        # bound at 3xTF32 (f32-accurate products on the tensor cores,
+        # as row 10's f32 kernels run them), the SIMT bound beside it:
+        # this kernel runs on SIMT
+        m = timed_3xtf32(
+            "flash_attention_bias_fwd", err, kernel,
+            lambda: kfa._biased_plain_fwd(q, k, v, *plain),
+            nbytes=(q.numel() * 2 + k.numel() + v.numel()) * it
+            + 4 * B * hq * Sq + c["param"].numel() * 4,
+            flops=4 * B * hq * Sq * Sk * d,
+            library=lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=c["param"]),
+            iters=20, plain_iters=5, tag=shape)
+        m["device_ms"] = traced_device_ms(kernel, kernel="flash_fwd_")
+        m["library_device_ms"] = _library_device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=c["param"]))
+        print(f"kernel flash_attention_bias_fwd f32{shape}: device_ms="
+              f"{m['device_ms']:.6g} library_device_ms="
+              f"{m['library_device_ms']} [{smi_line}]", flush=True)
+        report["flash_attention_bias_fwd"][tag] = m
+        del c, q, k, v, do, a, qt, kt, vt
+    kw = testing.TRANSFORMER_SEG_CASE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((kw["B"], kw["Sq"], kw["h"], kw["d"]), generator=gen,
+                    device="cuda")
+    k, v = (torch.randn((kw["B"], kw["Sk"], kw["h"], kw["d"]), generator=gen,
+                        device="cuda") for _ in range(2))
+    scale = kw["d"] ** -0.5
+    shape = (f" [transformer_decode_sq1 B{kw['B']} Sq{kw['Sq']}/{kw['Sk']}"
+             f" H{kw['h']} D{kw['d']} f32 no ids]")
+    err = compare("flash_attention_seg_fwd", "float32",
+                  testing.seg_noid_pairs(q, k, v, scale), shape)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def seg_kernel():
+        return kfa.flash_attention_seg_fwd(q, k, v, None, None, False, scale)
+
+    m = timed_3xtf32(
+        "flash_attention_seg_fwd", err, seg_kernel,
+        lambda: kfa._plain(q, k, v, False, scale),
+        nbytes=(q.numel() * 2 + k.numel() + v.numel()) * it
+        + 4 * kw["B"] * kw["h"] * kw["Sq"],
+        flops=4 * kw["B"] * kw["h"] * kw["Sq"] * kw["Sk"] * kw["d"],
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        iters=20, plain_iters=5, tag=shape)
+    m["device_ms"] = traced_device_ms(seg_kernel, kernel="flash_fwd_")
+    m["library_device_ms"] = _library_device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    print(f"kernel flash_attention_seg_fwd f32{shape}: device_ms="
+          f"{m['device_ms']:.6g} library_device_ms="
+          f"{m['library_device_ms']} [{smi_line}]", flush=True)
+    report["flash_attention_seg_fwd"]["transformer_decode_sq1"] = m
+
+
+def _library_device_ms(fn, attempts=3):
+    """`traced_device_ms` of a library call, whose kernels' names are the
+    library's: a trace that holds none of its kernels (late in a long
+    run the profiler has dropped every record of a window) is taken
+    again; None ("not measured") when every attempt read nothing."""
+    for _ in range(attempts):
+        ms = traced_device_ms(fn)
+        if ms > 0.0:
+            return ms
+    return None
+
+
 def card_state():
     """The card's SM clock (MHz), temperature (C) and power draw (W) as
     nvidia-smi reads them now."""
@@ -6555,6 +7253,7 @@ def main():
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         report = {}
         kernel_phase(report)
+        transformer_kernels(report, smi_line)
         model, prompts, max_new = slice_phase(report, smi_line)
         # the ragged engine and its captured steps go first (the capture
         # hook makes a reference cycle), then the model before training
@@ -6588,6 +7287,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         surface_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        transformer_phase(report, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1

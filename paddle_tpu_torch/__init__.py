@@ -29,7 +29,10 @@ route, the dropout functionals and layers drawn from the dropout stream
 of `framework.core`), and the optimizer surface (`optimizer`'s twelve
 optimizers and `optimizer.lr`'s schedulers, `nn.clip`, `regularizer`,
 `amp.decorate` O2 with f32 master weights, `amp.GradScaler`, and
-`jit.TrainStep(scaler=, accumulate_steps=)`).
+`jit.TrainStep(scaler=, accumulate_steps=)`), and the nn core with the
+Transformer stack (`nn.Layer`, `nn.ParamAttr`, `nn.initializer`, the
+containers, activations, norms, losses, `nn.Transformer` and its layers,
+`nn.BeamSearchDecoder` / `nn.dynamic_decode`, `sparse_attention`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.

@@ -3,7 +3,7 @@
 
 `decorate(level="O2")` casts every floating parameter of the models to
 the low dtype in place, except those of the port's `LayerNorm` and of
-BatchNorm layers (torch's: the port has none of its own; the reference
+BatchNorm layers (the port's `nn.BatchNorm*` and torch's; the reference
 skips its `LayerNorm` and `_BatchNormBase`), and gives each optimizer an f32
 master copy of every parameter it updates (keyed by the parameter's
 index in its list). So a LLaMA RMSNorm weight, f32 in a bf16 config,
@@ -66,8 +66,8 @@ def compute_dtype(op_name):
 
 
 def _keeps_dtype(module, excluded):
-    from ..nn.layer.common import LayerNorm
-    return isinstance(module, (LayerNorm,
+    from ..nn.layer.norm import LayerNorm, _BatchNormBase
+    return isinstance(module, (LayerNorm, _BatchNormBase,
                                torch.nn.modules.batchnorm._BatchNorm)) or (
         bool(excluded) and isinstance(module, excluded))
 

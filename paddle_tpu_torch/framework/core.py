@@ -38,7 +38,7 @@ import threading
 import torch
 
 __all__ = ["set_flags", "get_flag", "get_bool_flag", "check_env_flags",
-           "seed", "dropout_generator", "resolve_device",
+           "seed", "dropout_generator", "resolve_device", "convert_dtype",
            "current_remat_policy", "remat_policy_guard"]
 
 _flags: dict = {
@@ -305,6 +305,24 @@ def resolve_device(device=None) -> torch.device:
             # (torch.cuda.set_device) needs one
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "float16": torch.float16, "bfloat16": torch.bfloat16,
+           "int32": torch.int32, "int64": torch.int64, "bool": torch.bool}
+
+
+def convert_dtype(dtype, default=torch.float32) -> torch.dtype:
+    """A torch dtype from a paddle name ("float32", "bfloat16", ...), a
+    torch dtype, or None (`default`)."""
+    if dtype is None:
+        return default
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype).replace("paddle.", "").replace("torch.", "")
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return _DTYPES[name]
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,12 @@ chip_smoke.py's `expected_seg_routes`). A score counts where the q and
 kv segments are equal. A padding mask [B, Sk] lowers to segment ids as
 the reference lowers it (l.327-336, GQA l.136-139): kv_seg = mask, q_seg
 = kv_seg when Sq == Sk, else all ones. So a padded query row attends to
-the padded keys only, as on the TPU; a query row with no key of its own
-segment averages V over all keys (upstream's finite mask value), and its
+the padded keys only, as on the TPU. That guess reads equal lengths as
+self-attention; `mask_queries=False` takes q_seg = all ones whatever the
+lengths, a mask of the keys alone (what `nn.functional`'s sdpa passes,
+as its reference's dense route masks keys only). A query row with no
+key of its own segment averages V over all keys (upstream's finite
+mask value), and its
 backward recomputes P = 1 from an LSE that rounds to that value, as
 upstream's does. `_SegPlain` is that function in plain PyTorch, with the
 flash backward written out. Causal with Sq != Sk is not ported (upstream
@@ -430,23 +434,31 @@ def _attend(q, k, v, seg_q, seg_kv, causal, scale, use_kernel,
     return fn.apply(q, k, v, seg_q, seg_kv, bool(causal), float(scale))
 
 
-def padding_segments(padding_mask, Sq, Sk):
-    """The reference's lowering of a [B, Sk] validity mask: kv_seg = mask
-    (1 valid, 0 padding), q_seg = kv_seg when Sq == Sk, else all ones.
-    Returns int32 (q_seg [B, Sq], kv_seg [B, Sk])."""
+def padding_segments(padding_mask, Sq, Sk, mask_queries=None):
+    """The lowering of a [B, Sk] validity mask: kv_seg = mask (1 valid, 0
+    padding); q_seg = kv_seg where the queries share the keys' padding,
+    else all ones. mask_queries=None: the reference's rule, shared when
+    Sq == Sk; False: all ones (a mask of the keys alone, right for
+    cross-attention at any lengths). Returns int32 (q_seg [B, Sq], kv_seg
+    [B, Sk])."""
     kv_seg = padding_mask.bool().to(torch.int32)
-    q_seg = kv_seg if Sq == Sk else torch.ones(
+    if mask_queries is None:
+        mask_queries = Sq == Sk
+    q_seg = kv_seg if mask_queries else torch.ones(
         (kv_seg.shape[0], Sq), dtype=torch.int32, device=kv_seg.device)
     return q_seg, kv_seg
 
 
 def flash_attention_bshd(q, k, v, causal=False, scale=None,
-                         padding_mask=None, bias=None, use_kernel=None):
+                         padding_mask=None, bias=None, use_kernel=None,
+                         mask_queries=None):
     """[batch, seq, heads, dim] in and out. GQA/MQA when q has a multiple
     of k's heads. scale: None = 1/sqrt(dim).
 
     padding_mask: optional [batch, kv_seq] bool/int, True/1 = valid —
-    lowered to segment ids. bias: optional additive mask broadcastable to
+    lowered to segment ids (`padding_segments`; mask_queries=False keeps
+    every query row, None masks them too when Sq == Sk, as the reference
+    does). bias: optional additive mask broadcastable to
     [batch, heads, Sq, Sk], streamed chunkwise through the block-stats
     kernel (`flash_attention_biased`, kind "dense"). q and kv lengths may
     differ when not causal (the segment kernels run without ids).
@@ -461,7 +473,8 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None,
     seg_q = seg_kv = None
     if padding_mask is not None:
         seg_q, seg_kv = padding_segments(padding_mask.to(q.device),
-                                         q.shape[1], k.shape[1])
+                                         q.shape[1], k.shape[1],
+                                         mask_queries)
     return _attend(q, k, v, seg_q, seg_kv, causal, scale, use_kernel)
 
 
@@ -785,15 +798,16 @@ class _Biased(torch.autograd.Function):
     """flash_attention_biased. CUDA: one `flash_attention_bias_fwd`
     launch; the backward computes D = rowsum(dO * O) in plain PyTorch and
     launches `flash_attention_bias_dkv` and `flash_attention_bias_dq`.
-    CPU: `_biased_plain_fwd` and `_biased_plain_bwd`, the kernels'
-    yardstick. The bias parameter's gradient, when asked for, is
-    `_biased_plain_dparam` on both."""
+    CPU, or `plain` on any device (`biased_plain`): `_biased_plain_fwd`
+    and `_biased_plain_bwd`, the kernels' yardstick. The bias
+    parameter's gradient, when asked for, is `_biased_plain_dparam` on
+    both."""
 
     @staticmethod
     def forward(ctx, q, k, v, param, kind, R, causal, scale, padding_mask,
-                chunk):
+                chunk, plain):
         bias = None
-        if q.device.type == "cpu":
+        if plain:
             o, lse = _biased_plain_fwd(q, k, v, kind, param, R, causal,
                                        scale, padding_mask, chunk)
         else:
@@ -823,7 +837,8 @@ class _Biased(torch.autograd.Function):
             dparam = _biased_plain_dparam(q, k, v, o, lse, do, kind, param,
                                           R, causal, scale, padding_mask,
                                           chunk)
-        return (dq, dk, dv, dparam, None, None, None, None, None, None)
+        return (dq, dk, dv, dparam, None, None, None, None, None, None,
+                None)
 
 
 def flash_attention_biased(q, k, v, kind, params, causal=False, scale=None,
@@ -862,7 +877,19 @@ def flash_attention_biased(q, k, v, kind, params, causal=False, scale=None,
     if padding_mask is not None:
         padding_mask = padding_mask.to(q.device).bool()
     return _Biased.apply(q, k, v, param, kind, R, bool(causal), float(scale),
-                         padding_mask, chunk)
+                         padding_mask, chunk, q.device.type == "cpu")
+
+
+def biased_plain(q, k, v, kind, param, R=None, causal=False, scale=None,
+                 padding_mask=None, chunk=None):
+    """The bias route's plain versions on any device, differentiable in q,
+    k, v and the bias parameter: what `flash_attention_biased` runs for
+    a CPU tensor (param a tensor on q's device, R rel_table's radius,
+    padding_mask bool [B, Sk] or None)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Biased.apply(q, k, v, param, kind, R, bool(causal), float(scale),
+                         padding_mask, chunk, True)
 
 
 flash_attention_fwd.launches = 0

@@ -17,6 +17,14 @@ reference's names.
 `FusedTransformerEncoderLayer`, ...), whose names and shapes the port's
 layers keep, into a state dict for the port's layer.
 
+`layer_state_from_jax(np_state, module)` carries any reference `Layer`'s
+`state_dict()` (numpy) onto the port module of the same structure, key
+by key (a `Linear` weight is [in, out] on both sides; BatchNorm's
+running statistics are the buffers `_mean` and `_variance` on both): it
+copies each array into the port's tensor in place, in that tensor's
+dtype and on its device, and raises ValueError on a key either side
+lacks or a shape that differs.
+
 `optimizer_state_from_jax` carries a reference optimizer's state into
 the port's: its accumulators, amp master weights, `@step` and its LR
 scheduler's state (an inner scheduler of `LinearWarmup` too, which the
@@ -36,8 +44,8 @@ from .bert import BertConfig
 from .ernie import ErnieConfig
 from .llama import LlamaConfig, _translate_fusion_keys, torch_dtype
 
-__all__ = ["incubate_state_from_jax", "optimizer_state_from_jax",
-           "state_from_jax", "to_numpy"]
+__all__ = ["incubate_state_from_jax", "layer_state_from_jax",
+           "optimizer_state_from_jax", "state_from_jax", "to_numpy"]
 
 
 def to_numpy(model, grads=False):
@@ -89,6 +97,25 @@ def incubate_state_from_jax(np_state, module, dtype=None):
         t = torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
         out[k] = t.to(device=p.device, dtype=dtype or p.dtype)
     return out
+
+
+def layer_state_from_jax(np_state, module):
+    """Copy a reference layer's state dict {name: np.ndarray} into
+    `module` (module docstring); returns the module."""
+    own = module.state_dict(keep_vars=True)
+    if set(np_state) != set(own):
+        raise ValueError(f"state keys differ: reference only "
+                         f"{sorted(set(np_state) - set(own))}, port only "
+                         f"{sorted(set(own) - set(np_state))}")
+    with torch.no_grad():
+        for k, v in np_state.items():
+            t = own[k]
+            if tuple(np.shape(v)) != tuple(t.shape):
+                raise ValueError(f"{k}: reference shape {np.shape(v)}, "
+                                 f"port {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(v, dtype=np.float32,
+                                              order="C")).to(t.dtype))
+    return module
 
 
 def _scheduler_chain(sched):

@@ -110,9 +110,7 @@ class LlamaConfig:
         return self.num_key_value_heads or self.num_attention_heads
 
 
-def torch_dtype(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-            "float16": torch.float16}[name]
+torch_dtype = core.convert_dtype
 
 
 def _param(shape, device, dtype, generator, std=0.02, const=None):

@@ -8,7 +8,11 @@ is a `jnp.where`: nothing is read on the host, so a clip adds no
 synchronizing call to a step. The norms are f32 sums of squares (the
 global one the Python `sum` of the per-tensor sums, in parameter order),
 and the factor, 1 where the norm is within the limit, multiplies every
-gradient in f32 before it is rounded back to the gradient's dtype."""
+gradient in f32 before it is rounded back to the gradient's dtype. A
+parameter made with `ParamAttr(need_clip=False)` is left out of the
+clip (its gradient neither counts in the norm nor is scaled), as
+paddle's clips leave it; the reference's ignore the attribute (ROADMAP
+Queue 3)."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +21,8 @@ __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
 def _grads(params):
-    return [p for p in params if p.grad is not None and p.requires_grad]
+    return [p for p in params if p.grad is not None and p.requires_grad
+            and getattr(p, "need_clip", True)]
 
 
 def _scaled(g, scale):

@@ -1,7 +1,11 @@
 """Neural-network functionals of the port (counterpart of
-paddle_tpu/nn/functional)."""
-from .attention import (flash_attention, flash_attn_unpadded,  # noqa: F401
-                        scaled_dot_product_attention, sdp_kernel)
-from .common import (alpha_dropout, dropout, dropout2d,  # noqa: F401
-                     dropout3d, feature_alpha_dropout)
-from .loss import cross_entropy  # noqa: F401
+paddle_tpu/nn/functional): activations, the common functionals and
+dropouts, norms, losses, attention, and `gather_tree`. The conv,
+pooling and vision functionals (and `pad`, `sequence_mask`,
+`temporal_shift`) are not ported yet."""
+from .activation import *  # noqa: F401,F403
+from .attention import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from ..decode import gather_tree  # noqa: F401,E402

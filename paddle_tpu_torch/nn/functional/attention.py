@@ -11,19 +11,27 @@ broadcastable to [B, H, Sq, Sk] as an additive bias through the chunked
 block-stats route (a boolean one becomes 0 / -1e30). The reference takes
 its dense `_sdpa_ref` on the CPU and the kernels on the TPU; the port
 runs the kernels' functions on both devices (their plain versions on
-the CPU), so a padded query row attends to the padded keys, as on the
-TPU, where `_sdpa_ref` has it attend to the valid ones; every valid row
-agrees. `flash_attn_unpadded` is the packed route with 1-based segment
-ids from cu_seqlens (`_packed_segments`).
+the CPU). A padding mask masks the keys alone (`mask_queries=False`),
+as `_sdpa_ref` does, so every row agrees with it: the reference's TPU
+lowering also masks the query rows when Sq == Sk, which in a
+cross-attention at equal lengths would drop a valid target row whose
+index is a padded source position. `flash_attn_unpadded` is the packed
+route with 1-based segment ids from cu_seqlens (`_packed_segments`).
 
 With `dropout_p > 0`, sdpa (and `flash_attention`) takes the
 reference's dense route on both devices, as the reference takes it on
 every device (l.129-136): `_sdpa_ref`, then in training `F.dropout` on
-the output. `flash_attn_unpadded` with `dropout > 0` in training takes
-the reference's dense packed route (`_unpadded_dense`, l.196-231), which
-applies no dropout, as the reference's applies none. Causal
-`flash_attn_unpadded` over q and kv packings that differ (the other case
-of that dense route) raises NotImplementedError.
+the output. `flash_attn_unpadded` takes the reference's dense packed
+route (`_unpadded_dense`, l.196-231) in its two cases: with `dropout >
+0` in training (it applies no dropout, as the reference's applies
+none), and causal over q and kv packings that differ (each key's
+position in its own sequence at most the query's).
+
+`sparse_attention` (l.249-300) turns the CSR pattern into a [B, H, S, S]
+bool mask once, with the key padding and attention masks folded in, and
+runs the reference's masked f32 softmax (`_masked_attention_core`, the
+port's copy of paddle_tpu/sparse/__init__.py:318-330): no kernel, as
+the reference has none.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from ...kernels import flash_attention as fa
 from .common import dropout as _dropout
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
-           "flash_attn_unpadded", "sdp_kernel"]
+           "flash_attn_unpadded", "sdp_kernel", "sparse_attention"]
 
 
 def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
@@ -43,8 +51,7 @@ def _sdpa_ref(q, k, v, mask, dropout_p, causal, scale):
     mask drops entries (-inf), a float mask adds. No dropout (sdpa
     applies it to the output). sdpa takes it when dropout_p > 0, as the
     reference does; without dropout the kernels' functions run on both
-    devices, and the tests hold them to this route at the rows where the
-    two agree."""
+    devices, and the tests hold them to this route."""
     del dropout_p
     qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
     s = (qt @ kt.transpose(-1, -2)) * scale
@@ -110,8 +117,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     mask = attn_mask.to(q.device)
     pad = _as_padding_mask(mask, q.shape[0], k.shape[1])
     if pad is not None:
+        # a mask of the keys alone, as the reference's dense route reads
+        # it: every query row is kept (its TPU route also drops the
+        # queries at Sq == Sk, which breaks cross-attention there)
         return fa.flash_attention_bshd(q, k, v, causal=is_causal,
-                                       scale=scale, padding_mask=pad)
+                                       scale=scale, padding_mask=pad,
+                                       mask_queries=False)
     if not _bias_broadcastable(tuple(mask.shape), q.shape, k.shape):
         raise ValueError(
             f"scaled_dot_product_attention: attn_mask {tuple(mask.shape)} "
@@ -153,21 +164,18 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     """Varlen attention over PACKED sequences: q [total_q, Hq, D], k/v
     [total_k, Hk, D], cu_seqlens the sequences' offsets. The packed
     segment kernels at batch 1 with 1-based segment ids; with dropout > 0
-    in training, the reference's dense packed route (`_unpadded_dense`,
-    no dropout applied). Returns (out, None). Causal needs q and kv to
-    share the packing."""
+    in training, or causal over q and kv packings that differ, the
+    reference's dense packed route (`_unpadded_dense`, no dropout
+    applied). Returns (out, None)."""
     del max_seqlen_q, max_seqlen_k, return_softmax, fixed_seed_offset
     del rng_name, name
     q, k, v = query, key, value
     cq = torch.as_tensor(cu_seqlens_q)
     ck = torch.as_tensor(cu_seqlens_k)
-    if causal and not (cu_seqlens_q is cu_seqlens_k
-                       or torch.equal(cq.cpu(), ck.cpu())):
-        raise NotImplementedError(
-            "flash_attn_unpadded: causal over q and kv packings that differ "
-            "(the reference's dense fallback) is not ported")
+    same = (cu_seqlens_q is cu_seqlens_k
+            or torch.equal(cq.cpu(), ck.cpu()))
     cq, ck = cq.to(q.device), ck.to(q.device)
-    if dropout > 0.0 and training:
+    if (dropout > 0.0 and training) or (causal and not same):
         return _unpadded_dense(q, k, v, cq, ck, causal, scale), None
     seg_q = _packed_segments(cq, q.shape[0])
     seg_kv = _packed_segments(ck, k.shape[0])
@@ -199,6 +207,43 @@ def _unpadded_dense(q, k, v, cq, ck, causal, scale):
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
     return torch.einsum("hqk,khd->qhd", p, v.float()).to(q.dtype)
+
+
+def _masked_attention_core(q, k, v, mask):
+    """softmax(q k^T / sqrt(D)) over the keys `mask` [B, H, S, S] keeps,
+    in f32, then @ v; a row with no kept key gives 0 (q, k, v [B, H, S,
+    D])."""
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(),
+                     k.float()) / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.where(mask, s, float("-inf")), dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention restricted to a CSR pattern: q, k, v [B, H, S, D];
+    offset [B, H, S + 1] and columns [B, H, nnz] list the keys each
+    query row attends; key_padding_mask [B, S] and attn_mask [S, S] (or
+    [B, H, S, S]) keep where nonzero."""
+    del name
+    q, k, v = query, key, value
+    B, H, S, _ = q.shape
+    off = torch.as_tensor(sparse_csr_offset, device=q.device).long()
+    off = off.reshape(B * H, S + 1)
+    cols = torch.as_tensor(sparse_csr_columns,
+                           device=q.device).long().reshape(-1)
+    counts = (off[:, 1:] - off[:, :-1]).reshape(-1)
+    rows = torch.arange(B * H * S, device=q.device).repeat_interleave(counts)
+    mask = torch.zeros(B * H * S * S, dtype=torch.bool, device=q.device)
+    mask[rows * S + cols] = True
+    mask = mask.reshape(B, H, S, S)
+    if key_padding_mask is not None:
+        mask = mask & (key_padding_mask.to(q.device)[:, None, None, :] != 0)
+    if attn_mask is not None:
+        mask = mask & (attn_mask.to(q.device) != 0)
+    return _masked_attention_core(q, k, v, mask)
 
 
 class sdp_kernel:

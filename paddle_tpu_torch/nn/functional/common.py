@@ -1,7 +1,12 @@
-"""Dropout functionals (counterpart of the dropout part of
-paddle_tpu/nn/functional/common.py, l.40-106): `dropout` with `axis=`
+"""Common functionals (counterpart of paddle_tpu/nn/functional/common.py
+l.32-170 and 360-369): `linear` (x @ W + b, W [in, out]), `embedding`
+(padding_idx rows zeroed, so their gradient is 0), `one_hot`,
+`label_smooth`, `cosine_similarity`, `bilinear`, `unflatten`,
+`pairwise_distance`, and the dropout functionals: `dropout` with `axis=`
 and its two modes, `dropout2d`, `dropout3d`, `alpha_dropout` and
-`feature_alpha_dropout`, float for float.
+`feature_alpha_dropout`, float for float. The vision functionals
+(`interpolate`, `pad`, `unfold` / `fold`, `pixel_shuffle`, ...) are not
+ported yet.
 
 Every mask comes from `_keep_mask(shape, p, generator, device)`: a bool
 keep mask, `uniform < 1 - p` over `shape`, drawn from `generator`, or
@@ -17,8 +22,62 @@ import torch
 
 from ...framework import core
 
-__all__ = ["dropout", "dropout2d", "dropout3d", "alpha_dropout",
-           "feature_alpha_dropout"]
+__all__ = ["unflatten", "pairwise_distance", "linear", "dropout",
+           "dropout2d", "dropout3d", "alpha_dropout",
+           "feature_alpha_dropout", "embedding", "one_hot", "label_smooth",
+           "bilinear", "cosine_similarity"]
+
+
+def linear(x, weight, bias=None, name=None):
+    y = x @ weight
+    return y if bias is None else y + bias
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    out = weight[x.long()]
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None], 0.0, out)
+    return out
+
+
+def one_hot(x, num_classes, name=None):
+    return torch.nn.functional.one_hot(x.long(), num_classes).float()
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8, name=None):
+    num = torch.sum(x1 * x2, dim=axis)
+    den = (torch.linalg.vector_norm(x1, dim=axis)
+           * torch.linalg.vector_norm(x2, dim=axis))
+    return num / torch.clamp_min(den, eps)
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def unflatten(x, axis, shape, name=None):
+    ax = axis % x.dim()
+    shape = list(shape)
+    if -1 in shape:
+        known = 1
+        for d in shape:
+            if d != -1:
+                known *= d
+        shape = [x.shape[ax] // known if d == -1 else d for d in shape]
+    return x.reshape(list(x.shape[:ax]) + shape + list(x.shape[ax + 1:]))
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+    """The p-norm of x - y + epsilon over the last axis, in f32."""
+    return torch.linalg.vector_norm((x - y + epsilon).float(), ord=p,
+                                    dim=-1, keepdim=keepdim)
 
 
 def _keep_mask(shape, p, generator, device):

@@ -1,81 +1,82 @@
-"""`Linear` and `LayerNorm` in the reference's layout (counterpart of
-paddle_tpu/nn/layer/common.py::Linear and norm.py::LayerNorm), and the
-dropout layers (common.py:66-110): `Dropout`, `Dropout2D`, `Dropout3D`
-and `AlphaDropout`, which apply `nn.functional`'s forms in training mode
-and pass the input through in eval (`Dropout`'s "downscale_in_infer"
-scales it by 1 - p there). Each takes an optional `generator`; None
-draws from the dropout stream (`framework.core.dropout_generator`).
+"""Common layers (counterpart of paddle_tpu/nn/layer/common.py:20-220):
+`Linear`, `Embedding`, the dropout layers, `Flatten`, `Identity`,
+`Bilinear` and `CosineSimilarity`, on `Layer`. `LayerNorm` lives in
+`norm.py` and is re-exported here, where the models import it from.
 
-`Linear` holds `weight` [in, out] and `bias` [out] (`x @ W + b`, paddle's
-layout, so a reference state dict loads as is); its weight is drawn
-Xavier-uniform from an explicit generator, its bias zeros, as paddle
-initialises them. `LayerNorm` computes its statistics in f32
-(`nn/functional/norm.py:27-51` of the reference) with `weight` ones and
-`bias` zeros. Both are created on `device` (`cuda` unless the caller
-names another; `framework.core.resolve_device`).
+`Linear` holds `weight` [in, out] and `bias` [out] (`x @ W + b`,
+paddle's layout, so a reference state dict loads as is), made through
+`create_parameter` from `weight_attr` / `bias_attr` (`ParamAttr`, a
+name, an initializer, or False for no bias): the weight Xavier-uniform,
+the bias zeros by default, drawn from `generator` on `device` (`cuda`
+unless the caller names another). `Embedding`'s weight is Xavier-normal
+with its `padding_idx` row zeroed (a negative index counts from the
+end). The dropout layers (`Dropout`, `Dropout2D`, `Dropout3D`,
+`AlphaDropout`) apply `nn.functional`'s forms in training mode and pass
+the input through in eval (`Dropout`'s "downscale_in_infer" scales it by
+1 - p there); each takes an optional `generator`, None drawing from the
+dropout stream (`framework.core.dropout_generator`). The vision layers
+(`Upsample`, the pads, `Unfold` / `Fold`, the pixel shuffles) are not
+ported yet.
 """
 from __future__ import annotations
 
-import math
-
 import torch
-from torch import nn
 
-from ...framework.core import resolve_device
+from .. import initializer as I
 from ..functional import common as F
+from .layers import Layer
+from .norm import LayerNorm
 
-__all__ = ["Linear", "LayerNorm", "layer_norm", "Dropout", "Dropout2D",
-           "Dropout3D", "AlphaDropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Flatten", "Identity", "Bilinear",
+           "CosineSimilarity", "LayerNorm"]
 
 
-class Linear(nn.Module):
-    def __init__(self, in_features, out_features, bias=True, device=None,
+class Linear(Layer):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
                  dtype=torch.float32, generator=None):
-        super().__init__()
-        dev = resolve_device(device)
+        super().__init__(dtype=dtype, device=device, generator=generator)
         self.in_features, self.out_features = in_features, out_features
-        bound = math.sqrt(6.0 / (in_features + out_features))
-        w = torch.empty((in_features, out_features), device=dev, dtype=dtype)
-        w.uniform_(-bound, bound, generator=generator)
-        self.weight = nn.Parameter(w)
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=dev,
-                                              dtype=dtype))
-                     if bias else None)
+        self.weight = self.create_parameter((in_features, out_features),
+                                            attr=weight_attr)
+        self.bias = (self.create_parameter((out_features,), attr=bias_attr,
+                                           is_bias=True)
+                     if bias_attr is not False else None)
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}")
 
 
-def layer_norm(x, weight, bias, eps):
-    """The reference's layer_norm over the last axis: f32 mean and
-    (biased) variance, (x - mu) * rsqrt(var + eps) * w + b, cast back to
-    x's dtype."""
-    a = x.float()
-    mu = a.mean(-1, keepdim=True)
-    var = a.var(-1, keepdim=True, unbiased=False)
-    out = (a - mu) * torch.rsqrt(var + eps)
-    if weight is not None:
-        out = out * weight.float()
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(x.dtype)
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, hidden, epsilon=1e-5, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        dev = resolve_device(device)
-        self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(hidden, device=dev, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(hidden, device=dev, dtype=dtype))
+class Embedding(Layer):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype=torch.float32, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.padding_idx = (padding_idx if padding_idx is None
+                            or padding_idx >= 0
+                            else num_embeddings + padding_idx)
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr,
+            default_initializer=I.XavierNormal())
+        if self.padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self.padding_idx] = 0.0
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.epsilon)
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
+
+    def extra_repr(self):
+        return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
                  generator=None):
         super().__init__()
@@ -90,7 +91,7 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     def __init__(self, p=0.5, data_format="NCHW", name=None, generator=None):
         super().__init__()
         self.p, self.data_format = p, data_format
@@ -102,7 +103,7 @@ class Dropout2D(nn.Module):
                            generator=self.generator)
 
 
-class Dropout3D(nn.Module):
+class Dropout3D(Layer):
     def __init__(self, p=0.5, data_format="NCDHW", name=None,
                  generator=None):
         super().__init__()
@@ -115,7 +116,7 @@ class Dropout3D(nn.Module):
                            generator=self.generator)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p=0.5, name=None, generator=None):
         super().__init__()
         self.p = p
@@ -124,3 +125,46 @@ class AlphaDropout(nn.Module):
     def forward(self, x):
         return F.alpha_dropout(x, p=self.p, training=self.training,
                                generator=self.generator)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        self.weight = self.create_parameter(
+            (out_features, in1_features, in2_features), attr=weight_attr)
+        self.bias = (self.create_parameter((1, out_features), attr=bias_attr,
+                                           is_bias=True)
+                     if bias_attr is not False else None)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)

@@ -29,8 +29,8 @@ AdamW ignores `amsgrad`, and a regularizer object passed as
 `weight_decay` is read for its coefficient only. Keys of `state_dict`
 are `"{p.name or i}.{slot}"`; a parameter's name (`_name`) is its
 `name` attribute where that is a string, else "" (a torch tensor's own
-`name` is None and cannot be set: a `torch.nn.Parameter` subclass can
-give it one).
+`name` is None and cannot be set: `nn.ParamAttr(name=)` gives a layer's
+parameter one, through `nn.layer.layers.Parameter`).
 
 `prime()` creates every accumulator that does not exist yet, at the
 value a real first step starts it from, and changes none that exists;

@@ -1238,7 +1238,15 @@ def bias_case(B, Sq, Sk, hq, hk, d, kind, causal, dtype=torch.bfloat16,
     q, do = rand(B, Sq, hq, d), rand(B, Sq, hq, d)
     k, v = rand(B, Sk, hk, d), rand(B, Sk, hk, d)
     R, pm = None, None
-    if kind == "sdpa_float":
+    if kind in ("src_mask", "beam_mask"):
+        # the Transformer phase's source masks: 0 / -1e9 over the
+        # training batch's lengths, or the beam search's 16 sources, each
+        # folded into its beam of consecutive rows
+        lengths = (transformer_lengths(B, 0) if kind == "src_mask" else
+                   [n for n in transformer_lengths(B // TRANSFORMER_BEAM, 1)
+                    for _ in range(TRANSFORMER_BEAM)])
+        kind, param = "dense", transformer_src_mask(lengths, Sk, "cuda")
+    elif kind == "sdpa_float":
         lengths = torch.tensor(bert_lengths(B, Sk), device="cuda")
         valid = torch.arange(Sk, device="cuda")[None, :] < lengths[:, None]
         kind, param = "dense", torch.where(valid, 0.0, -1e4).float()[
@@ -1669,3 +1677,151 @@ def top2_gap(logits):
     """top-1 minus top-2 of a [V] logit row, in f32."""
     t = torch.topk(logits.float(), 2).values
     return float(t[0] - t[1])
+
+
+# ------------------------------------------------ the Transformer
+
+# Transformer base (Vaswani et al. 2017, Table 3 "base"), chip_smoke.py's
+# phase 11 and the card tests: batches of sentence pairs with
+# default_rng lengths in [16, 128] padded to 128, sources masked by an
+# additive f32 [B, 1, 1, S] mask of 0 / -1e9 (PaddleNLP's
+# src_slf_attn_bias), beam search at TRANSFORMER_BEAM beams.
+TRANSFORMER_MAXLEN = 128
+TRANSFORMER_BEAM = 4
+
+
+def transformer_lengths(n, seed):
+    """n lengths, default_rng(seed).integers(16, 129)."""
+    import numpy as np
+    return [int(x) for x in np.random.default_rng(seed).integers(
+        16, TRANSFORMER_MAXLEN + 1, n)]
+
+
+def transformer_src_mask(lengths, S, device):
+    """The additive source mask [B, 1, 1, S]: 0 at a valid key, -1e9 at
+    padding."""
+    valid = (torch.arange(S, device=device)[None, :]
+             < torch.tensor(lengths, device=device)[:, None])
+    return torch.where(valid, 0.0, -1e9).float()[:, None, None, :]
+
+
+# Phase 11 (d) and the card tests: row 12's f32 bias forward at the beam
+# search's decode shape (one query a row against the 128-key memory
+# under the folded source mask) and at the encoder's (the training
+# batch's source mask), and row 10's forward at one query against 64
+# keys without ids (the decode step's self-attention at step 64).
+TRANSFORMER_BIAS_CASES = {
+    "transformer_decode": dict(B=64, Sq=1, Sk=128, hq=8, hk=8, d=64,
+                               kind="beam_mask", causal=False),
+    "transformer_encoder": dict(B=64, Sq=128, Sk=128, hq=8, hk=8, d=64,
+                                kind="src_mask", causal=False),
+}
+TRANSFORMER_SEG_CASE = dict(B=64, Sq=1, Sk=64, h=8, d=64)
+
+
+def seg_noid_pairs(q, k, v, scale):
+    """Row 10's segment forward without ids (q and kv lengths that
+    differ, no mask: the decode step's self-attention) against its plain
+    version, the same function with every id equal (`_SegPlain`), on f32
+    copies: [("o", kernel, plain, terms), ("lse", kernel, plain, None)]."""
+    from .kernels import flash_attention as kfa
+    o, lse = kfa.flash_attention_seg_fwd(q, k, v, None, None, False, scale)
+    ones_q = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+    ones_k = torch.ones(k.shape[:2], dtype=torch.int32, device=q.device)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    o_p = kfa._SegPlain.apply(qf, kf, vf, ones_q, ones_k, False, scale)
+    lse_p = torch.logsumexp(kfa._seg_scores(qf, kf, ones_q, ones_k, False,
+                                            scale), dim=-1)
+    o_t = seg_flash_terms(qf, kf, vf, torch.zeros_like(qf), ones_q, ones_k,
+                          False, scale)[0]
+    return [("o", o, o_p, o_t), ("lse", lse, lse_p, None)]
+
+
+def transformer_counters():
+    """The attention kernels' wrappers (`encoder_counters`) and the fused
+    cross-entropy kernels', by counter name: the Transformer phase holds
+    every one of them."""
+    from .kernels import cross_entropy as kce
+    out = dict(encoder_counters())
+    out["fused_cross_entropy"] = kce.fused_cross_entropy_fwd
+    out["fused_cross_entropy_bwd"] = kce.fused_cross_entropy_bwd
+    return out
+
+
+def transformer_train_launches(L, mask):
+    """Launches of one forward and backward of an L + L-layer Transformer
+    at dropout 0, by `transformer_counters` name. Every float mask rides
+    the bias route (a forward, dkv and dq for each of the encoder's self,
+    the decoder's causal self and its cross attention); a bool source
+    mask moves the encoder's self and the decoder's cross attention to
+    the segment route (the forward, the delta pre-pass, dkv and dq), the
+    target mask staying float."""
+    if mask == "float":
+        return {n: 3 * L for n in ("flash_attention_bias_fwd",
+                                   "flash_attention_bias_dkv",
+                                   "flash_attention_bias_dq")}
+    if mask != "bool":
+        raise ValueError(f"transformer_train_launches: unknown mask {mask!r}")
+    out = {n: 2 * L for n in ("flash_attention_seg_fwd",
+                              "flash_attention_delta",
+                              "flash_attention_seg_dkv",
+                              "flash_attention_seg_dq")}
+    out.update({n: L for n in ("flash_attention_bias_fwd",
+                               "flash_attention_bias_dkv",
+                               "flash_attention_bias_dq")})
+    return out
+
+
+def transformer_decode_launches(L, step):
+    """Launches of one beam-search decode step (0-based) of an L-layer
+    decoder: the cross-attention's bias forward against the StaticCache a
+    layer, and the self-attention's forward over the growing Cache a
+    layer: the one-length kernel at the first step (Sq = Sk = 1), the
+    segment kernel without ids after it (Sq = 1 < Sk)."""
+    self_attn = "flash_attention_fwd" if step == 0 else \
+        "flash_attention_seg_fwd"
+    return {"flash_attention_bias_fwd": L, self_attn: L}
+
+
+# Phase 11 (b): a 2-layer Transformer base at dropout 0, one train-mode
+# forward and backward on the kernel route against `plain_routes()` from
+# the same weights: |loss difference| / |loss| and the largest
+# per-parameter relative L2 error of the grads. A k_proj bias's grad is
+# 0 analytically (one constant added to every key's score leaves the
+# softmax as it is): both routes read summation noise there, so its
+# error is taken relative to the L2 of the same layer's q_proj bias
+# grad. The loss read 0 on an H100 (NVIDIA H100 80GB HBM3, 700 W); its
+# limit is about eighty f32 roundoffs. The grads are ill-conditioned in
+# f32: at random weights the smoothed 37000-way loss is flat, and its
+# grads are small sums of large cancelling terms. A first limit of 1e-4
+# (twenty times the encoders' readings) failed at 4.28e-4. Against an
+# f64 dense route on the same batch (attention as a dense softmax, the
+# smoothed cross-entropy in f64; read once on the same card, T = 127)
+# the plain f32 route itself lay up to 4.15e-4 (float masks) and
+# 2.41e-4 (bool), the kernel route up to 2.41e-4 and 4.57e-4
+# (decoder.layers.0/1.linear1). The grad limit is about twice the
+# largest kernel-to-plain reading, 4.79e-4 (bool masks). The bool
+# masks' run at T = S (a valid target row at a padded source index)
+# is also held to the float masks' run on the kernel route, which
+# masks the same keys additively, within the same two limits.
+TRANSFORMER_LOSS_RTOL = 1e-5
+TRANSFORMER_GRAD_RTOL = 1e-3
+# Phase 11 (c): beam search on the kernel route against the same decode
+# on `plain_routes()`. The routes' f32 log-probs differ by a few 1e-6,
+# so a step's top-`beam` choice may differ only where two candidates of
+# a batch row nearly tie: the token paths must be equal, or first differ
+# at a step where some adjacent pair of that row's plain-route top
+# beam + 1 totals (`beam_gaps`) lies within this many nats.
+BEAM_GAP_LIMIT = 1e-3
+
+
+def beam_gaps(log_probs, finished, logits, end_token, beam):
+    """The smallest gap between adjacent totals among each batch row's
+    top beam + 1 candidates of one beam-search step, as
+    `nn.BeamSearchDecoder.step` scores them (`nn.decode.beam_totals`):
+    log_probs, finished [nb, beam] before the step, logits [nb * beam,
+    V] of the step. -> [nb]."""
+    from .nn.decode import beam_totals
+    total = beam_totals(log_probs, finished, logits, end_token)
+    top = torch.topk(total, beam + 1, dim=-1).values
+    return (top[:, :-1] - top[:, 1:]).min(dim=-1).values

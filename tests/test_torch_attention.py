@@ -17,11 +17,12 @@ reference's own tests set it) and its `_dense_stats`, every row.
 
 The reference's `nn.functional` and `MultiHeadAttention` take their dense
 `_sdpa_ref` route on the CPU, where a padded query row attends to the
-valid keys; the port runs the kernels' functions on both devices, where
-it attends to the padded keys, as on the TPU. So those tests compare
-the valid rows, and the grads with the output cotangent zeroed at the
-padded rows. Float masks and bias routes have no padded rows and are
-compared whole.
+valid keys; the port runs the kernels' functions on both devices, and
+its sdpa lowers a boolean padding mask to key ids alone, so a padded
+query row attends to the valid keys there too: every row and every
+grad compare whole. `flash_attention_bshd(padding_mask=)` keeps the
+reference's TPU lowering (query ids too when Sq == Sk), held above
+against the splash kernel.
 
 Limits, as max|a - b| / max|b|: KERNEL_RTOL 1e-5 for one kernel's plain
 version (f32 summation order), SURFACE_RTOL 1e-5 for the functionals and
@@ -569,7 +570,8 @@ SDPA_MASKS = ["none_full", "none_causal", "bool_kv", "bool_b_kv",
 def test_sdpa_routes_match_reference(which):
     """Every route of scaled_dot_product_attention and every mask shape
     `_as_padding_mask` converts; float [B, 1, 1, Sk] takes the bias
-    route. Padding routes compare the valid rows."""
+    route. Every row compares, the padded query rows of a padding mask
+    too (they attend to the valid keys on both sides)."""
     B, Sq, H, D = 2, 128, 2, 64
     Sk = 192 if which.startswith("cross") else Sq
     rng = np.random.default_rng(6)
@@ -596,9 +598,6 @@ def test_sdpa_routes_match_reference(which):
             (rng.random((B, 1, Sq, Sk)) > 0.5)
     elif which == "float_sq_sk":
         mask = 0.3 * _rand(rng, Sq, Sk)
-    if mask is not None and mask.dtype == bool and which != "bool_per_query" \
-            and Sq == Sk:
-        rows = np.array(pm)                 # padded query rows differ
     ref_mask = None
     if which in ("bool_b_kv", "bool_b_1_kv", "cross_bool_b_kv"):
         ref_mask = pm[:, None, None, :]
@@ -611,8 +610,7 @@ def test_sdpa_routes_match_reference(which):
 def test_sdpa_ref_matches_reference_dense_route(which):
     """The port's `_sdpa_ref` (the reference's dense CPU route, kept as
     its record) against the reference's on every row, and the port's
-    kernel route against it at the rows where the two meanings of a
-    padded query agree (the valid rows of a boolean padding mask)."""
+    kernel route against it on every row too."""
     B, S, H, D = 2, 128, 2, 64
     rng = np.random.default_rng(16)
     q, k, v = (_rand(rng, B, S, H, D) for _ in range(3))
@@ -632,10 +630,9 @@ def test_sdpa_ref_matches_reference_dense_route(which):
     tmask = None if mask is None else torch.from_numpy(mask)
     got = t_attn._sdpa_ref(tq, tk, tv, tmask, 0.0, causal, scale)
     assert _max_rel(got, want) <= KERNEL_RTOL
-    rows = pm if which == "bool_b_1_1_kv" else np.ones((B, S), bool)
     routed = TF.scaled_dot_product_attention(tq, tk, tv, attn_mask=tmask,
                                              is_causal=causal)
-    assert _max_rel(routed.numpy()[rows], got.numpy()[rows]) <= SURFACE_RTOL
+    assert _max_rel(routed, got.numpy()) <= SURFACE_RTOL
 
 
 def test_sdpa_route_selection(monkeypatch):
@@ -736,15 +733,28 @@ def test_flash_attn_unpadded_matches_reference(hq, hk, causal):
 
 
 def test_flash_attn_unpadded_refusals():
-    """Causal over packings that differ raises; dropout in training is
-    ported (the reference's dense packed route, which applies no
-    dropout: tests/test_torch_dropout.py), so it runs and equals the
-    call without dropout."""
-    x = torch.zeros(10, 2, 64)
-    with pytest.raises(NotImplementedError, match="packings"):
-        TF.flash_attn_unpadded(x, x, x, torch.tensor([0, 5, 10]),
-                               torch.tensor([0, 3, 10]), 5, 7, 0.1,
-                               causal=True)
+    """Nothing is refused any more. Causal over packings that differ
+    takes the reference's dense packed route: output and grads equal the
+    reference's on the same call. Dropout in training is ported (the
+    reference's dense packed route, which applies no dropout:
+    tests/test_torch_dropout.py), so it runs and equals the call without
+    dropout."""
+    rng = np.random.default_rng(12)
+    x, do = _rand(rng, 10, 2, 64), _rand(rng, 10, 2, 64)
+    cq, ck = np.array([0, 5, 10], np.int32), np.array([0, 3, 10], np.int32)
+    jx = [paddle.to_tensor(x, stop_gradient=False) for _ in range(3)]
+    o_j, _ = JF.flash_attn_unpadded(*jx, paddle.to_tensor(cq),
+                                    paddle.to_tensor(ck), 5, 7, 0.1,
+                                    causal=True)
+    (o_j * paddle.to_tensor(do)).sum().backward()
+    leaves = [_t(x, True) for _ in range(3)]
+    o, _ = TF.flash_attn_unpadded(*leaves, torch.from_numpy(cq),
+                                  torch.from_numpy(ck), 5, 7, 0.1,
+                                  causal=True)
+    o.backward(_t(do))
+    assert _max_rel(o.detach(), o_j.numpy()) <= SURFACE_RTOL
+    for t, jt in zip(leaves, jx):
+        assert _max_rel(t.grad, jt.grad.numpy()) <= SURFACE_RTOL
     y = torch.randn(10, 2, 64, generator=torch.Generator().manual_seed(0))
     cu = torch.tensor([0, 4, 10])
     out, _ = TF.flash_attn_unpadded(y, y, y, cu, cu, 6, 6, 0.1,
@@ -779,9 +789,9 @@ def test_multi_head_attention_matches_reference(mask_kind):
     B, S = 2, 64
     x = _rand(rng, B, S, 128)
     pm = _lengths_mask([S - 20, S], S)
-    mask, rows = None, np.ones((B, S), bool)
+    mask = None
     if mask_kind == "padding":
-        mask, rows = pm[:, None, None, :], pm
+        mask = pm[:, None, None, :]
     elif mask_kind == "float":
         mask = np.where(pm, 0.0, -1e4).astype(np.float32)[:, None, None, :]
     want = jm(paddle.to_tensor(x),
@@ -789,7 +799,7 @@ def test_multi_head_attention_matches_reference(mask_kind):
     with torch.no_grad():
         got = tm(_t(x), attn_mask=None if mask is None
                  else torch.from_numpy(mask))
-    assert _max_rel(got.numpy()[rows], want.numpy()[rows]) <= SURFACE_RTOL
+    assert _max_rel(got, want.numpy()) <= SURFACE_RTOL
 
 
 def test_multi_head_attention_caches():

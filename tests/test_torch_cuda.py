@@ -1985,3 +1985,61 @@ def test_int8_engine_launches(ragged):
         [fwd * per, 0, fwd * (2 * L + 1)]
     assert all(len(r.output) == 12 for r in reqs)
     assert eng.pool.n_free == eng.pool.n_pages - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(testing.TRANSFORMER_BIAS_CASES))
+def test_transformer_bias_shapes_match_plain(case):
+    """Row 12 at the Transformer phase's f32 shapes: one query a row
+    against the 128-key memory under the beams' folded source mask (the
+    decode's cross-attention, Sq = 1), and the encoder's 128 x 128 under
+    the training batch's: forward, dkv and dq against the plain versions
+    under the flash rule (lse 1e-4 + 1e-5 |plain|)."""
+    _card()
+    c = testing.bias_case(**testing.TRANSFORMER_BIAS_CASES[case],
+                          dtype=torch.float32)
+    pairs, _ = testing.bias_flash_pairs(
+        c["q"], c["k"], c["v"], c["do"], c["kind"], c["param"], c["R"],
+        c["padding_mask"], c["causal"], c["scale"])
+    for label, got, ref, terms in pairs:
+        if terms is None:
+            assert testing.worst(got, ref, 1e-4, 1e-5) <= 1.0, label
+        else:
+            assert _within_terms(got, ref, terms, "float32"), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sk", [1, 2, 64, 127])
+def test_one_query_forward_matches_plain(dtype, Sk):
+    """Row 10's forward at one query, as the beam search's self-attention
+    reaches it: Sk = 1 on the one-length kernel (the first step), Sk > 1
+    on the segment kernel without ids (Sq = 1 < Sk), at the Transformer's
+    [64, 1, 8, 64], against the plain version under the flash rule."""
+    _card()
+    dt = getattr(torch, dtype)
+    kw = testing.TRANSFORMER_SEG_CASE
+    gen = torch.Generator(device="cuda").manual_seed(Sk)
+    q = torch.randn((kw["B"], 1, kw["h"], kw["d"]), generator=gen,
+                    device="cuda").to(dt)
+    k, v = (torch.randn((kw["B"], Sk, kw["h"], kw["d"]), generator=gen,
+                        device="cuda").to(dt) for _ in range(2))
+    scale = kw["d"] ** -0.5
+    if Sk == 1:
+        before = t_fa.flash_attention_fwd.launches
+        o, lse = t_fa.flash_attention_fwd(q, k, v, False, scale)
+        assert t_fa.flash_attention_fwd.launches == before + 1
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        o_t = testing.flash_terms(qf, kf, vf, torch.zeros_like(qf), False,
+                                  scale)[0]
+        pairs = [("o", o, t_fa._plain(qf, kf, vf, False, scale), o_t),
+                 ("lse", lse, t_fa._plain_lse(qf, kf, False, scale), None)]
+    else:
+        before = t_fa.flash_attention_seg_fwd.launches
+        pairs = testing.seg_noid_pairs(q, k, v, scale)
+        assert t_fa.flash_attention_seg_fwd.launches == before + 1
+    for label, got, ref, terms in pairs:
+        if terms is None:
+            assert testing.worst(got, ref, 1e-4, 1e-5) <= 1.0, label
+        else:
+            assert _within_terms(got, ref, terms, dtype), label

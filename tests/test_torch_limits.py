@@ -156,3 +156,56 @@ def test_case_lengths():
     docs = testing.packed_lengths()
     assert sum(docs) == 8192 and all(n >= 1 for n in docs)
     assert all(128 <= n <= 2048 for n in docs[:-1])
+
+
+def test_transformer_cases_and_launch_counts():
+    """The Transformer phase's lengths, source masks and launch counts."""
+    lengths = testing.transformer_lengths(64, 0)
+    assert len(lengths) == 64 and all(16 <= n <= 128 for n in lengths)
+    assert lengths == [int(n) for n in np.random.default_rng(0).integers(
+        16, 129, 64)]
+    mask = testing.transformer_src_mask([3, 5], 5, "cpu")
+    assert mask.shape == (2, 1, 1, 5) and mask.dtype == torch.float32
+    assert mask[0, 0, 0].tolist() == [0.0, 0.0, 0.0, -1e9, -1e9]
+    assert testing.transformer_train_launches(2, "float") == {
+        "flash_attention_bias_fwd": 6, "flash_attention_bias_dkv": 6,
+        "flash_attention_bias_dq": 6}
+    assert testing.transformer_train_launches(2, "bool") == {
+        "flash_attention_seg_fwd": 4, "flash_attention_delta": 4,
+        "flash_attention_seg_dkv": 4, "flash_attention_seg_dq": 4,
+        "flash_attention_bias_fwd": 2, "flash_attention_bias_dkv": 2,
+        "flash_attention_bias_dq": 2}
+    with pytest.raises(ValueError):
+        testing.transformer_train_launches(2, "dense")
+    assert testing.transformer_decode_launches(6, 0) == {
+        "flash_attention_bias_fwd": 6, "flash_attention_fwd": 6}
+    assert testing.transformer_decode_launches(6, 5) == {
+        "flash_attention_bias_fwd": 6, "flash_attention_seg_fwd": 6}
+    names = set(testing.transformer_counters())
+    assert {"fused_cross_entropy", "fused_cross_entropy_bwd",
+            "flash_attention_seg_fwd", "flash_attention_bias_fwd"} <= names
+
+
+def test_beam_gaps_match_brute_force():
+    """beam_gaps scores a step as BeamSearchDecoder does (a finished beam
+    extends only with the end token at 0) and returns each row's
+    smallest gap among its top beam + 1 totals."""
+    rng = np.random.default_rng(3)
+    nb, beam, V = 3, 2, 5
+    lp = torch.from_numpy(rng.standard_normal((nb, beam)).astype(np.float32))
+    fin = torch.tensor([[False, True], [False, False], [True, True]])
+    logits = torch.from_numpy(rng.standard_normal((nb * beam, V)).astype(
+        np.float32))
+    got = testing.beam_gaps(lp, fin, logits, 1, beam)
+    step = torch.log_softmax(logits, -1).reshape(nb, beam, V)
+    for b in range(nb):
+        cands = []
+        for j in range(beam):
+            for t in range(V):
+                s = (0.0 if t == 1 else -1e9) if fin[b, j] else \
+                    float(step[b, j, t])
+                cands.append(float(lp[b, j]) + s)
+        top = sorted(cands, reverse=True)[:beam + 1]
+        want = min(top[i] - top[i + 1] for i in range(beam))
+        assert math.isclose(float(got[b]), want, rel_tol=1e-5,
+                            abs_tol=1e-4)

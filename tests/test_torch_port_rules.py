@@ -390,3 +390,22 @@ def test_every_segment_case_has_a_route():
                  kw["causal"])
         assert cs.expected_seg_routes(*shape, torch.bfloat16)["forward"] \
             == "wgmma"
+
+
+@pytest.mark.parametrize("layer", ["Linear", "Embedding", "LayerNorm",
+                                   "BatchNorm2D", "Transformer", "PReLU"])
+def test_nn_layers_need_a_card_unless_cpu_is_asked(layer):
+    """A layer with parameters makes them on `cuda` unless the caller
+    names another device; with no card that raises, and device="cpu"
+    builds. A layer without parameters needs no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from paddle_tpu_torch import nn as tnn
+    args = {"Linear": (4, 4), "Embedding": (10, 4), "LayerNorm": (4,),
+            "BatchNorm2D": (4,), "Transformer": (64, 2, 1, 1, 64),
+            "PReLU": (4,)}[layer]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(tnn, layer)(*args)
+    built = getattr(tnn, layer)(*args, device="cpu")
+    assert all(p.device.type == "cpu" for p in built.parameters())
+    assert tnn.ReLU()(torch.ones(2)).tolist() == [1.0, 1.0]
