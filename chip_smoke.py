@@ -266,6 +266,28 @@ Phases, each of which fails the run on a miss:
    version and timed by events and device time beside SDPA with the
    same mask and the bound: these run right after the kernel phase
    (late in a long run the profiler has dropped whole traces).
+12. the conv slice — cuDNN's TF32 switch set to its default (on): the
+   conv functionals keep f32 convolutions in f32 themselves. (a)
+   bench.py's ResNet-50 (l.422-431): `resnet50(num_classes=1000)`, f32,
+   64 x 3 x 224 x 224 default_rng(0) normals and labels, cross-entropy,
+   AdamW(1e-4, weight decay 0.01) through `TrainStep`, P12_WARMUP
+   warm-up and P12_STEPS timed steps by CUDA events: step ms, images/s,
+   MFU (`testing.forward_flops` x 3 over 989 TFLOP/s; f32 with TF32 off
+   caps it at 0.068), peak memory, finite losses; the parameter count
+   held to testing's; one more step traced (the forward and backward,
+   then the update, each window held to its markers, else "not
+   measured"), its device ms by group (cuDNN forward, dgrad, wgrad,
+   cuBLAS, the reductions of BatchNorm, elementwise, AdamW) and busy
+   share; (b) bench.py's UNet (l.432-451): block_out_channels (128, 256,
+   512, 512), cross_attention_dim 512, batch 8 x 4 x 32 x 32 with
+   timesteps, a [8, 16, 512] context and noise from default_rng(0), MSE,
+   the readings of (a); (c) each model at B = 2 from one seed, one step
+   on the card, on the CPU and in f64 on the CPU: loss and BatchNorm's
+   running statistics card against CPU, grads against the f64 run
+   within `testing.card_grad_limit` of the CPU's own error; (d)
+   `unet_sd15()` (859.5 M parameters), one step at B = 2, latents [2, 4,
+   64, 64], context [2, 77, 768], after one warm-up step: step ms, peak
+   memory, finite output and losses.
 
 Paged decode attention (row 13) is timed at the bucketed engine's case
 and at generate's own cache, ragged paged attention (row 9) at the
@@ -320,6 +342,10 @@ f32 rate's bound beside it as `bound_simt_ms`), and carry the card's own
 time of each side (`device_ms`, `library_device_ms`). One
 bias forward, dkv and dq at each dtype is traced and held to
 `expected_bias_routes` (mma.sync in bf16, SIMT in f32).
+
+    python3 chip_smoke.py --conv
+
+runs phase 12 alone (about 45 s on the card: it builds no kernel).
 
     python3 chip_smoke.py --ab PARENT_DIR
 
@@ -6599,6 +6625,361 @@ def transformer_beam(report, smi_line):
     torch.cuda.empty_cache()
 
 
+# Phase 12: the conv slice (nn conv, pooling, the vision functionals),
+# ResNet-50 and the SD UNet, trained at bench.py's configurations.
+P12_WARMUP, P12_STEPS = 2, 5
+RN_BATCH, RN_IMG, RN_CLASSES = 64, 224, 1000
+UN_BATCH, UN_CTX_LEN = 8, 16
+SD_BATCH, SD_CTX_LEN = 2, 77
+# the conv step's device kernels -> group, first match wins (cuDNN's
+# kernels name their pass: fprop, dgrad, wgrad, or their FFT stages; its
+# layout transposes go with the convolutions; BatchNorm's and GroupNorm's
+# statistics are
+# the plain reductions); the optimizer's update is traced alone
+_CONV_GROUPS = (("wgrad", "conv_wgrad"), ("dgrad", "conv_dgrad"),
+                ("fprop", "conv_fwd"), ("convolve", "conv_fwd"),
+                ("conv2d", "conv_fwd"), ("fft", "conv_fft"),
+                ("nchwToNhwc", "conv_layout"),
+                ("nhwcToNchw", "conv_layout"), ("gemm", "cublas"),
+                ("nvjet", "cublas"), ("xmma", "cublas"),
+                ("cutlass", "cublas"), ("reduce_kernel", "reduce"),
+                ("softmax", "softmax"), (MARKER_KERNEL, "marker"))
+
+
+# phase 12's traces lead with many short markers: late in the whole
+# script a window has lost its first records on the H100, from 9 (the 8
+# markers traced_device_ms leads with and a 20 ms spin) to at least 695
+# (the step's first kernels with them), at every attempt
+P12_MARKER_LEAD = 2048
+
+
+def _marked(run):
+    """`run` after P12_MARKER_LEAD marker kernels, then one closing
+    marker, and the predicate that a trace lost nothing of `run`: its
+    first and its last device kernel are markers (the leading markers
+    are there to be dropped in place of the work)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def marked():
+        for _ in range(P12_MARKER_LEAD):
+            torch.cuda._sleep(MARKER_CYCLES)
+        run()
+        torch.cuda._sleep(MARKER_CYCLES)
+
+    def complete(prof):
+        line = sorted((e.time_range.start, e.name) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA)
+        ok = (len(line) > 2 and MARKER_KERNEL in line[0][1]
+              and MARKER_KERNEL in line[-1][1])
+        if not ok:
+            print(f"trace: {len(line)} device records, "
+                  f"{sum(MARKER_KERNEL in n for _, n in line)} markers, "
+                  f"first {line[0][1][:40] if line else None!r}, last "
+                  f"{line[-1][1][:40] if line else None!r}", flush=True)
+        return ok
+
+    return marked, complete
+
+
+def _step_fn(which, model):
+    """bench.py's loss of `which` over `model`: cross-entropy of the
+    logits (ResNet-50), MSE of the predicted noise (the UNets)."""
+    from paddle_tpu_torch.nn import functional as F
+    if which == "resnet50":
+        return lambda x, y: F.cross_entropy(model(x), y)
+    return lambda a, t, c, n: F.mse_loss(model(a, t, c), n)
+
+
+def _conv_model(which, device, seed, B=None):
+    """(model, step_fn, batch, images) of phase 12's configurations:
+    "resnet50" (bench.py:422-431), "unet" (bench.py:432-451) or "sd15"
+    (`unet_sd15()`), weights from a seeded generator on `device`, the
+    batch (B samples, or the configuration's) from default_rng(0) in
+    bench.py's order."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import unet as TU
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(device=device, generator=gen)
+    rng = np.random.default_rng(0)
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    if which == "resnet50":
+        model = resnet50(num_classes=RN_CLASSES, **kw)
+        B = B or RN_BATCH
+        batch = (put(rng.standard_normal((B, 3, RN_IMG, RN_IMG)).astype(
+            np.float32)), put(rng.integers(0, RN_CLASSES, (B,))))
+        return model, _step_fn(which, model), batch, B
+    if which == "unet":
+        model = TU.UNet2DConditionModel(
+            block_out_channels=(128, 256, 512, 512), cross_attention_dim=512,
+            sample_size=32, **kw)
+        B, L = B or UN_BATCH, UN_CTX_LEN
+    else:
+        model = TU.UNet2DConditionModel(TU.unet_sd15(), **kw)
+        B, L = B or SD_BATCH, SD_CTX_LEN
+    cfg = model.cfg
+    sz = cfg.sample_size
+    x = rng.standard_normal((B, cfg.in_channels, sz, sz)).astype(np.float32)
+    t = rng.integers(0, 1000, (B,))
+    ctx = rng.standard_normal((B, L, cfg.cross_attention_dim)).astype(
+        np.float32)
+    noise = rng.standard_normal(x.shape).astype(np.float32)
+    return (model, _step_fn(which, model),
+            tuple(put(a) for a in (x, t, ctx, noise)), B)
+
+
+def conv_phase(report, smi_line):
+    """Phase 12 (module docstring): (a) ResNet-50 and (b) the UNet
+    trained at bench.py's configurations, (c) a B = 2 step of each on
+    the card against the CPU, (d) one SD 1.5 UNet step. cuDNN's TF32
+    switch is set to its default (on) first: the conv functionals must
+    keep f32 convolutions in f32 themselves."""
+    import gc
+
+    import torch
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    for which in ("resnet50", "unet"):
+        conv_train(which, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for which in ("resnet50", "unet"):
+        conv_card_cpu(which, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+    sd15_step(smi_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"conv phase: wall {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def conv_train(which, smi_line):
+    """(a) / (b): `which` through TrainStep with AdamW(1e-4, weight decay
+    0.01), P12_WARMUP warm-up and P12_STEPS timed steps by CUDA events:
+    step ms, images/s, MFU (`testing.forward_flops` x 3 over 989
+    TFLOP/s; f32 with TF32 off caps it at 67 / 989), peak memory; one
+    more step traced (forward and backward, then the update alone, each
+    window held to its markers), its device ms by group and busy share.
+    Every loss finite."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.jit import TrainStep
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, step_fn, batch, images = _conv_model(which, "cuda", 0)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    want = {"resnet50": testing.RESNET50_PARAMS,
+            "unet": testing.BENCH_UNET_PARAMS}[which]
+    check(n_params == want, f"conv {which}: {n_params} parameters, "
+          f"expected {want}")
+    opt = popt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     weight_decay=0.01)
+    step = TrainStep(model, opt, step_fn)
+    shapes = " ".join(str(list(t.shape)) for t in batch)
+    torch.cuda.synchronize()
+    print(f"conv {which}: f32 built in {time.perf_counter() - t0:.3f} s, "
+          f"{n_params} parameters, batch {shapes}", flush=True)
+    model.eval()        # counting runs a forward: no BatchNorm update
+    fwd = testing.forward_flops(
+        model, *batch[:1 if which == "resnet50" else 3])
+    model.train()
+    losses = [step(*batch) for _ in range(P12_WARMUP)]
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(P12_STEPS + 1)]
+    wall0 = time.perf_counter()
+    events[0].record()
+    for i in range(P12_STEPS):
+        losses.append(step(*batch))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall0
+    losses = [float(x) for x in losses]
+    mean_ms = events[0].elapsed_time(events[-1]) / P12_STEPS
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(P12_STEPS)]
+    flops = 3 * fwd
+    rate = flops / (mean_ms / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"conv {which}: losses={[round(x, 6) for x in losses]} (first "
+          f"{P12_WARMUP} warm-up)", flush=True)
+    print(f"conv {which}: step_ms={mean_ms:.6g} per step "
+          f"{[round(x, 4) for x in step_ms]} wall_per_step_ms="
+          f"{1e3 * wall / P12_STEPS:.6g} images_per_s="
+          f"{images / (mean_ms / 1e3):.6g} mfu="
+          f"{rate / PEAK_FLOPS['bfloat16']:.6g} (forward products "
+          f"{fwd:.6g} FLOP x 3 over 989 TFLOP/s; f32 "
+          f"with TF32 off caps it at 0.0677) f32_rate_share="
+          f"{rate / PEAK_FLOPS['float32']:.6g} (over 67 TFLOP/s) "
+          f"peak_mem_gb={peak:.6g} [{smi_line}]", flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"a conv {which} training loss is not finite")
+
+    # each window can run again (a trace that lost records is taken
+    # again): the grads stay until both are traced
+    fb, fb_done = _marked(lambda: step_fn(*batch).backward())
+    prof_fb = device_trace(fb, fb_done)
+    up, up_done = _marked(opt.step)
+    prof_opt = device_trace(up, up_done)
+    opt.clear_grad(set_to_zero=False)
+    if not (fb_done(prof_fb) and up_done(prof_opt)):
+        print(f"conv {which} profile: not measured (a trace lost its "
+              f"markers)", flush=True)
+    else:
+        groups, others = _device_ms(prof_fb, _CONV_GROUPS, "elementwise")
+        opt_groups, _ = _device_ms(prof_opt, ((MARKER_KERNEL, "marker"),),
+                                   "adamw")
+        groups.pop("marker", None)
+        groups["adamw"] = opt_groups.get("adamw", 0.0)
+        busy = sum(groups.values())
+        parts = " ".join(f"{g}={groups.get(g, 0.0):.6g}" for g in (
+            "conv_fwd", "conv_dgrad", "conv_wgrad", "conv_fft",
+            "conv_layout", "cublas", "reduce", "softmax", "elementwise",
+            "adamw"))
+        print(f"conv {which} profile (device ms, one step): {parts} "
+              f"total={busy:.6g} busy_share={busy / mean_ms:.4f} "
+              f"[{smi_line}]", flush=True)
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+        print(f"conv {which} profile, largest ungrouped kernels (ms): "
+              + "; ".join(f"{k[:70]}={ms:.4g}" for k, ms in top),
+              flush=True)
+    del model, opt, step, batch, prof_fb, prof_opt
+
+
+def _rel_l2(a, b):
+    return ((a.double().cpu() - b.double().cpu()).norm()
+            / b.double().cpu().norm().clamp_min(1e-30)).item()
+
+
+def conv_card_cpu(which, smi_line):
+    """(c): `which` built once on the CPU from a seeded generator at
+    batch 2, copied to the card and to an f64 copy on the CPU; one
+    training step on each. The loss and BatchNorm's running statistics
+    after the step: card against CPU within testing's CARD_CPU_LOSS_RTOL
+    and CARD_CPU_STAT_RTOL. Every parameter's grad (relative L2 a
+    tensor): the card's against the f64 run within `testing.
+    card_grad_limit` of the CPU's own f32 error there, and the card's
+    against the CPU's within twice that."""
+    import copy
+
+    import torch
+
+    from paddle_tpu_torch import testing
+
+    def run(model, batch):
+        model.train()
+        loss = _step_fn(which, model)(*batch)
+        loss.backward()
+        grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+        stats = {n: b.detach() for n, b in model.named_buffers()}
+        return float(loss.detach()), grads, stats
+
+    cpu_model, _, cpu_batch, _ = _conv_model(which, "cpu", 1, B=2)
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    exact_model = copy.deepcopy(cpu_model).double()
+    t0 = time.perf_counter()
+    loss_c, grads_c, stats_c = run(cpu_model, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    _, grads_x, _ = run(exact_model, tuple(
+        t.double() if t.is_floating_point() else t for t in cpu_batch))
+    loss_g, grads_g, stats_g = run(card_model, tuple(
+        t.to("cuda") for t in cpu_batch))
+    torch.cuda.synchronize()
+
+    def worst(errs):
+        n = max(errs, key=errs.get)
+        return n, errs[n]
+
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    cpu_name, cpu_err = worst({n: _rel_l2(grads_c[n], grads_x[n])
+                               for n in grads_x})
+    card_name, card_err = worst({n: _rel_l2(grads_g[n], grads_x[n])
+                                 for n in grads_x})
+    pair_name, pair_err = worst({n: _rel_l2(grads_g[n], grads_c[n])
+                                 for n in grads_c})
+    limit = testing.card_grad_limit(cpu_err)
+    stat = (worst({n: _rel_l2(stats_g[n], stats_c[n]) for n in stats_c})
+            if stats_c else None)
+    ok = (loss_err <= testing.CARD_CPU_LOSS_RTOL and card_err <= limit
+          and pair_err <= 2 * limit
+          and (stat is None or stat[1] <= testing.CARD_CPU_STAT_RTOL))
+    stat_txt = ("no running statistics" if stat is None else
+                f"running stats max rel L2 {stat[1]:.6g} at {stat[0]} "
+                f"(limit {testing.CARD_CPU_STAT_RTOL:g})")
+    print(f"conv (c) {which} card vs CPU, B = 2, one step: loss card "
+          f"{loss_g:.8g} cpu {loss_c:.8g} rel_err={loss_err:.6g} (limit "
+          f"{testing.CARD_CPU_LOSS_RTOL:g}); grads max rel L2 against the "
+          f"f64 run: cpu {cpu_err:.6g} at {cpu_name}, card {card_err:.6g} "
+          f"at {card_name} (limit {limit:.6g}); card against cpu "
+          f"{pair_err:.6g} at {pair_name} (limit {2 * limit:.6g}); "
+          f"{stat_txt}; CPU step {cpu_s:.3f} s {'ok' if ok else 'MISS'} "
+          f"[{smi_line}]", flush=True)
+    check(ok, f"conv (c) {which}: the card's step disagrees with the CPU's")
+    del cpu_model, card_model, exact_model
+
+
+def sd15_step(smi_line):
+    """(d): `unet_sd15()` at its published width (859.5 M parameters),
+    one AdamW training step at B = 2, latents [2, 4, 64, 64], context
+    [2, 77, 768] (after one warm-up step): step ms by CUDA events, peak
+    memory; the output and the loss finite."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import testing
+    from paddle_tpu_torch.jit import TrainStep
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, step_fn, batch, _ = _conv_model("sd15", "cuda", 0)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == testing.SD15_UNET_PARAMS, f"conv (d): {n_params} "
+          f"parameters, expected {testing.SD15_UNET_PARAMS}")
+    opt = popt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                     weight_decay=0.01)
+    step = TrainStep(model, opt, step_fn)
+    torch.cuda.synchronize()
+    print(f"conv (d) sd15: built in {time.perf_counter() - t0:.3f} s, "
+          f"{n_params} parameters, batch "
+          f"{' '.join(str(list(t.shape)) for t in batch)}", flush=True)
+    losses = [float(step(*batch))]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    losses.append(float(step(*batch)))
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    with torch.no_grad():
+        out = model(*batch[:3])
+    finite = bool(torch.isfinite(out).all())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"conv (d) sd15: losses={[round(x, 6) for x in losses]} (first "
+          f"a warm-up) step_ms={ms:.6g} images_per_s="
+          f"{SD_BATCH / (ms / 1e3):.6g} peak_mem_gb={peak:.6g} output "
+          f"{list(out.shape)} finite={finite} [{smi_line}]", flush=True)
+    check(finite and all(math.isfinite(x) for x in losses)
+          and tuple(out.shape) == tuple(batch[0].shape),
+          "conv (d): the SD 1.5 step is not finite or has the wrong shape")
+    del model, opt, step, batch, out
+
+
 def transformer_kernels(report, smi_line):
     """(d) the kernel entries at phase 11's shapes, f32: row 12's bias
     forward (with its dkv and dq held too) at the decode and encoder
@@ -7290,6 +7671,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         transformer_phase(report, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        conv_phase(report, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -7311,6 +7695,16 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
         sys.exit(ab_main(*sys.argv[2:]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--conv":
+        # phase 12 alone (no kernel of the port runs there)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        try:
+            conv_phase({}, device_phase()[2])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "--w8a16-diagnose":
         try:
             print(json.dumps(w8a16_diagnose()))

@@ -32,7 +32,10 @@ optimizers and `optimizer.lr`'s schedulers, `nn.clip`, `regularizer`,
 `jit.TrainStep(scaler=, accumulate_steps=)`), and the nn core with the
 Transformer stack (`nn.Layer`, `nn.ParamAttr`, `nn.initializer`, the
 containers, activations, norms, losses, `nn.Transformer` and its layers,
-`nn.BeamSearchDecoder` / `nn.dynamic_decode`, `sparse_attention`).
+`nn.BeamSearchDecoder` / `nn.dynamic_decode`, `sparse_attention`), and
+the conv slice (`nn.functional` conv, pooling, `interpolate`, `pad`,
+`grid_sample` and the rest of the image functionals, their layers,
+`vision.models`' ResNet family and `models.unet`'s SD UNet).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`;
 with no card and no explicit CPU request they raise.

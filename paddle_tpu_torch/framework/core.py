@@ -17,9 +17,11 @@ reference's side effects of the observability flags the port has:
 arms or disarms `observability.metrics` and `spans`,
 `FLAGS_metrics_port` starts, moves or (0) stops the /metrics endpoint,
 `FLAGS_flight_recorder` installs or ("") removes the flight recorder,
-`FLAGS_span_ring_size` re-bounds the span ring and
+`FLAGS_span_ring_size` re-bounds the span ring,
 `FLAGS_request_trace_sink` points or ("") closes the request-trace
-JSONL sink.
+JSONL sink, and `FLAGS_cudnn_deterministic` sets
+`torch.backends.cudnn.deterministic` (and turns `cudnn.benchmark` off
+while it is on).
 
 Every other flag raises rather than being silently dropped:
 `set_flags` refuses a name the port does not register, and
@@ -93,6 +95,11 @@ _flags: dict = {
     "FLAGS_check_nan_inf": False,
     "FLAGS_benchmark": False,
     "FLAGS_log_memory_stats": False,
+    # deterministic cuDNN algorithms: set_flags sets torch.backends.cudnn.
+    # deterministic and turns cudnn.benchmark off while it is on; the
+    # conv functionals also read it (set or in the environment) around
+    # each of their cuDNN calls (nn/functional/conv.py)
+    "FLAGS_cudnn_deterministic": False,
 }
 
 # The reference's flag table (paddle_tpu/framework/core.py, `_flags`):
@@ -176,6 +183,10 @@ def _not_ported(key) -> str:
             f"{', '.join(sorted(_flags))}")
 
 
+# cudnn.benchmark as it was when FLAGS_cudnn_deterministic turned it off
+_benchmark_before = False
+
+
 def _apply_flag(key, value) -> None:
     """The reference's side effects of the flags that steer a global
     subsystem (paddle_tpu/framework/core.py `_apply_flag`)."""
@@ -200,6 +211,15 @@ def _apply_flag(key, value) -> None:
     elif key == "FLAGS_request_trace_sink":
         from ..observability import reqtrace as _ortrace
         _ortrace.set_sink(str(value) if value else None)
+    elif key == "FLAGS_cudnn_deterministic":
+        global _benchmark_before
+        cd = torch.backends.cudnn
+        if value not in _FALSY:
+            if not cd.deterministic:
+                _benchmark_before = cd.benchmark
+            cd.deterministic, cd.benchmark = True, False
+        elif cd.deterministic:
+            cd.deterministic, cd.benchmark = False, _benchmark_before
 
 
 def set_flags(flags: dict) -> None:

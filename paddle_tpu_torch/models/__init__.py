@@ -6,3 +6,5 @@ from .ernie import (ErnieConfig, ErnieForPretraining,  # noqa: F401
                     ernie_base, ernie_tiny)
 from .llama import (LlamaConfig, LlamaForCausalLM, llama_1b,  # noqa: F401
                     llama_350m, llama_7b, llama_tiny)
+from .unet import (UNet2DConditionModel, UNetConfig, unet_sd15,  # noqa: F401
+                   unet_tiny)

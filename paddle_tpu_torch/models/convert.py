@@ -23,7 +23,9 @@ by key (a `Linear` weight is [in, out] on both sides; BatchNorm's
 running statistics are the buffers `_mean` and `_variance` on both): it
 copies each array into the port's tensor in place, in that tensor's
 dtype and on its device, and raises ValueError on a key either side
-lacks or a shape that differs.
+lacks or a shape that differs. It carries the ResNet family's and the
+UNet's state too, BatchNorm's running statistics among it; their
+state-dict keys come in the reference's order.
 
 `optimizer_state_from_jax` carries a reference optimizer's state into
 the port's: its accumulators, amp master weights, `@step` and its LR

@@ -15,13 +15,16 @@ end). The dropout layers (`Dropout`, `Dropout2D`, `Dropout3D`,
 the input through in eval (`Dropout`'s "downscale_in_infer" scales it by
 1 - p there); each takes an optional `generator`, None drawing from the
 dropout stream (`framework.core.dropout_generator`). The vision layers
-(`Upsample`, the pads, `Unfold` / `Fold`, the pixel shuffles) are not
-ported yet.
+(l.131-269: `Upsample`, `UpsamplingBilinear2D`, `UpsamplingNearest2D`,
+`Pad1D/2D/3D`, `ZeroPad2D`, `Unfold`, `Fold`, `PixelShuffle`,
+`PixelUnshuffle`, `ChannelShuffle`) hold their arguments and call the
+functionals; they have no parameters.
 """
 from __future__ import annotations
 
 import torch
 
+from ...ops.manipulation import pad as _pad
 from .. import initializer as I
 from ..functional import common as F
 from .layers import Layer
@@ -29,7 +32,10 @@ from .norm import LayerNorm
 
 __all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Flatten", "Identity", "Bilinear",
-           "CosineSimilarity", "LayerNorm"]
+           "CosineSimilarity", "LayerNorm", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "Unfold", "Fold", "PixelShuffle",
+           "PixelUnshuffle", "ChannelShuffle"]
 
 
 class Linear(Layer):
@@ -168,3 +174,119 @@ class CosineSimilarity(Layer):
 
     def forward(self, x1, x2):
         return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format=None,
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class _PadN(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return _pad(x, self.padding, mode=self.mode, value=self.value,
+                    data_format=self.data_format)
+
+
+class Pad1D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadN):
+    pass
+
+
+class Pad3D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_PadN):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)

@@ -1825,3 +1825,104 @@ def beam_gaps(log_probs, finished, logits, end_token, beam):
     total = beam_totals(log_probs, finished, logits, end_token)
     top = torch.topk(total, beam + 1, dim=-1).values
     return (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+
+
+# ---------------------------------------------------------------------------
+# The conv slice (chip_smoke phase 12; tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+# Parameter counts phase 12 checks before it trains each model: bench.py's
+# resnet50(num_classes=1000) (l.422-431), bench.py's UNet
+# (block_out_channels (128, 256, 512, 512), cross_attention_dim 512,
+# l.432-451) and `unet_sd15()`, the published SD 1.5 UNet (Rombach et al.
+# 2022; the CompVis/stable-diffusion-v1-5 UNet config). Counted from the
+# reference's models on the CPU; the port's layers are the reference's
+# one for one.
+RESNET50_PARAMS = 25_557_032
+BENCH_UNET_PARAMS = 139_680_132
+SD15_UNET_PARAMS = 859_520_964
+
+# An f32 convolution on the card against the f64 convolution of the same
+# values, as max|f32 - f64| / max|f64| (`tests/test_torch_cuda.py`): an
+# f32 sum of K = C·kh·kw products rounds to a few 2^-24 of its largest
+# terms, well under 1e-5 at the test's K = 576; TF32 products carry 10
+# mantissa bits (2^-11 each), about 1e-3 on the same sum, so a conv that
+# ran in TF32 misses this limit by two orders.
+CONV_F32_RTOL = 2e-5
+
+# Phase 12 (c): one B = 2 training step of phase 12's ResNet-50 and UNet
+# on the card against the same step on the CPU, from the same weights
+# and batch, and against an f64 copy of the step on the CPU. No kernel of
+# the port runs here: cuDNN's convolutions (each algorithm its own
+# summation order, FFT ones among them, full f32: the conv functionals
+# turn TF32 off), cuBLAS's f32 products and the CPU's kernels compute
+# the same sums in other orders, so the runs differ by f32 rounding
+# alone, carried through 50 layers (ResNet-50) or 40-odd (the UNet).
+# - the loss: card against CPU within CARD_CPU_LOSS_RTOL (read 9.1e-7
+#   ResNet-50, 1.1e-7 UNet; H100 80GB HBM3, 700 W);
+# - BatchNorm's running mean and variance after the step: card against
+#   CPU, relative L2, within CARD_CPU_STAT_RTOL (read 1.1e-5);
+# - each parameter's grad, relative L2 against the f64 run: the worst
+#   tensor on the card within `card_grad_limit(e)`, e the CPU's own
+#   worst f32 error there, and the card against the CPU within twice
+#   that. A fixed limit cannot serve: at B = 2 ResNet-50's backward
+#   cancels so deeply (each BatchNorm takes the batch mean out of its
+#   grad, and the loss at init is 8.4) that the CPU's f32 grads lie 2.3%
+#   (median) to 2.9% (worst) from f64 and the card's 2.8% to 3.8%,
+#   while the UNet's lie 3e-6 (CPU) and 1.6e-5 (card) from it.
+CARD_CPU_LOSS_RTOL = 1e-5
+CARD_CPU_STAT_RTOL = 1e-4
+CARD_CPU_NOISE_FACTOR = 4.0
+CARD_CPU_GRAD_FLOOR = 1e-4
+
+
+def card_grad_limit(cpu_err):
+    """The card's worst grad error against the f64 run that phase 12 (c)
+    allows, given the CPU's: CARD_CPU_NOISE_FACTOR times it, or
+    CARD_CPU_GRAD_FLOOR (f32 rounding through 40-odd layers, the card's
+    sums in other orders) where that is larger."""
+    return max(CARD_CPU_NOISE_FACTOR * cpu_err, CARD_CPU_GRAD_FLOOR)
+
+
+def forward_flops(model, *inputs):
+    """The multiply-adds of one forward of `model` on `inputs`, counted
+    as 2 FLOP each, over its products alone: every Conv1D/2D/3D (2 ·
+    output elements · in / groups · prod(k)), transposed conv (2 · input
+    elements · out / groups · prod(k)), Linear (2 · rows · in · out) and
+    the UNet's CrossAttention scores and mix (2 · 2 · B · heads · Sq ·
+    Sk · head_dim). Runs one forward without grad, through forward hooks
+    (the meta device gives the count without the work)."""
+    import math
+
+    from .models.unet import CrossAttention
+    from .nn.layer.common import Linear
+    from .nn.layer.conv import _ConvNd
+
+    total = [0]
+
+    def hook(mod, args, out):
+        if isinstance(mod, _ConvNd):
+            # weight [out, in / g, *k] or, transposed, [in, out / g, *k]:
+            # each output (transposed: input) element takes shape[1] ·
+            # prod(k) multiply-adds
+            ref = args[0] if mod._transpose else out
+            total[0] += 2 * ref.numel() * mod.weight.shape[1] \
+                * math.prod(mod.kernel_size)
+        elif isinstance(mod, Linear):
+            total[0] += 2 * (args[0].numel() // mod.in_features) \
+                * mod.in_features * mod.out_features
+        elif isinstance(mod, CrossAttention):
+            x = args[0]
+            ctx = args[1] if len(args) > 1 and args[1] is not None else x
+            total[0] += 2 * 2 * x.shape[0] * mod.heads * x.shape[1] \
+                * ctx.shape[1] * mod.head_dim
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (_ConvNd, Linear, CrossAttention))]
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]

@@ -2043,3 +2043,116 @@ def test_one_query_forward_matches_plain(dtype, Sk):
             assert testing.worst(got, ref, 1e-4, 1e-5) <= 1.0, label
         else:
             assert _within_terms(got, ref, terms, dtype), label
+
+
+def _conv_case(dtype=torch.float32, device="cuda"):
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((8, 64, 28, 28), generator=gen, device=device)
+    w = 0.05 * torch.randn((64, 64, 3, 3), generator=gen, device=device)
+    return x.to(dtype), w.to(dtype)
+
+
+@pytest.mark.cuda
+def test_f32_conv_runs_in_full_f32():
+    """The port's f32 conv2d on the card, forward, input grad and weight
+    grad, within testing.CONV_F32_RTOL of the f64 conv of the same
+    values, with cuDNN's process-wide TF32 switch left on (its default):
+    the conv functionals turn TF32 off around their own calls. The same
+    call through torch.nn.functional.conv2d under the switch is printed
+    beside it (-s)."""
+    _card()
+    from paddle_tpu_torch.nn import functional as TF
+    x, w = _conv_case()
+    g = torch.randn((8, 64, 28, 28), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        xs, ws = (t.clone().requires_grad_() for t in (x, w))
+        out = TF.conv2d(xs, ws, padding=1)
+        out.backward(g)
+        lib = torch.nn.functional.conv2d(x, w, padding=1)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    xd, wd = (t.double().requires_grad_() for t in (x, w))
+    ref = torch.nn.functional.conv2d(xd, wd, padding=1)
+    ref.backward(g.double())
+    errs = {"out": _max_rel(out, ref), "dx": _max_rel(xs.grad, xd.grad),
+            "dw": _max_rel(ws.grad, wd.grad)}
+    print(f"f32 conv vs f64: {errs}; F.conv2d under TF32: "
+          f"{_max_rel(lib, ref):.3g} (limit {testing.CONV_F32_RTOL:g})")
+    assert max(errs.values()) <= testing.CONV_F32_RTOL, errs
+
+
+@pytest.mark.cuda
+def test_cudnn_deterministic_flag_gives_bitwise_backwards():
+    """With FLAGS_cudnn_deterministic set, two conv backwards of the
+    same inputs give bitwise equal grads (cuDNN's deterministic
+    algorithms; benchmark mode turned off while it is set)."""
+    _card()
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nn import functional as TF
+    x, w = _conv_case()
+    torch.backends.cudnn.benchmark = True
+    ptt.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        assert torch.backends.cudnn.deterministic
+        assert not torch.backends.cudnn.benchmark
+        grads = []
+        for _ in range(2):
+            xs, ws = (t.clone().requires_grad_() for t in (x, w))
+            TF.conv2d(xs, ws, padding=1, stride=2).sum().backward()
+            grads.append((xs.grad, ws.grad))
+        assert torch.equal(grads[0][0], grads[1][0])
+        assert torch.equal(grads[0][1], grads[1][1])
+    finally:
+        ptt.set_flags({"FLAGS_cudnn_deterministic": False})
+    assert not torch.backends.cudnn.deterministic
+    assert torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+
+
+def test_cudnn_flags_on_the_cpu():
+    """set_flags takes FLAGS_cudnn_deterministic (its effect on torch's
+    cuDNN switches needs no card) and still refuses the other cuDNN
+    flags of the reference; the conv functionals read the flag from the
+    environment too."""
+    import os
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.nn.functional import conv as tconv
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        torch.backends.cudnn.benchmark = True
+        ptt.set_flags({"FLAGS_cudnn_deterministic": True})
+        assert core.get_bool_flag("FLAGS_cudnn_deterministic")
+        assert torch.backends.cudnn.deterministic
+        assert not torch.backends.cudnn.benchmark
+        ptt.set_flags({"FLAGS_cudnn_deterministic": False})
+        assert not torch.backends.cudnn.deterministic
+        assert torch.backends.cudnn.benchmark
+        for name in ("FLAGS_cudnn_exhaustive_search",
+                     "FLAGS_cudnn_batchnorm_spatial_persistent",
+                     "FLAGS_conv_workspace_size_limit"):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                ptt.set_flags({name: True})
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        core._flags["FLAGS_cudnn_deterministic"] = False
+    # the scope a conv runs under reads the flag, env first: on a CUDA
+    # tensor it switches cuDNN for the call and restores it after
+    fake = type("T", (), {"device": torch.device("cuda"),
+                          "dtype": torch.float32})()
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    try:
+        with tconv.cudnn_scope(fake):
+            assert torch.backends.cudnn.deterministic
+            assert not torch.backends.cudnn.allow_tf32
+    finally:
+        del os.environ["FLAGS_cudnn_deterministic"]
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == saved

@@ -209,3 +209,12 @@ def test_beam_gaps_match_brute_force():
         want = min(top[i] - top[i + 1] for i in range(beam))
         assert math.isclose(float(got[b]), want, rel_tol=1e-5,
                             abs_tol=1e-4)
+
+
+def test_card_grad_limit_scales_the_cpus_error():
+    """Phase 12 (c)'s grad limit: NOISE_FACTOR times the CPU's own f32
+    error against the f64 run, never under the floor."""
+    f, floor = testing.CARD_CPU_NOISE_FACTOR, testing.CARD_CPU_GRAD_FLOOR
+    assert testing.card_grad_limit(0.0) == floor
+    assert testing.card_grad_limit(3e-6) == floor
+    assert testing.card_grad_limit(0.029) == pytest.approx(f * 0.029)
